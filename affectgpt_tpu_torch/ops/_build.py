@@ -1,0 +1,107 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+All `csrc/*.cu` sources are compiled by `nvcc` into one shared library with
+a plain C interface, which is loaded with `ctypes` (no PyTorch headers, so
+a build takes seconds). The library lands in `affectgpt_tpu_torch/_build/`
+under a name that carries a hash of the sources and flags: a changed source
+builds a new library, an unchanged one is reused. Nothing here runs at import
+time; the first kernel launch triggers the build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the entries in csrc/*.cu
+_SIGNATURES = {
+    "agk_decode_qkv_bf16": [_P] * 12 + [_I] * 5 + [_F, _F, _P],
+    "agk_decode_mlp_bf16": [_P] * 7 + [_I] * 3 + [_F, _P],
+}
+
+
+def find_nvcc() -> str:
+    """nvcc from PATH, else from the CUDA toolkit PyTorch was pointed at."""
+    nvcc = shutil.which("nvcc")
+    if nvcc:
+        return nvcc
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources() -> list:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return digest.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libaffectgpt_kernels_{_source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for the current sources exists.
+    Raises RuntimeError carrying nvcc's stderr when the compile fails."""
+    target = library_path()
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    return target
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load once per process, and declare every entry's
+    argument and return types (ctypes would otherwise cut 64-bit pointers)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.agk_error_string.argtypes = [ctypes.c_int]
+    lib.agk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise when a C entry reports a CUDA error (refused launch, bad
+    shared-memory size, ...): such a launch never ran."""
+    if status != 0:
+        reason = load_library().agk_error_string(status).decode()
+        raise RuntimeError(f"{name}: CUDA error {status} ({reason}) at launch")
