@@ -19,9 +19,9 @@ from typing import Tuple
 
 import torch
 
-from affectgpt_tpu import paths
-from affectgpt_tpu.tokenization import ByteTokenizer
+from affectgpt_tpu_torch import paths
 from affectgpt_tpu_torch.models import affectgpt, qwen2
+from affectgpt_tpu_torch.tokenization import ByteTokenizer
 
 logger = logging.getLogger(__name__)
 
@@ -32,14 +32,15 @@ def _llm_name(node: dict) -> str:
 
 def build_model(
     model_node: dict,
-    device="cpu",
+    device="cuda",
     dtype=torch.bfloat16,
     seed: int = 0,
 ) -> Tuple[affectgpt.AffectGPTConfig, dict, dict, object]:
     """Returns (model_cfg, frozen, trainable, tokenizer). Without the LLM's
     directory the tokenizer is the ByteTokenizer and the LLM shrinks to the
     tiny geometry unless `keep_full_llm` is set; the weights are random,
-    drawn from `seed` (frozen) and `seed + 1` (trainable)."""
+    drawn from `seed` (frozen) and `seed + 1` (trainable), on the card
+    unless `device` says otherwise (there is no fallback to the CPU)."""
     node = dict(model_node or {})
     for key in ("ckpt", "ckpt_2", "ckpt_3"):
         if node.get(key):

@@ -104,6 +104,18 @@ decode_mlp_down_kernel(const __nv_bfloat16* __restrict__ act, const __nv_bfloat1
   }
 }
 
+cudaError_t launch_down_residual(const __nv_bfloat16* act, const __nv_bfloat16* x,
+                                 const __nv_bfloat16* w, __nv_bfloat16* y, int b, int h,
+                                 int inter, cudaStream_t stream) {
+  static size_t granted = 48 * 1024;
+  const size_t smem = (size_t)BM * kDownChunk * 2 + (size_t)(kWarps + 1) * BM * kDownCols * 4;
+  cudaError_t err = ensure_smem(decode_mlp_down_kernel, smem, &granted);
+  if (err != cudaSuccess) return err;
+  decode_mlp_down_kernel<<<dim3(h / kDownCols, (b + BM - 1) / BM), kThreads, smem, stream>>>(
+      act, x, w, y, b, h, inter);
+  return cudaGetLastError();
+}
+
 }  // namespace agk
 
 // C entry. Device pointers to contiguous bf16 tensors: x, y [b, h]; ln [h];
@@ -115,22 +127,17 @@ extern "C" int agk_decode_mlp_bf16(const void* x, const void* ln, const void* wg
                                    float eps, void* stream) {
   using namespace agk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  static size_t granted_a = 48 * 1024, granted_b = 48 * 1024;
-  const size_t smem_a = (size_t)BM * h * 2 + (size_t)(kWarps + 2) * BM * kGateCols * 4;
-  const size_t smem_b = (size_t)BM * kDownChunk * 2 + (size_t)(kWarps + 1) * BM * kDownCols * 4;
-  cudaError_t err = ensure_smem(decode_mlp_gateup_kernel, smem_a, &granted_a);
+  static size_t granted = 48 * 1024;
+  const size_t smem = (size_t)BM * h * 2 + (size_t)(kWarps + 2) * BM * kGateCols * 4;
+  cudaError_t err = ensure_smem(decode_mlp_gateup_kernel, smem, &granted);
   if (err != cudaSuccess) return (int)err;
-  err = ensure_smem(decode_mlp_down_kernel, smem_b, &granted_b);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (b + BM - 1) / BM;
-  decode_mlp_gateup_kernel<<<dim3(inter / kGateCols, tiles), kThreads, smem_a, st>>>(
+  decode_mlp_gateup_kernel<<<dim3(inter / kGateCols, (b + BM - 1) / BM), kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(ln),
       static_cast<const __nv_bfloat16*>(wg), static_cast<const __nv_bfloat16*>(wu),
       static_cast<__nv_bfloat16*>(act), b, h, inter, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  decode_mlp_down_kernel<<<dim3(h / kDownCols, tiles), kThreads, smem_b, st>>>(
+  return (int)launch_down_residual(
       static_cast<const __nv_bfloat16*>(act), static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(wd), static_cast<__nv_bfloat16*>(y), b, h, inter);
-  return (int)cudaGetLastError();
+      static_cast<const __nv_bfloat16*>(wd), static_cast<__nv_bfloat16*>(y), b, h, inter, st);
 }

@@ -1,9 +1,9 @@
 """Chat over preextracted features: batched clip → text, in PyTorch.
 
 Port of affectgpt_tpu/inference/chat.py (`Chat.build_prompt_batch` and
-`Chat.answer_batch`): prompt assembly and tokenization reuse the
-framework-free host modules of `affectgpt_tpu`, then mergers → splice →
-prefill → decode run in the port.
+`Chat.answer_batch`): prompt assembly and tokenization use the port's own
+copies of the host modules (`constants`, `prompts`, `tokenization`), then
+mergers → splice → prefill → decode run in the port.
 
 Not ported yet: `encode_media_features` (the realtime encoders), speculative
 decoding, the int8 KV cache and the repetition penalty.
@@ -17,10 +17,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from affectgpt_tpu import constants, prompts
-from affectgpt_tpu.tokenization import encode_batch
+from affectgpt_tpu_torch import constants, prompts
 from affectgpt_tpu_torch.inference import generate as gen
 from affectgpt_tpu_torch.models import affectgpt, splice
+from affectgpt_tpu_torch.tokenization import encode_batch
 
 
 @dataclass

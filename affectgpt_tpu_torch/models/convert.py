@@ -2,14 +2,16 @@
 
 `from_jax` takes the JAX package's `frozen` and `trainable` trees after
 `np.asarray` on every leaf (nested dicts and lists of numpy arrays) and
-returns the same trees as tensors. It covers the LLM, LoRA, the mergers and
-the multi-fusion block, and never imports jax.
+returns the same trees as tensors, on the card unless `device` says
+otherwise. It covers the LLM, LoRA, the mergers and the multi-fusion block,
+and never imports jax.
 
 Layouts: the port keeps the JAX layouts unchanged. Dense weights stay
-`[in, out]` (applied as `x @ w`); embeddings `[vocab, hidden]`. Both decode
+`[in, out]` (applied as `x @ w`); embeddings `[vocab, hidden]`. The decode
 kernels read that layout directly: ops/decode_qkv.py reads `wq [h, H*d]`
-and `wk`/`wv [h, kv*d]` in 128-column strips, ops/decode_mlp_bf16.py reads
+and `wk`/`wv [h, kv*d]` in 64-column strips, ops/decode_mlp_bf16.py reads
 `w_gate`/`w_up [h, I]` in 64-column strips and `w_down [I, h]` in
+32-column strips, and ops/decode_attn_o.py reads `o_proj [H*d, h]` in
 32-column strips. No transpose happens here.
 """
 
@@ -28,7 +30,7 @@ def _tensor(arr, device) -> torch.Tensor:
     return t.to(device)
 
 
-def tree_to_torch(tree, device="cpu"):
+def tree_to_torch(tree, device="cuda"):
     """Nested dicts/lists of arrays → the same structure of tensors, dtypes
     kept; None leaves stay None."""
     if tree is None:
@@ -40,7 +42,7 @@ def tree_to_torch(tree, device="cpu"):
     return _tensor(tree, device)
 
 
-def from_jax(frozen_np: dict, trainable_np: dict, cfg, device="cpu"):
+def from_jax(frozen_np: dict, trainable_np: dict, cfg, device="cuda"):
     """(frozen, trainable) numpy trees of the JAX package → tensor trees for
     `affectgpt_tpu_torch`. cfg is the port's AffectGPTConfig; the LLM's
     geometry is checked against it."""

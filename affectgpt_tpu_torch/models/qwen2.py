@@ -15,14 +15,15 @@ written IN PLACE by `forward`; the list it returns is the one passed in.
 Decode dispatch follows the JAX rule (qwen2.py:761-766, :1028-1032): with a
 cache, t == 1, merged LoRA and the split layout, the pre-attention rmsnorm,
 q/k/v projections, bias and RoPE go through `ops.decode_qkv`, and the
-post-attention rmsnorm and MLP through `ops.decode_mlp_bf16`. Those wrappers
-launch their CUDA kernels for CUDA tensors (or raise) and run their plain
-versions for CPU tensors. Everything else is plain torch, mirroring the JAX
-default chain.
+post-attention rmsnorm and MLP through `ops.decode_mlp_bf16`. The attention
+itself follows the JAX switches `DECODE_ATTN_O`, `DECODE_ATTENTION` and
+`PREFILL_ATTENTION` (below); by default it is the plain chain. The kernel
+wrappers launch their CUDA kernels for CUDA tensors (or raise) and run their
+plain versions for CPU tensors. Everything else is plain torch, mirroring
+the JAX default chain.
 
 Not ported yet: quantized and fused (`qkv_proj`) layouts, the int8 KV cache,
-per-row cache indices, flash prefill attention, the CE losses, remat and
-LoRA dropout.
+per-row cache indices, the CE losses, remat and LoRA dropout.
 """
 
 from __future__ import annotations
@@ -33,8 +34,29 @@ from typing import Optional
 import torch
 
 from affectgpt_tpu_torch.models import nn
+from affectgpt_tpu_torch.ops.decode_attention import decode_attention
+from affectgpt_tpu_torch.ops.decode_attn_o import decode_attn_o
 from affectgpt_tpu_torch.ops.decode_mlp_bf16 import decode_mlp_bf16
 from affectgpt_tpu_torch.ops.decode_qkv import decode_qkv
+from affectgpt_tpu_torch.ops.prefill_attention import prefill_attention
+
+# The attention switches of the JAX decoder (qwen2.py:481, :511, :524), read
+# at each call. "xla", the default, is the plain attention chain. The kernel
+# values keep their JAX names so that each switch maps straight to its
+# counterpart; on the port "pallas" and "flash" mean the hand-written CUDA
+# kernel. The JAX package's TPU-only gates (the 12 MB resident-W_o gate of
+# "auto", the backend checks, the t % 32, t >= 64 and head_dim limits of the
+# flash op) are not carried: each kernel's wrapper checks its own limits and
+# raises.
+# DECODE_ATTN_O="pallas": on the decode step whose q/k/v came from
+# decode_qkv, attention → o_proj → + residual in `ops.decode_attn_o`.
+DECODE_ATTN_O = "xla"
+# DECODE_ATTENTION="pallas": otherwise on a decode step, attention in
+# `ops.decode_attention`; o_proj stays a plain product.
+DECODE_ATTENTION = "xla"
+# PREFILL_ATTENTION="flash": on the cache-populating forward (t > 1),
+# attention over the prompt's own k/v in `ops.prefill_attention`.
+PREFILL_ATTENTION = "xla"
 
 
 @dataclass(frozen=True)
@@ -188,11 +210,15 @@ def _kernel_eligible(lora_layer, cache, t: int) -> bool:
 
 def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, cache_index):
     """x is the RAW residual stream; this function owns the pre-attention
-    rmsnorm (folded into the decode-QKV kernel on the decode step)."""
+    rmsnorm (folded into the decode-QKV kernel on the decode step).
+    Returns (out, residual_done): residual_done means that out already
+    holds x + attention (decode_attn_o adds the residual itself), so the
+    caller must not add x again."""
     b, t, _ = x.shape
     scaling = cfg.lora_alpha / cfg.lora_r
     lget = (lambda n: lora_layer[n]) if lora_layer is not None else (lambda n: None)
-    if _kernel_eligible(lora_layer, cache, t):
+    fused = _kernel_eligible(lora_layer, cache, t)
+    if fused:
         def bias(name):
             if "b" in layer[name]:
                 return layer[name]["b"]
@@ -222,15 +248,33 @@ def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, ca
 
     k = k.transpose(1, 2)  # [b, kv, t, d]
     v = v.transpose(1, 2)
+    groups = cfg.num_heads // cfg.num_kv_heads
     if cache is not None:
         cache["k"][:, :, cache_index:cache_index + t] = k
         cache["v"][:, :, cache_index:cache_index + t] = v
+        if PREFILL_ATTENTION == "flash" and t > 1:
+            # the cache holds nothing beyond the prompt yet: attend over the
+            # local k/v; pads are segment 0, tokens 1, read off the last
+            # query row's mask (JAX qwen2.py:869-878, :698)
+            out = prefill_attention(q, k.contiguous(), v.contiguous(), mask[:, 0, t - 1, :t])
+            return _lora_dense(layer["o_proj"], lget("o_proj"), out, scaling,
+                               has_bias=False), False
         k, v = cache["k"], cache["v"]
+        attn_o = DECODE_ATTN_O == "pallas" and fused  # x is still the raw residual stream
+        if attn_o or DECODE_ATTENTION == "pallas" and t == 1:
+            qd = q[:, 0].reshape(b, cfg.num_kv_heads, groups, cfg.head_dim)
+            key_mask = mask[:, 0, 0, :]
+            if attn_o:
+                x_new = decode_attn_o(x[:, 0, :], qd, k, v, key_mask, layer["o_proj"]["w"])
+                return x_new[:, None, :], True
+            out = decode_attention(qd, k, v, key_mask).reshape(
+                b, 1, cfg.num_heads * cfg.head_dim)
+            return _lora_dense(layer["o_proj"], lget("o_proj"), out, scaling,
+                               has_bias=False), False
 
     # GQA without repeating K/V: fold the query-head groups into a 5-D
     # product; scores and softmax in f32, probabilities rounded to the cache
     # dtype before PV, as the JAX chain does (qwen2.py:929-958)
-    groups = cfg.num_heads // cfg.num_kv_heads
     qg = q.reshape(b, t, cfg.num_kv_heads, groups, cfg.head_dim)
     logits = torch.einsum("bqhgd,bhkd->bhgqk", qg.float(), k.float())
     logits = logits / float(cfg.head_dim) ** 0.5
@@ -239,7 +283,7 @@ def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, ca
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bhkd->bqhgd", probs.float(), v.float())
     out = out.to(x.dtype).reshape(b, t, cfg.num_heads * cfg.head_dim)
-    return _lora_dense(layer["o_proj"], lget("o_proj"), out, scaling, has_bias=False)
+    return _lora_dense(layer["o_proj"], lget("o_proj"), out, scaling, has_bias=False), False
 
 
 def _mlp(layer, lora_layer, cfg: QwenConfig, x: torch.Tensor) -> torch.Tensor:
@@ -284,7 +328,9 @@ def forward(
     for i, layer in enumerate(params["layers"]):
         lora_layer = lora["layers"][i] if lora is not None else None
         layer_cache = cache[i] if cache is not None else None
-        x = x + _attention(layer, lora_layer, cfg, x, positions, mask, layer_cache, cache_index)
+        out, residual_done = _attention(layer, lora_layer, cfg, x, positions, mask,
+                                        layer_cache, cache_index)
+        x = out if residual_done else x + out
         if _kernel_eligible(lora_layer, layer_cache, t):
             x = decode_mlp_bf16(
                 x[:, 0, :], layer["post_attn_ln"]["scale"], layer["gate_proj"]["w"],

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All `csrc/*.cu` sources are compiled by `nvcc` into one shared library with
-a plain C interface, which is loaded with `ctypes` (no PyTorch headers, so
-a build takes seconds). The library lands in `affectgpt_tpu_torch/_build/`
+All `csrc/*.cu` sources are compiled by `nvcc`, one process per source, all
+started together, and linked into one shared library with a plain C
+interface, which is loaded with `ctypes` (no PyTorch headers, so a build
+takes seconds). The library lands in `affectgpt_tpu_torch/_build/`
 under a name that carries a hash of the sources and flags: a changed source
 builds a new library, an unchanged one is reused. Nothing here runs at import
 time; the first kernel launch triggers the build.
@@ -24,7 +25,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -34,6 +35,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "agk_decode_qkv_bf16": [_P] * 12 + [_I] * 5 + [_F, _F, _P],
     "agk_decode_mlp_bf16": [_P] * 7 + [_I] * 3 + [_F, _P],
+    "agk_decode_attention_bf16": [_P] * 7 + [_I] * 5 + [_P],
+    "agk_decode_attn_o_bf16": [_P] * 10 + [_I] * 6 + [_P],
+    "agk_prefill_attention_bf16": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 
@@ -67,21 +71,40 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless a library for the current sources exists.
-    Raises RuntimeError carrying nvcc's stderr when the compile fails."""
+    Raises RuntimeError carrying nvcc's stderr when a compile or the link
+    fails."""
     target = library_path()
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        try:
+            for src in _sources():
+                obj = os.path.join(tmp, src.stem + ".o")
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                jobs.append((cmd, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            failures = []
+            for cmd, _, proc in jobs:
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    failures.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        finally:
+            for _, _, proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        lib = os.path.join(tmp, target.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stderr}")
+        os.replace(lib, target)  # atomic: a concurrent loader sees all or nothing
     return target
 
 

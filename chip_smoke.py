@@ -13,13 +13,27 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    to 4096). Times of each side: `ms`/`plain_ms` are device time per call
    (calls captured in a CUDA graph, 20 replays, weights read from device
    memory); `eager_*` are eager calls with the L2 flushed before each, which
-   include the host's launch overhead.
+   include the host's launch overhead. The attention kernels are checked at
+   T = 640 and at a T that is not a multiple of their 64-column tile, with
+   ragged per-row windows of valid cache columns (decode) and prompt lengths
+   545-564 left-packed into t = 564 (prefill); `library_ms` times one PyTorch
+   call that computes the same function (scaled_dot_product_attention with
+   GQA and a bool mask), a yardstick the port never calls. `bound_ms` is
+   the least time the card could take: bytes moved at 3.35 TB/s or bf16
+   operations at 989 TFLOP/s, whichever is larger, counted from this run's
+   inputs (valid cache columns and visible key pairs only).
 4. Main path: bootstrap.build_model at Qwen2.5-7B width with random bf16
    weights from a seed, LoRA merged by serving_llm, then Chat.answer_batch
-   on 8 preextracted clips, greedy, 32 new tokens. Every decode step of
-   every layer must go through both kernels (launch counts of exactly
-   layers x steps), all logits must be finite, 8 strings must come back.
-   Prints peak memory, prefill ms, decode ms per step and clips/s.
+   on 8 preextracted clips, greedy, 32 new tokens, under three attention
+   configurations of models/qwen2.py: the default (plain attention), (a)
+   PREFILL_ATTENTION="flash" with DECODE_ATTN_O="pallas", and (b)
+   PREFILL_ATTENTION="flash" with DECODE_ATTENTION="pallas". Each run must
+   launch every kernel of its configuration exactly as often as the path
+   calls it (layers x steps on the decode step, layers on the prefill) and
+   the others not at all; all logits must be finite, 8 strings must come
+   back. Then each configuration is timed twice, in the order default, a,
+   b, b, a, default; prints peak memory and the mean prefill ms, decode ms
+   per step and clips/s of the two visits, with each visit's numbers.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -28,6 +42,7 @@ phase passed. Every time printed carries the card's name and power limit.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -41,14 +56,24 @@ from affectgpt_tpu_torch.inference import generate as gen
 from affectgpt_tpu_torch.inference.chat import Chat
 from affectgpt_tpu_torch.models import affectgpt, qwen2
 from affectgpt_tpu_torch.ops import _build
+from affectgpt_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
+from affectgpt_tpu_torch.ops.decode_attn_o import decode_attn_o, decode_attn_o_reference
 from affectgpt_tpu_torch.ops.decode_mlp_bf16 import decode_mlp_bf16, decode_mlp_bf16_reference
 from affectgpt_tpu_torch.ops.decode_qkv import decode_qkv, decode_qkv_reference
+from affectgpt_tpu_torch.ops.prefill_attention import (
+    prefill_attention,
+    prefill_attention_reference,
+)
 
-# both sides round at the same points (xn and silu·up to bf16), so they
-# differ by f32 summation order plus one final bf16 rounding
+# both sides round at the same points (xn and silu·up to bf16, attention
+# before o_proj), so they differ by f32 summation order plus one final bf16
+# rounding; the prefill kernel also rounds p to bf16 for its PV product
 RTOL, ATOL = 1.6e-2, 1e-2
 NEW_TOKENS = 32
 BATCH = 8
+MAX_LEN = 640
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, device memory
+BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 KERNELS = {
     "decode_qkv": {
         "source": "affectgpt_tpu_torch/csrc/decode_qkv.cu",
@@ -58,7 +83,22 @@ KERNELS = {
         "source": "affectgpt_tpu_torch/csrc/decode_mlp_bf16.cu",
         "replaces": "affectgpt_tpu/ops/decode_mlp_bf16_pallas.py:154",
     },
+    "decode_attention": {
+        "source": "affectgpt_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "affectgpt_tpu/ops/decode_attention_pallas.py:64",
+    },
+    "decode_attn_o": {
+        "source": "affectgpt_tpu_torch/csrc/decode_attn_o.cu",
+        "replaces": "affectgpt_tpu/ops/decode_attn_o_pallas.py:140",
+    },
+    "prefill_attention": {
+        "source": "affectgpt_tpu_torch/csrc/prefill_attention.cu",
+        "replaces": "affectgpt_tpu/models/qwen2.py:681",
+    },
 }
+WRAPPERS = {"decode_qkv": decode_qkv, "decode_mlp_bf16": decode_mlp_bf16,
+            "decode_attention": decode_attention, "decode_attn_o": decode_attn_o,
+            "prefill_attention": prefill_attention}
 
 
 def say(phase: str, **fields) -> None:
@@ -136,6 +176,14 @@ def graph_ms(calls, reps: int = 20) -> float:
     return ms
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for work that moves `nbytes` and
+    does `flops` bf16 operations, and which of the two bounds it."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
 def compare(name: str, got, ref, b: int):
     got = [g.float() for g in (got if isinstance(got, tuple) else (got,))]
     ref = [r.float() for r in (ref if isinstance(ref, tuple) else (ref,))]
@@ -169,7 +217,7 @@ def phase_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
     qkv_kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                   head_dim=cfg.head_dim, theta=cfg.rope_theta, eps=cfg.rms_eps)
-    out = {name: {"max_abs_err": 0.0} for name in KERNELS}
+    out = {name: {"max_abs_err": 0.0} for name in ("decode_qkv", "decode_mlp_bf16")}
     for b in (BATCH, 64):
         x = rnd(b, h)
         pos = torch.randint(0, 4097, (b,), generator=g, device=dev, dtype=torch.int32)
@@ -193,7 +241,11 @@ def phase_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
         say("kernels", kernel="decode_qkv", b=b, **{k: f"{v:.4f}" for k, v in times.items()},
             card=repr(card))
         if b == BATCH:
-            out["decode_qkv"].update(ms=times["ms"], plain_ms=times["plain_ms"])
+            n_out = nq + 2 * nkv  # weights and biases, x and ln read; q, k, v written
+            out["decode_qkv"].update(ms=times["ms"], plain_ms=times["plain_ms"],
+                                     library_ms=None,
+                                     **bound(2 * (h * n_out + n_out + h + b * h + b * n_out)
+                                             + 4 * b, 2 * b * h * n_out))
 
         def mlp(f):
             return f(x, ln, wg, wu, wd, eps=cfg.rms_eps)
@@ -212,9 +264,125 @@ def phase_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
         say("kernels", kernel="decode_mlp_bf16", b=b,
             **{k: f"{v:.4f}" for k, v in times.items()}, card=repr(card))
         if b == BATCH:
-            out["decode_mlp_bf16"].update(ms=times["ms"], plain_ms=times["plain_ms"])
+            out["decode_mlp_bf16"].update(ms=times["ms"], plain_ms=times["plain_ms"],
+                                          library_ms=None,
+                                          **bound(2 * (3 * h * inter + h + 2 * b * h),
+                                                  6 * b * h * inter))
     del qkv_sets, wg, wu, wd, flush
     torch.cuda.empty_cache()
+    return out
+
+
+def decode_window_mask(g: torch.Generator, b: int, t_len: int) -> torch.Tensor:
+    """Valid cache columns of a decode step, [b, T] bool: left pads (0-19
+    columns) invalid, then valid through a write index in [T - 95, T - 2]."""
+    lo = torch.randint(0, 20, (b,), generator=g, device="cuda")
+    hi = torch.randint(t_len - 95, t_len - 1, (b,), generator=g, device="cuda")
+    cols = torch.arange(t_len, device="cuda")
+    return (cols[None, :] >= lo[:, None]) & (cols[None, :] <= hi[:, None])
+
+
+def phase_attention_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
+    """The attention kernels against their plain versions at the main path's
+    widths, T = 640 and 577 (not a multiple of the 64-column tile) for the
+    decode kernels, prompt lengths 545-564 for the prefill. Returns
+    per-kernel {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}:
+    the largest error over all checks, and device times per call at b = BATCH
+    (T = 640 for the decode kernels)."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    kv, d, h = cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
+    heads, groups = cfg.num_heads, cfg.num_heads // cfg.num_kv_heads
+    nq = heads * d
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+    out = {name: {"max_abs_err": 0.0}
+           for name in ("decode_attention", "decode_attn_o", "prefill_attention")}
+
+    def check(name, got, ref, b, **shape):
+        err, rel = compare(name, got, ref, b)
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        say("kernels", kernel=name, b=b, **shape, max_abs_err=f"{err:.6g}",
+            max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL)
+
+    def record(name, b, calls, plain_calls, library_calls, nbytes, flops, library_err=None):
+        times = {"ms": graph_ms(calls), "plain_ms": graph_ms(plain_calls),
+                 "library_ms": graph_ms(library_calls) if library_calls else None}
+        cost = bound(nbytes, flops)
+        say("kernels", kernel=name, b=b,
+            **{k: "null" if v is None else f"{v:.4f}" for k, v in times.items()},
+            bound_ms=f"{cost['bound_ms']:.5f}", bound_by=cost["bound_by"], card=repr(card))
+        if library_calls:
+            say("library", kernel=name, b=b, call="scaled_dot_product_attention(enable_gqa=True)",
+                library_ms=f"{times['library_ms']:.4f}",
+                max_abs_err_vs_plain=f"{library_err:.6g}", card=repr(card))
+        if b == BATCH:
+            out[name].update(times, **cost)
+
+    for b in (BATCH, 64):
+        for t_len in (MAX_LEN, 577):
+            q = rnd(b, kv, groups, d)
+            mask = decode_window_mask(g, b, t_len)
+            x = rnd(b, h)
+            set_bytes = 2 * b * kv * t_len * d * 2 + nq * h * 2
+            copies = max(2, -(-64 * 2**20 // set_bytes))  # > 50 MB of L2 per replay cycle
+            sets = [(rnd(b, kv, t_len, d), rnd(b, kv, t_len, d), rnd(nq, h, scale=0.02))
+                    for _ in range(copies)]
+            k, v, wo = sets[0]
+            check("decode_attention", decode_attention(q, k, v, mask),
+                  decode_attention_reference(q, k, v, mask), b, T=t_len)
+            check("decode_attn_o", decode_attn_o(x, q, k, v, mask, wo),
+                  decode_attn_o_reference(x, q, k, v, mask, wo), b, T=t_len)
+            if t_len != MAX_LEN:
+                continue
+            valid = int(mask.sum())  # valid (row, column) pairs: the K/V rows needed
+            kv_bytes = 2 * valid * kv * d * 2
+            qk_pv_flops = 4 * valid * kv * groups * d
+            q4, mask4 = q.reshape(b, heads, 1, d), mask[:, None, None, :]
+            lib_err = float((sdpa(q4, k, v, attn_mask=mask4, enable_gqa=True).reshape(q.shape)
+                             .float() - decode_attention_reference(q, k, v, mask).float())
+                            .abs().max())
+            reps = max(1, 24 // copies)
+            record("decode_attention", b,
+                   [lambda k=k, v=v: decode_attention(q, k, v, mask) for k, v, _ in sets] * reps,
+                   [lambda k=k, v=v: decode_attention_reference(q, k, v, mask)
+                    for k, v, _ in sets] * reps,
+                   [lambda k=k, v=v: sdpa(q4, k, v, attn_mask=mask4, enable_gqa=True)
+                    for k, v, _ in sets] * reps,
+                   kv_bytes + 2 * 2 * q.numel() + b * t_len, qk_pv_flops, lib_err)
+            record("decode_attn_o", b,
+                   [lambda k=k, v=v, wo=wo: decode_attn_o(x, q, k, v, mask, wo)
+                    for k, v, wo in sets] * reps,
+                   [lambda k=k, v=v, wo=wo: decode_attn_o_reference(x, q, k, v, mask, wo)
+                    for k, v, wo in sets] * reps,
+                   None, kv_bytes + 2 * (q.numel() + nq * h + 2 * b * h) + b * t_len,
+                   qk_pv_flops + 2 * b * nq * h)
+            del sets, k, v, wo
+
+        # prefill: prompts of 545-564 tokens left-packed into t = 564
+        t_len = 564
+        lengths = torch.randint(545, t_len + 1, (b,), generator=g, device="cuda")
+        seg = torch.arange(t_len, device="cuda")[None, :] >= (t_len - lengths)[:, None]
+        q, k, v = rnd(b, t_len, heads, d), rnd(b, kv, t_len, d), rnd(b, kv, t_len, d)
+        check("prefill_attention", prefill_attention(q, k, v, seg),
+              prefill_attention_reference(q, k, v, seg), b, t=t_len,
+              lengths=f"{int(lengths.min())}-{int(lengths.max())}")
+        causal = torch.ones((t_len, t_len), dtype=torch.bool, device="cuda").tril()
+        visible = causal[None] & (seg[:, :, None] == seg[:, None, :])  # [b, query, key]
+        pairs = int(visible.sum())
+        qh, vis4 = q.transpose(1, 2), visible[:, None]
+        lib_err = float((sdpa(qh, k, v, attn_mask=vis4, enable_gqa=True).transpose(1, 2)
+                         .reshape(b, t_len, nq).float()
+                         - prefill_attention_reference(q, k, v, seg).float()).abs().max())
+        record("prefill_attention", b, [lambda: prefill_attention(q, k, v, seg)] * 4,
+               [lambda: prefill_attention_reference(q, k, v, seg)] * 2,
+               [lambda: sdpa(qh, k, v, attn_mask=vis4, enable_gqa=True)] * 2,
+               2 * (q.numel() + k.numel() + v.numel() + b * t_len * nq) + b * t_len,
+               4 * d * heads * pairs, lib_err)
+        del q, k, v, qh, visible, vis4
+        torch.cuda.empty_cache()
     return out
 
 
@@ -231,65 +399,104 @@ SUBTITLES = [
 QUESTION = "Please recognize all possible emotional states of the character."
 
 
-def phase_main_path(card: str) -> dict:
-    torch.cuda.reset_peak_memory_stats()
-    cfg, frozen, trainable, tok = bootstrap.build_model(
-        {"llama_model": "Qwen25", "keep_full_llm": True}, device="cuda", seed=0)
-    frozen, trainable = bootstrap.serving_llm(frozen, trainable, cfg)
-    assert cfg.llm == qwen2.QwenConfig.qwen25_7b(), cfg.llm
-    chat = Chat(frozen, trainable, cfg, tok, max_len=640)
-    rng = np.random.RandomState(0)
-    feats = {
-        m: torch.as_tensor(rng.randn(BATCH, 8, d).astype(np.float32), device="cuda").to(torch.bfloat16)
-        for m, d in (("frame", cfg.visual_dim), ("face", cfg.visual_dim), ("audio", cfg.acoustic_dim))
-    }
-    mode = "multiface_audio_face_frame_text"
+# the attention configurations of the main path: qwen2 switches, and the
+# kernels that each decode step and each prefill must launch once per layer
+CONFIGS = {
+    "default": ({}, ("decode_qkv", "decode_mlp_bf16"), ()),
+    "a": ({"PREFILL_ATTENTION": "flash", "DECODE_ATTN_O": "pallas"},
+          ("decode_qkv", "decode_mlp_bf16", "decode_attn_o"), ("prefill_attention",)),
+    "b": ({"PREFILL_ATTENTION": "flash", "DECODE_ATTENTION": "pallas"},
+          ("decode_qkv", "decode_mlp_bf16", "decode_attention"), ("prefill_attention",)),
+}
 
-    # the counted run: every launch of the main path, nothing else
-    finite = []
+
+def wall(fn, reps=3):
+    """Median host wall time in ms of calls that end in a synchronize."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+@contextlib.contextmanager
+def attention_config(config: str):
+    """Set the qwen2 attention switches of a configuration of CONFIGS for the
+    duration of the block."""
+    switches = CONFIGS[config][0]
+    saved = {name: getattr(qwen2, name) for name in switches}
+    for name, value in switches.items():
+        setattr(qwen2, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(qwen2, name, value)
+
+
+MODE = "multiface_audio_face_frame_text"
+
+
+def counted_run(config: str, chat: Chat, feats: dict, baseline: dict) -> dict:
+    """One answer_batch under a configuration, with every kernel count set
+    to 0 just before it and read just after; asserts the exact launch
+    counts, finite logits and 8 strings. `baseline` receives the default
+    configuration's first-token logits and strings, which the others are
+    compared with (printed, not asserted: in bf16 the kernels may round
+    differently from the plain chain)."""
+    switches, decode_kernels, prefill_kernels = CONFIGS[config]
+    layers = chat.cfg.llm.num_layers
+    expected = {name: layers * NEW_TOKENS if name in decode_kernels
+                else layers if name in prefill_kernels else 0 for name in KERNELS}
+    finite, logits = [], []
     forward = qwen2.forward
 
     def checked_forward(*args, **kwargs):
-        logits, cache = forward(*args, **kwargs)
-        finite.append(torch.isfinite(logits).all())
-        return logits, cache
+        out, cache = forward(*args, **kwargs)
+        finite.append(torch.isfinite(out).all())
+        if not logits:
+            logits.append(out[:, -1].float())
+        return out, cache
 
-    qwen2.forward = checked_forward
-    decode_qkv.launches = 0
-    decode_mlp_bf16.launches = 0
-    try:
-        texts = chat.answer_batch(mode, SUBTITLES, QUESTION, feats,
-                                  max_new_tokens=NEW_TOKENS, do_sample=False)
-        torch.cuda.synchronize()
-    finally:
-        qwen2.forward = forward
-    launches = {"decode_qkv": decode_qkv.launches, "decode_mlp_bf16": decode_mlp_bf16.launches}
-    expected = cfg.llm.num_layers * NEW_TOKENS
-    say("main", launches=json.dumps(launches), expected_each=expected,
+    with attention_config(config):
+        qwen2.forward = checked_forward
+        for wrapper in WRAPPERS.values():
+            wrapper.launches = 0
+        try:
+            texts = chat.answer_batch(MODE, SUBTITLES, QUESTION, feats,
+                                      max_new_tokens=NEW_TOKENS, do_sample=False)
+            torch.cuda.synchronize()
+        finally:
+            qwen2.forward = forward
+    launches = {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+    say("main", config=config, switches=json.dumps(switches), launches=json.dumps(launches),
         forwards=len(finite), strings=len(texts))
-    if launches != {name: expected for name in KERNELS}:
-        raise AssertionError(f"kernel launches {launches} != {expected} each")
+    if launches != expected:
+        raise AssertionError(f"config {config}: kernel launches {launches} != {expected}")
     if len(finite) != NEW_TOKENS + 1 or not bool(torch.stack(finite).all()):
-        raise AssertionError("non-finite logits on the main path")
+        raise AssertionError(f"config {config}: non-finite logits on the main path")
     if len(texts) != BATCH or not all(isinstance(t, str) for t in texts):
-        raise AssertionError(f"expected {BATCH} strings, got {texts!r}")
-    say("main", sample=json.dumps(texts[0][:60]))
+        raise AssertionError(f"config {config}: expected {BATCH} strings, got {texts!r}")
+    say("main", config=config, sample=json.dumps(texts[0][:60]))
+    if config == "default":
+        baseline.update(logits=logits[0], texts=texts)
+    else:
+        say("main", config=config, first_logits_max_abs_diff_vs_default=(
+            f"{float((logits[0] - baseline['logits']).abs().max()):.6g}"),
+            first_token_agrees=int((logits[0].argmax(-1) == baseline["logits"].argmax(-1)).sum()),
+            strings_equal_to_default=sum(a == b for a, b in zip(texts, baseline["texts"])))
+    return launches
 
-    # timings: whole answer_batch calls, then prefill alone (0 new tokens)
-    # and prefill + decode on the same spliced embeddings
-    def wall(fn, reps=3):
-        out = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(out)
 
-    total_ms = wall(lambda: chat.answer_batch(mode, SUBTITLES, QUESTION, feats,
-                                              max_new_tokens=NEW_TOKENS, do_sample=False))
-    ids, lengths, offsets = chat.build_prompt_batch(mode, SUBTITLES, QUESTION)
+def timed_run(config: str, chat: Chat, feats: dict) -> dict:
+    """Wall times of one configuration: whole answer_batch calls, then
+    prefill alone (0 new tokens) and prefill + decode on the same spliced
+    embeddings; peak device memory over them."""
+    cfg = chat.cfg
+    ids, lengths, offsets = chat.build_prompt_batch(MODE, SUBTITLES, QUESTION)
     embeds = affectgpt.build_inputs_embeds(
         chat.frozen, chat.trainable, cfg, torch.as_tensor(ids, dtype=torch.long, device="cuda"),
         feats, {m: torch.as_tensor(v, dtype=torch.long, device="cuda") for m, v in offsets.items()})
@@ -297,29 +504,67 @@ def phase_main_path(card: str) -> dict:
 
     def run(n):
         gcfg = gen.GenerateConfig(max_new_tokens=n, do_sample=False,
-                                  eos_token_id=tok.eos_token_id)
+                                  eos_token_id=chat.tokenizer.eos_token_id)
         return gen.generate(chat.frozen["llm"], cfg.llm, gcfg, embeds, lengths_t, None,
                             max_len=chat.max_len)
 
-    prefill_ms = wall(lambda: run(0))
-    decode_ms = (wall(lambda: run(NEW_TOKENS)) - prefill_ms) / NEW_TOKENS
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    say("main", prompt_tokens=ids.shape[1], batch=BATCH, new_tokens=NEW_TOKENS,
-        peak_mem_gib=f"{peak_gib:.3f}", prefill_ms=f"{prefill_ms:.3f}",
-        decode_ms_per_step=f"{decode_ms:.4f}", answer_batch_ms=f"{total_ms:.3f}",
-        clips_per_s=f"{BATCH / (total_ms / 1e3):.4f}", card=repr(card))
+    with attention_config(config):
+        torch.cuda.reset_peak_memory_stats()
+        total_ms = wall(lambda: chat.answer_batch(MODE, SUBTITLES, QUESTION, feats,
+                                                  max_new_tokens=NEW_TOKENS, do_sample=False))
+        prefill_ms = wall(lambda: run(0))
+        decode_ms = (wall(lambda: run(NEW_TOKENS)) - prefill_ms) / NEW_TOKENS
+    return {"prompt_tokens": ids.shape[1], "answer_batch_ms": total_ms, "prefill_ms": prefill_ms,
+            "decode_ms_per_step": decode_ms, "clips_per_s": BATCH / (total_ms / 1e3),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_main_path(card: str) -> dict:
+    """Every configuration of CONFIGS on one model: a counted run each, then
+    timings in the order default, a, b, b, a, default, so that a drift of the
+    host over the phase weighs on every configuration alike. Returns each
+    kernel's launch count from the first configuration that runs it."""
+    cfg, frozen, trainable, tok = bootstrap.build_model(
+        {"llama_model": "Qwen25", "keep_full_llm": True}, seed=0)
+    frozen, trainable = bootstrap.serving_llm(frozen, trainable, cfg)
+    assert cfg.llm == qwen2.QwenConfig.qwen25_7b(), cfg.llm
+    chat = Chat(frozen, trainable, cfg, tok, max_len=MAX_LEN)
+    rng = np.random.RandomState(0)
+    feats = {
+        m: torch.as_tensor(rng.randn(BATCH, 8, d).astype(np.float32), device="cuda").to(torch.bfloat16)
+        for m, d in (("frame", cfg.visual_dim), ("face", cfg.visual_dim), ("audio", cfg.acoustic_dim))
+    }
+    launches, baseline = {}, {}
+    for config in CONFIGS:
+        for name, count in counted_run(config, chat, feats, baseline).items():
+            if count and name not in launches:
+                launches[name] = count
+    visits = {config: [] for config in CONFIGS}
+    for config in (*CONFIGS, *reversed(CONFIGS)):
+        visits[config].append(timed_run(config, chat, feats))
+    for config, runs in visits.items():
+        mean = {key: statistics.mean(r[key] for r in runs) for key in runs[0]}
+        say("main", config=config, prompt_tokens=runs[0]["prompt_tokens"], batch=BATCH,
+            new_tokens=NEW_TOKENS, peak_mem_gib=f"{max(r['peak_mem_gib'] for r in runs):.3f}",
+            **{key: f"{mean[key]:.4f}" for key in
+               ("prefill_ms", "decode_ms_per_step", "answer_batch_ms", "clips_per_s")},
+            visits=json.dumps([{key: round(r[key], 4) for key in
+                                ("prefill_ms", "decode_ms_per_step", "clips_per_s")}
+                               for r in runs]), card=repr(card))
     return launches
 
 
 def main() -> None:
     card = phase_device()
     phase_build(card)
-    kernels = phase_kernels(card, qwen2.QwenConfig.qwen25_7b())
+    cfg = qwen2.QwenConfig.qwen25_7b()
+    kernels = phase_kernels(card, cfg)
+    kernels.update(phase_attention_kernels(card, cfg))
     launches = phase_main_path(card)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],
-         "max_abs_err": kernels[name]["max_abs_err"], "ms": kernels[name]["ms"],
-         "plain_ms": kernels[name]["plain_ms"]}
+         **{key: kernels[name][key] for key in keys}}
         for name in KERNELS
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

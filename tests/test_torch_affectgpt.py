@@ -31,7 +31,8 @@ def _model():
     trainable = jax.tree.map(lambda x: x * 25.0, trainable)
     tcfg = ta.AffectGPTConfig.tiny()
     tfrozen, ttrain = convert.from_jax(jax.tree.map(np.asarray, frozen),
-                                       jax.tree.map(np.asarray, trainable), tcfg)
+                                       jax.tree.map(np.asarray, trainable), tcfg,
+                                       device="cpu")
     return jcfg, frozen, trainable, tcfg, tfrozen, ttrain
 
 
@@ -52,7 +53,7 @@ def test_apply_merger(fusion, t):
     params = jax.tree.map(lambda x: x * 25.0, jm.init_merger(jax.random.PRNGKey(3), jcfg_m))
     feats = rng.randn(B, t, 12).astype(np.float32)
     want = jm.apply_merger(params, jcfg_m, jnp.asarray(feats))
-    got = tm.apply_merger(convert.tree_to_torch(jax.tree.map(np.asarray, params)), tcfg_m,
+    got = tm.apply_merger(convert.tree_to_torch(jax.tree.map(np.asarray, params), "cpu"), tcfg_m,
                           torch.from_numpy(feats))
     assert tuple(got.shape) == (B, 4, 32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -120,9 +121,9 @@ def test_nn_primitives_match_jax(dtype):
         "emb": jnn.embedding_init(jax.random.PRNGKey(1), 10, 24, dtype=jdt),
     }
     params["dense"]["b"] = jnp.asarray(rng.randn(16), jdt)
-    tparams = convert.tree_to_torch(jax.tree.map(np.asarray, params))
+    tparams = convert.tree_to_torch(jax.tree.map(np.asarray, params), "cpu")
     x = rng.randn(3, 5, 24).astype(np.float32)
-    jx, tx = jnp.asarray(x, jdt), convert.tree_to_torch(np.asarray(jnp.asarray(x, jdt)))
+    jx, tx = jnp.asarray(x, jdt), convert.tree_to_torch(np.asarray(jnp.asarray(x, jdt)), "cpu")
     ids = np.array([[1, 9, 0]])
     pairs = [
         (jnn.dense(params["dense"], jx), tnn.dense(tparams["dense"], tx)),

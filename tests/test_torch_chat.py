@@ -19,6 +19,7 @@ from affectgpt_tpu_torch.inference.chat import Chat
 from affectgpt_tpu_torch.models import affectgpt as ta
 from affectgpt_tpu_torch.models import convert
 from affectgpt_tpu_torch.models import qwen2 as tq
+from affectgpt_tpu_torch.tokenization import ByteTokenizer as TorchByteTokenizer
 
 MODE = "multiface_audio_face_frame_text"
 SUBTITLES = ["so happy", "leave me", "what?!", "fine."]
@@ -36,7 +37,8 @@ def _models():
         if p[-1].key == "b" and p[0].key == "lora" else x * 25.0, trainable)
     tcfg = ta.AffectGPTConfig.tiny()
     tfrozen, ttrain = convert.from_jax(jax.tree.map(np.asarray, frozen),
-                                       jax.tree.map(np.asarray, trainable), tcfg)
+                                       jax.tree.map(np.asarray, trainable), tcfg,
+                                       device="cpu")
     jfrozen = {**frozen, "llm": jq.merge_lora(frozen["llm"], trainable["lora"], jcfg.llm)}
     jtrain = {**trainable, "lora": None}
     tfrozen, ttrain = bootstrap.serving_llm(tfrozen, ttrain, tcfg)
@@ -53,7 +55,7 @@ def test_answer_batch_matches_jax_chat(b):
     kw = dict(max_new_tokens=8, do_sample=False)
     want = JaxChat(jfrozen, jtrain, jcfg, ByteTokenizer(), max_len=512).answer_batch(
         MODE, SUBTITLES[:b], QUESTION, {m: jnp.asarray(v) for m, v in feats.items()}, **kw)
-    chat = Chat(tfrozen, ttrain, tcfg, ByteTokenizer(), max_len=512)
+    chat = Chat(tfrozen, ttrain, tcfg, TorchByteTokenizer(), max_len=512)
     got = chat.answer_batch(MODE, SUBTITLES[:b], QUESTION,
                             {m: torch.from_numpy(v) for m, v in feats.items()}, **kw)
     assert got == want and len(got) == b
@@ -71,7 +73,7 @@ def test_answer_batch_matches_jax_chat(b):
 def test_build_model_tiny_and_serving_llm():
     cfg, frozen, trainable, tok = bootstrap.build_model(
         {"keep_full_llm": False, "lora_r": 4}, device="cpu", dtype=torch.float32, seed=3)
-    assert isinstance(tok, ByteTokenizer)
+    assert isinstance(tok, TorchByteTokenizer)
     assert cfg.llm == tq.QwenConfig.tiny(vocab_size=300, lora_r=4)
     assert frozen["llm"]["embed_tokens"]["table"].shape == (300, cfg.llm.hidden_size)
     assert len(trainable["lora"]["layers"]) == cfg.llm.num_layers

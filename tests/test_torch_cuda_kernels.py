@@ -4,13 +4,21 @@ Marked `cuda`: each test skips without a CUDA device. On a machine with a
 card (and no jax), run them with
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 Tolerance rtol 1.6e-2, atol 1e-2: both sides round to bf16 at the same
-points, so they differ by f32 summation order plus one final rounding."""
+points, so they differ by f32 summation order plus one final rounding (the
+prefill kernel also rounds p to bf16 for its PV product, as the TPU flash op
+does)."""
 
 import pytest
 import torch
 
+from affectgpt_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
+from affectgpt_tpu_torch.ops.decode_attn_o import decode_attn_o, decode_attn_o_reference
 from affectgpt_tpu_torch.ops.decode_mlp_bf16 import decode_mlp_bf16, decode_mlp_bf16_reference
 from affectgpt_tpu_torch.ops.decode_qkv import decode_qkv, decode_qkv_reference
+from affectgpt_tpu_torch.ops.prefill_attention import (
+    prefill_attention,
+    prefill_attention_reference,
+)
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1.6e-2, atol=1e-2)
@@ -67,3 +75,76 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):
         decode_mlp_bf16(xb, xb[0].clone(), _rnd(gen, 200, 512), _rnd(gen, 200, 512),
                         _rnd(gen, 512, 200))
+
+
+def _window_mask(gen, b, t):
+    """Per-row windows of valid columns that start past 0 (left pads) and
+    end before T (columns not yet written)."""
+    lo = torch.randint(1, max(2, t // 4), (b,), generator=gen, device="cuda")
+    hi = torch.randint(t // 2, t - 1, (b,), generator=gen, device="cuda")
+    cols = torch.arange(t, device="cuda")
+    return (cols[None, :] >= lo[:, None]) & (cols[None, :] <= hi[:, None])
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("kv,g,d", [(2, 3, 64), (4, 7, 128)])
+@pytest.mark.parametrize("t", [77, 200])  # not multiples of the 64-column chunk
+def test_decode_attention_kernel_matches_plain(gen, b, kv, g, d, t):
+    q, k, v = _rnd(gen, b, kv, g, d), _rnd(gen, b, kv, t, d), _rnd(gen, b, kv, t, d)
+    mask = _window_mask(gen, b, t)
+    mask[0, ::5] = False  # any mask, not only a window
+    if b > 1:
+        mask[1] = False  # no valid column: zeros
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), decode_attention_reference(q, k, v, mask).float(),
+                               **TOL)
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("kv,g,d,h", [(2, 3, 64, 256), (4, 7, 128, 512)])
+@pytest.mark.parametrize("t", [77, 200])
+def test_decode_attn_o_kernel_matches_plain(gen, b, kv, g, d, h, t):
+    args = (_rnd(gen, b, h), _rnd(gen, b, kv, g, d), _rnd(gen, b, kv, t, d),
+            _rnd(gen, b, kv, t, d), _window_mask(gen, b, t), _rnd(gen, kv * g * d, h, scale=0.05))
+    before = decode_attn_o.launches
+    got = decode_attn_o(*args)
+    torch.cuda.synchronize()
+    assert decode_attn_o.launches == before + 1
+    torch.testing.assert_close(got.float(), decode_attn_o_reference(*args).float(), **TOL)
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("heads,kv,d", [(4, 2, 64), (14, 2, 128)])
+@pytest.mark.parametrize("t", [37, 130])
+@pytest.mark.parametrize("pads", [False, True])
+def test_prefill_attention_kernel_matches_plain(gen, b, heads, kv, d, t, pads):
+    q, k, v = _rnd(gen, b, t, heads, d), _rnd(gen, b, kv, t, d), _rnd(gen, b, kv, t, d)
+    pad = torch.randint(0, t // 2, (b,), generator=gen, device="cuda") if pads \
+        else torch.zeros(b, dtype=torch.long, device="cuda")
+    seg = torch.arange(t, device="cuda")[None, :] >= pad[:, None]  # pads 0, tokens 1
+    before = prefill_attention.launches
+    got = prefill_attention(q, k, v, seg)
+    torch.cuda.synchronize()
+    assert prefill_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), prefill_attention_reference(q, k, v, seg).float(),
+                               **TOL)
+
+
+def test_attention_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    q, k = _rnd(gen, 2, 2, 3, 96), _rnd(gen, 2, 2, 40, 96)  # head_dim 96
+    mask = torch.ones(2, 40, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError):
+        decode_attention(q, k, k, mask)
+    with pytest.raises(TypeError):
+        decode_attention(q[..., :64].float().contiguous(), k[..., :64].float().contiguous(),
+                         k[..., :64].float().contiguous(), mask)
+    with pytest.raises(ValueError):  # nine query heads per kv head
+        q9 = _rnd(gen, 2, 2, 9, 64)
+        decode_attn_o(_rnd(gen, 2, 256), q9, _rnd(gen, 2, 2, 40, 64), _rnd(gen, 2, 2, 40, 64),
+                      mask, _rnd(gen, 2 * 9 * 64, 256))
+    with pytest.raises(ValueError):  # k not contiguous
+        kt = _rnd(gen, 2, 40, 2, 64).transpose(1, 2)
+        prefill_attention(_rnd(gen, 2, 40, 4, 64), kt, kt, mask)

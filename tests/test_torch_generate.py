@@ -75,7 +75,8 @@ def test_greedy_slice_matches_jax_with_kernels(monkeypatch):
     trainable = ja.init_trainable(jax.random.PRNGKey(1), jcfg)
     trainable = jax.tree.map(lambda x: x * 25.0, trainable)  # O(1) merger outputs
     tfrozen, ttrain = convert.from_jax(jax.tree.map(np.asarray, frozen),
-                                       jax.tree.map(np.asarray, trainable), tcfg)
+                                       jax.tree.map(np.asarray, trainable), tcfg,
+                                       device="cpu")
     jllm = jq.merge_lora(frozen["llm"], trainable["lora"], jcfg.llm)
     tllm = tq.merge_lora(tfrozen["llm"], ttrain["lora"], tcfg.llm)
 

@@ -1,9 +1,10 @@
-"""Package-level guards of the PyTorch port: it never imports jax, its
-config dataclasses keep the JAX package's fields and defaults, and a
-kernel wrapper given CPU tensors runs the plain version without counting
-a launch."""
+"""Package-level guards of the PyTorch port: it never imports jax or the
+JAX package, its entry points default to the card, its config dataclasses
+keep the JAX package's fields and defaults, and a kernel wrapper given CPU
+tensors runs the plain version without counting a launch."""
 
 import dataclasses
+import inspect
 import pkgutil
 import subprocess
 import sys
@@ -14,11 +15,13 @@ import torch
 
 import affectgpt_tpu_torch
 from affectgpt_tpu.inference import generate as jgen
+from affectgpt_tpu_torch import bootstrap
 from affectgpt_tpu.models import affectgpt as ja
 from affectgpt_tpu.models import mergers as jm
 from affectgpt_tpu.models import qwen2 as jq
 from affectgpt_tpu_torch.inference import generate as tgen
 from affectgpt_tpu_torch.models import affectgpt as ta
+from affectgpt_tpu_torch.models import convert
 from affectgpt_tpu_torch.models import mergers as tm
 from affectgpt_tpu_torch.models import qwen2 as tq
 from affectgpt_tpu_torch.ops import _build
@@ -35,20 +38,40 @@ def _port_modules():
 
 
 def test_port_imports_without_jax():
-    modules = _port_modules()
-    assert "affectgpt_tpu_torch.inference.chat" in modules and len(modules) >= 14
+    """Every port module, and chip_smoke.py with all it imports, load with
+    `import jax` and `import affectgpt_tpu` made to fail."""
+    modules = _port_modules() + ["chip_smoke"]
+    assert "affectgpt_tpu_torch.inference.chat" in modules and len(modules) >= 22
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises ImportError
+        "sys.modules['affectgpt_tpu'] = None\n"  # and so does the JAX package
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
-        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items()\n"
-        "               if v is not None)\n"
+        "assert not any(k.split('.')[0] in ('jax', 'affectgpt_tpu')\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+@pytest.mark.parametrize("entry", [bootstrap.build_model, convert.from_jax,
+                                   convert.tree_to_torch], ids=lambda f: f.__name__)
+def test_entry_points_default_to_the_card(entry):
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_build_model_without_device_needs_a_card():
+    """No fallback: without a card the default device raises."""
+    node = {"keep_full_llm": False}
+    if torch.cuda.is_available():
+        frozen = bootstrap.build_model(node)[1]
+        assert frozen["llm"]["embed_tokens"]["table"].device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            bootstrap.build_model(node)
 
 
 def _defaults(cls):
@@ -99,6 +122,7 @@ def test_kernel_wrappers_on_cpu_count_no_launch():
 def test_kernel_build_is_keyed_by_source_hash():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
-    assert {p.name for p in _build.CSRC_DIR.glob("*.cu")} >= {"decode_qkv.cu",
-                                                              "decode_mlp_bf16.cu"}
+    assert {p.name for p in _build.CSRC_DIR.glob("*.cu")} >= {
+        "decode_qkv.cu", "decode_mlp_bf16.cu", "decode_attention.cu", "decode_attn_o.cu",
+        "prefill_attention.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

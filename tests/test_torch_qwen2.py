@@ -43,8 +43,8 @@ def _setup(name):
         lambda p, x: jnp.asarray(rng.randn(*x.shape).astype(np.float32) * 0.05)
         if p[-1].key == "b" else x, lora)
     np_tree = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
-    return jcfg, tcfg, params, lora, convert.tree_to_torch(np_tree(params)), \
-        convert.tree_to_torch(np_tree(lora))
+    return jcfg, tcfg, params, lora, convert.tree_to_torch(np_tree(params), "cpu"), \
+        convert.tree_to_torch(np_tree(lora), "cpu")
 
 
 def _inputs(d, seed=3):
