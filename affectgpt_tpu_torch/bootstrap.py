@@ -3,7 +3,8 @@
 Port of affectgpt_tpu/bootstrap.py for the preextracted serving path:
 resolve the tokenizer, build the model config from the YAML `model:`
 section given as a plain dict (affectgpt_tpu.config needs PyYAML, which the
-port does not), and make random weights from a seed on the chosen device.
+port does not), and make random weights from a seed on the chosen device;
+`model.int8` quantizes the LLM's projections to per-channel int8.
 
 Not ported yet: the media encoders, HF checkpoint conversion and the
 checkpoint overlays (`ckpt`, `ckpt_2`, `ckpt_3`); a node that asks for
@@ -60,6 +61,8 @@ def build_model(
     device = torch.device(device)
     frozen = affectgpt.init_frozen(
         torch.Generator(device=device).manual_seed(seed), model_cfg, dtype=dtype)
+    if node.get("int8", False):  # serving mode: per-channel int8 decoder weights
+        frozen["llm"] = qwen2.quantize_params(frozen["llm"])
     trainable = affectgpt.init_trainable(
         torch.Generator(device=device).manual_seed(seed + 1), model_cfg)
     return model_cfg, frozen, trainable, tokenizer

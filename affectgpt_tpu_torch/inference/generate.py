@@ -7,7 +7,7 @@ loop runs exactly `max_new_tokens` steps, as the JAX `lax.scan` does, and
 makes no host synchronisation inside the loop: stop handling and the
 `done` mask stay on the device.
 
-Not ported yet: the repetition penalty, `decode_llm`, `cache_dtype` and
+Not ported yet: the repetition penalty, `cache_dtype` and
 `generate_speculative`.
 """
 
@@ -73,12 +73,16 @@ def generate(
     generator: Optional[torch.Generator],
     max_len: int,
     lora: Optional[dict] = None,
+    decode_llm: Optional[dict] = None,
 ):
     """Generate continuations for a batch of spliced prompt embeddings.
 
     prompt_embeds [b, t_pad, d] right-padded; prompt_lengths [b] on the same
     device. max_len >= t_pad + max_new_tokens (KV-cache capacity).
     generator: drawn from when gen_cfg.do_sample.
+    decode_llm: a second copy of the decoder weights used only by the decode
+    loop, token embeddings included (e.g. `qwen2.quantize_params` of
+    frozen_llm: bf16 prefill, quantized decode).
     Returns (tokens [b, max_new_tokens], num_valid [b]); tokens after a
     row's stop are eos.
     """
@@ -113,6 +117,7 @@ def generate(
     key_valid_gen = torch.cat(
         [key_valid, torch.ones((b, max_len - t_pad), dtype=torch.bool, device=dev)], dim=1
     )
+    step_llm = decode_llm if decode_llm is not None else frozen_llm
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     cur_pos = lengths.to(torch.int32)  # the decode-QKV kernel reads int32 positions
     tokens = []
@@ -125,11 +130,11 @@ def generate(
         done = done | (token[:, None] == stop_ids[None, :]).any(dim=-1)
         tokens.append(token)
 
-        tok_embeds = qwen2.embed_tokens(frozen_llm, token)[:, None, :].to(embeds.dtype)
+        tok_embeds = qwen2.embed_tokens(step_llm, token)[:, None, :].to(embeds.dtype)
         write_idx = t_pad + step
         key_mask = (slots[None, None, :] <= write_idx) & key_valid_gen[:, None, :]
         logits_d, cache = qwen2.forward(
-            frozen_llm, llm_cfg, tok_embeds, key_mask, lora=lora,
+            step_llm, llm_cfg, tok_embeds, key_mask, lora=lora,
             positions=cur_pos[:, None], cache=cache, cache_index=write_idx,
         )
         cur_logits = logits_d[:, 0, :]

@@ -6,13 +6,17 @@ returns the same trees as tensors, on the card unless `device` says
 otherwise. It covers the LLM, LoRA, the mergers and the multi-fusion block,
 and never imports jax.
 
-Layouts: the port keeps the JAX layouts unchanged. Dense weights stay
-`[in, out]` (applied as `x @ w`); embeddings `[vocab, hidden]`. The decode
+Layouts: the port keeps the JAX layouts and dtypes unchanged, the split
+(`q_proj` ...) and fused (`qkv_proj`, `gateup_proj`) serving layouts alike.
+Dense weights stay `[in, out]` (applied as `x @ w`): bf16/f32 `w`, int8
+`w_q` with f32 `scales` [1, out], or int4 `w_q4` packed [in/2, out] with f32
+`scales` [in/128, out]; embeddings `[vocab, hidden]`. The decode
 kernels read that layout directly: ops/decode_qkv.py reads `wq [h, H*d]`
 and `wk`/`wv [h, kv*d]` in 64-column strips, ops/decode_mlp_bf16.py reads
 `w_gate`/`w_up [h, I]` in 64-column strips and `w_down [I, h]` in
 32-column strips, and ops/decode_attn_o.py reads `o_proj [H*d, h]` in
-32-column strips. No transpose happens here.
+32-column strips, and ops/quant.py's kernels read the quantized leaves as
+stored. No transpose or repacking happens here.
 """
 
 from __future__ import annotations
@@ -42,6 +46,17 @@ def tree_to_torch(tree, device="cuda"):
     return _tensor(tree, device)
 
 
+def _dense_shape(leaf: dict) -> tuple:
+    """(in, out) of a dense leaf in any of its stored forms."""
+    if "w" in leaf:
+        return tuple(leaf["w"].shape)
+    if "w_q" in leaf:
+        return tuple(leaf["w_q"].shape)
+    if "w_q4" in leaf:
+        return (2 * leaf["w_q4"].shape[0], leaf["w_q4"].shape[1])
+    raise ValueError(f"from_jax: not a dense leaf (keys {sorted(leaf)})")
+
+
 def from_jax(frozen_np: dict, trainable_np: dict, cfg, device="cuda"):
     """(frozen, trainable) numpy trees of the JAX package → tensor trees for
     `affectgpt_tpu_torch`. cfg is the port's AffectGPTConfig; the LLM's
@@ -53,7 +68,9 @@ def from_jax(frozen_np: dict, trainable_np: dict, cfg, device="cuda"):
         raise ValueError("from_jax: embedding table does not match cfg.llm")
     if len(llm["layers"]) != lc.num_layers:
         raise ValueError("from_jax: layer count does not match cfg.llm")
-    expect_q = (lc.hidden_size, lc.num_heads * lc.head_dim)
-    if tuple(llm["layers"][0]["q_proj"]["w"].shape) != expect_q:
-        raise ValueError("from_jax: q_proj is not [hidden, heads*head_dim]")
+    layer0 = llm["layers"][0]
+    nq, nkv = lc.num_heads * lc.head_dim, lc.num_kv_heads * lc.head_dim
+    name, width = ("qkv_proj", nq + 2 * nkv) if "qkv_proj" in layer0 else ("q_proj", nq)
+    if _dense_shape(layer0[name]) != (lc.hidden_size, width):
+        raise ValueError(f"from_jax: {name} is not [hidden, {width}]")
     return frozen, trainable

@@ -1,9 +1,12 @@
 """Qwen2/2.5-family causal decoder with LoRA, in PyTorch.
 
-Port of affectgpt_tpu/models/qwen2.py for the serving path: dense bf16
-weights in the split q/k/v layout, LoRA either as a parallel branch or
-merged into the weights (`merge_lora`), a dense KV cache, and the decode
-kernels of `affectgpt_tpu_torch.ops`.
+Port of affectgpt_tpu/models/qwen2.py for the serving path: dense weights
+in the split q/k/v layout or the fused serving layouts (`fuse_qkv_gateup`:
+`qkv_proj`, and `gateup_proj` unless gate/up stay split), bf16 or quantized
+(`quantize_params`, `init_quantized_params`: int8 `w_q` or int4 `w_q4`
+leaves with their `scales`), LoRA either as a parallel branch or merged into
+the weights (`merge_lora`), a dense KV cache, and the kernels of
+`affectgpt_tpu_torch.ops`.
 
 Parameters are the JAX package's tree as nested dicts of tensors, with the
 same keys and the JAX `[in, out]` dense layout, so `models.convert.from_jax`
@@ -12,18 +15,22 @@ needs no transposes and both decode kernels read the weights as stored.
 The KV cache keeps the JAX layout `[b, kv_heads, max_len, head_dim]` and is
 written IN PLACE by `forward`; the list it returns is the one passed in.
 
-Decode dispatch follows the JAX rule (qwen2.py:761-766, :1028-1032): with a
-cache, t == 1, merged LoRA and the split layout, the pre-attention rmsnorm,
-q/k/v projections, bias and RoPE go through `ops.decode_qkv`, and the
-post-attention rmsnorm and MLP through `ops.decode_mlp_bf16`. The attention
-itself follows the JAX switches `DECODE_ATTN_O`, `DECODE_ATTENTION` and
-`PREFILL_ATTENTION` (below); by default it is the plain chain. The kernel
-wrappers launch their CUDA kernels for CUDA tensors (or raise) and run their
-plain versions for CPU tensors. Everything else is plain torch, mirroring
-the JAX default chain.
+Decode dispatch follows the JAX rule (qwen2.py:582, :631, :761-766,
+:891): on a decode step (a cache, t == 1, merged LoRA), the pre-attention
+rmsnorm, q/k/v projections, bias and RoPE go through `ops.decode_qkv` when
+q/k/v are split bf16 leaves ("w"), and the post-attention rmsnorm and MLP
+through `ops.decode_mlp_bf16` when gate_proj is a bf16 leaf; otherwise the
+plain rmsnorm runs and each projection goes through `_lora_dense`. A
+quantized leaf there takes the matmul kernels of `ops.quant`, routed by M
+(rows of x) as that module says. The attention itself follows the JAX
+switches `DECODE_ATTN_O`, `DECODE_ATTENTION` and `PREFILL_ATTENTION`
+(below); by default it is the plain chain. The kernel wrappers launch their
+CUDA kernels for CUDA tensors (or raise) and run their plain versions for
+CPU tensors. Everything else is plain torch, mirroring the JAX default
+chain.
 
-Not ported yet: quantized and fused (`qkv_proj`) layouts, the int8 KV cache,
-per-row cache indices, the CE losses, remat and LoRA dropout.
+Not ported yet: the int8 KV cache, per-row cache indices, the CE losses,
+remat and LoRA dropout.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import Optional
 import torch
 
 from affectgpt_tpu_torch.models import nn
+from affectgpt_tpu_torch.ops import quant
 from affectgpt_tpu_torch.ops.decode_attention import decode_attention
 from affectgpt_tpu_torch.ops.decode_attn_o import decode_attn_o
 from affectgpt_tpu_torch.ops.decode_mlp_bf16 import decode_mlp_bf16
@@ -49,7 +57,8 @@ from affectgpt_tpu_torch.ops.prefill_attention import prefill_attention
 # flash op) are not carried: each kernel's wrapper checks its own limits and
 # raises.
 # DECODE_ATTN_O="pallas": on the decode step whose q/k/v came from
-# decode_qkv, attention → o_proj → + residual in `ops.decode_attn_o`.
+# decode_qkv and o_proj is a bf16 leaf, attention → o_proj → + residual in
+# `ops.decode_attn_o`.
 DECODE_ATTN_O = "xla"
 # DECODE_ATTENTION="pallas": otherwise on a decode step, attention in
 # `ops.decode_attention`; o_proj stays a plain product.
@@ -107,6 +116,7 @@ class QwenConfig:
 
 
 _LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+_QKV = ("q_proj", "k_proj", "v_proj")
 
 
 def _dims(cfg: QwenConfig) -> dict:
@@ -172,6 +182,8 @@ def merge_lora(params: dict, lora: dict, cfg: QwenConfig) -> dict:
         for name in _LORA_TARGETS:
             if name not in lora_layer:
                 continue
+            if "w" not in layer[name]:
+                raise ValueError("merge_lora needs unquantized weights: merge, then quantize")
             ab = lora_layer[name]["a"].float() @ lora_layer[name]["b"].float()
             w = layer[name]["w"]
             merged[name] = {**layer[name], "w": (w.float() + scaling * ab).to(w.dtype)}
@@ -179,8 +191,128 @@ def merge_lora(params: dict, lora: dict, cfg: QwenConfig) -> dict:
     return {**params, "layers": layers}
 
 
+def fuse_qkv_gateup(params: dict, cfg: QwenConfig, fuse_gateup: bool = True) -> dict:
+    """Serving layout: q/k/v concatenated into one [h, nq + 2·nkv] `qkv_proj`
+    and, with fuse_gateup, gate/up into one [h, 2·I] `gateup_proj`. The same
+    math with fewer matmuls per decode step. Apply after merge_lora and
+    before quantize_params (per-channel scales commute with the concat).
+    Returns a new tree; unchanged leaves are shared with `params`."""
+    layers = []
+    for layer in params["layers"]:
+        if "w" not in layer["q_proj"]:
+            raise ValueError("fuse_qkv_gateup expects unquantized weights")
+        drop = _QKV + (("gate_proj", "up_proj") if fuse_gateup else ())
+        fused = {k: v for k, v in layer.items() if k not in drop}
+        qkv = {"w": torch.cat([layer[n]["w"] for n in _QKV], dim=1)}
+        if "b" in layer["q_proj"]:
+            qkv["b"] = torch.cat([layer[n]["b"] for n in _QKV])
+        fused["qkv_proj"] = qkv
+        if fuse_gateup:
+            fused["gateup_proj"] = {
+                "w": torch.cat([layer["gate_proj"]["w"], layer["up_proj"]["w"]], dim=1)}
+        layers.append(fused)
+    return {**params, "layers": layers}
+
+
+def quantize_params(params: dict, bits: int = 8) -> dict:
+    """Quantize the decoder's projection weights and the lm_head for serving
+    (bits=8 per-channel int8, bits=4 group-128 int4); embeddings and norms
+    stay as they are."""
+    out = dict(params)
+    out["layers"] = [quant.quantize_dense_tree(layer, bits=bits) for layer in params["layers"]]
+    if "lm_head" in params:
+        out["lm_head"] = quant.quantize_dense_tree(params["lm_head"], bits=bits)
+    return out
+
+
+def init_quantized_params(generator: torch.Generator, cfg: QwenConfig, bits: int = 4,
+                          dtype=torch.bfloat16, fused=False) -> dict:
+    """Random decoder weights made directly in quantized form, on the
+    generator's device, with the JAX package's value distribution: int4
+    nibbles uniform in [-7, 7] packed as quantize_int4_grouped packs them,
+    scales 3σ/7 (σ = K^-1/2); int8 values in [-127, 127], scales 3σ/127;
+    int8 for leaves whose K is not a multiple of 256 at bits=4. fused=True
+    gives the qkv + gateup layout, fused="qkv" keeps gate/up split."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    dev = generator.device
+
+    def randint(low, high, shape):
+        return torch.randint(low, high, shape, generator=generator, device=dev,
+                             dtype=torch.int32)
+
+    def qdense(k, n, bias):
+        sigma = 1.0 / float(k) ** 0.5
+        if bits == 4 and k % (2 * quant.INT4_GROUP) == 0:
+            lo, hi = randint(-7, 8, (k // 2, n)), randint(-7, 8, (k // 2, n))
+            out = {"w_q4": ((hi << 4) | (lo & 0xF)).to(torch.int8),
+                   "scales": torch.full((k // quant.INT4_GROUP, n), 3.0 * sigma / 7.0,
+                                        dtype=torch.float32, device=dev)}
+        else:
+            out = {"w_q": randint(-127, 128, (k, n)).to(torch.int8),
+                   "scales": torch.full((1, n), 3.0 * sigma / 127.0, dtype=torch.float32,
+                                        device=dev)}
+        if bias:
+            out["b"] = torch.zeros((n,), dtype=dtype, device=dev)
+        return out
+
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    nq, nkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    layers = []
+    for _ in range(cfg.num_layers):
+        if fused:
+            layer = {"qkv_proj": qdense(h, nq + 2 * nkv, cfg.qkv_bias),
+                     "o_proj": qdense(nq, h, False), "down_proj": qdense(inter, h, False)}
+            if fused == "qkv":
+                layer["gate_proj"] = qdense(h, inter, False)
+                layer["up_proj"] = qdense(h, inter, False)
+            else:
+                layer["gateup_proj"] = qdense(h, 2 * inter, False)
+        else:
+            layer = {"q_proj": qdense(h, nq, cfg.qkv_bias), "k_proj": qdense(h, nkv, cfg.qkv_bias),
+                     "v_proj": qdense(h, nkv, cfg.qkv_bias), "o_proj": qdense(nq, h, False),
+                     "gate_proj": qdense(h, inter, False), "up_proj": qdense(h, inter, False),
+                     "down_proj": qdense(inter, h, False)}
+        layer["input_ln"] = nn.rmsnorm_init(h, dtype=dtype, device=dev)
+        layer["post_attn_ln"] = nn.rmsnorm_init(h, dtype=dtype, device=dev)
+        layers.append(layer)
+    params = {
+        "embed_tokens": nn.embedding_init(generator, cfg.vocab_size, h, dtype=dtype),
+        "layers": layers,
+        "final_ln": nn.rmsnorm_init(h, dtype=dtype, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = qdense(h, cfg.vocab_size, False)
+    return params
+
+
+def _quantized_matmul(x2d: torch.Tensor, base: dict) -> torch.Tensor:
+    """x2d [M, K] against a quantized leaf, routed by M as the JAX TPU route
+    does (qwen2.py:401-447) without its Mosaic gates: see `ops.quant`."""
+    m = x2d.shape[0]
+    if "w_q4" in base:
+        w, s = base["w_q4"], base["scales"]
+        if m > quant.PALLAS_DEQUANT_MAX_M:
+            return quant.int4_matmul_xla(x2d, w, s)
+        kernel = quant.int4_matmul_smallm if m < quant.PALLAS_INT4_MIN_M else quant.int4_matmul
+        return kernel(x2d, w, s)
+    w, s = base["w_q"], base["scales"]
+    if quant.MATMUL_MODE == "w8a8":
+        return quant.int8_matmul_w8a8(x2d, w, s)
+    if m > quant.PALLAS_DEQUANT_MAX_M:
+        return quant.int8_matmul_xla(x2d, w, s)
+    return quant.int8_matmul(x2d, w, s)
+
+
 def _lora_dense(base, lora, x, scaling: float, has_bias: bool = True) -> torch.Tensor:
-    y = nn.matmul_f32(x, base["w"])
+    if "w" in base:
+        y = nn.matmul_f32(x, base["w"])
+    else:
+        x2d = x.reshape(-1, x.shape[-1]).contiguous()
+        y = _quantized_matmul(x2d, base).reshape(*x.shape[:-1], -1)
+        if lora is None and not (has_bias and "b" in base):
+            return y  # already x.dtype: the f32 round trip below is the identity
+        y = y.float()
     if lora is not None:
         z = nn.matmul_f32(x, lora["a"].to(x.dtype))
         z = nn.matmul_f32(z.to(x.dtype), lora["b"].to(x.dtype))
@@ -202,10 +334,23 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def _kernel_eligible(lora_layer, cache, t: int) -> bool:
-    """The JAX rule: a decode step (cache, t == 1) with LoRA merged. The
-    port has only the split bf16 layout, so no layout check is needed."""
+def _decode_step(lora_layer, cache, t: int) -> bool:
+    """A decode step (cache, t == 1) with LoRA merged: where the JAX package
+    tries its decode kernels."""
     return cache is not None and t == 1 and lora_layer is None
+
+
+def _decode_qkv_eligible(layer, lora_layer, cache, t: int) -> bool:
+    """The decode-QKV kernel takes split bf16 q/k/v leaves (JAX qwen2.py:761,
+    :582)."""
+    return (_decode_step(lora_layer, cache, t) and "qkv_proj" not in layer
+            and "w" in layer["q_proj"])
+
+
+def _decode_mlp_eligible(layer, lora_layer, cache, t: int) -> bool:
+    """The bf16 decode-MLP kernel takes a split bf16 gate leaf (JAX
+    qwen2.py:631)."""
+    return _decode_step(lora_layer, cache, t) and "w" in layer.get("gate_proj", {})
 
 
 def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, cache_index):
@@ -217,8 +362,8 @@ def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, ca
     b, t, _ = x.shape
     scaling = cfg.lora_alpha / cfg.lora_r
     lget = (lambda n: lora_layer[n]) if lora_layer is not None else (lambda n: None)
-    fused = _kernel_eligible(lora_layer, cache, t)
-    if fused:
+    qkv_kernel = _decode_qkv_eligible(layer, lora_layer, cache, t)
+    if qkv_kernel:
         def bias(name):
             if "b" in layer[name]:
                 return layer[name]["b"]
@@ -237,12 +382,21 @@ def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, ca
         v = v2.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
     else:
         x = nn.rmsnorm(layer["input_ln"], x, cfg.rms_eps)
-        q = _lora_dense(layer["q_proj"], lget("q_proj"), x, scaling).reshape(
-            b, t, cfg.num_heads, cfg.head_dim)
-        k = _lora_dense(layer["k_proj"], lget("k_proj"), x, scaling).reshape(
-            b, t, cfg.num_kv_heads, cfg.head_dim)
-        v = _lora_dense(layer["v_proj"], lget("v_proj"), x, scaling).reshape(
-            b, t, cfg.num_kv_heads, cfg.head_dim)
+        if "qkv_proj" in layer:  # fused serving layout: one matmul, split columns
+            if lora_layer is not None:
+                raise ValueError("the fused layout serves merged-LoRA weights")
+            nq, nkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+            y = _lora_dense(layer["qkv_proj"], None, x, 0.0)
+            q = y[..., :nq].reshape(b, t, cfg.num_heads, cfg.head_dim)
+            k = y[..., nq:nq + nkv].reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+            v = y[..., nq + nkv:].reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+        else:
+            q = _lora_dense(layer["q_proj"], lget("q_proj"), x, scaling).reshape(
+                b, t, cfg.num_heads, cfg.head_dim)
+            k = _lora_dense(layer["k_proj"], lget("k_proj"), x, scaling).reshape(
+                b, t, cfg.num_kv_heads, cfg.head_dim)
+            v = _lora_dense(layer["v_proj"], lget("v_proj"), x, scaling).reshape(
+                b, t, cfg.num_kv_heads, cfg.head_dim)
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
 
@@ -260,7 +414,8 @@ def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, ca
             return _lora_dense(layer["o_proj"], lget("o_proj"), out, scaling,
                                has_bias=False), False
         k, v = cache["k"], cache["v"]
-        attn_o = DECODE_ATTN_O == "pallas" and fused  # x is still the raw residual stream
+        # x is still the raw residual stream when decode_qkv ran
+        attn_o = DECODE_ATTN_O == "pallas" and qkv_kernel and "w" in layer["o_proj"]
         if attn_o or DECODE_ATTENTION == "pallas" and t == 1:
             qd = q[:, 0].reshape(b, cfg.num_kv_heads, groups, cfg.head_dim)
             key_mask = mask[:, 0, 0, :]
@@ -289,8 +444,13 @@ def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, ca
 def _mlp(layer, lora_layer, cfg: QwenConfig, x: torch.Tensor) -> torch.Tensor:
     scaling = cfg.lora_alpha / cfg.lora_r
     lget = (lambda n: lora_layer[n]) if lora_layer is not None else (lambda n: None)
-    gate = _lora_dense(layer["gate_proj"], lget("gate_proj"), x, scaling, has_bias=False)
-    up = _lora_dense(layer["up_proj"], lget("up_proj"), x, scaling, has_bias=False)
+    if "gateup_proj" in layer:
+        if lora_layer is not None:
+            raise ValueError("the fused layout serves merged-LoRA weights")
+        gate, up = _lora_dense(layer["gateup_proj"], None, x, 0.0, has_bias=False).chunk(2, dim=-1)
+    else:
+        gate = _lora_dense(layer["gate_proj"], lget("gate_proj"), x, scaling, has_bias=False)
+        up = _lora_dense(layer["up_proj"], lget("up_proj"), x, scaling, has_bias=False)
     return _lora_dense(layer["down_proj"], lget("down_proj"),
                        torch.nn.functional.silu(gate) * up, scaling, has_bias=False)
 
@@ -331,7 +491,7 @@ def forward(
         out, residual_done = _attention(layer, lora_layer, cfg, x, positions, mask,
                                         layer_cache, cache_index)
         x = out if residual_done else x + out
-        if _kernel_eligible(lora_layer, layer_cache, t):
+        if _decode_mlp_eligible(layer, lora_layer, layer_cache, t):
             x = decode_mlp_bf16(
                 x[:, 0, :], layer["post_attn_ln"]["scale"], layer["gate_proj"]["w"],
                 layer["up_proj"]["w"], layer["down_proj"]["w"], eps=cfg.rms_eps,
@@ -345,6 +505,8 @@ def forward(
         x = x[:, -1:, :]
     if cfg.tie_embeddings:
         logits = nn.matmul_f32(x, params["embed_tokens"]["table"].T)
+    elif "w" not in params["lm_head"]:  # quantized: rounded to x's dtype, then f32
+        logits = _lora_dense(params["lm_head"], None, x, 0.0, has_bias=False).float()
     else:
         logits = nn.matmul_f32(x, params["lm_head"]["w"])
     return logits, cache
@@ -355,9 +517,10 @@ def embed_tokens(params: dict, ids: torch.Tensor) -> torch.Tensor:
 
 
 def init_cache(cfg: QwenConfig, batch: int, max_len: int, dtype=torch.bfloat16,
-               device=None) -> list:
+               device="cuda") -> list:
     """Dense KV cache, one {"k", "v"} pair of [b, kv_heads, max_len, head_dim]
-    buffers per layer (the JAX layout)."""
+    buffers per layer (the JAX layout), on the card unless `device` says
+    otherwise."""
     shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
     return [
         {"k": torch.zeros(shape, dtype=dtype, device=device),

@@ -1,0 +1,351 @@
+"""Int8 and int4 weight formats and the quantized matmul kernels.
+
+Port of affectgpt_tpu/ops/quant.py. The formats are the JAX package's, byte
+for byte, so a quantized JAX tree carries over unchanged
+(`models.convert.from_jax`):
+
+- int8 per output channel: w_q int8 [K, N], scales f32 [1, N] (absmax/127);
+- int4 grouped: w_q4 int8 [K/2, N] with two values per byte (low nibble =
+  row k of the first K-half, high nibble = row k + K/2), scales f32
+  [K/128, N], one per (128-row group, output channel), absmax/7.
+
+Four kernels, each a wrapper with its plain PyTorch version beside it and a
+`launches` count. On a CPU tensor a wrapper runs the plain version; on a
+CUDA tensor it launches the hand-written kernel (csrc/) or raises:
+
+- `int8_matmul`: bf16(x) @ bf16(w_q), f32 accumulation, × scales, then
+  x.dtype (csrc/int8_matmul.cu; replaces quant.py:90);
+- `int8_matmul_w8a8`: x quantized per (row, 512-column K block) to int8,
+  int8 × int8 → int32 per block, × the row's block scale, summed in f32, ×
+  scales (csrc/int8_matmul_w8a8.cu; replaces quant.py:163);
+- `int4_matmul`: each 128-row group's bf16 product with the raw nibbles,
+  summed in f32, times that group's scales (csrc/int4_matmul.cu; replaces
+  quant.py:319);
+- `int4_matmul_smallm`: bf16(nibble · scale) dequantized in f32, then one
+  bf16 product with f32 accumulation, equal to `int4_matmul_xla`
+  (csrc/int4_matmul_smallm.cu; replaces quant.py:407).
+
+`models.qwen2._lora_dense` routes by M = rows of x, as the JAX TPU route
+does without its Mosaic gates (block divisibility, the 8-row pad,
+`interpret`): int4 M < PALLAS_INT4_MIN_M → `int4_matmul_smallm`, M up to
+PALLAS_DEQUANT_MAX_M → `int4_matmul`; int8 M up to PALLAS_DEQUANT_MAX_M →
+`int8_matmul`; above the cut (the prefill) → `int4_matmul_xla` /
+`int8_matmul_xla`, dequantize + one large product, the JAX package's own
+XLA path for compute-bound prefill.
+
+Departure from the TPU route: with MATMUL_MODE == "w8a8" the port runs
+`int8_matmul_w8a8` for every M. JAX on a TPU sends a w8a8 matmul whose M is
+not a multiple of its 256-row block to the w8 XLA path (qwen2.py
+`_int8_shapes_ok`), a Mosaic block gate; the port's kernel masks ragged
+tiles, so w8a8 always runs the kernel, as the JAX comment on the route
+intends ("w8a8 always runs the Pallas kernel").
+
+The encoder-tower functions (`dense_w8a8_xla`, `quantize_encoder_tree`)
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from affectgpt_tpu_torch.ops import _build
+
+INT4_GROUP = 128  # K-rows per scale group (GPTQ/AWQ default)
+W8A8_BLOCK_K = 512  # activation-quantization block along K (JAX default block_k)
+
+# serving precision of int8 weights, read at each call: "w8" (bf16
+# activations) or "w8a8" (activations quantized to int8 in the kernel)
+MATMUL_MODE = "w8"
+# M above which a quantized matmul takes the dequantize + matmul route
+# (prefill, compute-bound) instead of the weight-streaming kernels
+PALLAS_DEQUANT_MAX_M = 1024
+# int4 M below which the small-M kernel runs (every b = 8 decode step)
+PALLAS_INT4_MIN_M = 16
+
+
+# ---------------------------------------------------------------------------
+# Formats
+
+
+def quantize_per_channel(w: torch.Tensor):
+    """[K, N] float → (int8 [K, N], scales f32 [1, N])."""
+    w = w.float()
+    absmax = w.abs().amax(dim=0, keepdim=True)
+    scale = absmax.clamp_min(1e-8) / 127.0
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_int4_grouped(w: torch.Tensor):
+    """[K, N] float → (packed int8 [K/2, N], scales f32 [K/128, N]).
+    Symmetric per-(128-row group, output-channel) quantization to [-7, 7];
+    byte[k, n] = (q[k + K/2, n] << 4) | (q[k, n] & 0xF)."""
+    k, n = w.shape
+    if k % (2 * INT4_GROUP):
+        raise ValueError(f"quantize_int4_grouped: K={k} is not a multiple of 2·{INT4_GROUP}")
+    wg = w.float().reshape(k // INT4_GROUP, INT4_GROUP, n)
+    absmax = wg.abs().amax(dim=1, keepdim=True)  # [G, 1, N]
+    scale = absmax.clamp_min(1e-8) / 7.0
+    q = torch.clamp(torch.round(wg / scale), -7, 7).to(torch.int32).reshape(k, n)
+    lo, hi = q[: k // 2], q[k // 2:]
+    return ((hi << 4) | (lo & 0xF)).to(torch.int8), scale[:, 0, :]
+
+
+def _unpack_int4(packed: torch.Tensor):
+    """Packed int8 bytes → (low-nibble, high-nibble) values, int8, signed:
+    the low nibble sign-extended by a shift up and an arithmetic shift
+    down, the high one by the arithmetic shift alone."""
+    return (packed << 4) >> 4, packed >> 4
+
+
+def _int4_values(w_p: torch.Tensor) -> torch.Tensor:
+    """Packed [K/2, N] → the int4 values [K, N], int8 (rows [0, K/2) from
+    the low nibbles)."""
+    return torch.cat(_unpack_int4(w_p), dim=0)
+
+
+def _int4_dequant(w_p: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Packed [K/2, N] and scales [K/128, N] → value · scale, f32 [K, N]."""
+    k, n = 2 * w_p.shape[0], w_p.shape[1]
+    q = _int4_values(w_p).reshape(k // INT4_GROUP, INT4_GROUP, n)
+    return (q * scales.float()[:, None, :]).reshape(k, n)
+
+
+def quantize_dense_tree(params, bits: int = 8):
+    """Quantize every 2-D 'w' leaf of a dense-params tree: {'w', 'b'?} →
+    {'w_q', 'scales', 'b'?} (bits=8) or {'w_q4', 'scales', 'b'?} (bits=4).
+    bits=4 leaves whose K is not a multiple of 2·INT4_GROUP take int8."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+
+    def visit(node):
+        if isinstance(node, dict):
+            if "w" in node and getattr(node["w"], "ndim", 0) == 2:
+                if bits == 4 and node["w"].shape[0] % (2 * INT4_GROUP) == 0:
+                    w_p, scales = quantize_int4_grouped(node["w"])
+                    out = {"w_q4": w_p, "scales": scales}
+                else:
+                    w_q, scales = quantize_per_channel(node["w"])
+                    out = {"w_q": w_q, "scales": scales}
+                if "b" in node:
+                    out["b"] = node["b"]
+                return out
+            return {k: visit(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [visit(v) for v in node]
+        return node
+
+    return visit(params)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the CPU path, and the oracle of each kernel on the card)
+
+
+def int8_matmul_reference(x, w_q, scales):
+    """bf16(x) @ bf16(w_q) accumulated in f32, × scales, → x.dtype."""
+    y = x.to(torch.bfloat16).float() @ w_q.float()
+    return (y * scales.float()).to(x.dtype)
+
+
+def int8_matmul_w8a8_reference(x, w_q, scales):
+    """Per (row, K block): sx = max(absmax, 1e-8)/127, xq = clip(round(x/sx))
+    (half to even); each block's integer product, exact in f32, times sx,
+    summed over blocks in f32; × scales; → x.dtype."""
+    m, k = x.shape
+    kb = min(W8A8_BLOCK_K, k)
+    xf = x.float().reshape(m, k // kb, kb)
+    sx = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    xq = torch.clamp(torch.round(xf / sx), -127, 127)
+    wf = w_q.float().reshape(k // kb, kb, -1)
+    acc = torch.zeros((m, wf.shape[-1]), dtype=torch.float32, device=x.device)
+    for blk in range(k // kb):
+        acc = acc + (xq[:, blk] @ wf[blk]) * sx[:, blk]
+    return (acc * scales.float()).to(x.dtype)
+
+
+def int4_matmul_reference(x, w_p, scales):
+    """Each 128-row group: bf16(x) against the raw int4 values, f32 sum,
+    times the group's scales [N]; the groups summed in f32; → x.dtype."""
+    m, k = x.shape
+    xb = x.to(torch.bfloat16).float()
+    q = _int4_values(w_p).float()
+    sc = scales.float()
+    acc = torch.zeros((m, q.shape[1]), dtype=torch.float32, device=x.device)
+    for g in range(k // INT4_GROUP):
+        rows = slice(g * INT4_GROUP, (g + 1) * INT4_GROUP)
+        acc = acc + (xb[:, rows] @ q[rows]) * sc[g]
+    return acc.to(x.dtype)
+
+
+def int4_matmul_smallm_reference(x, w_p, scales):
+    """bf16(int4 value · scale) computed in f32, then bf16(x) @ that, f32
+    accumulation, → x.dtype (the semantics of `int4_matmul_xla`)."""
+    w = _int4_dequant(w_p, scales).to(torch.bfloat16).float()
+    return (x.to(torch.bfloat16).float() @ w).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The dequantize + matmul route of large M (JAX's XLA path for prefill)
+
+
+def int8_matmul_xla(x, w_q, scales):
+    """bf16(x) @ bf16(w_q) with its f32 sum, × scales in f32, rounded once
+    to x.dtype. On the card one bf16 product on a transient bf16 copy of
+    the weight writes the f32 sum (`out_dtype`); on the CPU the f32 product
+    of the same values."""
+    xb = x.to(torch.bfloat16)
+    if x.is_cuda:
+        y = torch.mm(xb, w_q.to(torch.bfloat16), out_dtype=torch.float32)
+    else:
+        y = xb.float() @ w_q.float()
+    return (y * scales.float()).to(x.dtype)
+
+
+def int4_matmul_xla(x, w_p, scales):
+    """bf16(x) @ bf16(int4 value · scale), in x's dtype, through a transient
+    dequantized weight."""
+    w = _int4_dequant(w_p, scales).to(torch.bfloat16).to(x.dtype)
+    return torch.matmul(x.to(torch.bfloat16).to(x.dtype), w).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+
+# tile shapes of csrc/quant_mma.cuh: (rows, columns) of x / y per block, for
+# M <= 16 and for larger M; K advances in units of 64 rows (int8, w8a8) or
+# 128 packed rows (int4)
+_SMALL_TILE, _LARGE_TILE = (16, 128), (128, 64)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _split_k(x, m: int, n: int, k_units: int, unit_multiple: int = 1):
+    """Split the K loop over enough blocks to give the card about two per
+    SM: returns (K units per split, splits). A split's units are a multiple
+    of `unit_multiple`. Partial sums of the splits are reduced in a fixed
+    order by a second launch."""
+    bm, bn = _SMALL_TILE if m <= 16 else _LARGE_TILE
+    tiles = -(-m // bm) * -(-n // bn)
+    groups = k_units // unit_multiple
+    splits = min(groups, max(1, -(-2 * _sm_count(x.device.index or 0) // tiles)))
+    per = -(-groups // splits) * unit_multiple
+    return per, -(-k_units // per)
+
+
+def _check_operands(name, x, w, scales, w_rows: int, scale_rows: int, k_multiple: int):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if x.dim() != 2 or w.dim() != 2 or scales.dim() != 2:
+        raise ValueError(f"{name}: x, weight and scales must be 2-D")
+    m, k = x.shape
+    n = w.shape[1]
+    for t in (w, scales):
+        if t.device != x.device:
+            raise ValueError(f"{name}: all operands must be on one device")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name} kernel takes bfloat16 activations, got {x.dtype}")
+    if w.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"{name} kernel takes int8 weights and float32 scales, "
+                        f"got {w.dtype} and {scales.dtype}")
+    for t in (x, w, scales):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel takes contiguous, 16-byte aligned tensors")
+    if tuple(w.shape) != (w_rows, n) or tuple(scales.shape) != (scale_rows, n):
+        raise ValueError(f"{name}: weight {tuple(w.shape)} or scales {tuple(scales.shape)} "
+                         f"do not match x {tuple(x.shape)}")
+    if m == 0 or n % 16 or k % k_multiple:
+        raise ValueError(f"{name} kernel needs M > 0, N % 16 == 0 and K % {k_multiple} == 0 "
+                         f"(M={m}, N={n}, K={k})")
+    return m, n, k
+
+
+def _launch_bf16_mma(name, entry, x, w, scales, m, n, k_units):
+    per, splits = _split_k(x, m, n, k_units)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    partial = torch.empty((splits, m, n) if splits > 1 else (0,), dtype=torch.float32,
+                          device=x.device)
+    status = getattr(_build.load_library(), entry)(
+        x.data_ptr(), w.data_ptr(), scales.data_ptr(), y.data_ptr(), partial.data_ptr(),
+        m, n, x.shape[1], per, splits, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, name)
+    return y
+
+
+def int8_matmul(x, w_q, scales):
+    """x [M, K] @ dequant(w_q int8 [K, N], scales [1, N]) → [M, N] x.dtype."""
+    if x.device.type == "cpu":
+        return int8_matmul_reference(x, w_q, scales)
+    m, n, k = _check_operands("int8_matmul", x, w_q, scales, x.shape[-1], 1, 64)
+    y = _launch_bf16_mma("int8_matmul", "agk_int8_matmul", x, w_q, scales, m, n, k // 64)
+    int8_matmul.launches += 1
+    return y
+
+
+def int4_matmul(x, w_p, scales):
+    """x [M, K] @ dequant(w_p int4-packed [K/2, N], scales [K/128, N]) →
+    [M, N] x.dtype, the group scales applied to f32 partial sums."""
+    if x.device.type == "cpu":
+        return int4_matmul_reference(x, w_p, scales)
+    k = x.shape[-1]
+    m, n, k = _check_operands("int4_matmul", x, w_p, scales, k // 2, k // INT4_GROUP,
+                              2 * INT4_GROUP)
+    y = _launch_bf16_mma("int4_matmul", "agk_int4_matmul", x, w_p, scales, m, n,
+                         k // (2 * INT4_GROUP))
+    int4_matmul.launches += 1
+    return y
+
+
+def int4_matmul_smallm(x, w_p, scales):
+    """Decode-shaped int4 matmul: the same contract as `int4_matmul`, the
+    weights dequantized with their scales before the product."""
+    if x.device.type == "cpu":
+        return int4_matmul_smallm_reference(x, w_p, scales)
+    k = x.shape[-1]
+    m, n, k = _check_operands("int4_matmul_smallm", x, w_p, scales, k // 2,
+                              k // INT4_GROUP, 2 * INT4_GROUP)
+    y = _launch_bf16_mma("int4_matmul_smallm", "agk_int4_matmul_smallm", x, w_p, scales, m, n,
+                         k // (2 * INT4_GROUP))
+    int4_matmul_smallm.launches += 1
+    return y
+
+
+def int8_matmul_w8a8(x, w_q, scales):
+    """x [M, K] quantized per (row, 512-column block) in the kernel, then
+    int8 × int8 products → [M, N] x.dtype. Two launches (quantize x, then
+    the product), plus the fixed-order reduce of the K splits when there
+    are several."""
+    if x.device.type == "cpu":
+        return int8_matmul_w8a8_reference(x, w_q, scales)
+    m, n, k = _check_operands("int8_matmul_w8a8", x, w_q, scales, x.shape[-1], 1, 64)
+    qblock = min(W8A8_BLOCK_K, k)
+    if k % qblock:
+        raise ValueError(f"int8_matmul_w8a8 kernel needs K % {qblock} == 0 (K={k})")
+    per, splits = _split_k(x, m, n, k // 64, unit_multiple=qblock // 64)
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty((m, k // qblock), dtype=torch.float32, device=x.device)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    partial = torch.empty((splits, m, n) if splits > 1 else (0,), dtype=torch.float32,
+                          device=x.device)
+    status = _build.load_library().agk_int8_matmul_w8a8(
+        x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+        y.data_ptr(), partial.data_ptr(), m, n, k, qblock, per, splits,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, "int8_matmul_w8a8")
+    int8_matmul_w8a8.launches += 1
+    return y
+
+
+# wrapper calls that launched their kernels since the last reset
+int8_matmul.launches = 0
+int8_matmul_w8a8.launches = 0
+int4_matmul.launches = 0
+int4_matmul_smallm.launches = 0
+

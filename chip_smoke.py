@@ -19,21 +19,35 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    545-564 left-packed into t = 564 (prefill); `library_ms` times one PyTorch
    call that computes the same function (scaled_dot_product_attention with
    GQA and a bool mask), a yardstick the port never calls. `bound_ms` is
-   the least time the card could take: bytes moved at 3.35 TB/s or bf16
-   operations at 989 TFLOP/s, whichever is larger, counted from this run's
-   inputs (valid cache columns and visible key pairs only).
+   the least time the card could take: bytes moved at 3.35 TB/s or
+   operations at 989 TFLOP/s (bf16) or 1979 TOPS (int8), whichever is
+   larger, counted from this run's inputs (valid cache columns and visible
+   key pairs only). The four quantized matmuls are checked at every (K, N)
+   of the 7B split and fused layouts and the lm_head, at the M the main path
+   routes to each plus a ragged one; their times are per decoder layer at
+   the main path's M (the sum of the layer's products, each timed alone),
+   with `bf16_cublas_ms`, torch.matmul on the same weights dequantized to
+   bf16, as a yardstick of the unquantized product that no path runs.
 4. Main path: bootstrap.build_model at Qwen2.5-7B width with random bf16
    weights from a seed, LoRA merged by serving_llm, then Chat.answer_batch
    on 8 preextracted clips, greedy, 32 new tokens, under three attention
    configurations of models/qwen2.py: the default (plain attention), (a)
    PREFILL_ATTENTION="flash" with DECODE_ATTN_O="pallas", and (b)
-   PREFILL_ATTENTION="flash" with DECODE_ATTENTION="pallas". Each run must
-   launch every kernel of its configuration exactly as often as the path
-   calls it (layers x steps on the decode step, layers on the prefill) and
-   the others not at all; all logits must be finite, 8 strings must come
-   back. Then each configuration is timed twice, in the order default, a,
-   b, b, a, default; prints peak memory and the mean prefill ms, decode ms
-   per step and clips/s of the two visits, with each visit's numbers.
+   PREFILL_ATTENTION="flash" with DECODE_ATTENTION="pallas"; then under five
+   quantized configurations of the same merged weights, built as
+   inference_hybird.py builds them (fuse_qkv_gateup, then quantize_params):
+   q4 (int4, b = 8), q4_b16 (the same tree, 16 clips), decode_llm (bf16
+   prefill, generate(decode_llm=) with the int4 tree for the decode loop,
+   as bench.py's mixed-precision mode calls it), q8_fused (qkv and gate/up
+   fused, int8) and q8a8 (int8, MATMUL_MODE="w8a8"). Each run must launch
+   every kernel of its configuration exactly as often as the path calls it
+   and the others not at all; all logits must be finite, one string per
+   clip must come back. Then each configuration is timed in the order
+   default, a, b, q4, q4_b16, decode_llm, q8_fused, q8a8 and back, (a) and
+   (b) only on the way there (their numbers stand in PERF.md since they
+   were ported; the quantized decode steps make this phase long); prints
+   peak memory and the mean prefill ms, decode ms per step and clips/s of
+   the visits, with each visit's numbers.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -43,10 +57,12 @@ phase passed. Every time printed carries the card's name and power limit.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -55,7 +71,7 @@ from affectgpt_tpu_torch import bootstrap
 from affectgpt_tpu_torch.inference import generate as gen
 from affectgpt_tpu_torch.inference.chat import Chat
 from affectgpt_tpu_torch.models import affectgpt, qwen2
-from affectgpt_tpu_torch.ops import _build
+from affectgpt_tpu_torch.ops import _build, quant
 from affectgpt_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
 from affectgpt_tpu_torch.ops.decode_attn_o import decode_attn_o, decode_attn_o_reference
 from affectgpt_tpu_torch.ops.decode_mlp_bf16 import decode_mlp_bf16, decode_mlp_bf16_reference
@@ -74,6 +90,7 @@ BATCH = 8
 MAX_LEN = 640
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, device memory
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
+S8_OPS_PER_S = 1979e12  # H100 SXM, dense int8 tensor cores
 KERNELS = {
     "decode_qkv": {
         "source": "affectgpt_tpu_torch/csrc/decode_qkv.cu",
@@ -95,10 +112,28 @@ KERNELS = {
         "source": "affectgpt_tpu_torch/csrc/prefill_attention.cu",
         "replaces": "affectgpt_tpu/models/qwen2.py:681",
     },
+    "int4_matmul_smallm": {
+        "source": "affectgpt_tpu_torch/csrc/int4_matmul_smallm.cu",
+        "replaces": "affectgpt_tpu/ops/quant.py:407",
+    },
+    "int4_matmul": {
+        "source": "affectgpt_tpu_torch/csrc/int4_matmul.cu",
+        "replaces": "affectgpt_tpu/ops/quant.py:319",
+    },
+    "int8_matmul": {
+        "source": "affectgpt_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "affectgpt_tpu/ops/quant.py:90",
+    },
+    "int8_matmul_w8a8": {
+        "source": "affectgpt_tpu_torch/csrc/int8_matmul_w8a8.cu",
+        "replaces": "affectgpt_tpu/ops/quant.py:163",
+    },
 }
 WRAPPERS = {"decode_qkv": decode_qkv, "decode_mlp_bf16": decode_mlp_bf16,
             "decode_attention": decode_attention, "decode_attn_o": decode_attn_o,
-            "prefill_attention": prefill_attention}
+            "prefill_attention": prefill_attention,
+            "int4_matmul_smallm": quant.int4_matmul_smallm, "int4_matmul": quant.int4_matmul,
+            "int8_matmul": quant.int8_matmul, "int8_matmul_w8a8": quant.int8_matmul_w8a8}
 
 
 def say(phase: str, **fields) -> None:
@@ -176,10 +211,10 @@ def graph_ms(calls, reps: int = 20) -> float:
     return ms
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, ops_per_s: float = BF16_FLOP_PER_S) -> dict:
     """The least time the card could take for work that moves `nbytes` and
-    does `flops` bf16 operations, and which of the two bounds it."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    does `flops` operations at `ops_per_s`, and which of the two bounds it."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / ops_per_s * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -386,6 +421,119 @@ def phase_attention_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
     return out
 
 
+def layer_shapes(cfg: qwen2.QwenConfig, fused: bool) -> dict:
+    """(K, N) of one decoder layer's products, split or fused layout."""
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    nq, nkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    if fused:
+        return {"qkv_proj": (h, nq + 2 * nkv), "o_proj": (nq, h), "gateup_proj": (h, 2 * inter),
+                "down_proj": (inter, h)}
+    return {"q_proj": (h, nq), "k_proj": (h, nkv), "v_proj": (h, nkv), "o_proj": (nq, h),
+            "gate_proj": (h, inter), "up_proj": (h, inter), "down_proj": (inter, h)}
+
+
+# kernel: (weight bits, plain version, the M checked, the main path's M, its
+# layer layout is fused, its operation rate)
+QUANT_PHASE = {
+    "int4_matmul_smallm": (4, quant.int4_matmul_smallm_reference, (1, 8, 13), 8, False,
+                           BF16_FLOP_PER_S),
+    "int4_matmul": (4, quant.int4_matmul_reference, (16, 64, 1000), 16, False, BF16_FLOP_PER_S),
+    "int8_matmul": (8, quant.int8_matmul_reference, (8, 64, 1000), 8, True, BF16_FLOP_PER_S),
+    "int8_matmul_w8a8": (8, quant.int8_matmul_w8a8_reference, (8, 4512), 8, False,
+                         S8_OPS_PER_S),
+}
+
+
+def phase_quant_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
+    """The quantized matmuls against their plain versions at every (K, N) of
+    the 7B split and fused layouts and the lm_head, with random int8 bytes
+    or int4 nibbles and random positive scales (so a wrong scale row shows).
+    Returns per-kernel {max_abs_err, ms, plain_ms, bf16_cublas_ms, bound_ms,
+    bound_by, library_ms}: device times summed over one decoder layer's
+    products at the main path's M, each product timed alone (CUDA graph,
+    enough weight copies per replay to exceed the 50 MB L2)."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    shapes = {**layer_shapes(cfg, False), **layer_shapes(cfg, True),
+              "lm_head": (cfg.hidden_size, cfg.vocab_size)}
+    by_kn = {}
+    for name, kn in shapes.items():
+        by_kn.setdefault(kn, []).append(name)
+
+    def weights(bits, k, n):
+        sigma = k ** -0.5
+        if bits == 4:
+            w = torch.randint(-128, 128, (k // 2, n), generator=g, device="cuda",
+                              dtype=torch.int8)
+            s = (torch.rand((k // quant.INT4_GROUP, n), generator=g, device="cuda") + 0.5) \
+                * (3 * sigma / 7)
+        else:
+            w = torch.randint(-127, 128, (k, n), generator=g, device="cuda", dtype=torch.int8)
+            s = (torch.rand((1, n), generator=g, device="cuda") + 0.5) * (3 * sigma / 127)
+        return w, s
+
+    def dequant_bf16(bits, w, s):
+        if bits == 4:
+            return quant._int4_dequant(w, s).to(torch.bfloat16)
+        return (w.float() * s).to(torch.bfloat16)
+
+    stored = {bits: {kn: weights(bits, *kn) for kn in by_kn} for bits in (4, 8)}
+    out = {}
+    for name, (bits, plain, ms_checked, m_path, fused, ops_rate) in QUANT_PHASE.items():
+        kernel = getattr(quant, name)
+        err_max = 0.0
+        for (k, n), names in by_kn.items():
+            w, s = stored[bits][(k, n)]
+            for m in ms_checked:
+                x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+                err, rel = compare(name, kernel(x, w, s), plain(x, w, s), m)
+                err_max = max(err_max, err)
+                say("kernels", kernel=name, M=m, K=k, N=n, shapes="/".join(names),
+                    max_abs_err=f"{err:.6g}", max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL)
+        # the main path's M first; w8a8 also at its prefill M
+        per_layer = []
+        for m in (m_path, max(ms_checked)) if name == "int8_matmul_w8a8" else (m_path,):
+            layer = layer_shapes(cfg, fused)
+            sums = dict.fromkeys(("ms", "plain_ms", "bf16_cublas_ms"), 0.0)
+            nbytes = flops = 0
+            for pname, (k, n) in {**layer, "lm_head": shapes["lm_head"]}.items():
+                w, s = stored[bits][(k, n)]
+                x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+                wbytes = w.numel() + s.numel() * 4  # packed weight and its f32 scales
+                copies = max(1, -(-64 * 2**20 // wbytes))
+                ws = [(w, s)] + [(w.clone(), s.clone()) for _ in range(copies - 1)]
+                wb = dequant_bf16(bits, w, s)
+                bcopies = max(1, -(-64 * 2**20 // (wb.numel() * 2)))
+                wbs = [wb] + [wb.clone() for _ in range(bcopies - 1)]
+                times = {
+                    "ms": graph_ms([lambda w=w, s=s: kernel(x, w, s) for w, s in ws]
+                                   * max(1, -(-8 // copies))),
+                    "plain_ms": graph_ms([lambda: plain(x, w, s)] * 2, reps=5),
+                    "bf16_cublas_ms": graph_ms([lambda wb=wb: torch.matmul(x, wb) for wb in wbs]
+                                               * max(1, -(-8 // bcopies))),
+                }
+                moved, ops = 2 * m * k + wbytes + 2 * m * n, 2 * m * k * n
+                cost = bound(moved, ops, ops_rate)
+                say("kernels", kernel=name, M=m, product=pname, K=k, N=n,
+                    **{key: f"{v:.5f}" for key, v in times.items()},
+                    bound_ms=f"{cost['bound_ms']:.5f}", bound_by=cost["bound_by"],
+                    GB_per_s=f"{moved / times['ms'] / 1e6:.1f}", card=repr(card))
+                if pname != "lm_head":
+                    for key in sums:
+                        sums[key] += times[key]
+                    nbytes, flops = nbytes + moved, flops + ops
+                del ws, wbs, wb
+            sums.update(bound(nbytes, flops, ops_rate))
+            say("kernels", kernel=name, M=m, per="decoder layer (" + ", ".join(layer) + ")",
+                **{key: f"{v:.5f}" if isinstance(v, float) else v for key, v in sums.items()},
+                card=repr(card))
+            per_layer.append(sums)
+        out[name] = {"max_abs_err": err_max, "library_ms": None, **per_layer[0]}
+        torch.cuda.empty_cache()
+    del stored
+    torch.cuda.empty_cache()
+    return out
+
+
 SUBTITLES = [
     "I can't believe you did that for me.",
     "Leave me alone, I said I'm fine.",
@@ -399,15 +547,59 @@ SUBTITLES = [
 QUESTION = "Please recognize all possible emotional states of the character."
 
 
-# the attention configurations of the main path: qwen2 switches, and the
-# kernels that each decode step and each prefill must launch once per layer
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """A configuration of the main path. `launches(layers)` gives the count
+    each kernel must reach in one answer; every other kernel stays at 0."""
+    launches: Callable[[int], dict]
+    switches: dict = dataclasses.field(default_factory=dict)  # qwen2 attention switches
+    tree: str = "bf16"  # the serving tree (serving_tree)
+    batch: int = BATCH
+    matmul_mode: str = "w8"  # quant.MATMUL_MODE
+    decode_only: bool = False  # the tree serves only the decode loop (generate's decode_llm)
+
+
+# decode kernels run once per layer and step, prefill kernels once per layer;
+# a quantized product runs per layer (7 split, 4 fused) plus the lm_head on
+# every decode step, and on the prefill only where its M is routed to the
+# kernel: the prefill's lm_head (last token, M = batch), and every product
+# under w8a8
+N = NEW_TOKENS
 CONFIGS = {
-    "default": ({}, ("decode_qkv", "decode_mlp_bf16"), ()),
-    "a": ({"PREFILL_ATTENTION": "flash", "DECODE_ATTN_O": "pallas"},
-          ("decode_qkv", "decode_mlp_bf16", "decode_attn_o"), ("prefill_attention",)),
-    "b": ({"PREFILL_ATTENTION": "flash", "DECODE_ATTENTION": "pallas"},
-          ("decode_qkv", "decode_mlp_bf16", "decode_attention"), ("prefill_attention",)),
+    "default": Config(lambda L: {"decode_qkv": N * L, "decode_mlp_bf16": N * L}),
+    "a": Config(lambda L: {"decode_qkv": N * L, "decode_mlp_bf16": N * L, "decode_attn_o": N * L,
+                           "prefill_attention": L},
+                {"PREFILL_ATTENTION": "flash", "DECODE_ATTN_O": "pallas"}),
+    "b": Config(lambda L: {"decode_qkv": N * L, "decode_mlp_bf16": N * L,
+                           "decode_attention": N * L, "prefill_attention": L},
+                {"PREFILL_ATTENTION": "flash", "DECODE_ATTENTION": "pallas"}),
+    "q4": Config(lambda L: {"int4_matmul_smallm": N * (7 * L + 1) + 1}, tree="int4"),
+    "q4_b16": Config(lambda L: {"int4_matmul": N * (7 * L + 1) + 1}, tree="int4", batch=16),
+    "decode_llm": Config(lambda L: {"int4_matmul_smallm": N * (7 * L + 1)}, tree="int4",
+                         decode_only=True),
+    "q8_fused": Config(lambda L: {"int8_matmul": N * (4 * L + 1) + 1}, tree="int8_fused"),
+    "q8a8": Config(lambda L: {"int8_matmul_w8a8": (N + 1) * (7 * L + 1)}, tree="int8",
+                   matmul_mode="w8a8"),
 }
+
+
+def serving_tree(llm: dict, cfg: qwen2.QwenConfig, tree: str) -> dict:
+    """The merged bf16 LLM in a serving form of CONFIGS, built in the order of
+    inference_hybird.py: fuse (optionally), then quantize."""
+    if tree == "bf16":
+        return llm
+    if tree == "int8_fused":
+        return qwen2.quantize_params(qwen2.fuse_qkv_gateup(llm, cfg), bits=8)
+    return qwen2.quantize_params(llm, bits={"int4": 4, "int8": 8}[tree])
+
+
+def tree_gib(tree) -> float:
+    """GiB of every tensor of a parameter tree."""
+    if isinstance(tree, dict):
+        return sum(tree_gib(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_gib(v) for v in tree)
+    return tree.numel() * tree.element_size() / 2**30 if isinstance(tree, torch.Tensor) else 0.0
 
 
 def wall(fn, reps=3):
@@ -423,34 +615,71 @@ def wall(fn, reps=3):
 
 
 @contextlib.contextmanager
-def attention_config(config: str):
-    """Set the qwen2 attention switches of a configuration of CONFIGS for the
-    duration of the block."""
-    switches = CONFIGS[config][0]
-    saved = {name: getattr(qwen2, name) for name in switches}
-    for name, value in switches.items():
-        setattr(qwen2, name, value)
+def config_switches(config: str):
+    """Set the qwen2 attention switches and quant.MATMUL_MODE of a
+    configuration of CONFIGS for the duration of the block."""
+    c = CONFIGS[config]
+    settings = [(qwen2, name, value) for name, value in c.switches.items()]
+    settings.append((quant, "MATMUL_MODE", c.matmul_mode))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in settings]
+    for mod, name, value in settings:
+        setattr(mod, name, value)
     try:
         yield
     finally:
-        for name, value in saved.items():
-            setattr(qwen2, name, value)
+        for mod, name, value in saved:
+            setattr(mod, name, value)
 
 
+# configurations timed once, on the way there only
+TIMED_ONCE = ("a", "b")
 MODE = "multiface_audio_face_frame_text"
 
 
-def counted_run(config: str, chat: Chat, feats: dict, baseline: dict) -> dict:
-    """One answer_batch under a configuration, with every kernel count set
-    to 0 just before it and read just after; asserts the exact launch
-    counts, finite logits and 8 strings. `baseline` receives the default
-    configuration's first-token logits and strings, which the others are
-    compared with (printed, not asserted: in bf16 the kernels may round
-    differently from the plain chain)."""
-    switches, decode_kernels, prefill_kernels = CONFIGS[config]
-    layers = chat.cfg.llm.num_layers
-    expected = {name: layers * NEW_TOKENS if name in decode_kernels
-                else layers if name in prefill_kernels else 0 for name in KERNELS}
+class Served:
+    """One configuration's requests: `answer` is the user's call (Chat.
+    answer_batch, or for a decode-only tree generate(decode_llm=) on the
+    spliced prompts, as bench.py calls it), `generate(n)` the prefill + n
+    decode steps on the same spliced embeddings."""
+
+    def __init__(self, chat: Chat, feats: dict, subtitles: list, decode_llm=None):
+        self.chat, self.feats, self.subtitles, self.decode_llm = chat, feats, subtitles, decode_llm
+        ids, lengths, offsets = chat.build_prompt_batch(MODE, subtitles, QUESTION)
+        self.prompt_tokens = ids.shape[1]
+        self.embeds = affectgpt.build_inputs_embeds(
+            chat.frozen, chat.trainable, chat.cfg,
+            torch.as_tensor(ids, dtype=torch.long, device="cuda"), feats,
+            {m: torch.as_tensor(v, dtype=torch.long, device="cuda") for m, v in offsets.items()})
+        self.lengths = torch.as_tensor(lengths, device="cuda")
+
+    def generate(self, n: int):
+        gcfg = gen.GenerateConfig(max_new_tokens=n, do_sample=False,
+                                  eos_token_id=self.chat.tokenizer.eos_token_id)
+        return gen.generate(self.chat.frozen["llm"], self.chat.cfg.llm, gcfg, self.embeds,
+                            self.lengths, None, max_len=self.chat.max_len,
+                            decode_llm=self.decode_llm)
+
+    def answer(self) -> list:
+        if self.decode_llm is None:
+            return self.chat.answer_batch(MODE, self.subtitles, QUESTION, self.feats,
+                                          max_new_tokens=NEW_TOKENS, do_sample=False)
+        tokens, num_valid = self.generate(NEW_TOKENS)
+        tokens, num_valid = tokens.cpu().numpy(), num_valid.cpu().numpy()
+        return [gen.trim_output_text(self.chat.tokenizer.decode(row[:int(nv)],
+                                                                skip_special_tokens=True))
+                for row, nv in zip(tokens, num_valid)]
+
+
+def counted_run(config: str, served: Served, baseline: dict) -> dict:
+    """One answer under a configuration, with every kernel count set to 0
+    just before it and read just after; asserts the exact launch counts,
+    finite logits and one string per clip. `baseline` receives the default
+    configuration's first-token logits and strings, which the others' first
+    8 rows are compared with (printed, not asserted: in bf16 the kernels
+    round differently from the plain chain, and the quantized trees hold
+    other weights)."""
+    c = CONFIGS[config]
+    expected = {**dict.fromkeys(KERNELS, 0), **c.launches(served.chat.cfg.llm.num_layers)}
     finite, logits = [], []
     forward = qwen2.forward
 
@@ -458,28 +687,28 @@ def counted_run(config: str, chat: Chat, feats: dict, baseline: dict) -> dict:
         out, cache = forward(*args, **kwargs)
         finite.append(torch.isfinite(out).all())
         if not logits:
-            logits.append(out[:, -1].float())
+            logits.append(out[:BATCH, -1].float())
         return out, cache
 
-    with attention_config(config):
+    with config_switches(config):
         qwen2.forward = checked_forward
         for wrapper in WRAPPERS.values():
             wrapper.launches = 0
         try:
-            texts = chat.answer_batch(MODE, SUBTITLES, QUESTION, feats,
-                                      max_new_tokens=NEW_TOKENS, do_sample=False)
+            texts = served.answer()
             torch.cuda.synchronize()
         finally:
             qwen2.forward = forward
     launches = {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
-    say("main", config=config, switches=json.dumps(switches), launches=json.dumps(launches),
-        forwards=len(finite), strings=len(texts))
+    say("main", config=config, tree=c.tree, batch=c.batch, matmul_mode=c.matmul_mode,
+        switches=json.dumps(c.switches), launches=json.dumps(launches), forwards=len(finite),
+        strings=len(texts))
     if launches != expected:
         raise AssertionError(f"config {config}: kernel launches {launches} != {expected}")
     if len(finite) != NEW_TOKENS + 1 or not bool(torch.stack(finite).all()):
         raise AssertionError(f"config {config}: non-finite logits on the main path")
-    if len(texts) != BATCH or not all(isinstance(t, str) for t in texts):
-        raise AssertionError(f"config {config}: expected {BATCH} strings, got {texts!r}")
+    if len(texts) != c.batch or not all(isinstance(t, str) for t in texts):
+        raise AssertionError(f"config {config}: expected {c.batch} strings, got {texts!r}")
     say("main", config=config, sample=json.dumps(texts[0][:60]))
     if config == "default":
         baseline.update(logits=logits[0], texts=texts)
@@ -491,61 +720,72 @@ def counted_run(config: str, chat: Chat, feats: dict, baseline: dict) -> dict:
     return launches
 
 
-def timed_run(config: str, chat: Chat, feats: dict) -> dict:
-    """Wall times of one configuration: whole answer_batch calls, then
-    prefill alone (0 new tokens) and prefill + decode on the same spliced
-    embeddings; peak device memory over them."""
-    cfg = chat.cfg
-    ids, lengths, offsets = chat.build_prompt_batch(MODE, SUBTITLES, QUESTION)
-    embeds = affectgpt.build_inputs_embeds(
-        chat.frozen, chat.trainable, cfg, torch.as_tensor(ids, dtype=torch.long, device="cuda"),
-        feats, {m: torch.as_tensor(v, dtype=torch.long, device="cuda") for m, v in offsets.items()})
-    lengths_t = torch.as_tensor(lengths, device="cuda")
-
-    def run(n):
-        gcfg = gen.GenerateConfig(max_new_tokens=n, do_sample=False,
-                                  eos_token_id=chat.tokenizer.eos_token_id)
-        return gen.generate(chat.frozen["llm"], cfg.llm, gcfg, embeds, lengths_t, None,
-                            max_len=chat.max_len)
-
-    with attention_config(config):
+def timed_run(config: str, served: Served) -> dict:
+    """Wall times of one configuration: whole answers, then prefill alone
+    (0 new tokens) and prefill + decode on the same spliced embeddings; peak
+    device memory over them, and the part of it above what was allocated
+    before (caches and activations)."""
+    batch = CONFIGS[config].batch
+    with config_switches(config):
         torch.cuda.reset_peak_memory_stats()
-        total_ms = wall(lambda: chat.answer_batch(MODE, SUBTITLES, QUESTION, feats,
-                                                  max_new_tokens=NEW_TOKENS, do_sample=False))
-        prefill_ms = wall(lambda: run(0))
-        decode_ms = (wall(lambda: run(NEW_TOKENS)) - prefill_ms) / NEW_TOKENS
-    return {"prompt_tokens": ids.shape[1], "answer_batch_ms": total_ms, "prefill_ms": prefill_ms,
-            "decode_ms_per_step": decode_ms, "clips_per_s": BATCH / (total_ms / 1e3),
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        resident = torch.cuda.memory_allocated()
+        total_ms = wall(served.answer)
+        prefill_ms = wall(lambda: served.generate(0))
+        decode_ms = (wall(lambda: served.generate(NEW_TOKENS)) - prefill_ms) / NEW_TOKENS
+    peak = torch.cuda.max_memory_allocated()
+    return {"answer_batch_ms": total_ms, "prefill_ms": prefill_ms,
+            "decode_ms_per_step": decode_ms, "clips_per_s": batch / (total_ms / 1e3),
+            "peak_mem_gib": peak / 2**30, "working_set_gib": (peak - resident) / 2**30}
 
 
 def phase_main_path(card: str) -> dict:
-    """Every configuration of CONFIGS on one model: a counted run each, then
-    timings in the order default, a, b, b, a, default, so that a drift of the
-    host over the phase weighs on every configuration alike. Returns each
+    """Every configuration of CONFIGS on one model, all serving trees
+    resident at once: a counted run each, then timings in the order of
+    CONFIGS and back (TIMED_ONCE only there), so that a drift of the host
+    over the phase weighs on the configurations alike. Returns each
     kernel's launch count from the first configuration that runs it."""
     cfg, frozen, trainable, tok = bootstrap.build_model(
         {"llama_model": "Qwen25", "keep_full_llm": True}, seed=0)
     frozen, trainable = bootstrap.serving_llm(frozen, trainable, cfg)
     assert cfg.llm == qwen2.QwenConfig.qwen25_7b(), cfg.llm
-    chat = Chat(frozen, trainable, cfg, tok, max_len=MAX_LEN)
     rng = np.random.RandomState(0)
     feats = {
-        m: torch.as_tensor(rng.randn(BATCH, 8, d).astype(np.float32), device="cuda").to(torch.bfloat16)
-        for m, d in (("frame", cfg.visual_dim), ("face", cfg.visual_dim), ("audio", cfg.acoustic_dim))
+        m: torch.as_tensor(rng.randn(BATCH, 8, d).astype(np.float32), device="cuda")
+        .to(torch.bfloat16)
+        for m, d in (("frame", cfg.visual_dim), ("face", cfg.visual_dim),
+                     ("audio", cfg.acoustic_dim))
     }
+    trees = {}
+    for tree in dict.fromkeys(c.tree for c in CONFIGS.values()):
+        t0 = time.perf_counter()
+        trees[tree] = serving_tree(frozen["llm"], cfg.llm, tree)
+        torch.cuda.synchronize()
+        say("main", tree=tree, weight_gib=f"{tree_gib(trees[tree]):.3f}",
+            build_seconds=f"{time.perf_counter() - t0:.3f}",
+            allocated_gib=f"{torch.cuda.memory_allocated() / 2**30:.3f}")
+    served = {}
+    for config, c in CONFIGS.items():
+        llm = frozen["llm"] if c.decode_only else trees[c.tree]
+        chat = Chat({**frozen, "llm": llm}, trainable, cfg, tok, max_len=MAX_LEN)
+        reps = c.batch // BATCH  # 16 clips: the 8 twice
+        served[config] = Served(chat, {m: v.repeat(reps, 1, 1) for m, v in feats.items()},
+                                SUBTITLES * reps, trees[c.tree] if c.decode_only else None)
     launches, baseline = {}, {}
     for config in CONFIGS:
-        for name, count in counted_run(config, chat, feats, baseline).items():
+        for name, count in counted_run(config, served[config], baseline).items():
             if count and name not in launches:
                 launches[name] = count
     visits = {config: [] for config in CONFIGS}
-    for config in (*CONFIGS, *reversed(CONFIGS)):
-        visits[config].append(timed_run(config, chat, feats))
+    for config in (*CONFIGS, *(c for c in reversed(CONFIGS) if c not in TIMED_ONCE)):
+        visits[config].append(timed_run(config, served[config]))
     for config, runs in visits.items():
+        c = CONFIGS[config]
         mean = {key: statistics.mean(r[key] for r in runs) for key in runs[0]}
-        say("main", config=config, prompt_tokens=runs[0]["prompt_tokens"], batch=BATCH,
-            new_tokens=NEW_TOKENS, peak_mem_gib=f"{max(r['peak_mem_gib'] for r in runs):.3f}",
+        weights = tree_gib(trees[c.tree]) + (tree_gib(frozen["llm"]) if c.decode_only else 0)
+        say("main", config=config, tree=c.tree, prompt_tokens=served[config].prompt_tokens,
+            batch=c.batch, new_tokens=NEW_TOKENS, weight_gib=f"{weights:.3f}",
+            peak_mem_gib=f"{max(r['peak_mem_gib'] for r in runs):.3f}",
+            working_set_gib=f"{max(r['working_set_gib'] for r in runs):.3f}",
             **{key: f"{mean[key]:.4f}" for key in
                ("prefill_ms", "decode_ms_per_step", "answer_batch_ms", "clips_per_s")},
             visits=json.dumps([{key: round(r[key], 4) for key in
@@ -560,6 +800,7 @@ def main() -> None:
     cfg = qwen2.QwenConfig.qwen25_7b()
     kernels = phase_kernels(card, cfg)
     kernels.update(phase_attention_kernels(card, cfg))
+    kernels.update(phase_quant_kernels(card, cfg))
     launches = phase_main_path(card)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -192,7 +192,7 @@ def test_switch_forward_and_generate_match_jax(switch, monkeypatch, fresh_jax_tr
                                positions=jnp.asarray(positions),
                                cache=jq.init_cache(jcfg, B, MAX_LEN, dtype=jnp.float32),
                                cache_index=jnp.int32(0), last_token_only=True)
-    tcache = tq.init_cache(tcfg, B, MAX_LEN, dtype=torch.float32)
+    tcache = tq.init_cache(tcfg, B, MAX_LEN, dtype=torch.float32, device="cpu")
     got, tcache = tq.forward(tllm, tcfg, torch.from_numpy(packed), torch.from_numpy(mask),
                              positions=torch.from_numpy(positions), cache=tcache,
                              cache_index=0, last_token_only=True)

@@ -6,7 +6,7 @@ card (and no jax), run them with
 Tolerance rtol 1.6e-2, atol 1e-2: both sides round to bf16 at the same
 points, so they differ by f32 summation order plus one final rounding (the
 prefill kernel also rounds p to bf16 for its PV product, as the TPU flash op
-does)."""
+does; the quantized matmuls round their f32 sums to bf16 once)."""
 
 import pytest
 import torch
@@ -15,6 +15,7 @@ from affectgpt_tpu_torch.ops.decode_attention import decode_attention, decode_at
 from affectgpt_tpu_torch.ops.decode_attn_o import decode_attn_o, decode_attn_o_reference
 from affectgpt_tpu_torch.ops.decode_mlp_bf16 import decode_mlp_bf16, decode_mlp_bf16_reference
 from affectgpt_tpu_torch.ops.decode_qkv import decode_qkv, decode_qkv_reference
+from affectgpt_tpu_torch.ops import quant
 from affectgpt_tpu_torch.ops.prefill_attention import (
     prefill_attention,
     prefill_attention_reference,
@@ -148,3 +149,64 @@ def test_attention_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):  # k not contiguous
         kt = _rnd(gen, 2, 40, 2, 64).transpose(1, 2)
         prefill_attention(_rnd(gen, 2, 40, 4, 64), kt, kt, mask)
+
+
+QUANT_KERNELS = {  # wrapper: (its plain version, weight bits)
+    "int8_matmul": (quant.int8_matmul_reference, 8),
+    "int8_matmul_w8a8": (quant.int8_matmul_w8a8_reference, 8),
+    "int4_matmul": (quant.int4_matmul_reference, 4),
+    "int4_matmul_smallm": (quant.int4_matmul_smallm_reference, 4),
+}
+# (K, N): one K unit with the whole product in one split (64 and 256), two
+# w8a8 activation blocks and K split over blocks (1024), a last column tile
+# that is only partly inside N (272)
+QUANT_CASES = [(name, k, n) for name, (_, bits) in QUANT_KERNELS.items()
+               for k, n in [(64, 256), (256, 128), (1024, 512), (512, 272)]
+               if bits == 8 or k % 256 == 0]
+
+
+def _quantized(gen, k, n, bits):
+    w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+    return quant.quantize_int4_grouped(w) if bits == 4 else quant.quantize_per_channel(w)
+
+
+@pytest.mark.parametrize("m", [1, 8, 13, 16, 40, 200])
+@pytest.mark.parametrize("name,k,n", QUANT_CASES)
+def test_quant_kernels_match_plain(gen, name, k, n, m):
+    plain, bits = QUANT_KERNELS[name]
+    kernel = getattr(quant, name)
+    w, scales = _quantized(gen, k, n, bits)
+    x = _rnd(gen, m, k)
+    before = kernel.launches
+    got = kernel(x, w, scales)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and got.shape == (m, n) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), plain(x, w, scales).float(), **TOL)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dequantize_route_matches_plain_at_prefill_m(gen, bits):
+    """The route above PALLAS_DEQUANT_MAX_M (cuBLAS on a transient bf16
+    weight) computes the small-M functions: int8 with one rounding after
+    the scales, int4 that of `int4_matmul_smallm`."""
+    w, scales = _quantized(gen, 512, 272, bits)
+    x = _rnd(gen, quant.PALLAS_DEQUANT_MAX_M + 76, 512)
+    route = quant.int4_matmul_xla if bits == 4 else quant.int8_matmul_xla
+    plain = quant.int4_matmul_smallm_reference if bits == 4 else quant.int8_matmul_reference
+    got = route(x, w, scales)
+    assert got.dtype == torch.bfloat16 and got.shape == (x.shape[0], 272)
+    torch.testing.assert_close(got.float(), plain(x, w, scales).float(), **TOL)
+
+
+def test_quant_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    w8, s8 = _quantized(gen, 256, 128, 8)
+    w4, s4 = _quantized(gen, 256, 128, 4)
+    x = _rnd(gen, 8, 256)
+    with pytest.raises(TypeError):  # float32 activations
+        quant.int8_matmul(x.float(), w8, s8)
+    with pytest.raises(TypeError):  # a bf16 weight where int8 is stored
+        quant.int4_matmul(x, w4.to(torch.bfloat16), s4)
+    with pytest.raises(ValueError):  # N not a multiple of 16
+        quant.int8_matmul_w8a8(x, w8[:, :120].contiguous(), s8[:, :120].contiguous())
+    with pytest.raises(ValueError):  # x does not match the packed weight
+        quant.int4_matmul_smallm(_rnd(gen, 8, 512), w4, s4)

@@ -114,7 +114,8 @@ def test_greedy_slice_matches_jax_with_kernels(monkeypatch):
                          cache_index=jnp.int32(0), last_token_only=True)
     got, _ = tq.forward(tllm, tcfg.llm, tgen._left_pack(tembeds, torch.from_numpy(LENGTHS)),
                         torch.from_numpy(mask), positions=torch.from_numpy(positions),
-                        cache=tq.init_cache(tcfg.llm, B, MAX_LEN, dtype=torch.float32),
+                        cache=tq.init_cache(tcfg.llm, B, MAX_LEN, dtype=torch.float32,
+                                            device="cpu"),
                         cache_index=0, last_token_only=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
 

@@ -58,9 +58,22 @@ def test_port_imports_without_jax():
 
 
 @pytest.mark.parametrize("entry", [bootstrap.build_model, convert.from_jax,
-                                   convert.tree_to_torch], ids=lambda f: f.__name__)
+                                   convert.tree_to_torch, tq.init_cache],
+                         ids=lambda f: f.__name__)
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_init_cache_without_device_needs_a_card():
+    """No fallback: the KV cache goes to the card unless the caller asks for
+    the CPU."""
+    cfg = tq.QwenConfig.tiny()
+    if torch.cuda.is_available():
+        assert tq.init_cache(cfg, 1, 4)[0]["k"].device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            tq.init_cache(cfg, 1, 4)
+    assert tq.init_cache(cfg, 1, 4, device="cpu")[0]["k"].device.type == "cpu"
 
 
 def test_build_model_without_device_needs_a_card():
@@ -124,5 +137,6 @@ def test_kernel_build_is_keyed_by_source_hash():
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert {p.name for p in _build.CSRC_DIR.glob("*.cu")} >= {
         "decode_qkv.cu", "decode_mlp_bf16.cu", "decode_attention.cu", "decode_attn_o.cu",
-        "prefill_attention.cu"}
+        "prefill_attention.cu", "int8_matmul.cu", "int8_matmul_w8a8.cu", "int4_matmul.cu",
+        "int4_matmul_smallm.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -99,7 +99,7 @@ def test_cached_prefill_and_decode_step(geometry, monkeypatch):
     want, jcache = jax_forward(params, jcfg, jnp.asarray(embeds), jnp.asarray(mask),
                               positions=jnp.asarray(positions), cache=jcache,
                               cache_index=jnp.int32(0), last_token_only=True)
-    tcache = tq.init_cache(tcfg, B, MAX_LEN, dtype=torch.float32)
+    tcache = tq.init_cache(tcfg, B, MAX_LEN, dtype=torch.float32, device="cpu")
     got, tcache = tq.forward(tparams, tcfg, torch.from_numpy(embeds), torch.from_numpy(mask),
                              positions=torch.from_numpy(positions), cache=tcache,
                              cache_index=0, last_token_only=True)
