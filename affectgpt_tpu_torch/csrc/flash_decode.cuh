@@ -1,11 +1,13 @@
-// Split-T flash decoding over the dense KV cache, for one query token per
-// row: the attention part shared by the decode-attention kernel
-// (csrc/decode_attention.cu, where it is defined) and the decode attention
-// sublayer (csrc/decode_attn_o.cu).
+// Split-T flash decoding for one query token per row: the attention part
+// shared by the decode-attention kernel (csrc/decode_attention.cu, where it
+// is defined) and the decode attention sublayer (csrc/decode_attn_o.cu),
+// whose merge launch and warp helpers the paged-attention kernel
+// (csrc/paged_attention.cu) also uses.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace agk {
 
@@ -26,5 +28,84 @@ cudaError_t launch_flash_decode(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                 const __nv_bfloat16* v, const unsigned char* mask, bool window,
                                 float* part_ml, float* part_acc, __nv_bfloat16* out, int b,
                                 int kv, int g, int T, int d, cudaStream_t stream);
+
+// The merge launch of the above on its own: per (query head, row) of
+// `rows` = b * kv rows, weights the `chunks` partials of part_ml
+// [rows, chunks, g, 2] and part_acc [rows, chunks, g, d] by their maxima,
+// skips a chunk whose sum is 0 without reading its accumulator's value,
+// divides by max(sum, 1e-20) and writes out [rows, g, d] in bf16. d is 64
+// or 128.
+cudaError_t launch_flash_decode_merge(const float* part_ml, const float* part_acc,
+                                      __nv_bfloat16* out, int rows, int g, int chunks, int d,
+                                      cudaStream_t stream);
+
+// Warp reductions and row loads of the split kernels.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ int warp_min_int(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ int warp_max_int(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// Sums v[gi] over the warp for all kMaxGroups query heads at once, in 9
+// shuffles instead of 8 x 5: each step halves the values a lane keeps and
+// adds its partner's other half. Afterwards lane l holds the sum for query
+// head (l / 4) % 8, the same in the four lanes of each quad.
+__device__ __forceinline__ float warp_sum_groups(const float (&v)[kMaxGroups]) {
+  static_assert(kMaxGroups == 8, "the butterfly below reduces 8 values");
+  const int lane = threadIdx.x % 32;
+  float a[4], b[2];
+  const bool hi16 = lane & 16, hi8 = lane & 8, hi4 = lane & 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    a[i] = (hi16 ? v[i + 4] : v[i]) + __shfl_xor_sync(0xffffffffu, hi16 ? v[i] : v[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    b[i] = (hi8 ? a[i + 2] : a[i]) + __shfl_xor_sync(0xffffffffu, hi8 ? a[i] : a[i + 2], 8);
+  float c = (hi4 ? b[1] : b[0]) + __shfl_xor_sync(0xffffffffu, hi4 ? b[0] : b[1], 4);
+  c += __shfl_xor_sync(0xffffffffu, c, 2);
+  return c + __shfl_xor_sync(0xffffffffu, c, 1);
+}
+
+// E consecutive bf16 of a row (E = 4: one 8-byte load, E = 2: one 4-byte
+// load), or zeros when !in.
+template <int E>
+__device__ __forceinline__ void load_row_part(const __nv_bfloat16* src, bool in,
+                                              uint32_t (&w)[E / 2]) {
+  if constexpr (E == 4) {
+    const uint2 t = in ? __ldg(reinterpret_cast<const uint2*>(src)) : make_uint2(0u, 0u);
+    w[0] = t.x;
+    w[1] = t.y;
+  } else {
+    w[0] = in ? __ldg(reinterpret_cast<const uint32_t*>(src)) : 0u;
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void unpack_bf16(const uint32_t (&w)[E / 2], float (&f)[E]) {
+#pragma unroll
+  for (int i = 0; i < E / 2; ++i) {
+    const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
 
 }  // namespace agk

@@ -6,7 +6,7 @@ copies of the host modules (`constants`, `prompts`, `tokenization`), then
 mergers → splice → prefill → decode run in the port.
 
 Not ported yet: `encode_media_features` (the realtime encoders), speculative
-decoding, the int8 KV cache and the repetition penalty.
+decoding and the repetition penalty.
 """
 
 from __future__ import annotations
@@ -30,11 +30,17 @@ class Chat:
     cfg: affectgpt.AffectGPTConfig
     tokenizer: "object"
     max_len: int = 2048
+    # "int8" → the quantized KV cache (qwen2.init_cache), None → the
+    # embeddings' dtype
+    kv_cache_dtype: Optional[str] = None
     # seeds the instance's sampling generator, used when answer_batch is
     # called without one; repeated sampled calls advance it
     seed: int = 0
 
     def __post_init__(self):
+        if self.kv_cache_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_cache_dtype must be None or 'int8', got {self.kv_cache_dtype!r}")
         self.device = self.frozen["llm"]["embed_tokens"]["table"].device
         self._generator = torch.Generator(device=self.device).manual_seed(self.seed)
         # single-token turn terminators ('###' when it is one token)
@@ -118,6 +124,7 @@ class Chat:
             self.frozen["llm"], self.cfg.llm, gcfg, embeds,
             torch.as_tensor(lengths, device=dev), generator or self._generator,
             max_len=self.max_len, lora=self.trainable.get("lora"),
+            cache_dtype=torch.int8 if self.kv_cache_dtype == "int8" else None,
         )
         tokens, num_valid = tokens.cpu().numpy(), num_valid.cpu().numpy()
         return [

@@ -7,8 +7,7 @@ loop runs exactly `max_new_tokens` steps, as the JAX `lax.scan` does, and
 makes no host synchronisation inside the loop: stop handling and the
 `done` mask stay on the device.
 
-Not ported yet: the repetition penalty, `cache_dtype` and
-`generate_speculative`.
+Not ported yet: the repetition penalty and `generate_speculative`.
 """
 
 from __future__ import annotations
@@ -74,6 +73,7 @@ def generate(
     max_len: int,
     lora: Optional[dict] = None,
     decode_llm: Optional[dict] = None,
+    cache_dtype: Optional[torch.dtype] = None,
 ):
     """Generate continuations for a batch of spliced prompt embeddings.
 
@@ -83,6 +83,8 @@ def generate(
     decode_llm: a second copy of the decoder weights used only by the decode
     loop, token embeddings included (e.g. `qwen2.quantize_params` of
     frozen_llm: bf16 prefill, quantized decode).
+    cache_dtype: the KV cache's dtype, the prompt embeddings' by default;
+    torch.int8 selects the quantized cache (`qwen2.init_cache`).
     Returns (tokens [b, max_new_tokens], num_valid [b]); tokens after a
     row's stop are eos.
     """
@@ -101,7 +103,7 @@ def generate(
     key_valid = cols[None, :] >= pad_len[:, None]  # [b, t_pad]
     positions = (cols[None, :] - pad_len[:, None]).clamp(min=0)
 
-    cache = qwen2.init_cache(llm_cfg, b, max_len, dtype=embeds.dtype, device=dev)
+    cache = qwen2.init_cache(llm_cfg, b, max_len, dtype=cache_dtype or embeds.dtype, device=dev)
     slots = torch.arange(max_len, device=dev)
     causal = slots[None, None, :] <= cols[None, :, None]  # [1, t_pad, max_len]
     key_valid_full = torch.nn.functional.pad(key_valid, (0, max_len - t_pad))

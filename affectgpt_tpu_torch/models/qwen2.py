@@ -13,24 +13,30 @@ same keys and the JAX `[in, out]` dense layout, so `models.convert.from_jax`
 needs no transposes and both decode kernels read the weights as stored.
 
 The KV cache keeps the JAX layout `[b, kv_heads, max_len, head_dim]` and is
-written IN PLACE by `forward`; the list it returns is the one passed in.
+written IN PLACE by `forward`; the list it returns is the one passed in. An
+int8 cache (`init_cache(dtype=torch.int8)`) adds f32 per-row scales
+`k_scale`/`v_scale` [b, kv_heads, max_len] and quantizes on write
+(`_quantize_kv`, bit for bit JAX's). `cache_index` is the shared column of a
+left-packed batch (an int) or, for a decode step, one column per row (a [b]
+tensor, the continuous-batching server).
 
-Decode dispatch follows the JAX rule (qwen2.py:582, :631, :761-766,
-:891): on a decode step (a cache, t == 1, merged LoRA), the pre-attention
-rmsnorm, q/k/v projections, bias and RoPE go through `ops.decode_qkv` when
-q/k/v are split bf16 leaves ("w"), and the post-attention rmsnorm and MLP
-through `ops.decode_mlp_bf16` when gate_proj is a bf16 leaf; otherwise the
-plain rmsnorm runs and each projection goes through `_lora_dense`. A
-quantized leaf there takes the matmul kernels of `ops.quant`, routed by M
-(rows of x) as that module says. The attention itself follows the JAX
-switches `DECODE_ATTN_O`, `DECODE_ATTENTION` and `PREFILL_ATTENTION`
-(below); by default it is the plain chain. The kernel wrappers launch their
-CUDA kernels for CUDA tensors (or raise) and run their plain versions for
-CPU tensors. Everything else is plain torch, mirroring the JAX default
-chain.
+Decode dispatch follows the JAX rule (qwen2.py:562-678, :761-766): on a
+decode step (a cache, t == 1, merged LoRA), the pre-attention rmsnorm, q/k/v
+projections, bias and RoPE go through `ops.decode_qkv` when q/k/v are split
+bf16 leaves ("w"), and the post-attention rmsnorm and MLP go through the
+kernel DECODE_MLP chooses (below); otherwise the plain rmsnorm runs and each
+projection goes through `_lora_dense`. `_decode_qkv_fused` and
+`_decode_mlp_fused` hold that rule for this module and the paged engine
+alike. A quantized leaf there takes the matmul kernels of `ops.quant`,
+routed by M (rows of x) as that module says. The attention itself follows
+the JAX switches `DECODE_ATTN_O`, `DECODE_ATTENTION` and `PREFILL_ATTENTION`
+(below); by default it is the plain chain, and an int8 cache always takes
+it. The kernel wrappers launch their CUDA kernels for CUDA tensors (or
+raise) and run their plain versions for CPU tensors. Everything else is
+plain torch, mirroring the JAX default chain.
 
-Not ported yet: the int8 KV cache, per-row cache indices, the CE losses,
-remat and LoRA dropout.
+Not ported yet: per-row cache writes of t > 1 rows (speculative verify,
+with `generate_speculative`), the CE losses, remat and LoRA dropout.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from affectgpt_tpu_torch.models import nn
 from affectgpt_tpu_torch.ops import quant
 from affectgpt_tpu_torch.ops.decode_attention import decode_attention
 from affectgpt_tpu_torch.ops.decode_attn_o import decode_attn_o
+from affectgpt_tpu_torch.ops.decode_mlp import decode_mlp
 from affectgpt_tpu_torch.ops.decode_mlp_bf16 import decode_mlp_bf16
 from affectgpt_tpu_torch.ops.decode_qkv import decode_qkv
 from affectgpt_tpu_torch.ops.prefill_attention import prefill_attention
@@ -66,6 +73,12 @@ DECODE_ATTENTION = "xla"
 # PREFILL_ATTENTION="flash": on the cache-populating forward (t > 1),
 # attention over the prompt's own k/v in `ops.prefill_attention`.
 PREFILL_ATTENTION = "xla"
+# The decode-MLP switch of the JAX decoder (qwen2.py:490), read at each call:
+# "auto" fuses rmsnorm -> gate/up -> silu*up -> down -> residual on the bf16
+# split layout (`ops.decode_mlp_bf16`); "pallas" also sends the int8 split
+# layout to `ops.decode_mlp`; "xla" turns both off. JAX's TPU gates (b % 8,
+# fits_vmem, intermediate % 512, the backend) are not carried.
+DECODE_MLP = "auto"
 
 
 @dataclass(frozen=True)
@@ -334,23 +347,124 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def _decode_step(lora_layer, cache, t: int) -> bool:
-    """A decode step (cache, t == 1) with LoRA merged: where the JAX package
-    tries its decode kernels."""
-    return cache is not None and t == 1 and lora_layer is None
+def _decode_qkv_fused(layer, lora_layer, cfg: QwenConfig, x2d: torch.Tensor,
+                      pos1d: torch.Tensor):
+    """The decode-QKV dispatch shared by the dense decode step and the paged
+    engine (JAX qwen2.py:562-616): split bf16 q/k/v leaves ("w") and merged
+    LoRA take `ops.decode_qkv`. x2d [b, hidden] is the RAW residual stream:
+    the pre-attention rmsnorm (input_ln) runs in the kernel. Returns (q [b, heads, d], k [b, kv, d], v [b, kv, d]) with RoPE applied,
+    or None when the layout does not qualify."""
+    if lora_layer is not None or "qkv_proj" in layer or "w" not in layer["q_proj"]:
+        return None
+    b = x2d.shape[0]
+
+    def bias(name):
+        if "b" in layer[name]:
+            return layer[name]["b"]
+        return torch.zeros(layer[name]["w"].shape[1], dtype=x2d.dtype, device=x2d.device)
+
+    q2, k2, v2 = decode_qkv(
+        x2d, pos1d,
+        layer["q_proj"]["w"], bias("q_proj"), layer["k_proj"]["w"], bias("k_proj"),
+        layer["v_proj"]["w"], bias("v_proj"),
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim, theta=cfg.rope_theta,
+        ln_scale=layer["input_ln"]["scale"], eps=cfg.rms_eps,
+    )
+    return (q2.reshape(b, cfg.num_heads, cfg.head_dim),
+            k2.reshape(b, cfg.num_kv_heads, cfg.head_dim),
+            v2.reshape(b, cfg.num_kv_heads, cfg.head_dim))
 
 
-def _decode_qkv_eligible(layer, lora_layer, cache, t: int) -> bool:
-    """The decode-QKV kernel takes split bf16 q/k/v leaves (JAX qwen2.py:761,
-    :582)."""
-    return (_decode_step(lora_layer, cache, t) and "qkv_proj" not in layer
-            and "w" in layer["q_proj"])
+def _decode_mlp_fused(layer, lora_layer, cfg: QwenConfig, x: torch.Tensor):
+    """The decode-MLP dispatch shared by the dense decode step and the paged
+    engine (JAX qwen2.py:619-678), under DECODE_MLP: "auto" sends a split
+    bf16 gate/up/down layer ("w" in gate_proj) with merged LoRA to
+    `ops.decode_mlp_bf16`, "pallas" also a split int8 one ("w_q") to
+    `ops.decode_mlp`, "xla" neither. x [b, 1, hidden] is the residual stream
+    after attention; the post-attention rmsnorm runs in the kernel. Returns
+    the new residual stream [b, 1, hidden], or None."""
+    if DECODE_MLP == "xla" or lora_layer is not None:
+        return None
+    gate = layer.get("gate_proj", {})
+    ln = layer["post_attn_ln"]["scale"]
+    if "w" in gate:
+        y = decode_mlp_bf16(x[:, 0, :], ln, gate["w"], layer["up_proj"]["w"],
+                            layer["down_proj"]["w"], eps=cfg.rms_eps)
+    elif DECODE_MLP == "pallas" and "w_q" in gate:
+        up, down = layer["up_proj"], layer["down_proj"]
+        y = decode_mlp(x[:, 0, :], ln, gate["w_q"], gate["scales"], up["w_q"], up["scales"],
+                       down["w_q"], down["scales"], eps=cfg.rms_eps)
+    else:
+        return None
+    return y[:, None, :]
 
 
-def _decode_mlp_eligible(layer, lora_layer, cache, t: int) -> bool:
-    """The bf16 decode-MLP kernel takes a split bf16 gate leaf (JAX
-    qwen2.py:631)."""
-    return _decode_step(lora_layer, cache, t) and "w" in layer.get("gate_proj", {})
+def _project_qkv(layer, lora_layer, cfg: QwenConfig, x, positions, decode: bool):
+    """q [b, t, heads, d], k and v [b, t, kv, d], RoPE applied, from the RAW
+    residual stream x [b, t, hidden]; this function owns the pre-attention
+    rmsnorm. decode: a decode step (a cache, t == 1), where the decode-QKV
+    kernel is tried. Returns (q, k, v, fused), fused telling that the kernel
+    ran (x was left un-normed for it)."""
+    b, t, _ = x.shape
+    heads, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    fused = _decode_qkv_fused(layer, lora_layer, cfg, x[:, 0, :], positions[:, 0]) \
+        if decode else None
+    if fused is not None:
+        q, k, v = fused
+        return q[:, None], k[:, None], v[:, None], True
+    scaling = cfg.lora_alpha / cfg.lora_r
+    lget = (lambda n: lora_layer[n]) if lora_layer is not None else (lambda n: None)
+    x = nn.rmsnorm(layer["input_ln"], x, cfg.rms_eps)
+    if "qkv_proj" in layer:  # fused serving layout: one matmul, split columns
+        if lora_layer is not None:
+            raise ValueError("the fused layout serves merged-LoRA weights")
+        y = _lora_dense(layer["qkv_proj"], None, x, 0.0)
+        q, k, v = y[..., :heads * d], y[..., heads * d:(heads + kv) * d], y[..., (heads + kv) * d:]
+    else:
+        q, k, v = (_lora_dense(layer[n], lget(n), x, scaling) for n in _QKV)
+    q = _rope(q.reshape(b, t, heads, d), positions, cfg.rope_theta)
+    k = _rope(k.reshape(b, t, kv, d), positions, cfg.rope_theta)
+    return q, k, v.reshape(b, t, kv, d), False
+
+
+# 1/127 rounded to f32: XLA compiles JAX's `amax / 127.0` into a product
+# with this constant, and every JAX caller of _quantize_kv runs compiled
+_INV_127 = torch.tensor(1 / 127, dtype=torch.float32).item()
+
+
+def _quantize_kv(x: torch.Tensor):
+    """Symmetric per-row int8 quantization over the trailing (head_dim) axis,
+    bit for bit JAX's compiled qwen2.py:716-722: scale = amax x f32(1/127),
+    values round(x / max(scale, 1e-20)), half to even. Returns (int8
+    values, f32 scale [..., 1])."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) * _INV_127
+    return torch.round(xf / scale.clamp_min(1e-20)).to(torch.int8), scale
+
+
+def _write_cache(cache: dict, k: torch.Tensor, v: torch.Tensor, cache_index) -> None:
+    """Write k/v [b, kv, t, d] into a layer's cache IN PLACE (JAX returns a
+    new cache): at the shared column `cache_index` (an int), or for t == 1 at
+    a per-row column (a [b] tensor, the continuous-batching server; clamped
+    into the cache as JAX's dynamic_update_slice clamps). An int8 cache
+    stores the quantized rows and their scales [b, kv, T]."""
+    writes = {"k": k, "v": v}
+    if cache["k"].dtype == torch.int8:
+        (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+        writes = {"k": kq, "v": vq, "k_scale": ks[..., 0], "v_scale": vs[..., 0]}
+    b, _, t = k.shape[:3]
+    if torch.is_tensor(cache_index) and cache_index.ndim == 1:
+        if t > 1:
+            raise NotImplementedError(
+                "per-row cache writes of t > 1 rows (speculative verify) are not ported yet")
+        rows = torch.arange(b, device=k.device)
+        cols = cache_index.to(device=k.device, dtype=torch.long).clamp(0, cache["k"].shape[2] - 1)
+        for name, new in writes.items():
+            cache[name][rows, :, cols] = new[:, :, 0]
+    else:
+        for name, new in writes.items():
+            cache[name][:, :, cache_index:cache_index + t] = new
 
 
 def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, cache_index):
@@ -362,51 +476,17 @@ def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, ca
     b, t, _ = x.shape
     scaling = cfg.lora_alpha / cfg.lora_r
     lget = (lambda n: lora_layer[n]) if lora_layer is not None else (lambda n: None)
-    qkv_kernel = _decode_qkv_eligible(layer, lora_layer, cache, t)
-    if qkv_kernel:
-        def bias(name):
-            if "b" in layer[name]:
-                return layer[name]["b"]
-            return torch.zeros(layer[name]["w"].shape[1], dtype=x.dtype, device=x.device)
-
-        q2, k2, v2 = decode_qkv(
-            x[:, 0, :], positions[:, 0],
-            layer["q_proj"]["w"], bias("q_proj"), layer["k_proj"]["w"], bias("k_proj"),
-            layer["v_proj"]["w"], bias("v_proj"),
-            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-            head_dim=cfg.head_dim, theta=cfg.rope_theta,
-            ln_scale=layer["input_ln"]["scale"], eps=cfg.rms_eps,
-        )
-        q = q2.reshape(b, t, cfg.num_heads, cfg.head_dim)
-        k = k2.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-        v = v2.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    else:
-        x = nn.rmsnorm(layer["input_ln"], x, cfg.rms_eps)
-        if "qkv_proj" in layer:  # fused serving layout: one matmul, split columns
-            if lora_layer is not None:
-                raise ValueError("the fused layout serves merged-LoRA weights")
-            nq, nkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
-            y = _lora_dense(layer["qkv_proj"], None, x, 0.0)
-            q = y[..., :nq].reshape(b, t, cfg.num_heads, cfg.head_dim)
-            k = y[..., nq:nq + nkv].reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-            v = y[..., nq + nkv:].reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-        else:
-            q = _lora_dense(layer["q_proj"], lget("q_proj"), x, scaling).reshape(
-                b, t, cfg.num_heads, cfg.head_dim)
-            k = _lora_dense(layer["k_proj"], lget("k_proj"), x, scaling).reshape(
-                b, t, cfg.num_kv_heads, cfg.head_dim)
-            v = _lora_dense(layer["v_proj"], lget("v_proj"), x, scaling).reshape(
-                b, t, cfg.num_kv_heads, cfg.head_dim)
-        q = _rope(q, positions, cfg.rope_theta)
-        k = _rope(k, positions, cfg.rope_theta)
-
+    q, k, v, fused = _project_qkv(layer, lora_layer, cfg, x, positions,
+                                  decode=cache is not None and t == 1)
     k = k.transpose(1, 2)  # [b, kv, t, d]
     v = v.transpose(1, 2)
     groups = cfg.num_heads // cfg.num_kv_heads
+    kv_quant = cache is not None and cache["k"].dtype == torch.int8
     if cache is not None:
-        cache["k"][:, :, cache_index:cache_index + t] = k
-        cache["v"][:, :, cache_index:cache_index + t] = v
-        if PREFILL_ATTENTION == "flash" and t > 1:
+        _write_cache(cache, k, v, cache_index)
+        # an int8 cache takes none of the three attention kernels (JAX
+        # qwen2.py:863, :889, :916): the plain chain reads the quantized cache
+        if PREFILL_ATTENTION == "flash" and t > 1 and not kv_quant:
             # the cache holds nothing beyond the prompt yet: attend over the
             # local k/v; pads are segment 0, tokens 1, read off the last
             # query row's mask (JAX qwen2.py:869-878, :698)
@@ -415,8 +495,9 @@ def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, ca
                                has_bias=False), False
         k, v = cache["k"], cache["v"]
         # x is still the raw residual stream when decode_qkv ran
-        attn_o = DECODE_ATTN_O == "pallas" and qkv_kernel and "w" in layer["o_proj"]
-        if attn_o or DECODE_ATTENTION == "pallas" and t == 1:
+        attn_o = (DECODE_ATTN_O == "pallas" and fused and not kv_quant
+                  and "w" in layer["o_proj"])
+        if attn_o or DECODE_ATTENTION == "pallas" and t == 1 and not kv_quant:
             qd = q[:, 0].reshape(b, cfg.num_kv_heads, groups, cfg.head_dim)
             key_mask = mask[:, 0, 0, :]
             if attn_o:
@@ -428,14 +509,23 @@ def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, ca
                                has_bias=False), False
 
     # GQA without repeating K/V: fold the query-head groups into a 5-D
-    # product; scores and softmax in f32, probabilities rounded to the cache
-    # dtype before PV, as the JAX chain does (qwen2.py:929-958)
+    # product; scores and softmax in f32, probabilities rounded to the
+    # compute dtype before PV, as the JAX chain does (qwen2.py:929-958). An
+    # int8 cache is read in the compute dtype with its per-row scales folded
+    # outside the contractions: scores x k_scale, probabilities x v_scale.
     qg = q.reshape(b, t, cfg.num_kv_heads, groups, cfg.head_dim)
+    if kv_quant:
+        k, v = k.to(qg.dtype), v.to(qg.dtype)
     logits = torch.einsum("bqhgd,bhkd->bhgqk", qg.float(), k.float())
+    if kv_quant:
+        logits = logits * cache["k_scale"][:, :, None, None, :]
     logits = logits / float(cfg.head_dim) ** 0.5
     mask5 = mask[:, :, None, :, :]
     logits = logits.masked_fill(~mask5, torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    probs = torch.softmax(logits, dim=-1)
+    if kv_quant:
+        probs = probs * cache["v_scale"][:, :, None, None, :]
+    probs = probs.to(v.dtype)
     out = torch.einsum("bhgqk,bhkd->bqhgd", probs.float(), v.float())
     out = out.to(x.dtype).reshape(b, t, cfg.num_heads * cfg.head_dim)
     return _lora_dense(layer["o_proj"], lget("o_proj"), out, scaling, has_bias=False), False
@@ -491,11 +581,10 @@ def forward(
         out, residual_done = _attention(layer, lora_layer, cfg, x, positions, mask,
                                         layer_cache, cache_index)
         x = out if residual_done else x + out
-        if _decode_mlp_eligible(layer, lora_layer, layer_cache, t):
-            x = decode_mlp_bf16(
-                x[:, 0, :], layer["post_attn_ln"]["scale"], layer["gate_proj"]["w"],
-                layer["up_proj"]["w"], layer["down_proj"]["w"], eps=cfg.rms_eps,
-            )[:, None, :]
+        y = _decode_mlp_fused(layer, lora_layer, cfg, x) \
+            if layer_cache is not None and t == 1 else None
+        if y is not None:
+            x = y
         else:
             h = nn.rmsnorm(layer["post_attn_ln"], x, cfg.rms_eps)
             x = x + _mlp(layer, lora_layer, cfg, h)
@@ -503,13 +592,18 @@ def forward(
     x = nn.rmsnorm(params["final_ln"], x, cfg.rms_eps)
     if last_token_only:
         x = x[:, -1:, :]
+    return _logits(params, cfg, x), cache
+
+
+def _logits(params: dict, cfg: QwenConfig, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits of final-normed hidden states x [b, t, hidden]: the tied
+    embedding table, a quantized lm_head (rounded to x's dtype, then f32) or
+    a dense one."""
     if cfg.tie_embeddings:
-        logits = nn.matmul_f32(x, params["embed_tokens"]["table"].T)
-    elif "w" not in params["lm_head"]:  # quantized: rounded to x's dtype, then f32
-        logits = _lora_dense(params["lm_head"], None, x, 0.0, has_bias=False).float()
-    else:
-        logits = nn.matmul_f32(x, params["lm_head"]["w"])
-    return logits, cache
+        return nn.matmul_f32(x, params["embed_tokens"]["table"].T)
+    if "w" not in params["lm_head"]:
+        return _lora_dense(params["lm_head"], None, x, 0.0, has_bias=False).float()
+    return nn.matmul_f32(x, params["lm_head"]["w"])
 
 
 def embed_tokens(params: dict, ids: torch.Tensor) -> torch.Tensor:
@@ -520,10 +614,19 @@ def init_cache(cfg: QwenConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cuda") -> list:
     """Dense KV cache, one {"k", "v"} pair of [b, kv_heads, max_len, head_dim]
     buffers per layer (the JAX layout), on the card unless `device` says
-    otherwise."""
+    otherwise. dtype=torch.int8 selects the quantized cache, which adds f32
+    per-row scales "k_scale"/"v_scale" [b, kv_heads, max_len]."""
     shape = (batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-    return [
-        {"k": torch.zeros(shape, dtype=dtype, device=device),
-         "v": torch.zeros(shape, dtype=dtype, device=device)}
-        for _ in range(cfg.num_layers)
-    ]
+    return [kv_buffers(shape, dtype, device) for _ in range(cfg.num_layers)]
+
+
+def kv_buffers(shape: tuple, dtype, device) -> dict:
+    """One layer's zeroed K/V buffers of `shape` (head_dim last). int8 adds
+    the f32 per-row scales "k_scale"/"v_scale" of shape[:-1]; the dense cache
+    and the paged pools share this layout."""
+    buf = {"k": torch.zeros(shape, dtype=dtype, device=device),
+           "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        buf["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+        buf["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    return buf

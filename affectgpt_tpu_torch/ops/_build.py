@@ -42,6 +42,9 @@ _SIGNATURES = {
     "agk_int4_matmul": [_P] * 5 + [_I] * 5 + [_P],
     "agk_int4_matmul_smallm": [_P] * 5 + [_I] * 5 + [_P],
     "agk_int8_matmul_w8a8": [_P] * 7 + [_I] * 6 + [_P],
+    "agk_decode_mlp_int8": [_P] * 10 + [_I] * 3 + [_F, _P],
+    "agk_paged_attention_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    "agk_paged_attention_int8": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 

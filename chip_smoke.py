@@ -27,7 +27,15 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    routes to each plus a ragged one; their times are per decoder layer at
    the main path's M (the sum of the layer's products, each timed alone),
    with `bf16_cublas_ms`, torch.matmul on the same weights dequantized to
-   bf16, as a yardstick of the unquantized product that no path runs.
+   bf16, as a yardstick of the unquantized product that no path runs. The
+   serving kernels: paged attention (bf16 and int8 pools of 2048 blocks of
+   16, 16 rows of 545-596 tokens plus a 1-token row and a one-page row,
+   pages drawn from a shuffled permutation, table widths 38 and 64; times
+   at width 38 over three disjoint table sets on two pools, so a replay
+   cycle reads more than the L2) and the int8 decode MLP (b = 8, 16, 64 on
+   int8 weights of the 7B layer; times at b = 16, with the three products
+   in cuBLAS on the dequantized bf16 weights as a yardstick); neither has a
+   single PyTorch call that computes its function, so `library_ms` is null.
 4. Main path: bootstrap.build_model at Qwen2.5-7B width with random bf16
    weights from a seed, LoRA merged by serving_llm, then Chat.answer_batch
    on 8 preextracted clips, greedy, 32 new tokens, under three attention
@@ -48,6 +56,23 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    were ported; the quantized decode steps make this phase long); prints
    peak memory and the mean prefill ms, decode ms per step and clips/s of
    the visits, with each visit's numbers.
+5. Serve: the continuous-batching engines on the merged model of phase 4,
+   built as inference_hybird.py's make_paged_server builds the paged one
+   (block 16, 2048 blocks, tables for the longest prompt + 32 tokens, 16
+   slots, reserve admission, bursts of 8, greedy), over 48 requests (the 8
+   clips six times, prompts from Chat.build_prompt_batch, max_new_tokens
+   cycling 32, 24, 16, 8), all submitted up front: paged_bf16 (bf16 tree
+   and pool, PAGED_ATTENTION="pallas"), paged_bf16_gather (the same with
+   the gather chain, PAGED_ATTENTION="xla"), paged_kv8 (int8 pool),
+   paged_w8 (int8 split tree, DECODE_MLP="pallas") and server_bf16 (the
+   dense BatchServer, 16 slots, max_len 640). One counted run each asserts
+   that each kernel of the configuration launched num_layers x the decode
+   steps the engine made (int8_matmul by its own count), every other kernel
+   0 times, one result per request and finite logits; it prints how many
+   requests' tokens paged_bf16, paged_bf16_gather and server_bf16 share
+   pairwise; then one timed run each prints requests/s, TTFT and end-to-end
+   percentiles, generated tokens/s, the engine's phase times and counters,
+   the cache's GiB and the peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -62,19 +87,26 @@ import json
 import statistics
 import subprocess
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from affectgpt_tpu_torch import bootstrap
 from affectgpt_tpu_torch.inference import generate as gen
+from affectgpt_tpu_torch.inference import paged, server
 from affectgpt_tpu_torch.inference.chat import Chat
 from affectgpt_tpu_torch.models import affectgpt, qwen2
 from affectgpt_tpu_torch.ops import _build, quant
 from affectgpt_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
 from affectgpt_tpu_torch.ops.decode_attn_o import decode_attn_o, decode_attn_o_reference
+from affectgpt_tpu_torch.ops.decode_mlp import decode_mlp, decode_mlp_reference
 from affectgpt_tpu_torch.ops.decode_mlp_bf16 import decode_mlp_bf16, decode_mlp_bf16_reference
+from affectgpt_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_attention_int8,
+    paged_attention_reference,
+)
 from affectgpt_tpu_torch.ops.decode_qkv import decode_qkv, decode_qkv_reference
 from affectgpt_tpu_torch.ops.prefill_attention import (
     prefill_attention,
@@ -128,12 +160,26 @@ KERNELS = {
         "source": "affectgpt_tpu_torch/csrc/int8_matmul_w8a8.cu",
         "replaces": "affectgpt_tpu/ops/quant.py:163",
     },
+    "paged_attention": {  # _kernel, bf16 pools
+        "source": "affectgpt_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "affectgpt_tpu/ops/paged_attention_pallas.py:245",
+    },
+    "paged_attention_int8": {  # _kernel_int8, int8 pools with scales
+        "source": "affectgpt_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "affectgpt_tpu/ops/paged_attention_pallas.py:245",
+    },
+    "decode_mlp": {
+        "source": "affectgpt_tpu_torch/csrc/decode_mlp_int8.cu",
+        "replaces": "affectgpt_tpu/ops/decode_mlp_pallas.py:122",
+    },
 }
 WRAPPERS = {"decode_qkv": decode_qkv, "decode_mlp_bf16": decode_mlp_bf16,
             "decode_attention": decode_attention, "decode_attn_o": decode_attn_o,
             "prefill_attention": prefill_attention,
             "int4_matmul_smallm": quant.int4_matmul_smallm, "int4_matmul": quant.int4_matmul,
-            "int8_matmul": quant.int8_matmul, "int8_matmul_w8a8": quant.int8_matmul_w8a8}
+            "int8_matmul": quant.int8_matmul, "int8_matmul_w8a8": quant.int8_matmul_w8a8,
+            "paged_attention": paged_attention, "paged_attention_int8": paged_attention_int8,
+            "decode_mlp": decode_mlp}
 
 
 def say(phase: str, **fields) -> None:
@@ -534,6 +580,128 @@ def phase_quant_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
     return out
 
 
+SERVE_SLOTS = 16
+PAGE = 16  # block size of the paged engine (inference_hybird.py's default)
+POOL_BLOCKS = 2048  # its pool, blocks per layer
+
+
+def paged_case(g: torch.Generator, cfg: qwen2.QwenConfig, width: int, int8: bool) -> tuple:
+    """The serve phase's decode attention: 16 rows of 545-596 tokens, one of
+    1 token and one of exactly one page, over pools of 2048 blocks; each row's
+    pages drawn from a shuffled permutation, distinct across the rows and
+    the three table sets of each of two pools (a replay cycle of the six
+    calls reads more than the 50 MB L2). Returns ([(q, pool_k, pool_v,
+    tables, lens, scales)] for every pool and table set, valid tokens per
+    call)."""
+    kv, d, heads = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
+    shape = (POOL_BLOCKS, PAGE, kv, d)
+    lens = torch.randint(545, 597, (SERVE_SLOTS,), generator=g, device="cuda")
+    lens[0], lens[1] = 1, PAGE
+    lens = lens.clamp(max=width * PAGE).to(torch.int32)
+    q = (torch.randn((SERVE_SLOTS, heads, d), generator=g, device="cuda")).to(torch.bfloat16)
+    pages = [-(-int(n) // PAGE) for n in lens]
+    cases = []
+    for _ in range(2):
+        if int8:
+            pool_k, pool_v = (torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                            dtype=torch.int8) for _ in range(2))
+            scales = tuple(torch.rand(shape[:3], generator=g, device="cuda") * (4.0 / 127)
+                           for _ in range(2))
+        else:
+            pool_k, pool_v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                              for _ in range(2))
+            scales = ()
+        perm = (torch.randperm(POOL_BLOCKS - 1, generator=g, device="cuda") + 1).tolist()
+        for t in range(3):
+            tables = torch.zeros((SERVE_SLOTS, width), dtype=torch.int32)
+            used = t * sum(pages)
+            for r, n in enumerate(pages):
+                tables[r, :n] = torch.tensor(perm[used:used + n], dtype=torch.int32)
+                used += n
+            cases.append((q, pool_k, pool_v, tables.to(q.device), lens, scales))
+    return cases, int(lens.sum())
+
+
+def phase_serving_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
+    """The serving slice's kernels against their plain versions at 7B
+    widths: paged attention for both pool dtypes at table widths 38 (the
+    serve phase's max_blocks_per_seq) and 64 (a power-of-two bucket), and
+    the int8 decode MLP at b = 8, 16 and 64 on int8 weights of the 7B
+    layer. Returns per-kernel {max_abs_err, ms, plain_ms, library_ms,
+    bound_ms, bound_by} with the times at the serve phase's shapes (16 rows,
+    width 38; b = 16)."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    kv, d, heads = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
+    out = {name: {"max_abs_err": 0.0, "library_ms": None}
+           for name in ("paged_attention", "paged_attention_int8", "decode_mlp")}
+    max_blocks = -(-(564 + NEW_TOKENS) // PAGE)  # 38
+    for int8 in (False, True):
+        name = "paged_attention_int8" if int8 else "paged_attention"
+        kernel = paged_attention_int8 if int8 else paged_attention
+        for width in (max_blocks, 64):
+            cases, valid = paged_case(g, cfg, width, int8)
+            for case in cases[:2]:
+                q, pk, pv, tables, lens, scales = case
+                err, rel = compare(name, kernel(q, pk, pv, tables, lens, *scales),
+                                   paged_attention_reference(q, pk, pv, tables, lens, *scales),
+                                   SERVE_SLOTS)
+                out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+                say("kernels", kernel=name, b=SERVE_SLOTS, width=width, tokens=valid,
+                    lens=f"{int(lens.min())}-{int(lens.max())}", max_abs_err=f"{err:.6g}",
+                    max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL)
+            elem = 1 if int8 else 2
+            # the valid tokens' K and V rows (+ int8 scales), q, out, tables, lens
+            nbytes = (valid * kv * d * 2 * elem + (valid * kv * 2 * 4 if int8 else 0)
+                      + 2 * 2 * SERVE_SLOTS * heads * d + 4 * SERVE_SLOTS * (width + 1))
+            times = {"ms": graph_ms([lambda c=c: kernel(*c[:5], *c[5]) for c in cases] * 4),
+                     "plain_ms": graph_ms([lambda c=c: paged_attention_reference(*c[:5], *c[5])
+                                           for c in cases])}
+            cost = bound(nbytes, 4 * valid * heads * d)
+            say("kernels", kernel=name, b=SERVE_SLOTS, width=width,
+                **{k: f"{v:.5f}" for k, v in times.items()}, bound_ms=f"{cost['bound_ms']:.5f}",
+                bound_by=cost["bound_by"], GB_per_s=f"{nbytes / times['ms'] / 1e6:.1f}",
+                library="none: no single PyTorch call reads a block table", card=repr(card))
+            if width == max_blocks:
+                out[name].update(times, **cost)
+            del cases
+        torch.cuda.empty_cache()
+
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    leaves = []
+    for k, n in ((h, inter), (h, inter), (inter, h)):
+        leaves += quant.quantize_per_channel(torch.randn(k, n, generator=g, device="cuda")
+                                             * k ** -0.5)
+    ln = (torch.randn(h, generator=g, device="cuda") * 0.1 + 1.0).to(torch.bfloat16)
+    dequant = [(w.float() * s).to(torch.bfloat16) for w, s in zip(leaves[::2], leaves[1::2])]
+    for b in (8, SERVE_SLOTS, 64):
+        x = torch.randn((b, h), generator=g, device="cuda").to(torch.bfloat16)
+        err, rel = compare("decode_mlp", decode_mlp(x, ln, *leaves),
+                           decode_mlp_reference(x, ln, *leaves), b)
+        out["decode_mlp"]["max_abs_err"] = max(out["decode_mlp"]["max_abs_err"], err)
+        say("kernels", kernel="decode_mlp", b=b, max_abs_err=f"{err:.6g}",
+            max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL)
+        wg, wu, wd = dequant
+
+        def cublas():  # three products and silu·up on bf16 weights, no norm: a yardstick
+            return torch.matmul(torch.nn.functional.silu(x @ wg) * (x @ wu), wd)
+
+        times = {"ms": graph_ms([lambda: decode_mlp(x, ln, *leaves)] * 8),
+                 "plain_ms": graph_ms([lambda: decode_mlp_reference(x, ln, *leaves)] * 2,
+                                      reps=5),
+                 "bf16_cublas_ms": graph_ms([cublas] * 4)}
+        nbytes = 3 * h * inter + 4 * (2 * inter + h) + 2 * (h + 2 * b * h)
+        cost = bound(nbytes, 6 * b * h * inter)
+        say("kernels", kernel="decode_mlp", b=b, **{k: f"{v:.5f}" for k, v in times.items()},
+            bound_ms=f"{cost['bound_ms']:.5f}", bound_by=cost["bound_by"],
+            GB_per_s=f"{nbytes / times['ms'] / 1e6:.1f}",
+            library="none: no single PyTorch call does the fused int8 MLP", card=repr(card))
+        if b == SERVE_SLOTS:
+            out["decode_mlp"].update(ms=times["ms"], plain_ms=times["plain_ms"], **cost)
+    del leaves, dequant
+    torch.cuda.empty_cache()
+    return out
+
+
 SUBTITLES = [
     "I can't believe you did that for me.",
     "Leave me alone, I said I'm fine.",
@@ -738,12 +906,14 @@ def timed_run(config: str, served: Served) -> dict:
             "peak_mem_gib": peak / 2**30, "working_set_gib": (peak - resident) / 2**30}
 
 
-def phase_main_path(card: str) -> dict:
+def phase_main_path(card: str) -> tuple:
     """Every configuration of CONFIGS on one model, all serving trees
     resident at once: a counted run each, then timings in the order of
     CONFIGS and back (TIMED_ONCE only there), so that a drift of the host
     over the phase weighs on the configurations alike. Returns each
-    kernel's launch count from the first configuration that runs it."""
+    kernel's launch count from the first configuration that runs it, and
+    the model for the serve phase (cfg, frozen, trainable, tokenizer,
+    features, the bf16 and int8 serving trees)."""
     cfg, frozen, trainable, tok = bootstrap.build_model(
         {"llama_model": "Qwen25", "keep_full_llm": True}, seed=0)
     frozen, trainable = bootstrap.serving_llm(frozen, trainable, cfg)
@@ -791,6 +961,199 @@ def phase_main_path(card: str) -> dict:
             visits=json.dumps([{key: round(r[key], 4) for key in
                                 ("prefill_ms", "decode_ms_per_step", "clips_per_s")}
                                for r in runs]), card=repr(card))
+    serving = {"bf16": trees["bf16"], "int8": trees["int8"]}  # what the serve phase runs
+    del trees, served
+    torch.cuda.empty_cache()
+    return launches, (cfg, frozen, trainable, tok, feats, serving)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """A configuration of the serve phase: `kernels` launch num_layers times
+    per decode step (int8_matmul in paged_w8 by its own count), every other
+    kernel 0 times."""
+    kernels: tuple
+    engine: str = "paged"  # PagedBatchServer, or the dense BatchServer
+    tree: str = "bf16"  # the serving tree: bf16, or int8 split (quantize_params)
+    pool: Optional[torch.dtype] = None  # the paged pool's dtype, the table's by default
+    decode_mlp: str = "auto"  # qwen2.DECODE_MLP
+    attention: str = "pallas"  # paged.PAGED_ATTENTION of a paged engine
+
+
+SERVE = {
+    "paged_bf16": ServeConfig(("paged_attention", "decode_qkv", "decode_mlp_bf16")),
+    # the gather chain: tells the kernel's rounding from the engines' own
+    # differences when the paged and dense engines' tokens part
+    "paged_bf16_gather": ServeConfig(("decode_qkv", "decode_mlp_bf16"), attention="xla"),
+    "paged_kv8": ServeConfig(("paged_attention_int8", "decode_qkv", "decode_mlp_bf16"),
+                             pool=torch.int8),
+    "paged_w8": ServeConfig(("paged_attention", "decode_mlp"), tree="int8",
+                            decode_mlp="pallas"),
+    "server_bf16": ServeConfig(("decode_qkv", "decode_mlp_bf16"), engine="dense"),
+}
+SERVE_NEW_TOKENS = (32, 24, 16, 8)  # max_new_tokens, cycling over the requests
+
+
+def serve_requests(chat: Chat, feats: dict) -> list:
+    """48 requests: the 8 clips six times, prompts from Chat.build_prompt_batch
+    (545-564 tokens), submitted as inference_hybird.py's submit_chunk_paged
+    does."""
+    ids, lengths, offsets = chat.build_prompt_batch(MODE, SUBTITLES, QUESTION)
+    feats_np = {m: v.float().cpu().numpy() for m, v in feats.items()}
+    return [server.Request(
+        request_id=r, input_ids=np.asarray(ids[r % BATCH, :lengths[r % BATCH]], np.int32),
+        features={m: v[r % BATCH] for m, v in feats_np.items()},
+        offsets={m: int(o[r % BATCH]) for m, o in offsets.items()},
+        max_new_tokens=SERVE_NEW_TOKENS[r % len(SERVE_NEW_TOKENS)],
+    ) for r in range(6 * BATCH)]
+
+
+def serve_engine(config: str, model: tuple, max_prompt: int):
+    """The engine of a configuration, built as inference_hybird.py's
+    make_paged_server builds it: block 16, 2048 blocks, tables for the
+    longest prompt + 32 tokens, 16 slots, reserve admission, bursts of 8,
+    greedy (the dense server: 16 slots, max_len 640)."""
+    cfg, frozen, trainable, tok, _, trees = model
+    c = SERVE[config]
+    frozen = {**frozen, "llm": trees[c.tree]}
+    if c.engine == "dense":
+        return server.BatchServer(frozen, trainable, cfg, tok, max_slots=SERVE_SLOTS,
+                                  max_len=MAX_LEN)
+    pcfg = paged.PagedConfig(block_size=PAGE, num_blocks=POOL_BLOCKS,
+                             max_blocks_per_seq=-(-(max_prompt + NEW_TOKENS) // PAGE))
+    return paged.PagedBatchServer(frozen, trainable, cfg, tok, pcfg=pcfg, max_slots=SERVE_SLOTS,
+                                  dtype=c.pool, do_sample=False, seed=0, admission="reserve",
+                                  decode_burst=8)
+
+
+@contextlib.contextmanager
+def serve_switches(config: str):
+    """paged.PAGED_ATTENTION and qwen2.DECODE_MLP of the configuration, for
+    the duration of the block."""
+    c = SERVE[config]
+    saved = paged.PAGED_ATTENTION, qwen2.DECODE_MLP
+    paged.PAGED_ATTENTION = c.attention
+    qwen2.DECODE_MLP = c.decode_mlp
+    try:
+        yield
+    finally:
+        paged.PAGED_ATTENTION, qwen2.DECODE_MLP = saved
+
+
+def serve_counted(config: str, model: tuple, requests: list) -> tuple:
+    """One run of a configuration over all requests, every kernel count set
+    to 0 just before and read just after. Asserts each kernel of the
+    configuration launched num_layers x the decode steps the engine made
+    (int8_matmul: the decode steps' 4 products a layer + the lm_head, plus
+    each admission's prefill products routed to the kernel by M), every
+    other kernel 0 times, a result for every request and finite logits.
+    Returns (launches, results)."""
+    c = SERVE[config]
+    layers = model[0].llm.num_layers
+    finite, admissions = [], []
+    forward, core, prefill = qwen2.forward, paged._decode_core, paged.prefill_batch_into_pages
+
+    def checked_forward(*args, **kwargs):  # the prefills (both engines), the dense decode
+        out, cache = forward(*args, **kwargs)
+        finite.append(torch.isfinite(out).all())
+        return out, cache
+
+    def checked_core(*args, **kwargs):  # the paged decode steps
+        logits, pools = core(*args, **kwargs)
+        finite.append(torch.isfinite(logits).all())
+        return logits, pools
+
+    def recorded_prefill(llm, llm_cfg, pools, embeds, *args, **kwargs):
+        admissions.append(tuple(embeds.shape[:2]))
+        return prefill(llm, llm_cfg, pools, embeds, *args, **kwargs)
+
+    with serve_switches(config):
+        engine = serve_engine(config, model, max(len(r.input_ids) for r in requests))
+        qwen2.forward, paged._decode_core = checked_forward, checked_core
+        paged.prefill_batch_into_pages = recorded_prefill
+        for wrapper in WRAPPERS.values():
+            wrapper.launches = 0
+        try:
+            for r in requests:
+                engine.submit(r)
+            results = engine.run_until_drained()
+            torch.cuda.synchronize()
+        finally:
+            qwen2.forward, paged._decode_core = forward, core
+            paged.prefill_batch_into_pages = prefill
+    launches = {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+    steps = engine.stats["decode_steps"]
+    expected = {**dict.fromkeys(KERNELS, 0), **dict.fromkeys(c.kernels, layers * steps)}
+    if c.tree == "int8":
+        expected["int8_matmul"] = steps * (4 * layers + 1) + sum(
+            7 * layers + 1 if b * t <= quant.PALLAS_DEQUANT_MAX_M else 1 for b, t in admissions)
+    say("serve", config=config, decode_steps=steps, admissions=json.dumps(admissions),
+        launches=json.dumps(launches), results=len(results), forwards=len(finite))
+    if launches != expected:
+        raise AssertionError(f"serve {config}: kernel launches {launches} != {expected}")
+    if set(results) != {r.request_id for r in requests}:
+        raise AssertionError(f"serve {config}: results for {sorted(results)} only")
+    if not finite or not bool(torch.stack(finite).all()):
+        raise AssertionError(f"serve {config}: non-finite logits")
+    return launches, results
+
+
+def serve_timed(config: str, model: tuple, requests: list, card: str) -> None:
+    """One timed run of a configuration on a fresh engine: all requests
+    submitted up front, wall time to the last result (ending in a
+    synchronize); requests/s, the clock's TTFT/e2e percentiles and
+    generated tokens/s, the engine's phase times and counters, the cache's
+    GiB and the peak device memory."""
+    with serve_switches(config):
+        engine = serve_engine(config, model, max(len(r.input_ids) for r in requests))
+        cache = engine.cache if SERVE[config].engine == "dense" else engine.pools
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for r in requests:
+            engine.submit(r)
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = engine.clock.summary()
+    stats = {k: round(v, 4) if isinstance(v, float) else v for k, v in engine.stats.items()}
+    say("serve", config=config, requests=len(requests), wall_s=f"{wall:.4f}",
+        requests_per_s=f"{len(requests) / wall:.4f}",
+        **{k: summary[k] for k in ("ttft_p50_ms", "ttft_p95_ms", "e2e_p50_ms", "e2e_p95_ms",
+                                   "gen_tokens_per_s", "mean_tokens")},
+        stats=json.dumps(stats), cache_gib=f"{tree_gib(cache):.3f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}", card=repr(card))
+    del engine, cache
+    torch.cuda.empty_cache()
+
+
+def phase_serve(card: str, model: tuple) -> dict:
+    """The serving engines at Qwen2.5-7B width on the merged model of the
+    main path: a counted run of each configuration of SERVE, then one timed
+    run each. Returns each kernel's launch count from the first
+    configuration that runs it."""
+    cfg, frozen, trainable, tok, feats, _ = model
+    requests = serve_requests(Chat(frozen, trainable, cfg, tok), feats)
+    say("serve", requests=len(requests),
+        prompt_tokens=f"{min(len(r.input_ids) for r in requests)}-"
+                      f"{max(len(r.input_ids) for r in requests)}",
+        max_new_tokens=json.dumps(SERVE_NEW_TOKENS), slots=SERVE_SLOTS)
+    launches, results = {}, {}
+    for config in SERVE:
+        counts, results[config] = serve_counted(config, model, requests)
+        for name, count in counts.items():
+            if count and name not in launches:
+                launches[name] = count
+        torch.cuda.empty_cache()
+    def equal(a, b):  # requests whose tokens two configurations share
+        return sum(results[a][r] == results[b][r] for r in results[a])
+
+    say("serve", paged_bf16_requests_equal_to_server_bf16=equal("paged_bf16", "server_bf16"),
+        paged_bf16_gather_equal_to_server_bf16=equal("paged_bf16_gather", "server_bf16"),
+        paged_bf16_equal_to_paged_bf16_gather=equal("paged_bf16", "paged_bf16_gather"),
+        of=len(requests))
+    for config in SERVE:
+        serve_timed(config, model, requests, card)
     return launches
 
 
@@ -801,7 +1164,10 @@ def main() -> None:
     kernels = phase_kernels(card, cfg)
     kernels.update(phase_attention_kernels(card, cfg))
     kernels.update(phase_quant_kernels(card, cfg))
-    launches = phase_main_path(card)
+    kernels.update(phase_serving_kernels(card, cfg))
+    launches, model = phase_main_path(card)
+    for name, count in phase_serve(card, model).items():  # the serving slice's kernels
+        launches.setdefault(name, count)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],

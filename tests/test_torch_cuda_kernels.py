@@ -6,16 +6,23 @@ card (and no jax), run them with
 Tolerance rtol 1.6e-2, atol 1e-2: both sides round to bf16 at the same
 points, so they differ by f32 summation order plus one final rounding (the
 prefill kernel also rounds p to bf16 for its PV product, as the TPU flash op
-does; the quantized matmuls round their f32 sums to bf16 once)."""
+does; the quantized matmuls round their f32 sums to bf16 once; the int8
+decode MLP rounds xn and silu·up to bf16 on both sides)."""
 
 import pytest
 import torch
 
 from affectgpt_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
 from affectgpt_tpu_torch.ops.decode_attn_o import decode_attn_o, decode_attn_o_reference
+from affectgpt_tpu_torch.ops.decode_mlp import decode_mlp, decode_mlp_reference
 from affectgpt_tpu_torch.ops.decode_mlp_bf16 import decode_mlp_bf16, decode_mlp_bf16_reference
 from affectgpt_tpu_torch.ops.decode_qkv import decode_qkv, decode_qkv_reference
 from affectgpt_tpu_torch.ops import quant
+from affectgpt_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_attention_int8,
+    paged_attention_reference,
+)
 from affectgpt_tpu_torch.ops.prefill_attention import (
     prefill_attention,
     prefill_attention_reference,
@@ -210,3 +217,105 @@ def test_quant_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         quant.int8_matmul_w8a8(x, w8[:, :120].contiguous(), s8[:, :120].contiguous())
     with pytest.raises(ValueError):  # x does not match the packed weight
         quant.int4_matmul_smallm(_rnd(gen, 8, 512), w4, s4)
+
+
+def _int8_mlp(gen, b, h, inter):
+    """x, ln and the three int8 leaves (values and scales) of one layer."""
+    leaves = []
+    for k, n in ((h, inter), (h, inter), (inter, h)):
+        leaves += quant.quantize_per_channel(
+            torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5)
+    return (_rnd(gen, b, h), _rnd(gen, h, scale=0.1, shift=1.0), *leaves)
+
+
+@pytest.mark.parametrize("b", [1, 5, 8, 16, 20])
+@pytest.mark.parametrize("h,inter", [(256, 512), (384, 4160 * 2)])
+def test_decode_mlp_int8_kernel_matches_plain(gen, b, h, inter):
+    args = _int8_mlp(gen, b, h, inter)
+    before = decode_mlp.launches
+    got = decode_mlp(*args)
+    torch.cuda.synchronize()
+    assert decode_mlp.launches == before + 1
+    torch.testing.assert_close(got.float(), decode_mlp_reference(*args).float(), **TOL)
+
+
+def test_decode_mlp_int8_wrapper_raises_on_what_the_kernel_does_not_take(gen):
+    x, ln, wg, sg, wu, su, wd, sd = _int8_mlp(gen, 8, 256, 512)
+    with pytest.raises(TypeError):  # bf16 weights where int8 is stored
+        decode_mlp(x, ln, wg.to(torch.bfloat16), sg, wu, su, wd, sd)
+    with pytest.raises(TypeError):  # float32 activations
+        decode_mlp(x.float(), ln, wg, sg, wu, su, wd, sd)
+    with pytest.raises(ValueError):  # intermediate not a multiple of 64
+        decode_mlp(x, ln, wg[:, :480].contiguous(), sg[:, :480].contiguous(),
+                   wu[:, :480].contiguous(), su[:, :480].contiguous(), wd[:480], sd)
+    with pytest.raises(ValueError):  # a transposed, non-contiguous weight
+        decode_mlp(x, ln, wg, sg, wu, su, wd.t().contiguous().t(), sd)
+
+
+def _paged_case(gen, b, kv, g, d, blk, width, int8, num_blocks=64):
+    """Pools of random pages, tables of distinct shuffled blocks (0, the
+    null page, pads them), ragged seq_lens with a 1-token row, a row of
+    exactly one page and a row filling the whole table."""
+    shape = (num_blocks, blk, kv, d)
+    if int8:
+        pool_k = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+        pool_v = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+        scales = tuple(torch.rand(shape[:3], generator=gen, device="cuda") * 0.02
+                       for _ in range(2))
+    else:
+        pool_k, pool_v = _rnd(gen, *shape), _rnd(gen, *shape)
+        scales = ()
+    lens = torch.randint(1, width * blk + 1, (b,), generator=gen, device="cuda")
+    lens[0] = 1
+    if b > 1:
+        lens[1] = blk
+    if b > 2:
+        lens[2] = width * blk
+    perm = torch.randperm(num_blocks - 1, generator=gen, device="cuda") + 1
+    tables = torch.zeros((b, width), dtype=torch.int32, device="cuda")
+    used = 0
+    for r in range(b):
+        n = -(-int(lens[r]) // blk)
+        tables[r, :n] = perm[used:used + n].to(torch.int32)
+        used += n
+    return (_rnd(gen, b, kv * g, d), pool_k, pool_v, tables, lens.to(torch.int32)), scales
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("b", [1, 3, 7])
+@pytest.mark.parametrize("kv,g,d", [(2, 3, 64), (4, 7, 128)])
+@pytest.mark.parametrize("blk,width", [(16, 5), (8, 8)])
+def test_paged_attention_kernel_matches_plain(gen, int8, b, kv, g, d, blk, width):
+    args, scales = _paged_case(gen, b, kv, g, d, blk, width, int8,
+                               num_blocks=b * width + 2)
+    kernel = paged_attention_int8 if int8 else paged_attention
+    before = kernel.launches
+    got = kernel(*args, *scales)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and got.shape == args[0].shape
+    torch.testing.assert_close(got.float(), paged_attention_reference(*args, *scales).float(),
+                               **TOL)
+
+
+def test_paged_attention_rows_without_tokens_are_zero(gen):
+    args, _ = _paged_case(gen, 3, 2, 3, 64, 16, 4, False)
+    q, pool_k, pool_v, tables, lens = args
+    lens = torch.tensor([0, 5, 0], dtype=torch.int32, device="cuda")
+    got = paged_attention(q, pool_k, pool_v, tables, lens)
+    assert torch.equal(got[0], torch.zeros_like(got[0])) and torch.equal(got[2], got[0])
+    torch.testing.assert_close(got.float(), paged_attention_reference(
+        q, pool_k, pool_v, tables, lens).float(), **TOL)
+
+
+def test_paged_attention_wrappers_raise_on_what_the_kernel_does_not_take(gen):
+    (q, pool_k, pool_v, tables, lens), _ = _paged_case(gen, 2, 2, 3, 64, 16, 4, False)
+    with pytest.raises(TypeError):  # int64 block tables
+        paged_attention(q, pool_k, pool_v, tables.long(), lens)
+    with pytest.raises(TypeError):  # a bf16 pool given to the int8 variant
+        s = torch.ones(pool_k.shape[:3], device="cuda")
+        paged_attention_int8(q, pool_k, pool_v, tables, lens, s, s)
+    with pytest.raises(ValueError):  # head_dim 96
+        pk = _rnd(gen, 12, 16, 2, 96)
+        paged_attention(_rnd(gen, 2, 6, 96), pk, pk, tables, lens)
+    with pytest.raises(ValueError):  # non-contiguous q
+        paged_attention(_rnd(gen, 2, 64, 6).transpose(1, 2), pool_k, pool_v, tables, lens)

@@ -20,11 +20,14 @@ from affectgpt_tpu.models import affectgpt as ja
 from affectgpt_tpu.models import mergers as jm
 from affectgpt_tpu.models import qwen2 as jq
 from affectgpt_tpu_torch.inference import generate as tgen
+from affectgpt_tpu_torch.inference import paged as tpaged
 from affectgpt_tpu_torch.models import affectgpt as ta
 from affectgpt_tpu_torch.models import convert
 from affectgpt_tpu_torch.models import mergers as tm
 from affectgpt_tpu_torch.models import qwen2 as tq
 from affectgpt_tpu_torch.ops import _build
+from affectgpt_tpu_torch.ops import paged_attention as paged_ops
+from affectgpt_tpu_torch.ops.decode_mlp import decode_mlp
 from affectgpt_tpu_torch.ops.decode_mlp_bf16 import decode_mlp_bf16
 from affectgpt_tpu_torch.ops.decode_qkv import decode_qkv
 
@@ -58,7 +61,8 @@ def test_port_imports_without_jax():
 
 
 @pytest.mark.parametrize("entry", [bootstrap.build_model, convert.from_jax,
-                                   convert.tree_to_torch, tq.init_cache],
+                                   convert.tree_to_torch, tq.init_cache,
+                                   tpaged.init_paged_cache],
                          ids=lambda f: f.__name__)
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
@@ -132,11 +136,33 @@ def test_kernel_wrappers_on_cpu_count_no_launch():
     assert decode_qkv.launches == 0 and decode_mlp_bf16.launches == 0
 
 
+def test_serving_wrappers_on_cpu_count_no_launch():
+    decode_mlp.launches = paged_ops.paged_attention.launches = 0
+    paged_ops.paged_attention_int8.launches = 0
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 128, generator=g, dtype=torch.bfloat16)
+    i8 = lambda *s: torch.randint(-127, 128, s, generator=g, dtype=torch.int8)  # noqa: E731
+    sc = lambda n: torch.rand(1, n, generator=g) * 0.01  # noqa: E731
+    y = decode_mlp(x, torch.ones(128, dtype=torch.bfloat16), i8(128, 256), sc(256),
+                   i8(128, 256), sc(256), i8(256, 128), sc(128))
+    q = torch.randn(2, 4, 64, generator=g, dtype=torch.bfloat16)
+    pool = torch.randn(6, 4, 2, 64, generator=g, dtype=torch.bfloat16)
+    tables = torch.tensor([[1, 2], [3, 0]], dtype=torch.int32)
+    lens = torch.tensor([7, 2], dtype=torch.int32)
+    a = paged_ops.paged_attention(q, pool, pool, tables, lens)
+    scales = torch.rand(6, 4, 2, generator=g)
+    b = paged_ops.paged_attention_int8(q, i8(6, 4, 2, 64), i8(6, 4, 2, 64), tables, lens,
+                                       scales, scales)
+    assert y.dtype == a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape == q.shape
+    assert decode_mlp.launches == 0 and paged_ops.paged_attention.launches == 0
+    assert paged_ops.paged_attention_int8.launches == 0
+
+
 def test_kernel_build_is_keyed_by_source_hash():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert {p.name for p in _build.CSRC_DIR.glob("*.cu")} >= {
         "decode_qkv.cu", "decode_mlp_bf16.cu", "decode_attention.cu", "decode_attn_o.cu",
         "prefill_attention.cu", "int8_matmul.cu", "int8_matmul_w8a8.cu", "int4_matmul.cu",
-        "int4_matmul_smallm.cu"}
+        "int4_matmul_smallm.cu", "decode_mlp_int8.cu", "paged_attention.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
