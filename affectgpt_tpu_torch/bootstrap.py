@@ -1,14 +1,16 @@
 """Model bootstrap for the PyTorch port.
 
-Port of affectgpt_tpu/bootstrap.py for the preextracted serving path:
-resolve the tokenizer, build the model config from the YAML `model:`
-section given as a plain dict (affectgpt_tpu.config needs PyYAML, which the
-port does not), and make random weights from a seed on the chosen device;
-`model.int8` quantizes the LLM's projections to per-channel int8.
+Port of affectgpt_tpu/bootstrap.py: resolve the tokenizer, build the model
+config from the YAML `model:` section given as a plain dict
+(affectgpt_tpu.config needs PyYAML, which the port does not), and make
+random weights from a seed on the chosen device: the LLM and, with
+`with_encoders` (the realtime path), the CLIP ViT-L/14 and HuBERT-large
+towers; `model.int8` quantizes the LLM's projections to per-channel int8.
 
-Not ported yet: the media encoders, HF checkpoint conversion and the
-checkpoint overlays (`ckpt`, `ckpt_2`, `ckpt_3`); a node that asks for
-them raises NotImplementedError.
+Not ported yet: HF checkpoint conversion (of the LLM and of the encoders)
+and the checkpoint overlays (`ckpt`, `ckpt_2`, `ckpt_3`); a node that asks
+for them, or names a model directory that exists, raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Tuple
 import torch
 
 from affectgpt_tpu_torch import paths
-from affectgpt_tpu_torch.models import affectgpt, qwen2
+from affectgpt_tpu_torch.models import affectgpt, clip_vit, encoders, hubert, qwen2
 from affectgpt_tpu_torch.tokenization import ByteTokenizer
 
 logger = logging.getLogger(__name__)
@@ -33,6 +35,7 @@ def _llm_name(node: dict) -> str:
 
 def build_model(
     model_node: dict,
+    with_encoders: bool = False,
     device="cuda",
     dtype=torch.bfloat16,
     seed: int = 0,
@@ -41,7 +44,13 @@ def build_model(
     directory the tokenizer is the ByteTokenizer and the LLM shrinks to the
     tiny geometry unless `keep_full_llm` is set; the weights are random,
     drawn from `seed` (frozen) and `seed + 1` (trainable), on the card
-    unless `device` says otherwise (there is no fallback to the CPU)."""
+    unless `device` says otherwise (there is no fallback to the CPU).
+
+    with_encoders (unless the node sets `skip_encoders`) adds the
+    `visual_encoder` and `acoustic_encoder` towers the node names, drawn
+    from `seed + 2`: at their registry geometry with `keep_full_llm`, else
+    shrunk to the tiny CLIP and HuBERT with projection_dim = visual_dim and
+    hidden_size = acoustic_dim, recorded in the config's overrides."""
     node = dict(model_node or {})
     for key in ("ckpt", "ckpt_2", "ckpt_3"):
         if node.get(key):
@@ -61,6 +70,23 @@ def build_model(
     device = torch.device(device)
     frozen = affectgpt.init_frozen(
         torch.Generator(device=device).manual_seed(seed), model_cfg, dtype=dtype)
+    if with_encoders and not node.get("skip_encoders", False):
+        vis_spec = encoders.get_visual_encoder(model_cfg.visual_encoder_name)
+        aud_spec = encoders.get_acoustic_encoder(model_cfg.acoustic_encoder_name)
+        for table, spec in ((paths.PATH_TO_VISUAL, vis_spec), (paths.PATH_TO_AUDIO, aud_spec)):
+            model_dir = table.get(spec.name, "")
+            if model_dir and os.path.isdir(model_dir):
+                raise NotImplementedError(
+                    f"loading the HF checkpoint in {model_dir} is not ported to PyTorch yet")
+        if node.get("keep_full_llm", False):
+            vis_cfg, aud_cfg = vis_spec.make_config(), aud_spec.make_config()
+        else:  # random-weight smoke mode: tiny towers with the mergers' input widths
+            vis_cfg = replace(clip_vit.ClipVisionConfig.tiny(), projection_dim=model_cfg.visual_dim)
+            aud_cfg = replace(hubert.HubertConfig.tiny(), hidden_size=model_cfg.acoustic_dim)
+            model_cfg = replace(model_cfg, vision_cfg_override=vis_cfg, audio_cfg_override=aud_cfg)
+        generator = torch.Generator(device=device).manual_seed(seed + 2)
+        frozen["visual_encoder"] = vis_spec.init_params(generator, vis_cfg, dtype)
+        frozen["acoustic_encoder"] = aud_spec.init_params(generator, aud_cfg, dtype)
     if node.get("int8", False):  # serving mode: per-channel int8 decoder weights
         frozen["llm"] = qwen2.quantize_params(frozen["llm"])
     trainable = affectgpt.init_trainable(

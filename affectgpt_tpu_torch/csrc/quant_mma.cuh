@@ -36,6 +36,7 @@
 #include <stdint.h>
 
 #include "gemv_tile.cuh"
+#include "mma_bf16.cuh"
 
 namespace agk {
 namespace qmm {
@@ -53,29 +54,6 @@ using SmallTile = TileCfg<1, 1, 4>;  // 16 x 128, for M <= 16
 using LargeTile = TileCfg<4, 2, 2>;  // 128 x 64
 
 enum : int { kW8 = 0, kW4 = 1, kW4Dequant = 2 };
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory, transposed: lane l gives the
-// address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 __device__ __forceinline__ uint32_t ld_u32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);

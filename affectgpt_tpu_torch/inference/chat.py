@@ -1,12 +1,15 @@
-"""Chat over preextracted features: batched clip → text, in PyTorch.
+"""Chat: batched clip → text, in PyTorch.
 
-Port of affectgpt_tpu/inference/chat.py (`Chat.build_prompt_batch` and
-`Chat.answer_batch`): prompt assembly and tokenization use the port's own
-copies of the host modules (`constants`, `prompts`, `tokenization`), then
-mergers → splice → prefill → decode run in the port.
+Port of affectgpt_tpu/inference/chat.py (`encode_media_features`,
+`Chat.build_prompt_batch` and `Chat.answer_batch`): on the realtime path
+`encode_media_features` turns raw frames, face crops and audio clips into
+features on the device (preprocessing, CLIP ViT-L/14, HuBERT-large); on the
+preextracted path the features come from a cache. Prompt assembly and
+tokenization use the port's own copies of the host modules (`constants`,
+`prompts`, `tokenization`), then mergers → splice → prefill → decode run in
+the port.
 
-Not ported yet: `encode_media_features` (the realtime encoders), speculative
-decoding and the repetition penalty.
+Not ported yet: speculative decoding and the repetition penalty.
 """
 
 from __future__ import annotations
@@ -19,8 +22,47 @@ import torch
 
 from affectgpt_tpu_torch import constants, prompts
 from affectgpt_tpu_torch.inference import generate as gen
-from affectgpt_tpu_torch.models import affectgpt, splice
+from affectgpt_tpu_torch.models import affectgpt, clip_vit, encoders, hubert, splice
+from affectgpt_tpu_torch.ops import image as image_ops
 from affectgpt_tpu_torch.tokenization import encode_batch
+
+
+def prepare_frames(frames: torch.Tensor, image_size: int, normalize: str) -> torch.Tensor:
+    """[b, T, H, W, 3] uint8 → [b, T, S, S, 3] float32: the eval transform
+    (resize + the tower's processor stats) over the flattened [b·T] batch."""
+    b, t = frames.shape[:2]
+    prepped = image_ops.preprocess_frames_eval(  # [C, b·T, S, S]
+        frames.reshape(b * t, *frames.shape[2:]), out_size=image_size, normalize=normalize)
+    return prepped.permute(1, 2, 3, 0).reshape(b, t, *prepped.shape[2:], -1)
+
+
+def encode_media_features(
+    frozen: dict,
+    cfg: Optional[affectgpt.AffectGPTConfig],
+    raw: Dict[str, torch.Tensor],
+    vision_cfg: Optional[clip_vit.ClipVisionConfig] = None,
+    audio_cfg: Optional[hubert.HubertConfig] = None,
+) -> Dict[str, torch.Tensor]:
+    """Raw media on the device → per-modality [b, t, d] features through the
+    frozen encoders the config names (the realtime path; reference
+    encoder.py forward wrappers). raw: frame / face / image [b, T, H, W, 3]
+    uint8, audio [b, clips, 1, samples]. Frames are resized and normalized
+    with the visual tower's own processor stats, as one [b·T] batch."""
+    vis_spec = encoders.get_visual_encoder(
+        cfg.visual_encoder_name if cfg is not None else "CLIP_VIT_LARGE")
+    aud_spec = encoders.get_acoustic_encoder(
+        cfg.acoustic_encoder_name if cfg is not None else "HUBERT_LARGE")
+    vcfg = vision_cfg or getattr(cfg, "vision_cfg_override", None) or vis_spec.make_config()
+    acfg = audio_cfg or getattr(cfg, "audio_cfg_override", None) or aud_spec.make_config()
+
+    feats: Dict[str, torch.Tensor] = {}
+    for m in ("frame", "face", "image"):
+        if m in raw:
+            prepped = prepare_frames(raw[m], vcfg.image_size, vis_spec.normalize)
+            feats[m] = vis_spec.encode(frozen["visual_encoder"], vcfg, prepped)
+    if "audio" in raw:
+        feats["audio"] = aud_spec.encode(frozen["acoustic_encoder"], acfg, raw["audio"])
+    return feats
 
 
 @dataclass

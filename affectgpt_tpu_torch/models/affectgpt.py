@@ -1,11 +1,13 @@
-"""AffectGPT over preextracted features, in PyTorch.
+"""AffectGPT in PyTorch: modality features → LLM input embeddings.
 
-Port of affectgpt_tpu/models/affectgpt.py for the serving path: modality
-features [b, t, d] → temporal mergers (+ audio-video pre-fusion) → splice
-into the prompt embeddings. Parameters are split as in the JAX package into
-`frozen` (the LLM) and `trainable` (LoRA, mergers, pre-fusion) trees.
+Port of affectgpt_tpu/models/affectgpt.py for the serving paths: modality
+features [b, t, d] (preextracted, or from the media encoders of the
+realtime path) → temporal mergers (+ audio-video pre-fusion) → splice into
+the prompt embeddings. Parameters are split as in the JAX package into
+`frozen` (the LLM and, with `with_encoders`, the CLIP and HuBERT towers) and
+`trainable` (LoRA, mergers, pre-fusion) trees.
 
-Not ported yet: the media encoders (`with_encoders`) and `forward_loss`.
+Not ported yet: `forward_loss`.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Dict, Optional
 
 import torch
 
-from affectgpt_tpu_torch.models import mergers, qwen2, splice
+from affectgpt_tpu_torch.models import clip_vit, hubert, mergers, qwen2, splice
 
 
 @dataclass(frozen=True)
@@ -41,8 +43,8 @@ class AffectGPTConfig:
     use_multi: bool = True
     visual_encoder_name: str = "CLIP_VIT_LARGE"
     acoustic_encoder_name: str = "HUBERT_LARGE"
-    # encoder geometry overrides of the JAX config; the encoders are not
-    # ported yet, so these stay None here
+    # encoder geometry overrides (bootstrap's tiny mode shrinks the towers;
+    # None = the registry spec's own config)
     vision_cfg_override: Optional[object] = None
     audio_cfg_override: Optional[object] = None
 
@@ -164,10 +166,21 @@ def init_trainable(generator: torch.Generator, cfg: AffectGPTConfig,
     return params
 
 
-def init_frozen(generator: torch.Generator, cfg: AffectGPTConfig,
-                dtype=torch.bfloat16) -> dict:
-    """Frozen base params: the LLM (preextracted mode, no media encoders)."""
-    return {"llm": qwen2.init_params(generator, cfg.llm, dtype=dtype)}
+def init_frozen(generator: torch.Generator, cfg: AffectGPTConfig, dtype=torch.bfloat16,
+                with_encoders: bool = False,
+                vision_cfg: Optional[clip_vit.ClipVisionConfig] = None,
+                audio_cfg: Optional[hubert.HubertConfig] = None) -> dict:
+    """Frozen base params on the generator's device: the LLM and, with
+    `with_encoders`, the CLIP vision tower and HuBERT (ViT-L/14 and
+    HuBERT-large unless configs are given). with_encoders=False is the
+    preextracted (`skip_encoders`) mode."""
+    params = {"llm": qwen2.init_params(generator, cfg.llm, dtype=dtype)}
+    if with_encoders:
+        params["visual_encoder"] = clip_vit.init_vision_params(
+            generator, vision_cfg or clip_vit.ClipVisionConfig.vit_l_14(), dtype=dtype)
+        params["acoustic_encoder"] = hubert.init_params(
+            generator, audio_cfg or hubert.HubertConfig.large(), dtype=dtype)
+    return params
 
 
 def encode_modalities(trainable: dict, cfg: AffectGPTConfig,

@@ -3,8 +3,9 @@
 `from_jax` takes the JAX package's `frozen` and `trainable` trees after
 `np.asarray` on every leaf (nested dicts and lists of numpy arrays) and
 returns the same trees as tensors, on the card unless `device` says
-otherwise. It covers the LLM, LoRA, the mergers and the multi-fusion block,
-and never imports jax.
+otherwise. It covers the LLM, LoRA, the mergers, the multi-fusion block and
+the media encoders (`visual_encoder`: the CLIP vision tower,
+`acoustic_encoder`: HuBERT), and never imports jax.
 
 Layouts: the port keeps the JAX layouts and dtypes unchanged, the split
 (`q_proj` ...) and fused (`qkv_proj`, `gateup_proj`) serving layouts alike.
@@ -16,13 +17,18 @@ and `wk`/`wv [h, kv*d]` in 64-column strips, ops/decode_mlp_bf16.py reads
 `w_gate`/`w_up [h, I]` in 64-column strips and `w_down [I, h]` in
 32-column strips, and ops/decode_attn_o.py reads `o_proj [H*d, h]` in
 32-column strips, and ops/quant.py's kernels read the quantized leaves as
-stored. No transpose or repacking happens here.
+stored. The encoder towers keep the JAX layouts too, which already are
+torch's: dense `[in, out]` applied as `x @ w`, the CLIP patch embedding
+`[P²·3, width]` over channel-major patches, Conv1d kernels `OIH`
+`[out, in, k]`. No transpose or repacking happens here.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from affectgpt_tpu_torch.models import encoders
 
 
 def _tensor(arr, device) -> torch.Tensor:
@@ -73,4 +79,40 @@ def from_jax(frozen_np: dict, trainable_np: dict, cfg, device="cuda"):
     name, width = ("qkv_proj", nq + 2 * nkv) if "qkv_proj" in layer0 else ("q_proj", nq)
     if _dense_shape(layer0[name]) != (lc.hidden_size, width):
         raise ValueError(f"from_jax: {name} is not [hidden, {width}]")
+    if "visual_encoder" in frozen:
+        _check_vision(frozen["visual_encoder"], cfg.vision_cfg_override
+                      or encoders.get_visual_encoder(cfg.visual_encoder_name).make_config())
+    if "acoustic_encoder" in frozen:
+        _check_hubert(frozen["acoustic_encoder"], cfg.audio_cfg_override
+                      or encoders.get_acoustic_encoder(cfg.acoustic_encoder_name).make_config())
     return frozen, trainable
+
+
+def _check_vision(tree: dict, vc) -> None:
+    """The CLIP vision tower's geometry against its ClipVisionConfig."""
+    patch = (vc.patch_size * vc.patch_size * 3, vc.width)
+    if tuple(tree["patch_embed"]["w"].shape) != patch:
+        raise ValueError(f"from_jax: visual patch_embed is not {list(patch)}")
+    if len(tree["blocks"]) != vc.num_layers:
+        raise ValueError(f"from_jax: the vision tower has {len(tree['blocks'])} blocks, "
+                         f"the config {vc.num_layers}")
+    if tuple(tree["pos_embed"]["table"].shape) != (vc.num_patches + 1, vc.width):
+        raise ValueError("from_jax: visual pos_embed does not match the config")
+
+
+def _check_hubert(tree: dict, ac) -> None:
+    """HuBERT's geometry against its HubertConfig: the conv kernels [out, in,
+    k], the layer count, the positional conv [hidden, hidden / groups, k]."""
+    in_ch = 1
+    if len(tree["convs"]) != len(ac.conv_dim):
+        raise ValueError("from_jax: the acoustic conv stack does not match the config")
+    for i, (conv, out_ch, k) in enumerate(zip(tree["convs"], ac.conv_dim, ac.conv_kernel)):
+        if tuple(conv["w"].shape) != (out_ch, in_ch, k):
+            raise ValueError(f"from_jax: acoustic conv {i} is not [{out_ch}, {in_ch}, {k}]")
+        in_ch = out_ch
+    if len(tree["layers"]) != ac.num_layers:
+        raise ValueError(f"from_jax: HuBERT has {len(tree['layers'])} layers, the config "
+                         f"{ac.num_layers}")
+    pos = (ac.hidden_size, ac.hidden_size // ac.pos_conv_groups, ac.pos_conv_kernel)
+    if tuple(tree["pos_conv"]["w"].shape) != pos:
+        raise ValueError(f"from_jax: pos_conv is not {list(pos)}")

@@ -1,8 +1,10 @@
 """Neural-net building blocks on explicit parameter dictionaries.
 
-Port of affectgpt_tpu/models/nn.py. Parameters are nested dicts of tensors
-with the JAX package's keys and layouts (dense `w` is `[in, out]`, applied
-as `x @ w`), so a converted JAX tree drops in unchanged.
+Port of affectgpt_tpu/models/nn.py; `mha`'s train-mode `probs_drop`,
+`dropout` and the int8 `w_q` encoder leaves are not ported yet. Parameters
+are nested dicts of tensors with the JAX package's keys and layouts (dense
+`w` is `[in, out]`, applied as `x @ w`), so a converted JAX tree drops in
+unchanged.
 
 Compute convention, as in the JAX package: matmuls accumulate in float32
 and the result returns to the activation dtype; norms take float32
@@ -11,6 +13,8 @@ allocate on its device.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -81,3 +85,66 @@ def embedding_init(generator, num: int, dim: int, scale: float = 0.02, dtype=tor
 
 def embedding(params, ids: torch.Tensor) -> torch.Tensor:
     return params["table"][ids]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The erf gelu (torch nn.GELU's default, BERT "gelu")."""
+    return torch.nn.functional.gelu(x)
+
+
+def mha_init(generator, q_dim: int, kv_dim: int, num_heads: int, head_dim=None,
+             dtype=torch.float32):
+    """Multi-head attention projections: q from q_dim, k/v from kv_dim,
+    output back to q_dim."""
+    inner = num_heads * (head_dim or q_dim // num_heads)
+    return {
+        "q": dense_init(generator, q_dim, inner, dtype=dtype),
+        "k": dense_init(generator, kv_dim, inner, dtype=dtype),
+        "v": dense_init(generator, kv_dim, inner, dtype=dtype),
+        "o": dense_init(generator, inner, q_dim, dtype=dtype),
+    }
+
+
+# Route of unmasked self-attention in `mha`: "auto" sends it to the fused
+# kernel (ops/vit_attention.py) from 192 tokens on, "0" keeps every call on
+# the plain chain. JAX's AFFECTGPT_FUSED_MHA, with its TPU gates (backend,
+# head_dim % 8, head_dim >= 32) dropped.
+FUSED_MHA = "auto"
+
+
+def _fused_self_attn_ok(tq: int, tk: int, mask) -> bool:
+    """JAX's route rule: full (unmasked) self-attention of at least 192
+    tokens. Shorter sequences stay on the plain chain (on the TPU the kernel
+    lost 8% at HuBERT's 99 tokens)."""
+    return FUSED_MHA != "0" and mask is None and tq == tk and tq >= 192
+
+
+def mha(params, q_input: torch.Tensor, kv_input: torch.Tensor, num_heads: int,
+        mask=None, probs_drop=None) -> torch.Tensor:
+    """Attention with the full softmax in f32: q_input [b, tq, dq], kv_input
+    [b, tk, dkv], mask broadcastable to [b, h, tq, tk] (bool, True = attend).
+    Logits are f32 sums divided by √d, masked with finfo(f32).min; the
+    probabilities are rounded to v's dtype before the f32 PV product.
+    Unmasked self-attention of at least 192 tokens goes to the fused kernel
+    (`_fused_self_attn_ok`). probs_drop (train-mode attention dropout) waits
+    for the training slice and raises."""
+    if probs_drop is not None:
+        raise NotImplementedError("mha: probs_drop (train-mode dropout) is not ported yet")
+    b, tq, _ = q_input.shape
+    tk = kv_input.shape[1]
+    inner = params["q"]["w"].shape[1]
+    head_dim = inner // num_heads
+    q = dense(params["q"], q_input).reshape(b, tq, num_heads, head_dim)
+    k = dense(params["k"], kv_input).reshape(b, tk, num_heads, head_dim)
+    v = dense(params["v"], kv_input).reshape(b, tk, num_heads, head_dim)
+    if _fused_self_attn_ok(tq, tk, mask):
+        from affectgpt_tpu_torch.ops import vit_attention
+
+        out = vit_attention.fused_self_attention(q, k, v, valid_len=tk)
+        return dense(params["o"], out.to(q_input.dtype).reshape(b, tq, inner))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(head_dim)
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+    return dense(params["o"], out.to(q_input.dtype).reshape(b, tq, inner))

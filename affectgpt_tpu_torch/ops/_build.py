@@ -20,6 +20,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -31,6 +33,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the entries in csrc/*.cu
 _SIGNATURES = {
     "agk_decode_qkv_bf16": [_P] * 12 + [_I] * 5 + [_F, _F, _P],
@@ -45,6 +48,10 @@ _SIGNATURES = {
     "agk_decode_mlp_int8": [_P] * 10 + [_I] * 3 + [_F, _P],
     "agk_paged_attention_bf16": [_P] * 8 + [_I] * 6 + [_P],
     "agk_paged_attention_int8": [_P] * 10 + [_I] * 6 + [_P],
+    "agk_vit_attention_bf16": [_P] * 4 + [_I] * 5 + [_L] * 6 + [_P],
+    "agk_vit_attn_sublayer_bf16": [_P] * 17 + [_I] * 5 + [_F, _P],
+    "agk_vit_mlp_bf16": [_P] * 10 + [_I] * 4 + [_F, _P],
+    "agk_vit_mlp_fused_bf16": [_P] * 8 + [_I] * 6 + [_F, _P],
 }
 
 
@@ -135,3 +142,18 @@ def check(status: int, name: str) -> None:
     if status != 0:
         reason = load_library().agk_error_string(status).decode()
         raise RuntimeError(f"{name}: CUDA error {status} ({reason}) at launch")
+
+
+def check_bf16_operands(name: str, device: torch.device, operands) -> None:
+    """Raise unless every (tensor, shape) pair lies on `device` as a
+    contiguous, 16-byte aligned bf16 tensor of that shape: what the encoder
+    kernels (csrc/vit_*.cu) read with 16-byte loads."""
+    for t, shape in operands:
+        if t.device != device:
+            raise ValueError(f"{name}: all operands must be on one device")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} kernel takes bfloat16, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel takes contiguous, 16-byte aligned tensors")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: operand of shape {tuple(t.shape)}, expected {tuple(shape)}")

@@ -40,8 +40,9 @@ not a multiple of its 256-row block to the w8 XLA path (qwen2.py
 tiles, so w8a8 always runs the kernel, as the JAX comment on the route
 intends ("w8a8 always runs the Pallas kernel").
 
-The encoder-tower functions (`dense_w8a8_xla`, `quantize_encoder_tree`)
-are not ported yet.
+The w8a8 encoder trees (`dense_w8a8_xla`, `quantize_encoder_tree` and the
+`w_q` branch of nn.dense) are not ported yet: the port's CLIP and HuBERT
+towers (models/clip_vit.py, models/hubert.py) run on bf16 weights.
 """
 
 from __future__ import annotations

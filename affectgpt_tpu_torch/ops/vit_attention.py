@@ -1,0 +1,111 @@
+"""Fused non-causal ViT attention with a `valid_len` key mask.
+
+Port of affectgpt_tpu/ops/vit_attention_pallas.py (`fused_vit_attention`,
+`fused_self_attention`, `mha_fused`). On CUDA tensors the kernel of
+csrc/vit_attention.cu runs (or the wrapper raises); on CPU tensors
+`fused_vit_attention_reference`, the plain PyTorch version, which is also
+the oracle the kernel is checked against on the card.
+
+The kernel takes head_dim 64 and at most MAX_N tokens, and reads q, k and v
+through strides: `fused_self_attention` hands it the [b, t, h, d] layout of
+the projections as it is (JAX transposes to [b, h, t, d] and pads t to a
+multiple of 8, both TPU layout costs). Keys at or past `valid_len` are
+masked; every query row is computed.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from affectgpt_tpu_torch.ops import _build
+
+HEAD_DIM = 64
+MAX_N = 512
+
+
+def fused_vit_attention_reference(q, k, v, valid_len: int):
+    """Plain version with the TPU kernel's rounding points: q, k, v
+    [b, h, n, d] → softmax(q·kᵀ · 1/√d, keys ≥ valid_len at −1e30)·v, with
+    f32 scores, p normalized and then rounded to v's dtype, f32 PV rounded
+    once to q's dtype."""
+    n, d = q.shape[2], q.shape[3]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (1.0 / float(d) ** 0.5)
+    keep = torch.arange(k.shape[2], device=q.device) < valid_len
+    s = torch.where(keep, s, torch.full((), -1e30, device=q.device))
+    s = s - s.amax(-1, keepdim=True)
+    p = torch.exp(s)
+    p = p / p.sum(-1, keepdim=True)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def _attention(q, k, v, valid_len: int, out):
+    """Launch the kernel on [b, h, n, d] views (any strides with head_dim
+    contiguous, one set for q, k and v) writing the [b, h, n, d] view `out`."""
+    b, h, n, d = q.shape
+    for t in (q, k, v, out):
+        if t.device != q.device:
+            raise ValueError("fused_vit_attention: all operands must be on one device")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"fused_vit_attention kernel takes bfloat16, got {t.dtype}")
+        if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+            raise ValueError("fused_vit_attention kernel takes a contiguous head_dim and "
+                             "16-byte aligned rows")
+    if tuple(k.shape) != (b, h, n, d) or k.shape != v.shape or k.stride() != q.stride() \
+            or v.stride() != q.stride():
+        raise ValueError("fused_vit_attention: q, k and v need one shape and one layout")
+    if d != HEAD_DIM or not 1 <= valid_len <= n <= MAX_N:
+        raise ValueError(f"fused_vit_attention kernel takes head_dim {HEAD_DIM} and "
+                         f"1 <= valid_len <= n <= {MAX_N} (head_dim={d}, n={n}, "
+                         f"valid_len={valid_len})")
+    lib = _build.load_library()
+    status = lib.agk_vit_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, n, int(valid_len), d,
+        q.stride(0), q.stride(1), q.stride(2), out.stride(0), out.stride(1), out.stride(2),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(status, "fused_vit_attention")
+    fused_vit_attention.launches += 1
+    return out
+
+
+def fused_vit_attention(q, k, v, valid_len: int):
+    """q, k, v [b, h, n, d] (keys ≥ valid_len masked) → [b, h, n, d] in
+    q.dtype."""
+    if q.device.type == "cpu":
+        return fused_vit_attention_reference(q, k, v, valid_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_vit_attention: no kernel for device {q.device}")
+    return _attention(q, k, v, valid_len, torch.empty(q.shape, dtype=q.dtype, device=q.device))
+
+
+fused_vit_attention.launches = 0  # kernel launches since the last reset
+
+
+def fused_self_attention(q, k, v, valid_len: int):
+    """q, k, v [b, t, h, d] (keys ≥ valid_len masked) → [b, t, h, d]."""
+    if q.device.type == "cpu":
+        o = fused_vit_attention_reference(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2), valid_len)
+        return o.transpose(1, 2)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_self_attention: no kernel for device {q.device}")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), valid_len,
+               out.transpose(1, 2))
+    return out
+
+
+def mha_fused(params: dict, x, num_heads: int, valid_len: int):
+    """nn.mha(params, x, x, num_heads) on self-attention inputs x [b, n, w]
+    with keys ≥ valid_len masked: the projections as plain dense layers, the
+    softmax chain in the kernel."""
+    from affectgpt_tpu_torch.models import nn
+
+    b, n, _ = x.shape
+    inner = params["q"]["w"].shape[1]
+    d = inner // num_heads
+    q = nn.dense(params["q"], x).reshape(b, n, num_heads, d)
+    k = nn.dense(params["k"], x).reshape(b, n, num_heads, d)
+    v = nn.dense(params["v"], x).reshape(b, n, num_heads, d)
+    o = fused_self_attention(q, k, v, valid_len).reshape(b, n, inner).to(x.dtype)
+    return nn.dense(params["o"], o)

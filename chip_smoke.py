@@ -36,6 +36,16 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    int8 weights of the 7B layer; times at b = 16, with the three products
    in cuBLAS on the dequantized bf16 weights as a yardstick); neither has a
    single PyTorch call that computes its function, so `library_ms` is null.
+   The encoder kernels at the towers' widths (ViT-L/14 and HuBERT-large:
+   w = 1024, 16 heads of 64, I = 4096), 64 images or clips: CLIP's 257
+   tokens, 264 with valid_len 257 and HuBERT's 99; both activations of the
+   MLP kernels, both accumulations of the fused one (the bf16 accumulator is
+   allowed one more bf16 ulp of its running sum's peak: a rounding that
+   parts there outlives the later chunks). Times at CLIP's shape (and
+   HuBERT's for the sublayer and the MLP pair), four layers' weights per
+   replay cycle; `library_ms` is SDPA with the bool key mask for the
+   attention, and the sublayers print their library chains' times
+   (layer_norm, addmm, SDPA or the activation, addmm) as `chain_ms`.
 4. Main path: bootstrap.build_model at Qwen2.5-7B width with random bf16
    weights from a seed, LoRA merged by serving_llm, then Chat.answer_batch
    on 8 preextracted clips, greedy, 32 new tokens, under three attention
@@ -73,6 +83,15 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    pairwise; then one timed run each prints requests/s, TTFT and end-to-end
    percentiles, generated tokens/s, the engine's phase times and counters,
    the cache's GiB and the peak memory.
+6. Realtime: the phase-4 model, built with_encoders=True (CLIP ViT-L/14 and
+   HuBERT-large beside the LLM), answers 8 clips from raw media made from a
+   seed (720p frames, 112² face crops, 2 s of 16 kHz audio) through
+   encode_media_features and Chat.answer_batch under five configurations of
+   the towers' switches (RT); a counted run each asserts the exact encoder
+   launches (24 layers per tower call) beside the LLM's, finite features and
+   logits and one string per clip, and prints the features' distance from
+   rt_plain's; timed visits print the stages' ms, clips/s from raw media to
+   text and the peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -95,9 +114,26 @@ import torch
 from affectgpt_tpu_torch import bootstrap
 from affectgpt_tpu_torch.inference import generate as gen
 from affectgpt_tpu_torch.inference import paged, server
-from affectgpt_tpu_torch.inference.chat import Chat
-from affectgpt_tpu_torch.models import affectgpt, qwen2
+from affectgpt_tpu_torch.inference.chat import Chat, encode_media_features, prepare_frames
+from affectgpt_tpu_torch.models import affectgpt, clip_vit, encoders, hubert, nn, qwen2
 from affectgpt_tpu_torch.ops import _build, quant
+from affectgpt_tpu_torch.ops.vit_attention import (
+    fused_vit_attention,
+    fused_vit_attention_reference,
+)
+from affectgpt_tpu_torch.ops import vit_mlp_fused
+from affectgpt_tpu_torch.ops.vit_mlp import activation, mlp_sublayer, mlp_sublayer_reference
+from affectgpt_tpu_torch.ops.vit_mlp_fused import (
+    chunks_for,
+    mlp_sublayer_fused,
+    mlp_sublayer_fused_reference,
+)
+from affectgpt_tpu_torch.ops.vit_sublayer import (
+    attn_sublayer,
+    attn_sublayer_reference,
+    dot_f32,
+    layernorm_rounded,
+)
 from affectgpt_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
 from affectgpt_tpu_torch.ops.decode_attn_o import decode_attn_o, decode_attn_o_reference
 from affectgpt_tpu_torch.ops.decode_mlp import decode_mlp, decode_mlp_reference
@@ -172,6 +208,22 @@ KERNELS = {
         "source": "affectgpt_tpu_torch/csrc/decode_mlp_int8.cu",
         "replaces": "affectgpt_tpu/ops/decode_mlp_pallas.py:122",
     },
+    "attn_sublayer": {
+        "source": "affectgpt_tpu_torch/csrc/vit_sublayer.cu",
+        "replaces": "affectgpt_tpu/ops/vit_sublayer_pallas.py:105",
+    },
+    "mlp_sublayer": {
+        "source": "affectgpt_tpu_torch/csrc/vit_mlp.cu",
+        "replaces": "affectgpt_tpu/ops/vit_mlp_pallas.py:116",
+    },
+    "fused_vit_attention": {
+        "source": "affectgpt_tpu_torch/csrc/vit_attention.cu",
+        "replaces": "affectgpt_tpu/ops/vit_attention_pallas.py:79",
+    },
+    "mlp_sublayer_fused": {
+        "source": "affectgpt_tpu_torch/csrc/vit_mlp_fused.cu",
+        "replaces": "affectgpt_tpu/ops/vit_mlp_fused_pallas.py:161",
+    },
 }
 WRAPPERS = {"decode_qkv": decode_qkv, "decode_mlp_bf16": decode_mlp_bf16,
             "decode_attention": decode_attention, "decode_attn_o": decode_attn_o,
@@ -179,7 +231,9 @@ WRAPPERS = {"decode_qkv": decode_qkv, "decode_mlp_bf16": decode_mlp_bf16,
             "int4_matmul_smallm": quant.int4_matmul_smallm, "int4_matmul": quant.int4_matmul,
             "int8_matmul": quant.int8_matmul, "int8_matmul_w8a8": quant.int8_matmul_w8a8,
             "paged_attention": paged_attention, "paged_attention_int8": paged_attention_int8,
-            "decode_mlp": decode_mlp}
+            "decode_mlp": decode_mlp, "attn_sublayer": attn_sublayer,
+            "mlp_sublayer": mlp_sublayer, "fused_vit_attention": fused_vit_attention,
+            "mlp_sublayer_fused": mlp_sublayer_fused}
 
 
 def say(phase: str, **fields) -> None:
@@ -265,7 +319,10 @@ def bound(nbytes: float, flops: float, ops_per_s: float = BF16_FLOP_PER_S) -> di
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def compare(name: str, got, ref, b: int):
+def compare(name: str, got, ref, b: int, extra_atol=None):
+    """Largest absolute and relative error of the kernel's outputs against
+    the plain version's; raises unless every element is within
+    ATOL (+ extra_atol, an elementwise tensor, where given) + RTOL·|ref|."""
     got = [g.float() for g in (got if isinstance(got, tuple) else (got,))]
     ref = [r.float() for r in (ref if isinstance(ref, tuple) else (ref,))]
     max_abs = max(float((g - r).abs().max()) for g, r in zip(got, ref))
@@ -273,8 +330,38 @@ def compare(name: str, got, ref, b: int):
     for g, r in zip(got, ref):
         if not torch.isfinite(g).all():
             raise AssertionError(f"{name} b={b}: non-finite kernel output")
-        torch.testing.assert_close(g, r, rtol=RTOL, atol=ATOL, msg=f"{name} b={b} disagrees")
+        if extra_atol is None:
+            torch.testing.assert_close(g, r, rtol=RTOL, atol=ATOL, msg=f"{name} b={b} disagrees")
+            continue
+        over = (g - r).abs() > ATOL + extra_atol + RTOL * r.abs()
+        if bool(over.any()):
+            raise AssertionError(f"{name} b={b} disagrees at {int(over.sum())} elements")
     return max_abs, max_rel
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each |value| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def bf16_acc_peak(x, s: dict, act: str) -> torch.Tensor:
+    """Per output element, the largest |running sum| that
+    mlp_sublayer_fused's bf16 accumulator rounds over its chunks, in the
+    plain version's arithmetic. Where the kernel's and the plain f32 sums
+    round one of these running sums differently, the one-ulp difference
+    outlives the later chunks, so the bf16-accumulator check allows one ulp
+    of this peak beyond the usual tolerance."""
+    h = layernorm_rounded(x, s["lns"], s["lnb"], 1e-5)
+    inter = s["wi"].shape[1]
+    kc = inter // chunks_for(inter, vit_mlp_fused.K_CHUNKS)
+    out = peak = None
+    for c0 in range(0, inter, kc):
+        t = activation(dot_f32(h, s["wi"][:, c0:c0 + kc]) + s["bi"][c0:c0 + kc].float(), act)
+        part = dot_f32(t.to(x.dtype), s["wf"][c0:c0 + kc])
+        out = (x.float() + s["bf"].float() + part if out is None
+               else out.float() + part).to(x.dtype)
+        peak = out.float().abs() if peak is None else torch.maximum(peak, out.float().abs())
+    return peak
 
 
 def phase_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
@@ -702,6 +789,182 @@ def phase_serving_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
     return out
 
 
+ENCODER_B = 64  # images (8 clips x 8 frames) or audio clips (8 x 8) per tower call
+RT_SAMPLES = 32000  # an audio clip: 2 s at 16 kHz
+ATTN_KEYS = ("lns", "lnb", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
+MLP_KEYS = ("lns", "lnb", "wi", "bi", "wf", "bf")
+
+
+def encoder_layers(g: torch.Generator, w: int, inter: int, copies: int) -> list:
+    """`copies` random bf16 encoder layers (LN near 1, the towers' scales),
+    each with the concatenated q/k/v weight of the library chain."""
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale + shift).to(torch.bfloat16)
+
+    layers = []
+    for _ in range(copies):
+        s = {"lns": rnd(w, scale=0.1, shift=1.0), "lnb": rnd(w, scale=0.1),
+             **{k: rnd(w, w, scale=0.02) for k in ("wq", "wk", "wv", "wo")},
+             **{k: rnd(w, scale=0.1) for k in ("bq", "bk", "bv", "bo")},
+             "wi": rnd(w, inter, scale=0.02), "bi": rnd(inter, scale=0.1),
+             "wf": rnd(inter, w, scale=0.02), "bf": rnd(w, scale=0.1)}
+        s["wqkv"] = torch.cat([s["wq"], s["wk"], s["wv"]], dim=1)
+        s["bqkv"] = torch.cat([s["bq"], s["bk"], s["bv"]])
+        layers.append(s)
+    return layers
+
+
+def library_attn_chain(x, s, heads: int, key_mask):
+    """The attention sublayer in library calls: layer_norm, one addmm for
+    q/k/v, SDPA with the bool key mask, addmm + residual (a yardstick)."""
+    b, n, w = x.shape
+    h = torch.nn.functional.layer_norm(x, (w,), s["lns"], s["lnb"], 1e-5)
+    qkv = torch.addmm(s["bqkv"], h.view(-1, w), s["wqkv"]).view(b, n, 3, heads, w // heads)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    o = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
+    return torch.addmm(s["bo"], o.transpose(1, 2).reshape(-1, w), s["wo"]).view_as(x) + x
+
+
+def library_mlp_chain(x, s, act: str):
+    """The MLP sublayer in library calls: layer_norm, addmm, the activation,
+    addmm + residual (a yardstick)."""
+    w = x.shape[-1]
+    h = torch.nn.functional.layer_norm(x, (w,), s["lns"], s["lnb"], 1e-5).view(-1, w)
+    t = torch.addmm(s["bi"], h, s["wi"])
+    t = torch.nn.functional.gelu(t) if act == "gelu" else t * torch.sigmoid(1.702 * t)
+    return torch.addmm(s["bf"], t, s["wf"]).view_as(x) + x
+
+
+def hubert_frames(acfg: hubert.HubertConfig, samples: int) -> int:
+    """Frames the conv frontend makes of `samples` audio samples."""
+    for k, s in zip(acfg.conv_kernel, acfg.conv_stride):
+        samples = (samples - k) // s + 1
+    return samples
+
+
+def encoder_configs(cfg: affectgpt.AffectGPTConfig) -> tuple:
+    """(visual spec, its config, acoustic spec, its config) as
+    encode_media_features resolves them."""
+    vspec = encoders.get_visual_encoder(cfg.visual_encoder_name)
+    aspec = encoders.get_acoustic_encoder(cfg.acoustic_encoder_name)
+    return (vspec, cfg.vision_cfg_override or vspec.make_config(),
+            aspec, cfg.audio_cfg_override or aspec.make_config())
+
+
+def phase_encoder_kernels(card: str, vcfg: clip_vit.ClipVisionConfig,
+                          acfg: hubert.HubertConfig) -> dict:
+    """The four encoder kernels against their plain versions at the towers'
+    widths (ViT-L/14 and HuBERT-large share w = 1024, 16 heads of 64,
+    I = 4096), b = 64: CLIP's n = 257, the same padded to 264 with valid_len
+    257, and HuBERT's n = 99 (the frames of a 2 s clip); both
+    activations for the MLP kernels, both accumulations for the fused one.
+    Returns per-kernel {max_abs_err, ms, plain_ms, library_ms, bound_ms,
+    bound_by} with device times at CLIP's shape (CUDA graph, four layers'
+    weights per replay cycle); HuBERT's times of the sublayer and the MLP
+    pair are printed. library_ms is SDPA for the attention; the sublayers
+    have no single library call, so their library chains' times are printed
+    as chain_ms."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    w, heads, inter, b = vcfg.width, vcfg.num_heads, vcfg.mlp_dim, ENCODER_B
+    if (w, heads, inter) != (acfg.hidden_size, acfg.num_heads, acfg.intermediate_size):
+        raise ValueError("phase_encoder_kernels: the towers' layer widths differ")
+    d, n_clip, n_hub = w // heads, vcfg.num_patches + 1, hubert_frames(acfg, RT_SAMPLES)
+    layers = encoder_layers(g, w, inter, 4)  # 4 x 24 MB of weights per replay cycle
+    s0 = layers[0]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {name: {"max_abs_err": 0.0, "library_ms": None} for name in
+           ("attn_sublayer", "mlp_sublayer", "fused_vit_attention", "mlp_sublayer_fused")}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    def check(name, got, ref, extra_atol=None, **shape):
+        err, rel = compare(name, got, ref, b, extra_atol)
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+        say("kernels", kernel=name, b=b, **shape, max_abs_err=f"{err:.6g}",
+            max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL if extra_atol is None else
+            f"{ATOL}+one bf16 ulp of the running sum's peak")
+
+    for tower, n, valid in (("clip", n_clip, n_clip), ("clip", -(-n_clip // 8) * 8, n_clip),
+                            ("hubert", n_hub, n_hub)):
+        x = rnd(b, n, w)
+        a_args = (x, *(s0[k] for k in ATTN_KEYS))
+        check("attn_sublayer", attn_sublayer(*a_args, heads, valid),
+              attn_sublayer_reference(*a_args, heads, valid), tower=tower, n=n, valid_len=valid)
+        q, k, v = (rnd(b, heads, n, d) for _ in range(3))
+        check("fused_vit_attention", fused_vit_attention(q, k, v, valid),
+              fused_vit_attention_reference(q, k, v, valid), tower=tower, n=n, valid_len=valid)
+        if n != valid:
+            continue  # the MLP kernels are row-wise: no key mask
+        m_args = (x, *(s0[k] for k in MLP_KEYS))
+        for act in ("quick_gelu", "gelu"):
+            check("mlp_sublayer", mlp_sublayer(*m_args, act=act),
+                  mlp_sublayer_reference(*m_args, act=act), tower=tower, n=n, act=act)
+            for acc in ("bf16", "f32"):
+                extra = bf16_ulp(bf16_acc_peak(x, s0, act)) if acc == "bf16" else None
+                check("mlp_sublayer_fused", mlp_sublayer_fused(*m_args, act=act, acc=acc),
+                      mlp_sublayer_fused_reference(*m_args, act=act, acc=acc), extra,
+                      tower=tower, n=n, act=act, acc=acc)
+
+    def record(name, tower, n, calls, plain_calls, nbytes, flops, library=None, chain=None,
+               **shape):
+        times = {"ms": graph_ms(calls), "plain_ms": graph_ms(plain_calls, reps=5)}
+        if library:
+            times["library_ms"] = graph_ms(library)
+        if chain:
+            times["chain_ms"] = graph_ms(chain)
+        cost = bound(nbytes, flops)
+        say("kernels", kernel=name, tower=tower, b=b, n=n, **shape,
+            **{k: f"{v:.5f}" for k, v in times.items()}, bound_ms=f"{cost['bound_ms']:.5f}",
+            bound_by=cost["bound_by"], card=repr(card))
+        if tower == "clip" and "ms" not in out[name]:  # the first CLIP timing of a kernel
+            out[name].update({k: v for k, v in times.items() if k != "chain_ms"}, **cost)
+
+    for tower, n in (("clip", n_clip), ("hubert", n_hub)):
+        x = rnd(b, n, w)
+        key_mask = torch.ones((1, 1, 1, n), dtype=torch.bool, device="cuda")
+        rows = b * n
+        record("attn_sublayer", tower, n,
+               [lambda s=s: attn_sublayer(x, *(s[k] for k in ATTN_KEYS), heads, n)
+                for s in layers] * 2,
+               [lambda: attn_sublayer_reference(x, *(s0[k] for k in ATTN_KEYS), heads, n)],
+               2 * (2 * rows * w + 4 * w * w + 6 * w), 8 * rows * w * w + 4 * rows * n * w,
+               chain=[lambda s=s: library_attn_chain(x, s, heads, key_mask) for s in layers] * 2)
+        mlp_bytes, mlp_flops = 2 * (2 * rows * w + 2 * w * inter + inter + 3 * w), \
+            4 * rows * w * inter
+        act = "quick_gelu" if tower == "clip" else "gelu"
+        record("mlp_sublayer", tower, n,
+               [lambda s=s: mlp_sublayer(x, *(s[k] for k in MLP_KEYS), act=act)
+                for s in layers] * 2,
+               [lambda: mlp_sublayer_reference(x, *(s0[k] for k in MLP_KEYS), act=act)],
+               mlp_bytes, mlp_flops,
+               chain=[lambda s=s: library_mlp_chain(x, s, act) for s in layers] * 2, act=act)
+        if tower != "clip":
+            continue
+        for acc in ("bf16", "f32"):  # bf16 (the default) recorded, f32 printed
+            record("mlp_sublayer_fused", tower, n,
+                   [lambda s=s: mlp_sublayer_fused(x, *(s[k] for k in MLP_KEYS), act=act,
+                                                   acc=acc) for s in layers],
+                   [lambda: mlp_sublayer_fused_reference(x, *(s0[k] for k in MLP_KEYS),
+                                                         act=act, acc=acc)],
+                   mlp_bytes, mlp_flops,
+                   chain=[lambda s=s: library_mlp_chain(x, s, act) for s in layers], acc=acc)
+        qkv = [tuple(rnd(b, heads, n, d) for _ in range(3)) for _ in range(2)]  # 2 x 101 MB
+        record("fused_vit_attention", tower, n,
+               [lambda t=t: fused_vit_attention(*t, n) for t in qkv] * 4,
+               [lambda: fused_vit_attention_reference(*qkv[0], n)],
+               4 * b * heads * n * d * 2, 4 * b * heads * n * n * d,
+               library=[lambda t=t: sdpa(*t, attn_mask=key_mask) for t in qkv] * 4)
+        lib_err = float((sdpa(*qkv[0], attn_mask=key_mask).float()
+                         - fused_vit_attention_reference(*qkv[0], n).float()).abs().max())
+        say("library", kernel="fused_vit_attention", call="scaled_dot_product_attention",
+            max_abs_err_vs_plain=f"{lib_err:.6g}", card=repr(card))
+        del qkv
+    del layers
+    torch.cuda.empty_cache()
+    return out
+
+
 SUBTITLES = [
     "I can't believe you did that for me.",
     "Leave me alone, I said I'm fine.",
@@ -783,12 +1046,9 @@ def wall(fn, reps=3):
 
 
 @contextlib.contextmanager
-def config_switches(config: str):
-    """Set the qwen2 attention switches and quant.MATMUL_MODE of a
-    configuration of CONFIGS for the duration of the block."""
-    c = CONFIGS[config]
-    settings = [(qwen2, name, value) for name, value in c.switches.items()]
-    settings.append((quant, "MATMUL_MODE", c.matmul_mode))
+def switched(settings):
+    """Set module switches, (module, name, value) triples, for the duration
+    of the block."""
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in settings]
     for mod, name, value in settings:
         setattr(mod, name, value)
@@ -797,6 +1057,14 @@ def config_switches(config: str):
     finally:
         for mod, name, value in saved:
             setattr(mod, name, value)
+
+
+def config_switches(config: str):
+    """The qwen2 attention switches and quant.MATMUL_MODE of a configuration
+    of CONFIGS, for the duration of a block."""
+    c = CONFIGS[config]
+    return switched([*((qwen2, name, value) for name, value in c.switches.items()),
+                     (quant, "MATMUL_MODE", c.matmul_mode)])
 
 
 # configurations timed once, on the way there only
@@ -915,9 +1183,11 @@ def phase_main_path(card: str) -> tuple:
     the model for the serve phase (cfg, frozen, trainable, tokenizer,
     features, the bf16 and int8 serving trees)."""
     cfg, frozen, trainable, tok = bootstrap.build_model(
-        {"llama_model": "Qwen25", "keep_full_llm": True}, seed=0)
+        {"llama_model": "Qwen25", "keep_full_llm": True}, with_encoders=True, seed=0)
     frozen, trainable = bootstrap.serving_llm(frozen, trainable, cfg)
     assert cfg.llm == qwen2.QwenConfig.qwen25_7b(), cfg.llm
+    say("main", encoders=f"{cfg.visual_encoder_name}+{cfg.acoustic_encoder_name}",
+        encoder_gib=f"{tree_gib([frozen['visual_encoder'], frozen['acoustic_encoder']]):.3f}")
     rng = np.random.RandomState(0)
     feats = {
         m: torch.as_tensor(rng.randn(BATCH, 8, d).astype(np.float32), device="cuda")
@@ -1026,18 +1296,12 @@ def serve_engine(config: str, model: tuple, max_prompt: int):
                                   decode_burst=8)
 
 
-@contextlib.contextmanager
 def serve_switches(config: str):
     """paged.PAGED_ATTENTION and qwen2.DECODE_MLP of the configuration, for
-    the duration of the block."""
+    the duration of a block."""
     c = SERVE[config]
-    saved = paged.PAGED_ATTENTION, qwen2.DECODE_MLP
-    paged.PAGED_ATTENTION = c.attention
-    qwen2.DECODE_MLP = c.decode_mlp
-    try:
-        yield
-    finally:
-        paged.PAGED_ATTENTION, qwen2.DECODE_MLP = saved
+    return switched([(paged, "PAGED_ATTENTION", c.attention),
+                     (qwen2, "DECODE_MLP", c.decode_mlp)])
 
 
 def serve_counted(config: str, model: tuple, requests: list) -> tuple:
@@ -1157,6 +1421,181 @@ def phase_serve(card: str, model: tuple) -> dict:
     return launches
 
 
+@dataclasses.dataclass(frozen=True)
+class RtConfig:
+    """A configuration of the realtime phase: module switches, and the count
+    each kernel must reach in one answer, `launches(clip_layers,
+    hubert_layers)`, beside the LLM's decode kernels; every other kernel
+    stays at 0. Frames and faces each pass CLIP once per answer."""
+    switches: tuple  # ((module, name, value), ...)
+    launches: Callable[[int, int], dict]
+
+
+RT = {
+    "rt_plain": RtConfig(((clip_vit, "ATTN_IMPL", "xla"), (clip_vit, "MLP_IMPL", "xla"),
+                          (nn, "FUSED_MHA", "0")), lambda c, h: {}),
+    "rt_default": RtConfig((), lambda c, h: {"attn_sublayer": 2 * c, "mlp_sublayer": 2 * c}),
+    "rt_a": RtConfig(((clip_vit, "MLP_IMPL", "fused"), (hubert, "ATTN_IMPL", "sublayer"),
+                      (hubert, "MLP_IMPL", "pallas")),
+                     lambda c, h: {"attn_sublayer": 2 * c + h, "mlp_sublayer": h,
+                                   "mlp_sublayer_fused": 2 * c}),
+    "rt_b": RtConfig(((clip_vit, "ATTN_IMPL", "flash"), (hubert, "MLP_IMPL", "fused")),
+                     lambda c, h: {"fused_vit_attention": 2 * c, "mlp_sublayer_fused": h}),
+    "rt_mha": RtConfig(((clip_vit, "ATTN_IMPL", "xla"),),  # nn.mha's route at 257 tokens
+                       lambda c, h: {"fused_vit_attention": 2 * c}),
+}
+RT_VISITS = ("rt_plain", "rt_default", "rt_a", "rt_b", "rt_mha", "rt_default", "rt_plain")
+
+
+def realtime_media(seed: int = 1) -> dict:
+    """The realtime phase's raw media for 8 clips, made from a numpy seed and
+    put on the card: frames [8, 8, 720, 1280, 3] uint8 (a decoded HD clip,
+    downsampled on the device), OpenFace face crops [8, 8, 112, 112, 3]
+    uint8 (upsampled), audio [8, 8, 1, 32000] bf16 (2 s at 16 kHz, as
+    scripts/bench_realtime.py shapes it)."""
+    rng = np.random.RandomState(seed)
+    return {
+        "frame": torch.as_tensor(rng.randint(0, 256, (BATCH, 8, 720, 1280, 3), dtype=np.uint8),
+                                 device="cuda"),
+        "face": torch.as_tensor(rng.randint(0, 256, (BATCH, 8, 112, 112, 3), dtype=np.uint8),
+                                device="cuda"),
+        "audio": torch.as_tensor((rng.randn(BATCH, 8, 1, RT_SAMPLES) * 0.1).astype(np.float32),
+                                 device="cuda").to(torch.bfloat16),
+    }
+
+
+def rt_counted(config: str, chat: Chat, raw: dict, baseline: dict) -> dict:
+    """One answer from raw media under a configuration, every kernel count
+    set to 0 just before and read just after: asserts the exact launches,
+    features of the expected shapes, finite features and logits, and one
+    string per clip; prints each modality's largest difference and least
+    cosine similarity against rt_plain's features (not asserted: the kernel
+    routes round at other points than the plain chain)."""
+    cfg = chat.cfg
+    _, vcfg, _, acfg = encoder_configs(cfg)
+    n = NEW_TOKENS * cfg.llm.num_layers
+    expected = {**dict.fromkeys(KERNELS, 0), "decode_qkv": n, "decode_mlp_bf16": n,
+                **RT[config].launches(vcfg.num_layers, acfg.num_layers)}
+    finite = []
+    forward = qwen2.forward
+
+    def checked_forward(*args, **kwargs):
+        out, cache = forward(*args, **kwargs)
+        finite.append(torch.isfinite(out).all())
+        return out, cache
+
+    with switched(RT[config].switches):
+        qwen2.forward = checked_forward
+        for wrapper in WRAPPERS.values():
+            wrapper.launches = 0
+        try:
+            feats = encode_media_features(chat.frozen, cfg, raw)
+            texts = chat.answer_batch(MODE, SUBTITLES, QUESTION, feats,
+                                      max_new_tokens=NEW_TOKENS, do_sample=False)
+            torch.cuda.synchronize()
+        finally:
+            qwen2.forward = forward
+    launches = {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+    say("realtime", config=config, switches=json.dumps(
+        {f"{mod.__name__.split('.')[-1]}.{name}": v for mod, name, v in RT[config].switches}),
+        launches=json.dumps({k: v for k, v in launches.items() if v}), strings=len(texts))
+    if launches != expected:
+        raise AssertionError(f"realtime {config}: kernel launches {launches} != {expected}")
+    dims = {"frame": cfg.visual_dim, "face": cfg.visual_dim, "audio": cfg.acoustic_dim}
+    for m, d in dims.items():
+        if tuple(feats[m].shape) != (BATCH, 8, d) or not bool(torch.isfinite(feats[m]).all()):
+            raise AssertionError(f"realtime {config}: {m} features {tuple(feats[m].shape)}, "
+                                 f"expected finite [8, 8, {d}]")
+    if len(finite) != NEW_TOKENS + 1 or not bool(torch.stack(finite).all()):
+        raise AssertionError(f"realtime {config}: non-finite logits")
+    if len(texts) != BATCH or not all(isinstance(t, str) for t in texts):
+        raise AssertionError(f"realtime {config}: expected {BATCH} strings, got {texts!r}")
+    if config == "rt_plain":
+        baseline.update(feats=feats, texts=texts)
+    else:
+        diffs = {}
+        for m in dims:
+            a, b = feats[m].float().flatten(0, 1), baseline["feats"][m].float().flatten(0, 1)
+            cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+            diffs[m] = {"max_abs_diff": round(float((a - b).abs().max()), 6),
+                        "min_cos": round(float(cos.min()), 6)}
+        say("realtime", config=config, features_vs_rt_plain=json.dumps(diffs),
+            strings_equal_to_rt_plain=sum(x == y for x, y in zip(texts, baseline["texts"])))
+    return launches
+
+
+def rt_timed(config: str, chat: Chat, raw: dict) -> dict:
+    """One timed visit: each stage alone as the entry point runs it
+    (preprocessing of frames and faces, CLIP on frames, CLIP on faces, HuBERT,
+    answer_batch on those features), each ending in a synchronize; then the
+    whole path, encode_media_features + answer_batch, whose wall time gives
+    clips/s from raw media to text; peak device memory over the visit."""
+    cfg = chat.cfg
+    vspec, vcfg, aspec, acfg = encoder_configs(cfg)
+    enc = chat.frozen
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with switched(RT[config].switches):
+        torch.cuda.reset_peak_memory_stats()
+        prepped, pre_ms = timed(lambda: {m: prepare_frames(raw[m], vcfg.image_size,
+                                                           vspec.normalize)
+                                         for m in ("frame", "face")})
+        feats, ms = {}, {"preprocess_ms": pre_ms}
+        for m in ("frame", "face"):
+            feats[m], ms[f"clip_{m}_ms"] = timed(
+                lambda m=m: vspec.encode(enc["visual_encoder"], vcfg, prepped[m]))
+        feats["audio"], ms["hubert_ms"] = timed(
+            lambda: aspec.encode(enc["acoustic_encoder"], acfg, raw["audio"]))
+        _, ms["answer_batch_ms"] = timed(lambda: chat.answer_batch(
+            MODE, SUBTITLES, QUESTION, feats, max_new_tokens=NEW_TOKENS, do_sample=False))
+        _, ms["raw_to_text_ms"] = timed(lambda: chat.answer_batch(
+            MODE, SUBTITLES, QUESTION, encode_media_features(enc, cfg, raw),
+            max_new_tokens=NEW_TOKENS, do_sample=False))
+    ms["clips_per_s"] = BATCH / (ms["raw_to_text_ms"] / 1e3)
+    ms["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return ms
+
+
+def phase_realtime(card: str, model: tuple) -> dict:
+    """The realtime path at full width on the phase-4 model (CLIP ViT-L/14 +
+    HuBERT-large + Qwen2.5-7B, random bf16 weights from a seed, LoRA
+    merged): raw media of 8 clips (realtime_media) → encode_media_features →
+    greedy Chat.answer_batch in multiface_audio_face_frame_text mode, 32 new
+    tokens, under the configurations of RT: a counted run each, then timed
+    visits in the order of RT_VISITS. Returns each encoder kernel's launch
+    count from the first configuration that runs it."""
+    cfg, frozen, trainable, tok, _, _ = model
+    t0 = time.perf_counter()
+    raw = realtime_media()
+    torch.cuda.synchronize()
+    say("realtime", media=json.dumps({m: list(v.shape) for m, v in raw.items()}),
+        setup_s=f"{time.perf_counter() - t0:.3f}")
+    chat = Chat(frozen, trainable, cfg, tok, max_len=MAX_LEN)
+    launches, baseline = {}, {}
+    for config in RT:
+        for name, count in rt_counted(config, chat, raw, baseline).items():
+            if count and name not in launches:
+                launches[name] = count
+    visits = {config: [] for config in RT}
+    for config in RT_VISITS:
+        visit = rt_timed(config, chat, raw)
+        visits[config].append(visit)
+        say("realtime", config=config, visit=len(visits[config]),
+            **{k: f"{v:.4f}" for k, v in visit.items()}, card=repr(card))
+    for config, runs in visits.items():
+        say("realtime", config=config, visits=len(runs), **{
+            k: f"{statistics.mean(r[k] for r in runs):.4f}" for k in runs[0]}, card=repr(card))
+    del raw, chat
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     card = phase_device()
     phase_build(card)
@@ -1165,8 +1604,12 @@ def main() -> None:
     kernels.update(phase_attention_kernels(card, cfg))
     kernels.update(phase_quant_kernels(card, cfg))
     kernels.update(phase_serving_kernels(card, cfg))
+    kernels.update(phase_encoder_kernels(card, clip_vit.ClipVisionConfig.vit_l_14(),
+                                         hubert.HubertConfig.large()))
     launches, model = phase_main_path(card)
     for name, count in phase_serve(card, model).items():  # the serving slice's kernels
+        launches.setdefault(name, count)
+    for name, count in phase_realtime(card, model).items():  # the encoder kernels
         launches.setdefault(name, count)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

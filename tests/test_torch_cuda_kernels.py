@@ -7,7 +7,9 @@ Tolerance rtol 1.6e-2, atol 1e-2: both sides round to bf16 at the same
 points, so they differ by f32 summation order plus one final rounding (the
 prefill kernel also rounds p to bf16 for its PV product, as the TPU flash op
 does; the quantized matmuls round their f32 sums to bf16 once; the int8
-decode MLP rounds xn and silu·up to bf16 on both sides)."""
+decode MLP rounds xn and silu·up to bf16 on both sides; the encoder kernels
+round h, q/k/v, p, the heads, t and the output to bf16 on both sides, and
+the fused MLP its bf16 out tile after every chunk)."""
 
 import pytest
 import torch
@@ -27,6 +29,7 @@ from affectgpt_tpu_torch.ops.prefill_attention import (
     prefill_attention,
     prefill_attention_reference,
 )
+from affectgpt_tpu_torch.ops import vit_attention, vit_mlp, vit_mlp_fused, vit_sublayer
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1.6e-2, atol=1e-2)
@@ -319,3 +322,109 @@ def test_paged_attention_wrappers_raise_on_what_the_kernel_does_not_take(gen):
         paged_attention(_rnd(gen, 2, 6, 96), pk, pk, tables, lens)
     with pytest.raises(ValueError):  # non-contiguous q
         paged_attention(_rnd(gen, 2, 64, 6).transpose(1, 2), pool_k, pool_v, tables, lens)
+
+
+# the encoder kernels: CLIP's 257 tokens, HuBERT's 99 and a single key tile,
+# each with keys masked past valid_len
+VIT_TOKENS = [(257, 250), (99, 90), (40, 33)]
+
+
+@pytest.mark.parametrize("n,valid", VIT_TOKENS)
+@pytest.mark.parametrize("layout", ["bhnd", "bnhd"])
+def test_vit_attention_kernel_matches_plain(gen, n, valid, layout):
+    b, h, d = 3, 4, 64
+    q, k, v = (_rnd(gen, b, h, n, d) for _ in range(3))
+    want = vit_attention.fused_vit_attention_reference(q, k, v, valid)
+    before = vit_attention.fused_vit_attention.launches
+    if layout == "bhnd":
+        got = vit_attention.fused_vit_attention(q, k, v, valid)
+    else:  # the [b, n, h, d] layout of the projections, read through strides
+        tr = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
+        got = vit_attention.fused_self_attention(tr(q), tr(k), tr(v), valid).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert vit_attention.fused_vit_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), **TOL)
+
+
+def _vit_block(gen, w, inter):
+    vec = lambda n: _rnd(gen, n, scale=0.1)  # noqa: E731
+    return dict(lns=_rnd(gen, w, scale=0.1, shift=1.0), lnb=vec(w),
+                wq=_rnd(gen, w, w, scale=w ** -0.5), bq=vec(w), wk=_rnd(gen, w, w, scale=w ** -0.5),
+                bk=vec(w), wv=_rnd(gen, w, w, scale=w ** -0.5), bv=vec(w),
+                wo=_rnd(gen, w, w, scale=w ** -0.5), bo=vec(w),
+                wi=_rnd(gen, w, inter, scale=w ** -0.5), bi=vec(inter),
+                wf=_rnd(gen, inter, w, scale=inter ** -0.5), bf=vec(w))
+
+
+@pytest.mark.parametrize("w", [256, 384])
+@pytest.mark.parametrize("n,valid", VIT_TOKENS)
+def test_attn_sublayer_kernel_matches_plain(gen, w, n, valid):
+    p = _vit_block(gen, w, 4 * w)
+    args = (_rnd(gen, 3, n, w), *(p[k] for k in ("lns", "lnb", "wq", "bq", "wk", "bk", "wv",
+                                                  "bv", "wo", "bo")))
+    before = vit_sublayer.attn_sublayer.launches
+    got = vit_sublayer.attn_sublayer(*args, w // 64, valid)
+    torch.cuda.synchronize()
+    assert vit_sublayer.attn_sublayer.launches == before + 1
+    torch.testing.assert_close(got.float(), vit_sublayer.attn_sublayer_reference(
+        *args, w // 64, valid).float(), **TOL)
+
+
+@pytest.mark.parametrize("w", [256, 384])
+@pytest.mark.parametrize("n", [257, 99, 40])
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+def test_mlp_sublayer_kernel_matches_plain(gen, w, n, act):
+    p = _vit_block(gen, w, 4 * w)
+    args = (_rnd(gen, 3, n, w), *(p[k] for k in ("lns", "lnb", "wi", "bi", "wf", "bf")))
+    before = vit_mlp.mlp_sublayer.launches
+    got = vit_mlp.mlp_sublayer(*args, act=act)
+    torch.cuda.synchronize()
+    assert vit_mlp.mlp_sublayer.launches == before + 1
+    torch.testing.assert_close(got.float(), vit_mlp.mlp_sublayer_reference(
+        *args, act=act).float(), **TOL)
+    if n == 99:  # two groups of two images: rows are independent, no bit changes
+        x4 = _rnd(gen, 4, n, w)
+        chunked = vit_mlp.mlp_sublayer(x4, *args[1:], act=act, image_chunk=2)
+        assert vit_mlp.mlp_sublayer.launches == before + 2
+        assert torch.equal(chunked, vit_mlp.mlp_sublayer(x4, *args[1:], act=act))
+
+
+@pytest.mark.parametrize("w", [256, 384])
+@pytest.mark.parametrize("n", [257, 99, 40])
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+@pytest.mark.parametrize("acc", ["bf16", "f32"])
+@pytest.mark.parametrize("k_chunks", [8, 6])  # 6 rounds down to 3 (w = 384) or 1 (w = 256)
+def test_mlp_sublayer_fused_kernel_matches_plain(gen, w, n, act, acc, k_chunks):
+    p = _vit_block(gen, w, 4 * w)
+    args = (_rnd(gen, 3, n, w), *(p[k] for k in ("lns", "lnb", "wi", "bi", "wf", "bf")))
+    kw = dict(act=act, acc=acc, k_chunks=k_chunks)
+    before = vit_mlp_fused.mlp_sublayer_fused.launches
+    got = vit_mlp_fused.mlp_sublayer_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert vit_mlp_fused.mlp_sublayer_fused.launches == before + 1
+    torch.testing.assert_close(got.float(), vit_mlp_fused.mlp_sublayer_fused_reference(
+        *args, **kw).float(), **TOL)
+
+
+def test_vit_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    p = _vit_block(gen, 256, 1024)
+    x = _rnd(gen, 2, 99, 256)
+    sub = [p[k] for k in ("lns", "lnb", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")]
+    mlp = [p[k] for k in ("lns", "lnb", "wi", "bi", "wf", "bf")]
+    with pytest.raises(TypeError):  # float32 activations
+        vit_sublayer.attn_sublayer(x.float(), *sub, 4, 99)
+    with pytest.raises(ValueError):  # head_dim 32
+        vit_sublayer.attn_sublayer(x, *sub, 8, 99)
+    with pytest.raises(ValueError):  # valid_len past n
+        vit_sublayer.attn_sublayer(x, *sub, 4, 100)
+    q = _rnd(gen, 1, 2, 520, 64)
+    with pytest.raises(ValueError):  # more tokens than the kernel holds
+        vit_attention.fused_vit_attention(q, q, q, 520)
+    with pytest.raises(ValueError):  # q, k and v in different layouts
+        vit_attention.fused_vit_attention(q, q.transpose(1, 2).contiguous().transpose(1, 2), q, 9)
+    wide = _vit_block(gen, 256, 2048)
+    with pytest.raises(ValueError):  # a chunk of I wider than 1024
+        vit_mlp_fused.mlp_sublayer_fused(x, *(wide[k] for k in ("lns", "lnb", "wi", "bi", "wf",
+                                                                 "bf")), k_chunks=1)
+    with pytest.raises(ValueError):  # non-contiguous x
+        vit_mlp.mlp_sublayer(_rnd(gen, 99, 2, 256).transpose(0, 1), *mlp)

@@ -17,12 +17,16 @@ import affectgpt_tpu_torch
 from affectgpt_tpu.inference import generate as jgen
 from affectgpt_tpu_torch import bootstrap
 from affectgpt_tpu.models import affectgpt as ja
+from affectgpt_tpu.models import clip_vit as jclip
+from affectgpt_tpu.models import hubert as jhub
 from affectgpt_tpu.models import mergers as jm
 from affectgpt_tpu.models import qwen2 as jq
 from affectgpt_tpu_torch.inference import generate as tgen
 from affectgpt_tpu_torch.inference import paged as tpaged
 from affectgpt_tpu_torch.models import affectgpt as ta
+from affectgpt_tpu_torch.models import clip_vit as tclip
 from affectgpt_tpu_torch.models import convert
+from affectgpt_tpu_torch.models import hubert as thub
 from affectgpt_tpu_torch.models import mergers as tm
 from affectgpt_tpu_torch.models import qwen2 as tq
 from affectgpt_tpu_torch.ops import _build
@@ -109,6 +113,8 @@ def _defaults(cls):
     (jm.MergerConfig, tm.MergerConfig),
     (jm.MultiFusionConfig, tm.MultiFusionConfig),
     (jgen.GenerateConfig, tgen.GenerateConfig),
+    (jclip.ClipVisionConfig, tclip.ClipVisionConfig),
+    (jhub.HubertConfig, thub.HubertConfig),
 ], ids=lambda p: p[0].__name__)
 def test_config_fields_and_defaults_match_jax(pair):
     jax_cls, port_cls = pair
@@ -121,6 +127,17 @@ def test_config_fields_and_defaults_match_jax(pair):
 def test_qwen_presets_match_jax(preset):
     assert dataclasses.asdict(getattr(tq.QwenConfig, preset)()) == \
         dataclasses.asdict(getattr(jq.QwenConfig, preset)())
+
+
+@pytest.mark.parametrize("port,jax_cls,preset", [
+    (tclip.ClipVisionConfig, jclip.ClipVisionConfig, "vit_l_14"),
+    (tclip.ClipVisionConfig, jclip.ClipVisionConfig, "tiny"),
+    (thub.HubertConfig, jhub.HubertConfig, "large"),
+    (thub.HubertConfig, jhub.HubertConfig, "tiny"),
+], ids=lambda v: v if isinstance(v, str) else v.__name__)
+def test_encoder_presets_match_jax(port, jax_cls, preset):
+    assert dataclasses.asdict(getattr(port, preset)()) == \
+        dataclasses.asdict(getattr(jax_cls, preset)())
 
 
 def test_kernel_wrappers_on_cpu_count_no_launch():
@@ -164,5 +181,6 @@ def test_kernel_build_is_keyed_by_source_hash():
     assert {p.name for p in _build.CSRC_DIR.glob("*.cu")} >= {
         "decode_qkv.cu", "decode_mlp_bf16.cu", "decode_attention.cu", "decode_attn_o.cu",
         "prefill_attention.cu", "int8_matmul.cu", "int8_matmul_w8a8.cu", "int4_matmul.cu",
-        "int4_matmul_smallm.cu", "decode_mlp_int8.cu", "paged_attention.cu"}
+        "int4_matmul_smallm.cu", "decode_mlp_int8.cu", "paged_attention.cu",
+        "vit_attention.cu", "vit_sublayer.cu", "vit_mlp.cu", "vit_mlp_fused.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
