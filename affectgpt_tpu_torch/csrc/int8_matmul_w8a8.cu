@@ -1,4 +1,6 @@
-// W8A8 matmul for Hopper (sm_90a): int8 weights AND int8 activations.
+// W8A8 matmul for Hopper (sm_90a): int8 weights AND int8 activations, on
+// wgmma with s8 operands fed by TMA (`wgmma.mma_async` and
+// `cp.async.bulk.tensor` from hopper.cuh).
 //
 // Replaces the Pallas kernel affectgpt_tpu/ops/quant.py::int8_matmul_w8a8.
 //
@@ -9,251 +11,287 @@
 // 2^24), converted to f32, multiplied by the row's sx and added to the f32
 // accumulator; the sum times scales[n] is rounded to bf16.
 //
-// Bound: the s8 products at prefill M (4512 rows at b = 8: 58.9 T operations
-// per 7B prefill, 1979 TOPS peak); the weight bytes at decode M. Design, two
+// Bound: the s8 products at prefill M (4512 rows: 2.10 T operations per
+// decoder layer, 1979 TOPS peak); the weight bytes at decode M. Design, two
 // launches (three when the K loop is split):
-//   (A) quantize x once: one block per (row, qblock), writing xq [M, K] int8
-//       and sx [M, K / qblock] f32; the TPU kernel requantizes the x tile in
-//       every N block instead;
-//   (B) mma.sync m16n8k32 s8 x s8 -> s32 on tiles of 64 K columns
-//       (quant_mma.cuh's tile shapes). The B operand must be K-contiguous, but
-//       w_q is stored [K, N] (N contiguous) and ldmatrix's transpose works
-//       only on 16-bit elements, so each thread loads four consecutive weight
-//       rows of 16 columns and transposes the 4 x 16 bytes in registers
-//       (__byte_perm) into 32-bit words of four K values, stored [n][k] in
-//       shared memory. Rows are padded to 80 bytes, so fragment loads hit 32
-//       distinct banks. At the end of each qblock the s32 fragment is scaled
-//       by sx into the f32 accumulator. K splits are whole qblocks.
+//   (A) quantize x once: one warp per (row, qblock), writing xq [M, K] int8
+//       and sx f32, stored [K / qblock, M padded to the row tile] so that a
+//       block's scales of one qblock are contiguous. The bytes of each
+//       16-column group of xq are stored permuted (position p holds column
+//       sigma16(p)); see (B).
+//   (B) wgmma.m64nNk32.s32.s8.s8 needs both shared-memory operands K-major
+//       for 8-bit types, but w_q is stored [K, N] (N contiguous, the JAX
+//       format). So the kernel computes the transposed tile, y^T = w_q^T .
+//       xq^T: the weight is the A operand, taken from registers; xq (K
+//       contiguous) is the B operand, read from shared memory. A block of
+//       three warpgroups owns 128 output columns (n) x BM rows (m, the
+//       wgmma's N: 16 for M <= 16, else 192, whose 96 s32 and 96 f32
+//       accumulators a consumer thread holds); warpgroup 0 issues the TMA
+//       loads of a 4-stage ring (weight tile 128 k x 128 n and xq tile BM x
+//       128 k per stage, both 128-byte swizzled, and the BM scales sx of the
+//       qblock the stage ends in, a bulk copy), warpgroups 1 and 2 each
+//       multiply 64 of the n. A warp's A fragment of one 32-wide k step is
+//       one ldmatrix.x4.trans of the N-contiguous weight tile read as 16-bit
+//       pairs of n, then four byte permutes. That gives a thread the k values
+//       {2t, 2t+1, 2t+8, 2t+9} (t = lane % 4) where the fragment wants 4t ..
+//       4t+3, and the pair of n (2g, 2g+1) where it wants rows g and g + 8:
+//       the k order is matched by the permuted xq of (A), the row order by the
+//       epilogue, which stores the pair of n side by side. At the end of each
+//       qblock the s32 accumulators are scaled by sx into f32 accumulators
+//       (a wgmma with scale-d 0 starts the next block). K splits are whole
+//       qblocks, their partial sums reduced in a fixed order by a third
+//       launch (quant_mma.cuh): no atomics, the same bits on every call.
+// L2 reads at M = 4512 per decoder layer: each weight byte once per 192 rows
+// (24 row tiles x 233 MB = 5.6 GB) and each xq byte once per 128 columns
+// (8.2 GB); 128-row tiles took 3.06 ms a layer against 2.78 on an H100
+// (scripts/torch_wgmma_variants.py). Sharing each weight tile between two
+// 128-row tiles (a cluster of two blocks, TMA multicast) made the layer
+// slower (3.29 against 3.03 ms), so the blocks work alone.
 // Never compile this source with --use_fast_math: the division and rintf
 // must round as IEEE does.
 
+#include "hopper.cuh"
 #include "quant_mma.cuh"
 
 namespace agk {
-namespace qmm {
+namespace w8a8 {
 
-constexpr int kQuantThreads = 128;
+using namespace hopper;
 
-__global__ void __launch_bounds__(kQuantThreads)
+constexpr int kThreads = 384;  // TMA warpgroup + two consumer warpgroups
+constexpr int kBN = 128;       // output columns per block, 64 per consumer
+constexpr int kBK = 128;       // K bytes per stage (one 128-byte swizzle row)
+constexpr int kStages = 4;
+constexpr int kQuantWarps = 4;
+
+// the column of a 16-column group that position p of xq holds
+__host__ __device__ constexpr int sigma16(int p) {
+  return ((p >> 2) << 1) + (p & 1) + ((p & 2) << 2);  // 4t + j -> {2t, 2t+1, 2t+8, 2t+9}[j]
+}
+
+// One warp per (row, qblock): lane l holds the block's 16-column group l
+// (two 16-byte loads), the block's absmax comes from shuffles, and the lane
+// writes its group's 16 quantized bytes in the permuted order, one 16-byte
+// store. qblock <= 512, a multiple of 64.
+__global__ void __launch_bounds__(kQuantWarps * 32)
 quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ xq,
-                     float* __restrict__ sx, int K, int qblock) {
-  __shared__ float red[kQuantThreads / 32];
-  const int row = blockIdx.y, blk = blockIdx.x;
-  const size_t base = (size_t)row * K + (size_t)blk * qblock;
+                     float* __restrict__ sx, int M, int K, int qblock, int m_pad) {
+  const int nq = K / qblock, item = blockIdx.x * kQuantWarps + threadIdx.x / 32;
+  if (item >= M * nq) return;
+  const int row = item / nq, blk = item % nq, lane = threadIdx.x % 32;
+  const size_t base = (size_t)row * K + (size_t)blk * qblock + 16 * lane;
+  const bool live = 16 * lane < qblock;
+  float v[16];
   float amax = 0.f;
-  for (int i = threadIdx.x; i < qblock; i += kQuantThreads)
-    amax = fmaxf(amax, fabsf(__bfloat162float(x[base + i])));
+  if (live) {
+    unpack8(*reinterpret_cast<const uint4*>(x + base), v);
+    unpack8(*reinterpret_cast<const uint4*>(x + base + 8), v + 8);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) amax = fmaxf(amax, fabsf(v[e]));
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = amax;
-  __syncthreads();
-  amax = red[0];
-#pragma unroll
-  for (int w = 1; w < kQuantThreads / 32; ++w) amax = fmaxf(amax, red[w]);
   const float s = fmaxf(amax, 1e-8f) / 127.f;
-  for (int i = threadIdx.x; i < qblock; i += kQuantThreads) {
-    const float q = fminf(fmaxf(rintf(__bfloat162float(x[base + i]) / s), -127.f), 127.f);
-    xq[base + i] = (int8_t)(int)q;
+  if (live) {
+    uint32_t q[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int p = 0; p < 16; ++p) {
+      const int qv = (int)fminf(fmaxf(rintf(v[sigma16(p)] / s), -127.f), 127.f);
+      q[p / 4] |= (uint32_t)(qv & 0xFF) << (8 * (p % 4));
+    }
+    *reinterpret_cast<uint4*>(xq + base) = make_uint4(q[0], q[1], q[2], q[3]);
   }
-  if (threadIdx.x == 0) sx[(size_t)row * (K / qblock) + blk] = s;
+  if (lane == 0) sx[(size_t)blk * m_pad + row] = s;
 }
 
-__device__ __forceinline__ uint32_t word_of(const uint4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+template <int BM>
+constexpr size_t smem_bytes() {
+  return (size_t)kStages * (kBK * kBN + BM * kBK + BM * 4) + 2 * kStages * sizeof(uint64_t) +
+         1024;
 }
+static_assert(smem_bytes<192>() <= 232448, "the ring exceeds a block's shared memory");
 
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// Grid (ceil(M / BM), ceil(N / 128), splits); split z runs K columns [z *
+// k_per_split, min(K, (z + 1) * k_per_split)), whole qblocks. Row tiles vary
+// fastest, so the blocks in flight at once share a few weight column tiles
+// and all of xq, and both stay in the L2 (with columns fastest, every wave
+// streamed the whole weight from device memory again).
+template <int BM>
+__global__ void __launch_bounds__(kThreads, 1)
+w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
+                  const __grid_constant__ CUtensorMap x_map, const float* __restrict__ sx,
+                  const float* __restrict__ scales, __nv_bfloat16* __restrict__ y,
+                  float* __restrict__ partial, int M, int N, int K, int qblock,
+                  int k_per_split, int m_pad) {
+  constexpr int W_BYTES = kBK * kBN, X_BYTES = BM * kBK, S_BYTES = BM * 4;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ws = smem;                      // [stage][k 128][n 128 bytes]
+  unsigned char* xs = smem + kStages * W_BYTES;  // [stage][m BM][k 128 bytes]
+  float* sxs = reinterpret_cast<float*>(xs + kStages * X_BYTES);  // [stage][m BM]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sxs + kStages * BM);
+  uint64_t* empty = full + kStages;
 
-// Grid (N / BN, M / BM, splits); split z runs the 64-column units [z *
-// units_per_split, (z + 1) * units_per_split), a whole number of qblocks.
-// Fragment layouts of mma.m16n8k32 with 8-bit operands (PTX ISA): each
-// 32-bit register holds four consecutive K values; A rows gid and gid + 8,
-// K 4 * tig .. + 3 and + 16; B column gid, the same K values; the s32
-// accumulators as for m16n8k16.
-template <class Cfg>
-__global__ void __launch_bounds__(kQThreads)
-w8a8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-                const int8_t* __restrict__ w, const float* __restrict__ scales,
-                __nv_bfloat16* __restrict__ y, float* __restrict__ partial, int M, int N, int K,
-                int qblock, int units_per_split) {
-  constexpr int BK = 64;  // K columns (bytes) per unit
-  constexpr int BM = Cfg::BM, BN = Cfg::BN, MT = Cfg::MT;
-  constexpr int LDA = BK + 16, LDT = BK + 16;  // row strides in bytes
-  constexpr int A_CHUNKS = BM * (BK / 16);     // 16-byte x loads per unit
-  constexpr int B_QUADS = (BK / 4) * (BN / 16);  // (4 rows x 16 columns) weight pieces per unit
-  constexpr int A_ITERS = (A_CHUNKS + kQThreads - 1) / kQThreads;
-  constexpr int B_ITERS = (B_QUADS + kQThreads - 1) / kQThreads;
-  __shared__ __align__(16) int8_t As[BM * LDA];  // [m][k]
-  __shared__ __align__(16) int8_t Bt[BN * LDT];  // [n][k]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int wm0 = (warp / Cfg::WARPS_N) * 16 * MT;
-  const int wn0 = (warp % Cfg::WARPS_N) * 32;
-  const int units = K / BK, per_q = qblock / BK, nq = K / qblock;
-  const int u0 = blockIdx.z * units_per_split;
-  const int u1 = min(units, u0 + units_per_split);
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  float acc[MT][4][4];
-  int pi[MT][4][4];  // the current qblock's exact integer sums
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[mt][nt][e] = 0.f;
-        pi[mt][nt][e] = 0;
-      }
-
-  uint4 a_raw[A_ITERS];
-  uint4 b_raw[B_ITERS][4];
-  auto fetch = [&](int u) {
-    const int k0 = u * BK;
-#pragma unroll
-    for (int it = 0; it < B_ITERS; ++it) {
-      const int i = tid + it * kQThreads;
-      const int r = (i / (BN / 16)) * 4, col = n0 + (i % (BN / 16)) * 16;
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        b_raw[it][t] = i < B_QUADS && col < N
-                           ? __ldg(reinterpret_cast<const uint4*>(w + (size_t)(k0 + r + t) * N + col))
-                           : zero;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kBN;
+  const int k0 = blockIdx.z * k_per_split, k1 = min(K, k0 + k_per_split);
+  const int stages = (k1 - k0 + kBK - 1) / kBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
-#pragma unroll
-    for (int it = 0; it < A_ITERS; ++it) {
-      const int i = tid + it * kQThreads;
-      const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
-      a_raw[it] = i < A_CHUNKS && m0 + r < M
-                      ? *reinterpret_cast<const uint4*>(xq + (size_t)(m0 + r) * K + k0 + c)
-                      : zero;
-    }
-  };
-  auto stage = [&]() {
-#pragma unroll
-    for (int it = 0; it < A_ITERS; ++it) {
-      const int i = tid + it * kQThreads;
-      if (i < A_CHUNKS)
-        *reinterpret_cast<uint4*>(As + (i / (BK / 16)) * LDA + (i % (BK / 16)) * 16) = a_raw[it];
-    }
-#pragma unroll
-    for (int it = 0; it < B_ITERS; ++it) {
-      const int i = tid + it * kQThreads;
-      if (i >= B_QUADS) continue;
-      const int r = (i / (BN / 16)) * 4, c = (i % (BN / 16)) * 16;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {  // word q: columns c + 4q .. c + 4q + 3
-        const uint32_t w0 = word_of(b_raw[it][0], q), w1 = word_of(b_raw[it][1], q);
-        const uint32_t w2 = word_of(b_raw[it][2], q), w3 = word_of(b_raw[it][3], q);
-        // byte e of the four rows' words, rows in order, for each column e
-        const uint32_t lo01 = __byte_perm(w0, w1, 0x5140);
-        const uint32_t hi01 = __byte_perm(w0, w1, 0x7362);
-        const uint32_t lo23 = __byte_perm(w2, w3, 0x5140);
-        const uint32_t hi23 = __byte_perm(w2, w3, 0x7362);
-        int8_t* dst = Bt + (c + 4 * q) * LDT + r;
-        *reinterpret_cast<uint32_t*>(dst) = __byte_perm(lo01, lo23, 0x5410);
-        *reinterpret_cast<uint32_t*>(dst + LDT) = __byte_perm(lo01, lo23, 0x7632);
-        *reinterpret_cast<uint32_t*>(dst + 2 * LDT) = __byte_perm(hi01, hi23, 0x5410);
-        *reinterpret_cast<uint32_t*>(dst + 3 * LDT) = __byte_perm(hi01, hi23, 0x7632);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup: one thread issues the loads
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      RingPos pos;
+      for (int it = 0; it < stages; ++it) {
+        mbar_wait(&empty[pos.stage], pos.phase ^ 1u);
+        mbar_expect_tx(&full[pos.stage], W_BYTES + X_BYTES + S_BYTES);
+        const int k = k0 + it * kBK;
+        const int blk = (min(k + kBK, k1) - 1) / qblock;  // at most one ends in a stage
+        tma_load_2d(ws + pos.stage * W_BYTES, &w_map, &full[pos.stage], n0, k);
+        tma_load_2d(xs + pos.stage * X_BYTES, &x_map, &full[pos.stage], k, m0);
+        bulk_load(sxs + pos.stage * BM, sx + (size_t)blk * m_pad + m0, S_BYTES,
+                  &full[pos.stage]);
+        pos.advance(kStages);
       }
     }
-  };
-
-  if (u0 < u1) fetch(u0);
-  for (int u = u0; u < u1; ++u) {
-    __syncthreads();  // every warp is done with the previous unit's tiles
-    stage();
-    __syncthreads();
-    if (u + 1 < u1) fetch(u + 1);  // in flight during the products
+  } else {
+    setmaxnreg_inc<232>();
+    const int c = threadIdx.x / 128 - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int chunk = 4 * c + warp;  // this warp's 16 n: a 16-byte chunk of the weight rows
+    int acc_i[BM / 2];  // the current qblock's exact sums
+    float acc[BM / 2];
 #pragma unroll
-    for (int kk = 0; kk < BK / 32; ++kk) {
-      uint32_t a[MT][4];
+    for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+    int fresh = 1;  // the next wgmma starts a qblock
+    RingPos pos;
+    for (int it = 0; it < stages; ++it) {
+      mbar_wait(&full[pos.stage], pos.phase);
+      const uint32_t wbase = smem_u32(ws + pos.stage * W_BYTES);
+      const uint32_t xbase = smem_u32(xs + pos.stage * X_BYTES);
+      const int kst = k0 + it * kBK;
+      uint32_t a[kBK / 32][4];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int8_t* ar = As + (wm0 + mt * 16 + gid) * LDA + kk * 32 + tig * 4;
-        a[mt][0] = ld_u32(ar);
-        a[mt][1] = ld_u32(ar + 8 * LDA);
-        a[mt][2] = ld_u32(ar + 16);
-        a[mt][3] = ld_u32(ar + 8 * LDA + 16);
+      for (int s = 0; s < kBK / 32; ++s) {
+        // lane gives row lane % 8 of matrix lane / 8: k rows 8q .. 8q + 7 of the step
+        const int row = s * 32 + lane;
+        uint32_t r[4];
+        ldsm_x4_trans(r, wbase + row * 128 + ((chunk ^ (row & 7)) << 4));
+        a[s][0] = __byte_perm(r[0], r[1], 0x6420);  // n = 2g: k 2t, 2t+1, 2t+8, 2t+9
+        a[s][1] = __byte_perm(r[0], r[1], 0x7531);  // n = 2g + 1
+        a[s][2] = __byte_perm(r[2], r[3], 0x6420);  // the same, k + 16
+        a[s][3] = __byte_perm(r[2], r[3], 0x7531);
       }
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int8_t* br = Bt + (wn0 + nt * 8 + gid) * LDT + kk * 32 + tig * 4;
-        const uint32_t b0 = ld_u32(br), b1 = ld_u32(br + 16);
+      for (int s = 0; s < kBK / 32; ++s) {
+        const int kk = kst + s * 32;
+        if (kk >= k1) break;  // the split's last stage may end early
+        wgmma_fence();
+        wgmma_s8_rs(acc_i, a[s], desc_sw128(xbase + s * 32, 16, 1024), fresh ? 0 : 1);
+        wgmma_commit();
+        fresh = 0;
+        if ((kk + 32) % qblock == 0) {  // the end of a qblock: scale its sums by sx
+          wgmma_wait<0>();
+          fence_regs(acc_i);
+          const float* s_blk = sxs + pos.stage * BM;  // rows past M: zero sums
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_s8(pi[mt][nt], a[mt], b0, b1);
+          for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float s_m = s_blk[8 * j + 2 * t + e];
+              acc[4 * j + e] += (float)acc_i[4 * j + e] * s_m;
+              acc[4 * j + 2 + e] += (float)acc_i[4 * j + 2 + e] * s_m;
+            }
+          }
+          fresh = 1;
+        }
       }
+      wgmma_wait<0>();
+      fence_regs(acc_i);
+#pragma unroll
+      for (int s = 0; s < kBK / 32; ++s) fence_regs(a[s]);  // live until the products are done
+      if (lane == 0) mbar_arrive(&empty[pos.stage]);
+      pos.advance(kStages);
     }
-    if ((u + 1) % per_q == 0) {  // the end of a qblock: scale its sums by sx
-      const int blk = u / per_q;
+    // d[4j + 2h + e]: n = n0 + 64c + 16 warp + 2g + h, m = m0 + 8j + 2t + e
+    const int n = n0 + 64 * c + 16 * warp + 2 * g;
+    if (n < N) {
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int r0 = m0 + wm0 + mt * 16 + gid, r1 = r0 + 8;
-        const float s0 = r0 < M ? sx[(size_t)r0 * nq + blk] : 0.f;
-        const float s1 = r1 < M ? sx[(size_t)r1 * nq + blk] : 0.f;
+      for (int j = 0; j < BM / 8; ++j) {
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          acc[mt][nt][0] += (float)pi[mt][nt][0] * s0;
-          acc[mt][nt][1] += (float)pi[mt][nt][1] * s0;
-          acc[mt][nt][2] += (float)pi[mt][nt][2] * s1;
-          acc[mt][nt][3] += (float)pi[mt][nt][3] * s1;
-          pi[mt][nt][0] = pi[mt][nt][1] = pi[mt][nt][2] = pi[mt][nt][3] = 0;
+        for (int e = 0; e < 2; ++e) {
+          const int m = m0 + 8 * j + 2 * t + e;
+          if (m >= M) continue;
+          const float v0 = acc[4 * j + e], v1 = acc[4 * j + 2 + e];
+          if (gridDim.z == 1)
+            *reinterpret_cast<__nv_bfloat162*>(y + (size_t)m * N + n) =
+                __floats2bfloat162_rn(v0 * scales[n], v1 * scales[n + 1]);
+          else
+            *reinterpret_cast<float2*>(partial + ((size_t)blockIdx.z * M + m) * N + n) =
+                make_float2(v0, v1);
         }
       }
     }
   }
-  store_tile<Cfg>(acc, scales, y, partial, M, N, m0 + wm0, n0 + wn0);
 }
 
-template <class Cfg>
-static cudaError_t launch_w8a8(const int8_t* xq, const float* sx, const int8_t* w,
-                               const float* scales, __nv_bfloat16* y, float* partial, int M,
-                               int N, int K, int qblock, int units_per_split, int splits,
-                               cudaStream_t stream) {
-  const dim3 grid((N + Cfg::BN - 1) / Cfg::BN, (M + Cfg::BM - 1) / Cfg::BM, splits);
-  w8a8_mma_kernel<Cfg><<<grid, kQThreads, 0, stream>>>(xq, sx, w, scales, y, partial, M, N, K,
-                                                       qblock, units_per_split);
-  cudaError_t err = cudaGetLastError();
+template <int BM>
+static cudaError_t launch(const int8_t* xq, const float* sx, const int8_t* w, const float* scales,
+                          __nv_bfloat16* y, float* partial, int M, int N, int K, int qblock,
+                          int k_per_split, int splits, int m_pad, cudaStream_t stream) {
+  CUtensorMap w_map, x_map;
+  if (tensor_map_2d(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, N, kBN, kBK) ||
+      tensor_map_2d(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, K, M, K, kBK, BM))
+    return cudaErrorInvalidValue;
+  static size_t granted = 48 * 1024;
+  constexpr size_t smem = smem_bytes<BM>();
+  cudaError_t err = ensure_smem(w8a8_wgmma_kernel<BM>, smem, &granted);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + BM - 1) / BM, (N + kBN - 1) / kBN, splits);
+  w8a8_wgmma_kernel<BM><<<grid, kThreads, smem, stream>>>(w_map, x_map, sx, scales, y, partial, M,
+                                                          N, K, qblock, k_per_split, m_pad);
+  err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  return launch_splitk_reduce(partial, scales, y, M, N, splits, stream);
+  return qmm::launch_splitk_reduce(partial, scales, y, M, N, splits, stream);
 }
 
-}  // namespace qmm
+}  // namespace w8a8
 }  // namespace agk
 
 // C entry. Device pointers to contiguous tensors: x [M, K] bf16; w int8
-// [K, N]; scales f32 [1, N]; scratch xq int8 [M, K] and sx f32 [M, K /
-// qblock]; y [M, N] bf16; partial f32 [splits, M, N] when splits > 1. The
-// wrapper in affectgpt_tpu_torch/ops/quant.py checks shapes, dtypes and
-// alignment (N % 16 == 0, K % qblock == 0, qblock % 64 == 0) and makes
-// units_per_split a multiple of qblock / 64. Returns the first CUDA error of
-// the launches, or 0.
+// [K, N]; scales f32 [1, N]; scratch xq int8 [M, K] and sx f32 [K / qblock,
+// m_pad] (m_pad: M rounded up to bm, zeros past M); y [M, N] bf16; partial
+// f32 [splits, M, N] when splits > 1. The
+// wrapper in affectgpt_tpu_torch/ops/quant.py (`w8a8_plan`) checks shapes,
+// dtypes and alignment (N % 16 == 0, K % qblock == 0, qblock % 64 == 0),
+// picks bm (16 or 192) and makes k_per_split a multiple of qblock. Returns
+// the first CUDA error of the launches, or 0.
 extern "C" int agk_int8_matmul_w8a8(const void* x, const void* w, const void* scales, void* xq,
                                     void* sx, void* y, void* partial, int m, int n, int k,
-                                    int qblock, int units_per_split, int splits, void* stream) {
-  using namespace agk::qmm;
+                                    int qblock, int k_per_split, int splits, int bm,
+                                    int m_pad, void* stream) {
+  using namespace agk::w8a8;
+  if (bm != 16 && bm != 192) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* xqp = static_cast<int8_t*>(xq);
   auto* sxp = static_cast<float*>(sx);
-  quantize_rows_kernel<<<dim3(k / qblock, m), kQuantThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), xqp, sxp, k, qblock);
+  const int items = m * (k / qblock);
+  quantize_rows_kernel<<<(items + kQuantWarps - 1) / kQuantWarps, kQuantWarps * 32, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(x), xqp, sxp, m, k, qblock, m_pad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const auto* wp = static_cast<const int8_t*>(w);
   const auto* sp = static_cast<const float*>(scales);
   auto* yp = static_cast<__nv_bfloat16*>(y);
   auto* pp = static_cast<float*>(partial);
-  if (m <= SmallTile::BM)
-    return (int)launch_w8a8<SmallTile>(xqp, sxp, wp, sp, yp, pp, m, n, k, qblock,
-                                       units_per_split, splits, st);
-  return (int)launch_w8a8<LargeTile>(xqp, sxp, wp, sp, yp, pp, m, n, k, qblock, units_per_split,
-                                     splits, st);
+  return (int)(bm == 16 ? launch<16>(xqp, sxp, wp, sp, yp, pp, m, n, k, qblock, k_per_split,
+                                     splits, m_pad, st)
+                        : launch<192>(xqp, sxp, wp, sp, yp, pp, m, n, k, qblock, k_per_split,
+                                      splits, m_pad, st));
 }

@@ -25,13 +25,24 @@ def normal(generator: torch.Generator, shape, scale: float, dtype) -> torch.Tens
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w returned in float32 (JAX `preferred_element_type=f32`). Mixed
-    dtypes compute in the promoted dtype. In bfloat16 the product is
-    accumulated in float32 by the BLAS and rounded once before the upcast."""
+    """x [..., K] @ w [K, N] with its float32 sum, unrounded (JAX
+    `preferred_element_type=f32`). Mixed dtypes compute in the promoted
+    dtype. On the card a 16-bit product writes its f32 sum directly
+    (`torch.mm(..., out_dtype=float32)` over a 2-D view; w may be a
+    transposed view, as the tied logits pass it); on the CPU, where that
+    overload is missing, the f32 product of the upcast operands, which is
+    the same sum."""
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
-    return torch.matmul(x, w).float()
+    if x.dtype == torch.float32:
+        return torch.matmul(x, w)
+    x2d = x.reshape(-1, x.shape[-1])
+    if x.is_cuda:
+        y = torch.mm(x2d, w, out_dtype=torch.float32)
+    else:
+        y = torch.mm(x2d.float(), w.float())
+    return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def dense_init(generator, in_dim: int, out_dim: int, scale: float = 0.02, dtype=torch.float32):

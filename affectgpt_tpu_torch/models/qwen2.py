@@ -23,7 +23,7 @@ tensor, the continuous-batching server).
 Decode dispatch follows the JAX rule (qwen2.py:562-678, :761-766): on a
 decode step (a cache, t == 1, merged LoRA), the pre-attention rmsnorm, q/k/v
 projections, bias and RoPE go through `ops.decode_qkv` when q/k/v are split
-bf16 leaves ("w"), and the post-attention rmsnorm and MLP go through the
+bf16 leaves ("w") and DECODE_QKV leaves it on, and the post-attention rmsnorm and MLP go through the
 kernel DECODE_MLP chooses (below); otherwise the plain rmsnorm runs and each
 projection goes through `_lora_dense`. `_decode_qkv_fused` and
 `_decode_mlp_fused` hold that rule for this module and the paged engine
@@ -79,6 +79,12 @@ PREFILL_ATTENTION = "xla"
 # layout to `ops.decode_mlp`; "xla" turns both off. JAX's TPU gates (b % 8,
 # fits_vmem, intermediate % 512, the backend) are not carried.
 DECODE_MLP = "auto"
+# The decode-QKV switch of the JAX decoder (qwen2.py:497), read at each call:
+# "auto" and "pallas" send a split bf16 q/k/v layer with merged LoRA to
+# `ops.decode_qkv` (rmsnorm -> q/k/v + bias -> RoPE in one kernel); any other
+# value ("xla") takes the per-projection route. JAX's TPU-only gates (the
+# 12 MB resident-weight limit of "auto", b % 8, the backend) are not carried.
+DECODE_QKV = "auto"
 
 
 @dataclass(frozen=True)
@@ -353,8 +359,10 @@ def _decode_qkv_fused(layer, lora_layer, cfg: QwenConfig, x2d: torch.Tensor,
     engine (JAX qwen2.py:562-616): split bf16 q/k/v leaves ("w") and merged
     LoRA take `ops.decode_qkv`. x2d [b, hidden] is the RAW residual stream:
     the pre-attention rmsnorm (input_ln) runs in the kernel. Returns (q [b, heads, d], k [b, kv, d], v [b, kv, d]) with RoPE applied,
-    or None when the layout does not qualify."""
-    if lora_layer is not None or "qkv_proj" in layer or "w" not in layer["q_proj"]:
+    or None when DECODE_QKV turns the kernel off or the layout does not
+    qualify."""
+    if (DECODE_QKV not in ("auto", "pallas") or lora_layer is not None
+            or "qkv_proj" in layer or "w" not in layer["q_proj"]):
         return None
     b = x2d.shape[0]
 

@@ -17,7 +17,7 @@ CUDA tensor it launches the hand-written kernel (csrc/) or raises:
   x.dtype (csrc/int8_matmul.cu; replaces quant.py:90);
 - `int8_matmul_w8a8`: x quantized per (row, 512-column K block) to int8,
   int8 × int8 → int32 per block, × the row's block scale, summed in f32, ×
-  scales (csrc/int8_matmul_w8a8.cu; replaces quant.py:163);
+  scales, on wgmma (csrc/int8_matmul_w8a8.cu; replaces quant.py:163);
 - `int4_matmul`: each 128-row group's bf16 product with the raw nibbles,
   summed in f32, times that group's scales (csrc/int4_matmul.cu; replaces
   quant.py:319);
@@ -216,8 +216,8 @@ def int4_matmul_xla(x, w_p, scales):
 # Kernel wrappers
 
 # tile shapes of csrc/quant_mma.cuh: (rows, columns) of x / y per block, for
-# M <= 16 and for larger M; K advances in units of 64 rows (int8, w8a8) or
-# 128 packed rows (int4)
+# M <= 16 and for larger M; K advances in units of 64 rows (int8) or 128
+# packed rows (int4)
 _SMALL_TILE, _LARGE_TILE = (16, 128), (128, 64)
 
 
@@ -226,16 +226,14 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _split_k(x, m: int, n: int, k_units: int, unit_multiple: int = 1):
+def _split_k(x, m: int, n: int, k_units: int):
     """Split the K loop over enough blocks to give the card about two per
-    SM: returns (K units per split, splits). A split's units are a multiple
-    of `unit_multiple`. Partial sums of the splits are reduced in a fixed
-    order by a second launch."""
+    SM: returns (K units per split, splits). Partial sums of the splits are
+    reduced in a fixed order by a second launch."""
     bm, bn = _SMALL_TILE if m <= 16 else _LARGE_TILE
     tiles = -(-m // bm) * -(-n // bn)
-    groups = k_units // unit_multiple
-    splits = min(groups, max(1, -(-2 * _sm_count(x.device.index or 0) // tiles)))
-    per = -(-groups // splits) * unit_multiple
+    splits = min(k_units, max(1, -(-2 * _sm_count(x.device.index or 0) // tiles)))
+    per = -(-k_units // splits)
     return per, -(-k_units // per)
 
 
@@ -317,27 +315,56 @@ def int4_matmul_smallm(x, w_p, scales):
     return y
 
 
+# csrc/int8_matmul_w8a8.cu: a block owns 128 output columns and 16 rows (M
+# <= 16) or 192, and streams K in 128-byte stages through a ring of four
+W8A8_BN, W8A8_BK, W8A8_STAGES = 128, 128, 4
+
+
+def w8a8_plan(m: int, n: int, k: int, sm_count: int) -> dict:
+    """The launch plan of the w8a8 kernel for x [m, k] @ w_q [k, n]: the row
+    tile `bm` (wgmma N: 16 or 192), the K split (whole activation blocks
+    `qblock`, enough splits to give each SM about one block, reduced in a
+    fixed order), the grid (row tiles fastest) and the dynamic shared memory
+    in bytes (a stage: weight tile, xq tile, the rows' scales)."""
+    qblock = min(W8A8_BLOCK_K, k)
+    bm = 16 if m <= 16 else 192
+    m_tiles, n_tiles = -(-m // bm), -(-n // W8A8_BN)
+    groups = k // qblock
+    per = -(-groups // min(groups, max(1, -(-sm_count // (m_tiles * n_tiles)))))
+    splits = -(-groups // per)
+    stage = W8A8_BK * W8A8_BN + bm * W8A8_BK + bm * 4
+    return {"bm": bm, "qblock": qblock, "k_per_split": per * qblock, "splits": splits,
+            "grid": (m_tiles, n_tiles, splits),
+            "smem_bytes": W8A8_STAGES * stage + 2 * W8A8_STAGES * 8 + 1024,
+            # the product's reads: each weight byte once per row tile, each xq
+            # byte once per column tile
+            "l2_bytes": m_tiles * k * n + n_tiles * m * k}
+
+
 def int8_matmul_w8a8(x, w_q, scales):
     """x [M, K] quantized per (row, 512-column block) in the kernel, then
-    int8 × int8 products → [M, N] x.dtype. Two launches (quantize x, then
-    the product), plus the fixed-order reduce of the K splits when there
-    are several."""
+    int8 × int8 products on wgmma → [M, N] x.dtype. Two launches (quantize
+    x, then the product), plus the fixed-order reduce of the K splits when
+    there are several (`w8a8_plan`)."""
     if x.device.type == "cpu":
         return int8_matmul_w8a8_reference(x, w_q, scales)
     m, n, k = _check_operands("int8_matmul_w8a8", x, w_q, scales, x.shape[-1], 1, 64)
     qblock = min(W8A8_BLOCK_K, k)
     if k % qblock:
         raise ValueError(f"int8_matmul_w8a8 kernel needs K % {qblock} == 0 (K={k})")
-    per, splits = _split_k(x, m, n, k // 64, unit_multiple=qblock // 64)
+    plan = w8a8_plan(m, n, k, _sm_count(x.device.index or 0))
+    splits = plan["splits"]
+    m_pad = plan["grid"][0] * plan["bm"]
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    sx = torch.empty((m, k // qblock), dtype=torch.float32, device=x.device)
+    # the row scales, one row per activation block, zero past M
+    sx = torch.zeros((k // qblock, m_pad), dtype=torch.float32, device=x.device)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     partial = torch.empty((splits, m, n) if splits > 1 else (0,), dtype=torch.float32,
                           device=x.device)
     status = _build.load_library().agk_int8_matmul_w8a8(
         x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), xq.data_ptr(), sx.data_ptr(),
-        y.data_ptr(), partial.data_ptr(), m, n, k, qblock, per, splits,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        y.data_ptr(), partial.data_ptr(), m, n, k, qblock, plan["k_per_split"], splits,
+        plan["bm"], m_pad, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "int8_matmul_w8a8")
     int8_matmul_w8a8.launches += 1

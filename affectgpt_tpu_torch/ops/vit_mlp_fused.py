@@ -10,8 +10,8 @@ oracle the kernel is checked against on the card.
 `acc` selects one of the TPU kernel's two functions: "bf16" rounds the out
 tile to bf16 after every chunk, "f32" keeps it in f32 and rounds once. The
 TPU's row block (`block_rows`, a VMEM tile) has no counterpart: rows are
-independent. Kernel limits: width and I / k_chunks multiples of 32, each at
-most 1024.
+independent. Kernel limits: width a multiple of 128 and I / k_chunks of 64,
+each at most 1024 (`fused_plan`).
 """
 
 from __future__ import annotations
@@ -32,6 +32,37 @@ def chunks_for(inter: int, k_chunks: int) -> int:
     while inter % k_chunks:
         k_chunks //= 2
     return k_chunks
+
+
+# csrc/vit_mlp_fused.cu: a cluster of width / 128 blocks owns 128 rows, each
+# block 128 output columns; t is kept in pieces of 64 columns per block; a
+# ring of four 24 KB stages plus an [128, 512] bf16 t tile and 1 KB of
+# alignment fill a block's shared memory
+FUSED_BM, FUSED_SLAB, FUSED_STAGES, FUSED_STAGE_BYTES = 128, 128, 4, 24576
+
+
+def fused_plan(rows: int, w: int, inter: int, k_chunks: int) -> dict:
+    """The launch plan of the kernel: its row tiles, the cluster size (blocks
+    per row tile), the chunk width kc, each chunk's pieces of t ((first
+    column, width) within the chunk), the dynamic shared memory in bytes and
+    the bytes the blocks read from L2. Raises on what the kernel does not
+    take."""
+    chunks = chunks_for(inter, k_chunks)
+    kc = inter // chunks
+    if w % 128 or kc % 64 or w > 1024 or kc > 1024:
+        raise ValueError(f"mlp_sublayer_fused kernel takes a width that is a multiple of 128 "
+                         f"and I / k_chunks a multiple of 64, each up to 1024 (width={w}, "
+                         f"chunk={kc})")
+    tiles, cluster = -(-rows // FUSED_BM), w // FUSED_SLAB
+    piece = 64 * cluster
+    pieces = [(p0, min(piece, kc - p0)) for p0 in range(0, kc, piece)]
+    smem = FUSED_STAGES * FUSED_STAGE_BYTES + FUSED_BM * 512 * 2 + (2 * FUSED_STAGES + 3) * 8 \
+        + 1024
+    # each block of a piece reads all of h for its 64 columns of t
+    h_reads = chunks * sum(pw // 64 for _, pw in pieces) * FUSED_BM * w * 2
+    return {"tiles": tiles, "cluster": cluster, "chunks": chunks, "kc": kc, "pieces": pieces,
+            "smem_bytes": smem, "weight_l2_bytes": tiles * 2 * 2 * w * inter,
+            "l2_bytes": tiles * (2 * 2 * w * inter + h_reads)}
 
 
 def mlp_sublayer_fused_reference(x, ln_scale, ln_bias, w_in, b_in, w_out, b_out,
@@ -69,15 +100,13 @@ def mlp_sublayer_fused(x, ln_scale, ln_bias, w_in, b_in, w_out, b_out, eps: floa
     inter = w_in.shape[1]
     _build.check_bf16_operands("mlp_sublayer_fused", x.device, zip(
         args, ((b, n, w), (w,), (w,), (w, inter), (inter,), (inter, w), (w,))))
-    chunks = chunks_for(inter, k_chunks)
-    kc = inter // chunks
-    if w % 32 or kc % 32 or w > 1024 or kc > 1024:
-        raise ValueError(f"mlp_sublayer_fused kernel takes width and I / k_chunks multiples of "
-                         f"32 up to 1024 (width={w}, chunk={kc})")
+    plan = fused_plan(b * n, w, inter, k_chunks)
     y = torch.empty_like(x)
+    h = torch.empty_like(x)  # LN(x), written by the kernel's prologue
     lib = _build.load_library()
     status = lib.agk_vit_mlp_fused_bf16(
-        *(a.data_ptr() for a in args), y.data_ptr(), b * n, w, inter, chunks, ACTS[act],
+        *(a.data_ptr() for a in args), y.data_ptr(), h.data_ptr(), b * n, w, inter,
+        plan["chunks"], ACTS[act],
         int(acc == "f32"), float(eps), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "mlp_sublayer_fused")

@@ -27,7 +27,9 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    routes to each plus a ragged one; their times are per decoder layer at
    the main path's M (the sum of the layer's products, each timed alone),
    with `bf16_cublas_ms`, torch.matmul on the same weights dequantized to
-   bf16, as a yardstick of the unquantized product that no path runs. The
+   bf16, as a yardstick of the unquantized product that no path runs; the
+   w8a8 kernel (wgmma) must also give the same bits on a second call, and
+   prints its variant (wgmma N-width, K splits) and the bytes it reads. The
    serving kernels: paged attention (bf16 and int8 pools of 2048 blocks of
    16, 16 rows of 545-596 tokens plus a 1-token row and a one-page row,
    pages drawn from a shuffled permutation, table widths 38 and 64; times
@@ -41,11 +43,15 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    tokens, 264 with valid_len 257 and HuBERT's 99; both activations of the
    MLP kernels, both accumulations of the fused one (the bf16 accumulator is
    allowed one more bf16 ulp of its running sum's peak: a rounding that
-   parts there outlives the later chunks). Times at CLIP's shape (and
-   HuBERT's for the sublayer and the MLP pair), four layers' weights per
-   replay cycle; `library_ms` is SDPA with the bool key mask for the
-   attention, and the sublayers print their library chains' times
-   (layer_norm, addmm, SDPA or the activation, addmm) as `chain_ms`.
+   parts there outlives the later chunks; the fused kernel, on wgmma, must
+   give the same bits on a second call and prints its variant and L2
+   bytes). Times at CLIP's shape (and HuBERT's for the sublayer, the MLP
+   pair and the fused MLP), four layers' weights per replay cycle;
+   `library_ms` is SDPA with the bool key mask for the attention, and the
+   sublayers print their library chains' times (layer_norm, addmm, SDPA or
+   the activation, addmm) as `chain_ms`, as do the bf16 decode kernels
+   (rms_norm, addmm, RoPE; rms_norm, matmul, silu * up, addmm) and
+   decode_attn_o (SDPA, addmm).
 4. Main path: bootstrap.build_model at Qwen2.5-7B width with random bf16
    weights from a seed, LoRA merged by serving_llm, then Chat.answer_batch
    on 8 preextracted clips, greedy, 32 new tokens, under three attention
@@ -57,7 +63,8 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    q4 (int4, b = 8), q4_b16 (the same tree, 16 clips), decode_llm (bf16
    prefill, generate(decode_llm=) with the int4 tree for the decode loop,
    as bench.py's mixed-precision mode calls it), q8_fused (qkv and gate/up
-   fused, int8) and q8a8 (int8, MATMUL_MODE="w8a8"). Each run must launch
+   fused, int8) and q8a8 (int8, MATMUL_MODE="w8a8"); and qkv_xla
+   (qwen2.DECODE_QKV="xla", counted only, not timed). Each run must launch
    every kernel of its configuration exactly as often as the path calls it
    and the others not at all; all logits must be finite, one string per
    clip must come back. Then each configuration is timed in the order
@@ -364,6 +371,31 @@ def bf16_acc_peak(x, s: dict, act: str) -> torch.Tensor:
     return peak
 
 
+def rope_rows(t, cos, sin):
+    """RoPE (half-split) on [b, heads, d] in f32, in library calls."""
+    t1, t2 = t.float().chunk(2, dim=-1)
+    return torch.cat([t1 * cos - t2 * sin, t2 * cos + t1 * sin], dim=-1).to(t.dtype)
+
+
+def library_qkv_chain(x, ln, wqkv, bqkv, cos, sin, cfg: qwen2.QwenConfig):
+    """decode_qkv in library calls: rms_norm, one addmm for q/k/v with their
+    biases, RoPE on q and k (a yardstick)."""
+    nq, nkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    xn = torch.nn.functional.rms_norm(x, (x.shape[-1],), ln, cfg.rms_eps)
+    q, k, v = torch.addmm(bqkv, xn, wqkv).split((nq, nkv, nkv), dim=-1)
+    b = x.shape[0]
+    return (rope_rows(q.view(b, cfg.num_heads, -1), cos, sin),
+            rope_rows(k.view(b, cfg.num_kv_heads, -1), cos, sin), v)
+
+
+def library_mlp_bf16_chain(x, ln, wgu, wd, eps: float):
+    """decode_mlp_bf16 in library calls: rms_norm, one matmul for gate and
+    up, silu * up, addmm of down onto the residual (a yardstick)."""
+    xn = torch.nn.functional.rms_norm(x, (x.shape[-1],), ln, eps)
+    g, u = (xn @ wgu).chunk(2, dim=-1)
+    return torch.addmm(x, torch.nn.functional.silu(g) * u, wd)
+
+
 def phase_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
     """Kernel vs plain version at the main path's widths. Returns per-kernel
     {max_abs_err, ms, plain_ms}: the largest error over all checks, and the
@@ -380,8 +412,10 @@ def phase_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
     qkv_sets = [(rnd(h, nq, scale=0.02), rnd(nq, scale=0.1), rnd(h, nkv, scale=0.02),
                  rnd(nkv, scale=0.1), rnd(h, nkv, scale=0.02), rnd(nkv, scale=0.1))
                 for _ in range(4)]
+    qkv_cat = [(torch.cat(ws[0::2], dim=1), torch.cat(ws[1::2])) for ws in qkv_sets]
     ln = rnd(h, scale=0.1, shift=1.0)
     wg, wu, wd = rnd(h, inter, scale=0.02), rnd(h, inter, scale=0.02), rnd(inter, h, scale=0.02)
+    wgu = torch.cat([wg, wu], dim=1)
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
     qkv_kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                   head_dim=cfg.head_dim, theta=cfg.rope_theta, eps=cfg.rms_eps)
@@ -399,10 +433,16 @@ def phase_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
             out["decode_qkv"]["max_abs_err"] = max(out["decode_qkv"]["max_abs_err"], err)
             say("kernels", kernel="decode_qkv", b=b, ln=ln_scale is not None,
                 max_abs_err=f"{err:.6g}", max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL)
+        freqs = 1.0 / (cfg.rope_theta ** (torch.arange(0, cfg.head_dim, 2, device=dev)
+                                          / cfg.head_dim))
+        angles = pos[:, None, None].float() * freqs
+        cos, sin = torch.cos(angles), torch.sin(angles)
         times = {
             "ms": graph_ms([lambda ws=ws: qkv(decode_qkv, ws=ws) for ws in qkv_sets * 6]),
             "plain_ms": graph_ms([lambda ws=ws: qkv(decode_qkv_reference, ws=ws)
                                   for ws in qkv_sets * 6]),
+            "chain_ms": graph_ms([lambda wb=wb: library_qkv_chain(x, ln, *wb, cos, sin, cfg)
+                                  for wb in qkv_cat * 6]),
             "eager_ms": eager_ms(lambda: qkv(decode_qkv), flush),
             "eager_plain_ms": eager_ms(lambda: qkv(decode_qkv_reference), flush),
         }
@@ -426,6 +466,8 @@ def phase_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
         times = {
             "ms": graph_ms([lambda: mlp(decode_mlp_bf16)] * 8),
             "plain_ms": graph_ms([lambda: mlp(decode_mlp_bf16_reference)] * 8),
+            "chain_ms": graph_ms([lambda: library_mlp_bf16_chain(x, ln, wgu, wd, cfg.rms_eps)]
+                                 * 8),
             "eager_ms": eager_ms(lambda: mlp(decode_mlp_bf16), flush),
             "eager_plain_ms": eager_ms(lambda: mlp(decode_mlp_bf16_reference), flush),
         }
@@ -436,7 +478,7 @@ def phase_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
                                           library_ms=None,
                                           **bound(2 * (3 * h * inter + h + 2 * b * h),
                                                   6 * b * h * inter))
-    del qkv_sets, wg, wu, wd, flush
+    del qkv_sets, qkv_cat, wg, wu, wd, wgu, flush
     torch.cuda.empty_cache()
     return out
 
@@ -527,6 +569,11 @@ def phase_attention_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
                     for k, v, wo in sets] * reps,
                    None, kv_bytes + 2 * (q.numel() + nq * h + 2 * b * h) + b * t_len,
                    qk_pv_flops + 2 * b * nq * h)
+            # its library chain: SDPA, then addmm of o_proj onto the residual
+            chain = graph_ms([lambda k=k, v=v, wo=wo: torch.addmm(
+                x, sdpa(q4, k, v, attn_mask=mask4, enable_gqa=True).reshape(b, nq), wo)
+                for k, v, wo in sets] * reps)
+            say("kernels", kernel="decode_attn_o", b=b, chain_ms=f"{chain:.4f}", card=repr(card))
             del sets, k, v, wo
 
         # prefill: prompts of 545-564 tokens left-packed into t = 564
@@ -577,6 +624,14 @@ QUANT_PHASE = {
 }
 
 
+def w8a8_variant(m: int, n: int, k: int) -> dict:
+    """What the w8a8 wrapper launches for x [m, k] @ w [k, n]: the wgmma
+    N-width (row tile), the K splits and the bytes its product reads."""
+    plan = quant.w8a8_plan(m, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
+    return {"variant": f"wgmma_m64n{plan['bm']}k32_s8", "splits": plan["splits"],
+            "l2_read_bytes": plan["l2_bytes"]}
+
+
 def phase_quant_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
     """The quantized matmuls against their plain versions at every (K, N) of
     the 7B split and fused layouts and the lm_head, with random int8 bytes
@@ -618,10 +673,17 @@ def phase_quant_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
             w, s = stored[bits][(k, n)]
             for m in ms_checked:
                 x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
-                err, rel = compare(name, kernel(x, w, s), plain(x, w, s), m)
+                got = kernel(x, w, s)
+                err, rel = compare(name, got, plain(x, w, s), m)
                 err_max = max(err_max, err)
+                extra = {}
+                if name == "int8_matmul_w8a8":  # the redesign: same bits twice, its variant
+                    if not torch.equal(got, kernel(x, w, s)):
+                        raise AssertionError(f"{name} M={m} K={k} N={n}: two calls differ")
+                    extra = w8a8_variant(m, n, k)
                 say("kernels", kernel=name, M=m, K=k, N=n, shapes="/".join(names),
-                    max_abs_err=f"{err:.6g}", max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL)
+                    max_abs_err=f"{err:.6g}", max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL,
+                    **extra)
         # the main path's M first; w8a8 also at its prefill M
         per_layer = []
         for m in (m_path, max(ms_checked)) if name == "int8_matmul_w8a8" else (m_path,):
@@ -649,7 +711,9 @@ def phase_quant_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
                 say("kernels", kernel=name, M=m, product=pname, K=k, N=n,
                     **{key: f"{v:.5f}" for key, v in times.items()},
                     bound_ms=f"{cost['bound_ms']:.5f}", bound_by=cost["bound_by"],
-                    GB_per_s=f"{moved / times['ms'] / 1e6:.1f}", card=repr(card))
+                    GB_per_s=f"{moved / times['ms'] / 1e6:.1f}",
+                    **(w8a8_variant(m, n, k) if name == "int8_matmul_w8a8" else {}),
+                    card=repr(card))
                 if pname != "lm_head":
                     for key in sums:
                         sums[key] += times[key]
@@ -851,6 +915,15 @@ def encoder_configs(cfg: affectgpt.AffectGPTConfig) -> tuple:
             aspec, cfg.audio_cfg_override or aspec.make_config())
 
 
+def fused_variant(rows: int, w: int, inter: int) -> dict:
+    """What mlp_sublayer_fused launches for `rows` rows: the wgmma shape, the
+    row tiles and the bytes it reads from L2 (weights, h, the running out)."""
+    plan = vit_mlp_fused.fused_plan(rows, w, inter, vit_mlp_fused.K_CHUNKS)
+    return {"variant": f"ln+cluster{plan['cluster']}x128rows_wgmma_m64n64k16+m64n128k16",
+            "row_tiles": plan["tiles"],
+            "l2_read_bytes": plan["l2_bytes"], "weight_l2_bytes": plan["weight_l2_bytes"]}
+
+
 def phase_encoder_kernels(card: str, vcfg: clip_vit.ClipVisionConfig,
                           acfg: hubert.HubertConfig) -> dict:
     """The four encoder kernels against their plain versions at the towers'
@@ -902,9 +975,13 @@ def phase_encoder_kernels(card: str, vcfg: clip_vit.ClipVisionConfig,
                   mlp_sublayer_reference(*m_args, act=act), tower=tower, n=n, act=act)
             for acc in ("bf16", "f32"):
                 extra = bf16_ulp(bf16_acc_peak(x, s0, act)) if acc == "bf16" else None
-                check("mlp_sublayer_fused", mlp_sublayer_fused(*m_args, act=act, acc=acc),
+                got = mlp_sublayer_fused(*m_args, act=act, acc=acc)
+                if not torch.equal(got, mlp_sublayer_fused(*m_args, act=act, acc=acc)):
+                    raise AssertionError(f"mlp_sublayer_fused {tower} {act} {acc}: two calls "
+                                         "differ")
+                check("mlp_sublayer_fused", got,
                       mlp_sublayer_fused_reference(*m_args, act=act, acc=acc), extra,
-                      tower=tower, n=n, act=act, acc=acc)
+                      tower=tower, n=n, act=act, acc=acc, **fused_variant(b * n, w, inter))
 
     def record(name, tower, n, calls, plain_calls, nbytes, flops, library=None, chain=None,
                **shape):
@@ -939,16 +1016,18 @@ def phase_encoder_kernels(card: str, vcfg: clip_vit.ClipVisionConfig,
                [lambda: mlp_sublayer_reference(x, *(s0[k] for k in MLP_KEYS), act=act)],
                mlp_bytes, mlp_flops,
                chain=[lambda s=s: library_mlp_chain(x, s, act) for s in layers] * 2, act=act)
-        if tower != "clip":
-            continue
-        for acc in ("bf16", "f32"):  # bf16 (the default) recorded, f32 printed
+        # bf16 (the default) recorded at CLIP's shape; f32 and HuBERT's shape printed
+        for acc in ("bf16", "f32") if tower == "clip" else ("bf16",):
             record("mlp_sublayer_fused", tower, n,
                    [lambda s=s: mlp_sublayer_fused(x, *(s[k] for k in MLP_KEYS), act=act,
                                                    acc=acc) for s in layers],
                    [lambda: mlp_sublayer_fused_reference(x, *(s0[k] for k in MLP_KEYS),
                                                          act=act, acc=acc)],
                    mlp_bytes, mlp_flops,
-                   chain=[lambda s=s: library_mlp_chain(x, s, act) for s in layers], acc=acc)
+                   chain=[lambda s=s: library_mlp_chain(x, s, act) for s in layers], acc=acc,
+                   **fused_variant(rows, w, inter))
+        if tower != "clip":
+            continue
         qkv = [tuple(rnd(b, heads, n, d) for _ in range(3)) for _ in range(2)]  # 2 x 101 MB
         record("fused_vit_attention", tower, n,
                [lambda t=t: fused_vit_attention(*t, n) for t in qkv] * 4,
@@ -1011,6 +1090,8 @@ CONFIGS = {
     "q8_fused": Config(lambda L: {"int8_matmul": N * (4 * L + 1) + 1}, tree="int8_fused"),
     "q8a8": Config(lambda L: {"int8_matmul_w8a8": (N + 1) * (7 * L + 1)}, tree="int8",
                    matmul_mode="w8a8"),
+    # qwen2.DECODE_QKV="xla": the per-projection route, decode_qkv never launched
+    "qkv_xla": Config(lambda L: {"decode_mlp_bf16": N * L}, {"DECODE_QKV": "xla"}),
 }
 
 
@@ -1067,8 +1148,9 @@ def config_switches(config: str):
                      (quant, "MATMUL_MODE", c.matmul_mode)])
 
 
-# configurations timed once, on the way there only
+# configurations timed once, on the way there only, and those only counted
 TIMED_ONCE = ("a", "b")
+COUNTED_ONLY = ("qkv_xla",)
 MODE = "multiface_audio_face_frame_text"
 
 
@@ -1215,8 +1297,9 @@ def phase_main_path(card: str) -> tuple:
         for name, count in counted_run(config, served[config], baseline).items():
             if count and name not in launches:
                 launches[name] = count
-    visits = {config: [] for config in CONFIGS}
-    for config in (*CONFIGS, *(c for c in reversed(CONFIGS) if c not in TIMED_ONCE)):
+    timed = [c for c in CONFIGS if c not in COUNTED_ONLY]
+    visits = {config: [] for config in timed}
+    for config in (*timed, *(c for c in reversed(timed) if c not in TIMED_ONCE)):
         visits[config].append(timed_run(config, served[config]))
     for config, runs in visits.items():
         c = CONFIGS[config]

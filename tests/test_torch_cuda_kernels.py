@@ -19,6 +19,7 @@ from affectgpt_tpu_torch.ops.decode_attn_o import decode_attn_o, decode_attn_o_r
 from affectgpt_tpu_torch.ops.decode_mlp import decode_mlp, decode_mlp_reference
 from affectgpt_tpu_torch.ops.decode_mlp_bf16 import decode_mlp_bf16, decode_mlp_bf16_reference
 from affectgpt_tpu_torch.ops.decode_qkv import decode_qkv, decode_qkv_reference
+from affectgpt_tpu_torch.models import nn
 from affectgpt_tpu_torch.ops import quant
 from affectgpt_tpu_torch.ops.paged_attention import (
     paged_attention,
@@ -428,3 +429,99 @@ def test_vit_wrappers_raise_on_what_the_kernels_do_not_take(gen):
                                                                  "bf")), k_chunks=1)
     with pytest.raises(ValueError):  # non-contiguous x
         vit_mlp.mlp_sublayer(_rnd(gen, 99, 2, 256).transpose(0, 1), *mlp)
+
+
+# The two wgmma designs (csrc/int8_matmul_w8a8.cu, csrc/vit_mlp_fused.cu) at
+# the main path's shapes: the 7B split layout's (K, N), split and unsplit K,
+# at every M the wgmma N-width choice meets (16 and 128 rows; one row; a
+# ragged last tile; the prefill's 4512), the lm_head at decode M.
+W8A8_7B = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 13, 64, 65, 200, 4512])
+@pytest.mark.parametrize("k,n", W8A8_7B + [(3584, 152064)])
+def test_w8a8_kernel_matches_plain_at_7b_shapes(gen, m, k, n):
+    if n == 152064 and m > 13:
+        pytest.skip("the lm_head runs the kernel at decode M only")
+    w, scales = _quantized(gen, k, n, 8)
+    x = _rnd(gen, m, k)
+    before = quant.int8_matmul_w8a8.launches
+    got = quant.int8_matmul_w8a8(x, w, scales)
+    again = quant.int8_matmul_w8a8(x, w, scales)
+    torch.cuda.synchronize()
+    assert quant.int8_matmul_w8a8.launches == before + 2
+    assert torch.equal(got, again)  # split K is reduced in a fixed order
+    torch.testing.assert_close(got.float(), quant.int8_matmul_w8a8_reference(
+        x, w, scales).float(), **TOL)
+
+
+def test_w8a8_wrapper_raises_on_a_k_of_partial_blocks(gen):
+    w, scales = _quantized(gen, 576, 128, 8)  # 576 = one 512-column block and a part
+    with pytest.raises(ValueError):
+        quant.int8_matmul_w8a8(_rnd(gen, 8, 576), w, scales)
+
+
+def _bf16_acc_peak_ulp(x, p, act, k_chunks=vit_mlp_fused.K_CHUNKS):
+    """One bf16 ulp of the largest |running sum| the bf16 accumulator rounds
+    over its chunks, per output (as chip_smoke.py's bf16_acc_peak): where
+    the kernel and the plain version round one running sum differently,
+    that ulp outlives the later chunks."""
+    h = vit_sublayer.layernorm_rounded(x, p["lns"], p["lnb"], 1e-5)
+    inter = p["wi"].shape[1]
+    kc = inter // vit_mlp_fused.chunks_for(inter, k_chunks)
+    out = peak = None
+    for c0 in range(0, inter, kc):
+        t = vit_mlp.activation(vit_sublayer.dot_f32(h, p["wi"][:, c0:c0 + kc])
+                               + p["bi"][c0:c0 + kc].float(), act)
+        part = vit_sublayer.dot_f32(t.to(x.dtype), p["wf"][c0:c0 + kc])
+        out = (x.float() + p["bf"].float() + part if out is None
+               else out.float() + part).to(x.dtype)
+        peak = out.float().abs() if peak is None else torch.maximum(peak, out.float().abs())
+    return torch.exp2(torch.floor(torch.log2(peak.clamp_min(2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("n", [257, 99, 40])
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+@pytest.mark.parametrize("acc", ["bf16", "f32"])
+def test_mlp_sublayer_fused_kernel_matches_plain_at_tower_width(gen, n, act, acc):
+    p = _vit_block(gen, 1024, 4096)
+    x = _rnd(gen, 3, n, 1024)
+    args = (x, *(p[k] for k in ("lns", "lnb", "wi", "bi", "wf", "bf")))
+    before = vit_mlp_fused.mlp_sublayer_fused.launches
+    got = vit_mlp_fused.mlp_sublayer_fused(*args, act=act, acc=acc)
+    again = vit_mlp_fused.mlp_sublayer_fused(*args, act=act, acc=acc)
+    torch.cuda.synchronize()
+    assert vit_mlp_fused.mlp_sublayer_fused.launches == before + 2
+    assert torch.equal(got, again)
+    want = vit_mlp_fused.mlp_sublayer_fused_reference(*args, act=act, acc=acc).float()
+    extra = _bf16_acc_peak_ulp(x, p, act) if acc == "bf16" else 0.0
+    over = (got.float() - want).abs() > TOL["atol"] + extra + TOL["rtol"] * want.abs()
+    assert not bool(over.any()), f"{int(over.sum())} outputs outside the tolerance"
+
+
+@pytest.mark.parametrize("w,inter,k_chunks", [(320, 1280, 8), (256, 768, 8)])
+def test_mlp_sublayer_fused_wrapper_raises_on_the_new_limits(gen, w, inter, k_chunks):
+    """The wgmma design takes widths that are multiples of 128 and chunks of
+    I that are multiples of 64 (the design before it took multiples of 32)."""
+    p = _vit_block(gen, w, inter)
+    with pytest.raises(ValueError):
+        vit_mlp_fused.mlp_sublayer_fused(_rnd(gen, 2, 9, w), *(p[k] for k in (
+            "lns", "lnb", "wi", "bi", "wf", "bf")), k_chunks=k_chunks)
+
+
+def test_matmul_f32_keeps_the_f32_sum_on_the_card(gen):
+    """nn.matmul_f32 on bf16 operands returns the f32 sum (torch.mm with
+    out_dtype), also for the transposed table the tied logits pass; dense
+    rounds that sum plus the bias once. Tolerances: f32 summation order for
+    the sum, one bf16 rounding flip for dense."""
+    x, w, b = _rnd(gen, 3, 7, 512), _rnd(gen, 512, 384, scale=0.05), _rnd(gen, 384)
+    want = x.float() @ w.float()
+    got = nn.matmul_f32(x, w)
+    assert got.dtype == torch.float32 and got.shape == (3, 7, 384)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    table = _rnd(gen, 384, 512, scale=0.05)
+    torch.testing.assert_close(nn.matmul_f32(x, table.T), x.float() @ table.float().T,
+                               rtol=1e-5, atol=1e-5)
+    dense = nn.dense({"w": w, "b": b}, x)
+    torch.testing.assert_close(dense.float(), (want + b.float()).to(torch.bfloat16).float(),
+                               rtol=2 ** -7, atol=0.0)
