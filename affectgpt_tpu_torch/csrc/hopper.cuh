@@ -97,6 +97,12 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
   asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
 }
+// an arrival on a barrier of any CTA of the cluster (`bar` a shared::cluster
+// address from map_to_rank), with the default CTA-scope release: enough to
+// hand back a ring stage whose reads (wgmma's) have completed
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
 // mbar_wait with acquire at cluster scope: sees what other CTAs released
 __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
   asm volatile(
@@ -120,6 +126,13 @@ __device__ __forceinline__ void bulk_copy_to_rank(uint32_t dst, const void* src,
       "r"(smem_u32(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
+// an f32 from shared memory of any CTA of the cluster (`addr` a
+// shared::cluster address from map_to_rank)
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
 // every non-exited thread of the cluster (threads may call it alone)
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
@@ -137,6 +150,35 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// the same box into the shared memory of every CTA of the cluster in
+// `mask` (bit r: rank r), at this CTA's offsets of dst and bar in each
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
+// four 8x8 matrices of 16-bit elements: lane l gives the address of row l % 8
+// of matrix l / 8 (16 bytes); r[q] receives matrix q's elements (l / 4,
+// 2 * (l % 4)) and (l / 4, 2 * (l % 4) + 1), low half first
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// the inverse of ldsm_x4: r[q] of lane l to elements (l / 4, 2 * (l % 4))
+// and (l / 4, 2 * (l % 4) + 1) of matrix q, whose row l % 8 lane l addresses
+__device__ __forceinline__ void stsm_x4(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
 }
 
 // four 8x8 matrices of 16-bit elements, transposed: lane l gives the
@@ -179,18 +221,20 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 
 // Host: the tensor map of a row-major 2-D tensor (`inner` elements per row,
 // `outer` rows, rows `row_bytes` apart) read in boxes of box_inner x
-// box_outer elements (box_inner * element size = 128 bytes), 128-byte
-// swizzle. Maps depend only on these values, so they are cached: a wrapper
+// box_outer elements, swizzled: 128-byte (box_inner * element size = 128
+// bytes, the default) or 32-byte (32-byte box rows: the 16-byte chunk c of
+// row r lands at chunk c ^ ((r / 4) % 2), tiles 256-byte aligned). Maps depend only on these values, so they are cached: a wrapper
 // call whose operands sit where an earlier call's did reuses its maps.
 // Returns 0 or a CUresult.
 static inline int tensor_map_2d(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr,
                                 uint64_t inner, uint64_t outer, uint64_t row_bytes,
-                                uint32_t box_inner, uint32_t box_outer) {
+                                uint32_t box_inner, uint32_t box_outer,
+                                CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   struct Entry {
     const void* ptr;
     uint64_t inner, outer, row_bytes;
     uint32_t box_inner, box_outer;
-    int dtype;
+    int dtype, swizzle;
     CUtensorMap map;
   };
   constexpr int kEntries = 64;
@@ -199,7 +243,8 @@ static inline int tensor_map_2d(CUtensorMap* map, CUtensorMapDataType dtype, con
   for (int i = 0; i < used; ++i) {
     const Entry& e = cache[i];
     if (e.ptr == ptr && e.inner == inner && e.outer == outer && e.row_bytes == row_bytes &&
-        e.box_inner == box_inner && e.box_outer == box_outer && e.dtype == (int)dtype) {
+        e.box_inner == box_inner && e.box_outer == box_outer && e.dtype == (int)dtype &&
+        e.swizzle == (int)swizzle) {
       *map = e.map;
       return 0;
     }
@@ -217,11 +262,11 @@ static inline int tensor_map_2d(CUtensorMap* map, CUtensorMapDataType dtype, con
   const cuuint32_t elem_strides[2] = {1, 1};
   const CUresult res = encode(
       map, dtype, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (res != CUDA_SUCCESS) return (int)res;
   Entry& e = cache[next];
-  e = Entry{ptr, inner, outer, row_bytes, box_inner, box_outer, (int)dtype, *map};
+  e = Entry{ptr, inner, outer, row_bytes, box_inner, box_outer, (int)dtype, (int)swizzle, *map};
   next = (next + 1) % kEntries;
   if (used < kEntries) ++used;
   return 0;
@@ -298,6 +343,42 @@ __device__ __forceinline__ void wgmma_bf16_ss_tb(float (&d)[64], uint64_t desc_a
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[128] (+)= A[64 x 16] (shared, K-major) . B[16 x 256] (shared, MN-major), bf16
+// in, f32 accumulators; scale_d = 0 discards the old d.
+__device__ __forceinline__ void wgmma_bf16_ss_tb(float (&d)[128], uint64_t desc_a,
+                                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

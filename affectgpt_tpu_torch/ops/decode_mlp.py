@@ -3,8 +3,9 @@ q=1 decode step, on per-channel int8 weights.
 
 Port of affectgpt_tpu/ops/decode_mlp_pallas.py::decode_mlp_pallas. On a CUDA
 tensor `decode_mlp` launches the hand-written kernels in
-csrc/decode_mlp_int8.cu (two launches in one call: gate/up into a [b, I]
-scratch, then down + scales + residual) or raises; on a CPU tensor it runs
+csrc/decode_mlp_int8.cu (two launches in one call, products on tensor cores:
+gate/up into a [b, I] scratch, then down + scales + residual, as
+`decode_mlp_plan` lays them out) or raises; on a CPU tensor it runs
 `decode_mlp_reference`, the plain PyTorch version, which is also the oracle
 the kernels are checked against on the card.
 
@@ -54,13 +55,79 @@ def _check_operands(x, ln_scale, w_gate, s_gate, w_up, s_up, w_down, s_down):
               (s_gate, (1, inter)), (s_up, (1, inter)), (s_down, (1, h)))
     if any(tuple(t.shape) != shape for t, shape in shapes):
         raise ValueError("decode_mlp: operand shapes do not match x [b, h]")
-    if inter % 64 or h % 32:
-        raise ValueError(
-            f"decode_mlp kernel needs intermediate % 64 == 0 and hidden % 32 == 0 "
-            f"(intermediate={inter}, hidden={h})"
-        )
-    if 16 * h + 18 * 8 * 64 * 4 > 227 * 1024:
+
+
+# The kernels' tiles (csrc/decode_mlp_int8.cu): 16 batch rows a block; (A)
+# strips of 32 columns of I, stages of 256 k, a ring of 4; (B) strips of 128
+# columns of h, stages of 64 k, a ring of 6, clusters of 8 blocks over I.
+ROW_TILE = 16
+GATEUP_STRIP, GATEUP_STAGE_K, GATEUP_STAGES = 32, 256, 4
+DOWN_STRIP, DOWN_STAGE_K, DOWN_STAGES, DOWN_SPLIT = 128, 64, 6, 8
+SMEM_LIMIT = 232_448  # bytes of shared memory an H100 block can use
+CONSUMER_WARPS = 8
+
+
+def decode_mlp_plan(b: int, h: int, inter: int, sm_count: int) -> dict:
+    """The launch plan of the two kernels for x [b, h] and an intermediate
+    width I: the row tiles; (A)'s grid (blocks per row tile x row tiles),
+    each block's strips of I and the k stages (h padded to a whole stage);
+    (B)'s grid (one cluster of DOWN_SPLIT blocks per strip of h and row
+    tile, in the order the kernel numbers them) and each block's K range
+    of I; both launches' shared memory and the bytes they read from L2.
+    Raises on what the kernels do not take."""
+    if inter % DOWN_STAGE_K or h % DOWN_STRIP:
+        raise ValueError(f"decode_mlp kernel needs intermediate % {DOWN_STAGE_K} == 0 and hidden "
+                         f"% {DOWN_STRIP} == 0 (intermediate={inter}, hidden={h})")
+    row_tiles = -(-b // ROW_TILE)
+    hp = -(-h // GATEUP_STAGE_K) * GATEUP_STAGE_K
+    smem_a = (GATEUP_STAGES * 2 * GATEUP_STAGE_K * GATEUP_STRIP + ROW_TILE * (hp + 8) * 2
+              + CONSUMER_WARPS * 2 * ROW_TILE * GATEUP_STRIP * 4 + 2 * GATEUP_STAGES * 8 + 1024)
+    if smem_a > SMEM_LIMIT:
         raise ValueError(f"decode_mlp kernel: hidden {h} exceeds shared memory")
+    ctas = max(1, sm_count // row_tiles)
+    strips_a = inter // GATEUP_STRIP
+    steps = inter // DOWN_STAGE_K
+    k_ranges = [(r * steps // DOWN_SPLIT * DOWN_STAGE_K, (r + 1) * steps // DOWN_SPLIT
+                 * DOWN_STAGE_K) for r in range(DOWN_SPLIT)]
+    clusters = [(rt, s) for s in range(h // DOWN_STRIP) for rt in range(row_tiles)]
+    smem_b = (DOWN_STAGES * (DOWN_STAGE_K * DOWN_STRIP + ROW_TILE * DOWN_STAGE_K * 2)
+              + ROW_TILE * DOWN_STRIP * 4 + 2 * DOWN_STAGES * 8 + 1024)
+    return {
+        "row_tiles": row_tiles,
+        "gateup": {"grid": (ctas, row_tiles), "strip": GATEUP_STRIP,
+                   "strips": [list(range(p, strips_a, ctas)) for p in range(ctas)],
+                   "stage_k": GATEUP_STAGE_K, "k_steps": hp // GATEUP_STAGE_K,
+                   "stages": GATEUP_STAGES, "smem_bytes": smem_a},
+        "down": {"grid": (DOWN_SPLIT * len(clusters),), "cluster": DOWN_SPLIT,
+                 "clusters": clusters, "strip": DOWN_STRIP, "k_ranges": k_ranges,
+                 "stage_k": DOWN_STAGE_K, "stages": DOWN_STAGES, "smem_bytes": smem_b},
+        # each row tile reads all three weights (from L2 where the tiles meet);
+        # each block of (A) its rows of x, each cluster of (B) its rows of the
+        # scratch
+        "l2_bytes": row_tiles * 3 * h * inter + ctas * row_tiles * ROW_TILE * h * 2
+        + len(clusters) * ROW_TILE * inter * 2,
+    }
+
+
+def _launch(args, variant: int, eps: float):
+    """Both launches of csrc/decode_mlp_int8.cu as `decode_mlp_plan` lays
+    them out. variant 0 is the kernels; 1 drops their tensor-core products
+    (a diagnostic of the loads alone, its result wrong) and 2 runs the
+    previous CUDA-core design, both for chip_smoke.py's timings only."""
+    x, w_gate = args[0], args[2]
+    b, h = x.shape
+    inter = w_gate.shape[1]
+    plan = decode_mlp_plan(b, h, inter,
+                           torch.cuda.get_device_properties(x.device).multi_processor_count)
+    act = torch.empty((b, inter), dtype=x.dtype, device=x.device)
+    y = torch.empty_like(x)
+    ctas, row_tiles = plan["gateup"]["grid"]
+    status = _build.load_library().agk_decode_mlp_int8(
+        *(t.data_ptr() for t in args), act.data_ptr(), y.data_ptr(), b, h, inter, ctas,
+        row_tiles, variant, float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, "decode_mlp")
+    return y
 
 
 def decode_mlp(x, ln_scale, w_gate, s_gate, w_up, s_up, w_down, s_down, *, eps: float = 1e-6):
@@ -73,16 +140,7 @@ def decode_mlp(x, ln_scale, w_gate, s_gate, w_up, s_up, w_down, s_down, *, eps: 
     if x.device.type != "cuda":
         raise ValueError(f"decode_mlp: no kernel for device {x.device}")
     _check_operands(*args)
-    b, h = x.shape
-    inter = w_gate.shape[1]
-    act = torch.empty((b, inter), dtype=x.dtype, device=x.device)
-    y = torch.empty_like(x)
-    lib = _build.load_library()
-    status = lib.agk_decode_mlp_int8(
-        *(t.data_ptr() for t in args), act.data_ptr(), y.data_ptr(), b, h, inter, float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(status, "decode_mlp")
+    y = _launch(args, 0, eps)
     decode_mlp.launches += 1
     return y
 

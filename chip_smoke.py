@@ -34,10 +34,17 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    16, 16 rows of 545-596 tokens plus a 1-token row and a one-page row,
    pages drawn from a shuffled permutation, table widths 38 and 64; times
    at width 38 over three disjoint table sets on two pools, so a replay
-   cycle reads more than the L2) and the int8 decode MLP (b = 8, 16, 64 on
-   int8 weights of the 7B layer; times at b = 16, with the three products
-   in cuBLAS on the dequantized bf16 weights as a yardstick); neither has a
-   single PyTorch call that computes its function, so `library_ms` is null.
+   cycle reads more than the L2; `chain_ms` times the gather chain that
+   PAGED_ATTENTION="xla" runs, inference/paged.py) and the int8 decode MLP
+   (b = 8, 16, 64 on int8 weights of the 7B layer; times at b = 16, with
+   the three products in cuBLAS on the dequantized bf16 weights as a
+   yardstick); neither has a single PyTorch call that computes its
+   function, so `library_ms` is null. The two kernels redesigned last, the
+   decode MLP (tensor cores) and the encoder MLP sublayer (wgmma + TMA),
+   must give the same bits on a second call and print `old_ms`, the
+   previous design's time (a variant of the same C entry), and a `variant`
+   dict with their tiles, rings and grids and `no_products_ms`, the time
+   of the variant without the tensor-core products.
    The encoder kernels at the towers' widths (ViT-L/14 and HuBERT-large:
    w = 1024, 16 heads of 64, I = 4096), 64 images or clips: CLIP's 257
    tokens, 264 with valid_len 257 and HuBERT's 99; both activations of the
@@ -123,7 +130,8 @@ from affectgpt_tpu_torch.inference import generate as gen
 from affectgpt_tpu_torch.inference import paged, server
 from affectgpt_tpu_torch.inference.chat import Chat, encode_media_features, prepare_frames
 from affectgpt_tpu_torch.models import affectgpt, clip_vit, encoders, hubert, nn, qwen2
-from affectgpt_tpu_torch.ops import _build, quant
+from affectgpt_tpu_torch.ops import _build, quant, vit_mlp
+from affectgpt_tpu_torch.ops import decode_mlp as decode_mlp_module
 from affectgpt_tpu_torch.ops.vit_attention import (
     fused_vit_attention,
     fused_vit_attention_reference,
@@ -143,7 +151,7 @@ from affectgpt_tpu_torch.ops.vit_sublayer import (
 )
 from affectgpt_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
 from affectgpt_tpu_torch.ops.decode_attn_o import decode_attn_o, decode_attn_o_reference
-from affectgpt_tpu_torch.ops.decode_mlp import decode_mlp, decode_mlp_reference
+from affectgpt_tpu_torch.ops.decode_mlp import decode_mlp, decode_mlp_plan, decode_mlp_reference
 from affectgpt_tpu_torch.ops.decode_mlp_bf16 import decode_mlp_bf16, decode_mlp_bf16_reference
 from affectgpt_tpu_torch.ops.paged_attention import (
     paged_attention,
@@ -773,6 +781,23 @@ def paged_case(g: torch.Generator, cfg: qwen2.QwenConfig, width: int, int8: bool
     return cases, int(lens.sum())
 
 
+def sm_count() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def decode_mlp_variant(b: int, h: int, inter: int) -> dict:
+    """What decode_mlp launches for x [b, h]: the tensor-core tiles, the
+    rings, the grids and the bytes it reads from L2."""
+    plan = decode_mlp_plan(b, h, inter, sm_count())
+    a, d = plan["gateup"], plan["down"]
+    return {"products": "mma.sync m16n8k16 bf16, int8 to bf16 in registers, batch as N",
+            "gateup_tile": f"16 rows x {a['strip']} cols x {a['stage_k']} k",
+            "gateup_stages": a["stages"], "gateup_grid": list(a["grid"]),
+            "down_tile": f"16 rows x {d['strip']} cols x {d['stage_k']} k",
+            "down_stages": d["stages"], "down_cluster": d["cluster"],
+            "down_grid": list(d["grid"]), "l2_read_bytes": plan["l2_bytes"]}
+
+
 def phase_serving_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
     """The serving slice's kernels against their plain versions at 7B
     widths: paged attention for both pool dtypes at table widths 38 (the
@@ -806,12 +831,16 @@ def phase_serving_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
                       + 2 * 2 * SERVE_SLOTS * heads * d + 4 * SERVE_SLOTS * (width + 1))
             times = {"ms": graph_ms([lambda c=c: kernel(*c[:5], *c[5]) for c in cases] * 4),
                      "plain_ms": graph_ms([lambda c=c: paged_attention_reference(*c[:5], *c[5])
+                                           for c in cases]),
+                     # the gather chain PAGED_ATTENTION="xla" runs (inference/paged.py)
+                     "chain_ms": graph_ms([lambda c=c: paged.paged_attention(*c[:5], kv, *c[5])
                                            for c in cases])}
             cost = bound(nbytes, 4 * valid * heads * d)
             say("kernels", kernel=name, b=SERVE_SLOTS, width=width,
                 **{k: f"{v:.5f}" for k, v in times.items()}, bound_ms=f"{cost['bound_ms']:.5f}",
                 bound_by=cost["bound_by"], GB_per_s=f"{nbytes / times['ms'] / 1e6:.1f}",
-                library="none: no single PyTorch call reads a block table", card=repr(card))
+                library="none: no single PyTorch call reads a block table; chain_ms is the "
+                "gather chain", card=repr(card))
             if width == max_blocks:
                 out[name].update(times, **cost)
             del cases
@@ -826,8 +855,11 @@ def phase_serving_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
     dequant = [(w.float() * s).to(torch.bfloat16) for w, s in zip(leaves[::2], leaves[1::2])]
     for b in (8, SERVE_SLOTS, 64):
         x = torch.randn((b, h), generator=g, device="cuda").to(torch.bfloat16)
-        err, rel = compare("decode_mlp", decode_mlp(x, ln, *leaves),
-                           decode_mlp_reference(x, ln, *leaves), b)
+        args = (x, ln, *leaves)
+        got = decode_mlp(*args)
+        if not torch.equal(got, decode_mlp(*args)):
+            raise AssertionError(f"decode_mlp b={b}: two calls differ")
+        err, rel = compare("decode_mlp", got, decode_mlp_reference(*args), b)
         out["decode_mlp"]["max_abs_err"] = max(out["decode_mlp"]["max_abs_err"], err)
         say("kernels", kernel="decode_mlp", b=b, max_abs_err=f"{err:.6g}",
             max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL)
@@ -836,16 +868,21 @@ def phase_serving_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
         def cublas():  # three products and silu·up on bf16 weights, no norm: a yardstick
             return torch.matmul(torch.nn.functional.silu(x @ wg) * (x @ wu), wd)
 
-        times = {"ms": graph_ms([lambda: decode_mlp(x, ln, *leaves)] * 8),
-                 "plain_ms": graph_ms([lambda: decode_mlp_reference(x, ln, *leaves)] * 2,
-                                      reps=5),
+        times = {"ms": graph_ms([lambda: decode_mlp(*args)] * 8),
+                 # the previous CUDA-core design, the C entry's variant 2 (counted nowhere)
+                 "old_ms": graph_ms([lambda: decode_mlp_module._launch(args, 2, 1e-6)] * 8),
+                 "plain_ms": graph_ms([lambda: decode_mlp_reference(*args)] * 2, reps=5),
                  "bf16_cublas_ms": graph_ms([cublas] * 4)}
+        variant = {**decode_mlp_variant(b, h, inter),  # variant 1: no tensor-core products
+                   "no_products_ms": graph_ms([lambda: decode_mlp_module._launch(args, 1, 1e-6)]
+                                              * 8)}
         nbytes = 3 * h * inter + 4 * (2 * inter + h) + 2 * (h + 2 * b * h)
         cost = bound(nbytes, 6 * b * h * inter)
         say("kernels", kernel="decode_mlp", b=b, **{k: f"{v:.5f}" for k, v in times.items()},
             bound_ms=f"{cost['bound_ms']:.5f}", bound_by=cost["bound_by"],
             GB_per_s=f"{nbytes / times['ms'] / 1e6:.1f}",
-            library="none: no single PyTorch call does the fused int8 MLP", card=repr(card))
+            library="none: no single PyTorch call does the fused int8 MLP",
+            variant=json.dumps(variant), card=repr(card))
         if b == SERVE_SLOTS:
             out["decode_mlp"].update(ms=times["ms"], plain_ms=times["plain_ms"], **cost)
     del leaves, dequant
@@ -915,6 +952,20 @@ def encoder_configs(cfg: affectgpt.AffectGPTConfig) -> tuple:
             aspec, cfg.audio_cfg_override or aspec.make_config())
 
 
+def mlp_variant(rows: int, w: int, inter: int) -> dict:
+    """What mlp_sublayer launches for `rows` rows: the GEMMs' wgmma tile,
+    ring, cluster and persistent grid, and the bytes their blocks read from
+    L2."""
+    plan = vit_mlp.mlp_plan(rows, w, inter, sm_count())
+    fc1, fc2 = plan["fc1"], plan["fc2"]
+    return {"products": "wgmma m64n256k16 bf16, TMA ring, persistent",
+            "tile": "x".join(map(str, fc1["tile"])) + f"x{fc1['stage_k']}",
+            "stages": fc1["stages"], "cluster": fc1["cluster"], "blocks": plan["blocks"],
+            "fc1_tiles": fc1["n_tiles"] * fc1["m_tiles"],
+            "fc2_tiles": fc2["n_tiles"] * fc2["m_tiles"],
+            "l2_read_bytes": fc1["l2_bytes"] + fc2["l2_bytes"]}
+
+
 def fused_variant(rows: int, w: int, inter: int) -> dict:
     """What mlp_sublayer_fused launches for `rows` rows: the wgmma shape, the
     row tiles and the bytes it reads from L2 (weights, h, the running out)."""
@@ -971,8 +1022,11 @@ def phase_encoder_kernels(card: str, vcfg: clip_vit.ClipVisionConfig,
             continue  # the MLP kernels are row-wise: no key mask
         m_args = (x, *(s0[k] for k in MLP_KEYS))
         for act in ("quick_gelu", "gelu"):
-            check("mlp_sublayer", mlp_sublayer(*m_args, act=act),
-                  mlp_sublayer_reference(*m_args, act=act), tower=tower, n=n, act=act)
+            got = mlp_sublayer(*m_args, act=act)
+            if not torch.equal(got, mlp_sublayer(*m_args, act=act)):
+                raise AssertionError(f"mlp_sublayer {tower} {act}: two calls differ")
+            check("mlp_sublayer", got, mlp_sublayer_reference(*m_args, act=act), tower=tower,
+                  n=n, act=act, **mlp_variant(b * n, w, inter))
             for acc in ("bf16", "f32"):
                 extra = bf16_ulp(bf16_acc_peak(x, s0, act)) if acc == "bf16" else None
                 got = mlp_sublayer_fused(*m_args, act=act, acc=acc)
@@ -984,12 +1038,17 @@ def phase_encoder_kernels(card: str, vcfg: clip_vit.ClipVisionConfig,
                       tower=tower, n=n, act=act, acc=acc, **fused_variant(b * n, w, inter))
 
     def record(name, tower, n, calls, plain_calls, nbytes, flops, library=None, chain=None,
-               **shape):
+               old=None, no_products=None, **shape):
         times = {"ms": graph_ms(calls), "plain_ms": graph_ms(plain_calls, reps=5)}
         if library:
             times["library_ms"] = graph_ms(library)
         if chain:
             times["chain_ms"] = graph_ms(chain)
+        if old:  # the previous design, for a redesigned kernel
+            times["old_ms"] = graph_ms(old)
+        if no_products:  # its variant without the tensor-core products
+            shape["variant"] = json.dumps({**json.loads(shape["variant"]),
+                                           "no_products_ms": graph_ms(no_products)})
         cost = bound(nbytes, flops)
         say("kernels", kernel=name, tower=tower, b=b, n=n, **shape,
             **{k: f"{v:.5f}" for k, v in times.items()}, bound_ms=f"{cost['bound_ms']:.5f}",
@@ -1010,12 +1069,18 @@ def phase_encoder_kernels(card: str, vcfg: clip_vit.ClipVisionConfig,
         mlp_bytes, mlp_flops = 2 * (2 * rows * w + 2 * w * inter + inter + 3 * w), \
             4 * rows * w * inter
         act = "quick_gelu" if tower == "clip" else "gelu"
+        def mlp_launch(variant):  # vit_mlp's C entry: 1 no products, 2 the previous design
+            return [lambda s=s: vit_mlp._launch(x, *(s[k] for k in MLP_KEYS), eps=1e-5, act=act,
+                                                variant=variant) for s in layers] * 2
+
         record("mlp_sublayer", tower, n,
                [lambda s=s: mlp_sublayer(x, *(s[k] for k in MLP_KEYS), act=act)
                 for s in layers] * 2,
                [lambda: mlp_sublayer_reference(x, *(s0[k] for k in MLP_KEYS), act=act)],
                mlp_bytes, mlp_flops,
-               chain=[lambda s=s: library_mlp_chain(x, s, act) for s in layers] * 2, act=act)
+               chain=[lambda s=s: library_mlp_chain(x, s, act) for s in layers] * 2,
+               old=mlp_launch(2), no_products=mlp_launch(1), act=act,
+               variant=json.dumps(mlp_variant(rows, w, inter)))
         # bf16 (the default) recorded at CLIP's shape; f32 and HuBERT's shape printed
         for acc in ("bf16", "f32") if tower == "clip" else ("bf16",):
             record("mlp_sublayer_fused", tower, n,

@@ -1,6 +1,6 @@
-"""Time variants of the port's two wgmma kernels on one CUDA card.
+"""Time variants of the port's wgmma and tensor-core kernels on one CUDA card.
 
-    python3 scripts/torch_wgmma_variants.py [--only fused|w8a8] [--out DIR]
+    python3 scripts/torch_wgmma_variants.py [--only fused|w8a8|mlp|decode] [--out DIR]
 
 For each variant the package is copied to a temporary directory, a few
 source constants are replaced there (the ring depth, the w8a8 row tile;
@@ -11,7 +11,14 @@ the kernel against its plain version at a small shape and times it at the
 main path's shapes: `mlp_sublayer_fused` (csrc/vit_mlp_fused.cu) at CLIP's
 64 x 257 and HuBERT's 64 x 99 rows (w = 1024, I = 4096, bf16 accumulator),
 `int8_matmul_w8a8` (csrc/int8_matmul_w8a8.cu) summed over one Qwen2.5-7B
-decoder layer's products at M = 4512 and M = 8. Times are device ms per
+decoder layer's products at M = 4512 and M = 8, `mlp_sublayer`
+(csrc/vit_mlp.cu on csrc/vit_gemm_wgmma.cuh) at the same two shapes as the
+fused MLP, with the device ms of each of its three launches from
+torch.profiler, and the int8 `decode_mlp` (csrc/decode_mlp_int8.cu) at the
+7B layer's widths for b = 8, 16 and 64, with its two launches' ms. For
+those two kernels the unedited variant also times the C entry's variants:
+without the tensor-core products (`no_products_ms`) and the previous
+design (`old_ms`). Times are device ms per
 call: calls captured in a CUDA graph over enough weight copies to exceed
 the 50 MB L2, 20 replays, the median. Prints the card's name and power
 limit first and one JSON line per variant.
@@ -31,6 +38,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 FUSED = "affectgpt_tpu_torch/csrc/vit_mlp_fused.cu"
 W8A8 = "affectgpt_tpu_torch/csrc/int8_matmul_w8a8.cu"
+GEMM = "affectgpt_tpu_torch/csrc/vit_gemm_wgmma.cuh"
 
 # name: (kernel, [(file, old text, new text)])
 VARIANTS = {
@@ -47,12 +55,26 @@ VARIANTS = {
         (W8A8, ": launch<192>(", ": launch<128>(")]),
     "diag_w8a8_no_products": ("w8a8", [(W8A8, "        wgmma_s8_rs(acc_i,",
                                         "        if (false) wgmma_s8_rs(acc_i,")]),
+    "mlp_as_is": ("mlp", []),
+    "mlp_cluster1": ("mlp", [("affectgpt_tpu_torch/ops/vit_mlp.py",
+                              "GEMM_CLUSTER = 128, 256, 64, 4, 2",
+                              "GEMM_CLUSTER = 128, 256, 64, 4, 1")]),
+    # expf, an IEEE division and erff (vit_gemm.cuh's activate) in fc1's epilogue
+    "mlp_exact_act": ("mlp", [(GEMM, "activate_pair<ACT>(v[2 * q], v[2 * q + 1]);",
+                               "{ v[2 * q] = activate<ACT>(v[2 * q]); "
+                               "v[2 * q + 1] = activate<ACT>(v[2 * q + 1]); }")]),
+    # fc1 without its epilogue (fc2 keeps its own): the k loop and the ring alone
+    "diag_mlp_fc1_no_epilogue": ("mlp", [(GEMM, "    for (int half = 0; half < 2; ++half) {",
+                                          "    for (int half = 0; half < (RESIDUAL ? 2 : 0); "
+                                          "++half) {")]),
+    "decode_as_is": ("decode", []),
 }
 
 BENCH = r"""
 import json, statistics, sys
 import torch
-from affectgpt_tpu_torch.ops import quant, vit_mlp_fused
+from torch.profiler import ProfilerActivity, profile
+from affectgpt_tpu_torch.ops import decode_mlp, quant, vit_mlp, vit_mlp_fused
 
 kind, name = sys.argv[1], sys.argv[2]
 g = torch.Generator(device="cuda").manual_seed(0)
@@ -79,8 +101,52 @@ def graph_ms(calls, reps=20):
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events) / len(calls)
 
+def kernel_ms(fn, reps=10):  # device ms of each kernel a call launches, by name
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if e.count and t:
+            out[e.key.split("(")[0][-48:]] = t / e.count / 1000
+    return out
+
 out = {"variant": name}
-if kind == "fused":
+if kind == "mlp":
+    w, inter = 1024, 4096
+    layers = [(rnd(w, scale=0.1, shift=1.0), rnd(w, scale=0.1), rnd(w, inter, scale=0.02),
+               rnd(inter, scale=0.1), rnd(inter, w, scale=0.02), rnd(w, scale=0.1))
+              for _ in range(4)]
+    x = rnd(3, 99, w)
+    got = vit_mlp.mlp_sublayer(x, *layers[0], act="gelu")
+    ref = vit_mlp.mlp_sublayer_reference(x, *layers[0], act="gelu")
+    out["max_abs_err"] = float((got.float() - ref.float()).abs().max())
+    for tower, n, act in (("clip", 257, "quick_gelu"), ("hubert", 99, "gelu")):
+        x = rnd(64, n, w)
+        runs = {"ms": 0, "no_products_ms": 1, "old_ms": 2} if name == "mlp_as_is" else {"ms": 0}
+        for key, v in runs.items():
+            out[f"{tower}_{key}"] = graph_ms([
+                lambda p=p, v=v: vit_mlp._launch(x, *p, eps=1e-5, act=act, variant=v)
+                for p in layers])
+        out[f"{tower}_launch_ms"] = kernel_ms(
+            lambda: vit_mlp._launch(x, *layers[0], eps=1e-5, act=act))
+elif kind == "decode":
+    h, inter = 3584, 18944
+    leaves = []
+    for k, n in ((h, inter), (h, inter), (inter, h)):
+        leaves += quant.quantize_per_channel(torch.randn(k, n, generator=g, device="cuda")
+                                             * k ** -0.5)
+    ln = rnd(h, scale=0.1, shift=1.0)
+    for b in (8, 16, 64):
+        args = (rnd(b, h), ln, *leaves)
+        for key, v in {"ms": 0, "no_products_ms": 1, "old_ms": 2}.items():
+            out[f"b{b}_{key}"] = graph_ms([lambda v=v: decode_mlp._launch(args, v, 1e-6)] * 8)
+        out[f"b{b}_launch_ms"] = kernel_ms(lambda: decode_mlp._launch(args, 0, 1e-6))
+elif kind == "fused":
     w, inter = 1024, 4096
     layers = [(rnd(w, scale=0.1, shift=1.0), rnd(w, scale=0.1), rnd(w, inter, scale=0.02),
                rnd(inter, scale=0.1), rnd(inter, w, scale=0.02), rnd(w, scale=0.1))
@@ -143,7 +209,7 @@ def run_variant(name: str, kind: str, edits: list, tmp_root: Path) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("fused", "w8a8"))
+    ap.add_argument("--only", choices=("fused", "w8a8", "mlp", "decode"))
     ap.add_argument("--out", default=None, help="scratch directory (default: a temporary one)")
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -243,6 +243,22 @@ def test_decode_mlp_int8_kernel_matches_plain(gen, b, h, inter):
     torch.testing.assert_close(got.float(), decode_mlp_reference(*args).float(), **TOL)
 
 
+@pytest.mark.parametrize("b", [1, 3, 8, 16, 40, 64])
+@pytest.mark.parametrize("h,inter", [(3584, 18944), (2048, 11008)])  # Qwen2.5 7B, 3B
+def test_decode_mlp_int8_kernel_matches_plain_at_qwen_widths(gen, b, h, inter):
+    """The tensor-core design at the serving widths, every batch size its
+    row tiles meet; split sums are added in a fixed order, so a second call
+    gives the same bits."""
+    args = _int8_mlp(gen, b, h, inter)
+    before = decode_mlp.launches
+    got = decode_mlp(*args)
+    again = decode_mlp(*args)
+    torch.cuda.synchronize()
+    assert decode_mlp.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), decode_mlp_reference(*args).float(), **TOL)
+
+
 def test_decode_mlp_int8_wrapper_raises_on_what_the_kernel_does_not_take(gen):
     x, ln, wg, sg, wu, su, wd, sd = _int8_mlp(gen, 8, 256, 512)
     with pytest.raises(TypeError):  # bf16 weights where int8 is stored
@@ -254,6 +270,11 @@ def test_decode_mlp_int8_wrapper_raises_on_what_the_kernel_does_not_take(gen):
                    wu[:, :480].contiguous(), su[:, :480].contiguous(), wd[:480], sd)
     with pytest.raises(ValueError):  # a transposed, non-contiguous weight
         decode_mlp(x, ln, wg, sg, wu, su, wd.t().contiguous().t(), sd)
+    # hidden % 128 (the tensor-core design's 128-column strips of h; the
+    # design before it took hidden % 32)
+    x, ln, wg, sg, wu, su, wd, sd = _int8_mlp(gen, 8, 320, 512)
+    with pytest.raises(ValueError):
+        decode_mlp(x, ln, wg, sg, wu, su, wd, sd)
 
 
 def _paged_case(gen, b, kv, g, d, blk, width, int8, num_blocks=64):
@@ -525,3 +546,21 @@ def test_matmul_f32_keeps_the_f32_sum_on_the_card(gen):
     dense = nn.dense({"w": w, "b": b}, x)
     torch.testing.assert_close(dense.float(), (want + b.float()).to(torch.bfloat16).float(),
                                rtol=2 ** -7, atol=0.0)
+
+
+@pytest.mark.parametrize("n", [257, 99])
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+def test_mlp_sublayer_kernel_matches_plain_at_tower_width(gen, n, act):
+    """The wgmma + TMA GEMMs at the towers' width (w = 1024, I = 4096) and
+    their token counts: the ragged row tail, clusters of two row tiles (the
+    last one past the rows), the same bits on a second call."""
+    p = _vit_block(gen, 1024, 4096)
+    args = (_rnd(gen, 4, n, 1024), *(p[k] for k in ("lns", "lnb", "wi", "bi", "wf", "bf")))
+    before = vit_mlp.mlp_sublayer.launches
+    got = vit_mlp.mlp_sublayer(*args, act=act)
+    again = vit_mlp.mlp_sublayer(*args, act=act)
+    torch.cuda.synchronize()
+    assert vit_mlp.mlp_sublayer.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), vit_mlp.mlp_sublayer_reference(
+        *args, act=act).float(), **TOL)

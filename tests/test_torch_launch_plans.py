@@ -15,12 +15,22 @@ card: tests/test_torch_cuda_kernels.py).
 - `vit_mlp_fused.fused_plan`: the pieces of t cover each chunk exactly once,
   the shared memory fits, weights are read once per 128 rows at CLIP's
   shape, and the wrapper raises on widths the kernel does not take.
+- `decode_mlp.decode_mlp_plan` (the int8 decode MLP on tensor cores): launch
+  (A) covers every 16-row tile and every 32-column strip of I once and h in
+  whole stages, launch (B) every (row tile, 128-column strip of h) once and
+  I's 64-k steps once across its cluster of 8, both fit the shared memory,
+  b <= 16 reads each weight byte once, and the plan raises on widths the
+  kernels do not take.
+- `vit_mlp.mlp_plan` (the encoder MLP's two GEMMs on wgmma + TMA): the
+  persistent blocks cover every 128 x 256 tile of fc1 and fc2 once, the two
+  blocks of a cluster take neighbouring row tiles of one column tile, K in
+  whole stages, and the ring and the staging memory fit.
 """
 
 import numpy as np
 import pytest
 
-from affectgpt_tpu_torch.ops import quant, vit_mlp_fused
+from affectgpt_tpu_torch.ops import decode_mlp, quant, vit_mlp, vit_mlp_fused
 
 SMEM_LIMIT = 232_448  # bytes of shared memory an H100 block can use
 SMS = 132
@@ -118,3 +128,93 @@ def test_fused_plan_reads_weights_once_per_128_rows_at_clip():
 def test_fused_plan_raises_on_what_the_kernel_does_not_take(w, inter, k_chunks):
     with pytest.raises(ValueError):  # width % 128, chunk % 64, chunk > 1024
         vit_mlp_fused.fused_plan(99, w, inter, k_chunks)
+
+
+DECODE_WIDTHS = [(3584, 18944), (2048, 11008), (256, 512), (384, 8320)]  # 7B, 3B, test widths
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 16, 40, 64])
+@pytest.mark.parametrize("h,inter", DECODE_WIDTHS)
+def test_decode_mlp_plan_covers_every_tile_and_k_once(b, h, inter):
+    plan = decode_mlp.decode_mlp_plan(b, h, inter, SMS)
+    rt = plan["row_tiles"]
+    assert (rt - 1) * 16 < b <= rt * 16
+    a = plan["gateup"]
+    ctas, rows = a["grid"]
+    assert rows == rt and ctas * rt <= SMS and len(a["strips"]) == ctas
+    strips = np.zeros(inter // a["strip"], np.int32)  # each block's strips, every row tile
+    for mine in a["strips"]:
+        strips[mine] += 1
+    assert (strips == 1).all()
+    assert (a["k_steps"] - 1) * a["stage_k"] < h <= a["k_steps"] * a["stage_k"]
+    d = plan["down"]
+    tiles = np.zeros((rt, h // d["strip"]), np.int32)
+    for r, s in d["clusters"]:
+        tiles[r, s] += 1
+    assert (tiles == 1).all() and d["grid"] == (d["cluster"] * len(d["clusters"]),)
+    ks = np.zeros(inter, np.int32)
+    for k0, k1 in d["k_ranges"]:
+        assert k0 % d["stage_k"] == 0 and k1 % d["stage_k"] == 0
+        ks[k0:k1] += 1
+    assert (ks == 1).all() and len(d["k_ranges"]) == d["cluster"] == 8
+    assert a["smem_bytes"] <= SMEM_LIMIT and d["smem_bytes"] <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("b", [1, 8, 16, 17, 64])
+def test_decode_mlp_plan_reads_each_weight_byte_once_up_to_16_rows(b):
+    h, inter = 3584, 18944
+    plan = decode_mlp.decode_mlp_plan(b, h, inter, SMS)
+    weights = 3 * h * inter
+    reads = plan["l2_bytes"] - plan["gateup"]["grid"][0] * plan["row_tiles"] * 16 * h * 2 \
+        - len(plan["down"]["clusters"]) * 16 * inter * 2
+    assert reads == weights * (1 if b <= 16 else -(-b // 16))
+
+
+@pytest.mark.parametrize("h,inter", [(320, 1024), (256, 480), (8192, 1024)])
+def test_decode_mlp_plan_raises_on_what_the_kernels_do_not_take(h, inter):
+    with pytest.raises(ValueError):  # hidden % 128, intermediate % 64, shared memory
+        decode_mlp.decode_mlp_plan(16, h, inter, SMS)
+
+
+MLP_SHAPES = [(64 * 257, 1024, 4096), (64 * 99, 1024, 4096), (300, 1024, 4096),
+              (3 * 99, 256, 1024), (3 * 257, 384, 1536), (120, 256, 1024), (1, 256, 1024)]
+
+
+@pytest.mark.parametrize("rows,w,inter", MLP_SHAPES)
+def test_mlp_plan_covers_every_tile_once(rows, w, inter):
+    plan = vit_mlp.mlp_plan(rows, w, inter, SMS)
+    for name, (n, k) in (("fc1", (inter, w)), ("fc2", (w, inter))):
+        p = plan[name]
+        bm, bn = p["tile"]
+        cl = p["cluster"]
+        assert p["grid"] == (plan["blocks"],) and plan["blocks"] <= SMS
+        assert plan["blocks"] % cl == 0 and p["m_tiles"] % cl == 0
+        assert (p["n_tiles"] - 1) * bn < n <= p["n_tiles"] * bn
+        assert (p["m_tiles"] - cl) * bm < rows <= p["m_tiles"] * bm
+        seen = np.zeros((p["n_tiles"], p["m_tiles"]), np.int32)
+        for b, mine in enumerate(p["tiles"]):
+            for nt, mt in mine:
+                seen[nt, mt] += 1
+            if cl == 2:  # the cluster's blocks: one column tile, neighbouring row tiles
+                other = p["tiles"][b ^ 1]
+                assert [t[0] for t in mine] == [t[0] for t in other]
+                assert all(t[1] // 2 == o[1] // 2 and t[1] % 2 == b % 2
+                           for t, o in zip(mine, other))
+        assert (seen == 1).all()
+        assert (p["k_steps"] - 1) * p["stage_k"] < k <= p["k_steps"] * p["stage_k"]
+        assert p["smem_bytes"] <= SMEM_LIMIT
+
+
+def test_mlp_plan_clusters_share_weight_tiles_at_the_towers_shapes():
+    for rows in (64 * 257, 64 * 99):
+        p = vit_mlp.mlp_plan(rows, 1024, 4096, SMS)["fc1"]
+        assert p["cluster"] == 2 and p["grid"] == (SMS,)
+        # w_in is read once per pair of row tiles, h once per column tile
+        assert p["l2_bytes"] == 2 * (16 * rows * 1024 + p["m_tiles"] // 2 * 1024 * 4096)
+
+
+@pytest.mark.parametrize("w,inter", [(100, 4096), (2080, 4096), (1024, 1000)])
+def test_mlp_plan_raises_on_what_the_kernels_do_not_take(w, inter):
+    with pytest.raises(ValueError):  # width % 32 or > 2048, intermediate % 32
+        vit_mlp.mlp_plan(99, w, inter, SMS)
+
