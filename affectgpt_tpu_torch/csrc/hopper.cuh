@@ -1,6 +1,6 @@
 // Shared Hopper (sm_90a) building blocks of the port's wgmma kernels:
-// shared-memory addresses, mbarriers, 2-D TMA loads and the host-side tensor
-// maps they read, wgmma shared-memory descriptors for 128-byte swizzled
+// shared-memory addresses, mbarriers, 2-D and 4-D TMA loads and the
+// host-side tensor maps they read, wgmma shared-memory descriptors for 128-byte swizzled
 // tiles, and the wgmma instructions the kernels issue (the PTX lists every
 // accumulator register, so each shape is its own function).
 //
@@ -164,6 +164,19 @@ __device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorM
       : "memory");
 }
 
+// The box at element coordinates (c0 innermost .. c3 outermost) of a 4-D
+// tensor map into shared memory, completion counted on `bar`; elements past
+// any dimension's end arrive as zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
 // four 8x8 matrices of 16-bit elements: lane l gives the address of row l % 8
 // of matrix l / 8 (16 bytes); r[q] receives matrix q's elements (l / 4,
 // 2 * (l % 4)) and (l / 4, 2 * (l % 4) + 1), low half first
@@ -272,6 +285,57 @@ static inline int tensor_map_2d(CUtensorMap* map, CUtensorMapDataType dtype, con
   return 0;
 }
 
+// Host: the tensor map of a 4-D bf16 tensor whose dimension 0 is contiguous
+// (dims[0] elements), dimensions 1-3 `strides[0..2]` bytes apart (any order,
+// multiples of 16), read in boxes of box[0..3] elements with the 128-byte
+// swizzle (box[0] = 64). Cached like tensor_map_2d. Returns 0 or a CUresult.
+static inline int tensor_map_4d(CUtensorMap* map, const void* ptr, const uint64_t (&dims)[4],
+                                const uint64_t (&strides)[3], const uint32_t (&box)[4]) {
+  struct Entry {
+    const void* ptr;
+    uint64_t dims[4], strides[3];
+    uint32_t box[4];
+    CUtensorMap map;
+  };
+  constexpr int kEntries = 64;
+  static Entry cache[kEntries];
+  static int used = 0, next = 0;
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    bool same = e.ptr == ptr;
+    for (int d = 0; d < 4; ++d) same = same && e.dims[d] == dims[d] && e.box[d] == box[d];
+    for (int d = 0; d < 3; ++d) same = same && e.strides[d] == strides[d];
+    if (same) {
+      *map = e.map;
+      return 0;
+    }
+  }
+  using Encode = decltype(&cuTensorMapEncodeTiled);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* driver = dlopen("libcuda.so.1", RTLD_LAZY);
+    encode = driver ? reinterpret_cast<Encode>(dlsym(driver, "cuTensorMapEncodeTiled")) : nullptr;
+    if (encode == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  }
+  const cuuint64_t d4[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t s3[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t b4[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                              d4, s3, b4, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) return (int)res;
+  Entry& e = cache[next];
+  e.ptr = ptr;
+  for (int d = 0; d < 4; ++d) e.dims[d] = dims[d], e.box[d] = box[d];
+  for (int d = 0; d < 3; ++d) e.strides[d] = strides[d];
+  e.map = *map;
+  next = (next + 1) % kEntries;
+  if (used < kEntries) ++used;
+  return 0;
+}
+
 // ------------------------------------------------------------------- wgmma
 
 // descriptor of a 128-byte swizzled operand starting at shared address
@@ -279,6 +343,16 @@ static inline int tensor_map_2d(CUtensorMap* map, CUtensorMapDataType dtype, con
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
          ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// descriptor of a 16-bit MN-major operand (MN contiguous) in 128-byte
+// swizzled boxes of 64 MN values x K rows, as TMA writes a [K, MN] row-major
+// tile box by box: one K row is 128 bytes, 8-row groups of K are 1024 bytes
+// apart (SBO) and the 64-wide MN boxes `box_bytes` apart (LBO). A K step of
+// 16 advances `addr` by 2048 bytes. The attention's V tile [keys, d] is read
+// this way as the B operand of P V, with no transposed copy.
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr, uint32_t box_bytes) {
+  return desc_sw128(addr, box_bytes, 1024);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -380,6 +454,91 @@ __device__ __forceinline__ void wgmma_bf16_ss_tb(float (&d)[128], uint64_t desc_
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[32] (+)= A[64 x 16] (shared, K-major) . B[16 x 64] (shared, K-major: the
+// [64, 16] rows of B^T, e.g. 64 keys of a K tile), bf16 in, f32
+// accumulators; scale_d = 0 discards the old d.
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// Register A operand of a bf16 m64nNk16 wgmma: in warp w of the warpgroup,
+// lane (g = lane / 4, t = lane % 4) holds a[0] = row 16w + g, columns 2t,
+// 2t + 1; a[1] = row 16w + g + 8, the same columns; a[2], a[3] the same rows
+// at columns 2t + 8, 2t + 9 (low half the lower column). That is the
+// accumulator layout above: the f32 accumulators d[8k .. 8k + 7] of an m64
+// product, packed in pairs, are the A operand of its columns 16k .. 16k + 15.
+
+// d[32] (+)= A[64 x 16] (registers, bf16) . B[16 x 64] (shared, MN-major),
+// f32 accumulators; scale_d = 0 discards the old d. a0-a3 must stay
+// unchanged until the product completes (wgmma_wait).
+__device__ __forceinline__ void wgmma_bf16_rs_tb(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                 uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+// d[32] (+)= A[64 x 16] (registers, bf16) . B[16 x 64] (shared, K-major: the
+// [64, 16] rows of B^T, e.g. 64 keys of a K tile), f32 accumulators;
+// scale_d = 0 discards the old d. a0-a3 must stay unchanged until the
+// product completes (wgmma_wait).
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64] (+)= A[64 x 16] (registers, bf16) . B[16 x 128] (shared, MN-major, two
+// 64-wide boxes), f32 accumulators; scale_d = 0 discards the old d. a0-a3
+// must stay unchanged until the product completes (wgmma_wait).
+__device__ __forceinline__ void wgmma_bf16_rs_tb(float (&d)[64], uint32_t a0, uint32_t a1,
+                                                 uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
 }
 
 // d[8] (+)= A[64 x 32] (registers, s8) . B[32 x 16] (shared, K-major, s8), exact

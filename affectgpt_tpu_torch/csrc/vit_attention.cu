@@ -1,13 +1,14 @@
-// Fused non-causal ViT attention on Hopper (sm_90a).
+// Fused non-causal ViT attention on Hopper (sm_90a), on wgmma fed by TMA.
 //
 // Replaces affectgpt_tpu/ops/vit_attention_pallas.py::fused_vit_attention
 // (its pallas_call, :79), which the JAX package reaches through
 // mha_fused (CLIP_ATTN="flash") and through nn.mha for unmasked
-// self-attention of at least 192 tokens. The kernel, its bound and its design
-// are in vit_attention.cuh; it reads q, k and v through strides, so the
-// [b, h, n, d] layout of fused_vit_attention and the [b, n, h, d] layout of
-// fused_self_attention both go in without a copy (JAX's two transposes and
-// its pad of n to 8 are TPU layout costs).
+// self-attention of at least 192 tokens. The kernel, its bound and its two
+// designs (one pass up to 320 keys, two passes beyond) are in
+// vit_attention.cuh; it reads q, k and v through 4-D tensor maps over their
+// strides, so the [b, h, n, d] layout of fused_vit_attention and the
+// [b, n, h, d] layout of fused_self_attention both go in without a copy
+// (JAX's two transposes and its pad of n to 8 are TPU layout costs).
 
 #include "vit_attention.cuh"
 

@@ -19,11 +19,12 @@
 //         bf16 before the product either way, so the numbers are the same);
 //   (ii)  the q, k and v GEMMs [b n, w] x [w, w] + bias, one launch (grid z
 //         = 3) of vit_gemm.cuh's 128 x 128 mma.sync tiles;
-//   (iii) the attention of vit_attention.cuh on q, k, v in their [b, n, h,
-//         d] layout, writing the heads side by side;
+//   (iii) the attention of vit_attention.cuh (wgmma fed by TMA, one pass
+//         up to 320 keys) on q, k, v in their [b, n, h, d] layout, writing
+//         the heads side by side;
 //   (iv)  the o GEMM with the bias + residual epilogue.
-// n (257, 99) is no multiple of any tile: the GEMMs mask ragged rows and the
-// attention zero-fills and masks its key tail.
+// n (257, 99) is no multiple of any tile: the GEMMs mask ragged rows, the
+// attention's tensor maps zero-fill rows past n and it masks its key tail.
 
 #include "vit_attention.cuh"
 #include "vit_gemm.cuh"

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "agk_decode_mlp_bf16": [_P] * 7 + [_I] * 3 + [_F, _P],
     "agk_decode_attention_bf16": [_P] * 7 + [_I] * 5 + [_P],
     "agk_decode_attn_o_bf16": [_P] * 10 + [_I] * 6 + [_P],
-    "agk_prefill_attention_bf16": [_P] * 5 + [_I] * 5 + [_P],
+    "agk_prefill_attention_bf16": [_P] * 7 + [_I] * 5 + [_P],
     "agk_int8_matmul": [_P] * 5 + [_I] * 5 + [_P],
     "agk_int4_matmul": [_P] * 5 + [_I] * 5 + [_P],
     "agk_int4_matmul_smallm": [_P] * 5 + [_I] * 5 + [_P],

@@ -6,8 +6,9 @@ csrc/vit_attention.cu runs (or the wrapper raises); on CPU tensors
 `fused_vit_attention_reference`, the plain PyTorch version, which is also
 the oracle the kernel is checked against on the card.
 
-The kernel takes head_dim 64 and at most MAX_N tokens, and reads q, k and v
-through strides: `fused_self_attention` hands it the [b, t, h, d] layout of
+The kernel takes head_dim 64 and at most MAX_N tokens (one pass up to
+ONE_PASS_KEYS valid keys, two beyond: `vit_attention_plan`), and reads q, k
+and v through strides: `fused_self_attention` hands it the [b, t, h, d] layout of
 the projections as it is (JAX transposes to [b, h, t, d] and pads t to a
 multiple of 8, both TPU layout costs). Keys at or past `valid_len` are
 masked; every query row is computed.
@@ -15,12 +16,50 @@ masked; every query row is computed.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from affectgpt_tpu_torch.ops import _build
 
 HEAD_DIM = 64
 MAX_N = 512
+TILE = 64  # query rows of a warpgroup, keys of a tile
+ONE_PASS_KEYS = 320  # the one-pass kernel holds up to 5 key tiles of scores in registers
+SMEM_PER_SM = 233_472  # bytes of shared memory an H100 SM holds (1 KB of it reserved a block)
+_HEAD_BYTES = (4 + 4 * 2 * (MAX_N // TILE)) * 8 + 4 * 4  # barriers and counters
+_TILE_BYTES = TILE * HEAD_DIM * 2
+
+
+def vit_attention_plan(n: int, valid_len: Optional[int] = None, b: int = 1, heads: int = 1,
+                       sms: int = 132) -> dict:
+    """The kernel's launch for n tokens (keys >= valid_len masked, default
+    n), as csrc/vit_attention.cuh computes it: one pass while the valid keys
+    fit ONE_PASS_KEYS (every score of a row held in registers, exp once per
+    pair), else two passes (max and sum first, then the scores again,
+    normalised, rounded, times V); the key tiles (those with a key <
+    valid_len); the units (image, head), whose K and V a block keeps in
+    shared memory while their 64-row query tiles go to its two warpgroups in
+    turn; the K/V buffers a block keeps ahead (`kv_slots`); blocks an SM
+    (two for the one-pass kernel of up to two key tiles, else one); the
+    persistent grid and the shared memory a block. Raises beyond
+    1 <= valid_len <= n <= MAX_N."""
+    valid = n if valid_len is None else valid_len
+    if not 1 <= valid <= n <= MAX_N:
+        raise ValueError(f"fused_vit_attention kernel takes 1 <= valid_len <= n <= {MAX_N} "
+                         f"(n={n}, valid_len={valid})")
+    tiles = -(-valid // TILE)
+    one_pass = tiles * TILE <= ONE_PASS_KEYS
+    per_sm = 2 if one_pass and tiles <= 2 else 1
+    share = SMEM_PER_SM // per_sm - 1024
+    room = (share - 1024 - _HEAD_BYTES - 4 * _TILE_BYTES) // (2 * tiles * _TILE_BYTES)
+    slots = max(1, min(4, room))
+    units = b * heads
+    return {"kernel": "one_pass" if one_pass else "two_pass", "key_tiles": tiles,
+            "score_registers": 32 * tiles if one_pass else 32, "q_tiles": -(-n // TILE),
+            "units": units, "kv_slots": slots, "blocks_per_sm": per_sm,
+            "blocks": min(units, per_sm * sms),
+            "smem_bytes": 1024 + _HEAD_BYTES + (4 + slots * 2 * tiles) * _TILE_BYTES}
 
 
 def fused_vit_attention_reference(q, k, v, valid_len: int):

@@ -16,7 +16,9 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    include the host's launch overhead. The attention kernels are checked at
    T = 640 and at a T that is not a multiple of their 64-column tile, with
    ragged per-row windows of valid cache columns (decode) and prompt lengths
-   545-564 left-packed into t = 564 (prefill); `library_ms` times one PyTorch
+   545-564 left-packed into t = 564 (prefill, timed at b = 8 and 64 with its
+   TFLOP/s and its launch plan; also checked on segment ids in runs whose ids
+   come back after others, at t = 564 and 37); `library_ms` times one PyTorch
    call that computes the same function (scaled_dot_product_attention with
    GQA and a bool mask), a yardstick the port never calls. `bound_ms` is
    the least time the card could take: bytes moved at 3.35 TB/s or
@@ -47,13 +49,16 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    of the variant without the tensor-core products.
    The encoder kernels at the towers' widths (ViT-L/14 and HuBERT-large:
    w = 1024, 16 heads of 64, I = 4096), 64 images or clips: CLIP's 257
-   tokens, 264 with valid_len 257 and HuBERT's 99; both activations of the
+   tokens, 264 with valid_len 257 and HuBERT's 99 (the two attention
+   kernels also at 512 tokens, 330 with 321 valid and 257 with one valid,
+   fused_vit_attention in both layouts); both activations of the
    MLP kernels, both accumulations of the fused one (the bf16 accumulator is
    allowed one more bf16 ulp of its running sum's peak: a rounding that
    parts there outlives the later chunks; the fused kernel, on wgmma, must
    give the same bits on a second call and prints its variant and L2
    bytes). Times at CLIP's shape (and HuBERT's for the sublayer, the MLP
-   pair and the fused MLP), four layers' weights per replay cycle;
+   pair, the fused MLP and the attention, with TFLOP/s and the attention's
+   launch plan), four layers' weights per replay cycle;
    `library_ms` is SDPA with the bool key mask for the attention, and the
    sublayers print their library chains' times (layer_norm, addmm, SDPA or
    the activation, addmm) as `chain_ms`, as do the bf16 decode kernels
@@ -133,8 +138,10 @@ from affectgpt_tpu_torch.models import affectgpt, clip_vit, encoders, hubert, nn
 from affectgpt_tpu_torch.ops import _build, quant, vit_mlp
 from affectgpt_tpu_torch.ops import decode_mlp as decode_mlp_module
 from affectgpt_tpu_torch.ops.vit_attention import (
+    fused_self_attention,
     fused_vit_attention,
     fused_vit_attention_reference,
+    vit_attention_plan,
 )
 from affectgpt_tpu_torch.ops import vit_mlp_fused
 from affectgpt_tpu_torch.ops.vit_mlp import activation, mlp_sublayer, mlp_sublayer_reference
@@ -160,8 +167,12 @@ from affectgpt_tpu_torch.ops.paged_attention import (
 )
 from affectgpt_tpu_torch.ops.decode_qkv import decode_qkv, decode_qkv_reference
 from affectgpt_tpu_torch.ops.prefill_attention import (
+    FULL,
+    MASKED,
+    SKIP,
     prefill_attention,
     prefill_attention_reference,
+    prefill_plan,
 )
 
 # both sides round at the same points (xn and silu·up to bf16, attention
@@ -500,6 +511,28 @@ def decode_window_mask(g: torch.Generator, b: int, t_len: int) -> torch.Tensor:
     return (cols[None, :] >= lo[:, None]) & (cols[None, :] <= hi[:, None])
 
 
+def segment_runs(g: torch.Generator, b: int, t: int) -> torch.Tensor:
+    """[b, t] int32 segment ids in six runs of ids 0-3 (a shuffled order in
+    which two ids come back after others), run ends drawn at random."""
+    ends = torch.sort(torch.randint(1, t, (b, 5), generator=g, device="cuda"), dim=1).values
+    run = (torch.arange(t, device="cuda")[None, :, None] >= ends[:, None, :]).sum(-1)
+    ids = torch.stack([torch.randperm(4, generator=g, device="cuda")[[0, 1, 2, 0, 3, 1]]
+                       for _ in range(b)])
+    return torch.gather(ids, 1, run).to(torch.int32)
+
+
+def prefill_variant(b: int, t: int, heads: int, kv: int, d: int, seg: torch.Tensor) -> dict:
+    """What prefill_attention launches: its units and persistent grid, and
+    the (query tile, key tile) classes of these segment ids."""
+    plan = prefill_plan(b, t, heads, kv, d, sm_count(), segment_ids=seg)
+    causal = torch.ones(plan["q_tiles"], plan["q_tiles"], dtype=torch.bool).tril()
+    return {"products": "wgmma SS (QK^T) + RS (PV), TMA ring of 4, persistent",
+            "units": len(plan["units"]), "blocks": plan["blocks"],
+            **{f"{name}_tiles": int(((plan["classes"] == c) & causal).sum())
+               for name, c in (("skip", SKIP), ("full", FULL), ("masked", MASKED))},
+            "kv_tiles_loaded": plan["kv_tiles_loaded"]}
+
+
 def phase_attention_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
     """The attention kernels against their plain versions at the main path's
     widths, T = 640 and 577 (not a multiple of the 64-column tile) for the
@@ -525,13 +558,15 @@ def phase_attention_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
         say("kernels", kernel=name, b=b, **shape, max_abs_err=f"{err:.6g}",
             max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL)
 
-    def record(name, b, calls, plain_calls, library_calls, nbytes, flops, library_err=None):
+    def record(name, b, calls, plain_calls, library_calls, nbytes, flops, library_err=None,
+               **extra):
         times = {"ms": graph_ms(calls), "plain_ms": graph_ms(plain_calls),
                  "library_ms": graph_ms(library_calls) if library_calls else None}
         cost = bound(nbytes, flops)
         say("kernels", kernel=name, b=b,
             **{k: "null" if v is None else f"{v:.4f}" for k, v in times.items()},
-            bound_ms=f"{cost['bound_ms']:.5f}", bound_by=cost["bound_by"], card=repr(card))
+            bound_ms=f"{cost['bound_ms']:.5f}", bound_by=cost["bound_by"],
+            tflops=f"{flops / times['ms'] / 1e9:.1f}", **extra, card=repr(card))
         if library_calls:
             say("library", kernel=name, b=b, call="scaled_dot_product_attention(enable_gqa=True)",
                 library_ms=f"{times['library_ms']:.4f}",
@@ -584,13 +619,23 @@ def phase_attention_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
             say("kernels", kernel="decode_attn_o", b=b, chain_ms=f"{chain:.4f}", card=repr(card))
             del sets, k, v, wo
 
-        # prefill: prompts of 545-564 tokens left-packed into t = 564
+        # prefill: prompts of 545-564 tokens left-packed into t = 564; then
+        # segment ids in runs whose ids come back after others (t = 564, and
+        # t = 37 below one 64-row tile)
         t_len = 564
+        for t_runs in (t_len, 37):
+            q, k, v = rnd(b, t_runs, heads, d), rnd(b, kv, t_runs, d), rnd(b, kv, t_runs, d)
+            runs = segment_runs(g, b, t_runs)
+            check("prefill_attention", prefill_attention(q, k, v, runs),
+                  prefill_attention_reference(q, k, v, runs), b, t=t_runs,
+                  segments="runs of ids 0-3, ids coming back")
         lengths = torch.randint(545, t_len + 1, (b,), generator=g, device="cuda")
         seg = torch.arange(t_len, device="cuda")[None, :] >= (t_len - lengths)[:, None]
         q, k, v = rnd(b, t_len, heads, d), rnd(b, kv, t_len, d), rnd(b, kv, t_len, d)
-        check("prefill_attention", prefill_attention(q, k, v, seg),
-              prefill_attention_reference(q, k, v, seg), b, t=t_len,
+        got = prefill_attention(q, k, v, seg)
+        if not torch.equal(got, prefill_attention(q, k, v, seg)):
+            raise AssertionError(f"prefill_attention b={b}: two calls differ")
+        check("prefill_attention", got, prefill_attention_reference(q, k, v, seg), b, t=t_len,
               lengths=f"{int(lengths.min())}-{int(lengths.max())}")
         causal = torch.ones((t_len, t_len), dtype=torch.bool, device="cuda").tril()
         visible = causal[None] & (seg[:, :, None] == seg[:, None, :])  # [b, query, key]
@@ -603,7 +648,8 @@ def phase_attention_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
                [lambda: prefill_attention_reference(q, k, v, seg)] * 2,
                [lambda: sdpa(qh, k, v, attn_mask=vis4, enable_gqa=True)] * 2,
                2 * (q.numel() + k.numel() + v.numel() + b * t_len * nq) + b * t_len,
-               4 * d * heads * pairs, lib_err)
+               4 * d * heads * pairs, lib_err,
+               variant=json.dumps(prefill_variant(b, t_len, heads, kv, d, seg.cpu())))
         del q, k, v, qh, visible, vis4
         torch.cuda.empty_cache()
     return out
@@ -1037,6 +1083,23 @@ def phase_encoder_kernels(card: str, vcfg: clip_vit.ClipVisionConfig,
                       mlp_sublayer_fused_reference(*m_args, act=act, acc=acc), extra,
                       tower=tower, n=n, act=act, acc=acc, **fused_variant(b * n, w, inter))
 
+    # the attention kernels alone at MAX_N = 512 (two passes), 330 tokens with
+    # 321 valid (the first two-pass key count), a single valid key, both
+    # layouts of fused_vit_attention
+    for n, valid in ((512, 512), (330, 321), (n_clip, 1)):
+        x = rnd(b, n, w)
+        a_args = (x, *(s0[k] for k in ATTN_KEYS))
+        check("attn_sublayer", attn_sublayer(*a_args, heads, valid),
+              attn_sublayer_reference(*a_args, heads, valid), n=n, valid_len=valid)
+        q, k, v = (rnd(b, heads, n, d) for _ in range(3))
+        want = fused_vit_attention_reference(q, k, v, valid)
+        check("fused_vit_attention", fused_vit_attention(q, k, v, valid), want, n=n,
+              valid_len=valid, layout="bhnd", design=vit_attention_plan(n, valid)["kernel"])
+        tr = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+        check("fused_vit_attention", fused_self_attention(*tr, valid).transpose(1, 2), want,
+              n=n, valid_len=valid, layout="bnhd")
+        del q, k, v, tr, want
+
     def record(name, tower, n, calls, plain_calls, nbytes, flops, library=None, chain=None,
                old=None, no_products=None, **shape):
         times = {"ms": graph_ms(calls), "plain_ms": graph_ms(plain_calls, reps=5)}
@@ -1052,7 +1115,8 @@ def phase_encoder_kernels(card: str, vcfg: clip_vit.ClipVisionConfig,
         cost = bound(nbytes, flops)
         say("kernels", kernel=name, tower=tower, b=b, n=n, **shape,
             **{k: f"{v:.5f}" for k, v in times.items()}, bound_ms=f"{cost['bound_ms']:.5f}",
-            bound_by=cost["bound_by"], card=repr(card))
+            bound_by=cost["bound_by"], tflops=f"{flops / times['ms'] / 1e9:.1f}",
+            card=repr(card))
         if tower == "clip" and "ms" not in out[name]:  # the first CLIP timing of a kernel
             out[name].update({k: v for k, v in times.items() if k != "chain_ms"}, **cost)
 
@@ -1091,14 +1155,13 @@ def phase_encoder_kernels(card: str, vcfg: clip_vit.ClipVisionConfig,
                    mlp_bytes, mlp_flops,
                    chain=[lambda s=s: library_mlp_chain(x, s, act) for s in layers], acc=acc,
                    **fused_variant(rows, w, inter))
-        if tower != "clip":
-            continue
         qkv = [tuple(rnd(b, heads, n, d) for _ in range(3)) for _ in range(2)]  # 2 x 101 MB
         record("fused_vit_attention", tower, n,
                [lambda t=t: fused_vit_attention(*t, n) for t in qkv] * 4,
                [lambda: fused_vit_attention_reference(*qkv[0], n)],
                4 * b * heads * n * d * 2, 4 * b * heads * n * n * d,
-               library=[lambda t=t: sdpa(*t, attn_mask=key_mask) for t in qkv] * 4)
+               library=[lambda t=t: sdpa(*t, attn_mask=key_mask) for t in qkv] * 4,
+               variant=json.dumps(vit_attention_plan(n, b=b, heads=heads, sms=sm_count())))
         lib_err = float((sdpa(*qkv[0], attn_mask=key_mask).float()
                          - fused_vit_attention_reference(*qkv[0], n).float()).abs().max())
         say("library", kernel="fused_vit_attention", call="scaled_dot_product_attention",

@@ -1,6 +1,6 @@
 """Time variants of the port's wgmma and tensor-core kernels on one CUDA card.
 
-    python3 scripts/torch_wgmma_variants.py [--only fused|w8a8|mlp|decode] [--out DIR]
+    python3 scripts/torch_wgmma_variants.py [--only fused|w8a8|mlp|decode|attention] [--out DIR]
 
 For each variant the package is copied to a temporary directory, a few
 source constants are replaced there (the ring depth, the w8a8 row tile;
@@ -15,7 +15,16 @@ decoder layer's products at M = 4512 and M = 8, `mlp_sublayer`
 (csrc/vit_mlp.cu on csrc/vit_gemm_wgmma.cuh) at the same two shapes as the
 fused MLP, with the device ms of each of its three launches from
 torch.profiler, and the int8 `decode_mlp` (csrc/decode_mlp_int8.cu) at the
-7B layer's widths for b = 8, 16 and 64, with its two launches' ms. For
+7B layer's widths for b = 8, 16 and 64, with its two launches' ms, and
+the two wgmma attention kernels (`--only attention`): `prefill_attention`
+(csrc/prefill_attention.cu) at b = 8 and 64, t = 564, 28 q and 4 kv heads
+of 128, prompts of 545-564 tokens left-packed, and `fused_vit_attention`
+(csrc/vit_attention.cuh) at CLIP's 64 x 16 heads x 257 tokens and HuBERT's
+99, each beside SDPA (the unedited variant), with `attn_sublayer`
+(csrc/vit_sublayer.cu, whose step (iii) is that attention) and the device
+ms of each of its launches; `diag_attention_no_products` drops both
+kernels' wgmma products and `diag_attention_no_exp` their exp2, which
+splits the time into loads, products and softmax. For
 those two kernels the unedited variant also times the C entry's variants:
 without the tensor-core products (`no_products_ms`) and the previous
 design (`old_ms`). Times are device ms per
@@ -39,6 +48,14 @@ REPO = Path(__file__).resolve().parent.parent
 FUSED = "affectgpt_tpu_torch/csrc/vit_mlp_fused.cu"
 W8A8 = "affectgpt_tpu_torch/csrc/int8_matmul_w8a8.cu"
 GEMM = "affectgpt_tpu_torch/csrc/vit_gemm_wgmma.cuh"
+ATTN = "affectgpt_tpu_torch/csrc/attention_wgmma.cuh"
+PREFILL = "affectgpt_tpu_torch/csrc/prefill_attention.cu"
+VIT_ATTN = "affectgpt_tpu_torch/csrc/vit_attention.cuh"
+
+_VIT_SOFTMAX = "for (int h = 0; h < 2; ++h) {  // one chain a key tile"
+_VIT_NO_SOFTMAX = "for (int h = 0; h < 0; ++h) {  // one chain a key tile"
+_VIT_STORE = "if (row >= n) continue;"
+_VIT_NO_STORE = "if (row >= 0) continue;"
 
 # name: (kernel, [(file, old text, new text)])
 VARIANTS = {
@@ -68,13 +85,42 @@ VARIANTS = {
                                           "    for (int half = 0; half < (RESIDUAL ? 2 : 0); "
                                           "++half) {")]),
     "decode_as_is": ("decode", []),
+    "attention_as_is": ("attention", []),
+    # CLIP's five key tiles through the two-pass design
+    "vit_two_pass": ("attention", [(VIT_ATTN, "case 5: return launch<5>(",
+                                    "case 5: return launch<0>(")]),
+    # neither kernel's tensor-core products (both attention kernels share them)
+    "diag_attention_no_products": ("attention", [
+        (ATTN, "    wgmma_bf16_ss(s, desc_sw128(", "    if (false) wgmma_bf16_ss(s, desc_sw128("),
+        (ATTN, "    wgmma_bf16_rs_tb(o, p[4 * kk]", "    if (false) wgmma_bf16_rs_tb(o, p[4 * kk]")]),
+    # no exp2 in either kernel's softmax (the values go on as they are)
+    "diag_attention_no_exp": ("attention", [(PREFILL, "fast_exp2(", "("),
+                                            (VIT_ATTN, "fast_exp2(", "(")]),
+    # the prefill's K/V ring two stages deep instead of four
+    "prefill_stages2": ("attention", [(PREFILL, "constexpr int kStages = 4;",
+                                       "constexpr int kStages = 2;")]),
+    # the prefill's consumers only wait for and release the stages: the producer and loads alone
+    "diag_prefill_no_consumer_work": ("attention", [
+        (PREFILL, "if (live) {\n        const uint32_t ka", "if (false) {\n        const uint32_t ka")]),
+    # the prefill's masked tiles taken as full: no per-element test
+    "diag_prefill_no_mask": ("attention", [(PREFILL, "? kFull : kMasked;", "? kFull : kFull;")]),
+    # the one-pass ViT kernel without its softmax (P is the raw scores), without
+    # its stores, and with neither nor its products: the loads and barriers alone
+    "diag_vit_no_softmax": ("attention", [(VIT_ATTN, _VIT_SOFTMAX, _VIT_NO_SOFTMAX)]),
+    "diag_vit_no_stores": ("attention", [(VIT_ATTN, _VIT_STORE, _VIT_NO_STORE)]),
+    "diag_vit_loads_only": ("attention", [
+        (VIT_ATTN, _VIT_SOFTMAX, _VIT_NO_SOFTMAX), (VIT_ATTN, _VIT_STORE, _VIT_NO_STORE),
+        (ATTN, "    wgmma_bf16_ss(s, desc_sw128(", "    if (false) wgmma_bf16_ss(s, desc_sw128("),
+        (ATTN, "    wgmma_bf16_rs_tb(o, p[4 * kk]", "    if (false) wgmma_bf16_rs_tb(o, p[4 * kk]")]),
 }
 
 BENCH = r"""
 import json, statistics, sys
 import torch
 from torch.profiler import ProfilerActivity, profile
-from affectgpt_tpu_torch.ops import decode_mlp, quant, vit_mlp, vit_mlp_fused
+from affectgpt_tpu_torch.ops import decode_mlp, quant, vit_attention, vit_mlp, vit_mlp_fused
+from affectgpt_tpu_torch.ops import vit_sublayer
+from affectgpt_tpu_torch.ops.prefill_attention import prefill_attention, prefill_attention_reference
 
 kind, name = sys.argv[1], sys.argv[2]
 g = torch.Generator(device="cuda").manual_seed(0)
@@ -146,6 +192,48 @@ elif kind == "decode":
         for key, v in {"ms": 0, "no_products_ms": 1, "old_ms": 2}.items():
             out[f"b{b}_{key}"] = graph_ms([lambda v=v: decode_mlp._launch(args, v, 1e-6)] * 8)
         out[f"b{b}_launch_ms"] = kernel_ms(lambda: decode_mlp._launch(args, 0, 1e-6))
+elif kind == "attention":
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for b in (8, 64):  # Qwen2.5-7B: 28 q heads, 4 kv heads, d = 128; prompts of 545-564
+        t, heads, kv, d = 564, 28, 4, 128
+        lengths = torch.randint(545, t + 1, (b,), generator=g, device="cuda")
+        seg = torch.arange(t, device="cuda")[None, :] >= (t - lengths)[:, None]
+        q, k, v = rnd(b, t, heads, d), rnd(b, kv, t, d), rnd(b, kv, t, d)
+        if b == 8:
+            out["prefill_max_abs_err"] = float((prefill_attention(q, k, v, seg).float()
+                                                - prefill_attention_reference(q, k, v, seg)
+                                                .float()).abs().max())
+        out[f"prefill_b{b}_ms"] = graph_ms([lambda: prefill_attention(q, k, v, seg)] * 4)
+        if name == "attention_as_is":
+            vis = torch.ones((t, t), dtype=torch.bool, device="cuda").tril()[None] \
+                & (seg[:, :, None] == seg[:, None, :])
+            qh, vis4 = q.transpose(1, 2), vis[:, None]
+            out[f"prefill_b{b}_sdpa_ms"] = graph_ms(
+                [lambda: sdpa(qh, k, v, attn_mask=vis4, enable_gqa=True)] * 2)
+            out[f"prefill_b{b}_kernel_ms"] = kernel_ms(lambda: prefill_attention(q, k, v, seg))
+        del q, k, v
+    b, h, d, w = 64, 16, 64, 1024
+    for tower, n in (("clip", 257), ("hubert", 99)):  # 64 images or clips, 16 heads of 64
+        qkv = [tuple(rnd(b, h, n, d) for _ in range(3)) for _ in range(2)]
+        if tower == "clip":
+            out["vit_max_abs_err"] = float((vit_attention.fused_vit_attention(*qkv[0], n).float()
+                                            - vit_attention.fused_vit_attention_reference(
+                                                *qkv[0], n).float()).abs().max())
+        out[f"vit_{tower}_ms"] = graph_ms(
+            [lambda t=t: vit_attention.fused_vit_attention(*t, n) for t in qkv] * 4)
+        if name == "attention_as_is":
+            mask = torch.ones((1, 1, 1, n), dtype=torch.bool, device="cuda")
+            out[f"vit_{tower}_sdpa_ms"] = graph_ms([lambda t=t: sdpa(*t, attn_mask=mask)
+                                                    for t in qkv] * 4)
+        del qkv
+        x = rnd(b, n, w)
+        layers = [(rnd(w, scale=0.1, shift=1.0), rnd(w, scale=0.1),
+                   *[m for _ in range(4) for m in (rnd(w, w, scale=0.02), rnd(w, scale=0.1))])
+                  for _ in range(4)]
+        out[f"attn_sublayer_{tower}_ms"] = graph_ms(
+            [lambda p=p: vit_sublayer.attn_sublayer(x, *p, h, n) for p in layers] * 2)
+        out[f"attn_sublayer_{tower}_kernel_ms"] = kernel_ms(
+            lambda: vit_sublayer.attn_sublayer(x, *layers[0], h, n))
 elif kind == "fused":
     w, inter = 1024, 4096
     layers = [(rnd(w, scale=0.1, shift=1.0), rnd(w, scale=0.1), rnd(w, inter, scale=0.02),
@@ -209,7 +297,7 @@ def run_variant(name: str, kind: str, edits: list, tmp_root: Path) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("fused", "w8a8", "mlp", "decode"))
+    ap.add_argument("--only", choices=("fused", "w8a8", "mlp", "decode", "attention"))
     ap.add_argument("--out", default=None, help="scratch directory (default: a temporary one)")
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

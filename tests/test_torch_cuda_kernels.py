@@ -145,6 +145,48 @@ def test_prefill_attention_kernel_matches_plain(gen, b, heads, kv, d, t, pads):
                                **TOL)
 
 
+def _segments(gen, kind, b, t):
+    """[b, t] int segment ids: `leftpack` (pads 0, tokens 1, prompts of at
+    least t - 19 tokens, as the main path packs them), `runs` (runs of ids 0-3
+    in a shuffled order, so an id comes back after others: keys of its
+    earlier run stay visible), `random3` (each token's id drawn from 0-2)."""
+    if kind == "leftpack":
+        pad = torch.randint(0, min(20, t), (b,), generator=gen, device="cuda")
+        return (torch.arange(t, device="cuda")[None, :] >= pad[:, None]).to(torch.int32)
+    if kind == "random3":
+        return torch.randint(0, 3, (b, t), generator=gen, device="cuda", dtype=torch.int32)
+    ends = torch.sort(torch.randint(1, t, (b, 5), generator=gen, device="cuda"), dim=1).values
+    run = (torch.arange(t, device="cuda")[None, :, None] >= ends[:, None, :]).sum(-1)
+    ids = torch.stack([torch.randperm(4, generator=gen, device="cuda")[[0, 1, 2, 0, 3, 1]]
+                       for _ in range(b)])
+    return torch.gather(ids, 1, run).to(torch.int32)
+
+
+# (b, t, heads, kv, d, segments): Qwen2.5-7B's 28 / 4 heads (7 a group, the
+# last pair of a group one head) at t < 64 and t = 564 with three or more
+# segments, ids that come back after other ids, and b = 64 at the main
+# path's left pack; a single head; head_dim 64.
+PREFILL_SEGMENT_CASES = [
+    (3, 37, 28, 4, 128, "runs"), (3, 37, 28, 4, 128, "random3"),
+    (2, 564, 28, 4, 128, "runs"), (2, 564, 28, 4, 128, "random3"),
+    (64, 564, 28, 4, 128, "leftpack"), (4, 200, 6, 1, 64, "runs"), (2, 130, 1, 1, 64, "runs"),
+    (2, 1, 4, 2, 128, "leftpack"),
+]
+
+
+@pytest.mark.parametrize("b,t,heads,kv,d,kind", PREFILL_SEGMENT_CASES)
+def test_prefill_attention_kernel_matches_plain_on_segments(gen, b, t, heads, kv, d, kind):
+    q, k, v = _rnd(gen, b, t, heads, d), _rnd(gen, b, kv, t, d), _rnd(gen, b, kv, t, d)
+    seg = _segments(gen, kind, b, t)
+    before = prefill_attention.launches
+    got = prefill_attention(q, k, v, seg)
+    torch.cuda.synchronize()
+    assert prefill_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), prefill_attention_reference(q, k, v, seg).float(),
+                               **TOL)
+    assert torch.equal(got, prefill_attention(q, k, v, seg))  # one order of sums: same bits
+
+
 def test_attention_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     q, k = _rnd(gen, 2, 2, 3, 96), _rnd(gen, 2, 2, 40, 96)  # head_dim 96
     mask = torch.ones(2, 40, dtype=torch.bool, device="cuda")
@@ -347,8 +389,11 @@ def test_paged_attention_wrappers_raise_on_what_the_kernel_does_not_take(gen):
 
 
 # the encoder kernels: CLIP's 257 tokens, HuBERT's 99 and a single key tile,
-# each with keys masked past valid_len
-VIT_TOKENS = [(257, 250), (99, 90), (40, 33)]
+# each with keys masked past valid_len; MAX_N = 512 (two passes, whole and
+# masked); 320 and 321 valid keys, the last of one pass and the first of two
+# (vit_attention.ONE_PASS_KEYS); a single valid key
+VIT_TOKENS = [(257, 250), (99, 90), (40, 33), (512, 512), (512, 449), (330, 320), (321, 321),
+              (64, 1), (257, 1)]
 
 
 @pytest.mark.parametrize("n,valid", VIT_TOKENS)

@@ -25,12 +25,26 @@ card: tests/test_torch_cuda_kernels.py).
   persistent blocks cover every 128 x 256 tile of fc1 and fc2 once, the two
   blocks of a cluster take neighbouring row tiles of one column tile, K in
   whole stages, and the ring and the staging memory fit.
+- `prefill_attention.prefill_tile_classes` / `prefill_plan` (the causal
+  prefill attention on wgmma + TMA): against a brute-force visibility mask
+  over left-packed, non-monotone and random segment ids, no skipped tile
+  holds a visible pair and every pair of a full tile is visible, so every
+  visible pair lies in exactly one full or masked tile; the units cover
+  every (row, q head, query tile) once, heaviest (latest query tile) first;
+  the shared memory fits; the plan raises on what the kernel does not take.
+- `vit_attention.vit_attention_plan` (the encoders' attention on wgmma +
+  TMA): a kernel for every 1 <= valid_len <= n <= 512, one pass up to 320
+  valid keys, the shared memory of the blocks an SM holds fits, and it
+  raises beyond.
 """
 
 import numpy as np
 import pytest
 
-from affectgpt_tpu_torch.ops import decode_mlp, quant, vit_mlp, vit_mlp_fused
+import torch
+
+from affectgpt_tpu_torch.ops import decode_mlp, prefill_attention, quant, vit_attention, vit_mlp
+from affectgpt_tpu_torch.ops import vit_mlp_fused
 
 SMEM_LIMIT = 232_448  # bytes of shared memory an H100 block can use
 SMS = 132
@@ -218,3 +232,104 @@ def test_mlp_plan_raises_on_what_the_kernels_do_not_take(w, inter):
     with pytest.raises(ValueError):  # width % 32 or > 2048, intermediate % 32
         vit_mlp.mlp_plan(99, w, inter, SMS)
 
+
+
+def _segment_ids(kind: str, b: int, t: int, seed: int) -> torch.Tensor:
+    """[b, t] segment ids: `leftpack` (pads 0, then tokens 1), `runs` (runs
+    of ids 0-3 in a shuffled order, so an id comes back after others),
+    `random3` (each token's id drawn from 0-2), `one` (a single id)."""
+    rng = np.random.RandomState(seed)
+    if kind == "leftpack":
+        pad = rng.randint(0, max(1, min(20, t)), size=b)
+        seg = (np.arange(t)[None, :] >= pad[:, None]).astype(np.int32)
+    elif kind == "random3":
+        seg = rng.randint(0, 3, size=(b, t)).astype(np.int32)
+    elif kind == "runs":
+        seg = np.zeros((b, t), np.int32)
+        for r in range(b):
+            ends = np.sort(rng.randint(1, max(2, t), size=5))
+            ids = rng.permutation(4)[[0, 1, 2, 0, 3, 1]]
+            seg[r] = ids[(np.arange(t)[:, None] >= ends[None, :]).sum(-1)]
+    else:
+        seg = np.full((b, t), 7, np.int32)
+    return torch.from_numpy(seg)
+
+
+@pytest.mark.parametrize("kind", ["leftpack", "runs", "random3", "one"])
+@pytest.mark.parametrize("t", [1, 37, 64, 130, 564])
+def test_prefill_tile_classes_hold_every_visible_pair(kind, t):
+    b, tile = 3, prefill_attention.TILE
+    seg = _segment_ids(kind, b, t, seed=t)
+    classes = prefill_attention.prefill_tile_classes(seg)
+    tiles = -(-t // tile)
+    assert classes.shape == (b, tiles, tiles)
+    visible = torch.ones((t, t), dtype=torch.bool).tril()[None] & (seg[:, :, None] == seg[:, None, :])
+    pad = tiles * tile - t
+    vis = torch.nn.functional.pad(visible, (0, pad, 0, pad)).view(b, tiles, tile, tiles, tile)
+    real = torch.nn.functional.pad(torch.ones((b, t, t), dtype=torch.bool), (0, pad, 0, pad))
+    real = real.view(b, tiles, tile, tiles, tile)
+    any_visible = vis.any(dim=4).any(dim=2)
+    all_visible = (vis | ~real).all(dim=4).all(dim=2)
+    skip, full = classes == prefill_attention.SKIP, classes == prefill_attention.FULL
+    assert not (skip & any_visible).any()  # no skipped tile holds a visible pair
+    assert not (full & ~all_visible).any()  # a full tile needs no per-element test
+    # so the full and masked tiles hold every visible pair, each in exactly one tile
+    kept = vis & (~skip)[:, :, None, :, None]
+    assert int(kept.sum()) == int(visible.sum())
+    if kind == "leftpack" and t == 564:  # the main path's prompts: most tiles skip or run full
+        assert int((classes == prefill_attention.MASKED).sum()) <= 2 * b * tiles
+
+
+PREFILL_SHAPES = [(8, 564, 28, 4, 128), (64, 564, 28, 4, 128), (3, 37, 28, 4, 128),
+                  (2, 130, 6, 1, 64), (1, 1, 1, 1, 64)]
+
+
+@pytest.mark.parametrize("b,t,heads,kv,d", PREFILL_SHAPES)
+def test_prefill_plan_covers_every_query_tile_once_heaviest_first(b, t, heads, kv, d):
+    seg = _segment_ids("leftpack", b, t, seed=1)
+    plan = prefill_attention.prefill_plan(b, t, heads, kv, d, SMS, segment_ids=seg)
+    q_tiles, groups = plan["q_tiles"], heads // kv
+    assert (q_tiles - 1) * prefill_attention.TILE < t <= q_tiles * prefill_attention.TILE
+    seen = np.zeros((b, heads, q_tiles), np.int32)
+    for qt, bi, kvh, hs in plan["units"]:
+        assert 1 <= len(hs) <= 2 and all(kvh * groups <= h < (kvh + 1) * groups for h in hs)
+        for h in hs:
+            seen[bi, h, qt] += 1
+    assert (seen == 1).all()
+    order = [qt for qt, _, _, _ in plan["units"]]  # the causal key tiles a unit sees: qt + 1
+    assert order == sorted(order, reverse=True)
+    assert plan["blocks"] == min(len(plan["units"]), SMS) and plan["grid"] == (plan["blocks"],)
+    assert plan["smem_bytes"] <= SMEM_LIMIT
+    # the producer loads a unit's non-skipped tiles: at most the causal ones
+    assert plan["kv_tiles_loaded"] <= sum(qt + 1 for qt in order)
+
+
+@pytest.mark.parametrize("b,t,heads,kv,d", [(2, 40, 4, 2, 96), (2, 40, 6, 4, 64),
+                                            (2, 0, 4, 2, 64)])
+def test_prefill_plan_raises_on_what_the_kernel_does_not_take(b, t, heads, kv, d):
+    with pytest.raises(ValueError):  # head_dim 96, heads % kv, no tokens
+        prefill_attention.prefill_plan(b, t, heads, kv, d, SMS)
+
+
+def test_vit_attention_plan_picks_a_kernel_for_every_n():
+    for n in range(1, vit_attention.MAX_N + 1):
+        for valid in sorted({1, n // 2 + 1, n}):
+            plan = vit_attention.vit_attention_plan(n, valid, b=64, heads=16, sms=SMS)
+            keys = plan["key_tiles"] * vit_attention.TILE
+            assert keys - vit_attention.TILE < valid <= keys
+            assert plan["kernel"] == ("one_pass" if keys <= vit_attention.ONE_PASS_KEYS
+                                      else "two_pass")
+            assert plan["score_registers"] <= 160
+            assert plan["smem_bytes"] <= SMEM_LIMIT
+            per_sm = plan["blocks_per_sm"]
+            assert per_sm * (plan["smem_bytes"] + 1024) <= vit_attention.SMEM_PER_SM
+            assert plan["blocks"] == min(1024, per_sm * SMS) and 1 <= plan["kv_slots"] <= 4
+    assert vit_attention.vit_attention_plan(257)["kernel"] == "one_pass"  # CLIP
+    assert vit_attention.vit_attention_plan(99)["blocks_per_sm"] == 2  # HuBERT
+    assert vit_attention.vit_attention_plan(512, 320)["kernel"] == "one_pass"
+
+
+@pytest.mark.parametrize("n,valid", [(0, 0), (513, 513), (100, 0), (100, 101)])
+def test_vit_attention_plan_raises_beyond_max_n(n, valid):
+    with pytest.raises(ValueError):
+        vit_attention.vit_attention_plan(n, valid)
