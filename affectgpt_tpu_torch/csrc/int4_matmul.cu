@@ -1,18 +1,20 @@
-// Int4-weight matmul for Hopper (sm_90a), 16 <= M <= 1024: each 128-row
-// group's product of bf16(x) with the raw int4 values (exact in bf16) is
-// summed in f32, multiplied by that group's scales[g, n] and added to the
-// f32 accumulator; the result is rounded to bf16. The dequantized weight
-// never exists, as in the TPU kernel.
+// Int4-weight matmul for Hopper (sm_90a) above decode M (16 < M <= 1024):
+// each 128-row group's product of bf16(x) with the raw int4 values (exact in
+// bf16) is summed in f32, multiplied by that group's scales[g, n] and added to
+// the f32 accumulator; the result is rounded to bf16. The dequantized weight
+// never exists, as in the TPU kernel. At M <= 16 the wrapper launches
+// int4_matmul_swapab.cu instead; this entry's 16-row tile stays reachable only
+// as the previous decode design (ops/quant.py::_int4_previous_design).
 //
 // Replaces the Pallas kernel affectgpt_tpu/ops/quant.py::int4_matmul.
 //
-// Bound: the packed weight bytes at M = 16 (one b = 16 decode step); the
-// products at M in the hundreds. A unit of the K loop is 128 packed rows:
-// the low nibbles are one scale group of the first K-half, the high nibbles
-// one of the second, and each is contracted against its own x columns with
-// mma.sync m16n8k16 bf16 into a per-group fragment, then scaled into the
-// accumulator (quant_mma.cuh, mode kW4). Both nibbles are unpacked from
-// unsigned bits and sign-extended from bit 3, so no signed shift is involved.
+// Bound: the products at M in the hundreds. A unit of the K loop is 128 packed
+// rows: the low nibbles are one scale group of the first K-half, the high
+// nibbles one of the second, and each is contracted against its own x columns
+// with mma.sync m16n8k16 bf16 into a per-group fragment, then scaled into the
+// accumulator (quant_mma.cuh, mode kW4, the 128 x 64 tile). Both nibbles are
+// unpacked from unsigned bits and sign-extended from bit 3, so no signed shift
+// is involved.
 
 #include "quant_mma.cuh"
 

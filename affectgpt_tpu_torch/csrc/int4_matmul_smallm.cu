@@ -1,20 +1,15 @@
-// Decode-shaped int4-weight matmul for Hopper (sm_90a), M < 16: each weight
-// is dequantized as bf16(value * scales[g, n]) computed in f32, then bf16(x)
-// times those weights is accumulated in f32 and rounded to bf16, the
+// int4_matmul_smallm's function on quant_mma.cuh (mode kW4Dequant): each
+// weight is dequantized as bf16(value * scales[g, n]) computed in f32, then
+// bf16(x) times those weights is accumulated in f32 and rounded to bf16, the
 // function of int4_matmul_xla.
 //
-// Replaces the Pallas kernel affectgpt_tpu/ops/quant.py::int4_matmul_smallm.
-//
-// Bound: the packed weight bytes (3.5 GB per 7B decode step), each read once
-// for M <= 15 multiply-adds. The TPU kernel dequantizes a tile into VMEM and
-// runs one fat dot; here each 16-byte load of packed bytes becomes 32 bf16
-// weights (both nibbles, each with its group's scale) in registers on its way
-// to shared memory, and one 16-row mma.sync tile (rows past M are zero)
-// multiplies them (quant_mma.cuh, mode kW4Dequant). The x rows of the down
-// projection (18944 columns) would not fit shared memory, so x is staged per
-// unit of 128 packed rows. k/v_proj (N = 512) has only 4 column tiles, and
-// the K loop is split over blocks to fill 132 SMs; a second launch sums the
-// splits in a fixed order.
+// The wrapper (ops/quant.py::int4_matmul_smallm) launches this entry only
+// above M = 16, which the main path never routes to it (its decode M, up to
+// 15, runs int4_matmul_swapab.cu). Its 16-row tile is the previous decode
+// design, kept as a yardstick (ops/quant.py::_int4_previous_design,
+// chip_smoke.py's old_ms): one 16-row mma.sync tile of x rows (rows past M
+// zero) against weights converted on their way to shared memory, one unit of
+// loads in flight, the K loop split over blocks and reduced by a second launch.
 
 #include "quant_mma.cuh"
 

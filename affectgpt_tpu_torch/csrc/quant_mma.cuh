@@ -16,7 +16,8 @@
 //
 // Two tile shapes, picked by M: for M <= 16 (decode) one 16-row tile and the
 // four warps side by side along N (16 x 128); otherwise 2 x 2 warps of 64 x 32
-// (128 x 64). What bounds the decode shapes is the weight stream, and a
+// (128 x 64). (The int4 wrappers run their decode M on int4_matmul_swapab.cu;
+// the 16-row int4 tiles stay as the previous design's yardstick.) What bounds the decode shapes is the weight stream, and a
 // 16 x 128 tile leaves too few blocks along N for 132 SMs at k/v_proj (N =
 // 512) or at any K = 18944 product. So the K loop is split over blockIdx.z:
 // each split writes its f32 partial tile, and a second launch sums the splits

@@ -44,6 +44,8 @@ _SIGNATURES = {
     "agk_int8_matmul": [_P] * 5 + [_I] * 5 + [_P],
     "agk_int4_matmul": [_P] * 5 + [_I] * 5 + [_P],
     "agk_int4_matmul_smallm": [_P] * 5 + [_I] * 5 + [_P],
+    "agk_int4_swapab": [_P] * 4 + [_I] * 5 + [_P],
+    "agk_int4_swapab_active_clusters": [_I] * 3,
     "agk_int8_matmul_w8a8": [_P] * 7 + [_I] * 8 + [_P],
     "agk_decode_mlp_int8": [_P] * 10 + [_I] * 6 + [_F, _P],
     "agk_paged_attention_bf16": [_P] * 8 + [_I] * 6 + [_P],

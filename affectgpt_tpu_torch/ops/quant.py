@@ -19,11 +19,19 @@ CUDA tensor it launches the hand-written kernel (csrc/) or raises:
   int8 × int8 → int32 per block, × the row's block scale, summed in f32, ×
   scales, on wgmma (csrc/int8_matmul_w8a8.cu; replaces quant.py:163);
 - `int4_matmul`: each 128-row group's bf16 product with the raw nibbles,
-  summed in f32, times that group's scales (csrc/int4_matmul.cu; replaces
-  quant.py:319);
+  summed in f32, times that group's scales (replaces quant.py:319);
 - `int4_matmul_smallm`: bf16(nibble · scale) dequantized in f32, then one
   bf16 product with f32 accumulation, equal to `int4_matmul_xla`
-  (csrc/int4_matmul_smallm.cu; replaces quant.py:407).
+  (replaces quant.py:407).
+
+Both int4 wrappers launch csrc/int4_matmul_swapab.cu at M <= 16 (the decode
+M of the main path: 8 and 16): the weights as the A operand of mma.sync,
+packed bytes through a TMA ring, K split over a cluster, one launch a
+product, on the plan of `int4_plan`. Above M = 16 they launch the 128 x 64
+tile of csrc/quant_mma.cuh (csrc/int4_matmul.cu, int4_matmul_smallm.cu),
+whose 16-row tile, the previous decode design, only
+`_int4_previous_design` reaches, as a yardstick for chip_smoke.py and
+scripts/torch_wgmma_variants.py.
 
 `models.qwen2._lora_dense` routes by M = rows of x, as the JAX TPU route
 does without its Mosaic gates (block divisibility, the 8-row pad,
@@ -287,16 +295,101 @@ def int8_matmul(x, w_q, scales):
     return y
 
 
+# csrc/int4_matmul_swapab.cu: a block owns 128 columns of N (eight consumer
+# warps of 16) and streams its share of K in stages of 128 packed rows (one
+# scale group of each K-half) through a ring of five stages (M <= 8) or four;
+# two blocks fit an SM
+INT4_BN, INT4_BKP = 128, 128
+INT4_MAX_M, INT4_MAX_CLUSTER = 16, 8
+# the share of the card's SMs a product's blocks should cover before K is
+# split over a cluster: the smallest cluster reaching it was the fastest size
+# for every 7B product on the H100 (one block an SM, none waiting on a slower
+# cluster peer)
+INT4_SM_FILL = 0.8
+
+
+def int4_plan(m: int, n: int, k: int, sm_count: int, active_clusters=None) -> dict:
+    """The launch plan of the swap-AB int4 kernel for x [m, k] against a
+    packed weight [k/2, n]: n8 tiles of batch rows `nt`; one cluster of
+    `cluster` blocks for each 128-column block, block r of it taking K's
+    units [r U / C, (r + 1) U / C) of U = k / 256 (`unit_ranges`); the grid;
+    the ring's stages and the dynamic shared memory. The cluster is the
+    smallest whose blocks cover INT4_SM_FILL of the SMs (at most 8, at most
+    U), among the sizes of which the card holds at least one cluster at once
+    (`active_clusters(c)`; the wrapper asks the card, by default two blocks
+    an SM). Raises on what the kernel does not take."""
+    if not 1 <= m <= INT4_MAX_M or n < 16 or n % 16 or k < 2 * INT4_GROUP \
+            or k % (2 * INT4_GROUP):
+        raise ValueError(f"int4 swap-AB kernel needs 1 <= M <= {INT4_MAX_M}, N % 16 == 0 and "
+                         f"K % {2 * INT4_GROUP} == 0 (M={m}, N={n}, K={k})")
+    if active_clusters is None:
+        def active_clusters(c):
+            return 2 * sm_count // c
+    nt = 1 if m <= 8 else 2
+    col_blocks, units = -(-n // INT4_BN), k // (2 * INT4_BKP)
+    sizes = [c for c in range(1, min(INT4_MAX_CLUSTER, units) + 1) if active_clusters(c) >= 1]
+    if not sizes:
+        raise ValueError("int4 swap-AB kernel: no cluster size fits the card")
+    c = next((c for c in sizes if col_blocks * c >= INT4_SM_FILL * sm_count), sizes[-1])
+    stages = 5 if nt == 1 else 4
+    # packed weights, four 64-column x boxes of 8 nt rows, two scale rows
+    stage = INT4_BKP * INT4_BN + 4 * 8 * nt * 128 + 2 * INT4_BN * 4
+    return {
+        "nt": nt, "cluster": c, "grid": (c * col_blocks,),
+        "col_blocks": col_blocks, "units": units,
+        "unit_ranges": [(r * units // c, (r + 1) * units // c) for r in range(c)],
+        "stages": stages, "stage_bytes": stage,
+        # ring, partial tile, barriers, alignment slack
+        "smem_bytes": stages * stage + 8 * nt * (INT4_BN + 4) * 4 + 2 * stages * 8 + 1024,
+        # the packed bytes the blocks stream: each once
+        "weight_bytes": col_blocks * INT4_BN * k // 2,
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def _int4_active_clusters(index: int, cluster: int, m: int, dequant: bool) -> int:
+    with torch.cuda.device(index):
+        count = _build.load_library().agk_int4_swapab_active_clusters(cluster, m, int(dequant))
+    if count < 0:
+        _build.check(-count, "int4 swap-AB occupancy")
+    return count
+
+
+@functools.lru_cache(maxsize=None)
+def _int4_plan_on(index: int, m: int, n: int, k: int, dequant: bool) -> dict:
+    return int4_plan(m, n, k, _sm_count(index),
+                     lambda c: _int4_active_clusters(index, c, m, dequant))
+
+
+def _int4_swapab(name, x, w_p, scales, dequant: bool):
+    m, k = x.shape
+    n = w_p.shape[1]
+    plan = _int4_plan_on(x.device.index or 0, m, n, k, dequant)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    status = _build.load_library().agk_int4_swapab(
+        x.data_ptr(), w_p.data_ptr(), scales.data_ptr(), y.data_ptr(), m, n, k, plan["cluster"],
+        int(dequant), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, name)
+    return y
+
+
+def _int4_check(name, x, w_p, scales):
+    k = x.shape[-1]
+    return _check_operands(name, x, w_p, scales, k // 2, k // INT4_GROUP, 2 * INT4_GROUP)
+
+
 def int4_matmul(x, w_p, scales):
     """x [M, K] @ dequant(w_p int4-packed [K/2, N], scales [K/128, N]) →
     [M, N] x.dtype, the group scales applied to f32 partial sums."""
     if x.device.type == "cpu":
         return int4_matmul_reference(x, w_p, scales)
-    k = x.shape[-1]
-    m, n, k = _check_operands("int4_matmul", x, w_p, scales, k // 2, k // INT4_GROUP,
-                              2 * INT4_GROUP)
-    y = _launch_bf16_mma("int4_matmul", "agk_int4_matmul", x, w_p, scales, m, n,
-                         k // (2 * INT4_GROUP))
+    m, n, k = _int4_check("int4_matmul", x, w_p, scales)
+    if m <= INT4_MAX_M:
+        y = _int4_swapab("int4_matmul", x, w_p, scales, dequant=False)
+    else:
+        y = _launch_bf16_mma("int4_matmul", "agk_int4_matmul", x, w_p, scales, m, n,
+                             k // (2 * INT4_GROUP))
     int4_matmul.launches += 1
     return y
 
@@ -306,13 +399,24 @@ def int4_matmul_smallm(x, w_p, scales):
     weights dequantized with their scales before the product."""
     if x.device.type == "cpu":
         return int4_matmul_smallm_reference(x, w_p, scales)
-    k = x.shape[-1]
-    m, n, k = _check_operands("int4_matmul_smallm", x, w_p, scales, k // 2,
-                              k // INT4_GROUP, 2 * INT4_GROUP)
-    y = _launch_bf16_mma("int4_matmul_smallm", "agk_int4_matmul_smallm", x, w_p, scales, m, n,
-                         k // (2 * INT4_GROUP))
+    m, n, k = _int4_check("int4_matmul_smallm", x, w_p, scales)
+    if m <= INT4_MAX_M:
+        y = _int4_swapab("int4_matmul_smallm", x, w_p, scales, dequant=True)
+    else:
+        y = _launch_bf16_mma("int4_matmul_smallm", "agk_int4_matmul_smallm", x, w_p, scales, m,
+                             n, k // (2 * INT4_GROUP))
     int4_matmul_smallm.launches += 1
     return y
+
+
+def _int4_previous_design(x, w_p, scales, dequant: bool):
+    """The int4 kernels as they ran at decode M before the swap-AB design:
+    quant_mma.cuh's 16 x 128 tile, split K reduced by a second launch. A
+    yardstick only (chip_smoke.py, scripts/torch_wgmma_variants.py); it
+    counts no launch."""
+    name = "int4_matmul_smallm" if dequant else "int4_matmul"
+    m, n, k = _int4_check(name, x, w_p, scales)
+    return _launch_bf16_mma(name, "agk_" + name, x, w_p, scales, m, n, k // (2 * INT4_GROUP))
 
 
 # csrc/int8_matmul_w8a8.cu: a block owns 128 output columns and 16 rows (M

@@ -31,7 +31,12 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    with `bf16_cublas_ms`, torch.matmul on the same weights dequantized to
    bf16, as a yardstick of the unquantized product that no path runs; the
    w8a8 kernel (wgmma) must also give the same bits on a second call, and
-   prints its variant (wgmma N-width, K splits) and the bytes it reads. The
+   prints its variant (wgmma N-width, K splits) and the bytes it reads; so
+   must the two int4 wrappers, which print the swap-AB kernel's plan at M <=
+   16 (n8 tiles, cluster size, grid, ring, shared memory) and `old_ms`, the
+   previous decode design (quant_mma.cuh's 16 x 128 tile, split K reduced by
+   a second launch), beside each product; `int4_matmul` is also timed at M =
+   256, bench.py's 7B batch, beside cuBLAS bf16 (a measurement only). The
    serving kernels: paged attention (bf16 and int8 pools of 2048 blocks of
    16, 16 rows of 545-596 tokens plus a 1-token row and a one-page row,
    pages drawn from a shuffled permutation, table widths 38 and 64; times
@@ -207,11 +212,11 @@ KERNELS = {
         "replaces": "affectgpt_tpu/models/qwen2.py:681",
     },
     "int4_matmul_smallm": {
-        "source": "affectgpt_tpu_torch/csrc/int4_matmul_smallm.cu",
+        "source": "affectgpt_tpu_torch/csrc/int4_matmul_swapab.cu",
         "replaces": "affectgpt_tpu/ops/quant.py:407",
     },
     "int4_matmul": {
-        "source": "affectgpt_tpu_torch/csrc/int4_matmul.cu",
+        "source": "affectgpt_tpu_torch/csrc/int4_matmul_swapab.cu",
         "replaces": "affectgpt_tpu/ops/quant.py:319",
     },
     "int8_matmul": {
@@ -678,6 +683,18 @@ QUANT_PHASE = {
 }
 
 
+def int4_variant(m: int, n: int, k: int, dequant: bool) -> dict:
+    """What an int4 wrapper launches for x [m, k] against a packed [k/2, n]
+    weight: at M <= 16 the swap-AB kernel with its plan (n8 tiles, cluster
+    size, grid, ring, shared memory), above it quant_mma.cuh's 128 x 64
+    tile."""
+    if m > quant.INT4_MAX_M:
+        return {"variant": "quant_mma_128x64"}
+    plan = quant._int4_plan_on(0, m, n, k, dequant)
+    return {"variant": f"swapab_mma_m16n8k16_nt{plan['nt']}", "cluster": plan["cluster"],
+            "grid": plan["grid"][0], "stages": plan["stages"], "smem": plan["smem_bytes"]}
+
+
 def w8a8_variant(m: int, n: int, k: int) -> dict:
     """What the w8a8 wrapper launches for x [m, k] @ w [k, n]: the wgmma
     N-width (row tile), the K splits and the bytes its product reads."""
@@ -731,18 +748,25 @@ def phase_quant_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
                 err, rel = compare(name, got, plain(x, w, s), m)
                 err_max = max(err_max, err)
                 extra = {}
-                if name == "int8_matmul_w8a8":  # the redesign: same bits twice, its variant
+                if name in ("int8_matmul_w8a8", "int4_matmul", "int4_matmul_smallm"):
+                    # the redesigns: the same bits twice, and what ran
                     if not torch.equal(got, kernel(x, w, s)):
                         raise AssertionError(f"{name} M={m} K={k} N={n}: two calls differ")
-                    extra = w8a8_variant(m, n, k)
+                    extra = (w8a8_variant(m, n, k) if name == "int8_matmul_w8a8"
+                             else int4_variant(m, n, k, name == "int4_matmul_smallm"))
                 say("kernels", kernel=name, M=m, K=k, N=n, shapes="/".join(names),
                     max_abs_err=f"{err:.6g}", max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL,
                     **extra)
-        # the main path's M first; w8a8 also at its prefill M
+        # the main path's M first; w8a8 also at its prefill M, int4_matmul at
+        # bench.py's 7B batch (M = 256, a measurement only)
+        extra_m = {"int8_matmul_w8a8": max(ms_checked), "int4_matmul": 256}.get(name)
         per_layer = []
-        for m in (m_path, max(ms_checked)) if name == "int8_matmul_w8a8" else (m_path,):
+        for m in (m_path,) if extra_m is None else (m_path, extra_m):
             layer = layer_shapes(cfg, fused)
-            sums = dict.fromkeys(("ms", "plain_ms", "bf16_cublas_ms"), 0.0)
+            # the int4 decode kernels beside their previous design (old_ms)
+            old = name.startswith("int4") and m <= quant.INT4_MAX_M
+            sums = dict.fromkeys(("ms", "plain_ms", "bf16_cublas_ms")
+                                 + (("old_ms",) if old else ()), 0.0)
             nbytes = flops = 0
             for pname, (k, n) in {**layer, "lm_head": shapes["lm_head"]}.items():
                 w, s = stored[bits][(k, n)]
@@ -760,13 +784,20 @@ def phase_quant_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
                     "bf16_cublas_ms": graph_ms([lambda wb=wb: torch.matmul(x, wb) for wb in wbs]
                                                * max(1, -(-8 // bcopies))),
                 }
+                if old:
+                    dq = name == "int4_matmul_smallm"
+                    times["old_ms"] = graph_ms(
+                        [lambda w=w, s=s: quant._int4_previous_design(x, w, s, dq) for w, s in ws]
+                        * max(1, -(-8 // copies)))
                 moved, ops = 2 * m * k + wbytes + 2 * m * n, 2 * m * k * n
                 cost = bound(moved, ops, ops_rate)
                 say("kernels", kernel=name, M=m, product=pname, K=k, N=n,
                     **{key: f"{v:.5f}" for key, v in times.items()},
                     bound_ms=f"{cost['bound_ms']:.5f}", bound_by=cost["bound_by"],
                     GB_per_s=f"{moved / times['ms'] / 1e6:.1f}",
-                    **(w8a8_variant(m, n, k) if name == "int8_matmul_w8a8" else {}),
+                    **(w8a8_variant(m, n, k) if name == "int8_matmul_w8a8" else
+                       int4_variant(m, n, k, name == "int4_matmul_smallm")
+                       if name.startswith("int4") else {}),
                     card=repr(card))
                 if pname != "lm_head":
                     for key in sums:

@@ -1,6 +1,6 @@
 """Time variants of the port's wgmma and tensor-core kernels on one CUDA card.
 
-    python3 scripts/torch_wgmma_variants.py [--only fused|w8a8|mlp|decode|attention] [--out DIR]
+    python3 scripts/torch_wgmma_variants.py [--only fused|w8a8|mlp|decode|attention|int4] [--out DIR]
 
 For each variant the package is copied to a temporary directory, a few
 source constants are replaced there (the ring depth, the w8a8 row tile;
@@ -24,7 +24,13 @@ of 128, prompts of 545-564 tokens left-packed, and `fused_vit_attention`
 (csrc/vit_sublayer.cu, whose step (iii) is that attention) and the device
 ms of each of its launches; `diag_attention_no_products` drops both
 kernels' wgmma products and `diag_attention_no_exp` their exp2, which
-splits the time into loads, products and softmax. For
+splits the time into loads, products and softmax; the two int4 decode
+wrappers (`--only int4`, csrc/int4_matmul_swapab.cu) per Qwen2.5-7B layer
+and at the lm_head, `int4_matmul_smallm` at M = 8 and `int4_matmul` at M =
+16, with the previous design (`old_ms`, quant_mma.cuh's 16 x 128 tile) and
+`diag_int4_*` variants without the consumers' work, the nibble conversion
+or the products (each keeps what it skips reaching the output: ptxas
+deletes work whose results are never stored). For
 those two kernels the unedited variant also times the C entry's variants:
 without the tensor-core products (`no_products_ms`) and the previous
 design (`old_ms`). Times are device ms per
@@ -51,6 +57,7 @@ GEMM = "affectgpt_tpu_torch/csrc/vit_gemm_wgmma.cuh"
 ATTN = "affectgpt_tpu_torch/csrc/attention_wgmma.cuh"
 PREFILL = "affectgpt_tpu_torch/csrc/prefill_attention.cu"
 VIT_ATTN = "affectgpt_tpu_torch/csrc/vit_attention.cuh"
+INT4 = "affectgpt_tpu_torch/csrc/int4_matmul_swapab.cu"
 
 _VIT_SOFTMAX = "for (int h = 0; h < 2; ++h) {  // one chain a key tile"
 _VIT_NO_SOFTMAX = "for (int h = 0; h < 0; ++h) {  // one chain a key tile"
@@ -108,6 +115,13 @@ VARIANTS = {
     # its stores, and with neither nor its products: the loads and barriers alone
     "diag_vit_no_softmax": ("attention", [(VIT_ATTN, _VIT_SOFTMAX, _VIT_NO_SOFTMAX)]),
     "diag_vit_no_stores": ("attention", [(VIT_ATTN, _VIT_STORE, _VIT_NO_STORE)]),
+    "int4_as_is": ("int4", []),
+    # the consumers take each stage and hand it back untouched: the ring alone
+    "diag_int4_loads_only": ("int4", [(INT4, "kConsume = true;", "kConsume = false;")]),
+    # the raw packed words as A fragments: no nibble conversion, no dequant scaling
+    "diag_int4_no_convert": ("int4", [(INT4, "kConvert = true;", "kConvert = false;")]),
+    # the fragments built and XORed into a sink instead of multiplied
+    "diag_int4_no_products": ("int4", [(INT4, "kProducts = true;", "kProducts = false;")]),
     "diag_vit_loads_only": ("attention", [
         (VIT_ATTN, _VIT_SOFTMAX, _VIT_NO_SOFTMAX), (VIT_ATTN, _VIT_STORE, _VIT_NO_STORE),
         (ATTN, "    wgmma_bf16_ss(s, desc_sw128(", "    if (false) wgmma_bf16_ss(s, desc_sw128("),
@@ -234,6 +248,39 @@ elif kind == "attention":
             [lambda p=p: vit_sublayer.attn_sublayer(x, *p, h, n) for p in layers] * 2)
         out[f"attn_sublayer_{tower}_kernel_ms"] = kernel_ms(
             lambda: vit_sublayer.attn_sublayer(x, *layers[0], h, n))
+elif kind == "int4":
+    # Qwen2.5-7B's split layer and lm_head; (M, wrapper) as the main path routes them
+    layer = {"q": (3584, 3584), "k": (3584, 512), "v": (3584, 512), "o": (3584, 3584),
+             "gate": (3584, 18944), "up": (3584, 18944), "down": (18944, 3584),
+             "lm_head": (3584, 152064)}
+    stored = {}
+    for k, n in set(layer.values()):
+        stored[(k, n)] = (torch.randint(-128, 128, (k // 2, n), generator=g, device="cuda",
+                                        dtype=torch.int8),
+                          (torch.rand((k // 128, n), generator=g, device="cuda") + 0.5) * 1e-2)
+    w, s = stored[(3584, 512)]
+    x = rnd(13, 3584)
+    for fn in ("int4_matmul", "int4_matmul_smallm"):
+        ref = getattr(quant, fn + "_reference")(x, w, s).float()
+        out[f"{fn}_max_abs_err"] = float((getattr(quant, fn)(x, w, s).float() - ref).abs().max())
+    for fn, m in (("int4_matmul_smallm", 8), ("int4_matmul", 16)):
+        kernel = getattr(quant, fn)
+        designs = {"ms": kernel}
+        if name == "int4_as_is":  # the previous design, quant_mma.cuh's 16 x 128 tile
+            designs["old_ms"] = lambda x, w, s, d=fn.endswith("smallm"): \
+                quant._int4_previous_design(x, w, s, d)
+        for key, call in designs.items():
+            per = {}
+            for p, (k, n) in layer.items():
+                w, s = stored[(k, n)]
+                copies = max(1, -(-64 * 2**20 // (w.numel() + 4 * s.numel())))
+                ws = [(w, s)] + [(w.clone(), s.clone()) for _ in range(copies - 1)]
+                xm = rnd(m, k)
+                per[p] = graph_ms([lambda w=w, s=s: call(xm, w, s) for w, s in ws]
+                                  * max(1, -(-8 // copies)))
+                del ws
+            out[f"{fn}_M{m}_{key}"] = {**per, "layer": sum(v for p, v in per.items()
+                                                           if p != "lm_head")}
 elif kind == "fused":
     w, inter = 1024, 4096
     layers = [(rnd(w, scale=0.1, shift=1.0), rnd(w, scale=0.1), rnd(w, inter, scale=0.02),
@@ -276,7 +323,8 @@ print(json.dumps(out), flush=True)
 """
 
 
-def run_variant(name: str, kind: str, edits: list, tmp_root: Path) -> None:
+def copy_package(name: str, edits: list, tmp_root: Path) -> Path:
+    """The package copied under tmp_root with each (file, old, new) edit made."""
     root = Path(tempfile.mkdtemp(dir=tmp_root))
     shutil.copytree(REPO / "affectgpt_tpu_torch", root / "affectgpt_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
@@ -286,8 +334,14 @@ def run_variant(name: str, kind: str, edits: list, tmp_root: Path) -> None:
         if old not in text:
             raise SystemExit(f"{name}: {old!r} not in {rel}")
         path.write_text(text.replace(old, new))
+    return root
+
+
+def run_variant(name: str, kind: str, edits: list, tmp_root: Path, bench: str = BENCH) -> None:
+    """Build and run `bench` (argv: kind, name) in a copy with `edits`; print its last line."""
+    root = copy_package(name, edits, tmp_root)
     env = {**os.environ, "PYTHONPATH": str(root)}
-    proc = subprocess.run([sys.executable, "-c", BENCH, kind, name], env=env, cwd=root,
+    proc = subprocess.run([sys.executable, "-c", bench, kind, name], env=env, cwd=root,
                           capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         print(json.dumps({"variant": name, "error": proc.stderr[-2000:]}), flush=True)
@@ -297,7 +351,7 @@ def run_variant(name: str, kind: str, edits: list, tmp_root: Path) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("fused", "w8a8", "mlp", "decode", "attention"))
+    ap.add_argument("--only", choices=("fused", "w8a8", "mlp", "decode", "attention", "int4"))
     ap.add_argument("--out", default=None, help="scratch directory (default: a temporary one)")
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

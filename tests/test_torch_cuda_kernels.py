@@ -251,6 +251,47 @@ def test_dequantize_route_matches_plain_at_prefill_m(gen, bits):
     torch.testing.assert_close(got.float(), plain(x, w, scales).float(), **TOL)
 
 
+INT4_KERNELS = {"int4_matmul": quant.int4_matmul_reference,
+                "int4_matmul_smallm": quant.int4_matmul_smallm_reference}
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 13, 15, 16])
+@pytest.mark.parametrize("k,n", [(3584, 512), (18944, 3584)])
+@pytest.mark.parametrize("name", sorted(INT4_KERNELS))
+def test_int4_swapab_kernel_matches_plain_at_decode_m(gen, name, k, n, m):
+    """The swap-AB kernel (both functions) at every decode M, on k/v_proj's
+    and down_proj's shapes of Qwen2.5-7B: one launch, the plain version's
+    result within tolerance, and the same bits from a second call."""
+    kernel, plain = getattr(quant, name), INT4_KERNELS[name]
+    w, scales = _quantized(gen, k, n, 4)
+    x = _rnd(gen, m, k)
+    before = kernel.launches
+    got = kernel(x, w, scales)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1 and got.shape == (m, n) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), plain(x, w, scales).float(), **TOL)
+    assert torch.equal(got, kernel(x, w, scales))
+
+
+@pytest.mark.parametrize("name", sorted(INT4_KERNELS))
+def test_int4_swapab_kernel_raises_on_what_it_does_not_take(gen, name):
+    kernel = getattr(quant, name)
+    w, scales = _quantized(gen, 512, 256, 4)
+    x = _rnd(gen, 8, 512)
+    with pytest.raises(ValueError):  # K not a multiple of 256
+        kernel(_rnd(gen, 8, 384), w[:192].contiguous(), scales[:3].contiguous())
+    with pytest.raises(ValueError):  # N not a multiple of 16
+        kernel(x, w[:, :120].contiguous(), scales[:, :120].contiguous())
+    with pytest.raises(ValueError):  # scales of another K
+        kernel(x, w, scales[:2].contiguous())
+    with pytest.raises(ValueError):  # a weight that is not contiguous
+        kernel(x, w.t().contiguous().t(), scales)
+    with pytest.raises(TypeError):  # float32 activations
+        kernel(x.float(), w, scales)
+    with pytest.raises(TypeError):  # bf16 scales
+        kernel(x, w, scales.to(torch.bfloat16))
+
+
 def test_quant_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     w8, s8 = _quantized(gen, 256, 128, 8)
     w4, s4 = _quantized(gen, 256, 128, 4)

@@ -333,3 +333,173 @@ def test_vit_attention_plan_picks_a_kernel_for_every_n():
 def test_vit_attention_plan_raises_beyond_max_n(n, valid):
     with pytest.raises(ValueError):
         vit_attention.vit_attention_plan(n, valid)
+
+
+# ---------------------------------------------------------------------------
+# The swap-AB int4 kernel (csrc/int4_matmul_swapab.cu)
+
+SMEM_PER_SM = 233_472  # an H100 SM's shared memory; each resident block also reserves 1 KB
+INT4_SHAPES = LAYER_7B + [(1024, 256), (512, 272), (256, 128), (2048, 16)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 13, 16])
+@pytest.mark.parametrize("k,n", INT4_SHAPES)
+def test_int4_plan_covers_every_strip_and_unit_once(m, k, n):
+    plan = quant.int4_plan(m, n, k, SMS)
+    c, units = plan["cluster"], plan["units"]
+    assert plan["nt"] == (1 if m <= 8 else 2) and units == k // 256
+    assert 1 <= c <= 8 and c <= units and plan["col_blocks"] == -(-n // 128)
+    assert plan["grid"] == (c * plan["col_blocks"],)
+    # block b: column block b // c, rank b % c and that rank's units
+    cover = np.zeros((n // 16, units), np.int32)
+    for b in range(plan["grid"][0]):
+        cb, rank = divmod(b, c)
+        u0, u1 = plan["unit_ranges"][rank]
+        strips = range(8 * cb, min(8 * cb + 8, n // 16))  # the block's 16-column strips inside N
+        for s in strips:
+            cover[s, u0:u1] += 1
+    assert (cover == 1).all()  # each weight byte is read by one block, once
+    assert plan["weight_bytes"] >= n * k // 2
+    assert plan["smem_bytes"] <= SMEM_LIMIT
+    assert plan["stages"] >= 4 and 2 * (plan["smem_bytes"] + 1024) <= SMEM_PER_SM  # two an SM
+
+
+@pytest.mark.parametrize("m,n,k", [(0, 512, 3584), (17, 512, 3584), (8, 120, 3584),
+                                   (8, 512, 384), (8, 512, 128), (8, 0, 3584)])
+def test_int4_plan_raises_on_what_the_kernel_does_not_take(m, n, k):
+    with pytest.raises(ValueError):  # M outside 1-16, N % 16, K % 256
+        quant.int4_plan(m, n, k, SMS)
+
+
+def test_int4_plan_splits_k_for_narrow_products_only():
+    # k/v_proj (4 column blocks) and down_proj (K = 18944) split K over a
+    # cluster; the lm_head's 1188 column blocks fill the card whole-K
+    assert quant.int4_plan(8, 512, 3584, SMS)["cluster"] >= 4
+    assert quant.int4_plan(16, 3584, 18944, SMS)["cluster"] >= 4
+    assert quant.int4_plan(8, 152064, 3584, SMS)["cluster"] == 1
+
+
+def test_int4_plan_reads_the_card_s_cluster_count():
+    """A card that holds no cluster of more than two blocks gets one of at
+    most two; one that holds none raises."""
+    plan = quant.int4_plan(8, 512, 3584, SMS, lambda c: 264 // c if c <= 2 else 0)
+    assert plan["cluster"] <= 2
+    with pytest.raises(ValueError):
+        quant.int4_plan(8, 512, 3584, SMS, lambda c: 0)
+
+
+def _swizzle128(tile: np.ndarray) -> np.ndarray:
+    """A [rows, 128]-byte tile as TMA writes it with the 128-byte swizzle:
+    16-byte chunk c of row r at chunk c ^ (r % 8); flat bytes."""
+    out = np.empty_like(tile)
+    for r in range(tile.shape[0]):
+        for c in range(8):
+            p = c ^ (r % 8)
+            out[r, 16 * p:16 * p + 16] = tile[r, 16 * c:16 * c + 16]
+    return out.reshape(-1)
+
+
+def _ldmatrix_x4(smem: np.ndarray, addrs, trans: bool) -> np.ndarray:
+    """ldmatrix.sync.aligned.m8n8.x4(.trans).b16 as the PTX ISA defines it:
+    lane l gives the byte address of row l % 8 of matrix l / 8; register q
+    of lane (g = l / 4, t = l % 4) holds matrix q's 16-bit elements (g, 2t)
+    and (g, 2t + 1), or with .trans (2t, g) and (2t + 1, g), low half first."""
+    mats = [np.stack([smem[a:a + 16].view(np.uint16) for a in addrs[8 * q:8 * q + 8]])
+            for q in range(4)]
+    regs = np.zeros((32, 4), np.uint64)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for q, mat in enumerate(mats):
+            lo, hi = (mat[2 * t, g], mat[2 * t + 1, g]) if trans else (mat[g, 2 * t], mat[g, 2 * t + 1])
+            regs[lane, q] = int(lo) | (int(hi) << 16)
+    return regs
+
+
+def _bf16_value(bits: int) -> float:
+    return float(np.array([bits << 16], np.uint32).view(np.float32)[0])
+
+
+def _nibble_pair(v: int):
+    """The kernel's nibbles_to_bf16x2: (v & 0x000F000F) ^ 0x43084308 read as
+    two bf16, each minus 136 (exact)."""
+    biased = (v & 0x000F000F) ^ 0x43084308
+    return _bf16_value(biased & 0xFFFF) - 136.0, _bf16_value(biased >> 16) - 136.0
+
+
+def _bf16_round(v: float) -> float:
+    return float(torch.tensor(v, dtype=torch.float32).to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("nt", [1, 2])
+@pytest.mark.parametrize("dequant", [False, True])
+def test_int4_fragments_rebuild_the_weight_tile(nt, dequant):
+    """One stage of one block (128 packed rows x 128 columns, K = 256), every
+    consumer warp, emulated instruction by instruction: the swizzled weight
+    and x tiles TMA writes, the transposed ldmatrix and the nibble (and
+    dequant) arithmetic of each A fragment, the ldmatrix of each B
+    fragment, the m16n8k16 products into the accumulator layout. Every A
+    fragment must hold the weight (or its dequantized value) at the (n, k)
+    the mma layout gives it, every B fragment x at its (k, m), and the
+    products the plain version's sums."""
+    rng = np.random.RandomState(3)
+    k, m = 256, 8 * nt
+    w = rng.randint(0, 256, size=(128, 128)).astype(np.uint8)  # packed bytes [kp][n]
+    values = [((w.astype(np.int32) & 0xF) ^ 8) - 8, (((w.astype(np.int32) >> 4) & 0xF) ^ 8) - 8]
+    scales = (rng.rand(2, 128).astype(np.float32) + 0.5) * 0.01  # group rows: low half, high half
+    x = torch.tensor(rng.randn(m, k), dtype=torch.float32).to(torch.bfloat16)
+    weight = [np.vectorize(lambda v, s: _bf16_round(np.float32(v) * s))(values[h], scales[h])
+              if dequant else values[h].astype(np.float64) for h in range(2)]
+    w_smem = _swizzle128(w)
+    x_bits = x.view(torch.int16).numpy().view(np.uint16)
+    # the stage's x boxes: (half h, 64-column box b) of 8 nt rows x 128 bytes
+    x_smem = [_swizzle128(x_bits[:, h * 128 + 64 * b:h * 128 + 64 * b + 64].copy().view(np.uint8))
+              for h in range(2) for b in range(2)]
+    lanes = np.arange(32)
+    xrow = (lanes % 8) + 8 * (lanes // 16) if nt == 2 else lanes % 8
+    xchunk = (lanes // 8) % 2 if nt == 2 else lanes // 8
+    y = np.zeros((m, 128))
+    for warp in range(8):
+        a_off = lanes * 128 + ((warp ^ (lanes & 7)) << 4)
+        d = np.zeros((2, 16, m))  # [half][fragment row][batch row]
+        for j in range(4):
+            r = _ldmatrix_x4(w_smem, j * 32 * 128 + a_off, trans=True)
+            for h in range(2):
+                box = x_smem[2 * h + j // 2]
+                loads = [_ldmatrix_x4(box, xrow * 128 + (((4 * (j % 2) + 2 * s + xchunk)
+                                                          ^ (lanes & 7)) << 4), trans=False)
+                         for s in range(nt)]
+                for s in range(2):
+                    a_mat, b_mat = np.zeros((16, 16)), np.zeros((16, m))
+                    for lane in range(32):
+                        g, t = lane // 4, lane % 4
+                        w0, w1 = int(r[lane, 2 * s]), int(r[lane, 2 * s + 1])
+                        sh = 4 * h
+                        pairs = [_nibble_pair(w0 >> sh), _nibble_pair(w0 >> (8 + sh)),
+                                 _nibble_pair(w1 >> sh), _nibble_pair(w1 >> (8 + sh))]
+                        if dequant:  # bf16(f32(value) * scale of the fragment row's column)
+                            sc = scales[h][16 * warp + 2 * g:16 * warp + 2 * g + 2]
+                            pairs = [tuple(_bf16_round(np.float32(v) * sc[i % 2]) for v in p)
+                                     for i, p in enumerate(pairs)]
+                        for i, (row, col) in enumerate([(g, 2 * t), (g + 8, 2 * t), (g, 2 * t + 8),
+                                                        (g + 8, 2 * t + 8)]):
+                            a_mat[row, col], a_mat[row, col + 1] = pairs[i]
+                        for tile in range(nt):
+                            regs = (loads[s][lane, 2 * tile:2 * tile + 2] if nt == 2
+                                    else loads[0][lane, 2 * s:2 * s + 2])
+                            for i, kk in enumerate((2 * t, 2 * t + 8)):
+                                b_mat[kk, 8 * tile + g] = _bf16_value(int(regs[i]) & 0xFFFF)
+                                b_mat[kk + 1, 8 * tile + g] = _bf16_value(int(regs[i]) >> 16)
+                    # fragment row g is column 2g of the warp's 16, row g + 8 column 2g + 1
+                    cols = 16 * warp + np.array([2 * (i % 8) + i // 8 for i in range(16)])
+                    kp = 32 * j + 16 * s + np.arange(16)
+                    np.testing.assert_array_equal(a_mat, weight[h][kp][:, cols].T)
+                    np.testing.assert_array_equal(
+                        b_mat, x[:, h * 128 + kp].float().numpy().T)
+                    d[h] += a_mat @ b_mat
+        cols = 16 * warp + np.array([2 * (i % 8) + i // 8 for i in range(16)])
+        for h in range(2):
+            y[:, cols] += (d[h] * (1.0 if dequant else scales[h][cols, None])).T
+    xf = x.double().numpy()
+    want = sum(xf[:, h * 128:(h + 1) * 128] @ (weight[h] * (1.0 if dequant else scales[h]))
+               for h in range(2))
+    np.testing.assert_allclose(y, want, rtol=1e-12, atol=1e-12)
