@@ -244,9 +244,14 @@ flash_decode_merge_kernel(const float* __restrict__ part_ml, const float* __rest
   out[((size_t)bh * g + gi) * D + tid] = __float2bfloat16(a);
 }
 
-cudaError_t launch_flash_decode_merge(const float* part_ml, const float* part_acc,
-                                      __nv_bfloat16* out, int rows, int g, int chunks, int d,
-                                      cudaStream_t stream) {
+// The merge launch: per (query head, row) of `rows` = b * kv rows, weights
+// the `chunks` partials of part_ml [rows, chunks, g, 2] and part_acc [rows,
+// chunks, g, d] by their maxima, skips a chunk whose sum is 0 without reading
+// its accumulator's value, divides by max(sum, 1e-20) and writes out [rows,
+// g, d] in bf16. d is 64 or 128.
+static cudaError_t launch_flash_decode_merge(const float* part_ml, const float* part_acc,
+                                             __nv_bfloat16* out, int rows, int g, int chunks,
+                                             int d, cudaStream_t stream) {
   const size_t smem = (size_t)chunks * sizeof(float);
   if (d == 128)
     flash_decode_merge_kernel<128><<<dim3(g, rows), 128, smem, stream>>>(part_ml, part_acc, out,

@@ -228,15 +228,15 @@ gateup_kernel(const __grid_constant__ CUtensorMap wg_map, const __grid_constant_
 #pragma unroll
               for (int j = 0; j < 2; ++j)
                 mma_bf16(acc[wt][c][j], a[wt][c][ks], bx[ks][2 * j], bx[ks][2 * j + 1]);
-      } else {  // diagnostic: the loads and conversions alone
+      } else {  // diagnostic: the loads and conversions alone, folded into the output
 #pragma unroll
         for (int wt = 0; wt < 2; ++wt)
 #pragma unroll
           for (int c = 0; c < 2; ++c)
 #pragma unroll
-            for (int ks = 0; ks < 2; ++ks) fence_regs(a[wt][c][ks]);
+            for (int ks = 0; ks < 2; ++ks) sink_into(acc[wt][c][0][0], xor_fold(a[wt][c][ks]));
 #pragma unroll
-        for (int ks = 0; ks < 2; ++ks) fence_regs(bx[ks]);
+        for (int ks = 0; ks < 2; ++ks) sink_into(acc[0][0][1][0], xor_fold(bx[ks]));
       }
     }
     // the strip's partials: d[j][e] at n = 16 c + 2 g + e / 2, row 8 j + 2 t + e % 2
@@ -344,12 +344,9 @@ down_kernel(const __grid_constant__ CUtensorMap wd_map, const __grid_constant__ 
       for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
         for (int j = 0; j < 2; ++j) mma_bf16(acc[j], a[ks], bx[ks][2 * j], bx[ks][2 * j + 1]);
-    } else {
+    } else {  // diagnostic: the loads and conversions alone, folded into the output
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        fence_regs(a[ks]);
-        fence_regs(bx[ks]);
-      }
+      for (int ks = 0; ks < 4; ++ks) sink_into(acc[ks % 2][0], xor_fold(a[ks]) ^ xor_fold(bx[ks]));
     }
   }
 #pragma unroll

@@ -1,8 +1,6 @@
 // Split-T flash decoding for one query token per row: the attention part
 // shared by the decode-attention kernel (csrc/decode_attention.cu, where it
-// is defined) and the decode attention sublayer (csrc/decode_attn_o.cu),
-// whose merge launch and warp helpers the paged-attention kernel
-// (csrc/paged_attention.cu) also uses.
+// is defined) and the decode attention sublayer (csrc/decode_attn_o.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,16 +26,6 @@ cudaError_t launch_flash_decode(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                 const __nv_bfloat16* v, const unsigned char* mask, bool window,
                                 float* part_ml, float* part_acc, __nv_bfloat16* out, int b,
                                 int kv, int g, int T, int d, cudaStream_t stream);
-
-// The merge launch of the above on its own: per (query head, row) of
-// `rows` = b * kv rows, weights the `chunks` partials of part_ml
-// [rows, chunks, g, 2] and part_acc [rows, chunks, g, d] by their maxima,
-// skips a chunk whose sum is 0 without reading its accumulator's value,
-// divides by max(sum, 1e-20) and writes out [rows, g, d] in bf16. d is 64
-// or 128.
-cudaError_t launch_flash_decode_merge(const float* part_ml, const float* part_acc,
-                                      __nv_bfloat16* out, int rows, int g, int chunks, int d,
-                                      cudaStream_t stream);
 
 // Warp reductions and row loads of the split kernels.
 __device__ __forceinline__ float warp_sum(float v) {

@@ -137,6 +137,33 @@ __device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
+// Cluster-barrier halves. An arrival with release publishes what the thread
+// wrote before it; a relaxed one only counts (an arrival that publishes
+// nothing, or one whose reads have returned). The wait acquires.
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// four f32 from shared memory of any CTA of the cluster (`addr` a 16-byte
+// aligned shared::cluster address from map_to_rank)
+__device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
 
 // --------------------------------------------------------------------- TMA
 
@@ -376,6 +403,25 @@ __device__ __forceinline__ void fence_regs(T (&r)[N]) {
     else
       asm volatile("" : "+r"(r[i])::"memory");
   }
+}
+
+// Diagnostic builds that leave out a product (scripts/torch_wgmma_variants.py)
+// fold what it would have consumed into an accumulator instead: ptxas
+// deletes work whose results reach no store, and fence_regs emits no
+// instruction to stop it. The bits enter as a denormal, so the fold costs
+// one integer and one FP operation.
+template <class T, int N>
+__device__ __forceinline__ uint32_t xor_fold(const T (&r)[N]) {
+  uint32_t v = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if constexpr (std::is_same_v<T, float>) v ^= __float_as_uint(r[i]);
+    else v ^= static_cast<uint32_t>(r[i]);
+  }
+  return v;
+}
+__device__ __forceinline__ void sink_into(float& acc, uint32_t bits) {
+  acc += __uint_as_float(bits & 0x007FFFFFu);
 }
 
 // Accumulator layout of an m64nN wgmma (both types): in warp w of the

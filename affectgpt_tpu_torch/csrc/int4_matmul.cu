@@ -3,8 +3,7 @@
 // bf16) is summed in f32, multiplied by that group's scales[g, n] and added to
 // the f32 accumulator; the result is rounded to bf16. The dequantized weight
 // never exists, as in the TPU kernel. At M <= 16 the wrapper launches
-// int4_matmul_swapab.cu instead; this entry's 16-row tile stays reachable only
-// as the previous decode design (ops/quant.py::_int4_previous_design).
+// quant_swapab.cu instead.
 //
 // Replaces the Pallas kernel affectgpt_tpu/ops/quant.py::int4_matmul.
 //

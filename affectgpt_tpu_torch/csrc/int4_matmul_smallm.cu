@@ -5,11 +5,8 @@
 //
 // The wrapper (ops/quant.py::int4_matmul_smallm) launches this entry only
 // above M = 16, which the main path never routes to it (its decode M, up to
-// 15, runs int4_matmul_swapab.cu). Its 16-row tile is the previous decode
-// design, kept as a yardstick (ops/quant.py::_int4_previous_design,
-// chip_smoke.py's old_ms): one 16-row mma.sync tile of x rows (rows past M
-// zero) against weights converted on their way to shared memory, one unit of
-// loads in flight, the K loop split over blocks and reduced by a second launch.
+// 15, runs quant_swapab.cu): the 128 x 64 tile, the K loop split over blocks
+// and reduced by a second launch where the tiles are too few.
 
 #include "quant_mma.cuh"
 

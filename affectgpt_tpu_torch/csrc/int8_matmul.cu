@@ -1,16 +1,15 @@
-// Int8-weight matmul for Hopper (sm_90a): y = bf16(x) @ bf16(w_q), f32
-// accumulation, times the per-channel scales[n] at the end, rounded to bf16.
+// Int8-weight matmul for Hopper (sm_90a) above decode M (16 < M <= 1024):
+// y = bf16(x) @ bf16(w_q), f32 accumulation, times the per-channel scales[n]
+// at the end, rounded to bf16. At M <= 16 the wrapper launches
+// quant_swapab.cu's int8 mode instead.
 //
 // Replaces the Pallas kernel affectgpt_tpu/ops/quant.py::int8_matmul.
 //
-// Bound: at decode M (8, or 16 at b = 16) the int8 weight bytes, each read
-// once for M multiply-adds; at M in the hundreds the products. The TPU kernel
-// streams int8 tiles into VMEM and upcasts them there; this one converts each
-// 16-byte load of weights to bf16 in registers on its way to shared memory and
-// runs mma.sync bf16 products with f32 accumulation (quant_mma.cuh, mode kW8).
-// One source covers M = 8 (a 16 x 128 tile, the K loop split over enough
-// blocks to fill the card) and M up to 1024 (a 128 x 64 tile); both compute
-// the same function.
+// Bound: the products at M in the hundreds. The TPU kernel streams int8
+// tiles into VMEM and upcasts them there; this one converts each 16-byte
+// load of weights to bf16 in registers on its way to shared memory and runs
+// mma.sync bf16 products with f32 accumulation (quant_mma.cuh, mode kW8, the
+// 128 x 64 tile).
 
 #include "quant_mma.cuh"
 

@@ -45,4 +45,27 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The int8 values in the low bytes of the two 16-bit halves of `h` (the high
+// bytes are ignored) as an exact bf16 pair, low half first. A byte b is
+// (b & 0x7F) - (b & 0x80): the bf16 128 + (b & 0x7F) (0x4300 | low bits)
+// plus the bf16 -128 or -256 (0xC300 | the sign bit), one bf16x2 add.
+// All are small integers, exact in bf16. Two logic operations and one FMA
+// a pair.
+__device__ __forceinline__ uint32_t s8_halves_to_bf16x2(uint32_t h) {
+  const uint32_t lo = (h & 0x007F007Fu) | 0x43004300u, neg = (h & 0x00800080u) | 0xC300C300u;
+  uint32_t out;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(out) : "r"(lo), "r"(0x3F803F80u), "r"(neg));
+  return out;
+}
+
+// The transpose of an 8x8 matrix of 16-bit elements held as an mma
+// fragment (lane l: row l / 4, columns 2 (l % 4), 2 (l % 4) + 1): afterwards
+// lane l holds row l / 4 of the transpose, that is the elements (2 (l % 4),
+// l / 4) and (2 (l % 4) + 1, l / 4) of the matrix, low half first.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t v) {
+  uint32_t r;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(r) : "r"(v));
+  return r;
+}
+
 }  // namespace agk

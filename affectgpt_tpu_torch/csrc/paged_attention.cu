@@ -7,260 +7,585 @@
 // paged_attention_pallas (`_kernel` and `_kernel_int8`).
 //
 // Layouts: q and out [b, H, d] bf16 (head h = kv head * g + group); pools
-// [blocks, block, kv, d]; scales [blocks, block, kv] f32, read as stored;
-// tables [b, width] int32 (padded with block 0, the null page); seq_lens [b]
-// int32. Token p of row r lies in page tables[r, p / block] at offset
-// p % block; one kv head's part of a page is `block` rows of d values,
-// strided by kv * d.
+// [blocks, block, kv, d] with pages of any size; scales [blocks, block, kv]
+// f32, read as stored; tables [b, width] int32 (padded with block 0, the null
+// page); seq_lens [b] int32. Token p of row r lies in page tables[r, p /
+// block] at offset p % block; one kv head's part of a page is `block` rows of
+// d values, strided by kv * d.
+//
+// Arithmetic follows the TPU kernel: f32 scores q.k / sqrt(d), an int8
+// page's key scale folded into the score and its value scale into the PV
+// weight only (the softmax sum runs over the unscaled p,
+// paged_attention_pallas.py:164-181), tokens at or past seq_len at p = 0, a
+// row with no valid token 0 through max(sum, 1e-20), one rounding to bf16.
+// The PV product takes p (times the value scale) rounded to bf16, as the
+// flash prefill does.
 //
 // Bound: page bytes. Each valid token's K and V rows (2 * kv * d values, 2
 // KiB a token per layer in bf16 at Qwen2.5-7B width, half that plus 32 bytes
 // of scales in int8) are read once and used for 2 * g multiply-adds per
-// value, far below the tensor-core rate. The TPU kernel walked a row's pages
-// in order on a sequential grid of (row, page), carrying the softmax state in
-// scratch, one (row) cell per core step; that gives b * kv = 64 independent
-// (row, kv head) pairs at 16 slots for 132 SMs. Here each row's tokens are
-// split into chunks of 64 (4 pages of 16), one block per (chunk, row, kv
-// head), which loads its own block-table entries (no scalar prefetch); a
-// chunk at or past the row's seq_len writes an empty partial and returns, so
-// the work follows the tokens, not the table's width. A second launch
-// merges the chunks' (max, sum, accumulator) in a fixed order
-// (csrc/flash_decode.cuh, shared with the dense-cache decode kernels):
-// deterministic, no atomics. A block starts every K/V load of its chunk (and
-// the int8 scales) before the first wait, so a chunk costs about one memory
-// latency. Arithmetic follows the TPU kernel: f32 scores q.k / sqrt(d), an
-// int8 page's key scale folded into the score and its value scale into the
-// PV weight only (the softmax sum runs over the unscaled p,
-// paged_attention_pallas.py:175-177), tokens past seq_len at p = 0, a row
-// with no valid token 0 through max(sum, 1e-20), one rounding to bf16.
+// value, far below the tensor-core rate. The previous design launched one
+// 128-thread block per 64-token chunk of every (row, kv head), chunks past
+// seq_len included, multiplied on CUDA cores with a warp reduction per token
+// and query head, wrote f32 partials to HBM and merged them in a second
+// launch: 17% of its bound in bf16. This one:
+//   - splits from the plan (ops/paged_attention.py::paged_plan): the tokens
+//     of each (row, kv head) pair are cut into C shares of whole 16-token
+//     tiles (C <= 8, from b * kv and the SM count), computed here from
+//     seq_len, so the work follows the tokens, not the table's width;
+//   - pages by TMA: one producer warp reads the block table (64 entries a
+//     load, lane-parallel, the first beside seq_len) and brings each tile's
+//     K and V rows of its kv head (strided by kv * d; 128-byte swizzle; lane
+//     j issues the tile's j-th page) and, for int8, the tile's scale rows by
+//     cp.async.bulk, into a ring of stages on mbarriers, the whole share in
+//     flight at once at the serve phase's lengths. A box holds min(block, 16)
+//     rows of one page. Pages of 8 or a multiple of 16 tokens fill the tile
+//     exactly; other sizes ("odd" pages) straddle its edges, so each tile
+//     has 16 rows of padding on either side, a page's box lands at its own
+//     row offset (the box's rows stay inside the page, and no two pages'
+//     boxes overlap), and the int8 scales are read by the consumers from
+//     global memory (a bulk copy needs 16-byte aligned rows);
+//   - both products on mma.sync m16n8k16 (bf16 in, f32 out), the <= 8 query
+//     heads of the kv head as the n8 operand: S^T = K Q^T with the tile's 16
+//     tokens as the A rows (ldmatrix of the K tile; Q's fragments built once
+//     from global memory), Out^T = V^T P^T with d as the A rows (transposed
+//     ldmatrix of the V tile) and P^T moved from the S^T fragment into the
+//     B fragment by movmatrix. Int8 pages become exact bf16 in registers
+//     (mma_bf16.cuh s8_halves_to_bf16x2); for the keys the head dimension is
+//     read in the order ldmatrix gives it, and Q's fragments follow it. Four
+//     consumer warps take the share's tiles in turn, each with its own
+//     running (max, sum, accumulator);
+//   - the merge in the same launch: the warps' states meet in shared memory
+//     (fixed order), then the C blocks of a pair, one cluster, meet through
+//     distributed shared memory, each summing its share of the output over
+//     the blocks in rank order between two rounds of the cluster barrier.
+//     No f32 partials in HBM, no second launch, no atomics: two calls give
+//     the same bits.
 
-#include "flash_decode.cuh"
+#include <stdint.h>
+
+#include "gemv_tile.cuh"
+#include "hopper.cuh"
+#include "mma_bf16.cuh"
 
 namespace agk {
+namespace paged {
 
-// E consecutive values of a pool row, loaded as one word (or zeros) and
-// unpacked to f32: bf16 pools (2 * E bytes) and int8 pools (E bytes).
-template <typename T, int E>
-struct RowPart;
+using namespace hopper;
 
-template <int E>
-struct RowPart<__nv_bfloat16, E> {
-  uint32_t w[E / 2];
-  __device__ __forceinline__ void load(const __nv_bfloat16* src, bool in) {
-    load_row_part<E>(src, in, w);
+constexpr int kConsumers = 4;  // warps; one more warp issues the loads
+constexpr int kThreads = 32 * (kConsumers + 1);
+constexpr int kTile = 16;       // tokens a stage: S^T's m16 rows, PV's k16
+constexpr int kHeads = 8;       // query heads of a kv head: the n8 operand
+constexpr int kMaxSplits = 8;
+
+// Diagnostics, all true in the package (scripts/torch_paged_probe.py builds
+// copies with them off; the results are then wrong). What a switched-off part
+// would have consumed still reaches the output.
+constexpr bool kConsume = true;   // the consumers read their stages at all
+constexpr bool kProducts = true;  // the tensor-core products
+constexpr bool kClusterMerge = true;  // the splits' states read through distributed shared memory
+
+// Pages that neither divide into the 16-token tiles nor are cut by them
+// into whole tiles: a tile meets them at any offset.
+__host__ __device__ __forceinline__ bool odd_pages(int blk) {
+  return !(blk == 8 || blk % kTile == 0);
+}
+
+// A stage: the K tile, the V tile ([boxes][pad + 16 + pad rows][128 bytes],
+// 128-byte swizzle: 64 bf16 or 128 int8 head-dim values a box; pad = 16 rows
+// for odd pages, else 0), then for int8 (pages not odd) the 16 tokens' key
+// and value scales of every kv head. Its size is also computed by
+// ops/paged_attention.py::paged_plan.
+template <typename T, int D>
+struct Tiles {
+  static constexpr bool kInt8 = sizeof(T) == 1;
+  static constexpr int kBoxes = kInt8 ? 1 : D / 64;
+  __host__ __device__ static int pad_rows(int blk) { return odd_pages(blk) ? kTile : 0; }
+  // one box column of a tile, with its padding
+  __host__ __device__ static int box_bytes(int blk) { return (kTile + 2 * pad_rows(blk)) * 128; }
+  __host__ __device__ static int kv_bytes(int blk) { return kBoxes * box_bytes(blk); }
+  __host__ __device__ static int stage_bytes(int kv, int blk) {
+    const int scales = kInt8 && !odd_pages(blk) ? 2 * kTile * kv * 4 : 0;
+    return (2 * kv_bytes(blk) + scales + 1023) / 1024 * 1024;
   }
-  __device__ __forceinline__ void unpack(float (&f)[E]) const { unpack_bf16<E>(w, f); }
+  // the merge's scratch, over the ring once it is drained: each warp's
+  // accumulator [kHeads][D], max and sum [2][kHeads]; then the block's
+  __host__ __device__ static constexpr int merge_bytes() {
+    return (kConsumers + 1) * (kHeads * D + 2 * kHeads) * 4;
+  }
 };
 
-template <int E>
-struct RowPart<int8_t, E> {
-  uint32_t w;
-  __device__ __forceinline__ void load(const int8_t* src, bool in) {
-    if constexpr (E == 4)
-      w = in ? __ldg(reinterpret_cast<const unsigned int*>(src)) : 0u;
-    else
-      w = in ? (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(src)) : 0u;
-  }
-  __device__ __forceinline__ void unpack(float (&f)[E]) const {
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// the tile tokens [lo, hi) of split `rank` of `splits` over n valid tokens:
+// whole 16-token tiles, split r taking tiles [r T / C, (r + 1) T / C)
+__device__ __forceinline__ void share(int n, int rank, int splits, int& t0, int& t1) {
+  const int tiles = (max(n, 0) + kTile - 1) / kTile;
+  t0 = rank * tiles / splits;
+  t1 = (rank + 1) * tiles / splits;
+}
+
+// Grid: one cluster of `splits` blocks per (row, kv head) pair, pair-major.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+paged_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__ CUtensorMap v_map,
+             const __nv_bfloat16* __restrict__ q, const float* __restrict__ k_scale,
+             const float* __restrict__ v_scale, const int* __restrict__ tables,
+             const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out, int kv, int G,
+             int width, int blk, int splits, int stages) {
+  using L = Tiles<T, D>;
+  constexpr bool kInt8 = L::kInt8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  const int stage_bytes = L::stage_bytes(kv, blk);
+  const bool odd = odd_pages(blk);
+  const int box_bytes = L::box_bytes(blk), kv_bytes = L::kv_bytes(blk);
+  const int ring_bytes = max(stages * stage_bytes, L::merge_bytes());
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ring_bytes);
+  uint64_t* empty = full + stages;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rank = blockIdx.x % splits, pair = blockIdx.x / splits;
+  const int row = pair / kv, head = pair % kv;
+  const int g = lane / 4, t = lane % 4;
+  // Loaded before the first wait, so that their latencies overlap: the
+  // producer's first 64 table entries (lane i: pages i and 32 + i), the
+  // consumers' Q fragments (B operand of S^T = K Q^T: query head g, zero
+  // past G; the head-dim pairs each k16 step takes: bf16 (2t, 2t + 1) and
+  // (2t + 8, 2t + 9); int8 the order the keys' ldmatrix gives, (4t, 4t + 1)
+  // and (4t + 2, 4t + 3)), and seq_len.
+  const int* table = tables + (size_t)row * width;
+  int e0 = 0, e1 = 0;
+  uint32_t qf[D / 16][2];
+  if (warp == kConsumers) {
+    e0 = lane < width ? __ldg(table + lane) : 0;
+    e1 = lane + 32 < width ? __ldg(table + 32 + lane) : 0;
+  } else {
+    const __nv_bfloat16* qr = q + ((size_t)pair * G + g) * D;
 #pragma unroll
-    for (int i = 0; i < E; ++i) f[i] = (float)(int8_t)(w >> (8 * i));
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if (g >= G) {
+        qf[kk][0] = qf[kk][1] = 0u;
+      } else if constexpr (kInt8) {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(qr + 16 * kk + 4 * t));
+        qf[kk][0] = v.x;
+        qf[kk][1] = v.y;
+      } else {
+        qf[kk][0] = __ldg(reinterpret_cast<const uint32_t*>(qr + 16 * kk + 2 * t));
+        qf[kk][1] = __ldg(reinterpret_cast<const uint32_t*>(qr + 16 * kk + 2 * t + 8));
+      }
+    }
   }
-};
+  const int n = min(__ldg(seq_lens + row), width * blk);  // the valid tokens: a prefix
+  int t0, t1;
+  share(n, rank, splits, t0, t1);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-// One block per (chunk, row * kv + kv head); D threads, D / 32 warps. Warp
-// w owns the chunk's tokens w, w + D/32, ...; lane l holds values
-// [l*E, l*E + E) of each of their K and V rows and of the q rows.
-template <int D, typename T>
-__global__ void __launch_bounds__(D)
-paged_split_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ pool_k,
-                   const T* __restrict__ pool_v, const float* __restrict__ k_scale,
-                   const float* __restrict__ v_scale, const int* __restrict__ tables,
-                   const int* __restrict__ seq_lens, float* __restrict__ part_ml,
-                   float* __restrict__ part_acc, int kv, int g, int width, int blk) {
-  constexpr bool kInt8 = sizeof(T) == 1;
-  constexpr int kW = D / 32;              // warps
-  constexpr int E = D / 32;               // values of a row per lane
-  constexpr int KPW = kDecodeChunk / kW;  // tokens per warp
-  __shared__ float qs[kMaxGroups][D];
-  __shared__ float p[kMaxGroups][kDecodeChunk];
-  __shared__ float red[kW][kMaxGroups][D];
-
-  const int chunk = blockIdx.x, chunks = gridDim.x;
-  const int bh = blockIdx.y;  // row * kv + kv head
-  const int row = bh / kv, head = bh % kv;
-  const int j0 = chunk * kDecodeChunk;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float* ml = part_ml + ((size_t)bh * chunks + chunk) * g * 2;
-
-  // the valid tokens are a prefix: below seq_len, inside the table's pages
-  const int n = min(kDecodeChunk, min(seq_lens[row], width * blk) - j0);
-  if (n <= 0) {  // no valid token: the chunk adds nothing
-    if (tid < g) {
-      ml[2 * tid] = -1e30f;
-      ml[2 * tid + 1] = 0.f;
+  if (warp == kConsumers) {  // producer: the warp walks the tiles, lane j issues page j
+    const int box_rows = min(blk, kTile);
+    const bool bulk_scales = kInt8 && !odd;
+    const int pad = L::pad_rows(blk);
+    int p0 = 0;  // lane i holds table[row][p0 + i] in e0, [p0 + 32 + i] in e1
+    RingPos pos;
+    for (int tile = t0; tile < t1; ++tile) {
+      const int tok0 = tile * kTile;
+      // the pages holding a valid token of the tile: at most 17
+      const int first = tok0 / blk, last = (min(tok0 + kTile, n) - 1) / blk;
+      if (last >= p0 + 64) {
+        p0 = first;
+        e0 = p0 + lane < width ? __ldg(table + p0 + lane) : 0;
+        e1 = p0 + 32 + lane < width ? __ldg(table + p0 + 32 + lane) : 0;
+      }
+      const int p = first + lane, rel = p - p0;
+      const int lo = __shfl_sync(0xffffffffu, e0, rel & 31);
+      const int hi = __shfl_sync(0xffffffffu, e1, rel & 31);
+      mbar_wait(&empty[pos.stage], pos.phase ^ 1u);
+      unsigned char* st = ring + pos.stage * stage_bytes;
+      const uint32_t bytes = (uint32_t)(last - first + 1) *
+                             (2 * L::kBoxes * box_rows * 128 +
+                              (bulk_scales ? 2 * box_rows * kv * 4 : 0));
+      if (lane == 0) mbar_expect_tx(&full[pos.stage], bytes);
+      __syncwarp();
+      if (p <= last) {
+        const int page = rel < 32 ? lo : hi;
+        // the page's box: its rows [o, o + box_rows), as close to the tile as
+        // the page allows, at tile row dst (pad rows into the padded region)
+        const int o = min(max(tok0 - p * blk, 0), blk - box_rows);
+        const int dst = pad + p * blk + o - tok0;
+        const int src = page * blk + o;  // its pool row
+#pragma unroll
+        for (int b = 0; b < L::kBoxes; ++b) {
+          const int c0 = head * D + (kInt8 ? 0 : 64 * b);
+          tma_load_2d(st + b * box_bytes + dst * 128, &k_map, &full[pos.stage], c0, src);
+          tma_load_2d(st + kv_bytes + b * box_bytes + dst * 128, &v_map, &full[pos.stage], c0,
+                      src);
+        }
+        if (bulk_scales) {  // pages of 8 or a multiple of 16: dst = tile row, o whole tiles
+          unsigned char* sc = st + 2 * kv_bytes;
+          const uint32_t rb = (uint32_t)box_rows * kv * 4;
+          bulk_load(sc + dst * kv * 4, k_scale + (size_t)src * kv, rb, &full[pos.stage]);
+          bulk_load(sc + (kTile + dst) * kv * 4, v_scale + (size_t)src * kv, rb,
+                    &full[pos.stage]);
+        }
+      }
+      pos.advance(stages);
     }
     return;
   }
 
-  const int* table = tables + (size_t)row * width;
-  RowPart<T, E> kr[KPW], vr[KPW];
-  float ks[KPW], vs[KPW];
+  const float scale = 1.4426950408889634f * rsqrtf((float)D);  // log2(e) / sqrt(d): exp2 below
+  // ldmatrix rows of this lane: bf16 K (A, rows = tokens), bf16 V (A^T,
+  // transposed), and both int8 tiles (matrices: tokens 0-7 and 8-15 of one
+  // 16-byte chunk, then of the next)
+  const int r_k = lane % 16, r_v = (lane % 8) + 8 * (lane / 16);
+  const int r_8 = (lane % 8) + 8 * ((lane / 8) % 2);
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};  // query heads 2t, 2t + 1
+  float acc[D / 16][4];                              // Out^T: d rows, query-head columns
 #pragma unroll
-  for (int u = 0; u < KPW; ++u) {
-    const int jj = warp + kW * u;
-    const bool in = jj < n;
-    size_t slot = 0;  // (page, offset, kv head) row of the pool
-    if (in) {
-      const int pos = j0 + jj;
-      slot = ((size_t)table[pos / blk] * blk + pos % blk) * kv + head;
+  for (int i = 0; i < D / 16; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  uint32_t sink = 0;  // kProducts off: the fragments, so that they are computed
+
+  // warp w takes the share's tiles w, w + 4, ...: with a ring of a multiple
+  // of four stages each slot always serves the same warp, so no warp waits
+  // on a slot's phase more than one ahead of the one it holds
+  for (int s = warp, tile = t0 + warp; tile < t1; s += kConsumers, tile += kConsumers) {
+    const int slot = s % stages;
+    mbar_wait(&full[slot], (uint32_t)((s / stages) & 1));
+    if constexpr (!kConsume) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+      continue;
     }
-    kr[u].load(pool_k + slot * D + lane * E, in);
-    vr[u].load(pool_v + slot * D + lane * E, in);
+    // the tiles' first rows (past the padding)
+    const uint32_t kt = smem_u32(ring + slot * stage_bytes) + (odd ? kTile * 128 : 0);
+    const uint32_t vt = kt + kv_bytes;
+    // S^T = K Q^T: two chains of products (even and odd k16 steps)
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
     if constexpr (kInt8) {
-      ks[u] = in ? __ldg(k_scale + slot) : 0.f;
-      vs[u] = in ? __ldg(v_scale + slot) : 0.f;
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j) {
+        uint32_t r[4];
+        ldsm_x4(r, kt + r_8 * 128 + (((2 * j + lane / 16) ^ (r_8 & 7)) << 4));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // k16 step 2j + h: r[2h] tokens 0-7, r[2h + 1] 8-15
+          const uint32_t w0 = __byte_perm(r[2 * h], 0u, 0x3120);
+          const uint32_t w1 = __byte_perm(r[2 * h + 1], 0u, 0x3120);
+          const uint32_t a[4] = {s8_halves_to_bf16x2(w0), s8_halves_to_bf16x2(w1),
+                                 s8_halves_to_bf16x2(w0 >> 8), s8_halves_to_bf16x2(w1 >> 8)};
+          if constexpr (kProducts) mma_bf16(sc[h], a, qf[2 * j + h][0], qf[2 * j + h][1]);
+          else sink ^= a[0] ^ a[1] ^ a[2] ^ a[3];
+        }
+      }
     } else {
-      ks[u] = vs[u] = 1.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, kt + (kk / 4) * box_bytes + r_k * 128 +
+                       (((2 * (kk % 4) + lane / 16) ^ (r_k & 7)) << 4));
+        if constexpr (kProducts) mma_bf16(sc[kk % 2], a, qf[kk][0], qf[kk][1]);
+        else sink ^= a[0] ^ a[1] ^ a[2] ^ a[3];
+      }
+    }
+    // sc[.][e]: token g + 8 (e / 2) of the tile, query head 2t + e % 2
+    const int tok = tile * kTile + g;
+    const bool va = tok < n, vb = tok + 8 < n;
+    float ka = 1.f, kb = 1.f, wa = 1.f, wb = 1.f;  // int8: the tokens' key and value scales
+    if constexpr (kInt8) {
+      if (!odd) {
+        const float* sk = reinterpret_cast<const float*>(ring + slot * stage_bytes + 2 * kv_bytes);
+        ka = sk[g * kv + head];
+        kb = sk[(g + 8) * kv + head];
+        wa = sk[(kTile + g) * kv + head];
+        wb = sk[(kTile + g + 8) * kv + head];
+      } else {  // odd pages: the valid tokens' scales from their pool rows
+        if (va) {
+          const size_t r = (size_t)__ldg(table + tok / blk) * blk + tok % blk;
+          ka = __ldg(k_scale + r * kv + head);
+          wa = __ldg(v_scale + r * kv + head);
+        }
+        if (vb) {
+          const size_t r = (size_t)__ldg(table + (tok + 8) / blk) * blk + (tok + 8) % blk;
+          kb = __ldg(k_scale + r * kv + head);
+          wb = __ldg(v_scale + r * kv + head);
+        }
+      }
+    }
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = (sc[0][e] + sc[1][e]) * (e < 2 ? ka : kb) * scale;
+      x[e] = (e < 2 ? va : vb) ? v : -INFINITY;
+    }
+    // the tile's maxima of query heads 2t, 2t + 1 over its 16 tokens
+    float mx[2] = {fmaxf(x[0], x[2]), fmaxf(x[1], x[3])};
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      mx[0] = fmaxf(mx[0], __shfl_xor_sync(0xffffffffu, mx[0], off));
+      mx[1] = fmaxf(mx[1], __shfl_xor_sync(0xffffffffu, mx[1], off));
+    }
+    float p[4], alpha[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float mn = fmaxf(m[c], mx[c]);
+      alpha[c] = exp2f(m[c] - mn);
+      m[c] = mn;
+      p[c] = exp2f(x[c] - mn);  // 0 at a masked token
+      p[c + 2] = exp2f(x[c + 2] - mn);
+      l[c] = l[c] * alpha[c] + p[c] + p[c + 2];  // this lane's tokens; summed over lanes at the end
+    }
+#pragma unroll
+    for (int i = 0; i < D / 16; ++i) {
+      acc[i][0] *= alpha[0];
+      acc[i][1] *= alpha[1];
+      acc[i][2] *= alpha[0];
+      acc[i][3] *= alpha[1];
+    }
+    // P^T as the B fragment (k = tokens, n = query heads): the S^T fragment's
+    // two 8x8 matrices (tokens 0-7, 8-15), transposed. Int8: p times the
+    // value scale (0 at a masked token, whatever its stored scale).
+    const uint32_t b0 = movmatrix_trans(pack_bf16x2(va ? p[0] * wa : 0.f, va ? p[1] * wa : 0.f));
+    const uint32_t b1 = movmatrix_trans(pack_bf16x2(vb ? p[2] * wb : 0.f, vb ? p[3] * wb : 0.f));
+    // Out^T += V^T P^T
+    if constexpr (kInt8) {
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j) {  // two m16 tiles: head-dim bytes 32j .. 32j + 31
+        uint32_t r[4];
+        ldsm_x4_trans(r, vt + r_8 * 128 + (((2 * j + lane / 16) ^ (r_8 & 7)) << 4));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // r[2h]: bytes (token 2t, d 2g), (2t, 2g + 1), (2t + 1, 2g), (2t + 1, 2g + 1);
+          // r[2h + 1] the same at tokens + 8. Fragment row g is d 2g, row g + 8 d 2g + 1.
+          const uint32_t a[4] = {s8_halves_to_bf16x2(r[2 * h]), s8_halves_to_bf16x2(r[2 * h] >> 8),
+                                 s8_halves_to_bf16x2(r[2 * h + 1]),
+                                 s8_halves_to_bf16x2(r[2 * h + 1] >> 8)};
+          if constexpr (kProducts) mma_bf16(acc[2 * j + h], a, b0, b1);
+          else sink ^= a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0 ^ b1;
+        }
+      }
+    } else {
+      // a masked token's V row may hold anything (another row's stale page,
+      // a never-written one): its fragment halves are zeroed, not only its p
+      const bool partial = (tile + 1) * kTile > n;
+      const int t2 = tile * kTile + 2 * t;
+      const uint32_t m01 = (t2 < n ? 0xFFFFu : 0u) | (t2 + 1 < n ? 0xFFFF0000u : 0u);
+      const uint32_t m23 = (t2 + 8 < n ? 0xFFFFu : 0u) | (t2 + 9 < n ? 0xFFFF0000u : 0u);
+#pragma unroll
+      for (int i = 0; i < D / 16; ++i) {
+        uint32_t a[4];
+        ldsm_x4_trans(a, vt + (i / 4) * box_bytes + r_v * 128 +
+                             (((2 * (i % 4) + (lane / 8) % 2) ^ (r_v & 7)) << 4));
+        if (partial) {
+          a[0] &= m01;
+          a[1] &= m01;
+          a[2] &= m23;
+          a[3] &= m23;
+        }
+        if constexpr (kProducts) mma_bf16(acc[i], a, b0, b1);
+        else sink ^= a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0 ^ b1;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);  // the stage is in registers
+  }
+  if constexpr (!kProducts) sink_into(acc[0][0], sink);
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) l[c] += __shfl_xor_sync(0xffffffffu, l[c], off);
+
+  // The warps' states meet over the drained ring (every consumer is past its
+  // last stage), then the block's state.
+  float* part = reinterpret_cast<float*>(ring);        // [warp][kHeads][D]
+  float* wml = part + kConsumers * kHeads * D;          // [warp][max, sum][kHeads]
+  float* bo = wml + kConsumers * 2 * kHeads;            // the block's [kHeads][D]
+  float* bml = bo + kHeads * D;                         // and its [max, sum][kHeads]
+  named_barrier(1, 32 * kConsumers);
+#pragma unroll
+  for (int i = 0; i < D / 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // acc[i][e]: query head 2t + e % 2; d 16i + g + 8 (e / 2), or for int8 16i + 2g + e / 2
+      const int d = 16 * i + (kInt8 ? 2 * g + e / 2 : g + 8 * (e / 2));
+      part[(warp * kHeads + 2 * t + e % 2) * D + d] = acc[i][e];
+    }
+  if (g == 0) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      wml[(warp * 2) * kHeads + 2 * t + c] = m[c];
+      wml[(warp * 2 + 1) * kHeads + 2 * t + c] = l[c];
     }
   }
-  const __nv_bfloat16* qp = q + (size_t)bh * g * D;
-  for (int i = tid; i < g * D; i += D) qs[i / D][i % D] = __bfloat162float(qp[i]);
-  __syncthreads();
-
-  float qr[kMaxGroups][E];
+  named_barrier(1, 32 * kConsumers);
+  __nv_bfloat16* orow = out + (size_t)pair * G * D;
+  for (int idx = threadIdx.x; idx < G * D; idx += 32 * kConsumers) {
+    const int h = idx / D, d = idx % D;
+    float mm = -1e30f;
 #pragma unroll
-  for (int gi = 0; gi < kMaxGroups; ++gi) {
+    for (int w = 0; w < kConsumers; ++w) mm = fmaxf(mm, wml[w * 2 * kHeads + h]);
+    float o = 0.f, ls = 0.f;
 #pragma unroll
-    for (int e = 0; e < E; ++e) qr[gi][e] = gi < g ? qs[gi][lane * E + e] : 0.f;
-  }
-
-  // scores q.k (x the key scale) / sqrt(d), tokens past n at -1e30
-  const float inv_sqrt_d = 1.0f / sqrtf((float)D);
-  const int gi_lane = (lane / 4) % kMaxGroups;  // the query head this lane's sum is for
-#pragma unroll
-  for (int u = 0; u < KPW; ++u) {
-    const int jj = warp + kW * u;
-    float kf[E], s[kMaxGroups];
-    kr[u].unpack(kf);
-#pragma unroll
-    for (int gi = 0; gi < kMaxGroups; ++gi) {
-      s[gi] = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) s[gi] = fmaf(qr[gi][e], kf[e], s[gi]);
+    for (int w = 0; w < kConsumers; ++w) {  // warp order: a fixed sum
+      const float f = exp2f(wml[w * 2 * kHeads + h] - mm);
+      o += part[(w * kHeads + h) * D + d] * f;
+      ls += wml[(w * 2 + 1) * kHeads + h] * f;
     }
-    const float sum = warp_sum_groups(s);
-    if (lane % 4 == 0 && gi_lane < g) p[gi_lane][jj] = jj < n ? sum * ks[u] * inv_sqrt_d : -1e30f;
-  }
-  __syncthreads();
-
-  // softmax statistics of the chunk over the unscaled p, one warp per query
-  // head; p = 0 exactly past n
-  for (int gi = warp; gi < g; gi += kW) {
-    const float a = p[gi][lane], c = p[gi][lane + 32];
-    const float mx = warp_max(fmaxf(a, c));
-    const float pa = lane < n ? expf(a - mx) : 0.f;
-    const float pc = lane + 32 < n ? expf(c - mx) : 0.f;
-    p[gi][lane] = pa;
-    p[gi][lane + 32] = pc;
-    const float l = warp_sum(pa + pc);
-    if (lane == 0) {
-      ml[2 * gi] = mx;
-      ml[2 * gi + 1] = l;
+    if (splits == 1) {
+      orow[idx] = __float2bfloat16(o / fmaxf(ls, 1e-20f));
+    } else {
+      bo[idx] = o;
+      if (d == 0) {
+        bml[h] = mm;
+        bml[kHeads + h] = ls;
+      }
     }
   }
-  __syncthreads();
+  if (splits == 1) return;
 
-  // unnormalized PV, p x the value scale: each warp over its tokens, then a
-  // sum over the warps
-  float acc[kMaxGroups][E];
-#pragma unroll
-  for (int gi = 0; gi < kMaxGroups; ++gi) {
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[gi][e] = 0.f;
+  // The cluster's block states meet: block r writes its share of the
+  // output's G * D / 4 quads, each summed over the blocks in rank order,
+  // every remote load issued before the first sum; the second round keeps
+  // every block resident until all have read its state.
+  if constexpr (kClusterMerge) {
+    cluster_arrive_release();  // (1)
+    cluster_wait();
+  } else {
+    named_barrier(1, 32 * kConsumers);
   }
+  const int quads = G * D / 4;
+  const int qd = rank * quads / splits + threadIdx.x;
+  const bool mine = qd < (rank + 1) * quads / splits;  // at most quads / 2 a block: one pass
+  float4 o4[kMaxSplits];
+  float ms[kMaxSplits], ls[kMaxSplits];
+  const int h = 4 * qd / D;
+  if (mine) {
+    const uint32_t ao = smem_u32(bo + 4 * qd), am = smem_u32(bml + h);
+    const uint32_t al = smem_u32(bml + kHeads + h);
 #pragma unroll
-  for (int u = 0; u < KPW; ++u) {
-    const int jj = warp + kW * u;
-    if (jj >= n) continue;  // warp-uniform
-    float vf[E];
-    vr[u].unpack(vf);
-#pragma unroll
-    for (int gi = 0; gi < kMaxGroups; ++gi) {
-      const float pj = p[gi][jj] * vs[u];
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[gi][e] = fmaf(pj, vf[e], acc[gi][e]);
-    }
+    for (int src = 0; src < kMaxSplits; ++src)
+      if (src < splits) {
+        const uint32_t rank_src = kClusterMerge ? src : rank;  // off: this block's own, C times
+        o4[src] = ld_cluster_f32x4(map_to_rank(ao, rank_src));
+        ms[src] = ld_cluster_f32(map_to_rank(am, rank_src));
+        ls[src] = ld_cluster_f32(map_to_rank(al, rank_src));
+      }
   }
+  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+  float inv = 0.f;
+  if (mine) {
+    float mm = -1e30f;
 #pragma unroll
-  for (int gi = 0; gi < kMaxGroups; ++gi) {
+    for (int src = 0; src < kMaxSplits; ++src)
+      if (src < splits) mm = fmaxf(mm, ms[src]);
+    float lsum = 0.f;
 #pragma unroll
-    for (int e = 0; e < E; ++e) red[warp][gi][lane * E + e] = acc[gi][e];
+    for (int src = 0; src < kMaxSplits; ++src)
+      if (src < splits) {
+        const float f = exp2f(ms[src] - mm);
+        o.x += o4[src].x * f;
+        o.y += o4[src].y * f;
+        o.z += o4[src].z * f;
+        o.w += o4[src].w * f;
+        lsum += ls[src] * f;
+      }
+    inv = 1.f / fmaxf(lsum, 1e-20f);
   }
-  __syncthreads();
-  float* ap = part_acc + ((size_t)bh * chunks + chunk) * g * D + tid;
-  for (int gi = 0; gi < g; ++gi) {
-    float a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kW; ++w) a += red[w][gi][tid];
-    ap[(size_t)gi * D] = a;
-  }
+  if constexpr (kClusterMerge) cluster_arrive_relaxed();  // (2) the reads have returned
+  if (mine)
+    *reinterpret_cast<uint2*>(orow + 4 * qd) =
+        make_uint2(pack_bf16x2(o.x * inv, o.y * inv), pack_bf16x2(o.z * inv, o.w * inv));
+  if constexpr (kClusterMerge) cluster_wait();
+}
+
+template <typename T, int D>
+cudaError_t launch(const CUtensorMap& k_map, const CUtensorMap& v_map, const void* q,
+                   const void* k_scale, const void* v_scale, const void* tables,
+                   const void* seq_lens, void* out, int b, int kv, int G, int width, int blk,
+                   int splits, int stages, cudaStream_t st) {
+  using L = Tiles<T, D>;
+  const size_t smem = (size_t)max(stages * L::stage_bytes(kv, blk), L::merge_bytes()) +
+                      2 * stages * 8 + 1024;
+  static size_t granted = 48 * 1024;
+  cudaError_t err = ensure_smem(paged_kernel<T, D>, smem, &granted);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(b * kv * splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, paged_kernel<T, D>, k_map, v_map,
+                           static_cast<const __nv_bfloat16*>(q),
+                           static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                           static_cast<const int*>(tables), static_cast<const int*>(seq_lens),
+                           static_cast<__nv_bfloat16*>(out), kv, G, width, blk, splits, stages);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <typename T>
-static cudaError_t launch_paged(const void* q, const void* pool_k, const void* pool_v,
-                                const void* k_scale, const void* v_scale, const void* tables,
-                                const void* seq_lens, void* part_ml, void* part_acc, void* out,
-                                int b, int kv, int g, int width, int blk, int d,
-                                cudaStream_t stream) {
-  const int chunks = (width * blk + kDecodeChunk - 1) / kDecodeChunk;
-  const dim3 grid(chunks, b * kv);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* pk = static_cast<const T*>(pool_k);
-  const auto* pv = static_cast<const T*>(pool_v);
-  const auto* ks = static_cast<const float*>(k_scale);
-  const auto* vs = static_cast<const float*>(v_scale);
-  const auto* tb = static_cast<const int*>(tables);
-  const auto* sl = static_cast<const int*>(seq_lens);
-  auto* ml = static_cast<float*>(part_ml);
-  auto* acc = static_cast<float*>(part_acc);
+int run(const void* q, const void* pool_k, const void* pool_v, const void* k_scale,
+        const void* v_scale, const void* tables, const void* seq_lens, void* out, int b, int kv,
+        int G, int width, int blk, int d, int blocks, int splits, int stages, void* stream) {
+  constexpr bool kInt8 = sizeof(T) == 1;
+  if (b < 1 || kv < 1 || G < 1 || G > kHeads || width < 1 || blocks < 1 || splits < 1 ||
+      splits > kMaxSplits || stages < 1 || stages % kConsumers || (d != 64 && d != 128) ||
+      blk < 1)
+    return (int)cudaErrorInvalidValue;
+  // the pools as 2-D tensors: a row per (page, offset), kv * d values; a box
+  // is min(block, 16) rows of 64 bf16 or 128 int8 values of one kv head
+  const uint64_t rows = (uint64_t)blocks * blk, inner = (uint64_t)kv * d;
+  const auto dtype = kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const uint32_t box = kInt8 ? 128 : 64, box_rows = blk < kTile ? blk : kTile;
+  CUtensorMap k_map, v_map;
+  if (hopper::tensor_map_2d(&k_map, dtype, pool_k, inner, rows, inner * sizeof(T), box, box_rows) ||
+      hopper::tensor_map_2d(&v_map, dtype, pool_v, inner, rows, inner * sizeof(T), box, box_rows))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 128)
-    paged_split_kernel<128, T><<<grid, 128, 0, stream>>>(qb, pk, pv, ks, vs, tb, sl, ml, acc, kv,
-                                                          g, width, blk);
-  else if (d == 64)
-    paged_split_kernel<64, T><<<grid, 64, 0, stream>>>(qb, pk, pv, ks, vs, tb, sl, ml, acc, kv,
-                                                        g, width, blk);
-  else
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_flash_decode_merge(ml, acc, static_cast<__nv_bfloat16*>(out), b * kv, g, chunks,
-                                   d, stream);
+    return (int)launch<T, 128>(k_map, v_map, q, k_scale, v_scale, tables, seq_lens, out, b, kv, G,
+                               width, blk, splits, stages, st);
+  return (int)launch<T, 64>(k_map, v_map, q, k_scale, v_scale, tables, seq_lens, out, b, kv, G,
+                            width, blk, splits, stages, st);
 }
 
+}  // namespace paged
 }  // namespace agk
 
 // C entries. Device pointers to contiguous tensors: q, out [b, kv*g, d] bf16;
 // pool_k, pool_v [blocks, blk, kv, d] bf16 (or int8, with k_scale, v_scale
-// [blocks, blk, kv] f32); tables [b, width] and seq_lens [b] int32; part_ml
-// [b*kv, chunks, g, 2] and part_acc [b*kv, chunks, g, d] f32 scratch, chunks
-// = ceil(width * blk / 64). The wrappers in affectgpt_tpu_torch/ops/
-// paged_attention.py check shapes, dtypes and limits. Each returns the first
-// CUDA error of its two launches, or 0.
+// [blocks, blk, kv] f32); tables [b, width] and seq_lens [b] int32. splits
+// and stages come from the wrapper's plan (ops/paged_attention.py::
+// paged_plan), which checks shapes, dtypes and limits. One launch; returns
+// its CUDA error, or 0.
 extern "C" int agk_paged_attention_bf16(const void* q, const void* pool_k, const void* pool_v,
-                                        const void* tables, const void* seq_lens, void* part_ml,
-                                        void* part_acc, void* out, int b, int kv, int g,
-                                        int width, int blk, int d, void* stream) {
-  return (int)agk::launch_paged<__nv_bfloat16>(q, pool_k, pool_v, nullptr, nullptr, tables,
-                                               seq_lens, part_ml, part_acc, out, b, kv, g, width,
-                                               blk, d, static_cast<cudaStream_t>(stream));
+                                        const void* tables, const void* seq_lens, void* out, int b,
+                                        int kv, int g, int width, int blk, int d, int blocks,
+                                        int splits, int stages, void* stream) {
+  return agk::paged::run<__nv_bfloat16>(q, pool_k, pool_v, nullptr, nullptr, tables, seq_lens,
+                                        out, b, kv, g, width, blk, d, blocks, splits, stages,
+                                        stream);
 }
 
 extern "C" int agk_paged_attention_int8(const void* q, const void* pool_k, const void* pool_v,
                                         const void* k_scale, const void* v_scale,
-                                        const void* tables, const void* seq_lens, void* part_ml,
-                                        void* part_acc, void* out, int b, int kv, int g,
-                                        int width, int blk, int d, void* stream) {
-  return (int)agk::launch_paged<int8_t>(q, pool_k, pool_v, k_scale, v_scale, tables, seq_lens,
-                                        part_ml, part_acc, out, b, kv, g, width, blk, d,
-                                        static_cast<cudaStream_t>(stream));
+                                        const void* tables, const void* seq_lens, void* out, int b,
+                                        int kv, int g, int width, int blk, int d, int blocks,
+                                        int splits, int stages, void* stream) {
+  return agk::paged::run<int8_t>(q, pool_k, pool_v, k_scale, v_scale, tables, seq_lens, out, b,
+                                 kv, g, width, blk, d, blocks, splits, stages, stream);
 }

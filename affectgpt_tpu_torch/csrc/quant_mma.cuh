@@ -14,15 +14,12 @@
 // [k][n] weight tile by transposed ldmatrix. Rows of shared tiles are padded
 // by 8 bf16, so fragment loads hit 32 distinct banks.
 //
-// Two tile shapes, picked by M: for M <= 16 (decode) one 16-row tile and the
-// four warps side by side along N (16 x 128); otherwise 2 x 2 warps of 64 x 32
-// (128 x 64). (The int4 wrappers run their decode M on int4_matmul_swapab.cu;
-// the 16-row int4 tiles stay as the previous design's yardstick.) What bounds the decode shapes is the weight stream, and a
-// 16 x 128 tile leaves too few blocks along N for 132 SMs at k/v_proj (N =
-// 512) or at any K = 18944 product. So the K loop is split over blockIdx.z:
-// each split writes its f32 partial tile, and a second launch sums the splits
-// in a fixed order and rounds to bf16, so results do not depend on the
-// schedule and no atomics are needed.
+// One tile shape, for M above the decode M (16 < M <= 1024; the wrappers run
+// M <= 16 on quant_swapab.cu): 2 x 2 warps of 64 x 32 (128 x 64). Where the
+// tiles leave too few blocks for the SMs, the K loop is split over
+// blockIdx.z: each split writes its f32 partial tile, and a second launch
+// sums the splits in a fixed order and rounds to bf16, so results do not
+// depend on the schedule and no atomics are needed.
 //
 // Modes (what the unit's weights become before the product, and where the
 // scales enter):
@@ -51,7 +48,6 @@ struct TileCfg {
   static constexpr int BM = WARPS_M * 16 * MT;
   static constexpr int BN = WARPS_N * 32;  // each warp: four 8-column mma tiles
 };
-using SmallTile = TileCfg<1, 1, 4>;  // 16 x 128, for M <= 16
 using LargeTile = TileCfg<4, 2, 2>;  // 128 x 64
 
 enum : int { kW8 = 0, kW4 = 1, kW4Dequant = 2 };
@@ -172,7 +168,7 @@ static inline cudaError_t launch_splitk_reduce(const float* partial, const float
 
 // Grid (N / BN, M / BM, splits), kQThreads threads; split z runs units
 // [z * units_per_split, (z + 1) * units_per_split). The next unit's weight
-// bytes (and, for the small tile, its x columns) are loaded into registers
+// bytes (and, for int8, its x columns) are loaded into registers
 // while the current unit's products run.
 template <int MODE, class Cfg>
 __global__ void __launch_bounds__(kQThreads)
@@ -382,9 +378,6 @@ inline int launch_bf16_mma(const void* x, const void* w, const void* scales, voi
   auto* yp = static_cast<__nv_bfloat16*>(y);
   auto* pp = static_cast<float*>(partial);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m <= SmallTile::BM)
-    return (int)launch_bf16_mma_cfg<MODE, SmallTile>(xp, wp, sp, yp, pp, m, n, k,
-                                                     units_per_split, splits, st);
   return (int)launch_bf16_mma_cfg<MODE, LargeTile>(xp, wp, sp, yp, pp, m, n, k, units_per_split,
                                                    splits, st);
 }

@@ -44,12 +44,12 @@ _SIGNATURES = {
     "agk_int8_matmul": [_P] * 5 + [_I] * 5 + [_P],
     "agk_int4_matmul": [_P] * 5 + [_I] * 5 + [_P],
     "agk_int4_matmul_smallm": [_P] * 5 + [_I] * 5 + [_P],
-    "agk_int4_swapab": [_P] * 4 + [_I] * 5 + [_P],
-    "agk_int4_swapab_active_clusters": [_I] * 3,
+    "agk_quant_swapab": [_P] * 4 + [_I] * 5 + [_P],
+    "agk_quant_swapab_active_clusters": [_I] * 3,
     "agk_int8_matmul_w8a8": [_P] * 7 + [_I] * 8 + [_P],
     "agk_decode_mlp_int8": [_P] * 10 + [_I] * 6 + [_F, _P],
-    "agk_paged_attention_bf16": [_P] * 8 + [_I] * 6 + [_P],
-    "agk_paged_attention_int8": [_P] * 10 + [_I] * 6 + [_P],
+    "agk_paged_attention_bf16": [_P] * 6 + [_I] * 9 + [_P],
+    "agk_paged_attention_int8": [_P] * 8 + [_I] * 9 + [_P],
     "agk_vit_attention_bf16": [_P] * 4 + [_I] * 5 + [_L] * 6 + [_P],
     "agk_vit_attn_sublayer_bf16": [_P] * 17 + [_I] * 5 + [_F, _P],
     "agk_vit_mlp_bf16": [_P] * 11 + [_I] * 5 + [_F, _P],
@@ -136,6 +136,12 @@ def load_library() -> ctypes.CDLL:
     lib.agk_error_string.argtypes = [ctypes.c_int]
     lib.agk_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA card `index`, which the launch plans fill."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(status: int, name: str) -> None:

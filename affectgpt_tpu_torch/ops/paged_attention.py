@@ -4,12 +4,15 @@ keys and values gathered from a block pool through per-row block tables.
 Port of affectgpt_tpu/ops/paged_attention_pallas.py::paged_attention_pallas
 (`_kernel` for bf16 pools, `_kernel_int8` for int8 pools with per-row
 scales). On CUDA tensors `paged_attention` and `paged_attention_int8` launch
-the two variants of the hand-written kernel in csrc/paged_attention.cu (a
-split over 64-token chunks, then a fixed-order merge) or raise; on CPU
-tensors they run `paged_attention_reference`, the plain PyTorch version,
-which is also the oracle the kernel is checked against on the card.
+the two variants of the hand-written kernel in csrc/paged_attention.cu (one
+launch: the tokens of each (row, kv head) split over a cluster of blocks by
+`paged_plan`, products on tensor cores, the splits merged through
+distributed shared memory) or raise; on CPU tensors they run
+`paged_attention_reference`, the plain PyTorch version, which is also the
+oracle the kernel is checked against on the card.
 
-Layouts: q [b, heads, d]; pools [blocks, block, kv, d]; block_tables
+Layouts: q [b, heads, d]; pools [blocks, block, kv, d], pages of any
+size; block_tables
 [b, width] int32, padded with block 0 (the null page), of any width;
 seq_lens [b] int32; int8 scales f32 [blocks, block, kv], read as stored (JAX
 transposes its scale pools to [blocks, kv, block] for the TPU kernel on
@@ -18,11 +21,21 @@ every call, inference/paged.py:170-182). Returns [b, heads, d] in q's dtype.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from affectgpt_tpu_torch.ops import _build
 
-CHUNK = 64  # tokens per block of the kernel's split launch (csrc/flash_decode.cuh)
+# csrc/paged_attention.cu: a stage is 16 tokens of one kv head (the m16 rows
+# of S^T = K Q^T, the k16 of PV); four consumer warps take a block's tiles in
+# turn; at most 8 blocks (a cluster) share a (row, kv head) pair's tokens
+TILE, CONSUMERS, MAX_SPLITS, MAX_GROUPS = 16, 4, 8, 8
+# the blocks per SM the plan fills the card with: the splits C of a pair are
+# the most with b * kv * C <= SPLIT_FILL * SMs (the whole grid fits the card
+# at once: a block needs at most 65 KB of shared memory, save with odd pages)
+SPLIT_FILL = 2
+MAX_STAGES = 8  # the ring: a block's whole share in flight at the serve phase's lengths
 
 
 def paged_attention_reference(q, pool_k, pool_v, block_tables, seq_lens, k_scale=None,
@@ -55,6 +68,49 @@ def paged_attention_reference(q, pool_k, pool_v, block_tables, seq_lens, k_scale
     return out.reshape(b, heads, d).to(q.dtype)
 
 
+def odd_pages(blk: int) -> bool:
+    """Pages that a 16-token tile meets at any offset (neither 8 tokens nor
+    a multiple of 16): the kernel pads each tile by TILE rows on either side
+    for their boxes and reads their int8 scales from global memory."""
+    return not (blk == 8 or blk % TILE == 0)
+
+
+def paged_plan(b: int, kv: int, g: int, d: int, blk: int, width: int, int8: bool,
+               sm_count: int, splits=None) -> dict:
+    """The launch plan of csrc/paged_attention.cu for b rows of kv heads with
+    g query heads each, head_dim d, pages of blk tokens and tables of
+    `width` pages: the splits C of each (row, kv head) pair (the most that
+    keep the grid within SPLIT_FILL blocks an SM, at least 1, at most 8 and
+    at most the table's 16-token tiles; `splits` overrides), the grid (one
+    cluster of C blocks a pair), the ring's stages (a multiple of the four
+    consumer warps) and the dynamic shared memory. Raises on what the kernel
+    does not take."""
+    if d not in (64, 128) or not 1 <= g <= MAX_GROUPS:
+        raise ValueError(f"paged attention kernel needs head_dim 64 or 128 and 1-{MAX_GROUPS} "
+                         f"query heads per kv head (head_dim={d}, g={g})")
+    if min(blk, b, kv, width) < 1:
+        raise ValueError(f"paged attention kernel needs block, b, kv, width >= 1 (block={blk}, "
+                         f"b={b}, kv={kv}, width={width})")
+    tiles = -(-width * blk // TILE)  # the most a pair can hold
+    if splits is None:
+        splits = min(MAX_SPLITS, tiles, max(1, SPLIT_FILL * sm_count // (b * kv)))
+    if not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"paged attention kernel takes 1-{MAX_SPLITS} splits, got {splits}")
+    per_block = -(-tiles // splits)
+    stages = min(MAX_STAGES, -(-per_block // CONSUMERS) * CONSUMERS)
+    odd = odd_pages(blk)
+    # a K or V tile: 128-byte box columns of 16 rows (odd pages: and 16 rows of
+    # padding on either side), then the int8 scales of pages that are not odd
+    kv_tile = (1 if int8 else d // 64) * (TILE + (2 * TILE if odd else 0)) * 128
+    stage = -(-(2 * kv_tile + (2 * TILE * kv * 4 if int8 and not odd else 0)) // 1024) * 1024
+    merge = (CONSUMERS + 1) * (8 * d + 16) * 4  # the warps' and the block's states
+    return {"splits": splits, "cluster": splits, "grid": (b * kv * splits,),
+            "stages": stages, "stage_bytes": stage,
+            # ring (or the merge over it), barriers, alignment slack
+            "smem_bytes": max(stages * stage, merge) + 2 * stages * 8 + 1024,
+            "threads": 32 * (CONSUMERS + 1)}
+
+
 def _check_operands(name, q, pool_k, pool_v, block_tables, seq_lens, scales, pool_dtype):
     if q.dim() != 3 or pool_k.dim() != 4:
         raise ValueError(f"{name}: q must be [b, heads, d] and the pools [blocks, block, kv, d]")
@@ -75,24 +131,27 @@ def _check_operands(name, q, pool_k, pool_v, block_tables, seq_lens, scales, poo
             or tuple(seq_lens.shape) != (b,)
             or any(tuple(s.shape) != tuple(pool_k.shape[:3]) for s in scales)):
         raise ValueError(f"{name}: operand shapes do not match q [b, heads, d]")
-    if d not in (64, 128) or heads % kv or not 1 <= heads // kv <= 8:
-        raise ValueError(f"{name} kernel needs head_dim 64 or 128 and 1-8 query heads per "
-                         f"kv head (head_dim={d}, heads={heads}, kv={kv})")
+    if heads % kv:
+        raise ValueError(f"{name}: {heads} query heads do not divide over {kv} kv heads")
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_on(index: int, b: int, kv: int, g: int, d: int, blk: int, width: int,
+             int8: bool) -> dict:
+    return paged_plan(b, kv, g, d, blk, width, int8, _build.sm_count(index))
 
 
 def _launch(name, entry, q, pool_k, pool_v, block_tables, seq_lens, scales):
     b, heads, d = q.shape
-    _, blk, kv, _ = pool_k.shape
+    blocks, blk, kv, _ = pool_k.shape
     width = block_tables.shape[1]
-    g = heads // kv
-    chunks = -(-width * blk // CHUNK)
-    part_ml = torch.empty((b * kv, chunks, g, 2), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((b * kv, chunks, g, d), dtype=torch.float32, device=q.device)
+    plan = _plan_on(q.device.index or 0, b, kv, heads // kv, d, blk, width,
+                    pool_k.dtype == torch.int8)
     out = torch.empty_like(q)
     status = getattr(_build.load_library(), entry)(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *(s.data_ptr() for s in scales),
-        block_tables.data_ptr(), seq_lens.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), b, kv, g, width, blk, d,
+        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), b, kv, heads // kv, width,
+        blk, d, blocks, plan["splits"], plan["stages"],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, name)

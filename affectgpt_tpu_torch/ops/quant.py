@@ -14,7 +14,7 @@ Four kernels, each a wrapper with its plain PyTorch version beside it and a
 CUDA tensor it launches the hand-written kernel (csrc/) or raises:
 
 - `int8_matmul`: bf16(x) @ bf16(w_q), f32 accumulation, × scales, then
-  x.dtype (csrc/int8_matmul.cu; replaces quant.py:90);
+  x.dtype (replaces quant.py:90);
 - `int8_matmul_w8a8`: x quantized per (row, 512-column K block) to int8,
   int8 × int8 → int32 per block, × the row's block scale, summed in f32, ×
   scales, on wgmma (csrc/int8_matmul_w8a8.cu; replaces quant.py:163);
@@ -24,14 +24,12 @@ CUDA tensor it launches the hand-written kernel (csrc/) or raises:
   bf16 product with f32 accumulation, equal to `int4_matmul_xla`
   (replaces quant.py:407).
 
-Both int4 wrappers launch csrc/int4_matmul_swapab.cu at M <= 16 (the decode
-M of the main path: 8 and 16): the weights as the A operand of mma.sync,
-packed bytes through a TMA ring, K split over a cluster, one launch a
-product, on the plan of `int4_plan`. Above M = 16 they launch the 128 x 64
-tile of csrc/quant_mma.cuh (csrc/int4_matmul.cu, int4_matmul_smallm.cu),
-whose 16-row tile, the previous decode design, only
-`_int4_previous_design` reaches, as a yardstick for chip_smoke.py and
-scripts/torch_wgmma_variants.py.
+`int8_matmul` and both int4 wrappers launch csrc/quant_swapab.cu at M <= 16
+(the decode M of the main path: 8 and 16): the weights as the A operand of
+mma.sync, their bytes through a TMA ring, K split over a cluster, one
+launch a product, on the plans of `int8_plan` and `int4_plan`. Above M = 16
+they launch the 128 x 64 tile of csrc/quant_mma.cuh (csrc/int8_matmul.cu,
+int4_matmul.cu, int4_matmul_smallm.cu).
 
 `models.qwen2._lora_dense` routes by M = rows of x, as the JAX TPU route
 does without its Mosaic gates (block divisibility, the 8-row pad,
@@ -223,24 +221,17 @@ def int4_matmul_xla(x, w_p, scales):
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 
-# tile shapes of csrc/quant_mma.cuh: (rows, columns) of x / y per block, for
-# M <= 16 and for larger M; K advances in units of 64 rows (int8) or 128
-# packed rows (int4)
-_SMALL_TILE, _LARGE_TILE = (16, 128), (128, 64)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+# the tile of csrc/quant_mma.cuh: (rows, columns) of x / y per block; K
+# advances in units of 64 rows (int8) or 128 packed rows (int4)
+_TILE_M, _TILE_N = 128, 64
 
 
 def _split_k(x, m: int, n: int, k_units: int):
     """Split the K loop over enough blocks to give the card about two per
     SM: returns (K units per split, splits). Partial sums of the splits are
     reduced in a fixed order by a second launch."""
-    bm, bn = _SMALL_TILE if m <= 16 else _LARGE_TILE
-    tiles = -(-m // bm) * -(-n // bn)
-    splits = min(k_units, max(1, -(-2 * _sm_count(x.device.index or 0) // tiles)))
+    tiles = -(-m // _TILE_M) * -(-n // _TILE_N)
+    splits = min(k_units, max(1, -(-2 * _build.sm_count(x.device.index or 0) // tiles)))
     per = -(-k_units // splits)
     return per, -(-k_units // per)
 
@@ -285,27 +276,30 @@ def _launch_bf16_mma(name, entry, x, w, scales, m, n, k_units):
     return y
 
 
-def int8_matmul(x, w_q, scales):
-    """x [M, K] @ dequant(w_q int8 [K, N], scales [1, N]) → [M, N] x.dtype."""
-    if x.device.type == "cpu":
-        return int8_matmul_reference(x, w_q, scales)
-    m, n, k = _check_operands("int8_matmul", x, w_q, scales, x.shape[-1], 1, 64)
-    y = _launch_bf16_mma("int8_matmul", "agk_int8_matmul", x, w_q, scales, m, n, k // 64)
-    int8_matmul.launches += 1
-    return y
-
-
-# csrc/int4_matmul_swapab.cu: a block owns 128 columns of N (eight consumer
-# warps of 16) and streams its share of K in stages of 128 packed rows (one
-# scale group of each K-half) through a ring of five stages (M <= 8) or four;
-# two blocks fit an SM
-INT4_BN, INT4_BKP = 128, 128
-INT4_MAX_M, INT4_MAX_CLUSTER = 16, 8
+# csrc/quant_swapab.cu: a block owns SWAPAB_BN columns of N (eight consumer
+# warps of 16) and streams its share of K in stages of 16 KB of weights (int4:
+# 128 packed rows, one scale group of each K-half; int8: 128 rows) through a
+# ring of five stages (int4 at M > 8: four); two blocks fit an SM
+SWAPAB_BN, INT4_BKP = 128, 128
+INT8_ROWS, INT8_STAGES = 128, 5
+SWAPAB_MAX_M, SWAPAB_MAX_CLUSTER = 16, 8
 # the share of the card's SMs a product's blocks should cover before K is
 # split over a cluster: the smallest cluster reaching it was the fastest size
-# for every 7B product on the H100 (one block an SM, none waiting on a slower
-# cluster peer)
-INT4_SM_FILL = 0.8
+# for every 7B int4 product on the H100 (one block an SM, none waiting on a
+# slower cluster peer), and within 5% of the fastest for every int8 one
+SWAPAB_SM_FILL = 0.8
+# the C entry's modes
+MODE_INT4, MODE_INT4_DEQUANT, MODE_INT8 = 0, 1, 2
+
+
+def _cluster_plan(col_blocks: int, units: int, sm_count: int, active_clusters) -> int:
+    """The cluster size of a swap-AB launch: the smallest whose blocks cover
+    SWAPAB_SM_FILL of the SMs (at most 8, at most the K units), among the
+    sizes of which the card holds at least one cluster at once."""
+    sizes = [c for c in range(1, min(SWAPAB_MAX_CLUSTER, units) + 1) if active_clusters(c) >= 1]
+    if not sizes:
+        raise ValueError("swap-AB kernel: no cluster size fits the card")
+    return next((c for c in sizes if col_blocks * c >= SWAPAB_SM_FILL * sm_count), sizes[-1])
 
 
 def int4_plan(m: int, n: int, k: int, sm_count: int, active_clusters=None) -> dict:
@@ -314,63 +308,104 @@ def int4_plan(m: int, n: int, k: int, sm_count: int, active_clusters=None) -> di
     `cluster` blocks for each 128-column block, block r of it taking K's
     units [r U / C, (r + 1) U / C) of U = k / 256 (`unit_ranges`); the grid;
     the ring's stages and the dynamic shared memory. The cluster is the
-    smallest whose blocks cover INT4_SM_FILL of the SMs (at most 8, at most
+    smallest whose blocks cover SWAPAB_SM_FILL of the SMs (at most 8, at most
     U), among the sizes of which the card holds at least one cluster at once
     (`active_clusters(c)`; the wrapper asks the card, by default two blocks
     an SM). Raises on what the kernel does not take."""
-    if not 1 <= m <= INT4_MAX_M or n < 16 or n % 16 or k < 2 * INT4_GROUP \
+    if not 1 <= m <= SWAPAB_MAX_M or n < 16 or n % 16 or k < 2 * INT4_GROUP \
             or k % (2 * INT4_GROUP):
-        raise ValueError(f"int4 swap-AB kernel needs 1 <= M <= {INT4_MAX_M}, N % 16 == 0 and "
+        raise ValueError(f"int4 swap-AB kernel needs 1 <= M <= {SWAPAB_MAX_M}, N % 16 == 0 and "
                          f"K % {2 * INT4_GROUP} == 0 (M={m}, N={n}, K={k})")
     if active_clusters is None:
         def active_clusters(c):
             return 2 * sm_count // c
     nt = 1 if m <= 8 else 2
-    col_blocks, units = -(-n // INT4_BN), k // (2 * INT4_BKP)
-    sizes = [c for c in range(1, min(INT4_MAX_CLUSTER, units) + 1) if active_clusters(c) >= 1]
-    if not sizes:
-        raise ValueError("int4 swap-AB kernel: no cluster size fits the card")
-    c = next((c for c in sizes if col_blocks * c >= INT4_SM_FILL * sm_count), sizes[-1])
+    col_blocks, units = -(-n // SWAPAB_BN), k // (2 * INT4_BKP)
+    c = _cluster_plan(col_blocks, units, sm_count, active_clusters)
     stages = 5 if nt == 1 else 4
     # packed weights, four 64-column x boxes of 8 nt rows, two scale rows
-    stage = INT4_BKP * INT4_BN + 4 * 8 * nt * 128 + 2 * INT4_BN * 4
+    stage = INT4_BKP * SWAPAB_BN + 4 * 8 * nt * 128 + 2 * SWAPAB_BN * 4
     return {
         "nt": nt, "cluster": c, "grid": (c * col_blocks,),
         "col_blocks": col_blocks, "units": units,
         "unit_ranges": [(r * units // c, (r + 1) * units // c) for r in range(c)],
         "stages": stages, "stage_bytes": stage,
         # ring, partial tile, barriers, alignment slack
-        "smem_bytes": stages * stage + 8 * nt * (INT4_BN + 4) * 4 + 2 * stages * 8 + 1024,
+        "smem_bytes": stages * stage + 8 * nt * (SWAPAB_BN + 4) * 4 + 2 * stages * 8 + 1024,
         # the packed bytes the blocks stream: each once
-        "weight_bytes": col_blocks * INT4_BN * k // 2,
+        "weight_bytes": col_blocks * SWAPAB_BN * k // 2,
+    }
+
+
+def int8_plan(m: int, n: int, k: int, sm_count: int, active_clusters=None) -> dict:
+    """The launch plan of the swap-AB kernel's int8 mode for x [m, k] @ w_q
+    [k, n]: as `int4_plan`, with K in units of INT8_ROWS rows (U = ceil(k /
+    INT8_ROWS); rows past K arrive as zeros), a ring of five stages. Raises
+    on what the kernel does not take."""
+    if not 1 <= m <= SWAPAB_MAX_M or n < 16 or n % 16 or k < 64 or k % 64:
+        raise ValueError(f"int8 swap-AB kernel needs 1 <= M <= {SWAPAB_MAX_M}, N % 16 == 0 and "
+                         f"K % 64 == 0 (M={m}, N={n}, K={k})")
+    if active_clusters is None:
+        def active_clusters(c):
+            return 2 * sm_count // c
+    nt = 1 if m <= 8 else 2
+    col_blocks, units = -(-n // SWAPAB_BN), -(-k // INT8_ROWS)
+    c = _cluster_plan(col_blocks, units, sm_count, active_clusters)
+    # int8 weights, the 64-column x boxes of 8 nt rows
+    stage = INT8_ROWS * SWAPAB_BN + (INT8_ROWS // 64) * 8 * nt * 128
+    return {
+        "nt": nt, "cluster": c, "grid": (c * col_blocks,),
+        "col_blocks": col_blocks, "units": units, "rows": INT8_ROWS, "block_n": SWAPAB_BN,
+        "unit_ranges": [(r * units // c, (r + 1) * units // c) for r in range(c)],
+        "stages": INT8_STAGES, "stage_bytes": stage,
+        "smem_bytes": INT8_STAGES * stage + 8 * nt * (SWAPAB_BN + 4) * 4 + 2 * INT8_STAGES * 8
+        + 1024,
+        "weight_bytes": col_blocks * SWAPAB_BN * units * INT8_ROWS,
     }
 
 
 @functools.lru_cache(maxsize=None)
-def _int4_active_clusters(index: int, cluster: int, m: int, dequant: bool) -> int:
+def _swapab_active_clusters(index: int, cluster: int, m: int, mode: int) -> int:
     with torch.cuda.device(index):
-        count = _build.load_library().agk_int4_swapab_active_clusters(cluster, m, int(dequant))
+        count = _build.load_library().agk_quant_swapab_active_clusters(cluster, m, mode)
     if count < 0:
-        _build.check(-count, "int4 swap-AB occupancy")
+        _build.check(-count, "swap-AB occupancy")
     return count
 
 
 @functools.lru_cache(maxsize=None)
-def _int4_plan_on(index: int, m: int, n: int, k: int, dequant: bool) -> dict:
-    return int4_plan(m, n, k, _sm_count(index),
-                     lambda c: _int4_active_clusters(index, c, m, dequant))
+def _swapab_plan_on(index: int, m: int, n: int, k: int, mode: int) -> dict:
+    plan = int8_plan if mode == MODE_INT8 else int4_plan
+    return plan(m, n, k, _build.sm_count(index), lambda c: _swapab_active_clusters(index, c, m, mode))
 
 
-def _int4_swapab(name, x, w_p, scales, dequant: bool):
+def _swapab(name, x, w, scales, mode: int):
     m, k = x.shape
-    n = w_p.shape[1]
-    plan = _int4_plan_on(x.device.index or 0, m, n, k, dequant)
+    n = w.shape[1]
+    plan = _swapab_plan_on(x.device.index or 0, m, n, k, mode)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    status = _build.load_library().agk_int4_swapab(
-        x.data_ptr(), w_p.data_ptr(), scales.data_ptr(), y.data_ptr(), m, n, k, plan["cluster"],
-        int(dequant), torch.cuda.current_stream(x.device).cuda_stream,
+    status = _build.load_library().agk_quant_swapab(
+        x.data_ptr(), w.data_ptr(), scales.data_ptr(), y.data_ptr(), m, n, k, plan["cluster"],
+        mode, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, name)
+    return y
+
+
+def _int8_check(name, x, w_q, scales):
+    return _check_operands(name, x, w_q, scales, x.shape[-1], 1, 64)
+
+
+def int8_matmul(x, w_q, scales):
+    """x [M, K] @ dequant(w_q int8 [K, N], scales [1, N]) → [M, N] x.dtype."""
+    if x.device.type == "cpu":
+        return int8_matmul_reference(x, w_q, scales)
+    m, n, k = _int8_check("int8_matmul", x, w_q, scales)
+    if m <= SWAPAB_MAX_M:
+        y = _swapab("int8_matmul", x, w_q, scales, MODE_INT8)
+    else:
+        y = _launch_bf16_mma("int8_matmul", "agk_int8_matmul", x, w_q, scales, m, n, k // 64)
+    int8_matmul.launches += 1
     return y
 
 
@@ -385,8 +420,8 @@ def int4_matmul(x, w_p, scales):
     if x.device.type == "cpu":
         return int4_matmul_reference(x, w_p, scales)
     m, n, k = _int4_check("int4_matmul", x, w_p, scales)
-    if m <= INT4_MAX_M:
-        y = _int4_swapab("int4_matmul", x, w_p, scales, dequant=False)
+    if m <= SWAPAB_MAX_M:
+        y = _swapab("int4_matmul", x, w_p, scales, MODE_INT4)
     else:
         y = _launch_bf16_mma("int4_matmul", "agk_int4_matmul", x, w_p, scales, m, n,
                              k // (2 * INT4_GROUP))
@@ -400,23 +435,13 @@ def int4_matmul_smallm(x, w_p, scales):
     if x.device.type == "cpu":
         return int4_matmul_smallm_reference(x, w_p, scales)
     m, n, k = _int4_check("int4_matmul_smallm", x, w_p, scales)
-    if m <= INT4_MAX_M:
-        y = _int4_swapab("int4_matmul_smallm", x, w_p, scales, dequant=True)
+    if m <= SWAPAB_MAX_M:
+        y = _swapab("int4_matmul_smallm", x, w_p, scales, MODE_INT4_DEQUANT)
     else:
         y = _launch_bf16_mma("int4_matmul_smallm", "agk_int4_matmul_smallm", x, w_p, scales, m,
                              n, k // (2 * INT4_GROUP))
     int4_matmul_smallm.launches += 1
     return y
-
-
-def _int4_previous_design(x, w_p, scales, dequant: bool):
-    """The int4 kernels as they ran at decode M before the swap-AB design:
-    quant_mma.cuh's 16 x 128 tile, split K reduced by a second launch. A
-    yardstick only (chip_smoke.py, scripts/torch_wgmma_variants.py); it
-    counts no launch."""
-    name = "int4_matmul_smallm" if dequant else "int4_matmul"
-    m, n, k = _int4_check(name, x, w_p, scales)
-    return _launch_bf16_mma(name, "agk_" + name, x, w_p, scales, m, n, k // (2 * INT4_GROUP))
 
 
 # csrc/int8_matmul_w8a8.cu: a block owns 128 output columns and 16 rows (M
@@ -456,7 +481,7 @@ def int8_matmul_w8a8(x, w_q, scales):
     qblock = min(W8A8_BLOCK_K, k)
     if k % qblock:
         raise ValueError(f"int8_matmul_w8a8 kernel needs K % {qblock} == 0 (K={k})")
-    plan = w8a8_plan(m, n, k, _sm_count(x.device.index or 0))
+    plan = w8a8_plan(m, n, k, _build.sm_count(x.device.index or 0))
     splits = plan["splits"]
     m_pad = plan["grid"][0] * plan["bm"]
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)

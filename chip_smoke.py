@@ -32,17 +32,20 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    bf16, as a yardstick of the unquantized product that no path runs; the
    w8a8 kernel (wgmma) must also give the same bits on a second call, and
    prints its variant (wgmma N-width, K splits) and the bytes it reads; so
-   must the two int4 wrappers, which print the swap-AB kernel's plan at M <=
-   16 (n8 tiles, cluster size, grid, ring, shared memory) and `old_ms`, the
-   previous decode design (quant_mma.cuh's 16 x 128 tile, split K reduced by
-   a second launch), beside each product; `int4_matmul` is also timed at M =
-   256, bench.py's 7B batch, beside cuBLAS bf16 (a measurement only). The
-   serving kernels: paged attention (bf16 and int8 pools of 2048 blocks of
-   16, 16 rows of 545-596 tokens plus a 1-token row and a one-page row,
-   pages drawn from a shuffled permutation, table widths 38 and 64; times
-   at width 38 over three disjoint table sets on two pools, so a replay
-   cycle reads more than the L2; `chain_ms` times the gather chain that
-   PAGED_ATTENTION="xla" runs, inference/paged.py) and the int8 decode MLP
+   must the two int4 wrappers and `int8_matmul`, which print the swap-AB
+   kernel's plan at M <= 16 (n8 tiles, cluster size, grid, ring, shared
+   memory) beside each product; `int8_matmul` is checked at every M of 1-16
+   and at 64 and 1000 (the 128 x 64 tile), and also timed at M = 16 on the split layout's attention
+   products and the lm_head (paged_w8's decode M); `int4_matmul` is also
+   timed at M = 256, bench.py's 7B batch, beside cuBLAS bf16 (a measurement
+   only). The serving kernels: paged attention (bf16 and int8 pools of 2048
+   blocks of 16, 16 rows of 545-596 tokens plus a 1-token row and a
+   one-page row, pages drawn from a shuffled permutation, table widths 38
+   and 64, each call's plan printed (splits, cluster, ring), the same bits
+   from a second call; times at both widths over three disjoint table sets
+   on two pools, so a replay cycle reads more than the L2; `chain_ms` times
+   the gather chain that PAGED_ATTENTION="xla" runs, inference/paged.py) and
+   the int8 decode MLP
    (b = 8, 16, 64 on int8 weights of the 7B layer; times at b = 16, with
    the three products in cuBLAS on the dequantized bf16 weights as a
    yardstick); neither has a single PyTorch call that computes its
@@ -169,6 +172,7 @@ from affectgpt_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_int8,
     paged_attention_reference,
+    paged_plan,
 )
 from affectgpt_tpu_torch.ops.decode_qkv import decode_qkv, decode_qkv_reference
 from affectgpt_tpu_torch.ops.prefill_attention import (
@@ -212,15 +216,15 @@ KERNELS = {
         "replaces": "affectgpt_tpu/models/qwen2.py:681",
     },
     "int4_matmul_smallm": {
-        "source": "affectgpt_tpu_torch/csrc/int4_matmul_swapab.cu",
+        "source": "affectgpt_tpu_torch/csrc/quant_swapab.cu",
         "replaces": "affectgpt_tpu/ops/quant.py:407",
     },
     "int4_matmul": {
-        "source": "affectgpt_tpu_torch/csrc/int4_matmul_swapab.cu",
+        "source": "affectgpt_tpu_torch/csrc/quant_swapab.cu",
         "replaces": "affectgpt_tpu/ops/quant.py:319",
     },
     "int8_matmul": {
-        "source": "affectgpt_tpu_torch/csrc/int8_matmul.cu",
+        "source": "affectgpt_tpu_torch/csrc/quant_swapab.cu",
         "replaces": "affectgpt_tpu/ops/quant.py:90",
     },
     "int8_matmul_w8a8": {
@@ -677,20 +681,24 @@ QUANT_PHASE = {
     "int4_matmul_smallm": (4, quant.int4_matmul_smallm_reference, (1, 8, 13), 8, False,
                            BF16_FLOP_PER_S),
     "int4_matmul": (4, quant.int4_matmul_reference, (16, 64, 1000), 16, False, BF16_FLOP_PER_S),
-    "int8_matmul": (8, quant.int8_matmul_reference, (8, 64, 1000), 8, True, BF16_FLOP_PER_S),
+    "int8_matmul": (8, quant.int8_matmul_reference, tuple(range(1, 17)) + (64, 1000), 8, True,
+                    BF16_FLOP_PER_S),
     "int8_matmul_w8a8": (8, quant.int8_matmul_w8a8_reference, (8, 4512), 8, False,
                          S8_OPS_PER_S),
 }
 
 
-def int4_variant(m: int, n: int, k: int, dequant: bool) -> dict:
-    """What an int4 wrapper launches for x [m, k] against a packed [k/2, n]
-    weight: at M <= 16 the swap-AB kernel with its plan (n8 tiles, cluster
-    size, grid, ring, shared memory), above it quant_mma.cuh's 128 x 64
-    tile."""
-    if m > quant.INT4_MAX_M:
+SWAPAB_MODES = {"int4_matmul": quant.MODE_INT4, "int4_matmul_smallm": quant.MODE_INT4_DEQUANT,
+                "int8_matmul": quant.MODE_INT8}
+
+
+def swapab_variant(name: str, m: int, n: int, k: int) -> dict:
+    """What an int4 or int8 weight-only wrapper launches for x [m, k]: at M
+    <= 16 the swap-AB kernel with its plan (n8 tiles, cluster size, grid,
+    ring, shared memory), above it quant_mma.cuh's 128 x 64 tile."""
+    if m > quant.SWAPAB_MAX_M:
         return {"variant": "quant_mma_128x64"}
-    plan = quant._int4_plan_on(0, m, n, k, dequant)
+    plan = quant._swapab_plan_on(0, m, n, k, SWAPAB_MODES[name])
     return {"variant": f"swapab_mma_m16n8k16_nt{plan['nt']}", "cluster": plan["cluster"],
             "grid": plan["grid"][0], "stages": plan["stages"], "smem": plan["smem_bytes"]}
 
@@ -748,25 +756,26 @@ def phase_quant_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
                 err, rel = compare(name, got, plain(x, w, s), m)
                 err_max = max(err_max, err)
                 extra = {}
-                if name in ("int8_matmul_w8a8", "int4_matmul", "int4_matmul_smallm"):
-                    # the redesigns: the same bits twice, and what ran
-                    if not torch.equal(got, kernel(x, w, s)):
-                        raise AssertionError(f"{name} M={m} K={k} N={n}: two calls differ")
-                    extra = (w8a8_variant(m, n, k) if name == "int8_matmul_w8a8"
-                             else int4_variant(m, n, k, name == "int4_matmul_smallm"))
+                # the redesigns: the same bits twice, and what ran
+                if not torch.equal(got, kernel(x, w, s)):
+                    raise AssertionError(f"{name} M={m} K={k} N={n}: two calls differ")
+                extra = (w8a8_variant(m, n, k) if name == "int8_matmul_w8a8"
+                         else swapab_variant(name, m, n, k))
                 say("kernels", kernel=name, M=m, K=k, N=n, shapes="/".join(names),
                     max_abs_err=f"{err:.6g}", max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL,
                     **extra)
         # the main path's M first; w8a8 also at its prefill M, int4_matmul at
-        # bench.py's 7B batch (M = 256, a measurement only)
-        extra_m = {"int8_matmul_w8a8": max(ms_checked), "int4_matmul": 256}.get(name)
+        # bench.py's 7B batch (M = 256, a measurement only), int8_matmul at
+        # paged_w8's M = 16 on the split layout's attention products
+        extra_m = {"int8_matmul_w8a8": max(ms_checked), "int4_matmul": 256,
+                   "int8_matmul": 16}.get(name)
         per_layer = []
         for m in (m_path,) if extra_m is None else (m_path, extra_m):
             layer = layer_shapes(cfg, fused)
-            # the int4 decode kernels beside their previous design (old_ms)
-            old = name.startswith("int4") and m <= quant.INT4_MAX_M
-            sums = dict.fromkeys(("ms", "plain_ms", "bf16_cublas_ms")
-                                 + (("old_ms",) if old else ()), 0.0)
+            if name == "int8_matmul" and m != m_path:
+                layer = {p: kn for p, kn in layer_shapes(cfg, False).items()
+                         if p in ("q_proj", "k_proj", "v_proj", "o_proj")}
+            sums = dict.fromkeys(("ms", "plain_ms", "bf16_cublas_ms"), 0.0)
             nbytes = flops = 0
             for pname, (k, n) in {**layer, "lm_head": shapes["lm_head"]}.items():
                 w, s = stored[bits][(k, n)]
@@ -784,11 +793,6 @@ def phase_quant_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
                     "bf16_cublas_ms": graph_ms([lambda wb=wb: torch.matmul(x, wb) for wb in wbs]
                                                * max(1, -(-8 // bcopies))),
                 }
-                if old:
-                    dq = name == "int4_matmul_smallm"
-                    times["old_ms"] = graph_ms(
-                        [lambda w=w, s=s: quant._int4_previous_design(x, w, s, dq) for w, s in ws]
-                        * max(1, -(-8 // copies)))
                 moved, ops = 2 * m * k + wbytes + 2 * m * n, 2 * m * k * n
                 cost = bound(moved, ops, ops_rate)
                 say("kernels", kernel=name, M=m, product=pname, K=k, N=n,
@@ -796,8 +800,7 @@ def phase_quant_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
                     bound_ms=f"{cost['bound_ms']:.5f}", bound_by=cost["bound_by"],
                     GB_per_s=f"{moved / times['ms'] / 1e6:.1f}",
                     **(w8a8_variant(m, n, k) if name == "int8_matmul_w8a8" else
-                       int4_variant(m, n, k, name == "int4_matmul_smallm")
-                       if name.startswith("int4") else {}),
+                       swapab_variant(name, m, n, k)),
                     card=repr(card))
                 if pname != "lm_head":
                     for key in sums:
@@ -878,7 +881,8 @@ def decode_mlp_variant(b: int, h: int, inter: int) -> dict:
 def phase_serving_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
     """The serving slice's kernels against their plain versions at 7B
     widths: paged attention for both pool dtypes at table widths 38 (the
-    serve phase's max_blocks_per_seq) and 64 (a power-of-two bucket), and
+    serve phase's max_blocks_per_seq) and 64 (a power-of-two bucket), with
+    each width's launch plan and the same bits from a second call, and
     the int8 decode MLP at b = 8, 16 and 64 on int8 weights of the 7B
     layer. Returns per-kernel {max_abs_err, ms, plain_ms, library_ms,
     bound_ms, bound_by} with the times at the serve phase's shapes (16 rows,
@@ -893,15 +897,24 @@ def phase_serving_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
         kernel = paged_attention_int8 if int8 else paged_attention
         for width in (max_blocks, 64):
             cases, valid = paged_case(g, cfg, width, int8)
+            plan = paged_plan(SERVE_SLOTS, kv, heads // kv, d, PAGE, width, int8, sm_count())
             for case in cases[:2]:
                 q, pk, pv, tables, lens, scales = case
-                err, rel = compare(name, kernel(q, pk, pv, tables, lens, *scales),
+                got = kernel(q, pk, pv, tables, lens, *scales)
+                if not torch.equal(got, kernel(q, pk, pv, tables, lens, *scales)):
+                    raise AssertionError(f"{name} width={width}: two calls differ")
+                err, rel = compare(name, got,
                                    paged_attention_reference(q, pk, pv, tables, lens, *scales),
                                    SERVE_SLOTS)
                 out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
                 say("kernels", kernel=name, b=SERVE_SLOTS, width=width, tokens=valid,
                     lens=f"{int(lens.min())}-{int(lens.max())}", max_abs_err=f"{err:.6g}",
-                    max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL)
+                    max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL,
+                    variant=json.dumps({"products": "mma.sync m16n8k16 bf16, S^T = K Q^T, "
+                                        "Out^T = V^T P^T, one launch", "splits": plan["splits"],
+                                        "cluster": plan["cluster"], "grid": plan["grid"][0],
+                                        "stages": plan["stages"],
+                                        "smem": plan["smem_bytes"]}))
             elem = 1 if int8 else 2
             # the valid tokens' K and V rows (+ int8 scales), q, out, tables, lens
             nbytes = (valid * kv * d * 2 * elem + (valid * kv * 2 * 4 if int8 else 0)

@@ -1,4 +1,4 @@
-"""Probes of the swap-AB int4 decode kernel (csrc/int4_matmul_swapab.cu) on one CUDA card.
+"""Probes of the swap-AB int4 decode kernel (csrc/quant_swapab.cu, its int4 modes) on one card.
 
     python3 scripts/torch_int4_probe.py check    # correctness, per-layer times, cluster sweep
     python3 scripts/torch_int4_probe.py builds [NAME ...]  # edited copies, every cluster size
@@ -10,13 +10,13 @@
 lm_head (two calls must give the same bits); the occupancy the plan reads;
 device ms of each 7B product and the layer (CUDA graph over enough weight
 copies to exceed the 50 MB L2) for `int4_matmul_smallm` at M = 8 and
-`int4_matmul` at M = 16 beside the previous design (quant_mma.cuh's 16 x 128
-tile); then q/k/gate/down_proj and the lm_head at every cluster size,
-launched through the C entry. `builds`: the package copied to a temporary
+`int4_matmul` at M = 16; then q/k/gate/down_proj and the lm_head at every
+cluster size, launched through the C entry. (`scripts/torch_int8_probe.py
+time DIR` times both beside another checkout's package.) `builds`: the package copied to a temporary
 directory with a few source lines edited (VARIANTS), built, and gate/down/
 q_proj timed at clusters of 1, 2, 4 and 8 at both M. `stamps`: a copy that
-records `%globaltimer` at each block's start, first stage, K loop end and
-epilogue rounds, launched once per product (weights in L2), then
+records `%globaltimer` at each block's start, first stage and K loop end,
+launched once per product (weights in L2), then
 summarised by cluster and by the number of blocks on the SM. `sass`: op
 counts of each kernel as built and with the cluster-of-one stores replaced
 by nothing (ptxas then deletes the work that fed them). Prints the card's
@@ -33,7 +33,7 @@ from pathlib import Path
 
 from torch_wgmma_variants import REPO, copy_package, run_variant
 
-INT4 = "affectgpt_tpu_torch/csrc/int4_matmul_swapab.cu"
+INT4 = "affectgpt_tpu_torch/csrc/quant_swapab.cu"
 HOP = "affectgpt_tpu_torch/csrc/hopper.cuh"
 LAYER = {"q": (3584, 3584), "k": (3584, 512), "v": (3584, 512), "o": (3584, 3584),
          "gate": (3584, 18944), "up": (3584, 18944), "down": (18944, 3584),
@@ -89,8 +89,9 @@ def copies_of(w, s):  # enough copies that a replay cycle reads past the L2
 def entry_ms(lib, x, ws, rep, m, n, k, cluster, dequant):
     y = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
     def call(w, s):
-        status = lib.agk_int4_swapab(x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), m, n,
-                                     k, cluster, int(dequant), torch.cuda.current_stream().cuda_stream)
+        status = lib.agk_quant_swapab(x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), m, n,
+                                      k, cluster, int(dequant),
+                                      torch.cuda.current_stream().cuda_stream)
         assert status == 0, status
     return graph_ms([lambda w=w, s=s: call(w, s) for w, s in ws] * rep)
 '''
@@ -113,7 +114,8 @@ def check() -> None:
     for dq in (False, True):
         for m in (8, 16):
             print("active clusters", "dequant" if dq else "int4", f"M={m}",
-                  [quant._int4_active_clusters(0, c, m, dq) for c in range(1, 9)], flush=True)
+                  [quant._swapab_active_clusters(0, c, m, int(dq)) for c in range(1, 9)],
+                  flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
     bad = 0
     for k, n in [(256, 128), (512, 272), (1024, 256), *sorted(set(LAYER.values()))]:
@@ -133,15 +135,14 @@ def check() -> None:
     print("failed checks", bad, flush=True)
     for name, m in (("int4_matmul_smallm", 8), ("int4_matmul", 16)):
         dq = name.endswith("smallm")
-        total = {"ms": 0.0, "old_ms": 0.0}
+        total = {"ms": 0.0}
         for p, (k, n) in LAYER.items():
             w, s = weights(g, k, n)
             x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
             ws, rep = copies_of(w, s)
-            t = {"ms": graph_ms([lambda w=w, s=s: getattr(quant, name)(x, w, s) for w, s in ws] * rep),
-                 "old_ms": graph_ms([lambda w=w, s=s: quant._int4_previous_design(x, w, s, dq)
-                                     for w, s in ws] * rep)}
-            plan = quant._int4_plan_on(0, m, n, k, dq)
+            t = {"ms": graph_ms([lambda w=w, s=s: getattr(quant, name)(x, w, s)
+                                 for w, s in ws] * rep)}
+            plan = quant._swapab_plan_on(0, m, n, k, int(dq))
             nbytes = w.numel() + 4 * s.numel() + 2 * m * (k + n)
             print(name, f"M={m}", p, {key: round(v, 5) for key, v in t.items()},
                   "bound_ms", round(nbytes / 3.35e9, 5), "GB/s", round(nbytes / t["ms"] / 1e6, 1),
@@ -181,13 +182,13 @@ def builds(names: list) -> None:
 
 
 _STAMP_EDITS = [
-    (INT4, "namespace agk {\nnamespace i4 {",
+    (INT4, "namespace agk {\nnamespace sab {",
      "__device__ unsigned long long g_stamps[8192][8];\n"
      "__device__ __forceinline__ unsigned long long now_ns() { unsigned long long v; "
      "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(v)); return v; }\n"
      "__device__ __forceinline__ unsigned smid() { unsigned v; "
      "asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(v)); return v; }\n"
-     "namespace agk {\nnamespace i4 {"),
+     "namespace agk {\nnamespace sab {"),
     (INT4, "  __syncthreads();\n\n  if (warp == kConsumers) {",
      "  __syncthreads();\n  const bool rec = threadIdx.x == 0 && blockIdx.x < 8192;\n"
      "  if (rec) { g_stamps[blockIdx.x][0] = now_ns(); g_stamps[blockIdx.x][7] = smid(); }\n"
@@ -196,14 +197,9 @@ _STAMP_EDITS = [
      "    mbar_wait(&full[pos.stage], pos.phase);\n"
      "    if (rec && first) { g_stamps[blockIdx.x][1] = now_ns(); first = false; }\n"
      "    if constexpr (!kConsume)"),
-    (INT4, "  float d[NT][4];  // the two chains' sum",
-     "  if (rec) g_stamps[blockIdx.x][2] = now_ns();\n  float d[NT][4];  // the two chains' sum"),
-    (INT4, "  cluster_arrive_release();  // (1)",
-     "  if (rec) g_stamps[blockIdx.x][3] = now_ns();\n  cluster_arrive_release();  // (1)"),
-    (INT4, "  constexpr int kQuads = kBN / 4;",
-     "  if (rec) g_stamps[blockIdx.x][4] = now_ns();\n  constexpr int kQuads = kBN / 4;"),
-    (INT4, "  cluster_arrive_relaxed();  // (2)",
-     "  if (rec) g_stamps[blockIdx.x][5] = now_ns();\n  cluster_arrive_relaxed();  // (2)"),
+    (INT4, "  float d[1][NT][4];  // the two chains' sum",
+     "  if (rec) g_stamps[blockIdx.x][2] = now_ns();\n"
+     "  float d[1][NT][4];  // the two chains' sum"),
 ]
 
 
@@ -228,7 +224,7 @@ def stamps() -> None:
         for _ in range(3):
             quant.int4_matmul_smallm(x, w, s)
         torch.cuda.synchronize()
-        plan = quant._int4_plan_on(0, 8, n, k, True)
+        plan = quant._swapab_plan_on(0, 8, n, k, quant.MODE_INT4_DEQUANT)
         raw = np.zeros((8192, 8), np.uint64)
         lib.agk_int4_stamps(raw.ctypes.data)
         st = raw[:plan["grid"][0]].astype(np.int64)
@@ -244,11 +240,7 @@ def stamps() -> None:
             cl = rel.reshape(-1, c, 6)
             print("  spread of a cluster's K loop ends µs (median/max)",
                   np.round(np.percentile(cl[:, :, 2].max(1) - cl[:, :, 2].min(1), [50, 100]), 3)
-                  .tolist(), "; round 1 after its last arrival",
-                  np.round(np.percentile(cl[:, :, 4].min(1) - cl[:, :, 3].max(1), [50, 100]), 3)
-                  .tolist(), "; reads", np.round(np.percentile(rel[:, 5] - rel[:, 4], [50, 100]), 3)
                   .tolist(), flush=True)
-
 
 def sass() -> None:
     from collections import Counter

@@ -1,0 +1,225 @@
+"""Probes of the int8 weight-only decode matmul on one CUDA card: the int8 mode
+of the swap-AB kernel (csrc/quant_swapab.cu) that `int8_matmul` launches at
+M <= 16.
+
+    python3 scripts/torch_int8_probe.py check    # correctness, per-layer times, cluster sweep
+    python3 scripts/torch_int8_probe.py time [DIR ...]     # this tree's package beside each DIR's
+    python3 scripts/torch_int8_probe.py builds [NAME ...]  # edited copies of the kernel
+
+`check`: `int8_matmul` against its plain version at every M of 1-16 on the
+tiny test shapes and every Qwen2.5-7B (K, N) of the split and fused layouts
+and the lm_head, and at M = 64 and 1000 (quant_mma.cuh's 128 x 64 tile);
+two calls must give the same bits. Then device ms of each product and of
+the fused layer (q8_fused: qkv, o, gateup, down) and the split layer at M =
+8 and 16, and the lm_head; then q/k/gate/down_proj at every cluster size,
+launched through the C entry. `time`: the three weight-only quantized
+matmuls as the main path runs them at decode M, per product and per layer:
+`int8_matmul` on q8_fused's layer at M = 8 and on paged_w8's q/k/v/o at M =
+16, `int4_matmul_smallm` at M = 8 and `int4_matmul` at M = 16 on the split
+layer, each with the lm_head; each package (this tree's, then each DIR's,
+the root of another checkout such as the parent commit unpacked into a
+directory that .gitignore lists) in a process of its own, in the order A B
+B A, so a drift of the card weighs on both. `builds`: the package copied
+to a temporary directory with a few source lines edited (VARIANTS: the
+loads alone, no conversion, no products), built, and gate/down/q_proj,
+gate_proj cut to 132 column blocks, and the fused layer timed at M = 8 and
+16. Times: calls captured in a CUDA graph over enough weight copies to
+exceed the 50 MB L2, 20 replays, the median. Prints the card's name and
+power limit first.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+from torch_int4_probe import GRAPH_MS, LAYER, card
+from torch_wgmma_variants import REPO, run_variant
+
+SAB = "affectgpt_tpu_torch/csrc/quant_swapab.cu"
+QUANT = "affectgpt_tpu_torch/ops/quant.py"
+SPLIT = {"q": (3584, 3584), "k": (3584, 512), "v": (3584, 512), "o": (3584, 3584),
+         "gate": (3584, 18944), "up": (3584, 18944), "down": (18944, 3584)}
+FUSED = {"qkv": (3584, 4608), "o": (3584, 3584), "gateup": (3584, 37888),
+         "down": (18944, 3584)}
+LM_HEAD = (3584, 152064)
+# name: [(file, old text, new text)]
+VARIANTS = {
+    "as_is": [],
+    # the consumers take each stage and hand it back untouched: the ring alone
+    "loads_only": [(SAB, "kConsume = true;", "kConsume = false;")],
+    # the raw weight words as A fragments: no int8 to bf16 conversion
+    "no_convert": [(SAB, "kConvert = true;", "kConvert = false;")],
+    # the fragments built and XORed into the output instead of multiplied
+    "no_products": [(SAB, "kProducts = true;", "kProducts = false;")],
+}
+
+INT8_MS = GRAPH_MS + r'''
+def weights8(g, k, n):
+    w = torch.randint(-127, 128, (k, n), generator=g, device="cuda", dtype=torch.int8)
+    s = (torch.rand((1, n), generator=g, device="cuda") + 0.5) * (3 * k ** -0.5 / 127)
+    return w, s
+
+def entry8_ms(lib, x, ws, rep, m, n, k, cluster):
+    y = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+    def call(w, s):
+        status = lib.agk_quant_swapab(x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), m, n,
+                                      k, cluster, 2, torch.cuda.current_stream().cuda_stream)
+        assert status == 0, status
+    return graph_ms([lambda w=w, s=s: call(w, s) for w, s in ws] * rep)
+'''
+
+
+def check() -> None:
+    sys.path.insert(0, str(REPO))
+    import torch
+    from affectgpt_tpu_torch.ops import _build, quant
+    ns = {}
+    exec(INT8_MS, ns)
+    graph_ms, weights8, copies_of, entry8_ms = (ns[k] for k in ("graph_ms", "weights8",
+                                                                "copies_of", "entry8_ms"))
+    lib = _build.load_library()
+    for m in (8, 16):
+        print("active clusters", f"M={m}",
+              [quant._swapab_active_clusters(0, c, m, quant.MODE_INT8) for c in range(1, 9)],
+              flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    bad = 0
+    shapes = [(64, 256), (1024, 512), (512, 272), *sorted({*SPLIT.values(), *FUSED.values()}),
+              LM_HEAD]
+    for k, n in shapes:
+        w, s = weights8(g, k, n)
+        for m in (*range(1, 17), 64, 1000):
+            x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+            got = quant.int8_matmul(x, w, s)
+            ref = quant.int8_matmul_reference(x, w, s).float()
+            ok = bool(((got.float() - ref).abs() <= 1e-2 + 1.6e-2 * ref.abs()).all())
+            same = torch.equal(got, quant.int8_matmul(x, w, s))
+            bad += not (ok and same)
+            if m in (1, 16, 1000) or not (ok and same):
+                print("int8_matmul", f"K={k} N={n} M={m}", "max_abs_err",
+                      round(float((got.float() - ref).abs().max()), 5), "ok", ok, "same", same,
+                      flush=True)
+        del w, s
+    print("failed checks", bad, flush=True)
+    for m in (8, 16):
+        for layout, layer in (("fused", FUSED), ("split", SPLIT)):
+            total = {"ms": 0.0}
+            products = {**layer, "lm_head": LM_HEAD} if layout == "fused" else layer
+            for p, (k, n) in products.items():
+                w, s = weights8(g, k, n)
+                x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+                ws, rep = copies_of(w, s)
+                t = {"ms": graph_ms([lambda w=w, s=s: quant.int8_matmul(x, w, s)
+                                     for w, s in ws] * rep)}
+                plan = quant._swapab_plan_on(0, m, n, k, quant.MODE_INT8)
+                nbytes = w.numel() + 4 * s.numel() + 2 * m * (k + n)
+                print("int8_matmul", f"M={m}", layout, p,
+                      {key: round(v, 5) for key, v in t.items()},
+                      "bound_ms", round(nbytes / 3.35e9, 5), "GB/s",
+                      round(nbytes / t["ms"] / 1e6, 1), "cluster", plan["cluster"], "grid",
+                      plan["grid"][0], flush=True)
+                if p != "lm_head":
+                    for key in total:
+                        total[key] += t[key]
+                if m == 8 and layout == "split" and p in ("q", "k", "gate", "down"):
+                    sweep = {c: round(entry8_ms(lib, x, ws, rep, m, n, k, c), 5)
+                             for c in range(1, min(8, -(-k // quant.INT8_ROWS)) + 1)}
+                    print("  cluster sweep", sweep, flush=True)
+                del ws, w, s
+            print("int8_matmul", f"M={m}", layout, "layer",
+                  {key: round(v, 5) for key, v in total.items()}, flush=True)
+
+
+BUILD_BENCH = INT8_MS + r'''
+import json, sys
+from affectgpt_tpu_torch.ops import quant
+g = torch.Generator(device="cuda").manual_seed(0)
+out = {"variant": sys.argv[2]}
+w, s = weights8(g, 3584, 512)
+x = torch.randn((5, 3584), generator=g, device="cuda").to(torch.bfloat16)
+out["max_abs_err"] = round(float((quant.int8_matmul(x, w, s).float()
+                                  - quant.int8_matmul_reference(x, w, s).float()).abs().max()), 5)
+for m in (8, 16):
+    layer = 0.0
+    # gate132: gate_proj cut to 132 column blocks (one block an SM, none
+    # doubled), beside the real one's 148
+    for p, (k, n) in {"gate": (3584, 18944), "down": (18944, 3584), "q": (3584, 3584),
+                      "qkv": (3584, 4608), "gateup": (3584, 37888), "o": (3584, 3584),
+                      "gate132": (3584, 132 * 128)}.items():
+        ws, rep = copies_of(*weights8(g, k, n))
+        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        us = graph_ms([lambda w=w, s=s: quant.int8_matmul(x, w, s) for w, s in ws] * rep) * 1000
+        if p in ("gate", "down", "q", "gate132"):
+            out[f"{p}_M{m}_us"] = round(us, 2)
+        if p in ("qkv", "o", "gateup", "down"):
+            layer += us
+        del ws
+    out[f"fused_layer_M{m}_us"] = round(layer, 2)
+print(json.dumps(out), flush=True)
+'''
+
+
+def builds(names: list) -> None:
+    tmp = Path(tempfile.mkdtemp())
+    for name in names or VARIANTS:
+        run_variant(name, "int8_builds", VARIANTS[name], tmp, bench=BUILD_BENCH)
+
+
+TIME_BENCH = INT8_MS + f"""
+import json, sys
+from affectgpt_tpu_torch.ops import quant
+SPLIT, FUSED, LM_HEAD, LAYER = {SPLIT!r}, {FUSED!r}, {LM_HEAD!r}, {LAYER!r}
+""" + r'''
+g = torch.Generator(device="cuda").manual_seed(0)
+out = {"package": sys.argv[1]}
+runs = (("int8_matmul_M8_fused", quant.int8_matmul, 8, 8, {**FUSED, "lm_head": LM_HEAD}),
+        ("int8_matmul_M16_qkvo", quant.int8_matmul, 8, 16,
+         {**{p: SPLIT[p] for p in "qkvo"}, "lm_head": LM_HEAD}),
+        ("int4_matmul_smallm_M8", quant.int4_matmul_smallm, 4, 8, LAYER),
+        ("int4_matmul_M16", quant.int4_matmul, 4, 16, LAYER))
+for label, fn, bits, m, shapes in runs:
+    per = {}
+    for p, (k, n) in shapes.items():
+        w, s = weights8(g, k, n) if bits == 8 else weights(g, k, n)
+        ws, rep = copies_of(w, s)
+        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        per[p] = round(graph_ms([lambda w=w, s=s: fn(x, w, s) for w, s in ws] * rep), 5)
+        del ws, w, s
+    out[label] = {"layer_ms": round(sum(v for p, v in per.items() if p != "lm_head"), 5), **per}
+print(json.dumps(out), flush=True)
+'''
+
+
+def time_packages(dirs: list) -> None:
+    """TIME_BENCH for this tree's package and each DIR's, A B B A."""
+    roots = [("this tree", REPO)] + [(d, Path(d).resolve()) for d in dirs]
+    for label, root in roots + roots[::-1]:
+        env = {**os.environ, "PYTHONPATH": str(root)}
+        proc = subprocess.run([sys.executable, "-c", TIME_BENCH, label], env=env, cwd=root,
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(json.dumps({"package": label, "error": proc.stderr[-3000:]}), flush=True)
+        else:
+            print(proc.stdout.strip().splitlines()[-1], flush=True)
+
+
+def main() -> None:
+    mode = sys.argv[1] if len(sys.argv) > 1 else "check"
+    if mode not in ("check", "time", "builds"):
+        raise SystemExit(f"unknown mode {mode!r}: check, time or builds")
+    card()
+    if mode == "builds":
+        builds(sys.argv[2:])
+    elif mode == "time":
+        time_packages(sys.argv[2:])
+    else:
+        check()
+
+
+if __name__ == "__main__":
+    main()

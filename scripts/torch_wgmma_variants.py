@@ -1,6 +1,7 @@
 """Time variants of the port's wgmma and tensor-core kernels on one CUDA card.
 
     python3 scripts/torch_wgmma_variants.py [--only fused|w8a8|mlp|decode|attention|int4] [--out DIR]
+                                            [NAME ...]
 
 For each variant the package is copied to a temporary directory, a few
 source constants are replaced there (the ring depth, the w8a8 row tile;
@@ -25,10 +26,9 @@ of 128, prompts of 545-564 tokens left-packed, and `fused_vit_attention`
 ms of each of its launches; `diag_attention_no_products` drops both
 kernels' wgmma products and `diag_attention_no_exp` their exp2, which
 splits the time into loads, products and softmax; the two int4 decode
-wrappers (`--only int4`, csrc/int4_matmul_swapab.cu) per Qwen2.5-7B layer
+wrappers (`--only int4`, csrc/quant_swapab.cu) per Qwen2.5-7B layer
 and at the lm_head, `int4_matmul_smallm` at M = 8 and `int4_matmul` at M =
-16, with the previous design (`old_ms`, quant_mma.cuh's 16 x 128 tile) and
-`diag_int4_*` variants without the consumers' work, the nibble conversion
+16, with `diag_int4_*` variants without the consumers' work, the nibble conversion
 or the products (each keeps what it skips reaching the output: ptxas
 deletes work whose results are never stored). For
 those two kernels the unedited variant also times the C entry's variants:
@@ -57,12 +57,27 @@ GEMM = "affectgpt_tpu_torch/csrc/vit_gemm_wgmma.cuh"
 ATTN = "affectgpt_tpu_torch/csrc/attention_wgmma.cuh"
 PREFILL = "affectgpt_tpu_torch/csrc/prefill_attention.cu"
 VIT_ATTN = "affectgpt_tpu_torch/csrc/vit_attention.cuh"
-INT4 = "affectgpt_tpu_torch/csrc/int4_matmul_swapab.cu"
+INT4 = "affectgpt_tpu_torch/csrc/quant_swapab.cu"
 
 _VIT_SOFTMAX = "for (int h = 0; h < 2; ++h) {  // one chain a key tile"
 _VIT_NO_SOFTMAX = "for (int h = 0; h < 0; ++h) {  // one chain a key tile"
 _VIT_STORE = "if (row >= n) continue;"
 _VIT_NO_STORE = "if (row >= 0) continue;"
+# The "no products" diagnostics fold the register operands a left-out
+# product would have read into its accumulator (hopper.cuh xor_fold,
+# sink_into): ptxas deletes work whose results reach no store, so without
+# the fold the fragments' loads and conversions would go too. The SS
+# products (operands in shared memory, read by the tensor cores) leave no
+# register work behind.
+_W8A8_MMA = "        wgmma_s8_rs(acc_i, a[s], desc_sw128(xbase + s * 32, 16, 1024), fresh ? 0 : 1);"
+_NO_ATTN_PRODUCTS = [
+    (ATTN, "    wgmma_bf16_ss(s, desc_sw128(", "    if (false) wgmma_bf16_ss(s, desc_sw128("),
+    (ATTN, "    wgmma_bf16_rs(s, qf[4 * ks], qf[4 * ks + 1], qf[4 * ks + 2], qf[4 * ks + 3],\n"
+     "                  desc_sw128(k + (ks / 4) * kBox + 32 * (ks % 4), 16, 1024), ks > 0);",
+     "    sink_into(s[ks], qf[4 * ks] ^ qf[4 * ks + 1] ^ qf[4 * ks + 2] ^ qf[4 * ks + 3]);"),
+    (ATTN, "    wgmma_bf16_rs_tb(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],\n"
+     "                     desc_sw128_mn(v + 2048 * kk, kBox), kk > 0 || accumulate);",
+     "    sink_into(o[kk], p[4 * kk] ^ p[4 * kk + 1] ^ p[4 * kk + 2] ^ p[4 * kk + 3]);")]
 
 # name: (kernel, [(file, old text, new text)])
 VARIANTS = {
@@ -77,8 +92,10 @@ VARIANTS = {
          "bm = 16 if m <= 16 else 128"),
         (W8A8, "if (bm != 16 && bm != 192)", "if (bm != 16 && bm != 128)"),
         (W8A8, ": launch<192>(", ": launch<128>(")]),
-    "diag_w8a8_no_products": ("w8a8", [(W8A8, "        wgmma_s8_rs(acc_i,",
-                                        "        if (false) wgmma_s8_rs(acc_i,")]),
+    # the A fragments (built from the weights in registers) folded into the
+    # accumulator in place of the products
+    "diag_w8a8_no_products": ("w8a8", [(W8A8, _W8A8_MMA,
+                                        "        acc_i[0] ^= (int)xor_fold(a[s]);")]),
     "mlp_as_is": ("mlp", []),
     "mlp_cluster1": ("mlp", [("affectgpt_tpu_torch/ops/vit_mlp.py",
                               "GEMM_CLUSTER = 128, 256, 64, 4, 2",
@@ -97,9 +114,7 @@ VARIANTS = {
     "vit_two_pass": ("attention", [(VIT_ATTN, "case 5: return launch<5>(",
                                     "case 5: return launch<0>(")]),
     # neither kernel's tensor-core products (both attention kernels share them)
-    "diag_attention_no_products": ("attention", [
-        (ATTN, "    wgmma_bf16_ss(s, desc_sw128(", "    if (false) wgmma_bf16_ss(s, desc_sw128("),
-        (ATTN, "    wgmma_bf16_rs_tb(o, p[4 * kk]", "    if (false) wgmma_bf16_rs_tb(o, p[4 * kk]")]),
+    "diag_attention_no_products": ("attention", _NO_ATTN_PRODUCTS),
     # no exp2 in either kernel's softmax (the values go on as they are)
     "diag_attention_no_exp": ("attention", [(PREFILL, "fast_exp2(", "("),
                                             (VIT_ATTN, "fast_exp2(", "(")]),
@@ -124,8 +139,7 @@ VARIANTS = {
     "diag_int4_no_products": ("int4", [(INT4, "kProducts = true;", "kProducts = false;")]),
     "diag_vit_loads_only": ("attention", [
         (VIT_ATTN, _VIT_SOFTMAX, _VIT_NO_SOFTMAX), (VIT_ATTN, _VIT_STORE, _VIT_NO_STORE),
-        (ATTN, "    wgmma_bf16_ss(s, desc_sw128(", "    if (false) wgmma_bf16_ss(s, desc_sw128("),
-        (ATTN, "    wgmma_bf16_rs_tb(o, p[4 * kk]", "    if (false) wgmma_bf16_rs_tb(o, p[4 * kk]")]),
+        *_NO_ATTN_PRODUCTS]),
 }
 
 BENCH = r"""
@@ -265,11 +279,7 @@ elif kind == "int4":
         out[f"{fn}_max_abs_err"] = float((getattr(quant, fn)(x, w, s).float() - ref).abs().max())
     for fn, m in (("int4_matmul_smallm", 8), ("int4_matmul", 16)):
         kernel = getattr(quant, fn)
-        designs = {"ms": kernel}
-        if name == "int4_as_is":  # the previous design, quant_mma.cuh's 16 x 128 tile
-            designs["old_ms"] = lambda x, w, s, d=fn.endswith("smallm"): \
-                quant._int4_previous_design(x, w, s, d)
-        for key, call in designs.items():
+        for key, call in {"ms": kernel}.items():
             per = {}
             for p, (k, n) in layer.items():
                 w, s = stored[(k, n)]
@@ -353,13 +363,14 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("fused", "w8a8", "mlp", "decode", "attention", "int4"))
     ap.add_argument("--out", default=None, help="scratch directory (default: a temporary one)")
+    ap.add_argument("names", nargs="*", help="only these variants (default: all, or --only's)")
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     tmp_root = Path(args.out or tempfile.mkdtemp())
     tmp_root.mkdir(parents=True, exist_ok=True)
     for name, (kind, edits) in VARIANTS.items():
-        if args.only in (None, kind):
+        if args.only in (None, kind) and (not args.names or name in args.names):
             run_variant(name, kind, edits, tmp_root)
 
 

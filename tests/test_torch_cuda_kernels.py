@@ -273,6 +273,38 @@ def test_int4_swapab_kernel_matches_plain_at_decode_m(gen, name, k, n, m):
     assert torch.equal(got, kernel(x, w, scales))
 
 
+@pytest.mark.parametrize("m", list(range(1, 17)))
+@pytest.mark.parametrize("k,n", [(3584, 512), (18944, 3584), (3584, 4608)])
+def test_int8_swapab_kernel_matches_plain_at_decode_m(gen, k, n, m):
+    """The int8 mode of the swap-AB kernel at every decode M, on k/v_proj's,
+    down_proj's and the fused qkv_proj's shapes of Qwen2.5-7B: one launch,
+    the plain version's result within tolerance, and the same bits from a
+    second call."""
+    w, scales = _quantized(gen, k, n, 8)
+    x = _rnd(gen, m, k)
+    before = quant.int8_matmul.launches
+    got = quant.int8_matmul(x, w, scales)
+    torch.cuda.synchronize()
+    assert quant.int8_matmul.launches == before + 1
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), quant.int8_matmul_reference(x, w, scales).float(),
+                               **TOL)
+    assert torch.equal(got, quant.int8_matmul(x, w, scales))
+
+
+def test_int8_swapab_kernel_raises_on_what_it_does_not_take(gen):
+    w, scales = _quantized(gen, 512, 256, 8)
+    x = _rnd(gen, 8, 512)
+    with pytest.raises(ValueError):  # K not a multiple of 64
+        quant.int8_matmul(_rnd(gen, 8, 480), w[:480].contiguous(), scales)
+    with pytest.raises(ValueError):  # N not a multiple of 16
+        quant.int8_matmul(x, w[:, :120].contiguous(), scales[:, :120].contiguous())
+    with pytest.raises(ValueError):  # a weight that is not contiguous
+        quant.int8_matmul(x, w.t().contiguous().t(), scales)
+    with pytest.raises(TypeError):  # bf16 scales
+        quant.int8_matmul(x, w, scales.to(torch.bfloat16))
+
+
 @pytest.mark.parametrize("name", sorted(INT4_KERNELS))
 def test_int4_swapab_kernel_raises_on_what_it_does_not_take(gen, name):
     kernel = getattr(quant, name)
@@ -392,7 +424,8 @@ def _paged_case(gen, b, kv, g, d, blk, width, int8, num_blocks=64):
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("b", [1, 3, 7])
 @pytest.mark.parametrize("kv,g,d", [(2, 3, 64), (4, 7, 128)])
-@pytest.mark.parametrize("blk,width", [(16, 5), (8, 8)])
+@pytest.mark.parametrize("blk,width", [(16, 5), (8, 8), (12, 6), (4, 12), (24, 4), (1, 40),
+                                       (20, 5)])
 def test_paged_attention_kernel_matches_plain(gen, int8, b, kv, g, d, blk, width):
     args, scales = _paged_case(gen, b, kv, g, d, blk, width, int8,
                                num_blocks=b * width + 2)
@@ -403,6 +436,29 @@ def test_paged_attention_kernel_matches_plain(gen, int8, b, kv, g, d, blk, width
     assert kernel.launches == before + 1 and got.shape == args[0].shape
     torch.testing.assert_close(got.float(), paged_attention_reference(*args, *scales).float(),
                                **TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("kv,g,d", [(2, 3, 64), (4, 7, 128)])
+@pytest.mark.parametrize("blk,width", [(16, 38), (8, 9), (12, 10), (24, 6), (1, 64)])
+def test_paged_attention_kernel_repeats_on_empty_and_mid_page_rows(gen, int8, kv, g, d, blk,
+                                                                     width):
+    """Rows of 0 and 1 tokens, rows that end inside a page, one that fills
+    the table: within tolerance of the plain version, the empty row exactly
+    0, one launch a call and the same bits from a second call."""
+    args, scales = _paged_case(gen, 6, kv, g, d, blk, width, int8, num_blocks=6 * width + 2)
+    q, pool_k, pool_v, tables, _ = args
+    lens = torch.tensor([0, 1, blk + 3, width * blk, 2 * blk - 1, width * blk - 5],
+                        dtype=torch.int32, device="cuda")
+    kernel = paged_attention_int8 if int8 else paged_attention
+    before = kernel.launches
+    got = kernel(q, pool_k, pool_v, tables, lens, *scales)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    torch.testing.assert_close(got.float(), paged_attention_reference(
+        q, pool_k, pool_v, tables, lens, *scales).float(), **TOL)
+    assert torch.equal(got, kernel(q, pool_k, pool_v, tables, lens, *scales))
 
 
 def test_paged_attention_rows_without_tokens_are_zero(gen):
@@ -427,6 +483,10 @@ def test_paged_attention_wrappers_raise_on_what_the_kernel_does_not_take(gen):
         paged_attention(_rnd(gen, 2, 6, 96), pk, pk, tables, lens)
     with pytest.raises(ValueError):  # non-contiguous q
         paged_attention(_rnd(gen, 2, 64, 6).transpose(1, 2), pool_k, pool_v, tables, lens)
+    with pytest.raises(ValueError):  # 5 query heads over 2 kv heads
+        paged_attention(_rnd(gen, 2, 5, 64), pool_k, pool_v, tables, lens)
+    with pytest.raises(ValueError):  # 9 query heads per kv head
+        paged_attention(_rnd(gen, 2, 18, 64), pool_k, pool_v, tables, lens)
 
 
 # the encoder kernels: CLIP's 257 tokens, HuBERT's 99 and a single key tile,

@@ -36,6 +36,21 @@ card: tests/test_torch_cuda_kernels.py).
   TMA): a kernel for every 1 <= valid_len <= n <= 512, one pass up to 320
   valid keys, the shared memory of the blocks an SM holds fits, and it
   raises beyond.
+- `quant.int4_plan` and `quant.int8_plan` (the swap-AB weight-only kernel,
+  csrc/quant_swapab.cu): every (16-column strip, K unit) once, clusters of
+  at most 8 that split K for the narrow products only, two blocks an SM;
+  a bit-level emulation of one stage of each mode (TMA's swizzle, ldmatrix,
+  the nibble and int8 conversions, the mma fragment layouts) rebuilds the
+  weight tile and the plain sums exactly.
+- `paged_attention.paged_plan` (the paged decode attention,
+  csrc/paged_attention.cu): every valid token of a (row, kv head) pair in
+  one split (the kernel's shares, `_paged_shares`), at most 8 splits, the
+  same shares at table widths 38 and 64; for pages of any size, the
+  producer's boxes fill each tile's 16 rows once, inside their pages and
+  the stage's padding;
+  an emulation of one tile through one warp (S^T = K Q^T with int8 keys in
+  ldmatrix's order, P^T by movmatrix, Out^T = V^T P^T) gives the exact
+  products.
 """
 
 import numpy as np
@@ -43,8 +58,8 @@ import pytest
 
 import torch
 
-from affectgpt_tpu_torch.ops import decode_mlp, prefill_attention, quant, vit_attention, vit_mlp
-from affectgpt_tpu_torch.ops import vit_mlp_fused
+from affectgpt_tpu_torch.ops import decode_mlp, paged_attention, prefill_attention, quant
+from affectgpt_tpu_torch.ops import vit_attention, vit_mlp, vit_mlp_fused
 
 SMEM_LIMIT = 232_448  # bytes of shared memory an H100 block can use
 SMS = 132
@@ -336,7 +351,7 @@ def test_vit_attention_plan_raises_beyond_max_n(n, valid):
 
 
 # ---------------------------------------------------------------------------
-# The swap-AB int4 kernel (csrc/int4_matmul_swapab.cu)
+# The swap-AB kernel's int4 modes (csrc/quant_swapab.cu)
 
 SMEM_PER_SM = 233_472  # an H100 SM's shared memory; each resident block also reserves 1 KB
 INT4_SHAPES = LAYER_7B + [(1024, 256), (512, 272), (256, 128), (2048, 16)]
@@ -503,3 +518,355 @@ def test_int4_fragments_rebuild_the_weight_tile(nt, dequant):
     want = sum(xf[:, h * 128:(h + 1) * 128] @ (weight[h] * (1.0 if dequant else scales[h]))
                for h in range(2))
     np.testing.assert_allclose(y, want, rtol=1e-12, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# The int8 mode of the swap-AB kernel (csrc/quant_swapab.cu)
+
+INT8_SHAPES = LAYER_7B + [(3584, 4608), (3584, 37888), (64, 256), (1024, 512), (512, 272),
+                          (4160, 16)]
+
+
+@pytest.mark.parametrize("m", list(range(1, 17)))
+@pytest.mark.parametrize("k,n", INT8_SHAPES)
+def test_int8_plan_covers_every_strip_and_unit_once(m, k, n):
+    plan = quant.int8_plan(m, n, k, SMS)
+    c, units, rows, bn = plan["cluster"], plan["units"], plan["rows"], plan["block_n"]
+    assert plan["nt"] == (1 if m <= 8 else 2)
+    assert units == -(-k // rows) and (units - 1) * rows < k <= units * rows
+    assert 1 <= c <= 8 and c <= units and plan["col_blocks"] == -(-n // bn)
+    assert plan["grid"] == (c * plan["col_blocks"],)
+    # block b: column block b // c, rank b % c and that rank's units
+    cover = np.zeros((n // 16, units), np.int32)
+    for b in range(plan["grid"][0]):
+        cb, rank = divmod(b, c)
+        u0, u1 = plan["unit_ranges"][rank]
+        for s in range(bn // 16 * cb, min(bn // 16 * (cb + 1), n // 16)):
+            cover[s, u0:u1] += 1
+    assert (cover == 1).all()  # each weight byte is read by one block, once
+    assert plan["weight_bytes"] >= n * k
+    assert plan["smem_bytes"] <= SMEM_LIMIT
+    assert 2 * (plan["smem_bytes"] + 1024) <= SMEM_PER_SM  # two blocks an SM
+
+
+@pytest.mark.parametrize("m,n,k", [(0, 512, 3584), (17, 512, 3584), (8, 120, 3584),
+                                   (8, 512, 96), (8, 512, 0), (8, 0, 3584)])
+def test_int8_plan_raises_on_what_the_kernel_does_not_take(m, n, k):
+    with pytest.raises(ValueError):  # M outside 1-16, N % 16, K % 64
+        quant.int8_plan(m, n, k, SMS)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+def test_int8_plan_splits_k_for_narrow_products_only(m):
+    """q/k/v/o_proj, qkv_proj and down_proj split K over a cluster; gate and
+    up_proj (split and fused) and the lm_head fill the card whole-K."""
+    for k, n in [(3584, 3584), (3584, 512), (3584, 4608), (18944, 3584)]:
+        assert quant.int8_plan(m, n, k, SMS)["cluster"] >= 3
+    for k, n in [(3584, 18944), (3584, 37888), (3584, 152064)]:
+        assert quant.int8_plan(m, n, k, SMS)["cluster"] == 1
+
+
+def test_int8_plan_reads_the_card_s_cluster_count():
+    plan = quant.int8_plan(8, 512, 3584, SMS, lambda c: 264 // c if c <= 2 else 0)
+    assert plan["cluster"] <= 2
+    with pytest.raises(ValueError):
+        quant.int8_plan(8, 512, 3584, SMS, lambda c: 0)
+
+
+def _s8_halves(h: int):
+    """mma_bf16.cuh s8_halves_to_bf16x2: for each 16-bit half, the bf16 0x4300
+    | (b & 0x7F) times 1 plus the bf16 0xC300 | (b & 0x80), rounded once to
+    bf16 (fma.rn.bf16x2); b the half's low byte."""
+    out = []
+    for half in (h & 0xFFFF, h >> 16):
+        lo, neg = _bf16_value((half & 0x7F) | 0x4300), _bf16_value((half & 0x80) | 0xC300)
+        out.append(_bf16_round(lo * 1.0 + neg))
+    return out
+
+
+def test_int8_conversion_is_exact_for_every_byte():
+    rng = np.random.RandomState(5)
+    for b in range(256):
+        v = b - 256 if b >= 128 else b
+        high = [int(x) for x in rng.randint(0, 256, size=2)]  # the ignored high bytes
+        assert _s8_halves(b | (high[0] << 8) | ((255 - b) << 16) | (high[1] << 24)) == \
+            [v, (255 - b) - 256 if 255 - b >= 128 else 255 - b]
+
+
+@pytest.mark.parametrize("nt", [1, 2])
+def test_int8_fragments_rebuild_the_weight_tile(nt):
+    """One int8 stage of one block (128 rows x 128 columns), every consumer
+    warp, emulated instruction by instruction: the swizzled weight and x
+    tiles TMA writes, the transposed ldmatrix and the byte-pair conversions
+    of each A fragment, the ldmatrix of each B fragment, the m16n8k16
+    products. Every A fragment must hold the weight at the (n, k) the mma
+    layout gives it, every B fragment x at its (k, m), and the products the
+    plain sums."""
+    rng = np.random.RandomState(4)
+    rows, m = 128, 8 * nt
+    w = rng.randint(0, 256, size=(rows, 128)).astype(np.uint8)  # bytes [k][n]
+    values = (w.astype(np.int32) ^ 0x80) - 0x80
+    x = torch.tensor(rng.randn(m, rows), dtype=torch.float32).to(torch.bfloat16)
+    w_smem = _swizzle128(w)
+    x_bits = x.view(torch.int16).numpy().view(np.uint16)
+    x_smem = [_swizzle128(x_bits[:, 64 * b:64 * b + 64].copy().view(np.uint8)) for b in range(2)]
+    lanes = np.arange(32)
+    xrow = (lanes % 8) + 8 * (lanes // 16) if nt == 2 else lanes % 8
+    xchunk = (lanes // 8) % 2 if nt == 2 else lanes // 8
+    y = np.zeros((m, 128))
+    for warp in range(8):
+        d = np.zeros((16, m))  # [fragment row][batch row]
+        for j in range(rows // 32):
+            r = _ldmatrix_x4(w_smem, (32 * j + lanes) * 128 + ((warp ^ (lanes & 7)) << 4),
+                             trans=True)
+            box = x_smem[j // 2]
+            loads = [_ldmatrix_x4(box, xrow * 128 + (((4 * (j % 2) + 2 * s + xchunk)
+                                                      ^ (lanes & 7)) << 4), trans=False)
+                     for s in range(nt)]
+            for s in range(2):
+                a_mat, b_mat = np.zeros((16, 16)), np.zeros((16, m))
+                for lane in range(32):
+                    g, t = lane // 4, lane % 4
+                    w0, w1 = int(r[lane, 2 * s]), int(r[lane, 2 * s + 1])
+                    pairs = [_s8_halves(w0), _s8_halves(w0 >> 8), _s8_halves(w1),
+                             _s8_halves(w1 >> 8)]
+                    for i, (row, col) in enumerate([(g, 2 * t), (g + 8, 2 * t), (g, 2 * t + 8),
+                                                    (g + 8, 2 * t + 8)]):
+                        a_mat[row, col], a_mat[row, col + 1] = pairs[i]
+                    for tile in range(nt):
+                        regs = (loads[s][lane, 2 * tile:2 * tile + 2] if nt == 2
+                                else loads[0][lane, 2 * s:2 * s + 2])
+                        for i, kk in enumerate((2 * t, 2 * t + 8)):
+                            b_mat[kk, 8 * tile + g] = _bf16_value(int(regs[i]) & 0xFFFF)
+                            b_mat[kk + 1, 8 * tile + g] = _bf16_value(int(regs[i]) >> 16)
+                cols = 16 * warp + np.array([2 * (i % 8) + i // 8 for i in range(16)])
+                kp = 32 * j + 16 * s + np.arange(16)
+                np.testing.assert_array_equal(a_mat, values[kp][:, cols].T)
+                np.testing.assert_array_equal(b_mat, x[:, kp].float().numpy().T)
+                d += a_mat @ b_mat
+        cols = 16 * warp + np.array([2 * (i % 8) + i // 8 for i in range(16)])
+        y[:, cols] += d.T
+    np.testing.assert_allclose(y, x.double().numpy() @ values, rtol=1e-12, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# The paged decode attention kernel (csrc/paged_attention.cu)
+
+PAGED_LENGTHS = [0, 1, 16, 17, 595]
+
+
+def _paged_shares(n_tokens: int, width: int, blk: int, splits: int) -> list:
+    """The token ranges [lo, hi) of the `splits` blocks of one (row, kv head)
+    pair with seq_len n_tokens, as the kernel's share() computes them: the
+    valid tokens are a prefix, n = min(n_tokens, width * blk), cut into
+    16-token tiles, block r taking tiles [r T / C, (r + 1) T / C)."""
+    n = max(0, min(n_tokens, width * blk))
+    tiles = -(-n // 16)
+    return [(min(n, 16 * (r * tiles // splits)), min(n, 16 * ((r + 1) * tiles // splits)))
+            for r in range(splits)]
+
+
+@pytest.mark.parametrize("width", [38, 64])
+@pytest.mark.parametrize("blk", [16, 8, 32, 12, 4, 24, 1])
+@pytest.mark.parametrize("b,kv,g,d", [(16, 4, 7, 128), (3, 2, 3, 64), (1, 1, 8, 128),
+                                      (64, 4, 7, 128)])
+def test_paged_plan_gives_every_valid_token_to_one_split(width, blk, b, kv, g, d):
+    for int8 in (False, True):
+        plan = paged_attention.paged_plan(b, kv, g, d, blk, width, int8, SMS)
+        c = plan["splits"]
+        assert 1 <= c <= 8 and plan["cluster"] == c and plan["grid"] == (b * kv * c,)
+        assert b * kv * c <= 2 * SMS or c == 1  # the whole grid fits the card at once
+        assert plan["stages"] % 4 == 0 and plan["smem_bytes"] <= SMEM_LIMIT
+        for n in PAGED_LENGTHS:
+            valid = min(n, width * blk)
+            cover = np.zeros(valid, np.int32)
+            shares = _paged_shares(n, width, blk, c)
+            assert len(shares) == c
+            for lo, hi in shares:
+                assert lo % 16 == 0 and lo <= hi  # whole 16-token tiles
+                cover[lo:hi] += 1
+            assert (cover == 1).all()
+
+
+def test_paged_plan_follows_the_tokens_not_the_table_width():
+    """At the serve phase's shape (16 rows of 4 kv heads) widths 38 and 64
+    give the same splits and the same shares of a row's tokens: the wider
+    table adds no work."""
+    p38, p64 = (paged_attention.paged_plan(16, 4, 7, 128, 16, w, False, SMS) for w in (38, 64))
+    assert p38["splits"] == p64["splits"] == 4 and p38["grid"] == p64["grid"]
+    for n in PAGED_LENGTHS:
+        assert _paged_shares(n, 38, 16, 4) == _paged_shares(n, 64, 16, 4)
+
+
+@pytest.mark.parametrize("kwargs", [dict(d=96), dict(d=256), dict(g=9), dict(g=0),
+                                    dict(blk=0), dict(width=0), dict(splits=9)])
+def test_paged_plan_raises_on_what_the_kernel_does_not_take(kwargs):
+    args = dict(b=16, kv=4, g=7, d=128, blk=16, width=38, int8=False, sm_count=SMS)
+    with pytest.raises(ValueError):
+        paged_attention.paged_plan(**{**args, **kwargs})
+
+
+@pytest.mark.parametrize("blk", [1, 2, 3, 4, 5, 7, 8, 12, 16, 20, 24, 32, 40, 48, 100])
+def test_paged_page_boxes_fill_each_tile_once(blk):
+    """The producer's boxes, as csrc/paged_attention.cu places them: for each
+    page p holding a valid token of a tile at tok0, a box of min(blk, 16)
+    rows from the page's row o = clamp(tok0 - p blk, 0, blk - rows), at
+    stage row pad + p blk + o - tok0. Every box stays inside its page and the
+    stage's padded rows, no two boxes of a tile overlap, and the tile's valid
+    rows [0, 16) are each written once with the right token. Pages of 8 or a
+    multiple of 16 need no padding; the plan's stage fits the card."""
+    rows, pad = min(blk, 16), 16 if paged_attention.odd_pages(blk) else 0
+    assert paged_attention.odd_pages(blk) == (blk != 8 and blk % 16 != 0)
+    for n in (1, 15, 16, 17, 3 * blk + 5, 595):
+        for tok0 in range(0, n, 16):
+            written = {}  # stage row -> token
+            first, last = tok0 // blk, (min(tok0 + 16, n) - 1) // blk
+            assert last - first + 1 <= 17  # lanes of the producer warp
+            for p in range(first, last + 1):
+                o = min(max(tok0 - p * blk, 0), blk - rows)
+                dst = pad + p * blk + o - tok0
+                assert 0 <= o and o + rows <= blk  # inside the page
+                assert 0 <= dst and dst + rows <= 16 + 2 * pad  # inside the stage's rows
+                for r in range(rows):
+                    assert dst + r not in written  # no overlap
+                    written[dst + r] = p * blk + o + r
+            for r in range(min(16, n - tok0)):
+                assert written[pad + r] == tok0 + r
+    for int8 in (False, True):
+        plan = paged_attention.paged_plan(16, 4, 7, 128, blk, 38, int8, SMS)
+        assert plan["smem_bytes"] <= SMEM_LIMIT
+
+
+def _movmatrix_trans(regs: np.ndarray) -> np.ndarray:
+    """movmatrix.sync.aligned.m8n8.trans.b16: lane l holds row l / 4,
+    columns 2 (l % 4), 2 (l % 4) + 1 of a matrix; afterwards the same of its
+    transpose."""
+    mat = np.zeros((8, 8), np.uint64)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        mat[g, 2 * t], mat[g, 2 * t + 1] = int(regs[lane]) & 0xFFFF, int(regs[lane]) >> 16
+    out = np.zeros(32, np.uint64)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        out[lane] = int(mat[2 * t, g]) | (int(mat[2 * t + 1, g]) << 16)
+    return out
+
+
+def _bf16_bits(v: float) -> int:
+    return int(torch.tensor(v, dtype=torch.float32).to(torch.bfloat16).view(torch.int16)) & 0xFFFF
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("d", [128, 64])
+def test_paged_fragments_compute_one_tile(int8, d):
+    """One 16-token tile of one kv head through one consumer warp, emulated
+    instruction by instruction: the K and V tiles as TMA writes them
+    (128-byte boxes, swizzled), Q's B fragments, S^T = K Q^T from the
+    ldmatrix of K (int8: the byte permute and pair conversions, the head
+    dimension in ldmatrix's order, Q's fragments following it), P^T moved
+    into the B fragment by movmatrix, and Out^T = V^T P^T from the
+    transposed ldmatrix of V (int8: the byte-pair conversions), the
+    accumulator rows mapped back to d. S^T must be the exact K Q^T and
+    Out^T the exact V^T P (P as the bf16 values the kernel multiplies)."""
+    rng = np.random.RandomState(d + int8)
+    heads = 7
+    if int8:
+        k_rows = rng.randint(0, 256, size=(16, d)).astype(np.uint8)
+        v_rows = rng.randint(0, 256, size=(16, d)).astype(np.uint8)
+        kf, vf = [((r.astype(np.int32) ^ 0x80) - 0x80).astype(np.float64) for r in (k_rows, v_rows)]
+        # one 128-byte box column: d bytes a row (d = 64 fills half of it)
+        pad = lambda r: np.concatenate([r, np.zeros((16, 128 - d), np.uint8)], 1)
+        k_boxes, v_boxes = [_swizzle128(pad(k_rows))], [_swizzle128(pad(v_rows))]
+    else:
+        kt = torch.tensor(rng.randn(16, d), dtype=torch.float32).to(torch.bfloat16)
+        vt = torch.tensor(rng.randn(16, d), dtype=torch.float32).to(torch.bfloat16)
+        kf, vf = kt.double().numpy(), vt.double().numpy()
+        kb, vb = (t.view(torch.int16).numpy().view(np.uint16) for t in (kt, vt))
+        k_boxes = [_swizzle128(kb[:, 64 * i:64 * i + 64].copy().view(np.uint8))
+                   for i in range(d // 64)]
+        v_boxes = [_swizzle128(vb[:, 64 * i:64 * i + 64].copy().view(np.uint8))
+                   for i in range(d // 64)]
+    q = torch.tensor(rng.randn(8, d), dtype=torch.float32).to(torch.bfloat16)
+    q[heads:] = 0  # query heads past g
+    qbits = q.view(torch.int16).numpy().view(np.uint16).astype(np.int64)
+    qf64 = q.double().numpy()
+    lanes = np.arange(32)
+    r_k, r_v = lanes % 16, (lanes % 8) + 8 * (lanes // 16)
+    r_8 = (lanes % 8) + 8 * ((lanes // 8) % 2)
+
+    def qfrag(lane, kk):  # the kernel's qf[kk][0..1] of a lane
+        g, t = lane // 4, lane % 4
+        c = [16 * kk + 4 * t + i for i in range(4)] if int8 else \
+            [16 * kk + 2 * t, 16 * kk + 2 * t + 1, 16 * kk + 2 * t + 8, 16 * kk + 2 * t + 9]
+        return [qbits[g, c[0]] | (qbits[g, c[1]] << 16), qbits[g, c[2]] | (qbits[g, c[3]] << 16)]
+
+    # S^T = K Q^T
+    s = np.zeros((16, 8))
+    for kk in range(d // 16):
+        if int8:
+            j, h = divmod(kk, 2)
+            r = _ldmatrix_x4(k_boxes[0], r_8 * 128 + (((2 * j + lanes // 16) ^ (r_8 & 7)) << 4),
+                             trans=False)
+        else:
+            r = _ldmatrix_x4(k_boxes[kk // 4], r_k * 128 + (((2 * (kk % 4) + lanes // 16)
+                                                             ^ (r_k & 7)) << 4), trans=False)
+        a_mat, b_mat, cols = np.zeros((16, 16)), np.zeros((16, 8)), []
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            if int8:
+                w0, w1 = (_byte_perm(int(r[lane, 2 * h + i]), 0, 0x3120) for i in range(2))
+                regs = [_s8_halves(w0), _s8_halves(w1), _s8_halves(w0 >> 8), _s8_halves(w1 >> 8)]
+            else:
+                regs = [[_bf16_value(int(r[lane, i]) & 0xFFFF), _bf16_value(int(r[lane, i]) >> 16)]
+                        for i in range(4)]
+            for i, (row, col) in enumerate([(g, 2 * t), (g + 8, 2 * t), (g, 2 * t + 8),
+                                            (g + 8, 2 * t + 8)]):
+                a_mat[row, col], a_mat[row, col + 1] = regs[i]
+            for i, kq in enumerate((2 * t, 2 * t + 8)):
+                word = qfrag(lane, kk)[i]
+                b_mat[kq, g], b_mat[kq + 1, g] = _bf16_value(word & 0xFFFF), _bf16_value(word >> 16)
+        s += a_mat @ b_mat
+    np.testing.assert_allclose(s, kf @ qf64.T, rtol=1e-12, atol=1e-9)
+    # P^T into the B fragment: the S^T fragment's two 8x8 matrices, transposed
+    p = rng.rand(16, 8)
+    pb = np.vectorize(lambda v: _bf16_value(_bf16_bits(v)))(p)
+    m0, m1 = np.zeros(32, np.uint64), np.zeros(32, np.uint64)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        m0[lane] = _bf16_bits(p[g, 2 * t]) | (_bf16_bits(p[g, 2 * t + 1]) << 16)
+        m1[lane] = _bf16_bits(p[g + 8, 2 * t]) | (_bf16_bits(p[g + 8, 2 * t + 1]) << 16)
+    b0, b1 = _movmatrix_trans(m0), _movmatrix_trans(m1)
+    b_mat = np.zeros((16, 8))
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for i, kk in enumerate((2 * t, 2 * t + 8)):
+            word = int((b0, b1)[i][lane])
+            b_mat[kk, g], b_mat[kk + 1, g] = _bf16_value(word & 0xFFFF), _bf16_value(word >> 16)
+    np.testing.assert_array_equal(b_mat, pb)
+    # Out^T = V^T P^T
+    out = np.zeros((d, 8))
+    for i in range(d // 16):
+        if int8:
+            j, h = divmod(i, 2)
+            r = _ldmatrix_x4(v_boxes[0], r_8 * 128 + (((2 * j + lanes // 16) ^ (r_8 & 7)) << 4),
+                             trans=True)
+        else:
+            r = _ldmatrix_x4(v_boxes[i // 4], r_v * 128 + (((2 * (i % 4) + (lanes // 8) % 2)
+                                                             ^ (r_v & 7)) << 4), trans=True)
+        a_mat = np.zeros((16, 16))
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            if int8:
+                w0, w1 = int(r[lane, 2 * h]), int(r[lane, 2 * h + 1])
+                regs = [_s8_halves(w0), _s8_halves(w0 >> 8), _s8_halves(w1), _s8_halves(w1 >> 8)]
+            else:
+                regs = [[_bf16_value(int(r[lane, q]) & 0xFFFF), _bf16_value(int(r[lane, q]) >> 16)]
+                        for q in range(4)]
+            for q, (row, col) in enumerate([(g, 2 * t), (g + 8, 2 * t), (g, 2 * t + 8),
+                                            (g + 8, 2 * t + 8)]):
+                a_mat[row, col], a_mat[row, col + 1] = regs[q]
+        acc = a_mat @ b_mat  # [fragment row][query head]
+        for row in range(16):  # the kernel's map of fragment rows to d
+            dd = 16 * i + (2 * (row % 8) + row // 8 if int8 else row)
+            out[dd] = acc[row]
+    np.testing.assert_allclose(out, vf.T @ pb, rtol=1e-12, atol=1e-9)
