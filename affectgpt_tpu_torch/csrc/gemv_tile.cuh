@@ -162,15 +162,6 @@ __device__ __forceinline__ void zero_acc(float acc[BM][8]) {
   }
 }
 
-// y[b, h] = x + act[b, inter] @ w[inter, h], f32 accumulation and one
-// rounding to bf16: the down-projection + residual launch of the decode MLP
-// (csrc/decode_mlp_bf16.cu, where it is defined), also the o_proj + residual
-// launch of the decode attention sublayer (csrc/decode_attn_o.cu). Needs
-// h % 32 == 0 and inter % 8 == 0. Returns the launch's CUDA error code.
-cudaError_t launch_down_residual(const __nv_bfloat16* act, const __nv_bfloat16* x,
-                                 const __nv_bfloat16* w, __nv_bfloat16* y, int b, int h,
-                                 int inter, cudaStream_t stream);
-
 // Raise the kernel's dynamic shared-memory limit when a launch needs more
 // than the 48 KB default. Returns the CUDA error code.
 template <typename Kernel>

@@ -69,7 +69,7 @@ def _get(table: dict, kind: str, name: str) -> EncoderSpec:
         return table[name]
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"{kind} {name!r} is not ported to PyTorch yet (ROADMAP queue 1 item 18)")
+            f"{kind} {name!r} is not ported to PyTorch yet (ROADMAP queue 1 item 12)")
     raise KeyError(f"unknown {kind} {name!r}")
 
 

@@ -36,8 +36,9 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # C signatures of the entries in csrc/*.cu
 _SIGNATURES = {
-    "agk_decode_qkv_bf16": [_P] * 12 + [_I] * 5 + [_F, _F, _P],
-    "agk_decode_mlp_bf16": [_P] * 7 + [_I] * 3 + [_F, _P],
+    "agk_decode_qkv_bf16": [_P] * 13 + [_I] * 9 + [_F, _F, _P],
+    "agk_decode_mlp_bf16": [_P] * 8 + [_I] * 11 + [_F, _P],
+    "agk_decode_swapab_active_clusters": [_I] * 3,
     "agk_decode_attention_bf16": [_P] * 7 + [_I] * 5 + [_P],
     "agk_decode_attn_o_bf16": [_P] * 10 + [_I] * 6 + [_P],
     "agk_prefill_attention_bf16": [_P] * 7 + [_I] * 5 + [_P],

@@ -2,21 +2,26 @@
 for the q=1 decode step.
 
 Port of affectgpt_tpu/ops/decode_qkv_pallas.py::decode_qkv. On a CUDA
-tensor `decode_qkv` launches the hand-written kernel in
-csrc/decode_qkv.cu (or raises); on a CPU tensor it runs
-`decode_qkv_reference`, the plain PyTorch version, which is also the
-oracle the kernel is checked against on the card.
+tensor `decode_qkv` launches the hand-written kernels in
+csrc/decode_qkv.cu (the rmsnorm once a row when ln_scale is given, then the
+swap-AB wgmma kernel of csrc/decode_swapab.cuh over q/k/v's 128-column
+tiles) or raises; on a CPU tensor it runs `decode_qkv_reference`, the plain
+PyTorch version, which is also the oracle the kernel is checked against on
+the card.
 
-Weights are in the JAX `[in, out]` layout (`x @ w`), row-major; the kernel
-reads them in strips of 64 columns: 32 from the first half of a head and the
-32 they rotate with from its second half.
+Weights are in the JAX `[in, out]` layout (`x @ w`), row-major; a tile reads
+64 columns of a head's first half and the 64 they rotate with from its
+second half, so the kernel takes head_dim % 128 == 0 (Qwen2.5's 128).
+`decode_qkv_plan` is its launch plan, cached by shape.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from affectgpt_tpu_torch.ops import _build
+from affectgpt_tpu_torch.ops import _build, decode_gemm
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
@@ -66,6 +71,31 @@ def decode_qkv_reference(
     return q.to(x.dtype), k.to(x.dtype), proj(wv, bv).to(x.dtype)
 
 
+def qkv_segments(nq: int, nkv: int, head_dim: int) -> list:
+    """The kernel's three runs of 128-column tiles: q and k with RoPE, v
+    with its bias only (csrc/decode_qkv.cu)."""
+    return [dict(tiles=n // 128, kind=kind, map0=i, map1=i, head_dim=head_dim)
+            for i, (n, kind) in enumerate(((nq, decode_gemm.ROPE), (nkv, decode_gemm.ROPE),
+                                           (nkv, decode_gemm.BIAS)))]
+
+
+def decode_qkv_plan(b: int, h: int, nq: int, nkv: int, head_dim: int, sms: int,
+                    active_clusters=None) -> dict:
+    """The launch plan at b rows of hidden h (K) on a card of `sms` SMs: the
+    swap-AB kernel's gemm plan over q/k/v's tiles (active_clusters: as
+    decode_gemm.gemm_plan takes it), and the launches a call makes (the
+    rmsnorm pass, then the projections)."""
+    plan = decode_gemm.gemm_plan(b, h, (nq + 2 * nkv) // 128, sms, active_clusters)
+    return {**plan, "segments": qkv_segments(nq, nkv, head_dim), "launches_with_ln": 2,
+            "launches_without_ln": 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_on(b, h, nq, nkv, head_dim, device_index) -> dict:
+    return decode_qkv_plan(b, h, nq, nkv, head_dim, _build.sm_count(device_index),
+                           decode_gemm.active_clusters_on_card)
+
+
 def _check_operands(x, positions, ln_scale, weights, biases, num_heads, num_kv_heads, head_dim):
     b, h = x.shape
     nq, nkv = num_heads * head_dim, num_kv_heads * head_dim
@@ -86,13 +116,13 @@ def _check_operands(x, positions, ln_scale, weights, biases, num_heads, num_kv_h
         raise ValueError("decode_qkv: ln_scale must be [hidden]")
     if tuple(positions.shape) != (b,) or positions.device != x.device:
         raise ValueError("decode_qkv: positions must be [b] on the device of x")
-    if head_dim % 64 or h % 8:
+    if head_dim % 128 or h % 8:
         raise ValueError(
-            f"decode_qkv kernel needs head_dim % 64 == 0 and hidden % 8 == 0 "
+            f"decode_qkv kernel needs head_dim % 128 == 0 and hidden % 8 == 0 "
             f"(head_dim={head_dim}, hidden={h})"
         )
-    if 16 * h + 17 * 8 * 64 * 4 > 227 * 1024:
-        raise ValueError(f"decode_qkv kernel: hidden {h} exceeds shared memory")
+    if not 1 <= b <= 2 * decode_gemm.NB_WIDTHS[-1]:
+        raise ValueError(f"decode_qkv kernel takes 1 to {2 * decode_gemm.NB_WIDTHS[-1]} rows, got {b}")
 
 
 def decode_qkv(
@@ -113,16 +143,19 @@ def decode_qkv(
                     num_heads, num_kv_heads, head_dim)
     b, h = x.shape
     nq, nkv = num_heads * head_dim, num_kv_heads * head_dim
+    plan = _plan_on(b, h, nq, nkv, head_dim, x.device.index or 0)
     positions = positions.to(torch.int32).contiguous()
     q = torch.empty((b, nq), dtype=x.dtype, device=x.device)
     k = torch.empty((b, nkv), dtype=x.dtype, device=x.device)
     v = torch.empty((b, nkv), dtype=x.dtype, device=x.device)
+    xn = None if ln_scale is None else torch.empty_like(x)
     lib = _build.load_library()
     status = lib.agk_decode_qkv_bf16(
         x.data_ptr(), None if ln_scale is None else ln_scale.data_ptr(), positions.data_ptr(),
         wq.data_ptr(), bq.data_ptr(), wk.data_ptr(), bk.data_ptr(),
         wv.data_ptr(), bv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        b, h, nq, nkv, head_dim, float(eps), float(theta),
+        None if xn is None else xn.data_ptr(), b, h, nq, nkv, head_dim,
+        plan["nb"], plan["cb"], plan["ck"], plan["stages"], float(eps), float(theta),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "decode_qkv")
@@ -130,4 +163,4 @@ def decode_qkv(
     return q, k, v
 
 
-decode_qkv.launches = 0  # kernel launches since the last reset
+decode_qkv.launches = 0  # wrapper calls that launched the kernels since the last reset

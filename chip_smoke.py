@@ -10,7 +10,11 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
 2. Build: compiles affectgpt_tpu_torch/csrc into affectgpt_tpu_torch/_build.
 3. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, in bf16, at Qwen2.5-7B widths (b = 8 and 64, RoPE positions up
-   to 4096). Times of each side: `ms`/`plain_ms` are device time per call
+   to 4096); the two bf16 decode kernels (decode_qkv, decode_mlp_bf16, on
+   the swap-AB wgmma kernel) at 7B b = 8, 16 and 64 and at bench.py's 3B
+   geometry at b = 384, each with its launch plan, the same bits from a
+   second call, `chain_ms` (their library chains) and `bound_ms`. Times of
+   each side: `ms`/`plain_ms` are device time per call
    (calls captured in a CUDA graph, 20 replays, weights read from device
    memory); `eager_*` are eager calls with the L2 flushed before each, which
    include the host's launch overhead. The attention kernels are checked at
@@ -143,7 +147,7 @@ from affectgpt_tpu_torch.inference import generate as gen
 from affectgpt_tpu_torch.inference import paged, server
 from affectgpt_tpu_torch.inference.chat import Chat, encode_media_features, prepare_frames
 from affectgpt_tpu_torch.models import affectgpt, clip_vit, encoders, hubert, nn, qwen2
-from affectgpt_tpu_torch.ops import _build, quant, vit_mlp
+from affectgpt_tpu_torch.ops import _build, decode_gemm, quant, vit_mlp
 from affectgpt_tpu_torch.ops import decode_mlp as decode_mlp_module
 from affectgpt_tpu_torch.ops.vit_attention import (
     fused_self_attention,
@@ -167,14 +171,18 @@ from affectgpt_tpu_torch.ops.vit_sublayer import (
 from affectgpt_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
 from affectgpt_tpu_torch.ops.decode_attn_o import decode_attn_o, decode_attn_o_reference
 from affectgpt_tpu_torch.ops.decode_mlp import decode_mlp, decode_mlp_plan, decode_mlp_reference
-from affectgpt_tpu_torch.ops.decode_mlp_bf16 import decode_mlp_bf16, decode_mlp_bf16_reference
+from affectgpt_tpu_torch.ops.decode_mlp_bf16 import (
+    decode_mlp_bf16,
+    decode_mlp_bf16_plan,
+    decode_mlp_bf16_reference,
+)
 from affectgpt_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_int8,
     paged_attention_reference,
     paged_plan,
 )
-from affectgpt_tpu_torch.ops.decode_qkv import decode_qkv, decode_qkv_reference
+from affectgpt_tpu_torch.ops.decode_qkv import decode_qkv, decode_qkv_plan, decode_qkv_reference
 from affectgpt_tpu_torch.ops.prefill_attention import (
     FULL,
     MASKED,
@@ -424,90 +432,124 @@ def library_mlp_bf16_chain(x, ln, wgu, wd, eps: float):
     return torch.addmm(x, torch.nn.functional.silu(g) * u, wd)
 
 
+def qwen_3b_config() -> qwen2.QwenConfig:
+    """bench.py's default geometry (qwen_3b_config, bench.py:52-58): the
+    LLM the bf16 decode kernels meet at b = 384."""
+    return qwen2.QwenConfig(vocab_size=151936, hidden_size=2048, intermediate_size=11008,
+                            num_layers=36, num_heads=16, num_kv_heads=2, head_dim=128)
+
+
+def decode_variant(b: int, cfg: qwen2.QwenConfig, kind: str) -> dict:
+    """The plan of the swap-AB wgmma kernel (csrc/decode_swapab.cuh) that
+    decode_qkv (kind "qkv") or decode_mlp_bf16 ("gateup", "down") launches."""
+    h, d = cfg.hidden_size, cfg.head_dim
+    if kind == "qkv":
+        plan = decode_qkv_plan(b, h, cfg.num_heads * d, cfg.num_kv_heads * d, d, sm_count(),
+                               decode_gemm.active_clusters_on_card)
+    else:
+        plan = decode_mlp_bf16_plan(b, h, cfg.intermediate_size, sm_count(),
+                                    decode_gemm.active_clusters_on_card)[kind]
+    return {k: plan[k]
+            for k in ("regime", "wgmma", "cb", "ck", "stages", "grid", "smem_bytes")}
+
+
 def phase_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
-    """Kernel vs plain version at the main path's widths. Returns per-kernel
-    {max_abs_err, ms, plain_ms}: the largest error over all checks, and the
-    graph-replayed device time per call at b = BATCH."""
+    """The bf16 decode kernels against their plain versions at the main
+    path's widths: Qwen2.5-7B at b = 8, 16 and 64, and bench.py's 3B at b =
+    384; each call must give the same bits twice. Returns per-kernel
+    {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}: the largest
+    error over all checks, the times and bound at 7B, b = BATCH."""
     g = torch.Generator(device="cuda").manual_seed(7)
     dev, bf = "cuda", torch.bfloat16
-    h, inter = cfg.hidden_size, cfg.intermediate_size
-    nq, nkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
 
     def rnd(*shape, scale=1.0, shift=0.0):
         return (torch.randn(shape, generator=g, device=dev) * scale + shift).to(bf)
 
-    # four q/k/v weight sets (4 x 33 MB > L2); the MLP's 407 MB exceed it alone
-    qkv_sets = [(rnd(h, nq, scale=0.02), rnd(nq, scale=0.1), rnd(h, nkv, scale=0.02),
-                 rnd(nkv, scale=0.1), rnd(h, nkv, scale=0.02), rnd(nkv, scale=0.1))
-                for _ in range(4)]
-    qkv_cat = [(torch.cat(ws[0::2], dim=1), torch.cat(ws[1::2])) for ws in qkv_sets]
-    ln = rnd(h, scale=0.1, shift=1.0)
-    wg, wu, wd = rnd(h, inter, scale=0.02), rnd(h, inter, scale=0.02), rnd(inter, h, scale=0.02)
-    wgu = torch.cat([wg, wu], dim=1)
-    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
-    qkv_kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-                  head_dim=cfg.head_dim, theta=cfg.rope_theta, eps=cfg.rms_eps)
     out = {name: {"max_abs_err": 0.0} for name in ("decode_qkv", "decode_mlp_bf16")}
-    for b in (BATCH, 64):
-        x = rnd(b, h)
-        pos = torch.randint(0, 4097, (b,), generator=g, device=dev, dtype=torch.int32)
+    for c, batches in ((cfg, (BATCH, 16, 64)), (qwen_3b_config(), (384,))):
+        h, inter = c.hidden_size, c.intermediate_size
+        nq, nkv = c.num_heads * c.head_dim, c.num_kv_heads * c.head_dim
+        geom = "7b" if c == cfg else "3b"
+        # q/k/v weight sets whose replay cycle passes the 50 MB L2 (4 x 33 MB at
+        # 7B, 8 x 12.6 MB at 3B); the MLP's 407 MB (135 MB at 3B) exceed it alone
+        qkv_sets = [(rnd(h, nq, scale=0.02), rnd(nq, scale=0.1), rnd(h, nkv, scale=0.02),
+                     rnd(nkv, scale=0.1), rnd(h, nkv, scale=0.02), rnd(nkv, scale=0.1))
+                    for _ in range(4 if geom == "7b" else 8)]
+        qkv_cat = [(torch.cat(ws[0::2], dim=1), torch.cat(ws[1::2])) for ws in qkv_sets]
+        ln = rnd(h, scale=0.1, shift=1.0)
+        wg, wu, wd = rnd(h, inter, scale=0.02), rnd(h, inter, scale=0.02), rnd(inter, h, scale=0.02)
+        wgu = torch.cat([wg, wu], dim=1)
+        qkv_kw = dict(num_heads=c.num_heads, num_kv_heads=c.num_kv_heads,
+                      head_dim=c.head_dim, theta=c.rope_theta, eps=c.rms_eps)
+        for b in batches:
+            x = rnd(b, h)
+            pos = torch.randint(0, 4097, (b,), generator=g, device=dev, dtype=torch.int32)
 
-        def qkv(f, ln_scale=ln, ws=qkv_sets[0]):
-            return f(x, pos, *ws, ln_scale=ln_scale, **qkv_kw)
+            def qkv(f, ln_scale=ln, ws=qkv_sets[0]):
+                return f(x, pos, *ws, ln_scale=ln_scale, **qkv_kw)
 
-        for ln_scale in (None, ln):
-            err, rel = compare("decode_qkv", qkv(decode_qkv, ln_scale),
-                               qkv(decode_qkv_reference, ln_scale), b)
-            out["decode_qkv"]["max_abs_err"] = max(out["decode_qkv"]["max_abs_err"], err)
-            say("kernels", kernel="decode_qkv", b=b, ln=ln_scale is not None,
-                max_abs_err=f"{err:.6g}", max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL)
-        freqs = 1.0 / (cfg.rope_theta ** (torch.arange(0, cfg.head_dim, 2, device=dev)
-                                          / cfg.head_dim))
-        angles = pos[:, None, None].float() * freqs
-        cos, sin = torch.cos(angles), torch.sin(angles)
-        times = {
-            "ms": graph_ms([lambda ws=ws: qkv(decode_qkv, ws=ws) for ws in qkv_sets * 6]),
-            "plain_ms": graph_ms([lambda ws=ws: qkv(decode_qkv_reference, ws=ws)
-                                  for ws in qkv_sets * 6]),
-            "chain_ms": graph_ms([lambda wb=wb: library_qkv_chain(x, ln, *wb, cos, sin, cfg)
-                                  for wb in qkv_cat * 6]),
-            "eager_ms": eager_ms(lambda: qkv(decode_qkv), flush),
-            "eager_plain_ms": eager_ms(lambda: qkv(decode_qkv_reference), flush),
-        }
-        say("kernels", kernel="decode_qkv", b=b, **{k: f"{v:.4f}" for k, v in times.items()},
-            card=repr(card))
-        if b == BATCH:
+            for ln_scale in (None, ln):
+                got = qkv(decode_qkv, ln_scale)
+                if not all(torch.equal(a, r) for a, r in zip(got, qkv(decode_qkv, ln_scale))):
+                    raise AssertionError(f"decode_qkv {geom} b={b}: two calls differ")
+                err, rel = compare("decode_qkv", got, qkv(decode_qkv_reference, ln_scale), b)
+                out["decode_qkv"]["max_abs_err"] = max(out["decode_qkv"]["max_abs_err"], err)
+                say("kernels", kernel="decode_qkv", geometry=geom, b=b,
+                    ln=ln_scale is not None, max_abs_err=f"{err:.6g}", max_rel_err=f"{rel:.6g}",
+                    rtol=RTOL, atol=ATOL)
+            freqs = 1.0 / (c.rope_theta ** (torch.arange(0, c.head_dim, 2, device=dev)
+                                            / c.head_dim))
+            angles = pos[:, None, None].float() * freqs
+            cos, sin = torch.cos(angles), torch.sin(angles)
+            times = {
+                "ms": graph_ms([lambda ws=ws: qkv(decode_qkv, ws=ws) for ws in qkv_sets] * 3),
+                "plain_ms": graph_ms([lambda ws=ws: qkv(decode_qkv_reference, ws=ws)
+                                      for ws in qkv_sets]),
+                "chain_ms": graph_ms([lambda wb=wb: library_qkv_chain(x, ln, *wb, cos, sin, c)
+                                      for wb in qkv_cat] * 3),
+                "eager_ms": eager_ms(lambda: qkv(decode_qkv), flush),
+            }
             n_out = nq + 2 * nkv  # weights and biases, x and ln read; q, k, v written
-            out["decode_qkv"].update(ms=times["ms"], plain_ms=times["plain_ms"],
-                                     library_ms=None,
-                                     **bound(2 * (h * n_out + n_out + h + b * h + b * n_out)
-                                             + 4 * b, 2 * b * h * n_out))
+            cost = bound(2 * (h * n_out + n_out + h + b * h + b * n_out) + 4 * b,
+                         2 * b * h * n_out)
+            say("kernels", kernel="decode_qkv", geometry=geom, b=b,
+                **{k: f"{v:.4f}" for k, v in times.items()}, bound_ms=f"{cost['bound_ms']:.4f}",
+                bound_by=cost["bound_by"], variant=json.dumps(decode_variant(b, c, "qkv")),
+                card=repr(card))
+            if geom == "7b" and b == BATCH:
+                out["decode_qkv"].update(ms=times["ms"], plain_ms=times["plain_ms"],
+                                         library_ms=None, **cost)
 
-        def mlp(f):
-            return f(x, ln, wg, wu, wd, eps=cfg.rms_eps)
+            def mlp(f):
+                return f(x, ln, wg, wu, wd, eps=c.rms_eps)
 
-        err, rel = compare("decode_mlp_bf16", mlp(decode_mlp_bf16),
-                           mlp(decode_mlp_bf16_reference), b)
-        out["decode_mlp_bf16"]["max_abs_err"] = max(out["decode_mlp_bf16"]["max_abs_err"], err)
-        say("kernels", kernel="decode_mlp_bf16", b=b, max_abs_err=f"{err:.6g}",
-            max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL)
-        times = {
-            "ms": graph_ms([lambda: mlp(decode_mlp_bf16)] * 8),
-            "plain_ms": graph_ms([lambda: mlp(decode_mlp_bf16_reference)] * 8),
-            "chain_ms": graph_ms([lambda: library_mlp_bf16_chain(x, ln, wgu, wd, cfg.rms_eps)]
-                                 * 8),
-            "eager_ms": eager_ms(lambda: mlp(decode_mlp_bf16), flush),
-            "eager_plain_ms": eager_ms(lambda: mlp(decode_mlp_bf16_reference), flush),
-        }
-        say("kernels", kernel="decode_mlp_bf16", b=b,
-            **{k: f"{v:.4f}" for k, v in times.items()}, card=repr(card))
-        if b == BATCH:
-            out["decode_mlp_bf16"].update(ms=times["ms"], plain_ms=times["plain_ms"],
-                                          library_ms=None,
-                                          **bound(2 * (3 * h * inter + h + 2 * b * h),
-                                                  6 * b * h * inter))
-    del qkv_sets, qkv_cat, wg, wu, wd, wgu, flush
-    torch.cuda.empty_cache()
+            got = mlp(decode_mlp_bf16)
+            if not torch.equal(got, mlp(decode_mlp_bf16)):
+                raise AssertionError(f"decode_mlp_bf16 {geom} b={b}: two calls differ")
+            err, rel = compare("decode_mlp_bf16", got, mlp(decode_mlp_bf16_reference), b)
+            out["decode_mlp_bf16"]["max_abs_err"] = max(out["decode_mlp_bf16"]["max_abs_err"],
+                                                        err)
+            say("kernels", kernel="decode_mlp_bf16", geometry=geom, b=b,
+                max_abs_err=f"{err:.6g}", max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL)
+            times = {
+                "ms": graph_ms([lambda: mlp(decode_mlp_bf16)] * 8),
+                "plain_ms": graph_ms([lambda: mlp(decode_mlp_bf16_reference)] * 2, reps=5),
+                "chain_ms": graph_ms([lambda: library_mlp_bf16_chain(x, ln, wgu, wd, c.rms_eps)]
+                                     * 8),
+                "eager_ms": eager_ms(lambda: mlp(decode_mlp_bf16), flush),
+            }
+            cost = bound(2 * (3 * h * inter + h + 2 * b * h), 6 * b * h * inter)
+            say("kernels", kernel="decode_mlp_bf16", geometry=geom, b=b,
+                **{k: f"{v:.4f}" for k, v in times.items()}, bound_ms=f"{cost['bound_ms']:.4f}",
+                bound_by=cost["bound_by"],
+                variant=json.dumps({"gateup": decode_variant(b, c, "gateup"),
+                                    "down": decode_variant(b, c, "down")}), card=repr(card))
+            if geom == "7b" and b == BATCH:
+                out["decode_mlp_bf16"].update(ms=times["ms"], plain_ms=times["plain_ms"],
+                                              library_ms=None, **cost)
+        del qkv_sets, qkv_cat, wg, wu, wd, wgu
+        torch.cuda.empty_cache()
     return out
 
 
@@ -861,6 +903,14 @@ def paged_case(g: torch.Generator, cfg: qwen2.QwenConfig, width: int, int8: bool
     return cases, int(lens.sum())
 
 
+def card_clocks() -> str:
+    """The card's SM clock, temperature and power draw now, as nvidia-smi
+    reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True).stdout.strip()
+
+
 def sm_count() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -925,16 +975,28 @@ def phase_serving_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
                      # the gather chain PAGED_ATTENTION="xla" runs (inference/paged.py)
                      "chain_ms": graph_ms([lambda c=c: paged.paged_attention(*c[:5], kv, *c[5])
                                            for c in cases])}
+            if not int8 and width == max_blocks:  # the same graph's calls again, right after
+                times["ms_repeat"] = graph_ms([lambda c=c: kernel(*c[:5], *c[5])
+                                               for c in cases] * 4)
             cost = bound(nbytes, 4 * valid * heads * d)
             say("kernels", kernel=name, b=SERVE_SLOTS, width=width,
                 **{k: f"{v:.5f}" for k, v in times.items()}, bound_ms=f"{cost['bound_ms']:.5f}",
                 bound_by=cost["bound_by"], GB_per_s=f"{nbytes / times['ms'] / 1e6:.1f}",
                 library="none: no single PyTorch call reads a block table; chain_ms is the "
-                "gather chain", card=repr(card))
+                "gather chain", clocks=repr(card_clocks()), card=repr(card))
             if width == max_blocks:
-                out[name].update(times, **cost)
+                out[name].update({k: v for k, v in times.items() if k != "ms_repeat"}, **cost)
             del cases
         torch.cuda.empty_cache()
+    # the first paged timing again, on the same data (the generator's seed),
+    # after the others: the bf16 kernel at width 38 is the phase's first
+    # timing, taken right after the quantized kernels' phase
+    cases, _ = paged_case(torch.Generator(device="cuda").manual_seed(17), cfg, max_blocks, False)
+    again = graph_ms([lambda c=c: paged_attention(*c[:5], *c[5]) for c in cases] * 4)
+    say("kernels", kernel="paged_attention", b=SERVE_SLOTS, width=max_blocks,
+        ms_again=f"{again:.5f}", clocks=repr(card_clocks()), card=repr(card))
+    del cases
+    torch.cuda.empty_cache()
 
     h, inter = cfg.hidden_size, cfg.intermediate_size
     leaves = []

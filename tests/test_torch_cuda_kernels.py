@@ -48,7 +48,7 @@ def _rnd(gen, *shape, scale=1.0, shift=0.0):
 
 
 @pytest.mark.parametrize("b", [1, 3, 8, 13])
-@pytest.mark.parametrize("heads,kv,hd,h", [(4, 2, 64, 256), (6, 2, 128, 384)])
+@pytest.mark.parametrize("heads,kv,hd,h", [(4, 2, 128, 256), (6, 2, 128, 384)])
 @pytest.mark.parametrize("with_ln", [False, True])
 def test_decode_qkv_kernel_matches_plain(gen, b, heads, kv, hd, h, with_ln):
     nq, nkv = heads * hd, kv * hd
@@ -87,6 +87,65 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):
         decode_mlp_bf16(xb, xb[0].clone(), _rnd(gen, 200, 512), _rnd(gen, 200, 512),
                         _rnd(gen, 512, 200))
+
+
+# (hidden, intermediate, heads, kv heads): small, and Qwen2.5-3B (bench.py's default)
+DECODE_WIDTHS = {"small": (256, 1024, 4, 2), "3b": (2048, 11008, 16, 2)}
+DECODE_BATCHES = [1, 8, 13, 16, 24, 64, 100, 384, 392]
+
+
+@pytest.mark.parametrize("b", DECODE_BATCHES)
+@pytest.mark.parametrize("widths", list(DECODE_WIDTHS))
+@pytest.mark.parametrize("with_ln", [False, True])
+def test_decode_qkv_kernel_matches_plain_at_every_batch_width(gen, b, widths, with_ln):
+    h, _, heads, kv = DECODE_WIDTHS[widths]
+    nq, nkv = heads * 128, kv * 128
+    args = (_rnd(gen, b, h), torch.randint(0, 32768, (b,), generator=gen, device="cuda"),
+            _rnd(gen, h, nq, scale=0.02), _rnd(gen, nq, scale=0.1),
+            _rnd(gen, h, nkv, scale=0.02), _rnd(gen, nkv, scale=0.1),
+            _rnd(gen, h, nkv, scale=0.02), _rnd(gen, nkv, scale=0.1))
+    kw = dict(num_heads=heads, num_kv_heads=kv, head_dim=128, theta=1e6,
+              ln_scale=_rnd(gen, h, scale=0.1, shift=1.0) if with_ln else None)
+    before = decode_qkv.launches
+    got = decode_qkv(*args, **kw)
+    again = decode_qkv(*args, **kw)
+    torch.cuda.synchronize()
+    assert decode_qkv.launches == before + 2  # one count a call
+    assert all(torch.equal(g, a) for g, a in zip(got, again))  # the same bits
+    for g, r in zip(got, decode_qkv_reference(*args, **kw)):
+        torch.testing.assert_close(g.float(), r.float(), **TOL)
+
+
+@pytest.mark.parametrize("b", DECODE_BATCHES)
+@pytest.mark.parametrize("widths", list(DECODE_WIDTHS))
+def test_decode_mlp_kernel_matches_plain_at_every_batch_width(gen, b, widths):
+    h, inter, _, _ = DECODE_WIDTHS[widths]
+    args = (_rnd(gen, b, h), _rnd(gen, h, scale=0.1, shift=1.0), _rnd(gen, h, inter, scale=0.02),
+            _rnd(gen, h, inter, scale=0.02), _rnd(gen, inter, h, scale=0.02))
+    before = decode_mlp_bf16.launches
+    got = decode_mlp_bf16(*args)
+    again = decode_mlp_bf16(*args)
+    torch.cuda.synchronize()
+    assert decode_mlp_bf16.launches == before + 2  # one count a call
+    assert torch.equal(got, again)  # the same bits
+    torch.testing.assert_close(got.float(), decode_mlp_bf16_reference(*args).float(), **TOL)
+
+
+def test_decode_wrappers_raise_on_what_the_swapab_kernel_does_not_take(gen):
+    x = _rnd(gen, 8, 256)
+    pos = torch.zeros(8, dtype=torch.int32, device="cuda")
+    w, bias = _rnd(gen, 256, 256), _rnd(gen, 256)
+    with pytest.raises(ValueError, match="head_dim % 128"):  # a RoPE pair needs d / 2 >= 64
+        decode_qkv(x, pos, w, bias, w[:, :128].contiguous(), bias[:128].contiguous(),
+                   w[:, :128].contiguous(), bias[:128].contiguous(), num_heads=4,
+                   num_kv_heads=2, head_dim=64, theta=1e6)
+    big = _rnd(gen, 513, 256)  # past a pair of 256-row blocks
+    with pytest.raises(ValueError, match="rows"):
+        decode_mlp_bf16(big, big[0].clone(), _rnd(gen, 256, 512), _rnd(gen, 256, 512),
+                        _rnd(gen, 512, 256))
+    with pytest.raises(ValueError, match="intermediate % 64"):
+        decode_mlp_bf16(x, x[0].clone(), _rnd(gen, 256, 544), _rnd(gen, 256, 544),
+                        _rnd(gen, 544, 256))
 
 
 def _window_mask(gen, b, t):

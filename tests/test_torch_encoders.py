@@ -278,7 +278,7 @@ def test_encoder_registry():
     assert encoders.get_acoustic_encoder("HUBERT_LARGE").hidden_size == 1024
     for name, get in (("DINO2_LARGE", encoders.get_visual_encoder),
                       ("WAVLM_LARGE", encoders.get_acoustic_encoder)):
-        with pytest.raises(NotImplementedError, match="item 18"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
             get(name)
     with pytest.raises(KeyError):
         encoders.get_visual_encoder("NO_SUCH_TOWER")
