@@ -2,8 +2,7 @@
 // token per row, GQA, masked softmax in f32, then PV.
 //
 // Replaces the Pallas kernel
-// affectgpt_tpu/ops/decode_attention_pallas.py::decode_attention_pallas, and
-// holds the split-T flash decoding that csrc/decode_attn_o.cu shares.
+// affectgpt_tpu/ops/decode_attention_pallas.py::decode_attention_pallas.
 //
 // Bound: cache bytes. Each valid K/V row (2 * d bf16 per kv head) is read
 // once and used for 2 * g multiply-adds per value, far below the
@@ -42,7 +41,7 @@ __global__ void __launch_bounds__(D)
 flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          const unsigned char* __restrict__ mask, bool window,
+                          const unsigned char* __restrict__ mask,
                           float* __restrict__ part_ml, float* __restrict__ part_acc, int kv,
                           int g, int T) {
   constexpr int kW = D / 32;              // warps
@@ -52,7 +51,6 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   __shared__ float p[kMaxGroups][kDecodeChunk];
   __shared__ float red[kW][kMaxGroups][D];
   __shared__ unsigned char ok[kDecodeChunk];
-  __shared__ int ends[2][kW];
 
   const int chunk = blockIdx.x, chunks = gridDim.x;
   const int bh = blockIdx.y;  // row * kv + kv head: the [b, kv] index of q and the cache
@@ -74,38 +72,9 @@ flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = tid; i < g * D; i += D) qs[i / D][i % D] = __bfloat162float(qp[i]);
 
   const unsigned char* mrow = mask + (size_t)row * T;
-  int lo = 0, hi = T - 1;
-  if (window) {  // first and last valid column of the row
-    int first = T, last = -1;
-    for (int j = tid; j < T; j += D) {
-      if (mrow[j]) {
-        first = min(first, j);
-        last = max(last, j);
-      }
-    }
-    first = warp_min_int(first);
-    last = warp_max_int(last);
-    if (lane == 0) {
-      ends[0][warp] = first;
-      ends[1][warp] = last;
-    }
-    __syncthreads();
-    first = T;
-    last = -1;
-#pragma unroll
-    for (int w = 0; w < kW; ++w) {
-      first = min(first, ends[0][w]);
-      last = max(last, ends[1][w]);
-    }
-    if (first < T) {
-      lo = first;
-      hi = last;
-    }
-  }
   bool valid = false;
   if (tid < kDecodeChunk) {
-    const int j = j0 + tid;
-    if (tid < n) valid = window ? (j >= lo && j <= hi) : mrow[j] != 0;
+    if (tid < n) valid = mrow[j0 + tid] != 0;
     ok[tid] = valid;
   }
   if (!__syncthreads_or(valid)) {  // no valid column: the chunk adds nothing
@@ -267,27 +236,26 @@ static cudaError_t launch_flash_decode_merge(const float* part_ml, const float* 
 template <int D>
 static cudaError_t launch_flash_decode_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                          const __nv_bfloat16* v, const unsigned char* mask,
-                                         bool window, float* part_ml, float* part_acc,
-                                         __nv_bfloat16* out, int b, int kv, int g, int T,
-                                         cudaStream_t stream) {
+                                         float* part_ml, float* part_acc, __nv_bfloat16* out,
+                                         int b, int kv, int g, int T, cudaStream_t stream) {
   const int chunks = (T + kDecodeChunk - 1) / kDecodeChunk;
   flash_decode_split_kernel<D><<<dim3(chunks, b * kv), D, 0, stream>>>(
-      q, k, v, mask, window, part_ml, part_acc, kv, g, T);
+      q, k, v, mask, part_ml, part_acc, kv, g, T);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_flash_decode_merge(part_ml, part_acc, out, b * kv, g, chunks, D, stream);
 }
 
 cudaError_t launch_flash_decode(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                                const __nv_bfloat16* v, const unsigned char* mask, bool window,
+                                const __nv_bfloat16* v, const unsigned char* mask,
                                 float* part_ml, float* part_acc, __nv_bfloat16* out, int b,
                                 int kv, int g, int T, int d, cudaStream_t stream) {
   if (d == 128)
-    return launch_flash_decode_d<128>(q, k, v, mask, window, part_ml, part_acc, out, b, kv, g,
-                                      T, stream);
+    return launch_flash_decode_d<128>(q, k, v, mask, part_ml, part_acc, out, b, kv, g, T,
+                                      stream);
   if (d == 64)
-    return launch_flash_decode_d<64>(q, k, v, mask, window, part_ml, part_acc, out, b, kv, g,
-                                     T, stream);
+    return launch_flash_decode_d<64>(q, k, v, mask, part_ml, part_acc, out, b, kv, g, T,
+                                     stream);
   return cudaErrorInvalidValue;
 }
 
@@ -304,7 +272,7 @@ extern "C" int agk_decode_attention_bf16(const void* q, const void* k, const voi
                                          void* stream) {
   return (int)agk::launch_flash_decode(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const unsigned char*>(mask), false,
+      static_cast<const __nv_bfloat16*>(v), static_cast<const unsigned char*>(mask),
       static_cast<float*>(part_ml), static_cast<float*>(part_acc),
       static_cast<__nv_bfloat16*>(out), b, kv, g, T, d, static_cast<cudaStream_t>(stream));
 }

@@ -108,18 +108,6 @@ __device__ __forceinline__ void locate(const Params& p, int tile, const Segment*
   }
 }
 
-// Programmatic dependent launch: a grid launched with
-// cudaLaunchAttributeProgrammaticStreamSerialization may start once every
-// block of the grid before it has called launch_dependents (or ended), and
-// its grid_dependency_wait returns once that grid has ended and its writes
-// are visible. Both are no-ops in a grid launched without the attribute.
-__device__ __forceinline__ void launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void grid_dependency_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void store4(bf* dst, const float (&v)[4]) {
   *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
 }
@@ -395,8 +383,7 @@ cudaError_t launch_nb(const Params& p, int tiles, bool dependent, cudaStream_t s
   attr[0].val.clusterDim.x = p.cb * p.ck;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  attr[1] = programmatic_launch();
   cfg.attrs = attr;
   cfg.numAttrs = dependent ? 2 : 1;
   err = cudaLaunchKernelEx(&cfg, decode_swapab_kernel<NB>, p);

@@ -1,6 +1,6 @@
-// Split-T flash decoding for one query token per row: the attention part
-// shared by the decode-attention kernel (csrc/decode_attention.cu, where it
-// is defined) and the decode attention sublayer (csrc/decode_attn_o.cu).
+// Split-T flash decoding for one query token per row: the launches and row
+// helpers of the decode-attention kernel (csrc/decode_attention.cu, where
+// they are defined).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -13,17 +13,14 @@ constexpr int kDecodeChunk = 64;  // cache columns per block of the split launch
 constexpr int kMaxGroups = 8;     // query heads per kv head held in registers
 
 // out[b, kv, g, d] (bf16) = softmax(q k^T / sqrt(d) + additive mask) v. The
-// valid columns of row r come from mask[r, T] (bytes, non-zero = valid):
-// either the mask itself, or, with window set, the window from its first to
-// its last valid column (all T columns when it has none), the reduction
-// decode_attn_o_pallas.py:135-137 makes. Two launches: per (row, kv head,
-// chunk of kDecodeChunk columns) a block writes its running max, sum and
-// f32 accumulator into part_ml [b*kv, chunks, g, 2] and part_acc
-// [b*kv, chunks, g, d]; then per (query head, row, kv head) a block merges
-// the chunks in a fixed order. d is 64 or 128, 1 <= g <= kMaxGroups. Returns the
-// first CUDA error.
+// valid columns of row r are those of mask[r, T] (bytes, non-zero = valid).
+// Two launches: per (row, kv head, chunk of kDecodeChunk columns) a block
+// writes its running max, sum and f32 accumulator into part_ml [b*kv,
+// chunks, g, 2] and part_acc [b*kv, chunks, g, d]; then per (query head,
+// row, kv head) a block merges the chunks in a fixed order. d is 64 or 128,
+// 1 <= g <= kMaxGroups. Returns the first CUDA error.
 cudaError_t launch_flash_decode(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                                const __nv_bfloat16* v, const unsigned char* mask, bool window,
+                                const __nv_bfloat16* v, const unsigned char* mask,
                                 float* part_ml, float* part_acc, __nv_bfloat16* out, int b,
                                 int kv, int g, int T, int d, cudaStream_t stream);
 
@@ -37,18 +34,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ int warp_min_int(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ int warp_max_int(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 

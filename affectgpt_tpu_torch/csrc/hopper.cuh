@@ -250,6 +250,27 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Programmatic dependent launch: a grid launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start once every
+// block of the grid before it has called launch_dependents (or ended), and
+// its grid_dependency_wait returns once that grid has ended and its writes
+// are visible. Both are no-ops in a grid launched without the attribute.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Host: the launch attribute that lets a grid start as the programmatic
+// dependent of the launch before it on the stream (launch_dependents above).
+static inline cudaLaunchAttribute programmatic_launch() {
+  cudaLaunchAttribute a = {};
+  a.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  a.val.programmaticStreamSerializationAllowed = 1;
+  return a;
+}
+
 template <uint32_t REGS>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));

@@ -61,23 +61,21 @@
 //     the blocks in rank order between two rounds of the cluster barrier.
 //     No f32 partials in HBM, no second launch, no atomics: two calls give
 //     the same bits.
+// The bf16 tiles' consumer steps and the merge are shared with the dense
+// decode attention (csrc/split_attention.cuh).
 
 #include <stdint.h>
 
-#include "gemv_tile.cuh"
-#include "hopper.cuh"
-#include "mma_bf16.cuh"
+#include "split_attention.cuh"
 
 namespace agk {
 namespace paged {
 
 using namespace hopper;
+using namespace split;
 
 constexpr int kConsumers = 4;  // warps; one more warp issues the loads
 constexpr int kThreads = 32 * (kConsumers + 1);
-constexpr int kTile = 16;       // tokens a stage: S^T's m16 rows, PV's k16
-constexpr int kHeads = 8;       // query heads of a kv head: the n8 operand
-constexpr int kMaxSplits = 8;
 
 // Diagnostics, all true in the package (scripts/torch_paged_probe.py builds
 // copies with them off; the results are then wrong). What a switched-off part
@@ -109,11 +107,6 @@ struct Tiles {
     const int scales = kInt8 && !odd_pages(blk) ? 2 * kTile * kv * 4 : 0;
     return (2 * kv_bytes(blk) + scales + 1023) / 1024 * 1024;
   }
-  // the merge's scratch, over the ring once it is drained: each warp's
-  // accumulator [kHeads][D], max and sum [2][kHeads]; then the block's
-  __host__ __device__ static constexpr int merge_bytes() {
-    return (kConsumers + 1) * (kHeads * D + 2 * kHeads) * 4;
-  }
 };
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
@@ -143,7 +136,7 @@ paged_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__ 
   const int stage_bytes = L::stage_bytes(kv, blk);
   const bool odd = odd_pages(blk);
   const int box_bytes = L::box_bytes(blk), kv_bytes = L::kv_bytes(blk);
-  const int ring_bytes = max(stages * stage_bytes, L::merge_bytes());
+  const int ring_bytes = max(stages * stage_bytes, merge_bytes<kConsumers, D>());
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + ring_bytes);
   uint64_t* empty = full + stages;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -243,10 +236,8 @@ paged_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__ 
   }
 
   const float scale = 1.4426950408889634f * rsqrtf((float)D);  // log2(e) / sqrt(d): exp2 below
-  // ldmatrix rows of this lane: bf16 K (A, rows = tokens), bf16 V (A^T,
-  // transposed), and both int8 tiles (matrices: tokens 0-7 and 8-15 of one
-  // 16-byte chunk, then of the next)
-  const int r_k = lane % 16, r_v = (lane % 8) + 8 * (lane / 16);
+  // ldmatrix rows of this lane in both int8 tiles (matrices: tokens 0-7 and
+  // 8-15 of one 16-byte chunk, then of the next)
   const int r_8 = (lane % 8) + 8 * ((lane / 8) % 2);
   float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};  // query heads 2t, 2t + 1
   float acc[D / 16][4];                              // Out^T: d rows, query-head columns
@@ -286,14 +277,7 @@ paged_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__ 
         }
       }
     } else {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, kt + (kk / 4) * box_bytes + r_k * 128 +
-                       (((2 * (kk % 4) + lane / 16) ^ (r_k & 7)) << 4));
-        if constexpr (kProducts) mma_bf16(sc[kk % 2], a, qf[kk][0], qf[kk][1]);
-        else sink ^= a[0] ^ a[1] ^ a[2] ^ a[3];
-      }
+      scores_bf16<D, kProducts>(sc, kt, box_bytes, qf, sink);
     }
     // sc[.][e]: token g + 8 (e / 2) of the tile, query head 2t + e % 2
     const int tok = tile * kTile + g;
@@ -319,36 +303,13 @@ paged_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__ 
         }
       }
     }
-    float x[4];
+    float x[4], p[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float v = (sc[0][e] + sc[1][e]) * (e < 2 ? ka : kb) * scale;
       x[e] = (e < 2 ? va : vb) ? v : -INFINITY;
     }
-    // the tile's maxima of query heads 2t, 2t + 1 over its 16 tokens
-    float mx[2] = {fmaxf(x[0], x[2]), fmaxf(x[1], x[3])};
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-      mx[0] = fmaxf(mx[0], __shfl_xor_sync(0xffffffffu, mx[0], off));
-      mx[1] = fmaxf(mx[1], __shfl_xor_sync(0xffffffffu, mx[1], off));
-    }
-    float p[4], alpha[2];
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const float mn = fmaxf(m[c], mx[c]);
-      alpha[c] = exp2f(m[c] - mn);
-      m[c] = mn;
-      p[c] = exp2f(x[c] - mn);  // 0 at a masked token
-      p[c + 2] = exp2f(x[c + 2] - mn);
-      l[c] = l[c] * alpha[c] + p[c] + p[c + 2];  // this lane's tokens; summed over lanes at the end
-    }
-#pragma unroll
-    for (int i = 0; i < D / 16; ++i) {
-      acc[i][0] *= alpha[0];
-      acc[i][1] *= alpha[1];
-      acc[i][2] *= alpha[0];
-      acc[i][3] *= alpha[1];
-    }
+    softmax_step<D>(x, m, l, acc, p);
     // P^T as the B fragment (k = tokens, n = query heads): the S^T fragment's
     // two 8x8 matrices (tokens 0-7, 8-15), transposed. Int8: p times the
     // value scale (0 at a masked token, whatever its stored scale).
@@ -372,137 +333,18 @@ paged_kernel(const __grid_constant__ CUtensorMap k_map, const __grid_constant__ 
         }
       }
     } else {
-      // a masked token's V row may hold anything (another row's stale page,
-      // a never-written one): its fragment halves are zeroed, not only its p
-      const bool partial = (tile + 1) * kTile > n;
-      const int t2 = tile * kTile + 2 * t;
-      const uint32_t m01 = (t2 < n ? 0xFFFFu : 0u) | (t2 + 1 < n ? 0xFFFF0000u : 0u);
-      const uint32_t m23 = (t2 + 8 < n ? 0xFFFFu : 0u) | (t2 + 9 < n ? 0xFFFF0000u : 0u);
-#pragma unroll
-      for (int i = 0; i < D / 16; ++i) {
-        uint32_t a[4];
-        ldsm_x4_trans(a, vt + (i / 4) * box_bytes + r_v * 128 +
-                             (((2 * (i % 4) + (lane / 8) % 2) ^ (r_v & 7)) << 4));
-        if (partial) {
-          a[0] &= m01;
-          a[1] &= m01;
-          a[2] &= m23;
-          a[3] &= m23;
-        }
-        if constexpr (kProducts) mma_bf16(acc[i], a, b0, b1);
-        else sink ^= a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0 ^ b1;
-      }
+      uint32_t m01, m23;
+      const bool partial = column_masks(tile, 0, n - 1, m01, m23);
+      pv_bf16<D, false, kProducts>(acc, vt, box_bytes, partial, m01, m23, b0, b1, 0u, 0u, sink);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[slot]);  // the stage is in registers
   }
   if constexpr (!kProducts) sink_into(acc[0][0], sink);
-#pragma unroll
-  for (int c = 0; c < 2; ++c)
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) l[c] += __shfl_xor_sync(0xffffffffu, l[c], off);
-
-  // The warps' states meet over the drained ring (every consumer is past its
-  // last stage), then the block's state.
-  float* part = reinterpret_cast<float*>(ring);        // [warp][kHeads][D]
-  float* wml = part + kConsumers * kHeads * D;          // [warp][max, sum][kHeads]
-  float* bo = wml + kConsumers * 2 * kHeads;            // the block's [kHeads][D]
-  float* bml = bo + kHeads * D;                         // and its [max, sum][kHeads]
-  named_barrier(1, 32 * kConsumers);
-#pragma unroll
-  for (int i = 0; i < D / 16; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      // acc[i][e]: query head 2t + e % 2; d 16i + g + 8 (e / 2), or for int8 16i + 2g + e / 2
-      const int d = 16 * i + (kInt8 ? 2 * g + e / 2 : g + 8 * (e / 2));
-      part[(warp * kHeads + 2 * t + e % 2) * D + d] = acc[i][e];
-    }
-  if (g == 0) {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      wml[(warp * 2) * kHeads + 2 * t + c] = m[c];
-      wml[(warp * 2 + 1) * kHeads + 2 * t + c] = l[c];
-    }
-  }
-  named_barrier(1, 32 * kConsumers);
+  float* scratch = reinterpret_cast<float*>(ring);
   __nv_bfloat16* orow = out + (size_t)pair * G * D;
-  for (int idx = threadIdx.x; idx < G * D; idx += 32 * kConsumers) {
-    const int h = idx / D, d = idx % D;
-    float mm = -1e30f;
-#pragma unroll
-    for (int w = 0; w < kConsumers; ++w) mm = fmaxf(mm, wml[w * 2 * kHeads + h]);
-    float o = 0.f, ls = 0.f;
-#pragma unroll
-    for (int w = 0; w < kConsumers; ++w) {  // warp order: a fixed sum
-      const float f = exp2f(wml[w * 2 * kHeads + h] - mm);
-      o += part[(w * kHeads + h) * D + d] * f;
-      ls += wml[(w * 2 + 1) * kHeads + h] * f;
-    }
-    if (splits == 1) {
-      orow[idx] = __float2bfloat16(o / fmaxf(ls, 1e-20f));
-    } else {
-      bo[idx] = o;
-      if (d == 0) {
-        bml[h] = mm;
-        bml[kHeads + h] = ls;
-      }
-    }
-  }
-  if (splits == 1) return;
-
-  // The cluster's block states meet: block r writes its share of the
-  // output's G * D / 4 quads, each summed over the blocks in rank order,
-  // every remote load issued before the first sum; the second round keeps
-  // every block resident until all have read its state.
-  if constexpr (kClusterMerge) {
-    cluster_arrive_release();  // (1)
-    cluster_wait();
-  } else {
-    named_barrier(1, 32 * kConsumers);
-  }
-  const int quads = G * D / 4;
-  const int qd = rank * quads / splits + threadIdx.x;
-  const bool mine = qd < (rank + 1) * quads / splits;  // at most quads / 2 a block: one pass
-  float4 o4[kMaxSplits];
-  float ms[kMaxSplits], ls[kMaxSplits];
-  const int h = 4 * qd / D;
-  if (mine) {
-    const uint32_t ao = smem_u32(bo + 4 * qd), am = smem_u32(bml + h);
-    const uint32_t al = smem_u32(bml + kHeads + h);
-#pragma unroll
-    for (int src = 0; src < kMaxSplits; ++src)
-      if (src < splits) {
-        const uint32_t rank_src = kClusterMerge ? src : rank;  // off: this block's own, C times
-        o4[src] = ld_cluster_f32x4(map_to_rank(ao, rank_src));
-        ms[src] = ld_cluster_f32(map_to_rank(am, rank_src));
-        ls[src] = ld_cluster_f32(map_to_rank(al, rank_src));
-      }
-  }
-  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-  float inv = 0.f;
-  if (mine) {
-    float mm = -1e30f;
-#pragma unroll
-    for (int src = 0; src < kMaxSplits; ++src)
-      if (src < splits) mm = fmaxf(mm, ms[src]);
-    float lsum = 0.f;
-#pragma unroll
-    for (int src = 0; src < kMaxSplits; ++src)
-      if (src < splits) {
-        const float f = exp2f(ms[src] - mm);
-        o.x += o4[src].x * f;
-        o.y += o4[src].y * f;
-        o.z += o4[src].z * f;
-        o.w += o4[src].w * f;
-        lsum += ls[src] * f;
-      }
-    inv = 1.f / fmaxf(lsum, 1e-20f);
-  }
-  if constexpr (kClusterMerge) cluster_arrive_relaxed();  // (2) the reads have returned
-  if (mine)
-    *reinterpret_cast<uint2*>(orow + 4 * qd) =
-        make_uint2(pack_bf16x2(o.x * inv, o.y * inv), pack_bf16x2(o.z * inv, o.w * inv));
-  if constexpr (kClusterMerge) cluster_wait();
+  merge_warps<D, kConsumers, kInt8>(scratch, acc, m, l, G, splits, orow);
+  if (splits > 1) merge_cluster<D, kConsumers, kClusterMerge>(scratch, G, splits, rank, orow);
 }
 
 template <typename T, int D>
@@ -511,7 +353,7 @@ cudaError_t launch(const CUtensorMap& k_map, const CUtensorMap& v_map, const voi
                    const void* seq_lens, void* out, int b, int kv, int G, int width, int blk,
                    int splits, int stages, cudaStream_t st) {
   using L = Tiles<T, D>;
-  const size_t smem = (size_t)max(stages * L::stage_bytes(kv, blk), L::merge_bytes()) +
+  const size_t smem = (size_t)max(stages * L::stage_bytes(kv, blk), merge_bytes<kConsumers, D>()) +
                       2 * stages * 8 + 1024;
   static size_t granted = 48 * 1024;
   cudaError_t err = ensure_smem(paged_kernel<T, D>, smem, &granted);

@@ -198,6 +198,8 @@ vit_attention_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_fence_init();
   }
   __syncthreads();
+  launch_dependents();
+  grid_dependency_wait();  // launched as a dependent: q, k and v are written
   if (threadIdx.x == 0)
     for (int i = 0; i < slots; ++i) load_kv(i);
   if (leader) {
@@ -374,7 +376,7 @@ template <int ONE_PASS>
 static cudaError_t launch(const CUtensorMap& q_map, const CUtensorMap& k_map,
                           const CUtensorMap& v_map, __nv_bfloat16* out, AttnStrides os, int b,
                           int heads, int n, int valid_len, int heads_inner, int tiles,
-                          cudaStream_t stream) {
+                          bool dependent, cudaStream_t stream) {
   static size_t granted = 48 * 1024;
   const size_t smem = VitSmem::bytes(tiles);
   cudaError_t err = ensure_smem(vit_attention_kernel<ONE_PASS>, smem, &granted);
@@ -383,8 +385,17 @@ static cudaError_t launch(const CUtensorMap& q_map, const CUtensorMap& k_map,
   const float scale_log2 = kLog2e / sqrtf((float)kAttnD);
   const int most = blocks_per_sm(ONE_PASS) * sm_count();
   const int blocks = units < most ? units : most;
-  vit_attention_kernel<ONE_PASS><<<blocks, kThreads, smem, stream>>>(
-      q_map, k_map, v_map, out, os, heads, n, valid_len, heads_inner, tiles, units, scale_log2);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1] = {programmatic_launch()};
+  cfg.attrs = attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, vit_attention_kernel<ONE_PASS>, q_map, k_map, v_map, out, os,
+                           heads, n, valid_len, heads_inner, tiles, units, scale_log2);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -392,12 +403,14 @@ static cudaError_t launch(const CUtensorMap& q_map, const CUtensorMap& k_map,
 
 // q, k, v share the element strides `in`; out has its own. Needs 1 <=
 // valid_len <= n <= kAttnMaxN, all strides multiples of 8 and 16-byte
-// aligned pointers (the tensor maps' rules).
+// aligned pointers (the tensor maps' rules). dependent: q, k and v are
+// written by the launch just before on the stream, which calls
+// launch_dependents; the grid is launched as its programmatic dependent.
 static inline cudaError_t launch_vit_attention(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                                const __nv_bfloat16* v, __nv_bfloat16* out,
                                                int b, int heads, int n, int valid_len,
                                                AttnStrides in, AttnStrides os,
-                                               cudaStream_t stream) {
+                                               cudaStream_t stream, bool dependent = false) {
   using namespace wgattn;
   if (n < 1 || n > kAttnMaxN || valid_len < 1 || valid_len > n) return cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
@@ -408,14 +421,24 @@ static inline cudaError_t launch_vit_attention(const __nv_bfloat16* q, const __n
     return cudaErrorInvalidValue;
   const int tiles = (valid_len + kKeys - 1) / kKeys;
   switch (tiles) {
-    case 1: return launch<1>(q_map, k_map, v_map, out, os, b, heads, n, valid_len, inner, 1, stream);
-    case 2: return launch<2>(q_map, k_map, v_map, out, os, b, heads, n, valid_len, inner, 2, stream);
-    case 3: return launch<3>(q_map, k_map, v_map, out, os, b, heads, n, valid_len, inner, 3, stream);
-    case 4: return launch<4>(q_map, k_map, v_map, out, os, b, heads, n, valid_len, inner, 4, stream);
-    case 5: return launch<5>(q_map, k_map, v_map, out, os, b, heads, n, valid_len, inner, 5, stream);
+    case 1:
+      return launch<1>(q_map, k_map, v_map, out, os, b, heads, n, valid_len, inner, 1,
+                       dependent, stream);
+    case 2:
+      return launch<2>(q_map, k_map, v_map, out, os, b, heads, n, valid_len, inner, 2,
+                       dependent, stream);
+    case 3:
+      return launch<3>(q_map, k_map, v_map, out, os, b, heads, n, valid_len, inner, 3,
+                       dependent, stream);
+    case 4:
+      return launch<4>(q_map, k_map, v_map, out, os, b, heads, n, valid_len, inner, 4,
+                       dependent, stream);
+    case 5:
+      return launch<5>(q_map, k_map, v_map, out, os, b, heads, n, valid_len, inner, 5,
+                       dependent, stream);
     default:
       return launch<0>(q_map, k_map, v_map, out, os, b, heads, n, valid_len, inner, tiles,
-                       stream);
+                       dependent, stream);
   }
 }
 

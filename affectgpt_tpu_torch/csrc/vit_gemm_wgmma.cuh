@@ -51,7 +51,15 @@
 // their own, one's epilogue under the other's k loop, made it slower too
 // (0.50 ms at CLIP's shape, as long without the products): each stage then
 // brings 24 KB for half the products, and the loads bound the k loops.
-// Launch plan: ops/vit_mlp.py::gemm_plan (grid, tiles, k steps, shared
+// The attention sublayer (vit_sublayer.cu) runs its q, k and v products as
+// one launch of up to three products over the same rows a: a unit is then a
+// (product, column tile, the cluster's row tiles), column tiles of the three
+// products side by side and fastest, so the blocks in flight share a few row
+// tiles of a in the L2; each product has its own weight map (no
+// concatenated copy of the weights), bias and result. Launches may be
+// chained as programmatic dependents: the producer loads its first stages'
+// weight boxes before it waits for the launch before to end.
+// Launch plan: ops/vit_gemm.py::gemm_plan (grid, tiles, k steps, shared
 // memory, L2 bytes), held on the CPU by tests/test_torch_launch_plans.py.
 #pragma once
 
@@ -123,6 +131,7 @@ layernorm_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
                  const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ h, int rows,
                  float eps) {
   constexpr int w = 256 * VEC;
+  launch_dependents();  // a GEMM launched as its dependent may load its first weights
   const int row = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) / 32);
   if (row >= rows) return;
   const int lane = threadIdx.x % 32;
@@ -176,18 +185,33 @@ static inline cudaError_t launch_layernorm_rows(const __nv_bfloat16* x, const __
   return cudaGetLastError();
 }
 
+// Up to kMaxProducts products over the same rows a (the attention
+// sublayer's q, k and v): each product's weight map (64 x 64 boxes), bias
+// and result [M, N].
+constexpr int kMaxProducts = 3;
+struct alignas(64) Products {
+  CUtensorMap w[kMaxProducts];
+  const __nv_bfloat16* bias[kMaxProducts];
+  __nv_bfloat16* y[kMaxProducts];
+  int count;
+};
+
 // Grid (blocks), clusters of CM blocks: cluster c computes units c, c +
-// gridDim.x / CM, ... of the n_tiles x (m_tiles / CM) units, unit u at
-// column tile u % n_tiles and row tiles CM (u / n_tiles) + rank. res_map is
-// the residual's map (64 x 64 boxes), y the result [M, N]. PRODUCTS = false
-// drops the wgmma instructions: a diagnostic of what the loads, barriers
-// and epilogue cost alone.
+// gridDim.x / CM, ... of the (count x n_tiles) x (m_tiles / CM) units, unit
+// u at column tile u % (count n_tiles), which is column tile u % (count
+// n_tiles) % n_tiles of product u % (count n_tiles) / n_tiles, and row tiles
+// CM (u / (count n_tiles)) + rank. res_map is the residual's map (64 x 64
+// boxes). PRODUCTS = false drops the wgmma instructions: a diagnostic of
+// what the loads, barriers and epilogue cost alone. Launched as the
+// programmatic dependent of the launch before it (which writes a), the
+// producer loads the first stages' weight boxes before it waits for that
+// launch to end, and the consumers wait for it before their epilogue reads
+// anything; the launch after it may start once every block is resident.
 template <int ACT, bool RESIDUAL, bool PRODUCTS, int CM>
 __global__ void __launch_bounds__(kThreads, 1)
-gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ CUtensorMap w_map,
-            const __grid_constant__ CUtensorMap res_map,
-            const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y, int M, int N,
-            int K, int n_tiles, int units) {
+gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ Products prods,
+            const __grid_constant__ CUtensorMap res_map, int M, int N, int K, int n_tiles,
+            int units) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* staging = ring + kStages * kStageBytes;  // [warpgroup][2 boxes][64 rows][128 B]
@@ -198,6 +222,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
   uint64_t* res_bar = empty + kStages;  // per consumer warpgroup
   const int ksteps = (K + kBK - 1) / kBK;
   const int rank = CM > 1 ? (int)cluster_rank() : 0, clusters = gridDim.x / CM;
+  const int cols = prods.count * n_tiles;  // the products' column tiles side by side
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
@@ -211,29 +236,46 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
     cluster_sync();  // the other block's barriers exist before any multicast
   else
     __syncthreads();
+  launch_dependents();
 
   if (threadIdx.x < 128) {  // producer warpgroup: one thread issues the loads
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
-      RingPos pos;
-      for (int u = blockIdx.x / CM; u < units; u += clusters) {
-        const int n0 = (u % n_tiles) * kBN, m0 = ((u / n_tiles) * CM + rank) * kBM;
-        for (int kt = 0; kt < ksteps; ++kt) {
-          mbar_wait(&empty[pos.stage], pos.phase ^ 1u);
-          mbar_expect_tx(&full[pos.stage], kStageBytes);
-          unsigned char* st = ring + pos.stage * kStageBytes;
-          tma_load_2d(st, &a_map, &full[pos.stage], kt * kBK, m0);
-          constexpr int kBoxes = kBN / 64 / CM;  // this block's share of w's boxes
+      constexpr int kBoxes = kBN / 64 / CM;  // this block's share of w's boxes
+      auto weights = [&](int stage, int u, int kt) {
+        const int c = u % cols;
+        const CUtensorMap* w_map = &prods.w[c / n_tiles];
+        const int n0 = (c % n_tiles) * kBN;
+        mbar_expect_tx(&full[stage], kStageBytes);
+        unsigned char* st = ring + stage * kStageBytes;
 #pragma unroll
-          for (int i = 0; i < kBoxes; ++i) {
-            const int q = rank * kBoxes + i;
-            if constexpr (CM > 1)
-              tma_load_2d_multicast(st + kATile + q * kBBox, &w_map, &full[pos.stage],
-                                    n0 + 64 * q, kt * kBK, (1u << CM) - 1);
-            else
-              tma_load_2d(st + kATile + q * kBBox, &w_map, &full[pos.stage], n0 + 64 * q,
-                          kt * kBK);
-          }
+        for (int i = 0; i < kBoxes; ++i) {
+          const int q = rank * kBoxes + i;
+          if constexpr (CM > 1)
+            tma_load_2d_multicast(st + kATile + q * kBBox, w_map, &full[stage], n0 + 64 * q,
+                                  kt * kBK, (1u << CM) - 1);
+          else
+            tma_load_2d(st + kATile + q * kBBox, w_map, &full[stage], n0 + 64 * q, kt * kBK);
+        }
+      };
+      auto rows = [&](int stage, int u, int kt) {
+        const int m0 = ((u / cols) * CM + rank) * kBM;
+        tma_load_2d(ring + stage * kStageBytes, &a_map, &full[stage], kt * kBK, m0);
+      };
+      // The first unit's first stages: the weight boxes before the rows a,
+      // which the launch before writes.
+      const int u0 = blockIdx.x / CM;
+      const int pre = u0 < units ? min(kStages, ksteps) : 0;
+      for (int i = 0; i < pre; ++i) weights(i, u0, i);
+      grid_dependency_wait();
+      for (int i = 0; i < pre; ++i) rows(i, u0, i);
+      RingPos pos;
+      for (int i = 0; i < pre; ++i) pos.advance(kStages);
+      for (int u = u0; u < units; u += clusters) {
+        for (int kt = u == u0 ? pre : 0; kt < ksteps; ++kt) {
+          mbar_wait(&empty[pos.stage], pos.phase ^ 1u);
+          weights(pos.stage, u, kt);
+          rows(pos.stage, u, kt);
           pos.advance(kStages);
         }
       }
@@ -242,6 +284,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
   }
 
   setmaxnreg_inc<232>();
+  grid_dependency_wait();  // the epilogue reads a residual and bias earlier launches may write
   const int g = threadIdx.x / 128 - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const bool leader = threadIdx.x % 128 == 0;
   unsigned char* out = staging + g * kOutBytes;
@@ -260,7 +303,10 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
   RingPos pos;
   uint32_t res_phase = 0;
   for (int u = blockIdx.x / CM; u < units; u += clusters) {
-    const int n0 = (u % n_tiles) * kBN, m0 = ((u / n_tiles) * CM + rank) * kBM;
+    const int c = u % cols, prod = c / n_tiles;
+    const int n0 = (c % n_tiles) * kBN, m0 = ((u / cols) * CM + rank) * kBM;
+    const __nv_bfloat16* bias = prods.bias[prod];
+    __nv_bfloat16* y = prods.y[prod];
     const int mw = m0 + 64 * g;  // this warpgroup's rows
     auto load_residual = [&](int half) {  // once every thread is done with the staging memory
       fence_proxy_async();
@@ -334,7 +380,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
             v[2 * q] += rf.x;
             v[2 * q + 1] += rf.y;
           }
-        } else {
+        } else if constexpr (ACT != kActNone) {
 #pragma unroll
           for (int q = 0; q < 4; ++q) activate_pair<ACT>(v[2 * q], v[2 * q + 1]);
         }
@@ -363,26 +409,43 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_map, const __grid_constant__ C
   if constexpr (CM > 1) cluster_sync();  // no block leaves while the other may arrive on it
 }
 
-// y = epi(a[M, K] @ w[K, N]) on `blocks` persistent blocks in clusters of
-// `cluster` (1 or 2) over n_tiles x m_tiles tiles (the plan's: they cover
-// M and N, m_tiles a multiple of the cluster, tiles past M store nothing).
-// a, w, y, bias and res contiguous, 16-byte aligned, K and N multiples of 8
-// (TMA's 16-byte row strides).
+// One product's operands: w [K, N] row-major, its bias [N] and result y [M, N].
+struct Operand {
+  const __nv_bfloat16* w;
+  const __nv_bfloat16* bias;
+  __nv_bfloat16* y;
+};
+
+// y_p = epi(a[M, K] @ w_p[K, N]) for the `count` (1 to kMaxProducts)
+// products of ops, on `blocks` persistent blocks in clusters of `cluster`
+// (1 or 2) over (count x n_tiles) x m_tiles tiles (the plan's,
+// ops/vit_gemm.py: they cover M and N, m_tiles a multiple of the cluster,
+// tiles past M store nothing). a, w, y, bias and res contiguous, 16-byte
+// aligned, K and N multiples of 8 (TMA's 16-byte row strides). dependent: a
+// is written by the launch just before on the stream, which calls
+// launch_dependents; this grid is launched as its programmatic dependent.
 template <int ACT, bool RESIDUAL, bool PRODUCTS>
-static cudaError_t launch_gemm(const __nv_bfloat16* a, const __nv_bfloat16* w,
-                               const __nv_bfloat16* bias, const __nv_bfloat16* res,
-                               __nv_bfloat16* y, int M, int N, int K, int n_tiles, int m_tiles,
-                               int blocks, int cluster, cudaStream_t stream) {
+static cudaError_t launch_products(const __nv_bfloat16* a, const Operand* ops, int count,
+                                   const __nv_bfloat16* res, int M, int N, int K, int n_tiles,
+                                   int m_tiles, int blocks, int cluster, bool dependent,
+                                   cudaStream_t stream) {
   if (K % 8 || N % 8 || n_tiles * kBN < N || (n_tiles - 1) * kBN >= N || m_tiles * kBM < M ||
       (m_tiles - cluster) * kBM >= M || (cluster != 1 && cluster != 2) || m_tiles % cluster ||
-      blocks < cluster || blocks % cluster)
+      blocks < cluster || blocks % cluster || count < 1 || count > kMaxProducts)
     return cudaErrorInvalidValue;
-  CUtensorMap a_map, w_map, res_map;
+  CUtensorMap a_map, res_map;
+  Products prods = {};
   constexpr auto kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   if (tensor_map_2d(&a_map, kBf16, a, K, M, 2ull * K, kBK, kBM) ||
-      tensor_map_2d(&w_map, kBf16, w, N, K, 2ull * N, 64, kBK) ||
       (RESIDUAL && tensor_map_2d(&res_map, kBf16, res, N, M, 2ull * N, 64, 64)))
     return cudaErrorInvalidValue;
+  for (int p = 0; p < count; ++p) {
+    if (tensor_map_2d(&prods.w[p], kBf16, ops[p].w, N, K, 2ull * N, 64, kBK))
+      return cudaErrorInvalidValue;
+    prods.bias[p] = ops[p].bias;
+    prods.y[p] = ops[p].y;
+  }
+  prods.count = count;
   if (!RESIDUAL) res_map = a_map;  // unused
   static size_t granted1 = 48 * 1024, granted2 = 48 * 1024;
   auto kernel = cluster == 2 ? gemm_kernel<ACT, RESIDUAL, PRODUCTS, 2>
@@ -394,17 +457,29 @@ static cudaError_t launch_gemm(const __nv_bfloat16* a, const __nv_bfloat16* w,
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = kSmem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1] = programmatic_launch();
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, a_map, w_map, res_map, bias, y, M, N, K, n_tiles,
-                           n_tiles * (m_tiles / cluster));
+  cfg.numAttrs = dependent ? 2 : 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a_map, prods, res_map, M, N, K, n_tiles,
+                           count * n_tiles * (m_tiles / cluster));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// One product y = epi(a[M, K] @ w[K, N]), launched on its own.
+template <int ACT, bool RESIDUAL, bool PRODUCTS>
+static cudaError_t launch_gemm(const __nv_bfloat16* a, const __nv_bfloat16* w,
+                               const __nv_bfloat16* bias, const __nv_bfloat16* res,
+                               __nv_bfloat16* y, int M, int N, int K, int n_tiles, int m_tiles,
+                               int blocks, int cluster, cudaStream_t stream) {
+  const Operand op{w, bias, y};
+  return launch_products<ACT, RESIDUAL, PRODUCTS>(a, &op, 1, res, M, N, K, n_tiles, m_tiles,
+                                                  blocks, cluster, false, stream);
 }
 
 }  // namespace wg

@@ -13,10 +13,10 @@ Dense weights stay `[in, out]` (applied as `x @ w`): bf16/f32 `w`, int8
 `w_q` with f32 `scales` [1, out], or int4 `w_q4` packed [in/2, out] with f32
 `scales` [in/128, out]; embeddings `[vocab, hidden]`. The decode
 kernels read that layout directly: ops/decode_qkv.py reads `wq [h, H*d]`
-and `wk`/`wv [h, kv*d]` in 64-column strips, ops/decode_mlp_bf16.py reads
-`w_gate`/`w_up [h, I]` in 64-column strips and `w_down [I, h]` in
-32-column strips, and ops/decode_attn_o.py reads `o_proj [H*d, h]` in
-32-column strips, and ops/quant.py's kernels read the quantized leaves as
+and `wk`/`wv [h, kv*d]` in 64-column boxes, ops/decode_mlp_bf16.py reads
+`w_gate`/`w_up [h, I]` in 64-column boxes and `w_down [I, h]` in
+128-column tiles, ops/decode_attn_o.py reads `o_proj [H*d, h]` in
+128-column tiles, and ops/quant.py's kernels read the quantized leaves as
 stored. The encoder towers keep the JAX layouts too, which already are
 torch's: dense `[in, out]` applied as `x @ w`, the CLIP patch embedding
 `[P²·3, width]` over channel-major patches, Conv1d kernels `OIH`

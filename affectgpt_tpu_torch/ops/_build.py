@@ -40,7 +40,7 @@ _SIGNATURES = {
     "agk_decode_mlp_bf16": [_P] * 8 + [_I] * 11 + [_F, _P],
     "agk_decode_swapab_active_clusters": [_I] * 3,
     "agk_decode_attention_bf16": [_P] * 7 + [_I] * 5 + [_P],
-    "agk_decode_attn_o_bf16": [_P] * 10 + [_I] * 6 + [_P],
+    "agk_decode_attn_o_bf16": [_P] * 8 + [_I] * 12 + [_P],
     "agk_prefill_attention_bf16": [_P] * 7 + [_I] * 5 + [_P],
     "agk_int8_matmul": [_P] * 5 + [_I] * 5 + [_P],
     "agk_int4_matmul": [_P] * 5 + [_I] * 5 + [_P],
@@ -52,7 +52,7 @@ _SIGNATURES = {
     "agk_paged_attention_bf16": [_P] * 6 + [_I] * 9 + [_P],
     "agk_paged_attention_int8": [_P] * 8 + [_I] * 9 + [_P],
     "agk_vit_attention_bf16": [_P] * 4 + [_I] * 5 + [_L] * 6 + [_P],
-    "agk_vit_attn_sublayer_bf16": [_P] * 17 + [_I] * 5 + [_F, _P],
+    "agk_vit_attn_sublayer_bf16": [_P] * 18 + [_I] * 5 + [_F, _P],
     "agk_vit_mlp_bf16": [_P] * 11 + [_I] * 5 + [_F, _P],
     "agk_vit_mlp_fused_bf16": [_P] * 9 + [_I] * 6 + [_F, _P],
 }

@@ -5,10 +5,10 @@ Port of affectgpt_tpu/ops/vit_mlp_pallas.py (`mlp_sublayer`, `apply`,
 `apply_hubert`). On CUDA tensors the kernels of csrc/vit_mlp.cu run (three
 launches in one call: LayerNorm, fc1 + bias + act into a bf16 [rows, I]
 scratch, fc2 + bias + residual, the two products on the wgmma + TMA GEMM of
-csrc/vit_gemm_wgmma.cuh as `mlp_plan` lays them out) or the wrapper raises;
-on CPU tensors
-`mlp_sublayer_reference`, the plain PyTorch version, which is also the oracle
-the kernels are checked against on the card.
+csrc/vit_gemm_wgmma.cuh as `mlp_plan` lays them out with ops/vit_gemm.py) or
+the wrapper raises; on CPU tensors `mlp_sublayer_reference`, the plain
+PyTorch version, which is also the oracle the kernels are checked against on
+the card.
 
 The plain version's erf gelu is the exact one (torch.erf). The kernel, like
 the TPU kernel, builds erf from the Abramowitz-Stegun rational, whose
@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from affectgpt_tpu_torch.ops import _build
+from affectgpt_tpu_torch.ops.vit_gemm import gemm_plan, place
 from affectgpt_tpu_torch.ops.vit_sublayer import dot_f32, layernorm_rounded
 
 ACTS = {"quick_gelu": 1, "gelu": 2}  # the kernels' activation codes
@@ -52,52 +53,6 @@ def mlp_sublayer_reference(x, ln_scale, ln_bias, w_in, b_in, w_out, b_out,
     return (dot_f32(t, w_out) + b_out.float() + x.float()).to(x.dtype)
 
 
-# The GEMM's tile (csrc/vit_gemm_wgmma.cuh): 128 rows x 256 columns, 64 k a
-# stage, a ring of four stages beside the staging memory of half a tile's
-# result; persistent blocks, one per SM, in clusters of two that share w's
-# tiles.
-GEMM_BM, GEMM_BN, GEMM_BK, GEMM_STAGES, GEMM_CLUSTER = 128, 256, 64, 4, 2
-
-
-def gemm_plan(m: int, n: int, k: int, sm_count: int) -> dict:
-    """The launch plan of one product y [m, n] = a [m, k] @ w [k, n] on the
-    wgmma GEMM: the tile; the cluster (GEMM_CLUSTER row tiles sharing each
-    of w's tiles, where there is more than one row tile); the column tiles
-    and the row tiles, rounded up to whole clusters (tiles past m compute
-    zeros and store nothing); the persistent grid (whole clusters, at most
-    one block per SM) with each block's tiles (`_place`); the k steps (k
-    padded to a whole stage with TMA's zeros); the shared memory; and the
-    bytes its blocks read from L2 (a once per column tile, w once per
-    cluster)."""
-    n_tiles, m_tiles = -(-n // GEMM_BN), -(-m // GEMM_BM)
-    cluster = GEMM_CLUSTER if m_tiles > 1 else 1
-    m_tiles = -(-m_tiles // cluster) * cluster
-    units = n_tiles * m_tiles // cluster
-    stage = (GEMM_BM + GEMM_BN) * GEMM_BK * 2
-    plan = {"tile": (GEMM_BM, GEMM_BN), "cluster": cluster, "stage_k": GEMM_BK,
-            "stages": GEMM_STAGES, "n_tiles": n_tiles, "m_tiles": m_tiles,
-            "k_steps": -(-k // GEMM_BK),
-            # the ring, half a tile's result and the bias per warpgroup, barriers
-            "smem_bytes": GEMM_STAGES * stage + GEMM_BM * GEMM_BN + 2 * GEMM_BN * 2
-            + (2 * GEMM_STAGES + 2) * 8 + 1024,
-            "l2_bytes": 2 * (n_tiles * m * k + m_tiles // cluster * k * n)}
-    return _place(plan, min(sm_count // cluster, units) * cluster)
-
-
-def _place(plan: dict, blocks: int) -> dict:
-    """`plan` on a grid of `blocks` blocks: the grid and each block's tiles
-    (column tile, row tile) in its order. A unit is a column tile and a
-    cluster's row tiles; cluster c takes units c, c + clusters, ..., unit u
-    the column tile u % n_tiles and its blocks the row tiles cluster *
-    (u // n_tiles) + rank."""
-    n_tiles, cluster = plan["n_tiles"], plan["cluster"]
-    units, clusters = n_tiles * plan["m_tiles"] // cluster, blocks // cluster
-    plan["grid"] = (blocks,)
-    plan["tiles"] = [[(u % n_tiles, cluster * (u // n_tiles) + b % cluster)
-                      for u in range(b // cluster, units, clusters)] for b in range(blocks)]
-    return plan
-
-
 def mlp_plan(rows: int, w: int, inter: int, sm_count: int) -> dict:
     """The two products' plans (fc1: [rows, w] @ [w, I], fc2: [rows, I] @
     [I, w]) on one persistent grid; raises on what the kernels do not take:
@@ -108,7 +63,7 @@ def mlp_plan(rows: int, w: int, inter: int, sm_count: int) -> dict:
                          f"intermediate % 32 == 0 (width={w}, intermediate={inter})")
     fc1, fc2 = gemm_plan(rows, inter, w, sm_count), gemm_plan(rows, w, inter, sm_count)
     blocks = max(fc1["grid"][0], fc2["grid"][0])  # a block with no tile returns
-    return {"fc1": _place(fc1, blocks), "fc2": _place(fc2, blocks), "blocks": blocks}
+    return {"fc1": place(fc1, blocks), "fc2": place(fc2, blocks), "blocks": blocks}
 
 
 def _launch(x, ln_scale, ln_bias, w_in, b_in, w_out, b_out, eps: float, act: str,

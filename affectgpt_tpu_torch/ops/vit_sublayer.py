@@ -3,10 +3,13 @@ x + o_proj(attention(LN(x))), keys ≥ valid_len masked.
 
 Port of affectgpt_tpu/ops/vit_sublayer_pallas.py (`attn_sublayer`, `apply`).
 On CUDA tensors the kernels of csrc/vit_sublayer.cu run (four launches in
-one call: LayerNorm, the q/k/v products, the attention, the o product with
-the residual) or the wrapper raises; on CPU tensors `attn_sublayer_reference`,
-the plain PyTorch version, which is also the oracle the kernels are checked
-against on the card.
+one call, each after the first a programmatic dependent of the one before:
+LayerNorm, the q/k/v products as one persistent launch of three products on
+the wgmma + TMA GEMM of csrc/vit_gemm_wgmma.cuh, the attention, the o
+product with the residual on the same GEMM; `attn_sublayer_plan`) or the
+wrapper raises; on CPU tensors `attn_sublayer_reference`, the plain PyTorch
+version, which is also the oracle the kernels are checked against on the
+card.
 
 Limits of the kernels: head_dim 64, width a multiple of 32 up to 2048, at
 most 512 tokens. Any n is taken (JAX pads n to a multiple of 8 for the TPU);
@@ -15,10 +18,13 @@ query rows at or past valid_len are computed and attend to the valid keys.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from affectgpt_tpu_torch.ops import _build
 from affectgpt_tpu_torch.ops.vit_attention import HEAD_DIM, MAX_N, fused_vit_attention_reference
+from affectgpt_tpu_torch.ops.vit_gemm import gemm_plan
 
 
 def layernorm_rounded(x, scale, bias, eps: float):
@@ -57,6 +63,30 @@ def attn_sublayer_reference(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo
     return (dot_f32(o, wo) + bo.float() + x.float()).to(x.dtype)
 
 
+def attn_sublayer_plan(rows: int, w: int, sm_count: int) -> dict:
+    """The products' launch plans over `rows` rows of width w: q/k/v as one
+    launch of three products [rows, w] @ [w, w] over the rows h, o as one
+    product over the attention's rows, each on the persistent wgmma GEMM
+    (ops/vit_gemm.py: tiles, units, rounds, grid); the launches a call makes
+    (LayerNorm, q/k/v, attention, o). Raises on what the GEMMs and the
+    LayerNorm pass do not take: width % 32 (TMA's 16-byte row strides) and
+    at most 2048 (the pass holds a row in 8-value pieces)."""
+    if w % 32 or w > 2048 or rows < 1:
+        raise ValueError(f"attn_sublayer kernel takes width % 32 == 0 up to 2048 and rows "
+                         f">= 1 (width={w}, rows={rows})")
+    return {"qkv": gemm_plan(rows, w, w, sm_count, products=3),
+            "o": gemm_plan(rows, w, w, sm_count), "launches": 4}
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_on(rows: int, w: int, device_index: int) -> torch.Tensor:
+    """The C entry's Plan ints of `attn_sublayer_plan` on card device_index."""
+    plan = attn_sublayer_plan(rows, w, _build.sm_count(device_index))
+    qkv, o = plan["qkv"], plan["o"]
+    return torch.tensor([qkv["m_tiles"], qkv["n_tiles"], qkv["grid"][0], o["grid"][0],
+                         qkv["cluster"]], dtype=torch.int32)
+
+
 def attn_sublayer(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
                   num_heads: int, valid_len: int, eps: float = 1e-5):
     """x [b, n, w] (keys ≥ valid_len masked) → x + o_proj(attention(LN(x)))
@@ -75,12 +105,13 @@ def attn_sublayer(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
         raise ValueError(f"attn_sublayer kernel takes head_dim {HEAD_DIM}, width % 32 == 0 up "
                          f"to 2048 and 1 <= valid_len <= n <= {MAX_N} (width={w}, "
                          f"heads={num_heads}, n={n}, valid_len={valid_len})")
+    plan = _plan_on(b * n, w, x.device.index or 0)
     scratch = torch.empty((5, b, n, w), dtype=x.dtype, device=x.device)  # h, q, k, v, attn
     y = torch.empty_like(x)
     lib = _build.load_library()
     status = lib.agk_vit_attn_sublayer_bf16(
         *(t.data_ptr() for t in args), *(s.data_ptr() for s in scratch), y.data_ptr(),
-        b, n, w, num_heads, int(valid_len), float(eps),
+        plan.data_ptr(), b, n, w, num_heads, int(valid_len), float(eps),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "attn_sublayer")

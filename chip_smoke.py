@@ -75,7 +75,12 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    sublayers print their library chains' times (layer_norm, addmm, SDPA or
    the activation, addmm) as `chain_ms`, as do the bf16 decode kernels
    (rms_norm, addmm, RoPE; rms_norm, matmul, silu * up, addmm) and
-   decode_attn_o (SDPA, addmm).
+   decode_attn_o (SDPA, addmm). The attention sublayer (its four products
+   on the wgmma GEMM, q/k/v in one launch) and decode_attn_o (the attention
+   in one launch, o_proj on the swap-AB wgmma kernel) must give the same
+   bits on a second call at every checked shape, print their plans
+   (`variant`) and, beside their times, `stages`: the device ms of each
+   launch of one call, from torch.profiler.
 4. Main path: bootstrap.build_model at Qwen2.5-7B width with random bf16
    weights from a seed, LoRA merged by serving_llm, then Chat.answer_batch
    on 8 preextracted clips, greedy, 32 new tokens, under three attention
@@ -141,13 +146,15 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from affectgpt_tpu_torch import bootstrap
 from affectgpt_tpu_torch.inference import generate as gen
 from affectgpt_tpu_torch.inference import paged, server
 from affectgpt_tpu_torch.inference.chat import Chat, encode_media_features, prepare_frames
 from affectgpt_tpu_torch.models import affectgpt, clip_vit, encoders, hubert, nn, qwen2
-from affectgpt_tpu_torch.ops import _build, decode_gemm, quant, vit_mlp
+from affectgpt_tpu_torch.ops import _build, decode_attn_o as decode_attn_o_module
+from affectgpt_tpu_torch.ops import decode_gemm, quant, vit_mlp
 from affectgpt_tpu_torch.ops import decode_mlp as decode_mlp_module
 from affectgpt_tpu_torch.ops.vit_attention import (
     fused_self_attention,
@@ -164,6 +171,7 @@ from affectgpt_tpu_torch.ops.vit_mlp_fused import (
 )
 from affectgpt_tpu_torch.ops.vit_sublayer import (
     attn_sublayer,
+    attn_sublayer_plan,
     attn_sublayer_reference,
     dot_f32,
     layernorm_rounded,
@@ -352,6 +360,27 @@ def graph_ms(calls, reps: int = 20) -> float:
     ms = statistics.median(s.elapsed_time(e) for s, e in events) / len(calls)
     del graph
     return ms
+
+
+def stage_ms(fn, reps: int = 10) -> dict:
+    """Device ms a launch of each kernel that `fn` launches, by kernel name
+    (torch.profiler over `reps` eager calls; the mean over the launches it
+    recorded): a kernel's stages."""
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(2):  # a process's first profiler session may record no device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", 0)
+            if e.count and t:
+                out[e.key.split("(")[0][-48:]] = round(t / e.count / 1000, 5)
+        if out:
+            break
+    return out
 
 
 def bound(nbytes: float, flops: float, ops_per_s: float = BF16_FLOP_PER_S) -> dict:
@@ -584,6 +613,17 @@ def prefill_variant(b: int, t: int, heads: int, kv: int, d: int, seg: torch.Tens
             "kv_tiles_loaded": plan["kv_tiles_loaded"]}
 
 
+def attn_o_variant(b: int, kv: int, g: int, d: int, t_len: int, h: int) -> dict:
+    """What decode_attn_o launches: the attention's splits a (row, kv head)
+    pair, ring and grid, and o_proj's swap-AB plan on the card."""
+    plan = decode_attn_o_module.decode_attn_o_plan(b, kv, g, d, t_len, h, sm_count(),
+                                                   decode_gemm.active_clusters_on_card)
+    a, o = plan["attention"], plan["o_proj"]
+    return {"attention": f"mma.sync, TMA ring of {a['stages']}, cluster of {a['splits']} a "
+                         f"(row, kv head), grid {a['grid'][0]}",
+            "o_proj": {k: o[k] for k in ("wgmma", "cb", "ck", "stages", "grid")}}
+
+
 def phase_attention_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
     """The attention kernels against their plain versions at the main path's
     widths, T = 640 and 577 (not a multiple of the 64-column tile) for the
@@ -637,8 +677,11 @@ def phase_attention_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
             k, v, wo = sets[0]
             check("decode_attention", decode_attention(q, k, v, mask),
                   decode_attention_reference(q, k, v, mask), b, T=t_len)
-            check("decode_attn_o", decode_attn_o(x, q, k, v, mask, wo),
-                  decode_attn_o_reference(x, q, k, v, mask, wo), b, T=t_len)
+            got = decode_attn_o(x, q, k, v, mask, wo)
+            if not torch.equal(got, decode_attn_o(x, q, k, v, mask, wo)):
+                raise AssertionError(f"decode_attn_o b={b} T={t_len}: two calls differ")
+            check("decode_attn_o", got, decode_attn_o_reference(x, q, k, v, mask, wo), b,
+                  T=t_len, variant=json.dumps(attn_o_variant(b, kv, groups, d, t_len, h)))
             if t_len != MAX_LEN:
                 continue
             valid = int(mask.sum())  # valid (row, column) pairs: the K/V rows needed
@@ -662,7 +705,8 @@ def phase_attention_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
                    [lambda k=k, v=v, wo=wo: decode_attn_o_reference(x, q, k, v, mask, wo)
                     for k, v, wo in sets] * reps,
                    None, kv_bytes + 2 * (q.numel() + nq * h + 2 * b * h) + b * t_len,
-                   qk_pv_flops + 2 * b * nq * h)
+                   qk_pv_flops + 2 * b * nq * h,
+                   stages=json.dumps(stage_ms(lambda: decode_attn_o(x, q, k, v, mask, wo))))
             # its library chain: SDPA, then addmm of o_proj onto the residual
             chain = graph_ms([lambda k=k, v=v, wo=wo: torch.addmm(
                 x, sdpa(q4, k, v, attn_mask=mask4, enable_gqa=True).reshape(b, nq), wo)
@@ -1118,6 +1162,16 @@ def mlp_variant(rows: int, w: int, inter: int) -> dict:
             "l2_read_bytes": fc1["l2_bytes"] + fc2["l2_bytes"]}
 
 
+def sublayer_variant(rows: int, w: int) -> dict:
+    """What attn_sublayer launches for `rows` rows: q/k/v as one launch of
+    three products and o, each on the wgmma GEMM (tile, cluster, units, the
+    rounds of units its clusters take, grid)."""
+    plan = attn_sublayer_plan(rows, w, sm_count())
+    return {name: {"tile": "x".join(map(str, p["tile"])), "cluster": p["cluster"],
+                   "units": p["units"], "rounds": round(p["rounds"], 3), "grid": p["grid"][0]}
+            for name, p in (("qkv", plan["qkv"]), ("o", plan["o"]))}
+
+
 def fused_variant(rows: int, w: int, inter: int) -> dict:
     """What mlp_sublayer_fused launches for `rows` rows: the wgmma shape, the
     row tiles and the bytes it reads from L2 (weights, h, the running out)."""
@@ -1165,8 +1219,11 @@ def phase_encoder_kernels(card: str, vcfg: clip_vit.ClipVisionConfig,
                             ("hubert", n_hub, n_hub)):
         x = rnd(b, n, w)
         a_args = (x, *(s0[k] for k in ATTN_KEYS))
-        check("attn_sublayer", attn_sublayer(*a_args, heads, valid),
-              attn_sublayer_reference(*a_args, heads, valid), tower=tower, n=n, valid_len=valid)
+        got = attn_sublayer(*a_args, heads, valid)
+        if not torch.equal(got, attn_sublayer(*a_args, heads, valid)):
+            raise AssertionError(f"attn_sublayer {tower} n={n}: two calls differ")
+        check("attn_sublayer", got, attn_sublayer_reference(*a_args, heads, valid), tower=tower,
+              n=n, valid_len=valid, variant=json.dumps(sublayer_variant(b * n, w)))
         q, k, v = (rnd(b, heads, n, d) for _ in range(3))
         check("fused_vit_attention", fused_vit_attention(q, k, v, valid),
               fused_vit_attention_reference(q, k, v, valid), tower=tower, n=n, valid_len=valid)
@@ -1235,7 +1292,9 @@ def phase_encoder_kernels(card: str, vcfg: clip_vit.ClipVisionConfig,
                 for s in layers] * 2,
                [lambda: attn_sublayer_reference(x, *(s0[k] for k in ATTN_KEYS), heads, n)],
                2 * (2 * rows * w + 4 * w * w + 6 * w), 8 * rows * w * w + 4 * rows * n * w,
-               chain=[lambda s=s: library_attn_chain(x, s, heads, key_mask) for s in layers] * 2)
+               chain=[lambda s=s: library_attn_chain(x, s, heads, key_mask) for s in layers] * 2,
+               stages=json.dumps(stage_ms(
+                   lambda: attn_sublayer(x, *(s0[k] for k in ATTN_KEYS), heads, n))))
         mlp_bytes, mlp_flops = 2 * (2 * rows * w + 2 * w * inter + inter + 3 * w), \
             4 * rows * w * inter
         act = "quick_gelu" if tower == "clip" else "gelu"

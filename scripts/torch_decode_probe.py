@@ -7,6 +7,7 @@ csrc/decode_swapab.cuh), and the decode step of `generate` that runs them.
     python3 scripts/torch_decode_probe.py builds [DIR]        # the loads alone, edited copies
     python3 scripts/torch_decode_probe.py sweep               # every K split, through the C entries
     python3 scripts/torch_decode_probe.py generate [DIR ...]  # decode ms per step, 3B, b = 384
+    python3 scripts/torch_decode_probe.py attn_o [DIR ...]    # decode_attn_o, by launch
 
 `check`: both wrappers against their plain versions (rtol 1.6e-2, atol
 1e-2 in bf16) at b = 1, 8, 13, 16, 24, 64, 100, 384 and 392 on small widths
@@ -35,7 +36,16 @@ of bench.py's configuration and of `make_clip_batch`'s prompts: b = 384,
 seed), with qwen2.DECODE_QKV and DECODE_MLP "auto" and "xla", each package
 in a process of its own, A B B A; decode ms per step = (time of 32 tokens -
 time of 1 token) / 31, three runs each, the median. Prints the card's name
-and power limit first.
+and power limit first. `attn_o`: `decode_attn_o` (csrc/decode_attn_o.cu, the
+opt-in DECODE_ATTN_O="pallas" route) at Qwen2.5-7B width (28 q heads over 4
+kv heads of 128, hidden 3584), b = 8 and 64, T = 640 and 577, with
+chip_smoke.py's windows of valid columns (0-19 left pads, a write index in
+[T - 95, T - 2]): device ms per call as `time` takes it, the device ms of
+each launch of a call (torch.profiler, by kernel name), the largest error
+against the plain version and whether two calls give the same bits; beside
+it (the first package only) the library chain (SDPA with GQA and the bool
+mask, addmm onto the residual) and the bound (valid K/V rows, W_o, q, x and
+y at 3.35 TB/s); this tree and each DIR's package, A B B A.
 """
 
 from __future__ import annotations
@@ -147,6 +157,62 @@ for geom, b in shapes:
     print(json.dumps(row), flush=True)
     del qkv, mlp
     torch.cuda.empty_cache()
+'''
+
+ATTN_O = COMMON + r'''
+from torch.profiler import ProfilerActivity, profile
+from affectgpt_tpu_torch.ops.decode_attn_o import decode_attn_o, decode_attn_o_reference
+label, chain = sys.argv[1], sys.argv[2] == "1"
+h, kv, groups, d = 3584, 4, 7, 128
+nq = kv * groups * d
+sdpa = torch.nn.functional.scaled_dot_product_attention
+
+def kernel_ms(fn, reps=10):  # device ms of each kernel a call launches, by name
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if e.count and t:
+            out[e.key.split("(")[0][-48:]] = t / e.count / 1000
+    return out
+
+for b in (8, 64):
+    for t in (640, 577):
+        lo = torch.randint(0, 20, (b,), generator=g, device="cuda")
+        hi = torch.randint(t - 95, t - 1, (b,), generator=g, device="cuda")
+        cols = torch.arange(t, device="cuda")
+        mask = (cols[None, :] >= lo[:, None]) & (cols[None, :] <= hi[:, None])
+        q, x = rnd(b, kv, groups, d), rnd(b, h)
+        set_bytes = 2 * b * kv * t * d * 2 + nq * h * 2
+        copies = max(2, -(-64 * 2**20 // set_bytes))  # a replay cycle reads past the L2
+        sets = [(rnd(b, kv, t, d), rnd(b, kv, t, d), rnd(nq, h, scale=0.02))
+                for _ in range(copies)]
+        reps = max(1, 24 // copies)
+        k, v, wo = sets[0]
+        got = decode_attn_o(x, q, k, v, mask, wo)
+        same = torch.equal(got, decode_attn_o(x, q, k, v, mask, wo))
+        err = float((got.float() - decode_attn_o_reference(x, q, k, v, mask, wo).float())
+                    .abs().max())
+        valid = int(mask.sum())
+        nbytes = 2 * valid * kv * d * 2 + 2 * (q.numel() + nq * h + 2 * b * h) + b * t
+        row = {"label": label, "b": b, "T": t, "max_abs_err": err, "same_bits": same,
+               "ms": graph_ms([lambda k=k, v=v, wo=wo: decode_attn_o(x, q, k, v, mask, wo)
+                               for k, v, wo in sets] * reps),
+               "bound_ms": nbytes / 3.35e12 * 1e3,
+               "launch_ms": kernel_ms(lambda: decode_attn_o(x, q, k, v, mask, wo))}
+        if chain:
+            q4, mask4 = q.reshape(b, kv * groups, 1, d), mask[:, None, None, :]
+            row["chain_ms"] = graph_ms([lambda k=k, v=v, wo=wo: torch.addmm(
+                x, sdpa(q4, k, v, attn_mask=mask4, enable_gqa=True).reshape(b, nq), wo)
+                for k, v, wo in sets] * reps)
+        print(json.dumps(row), flush=True)
+        del sets, k, v, wo
+        torch.cuda.empty_cache()
 '''
 
 CHECK = COMMON + r'''
@@ -380,6 +446,11 @@ def main() -> None:
         roots = [REPO, *dirs]
         for root in roots + roots[::-1] if len(roots) > 1 else roots:
             for row in run_in(root, GENERATE, str(root), "384", "3", timeout=1800):
+                print(json.dumps(row), flush=True)
+    elif cmd == "attn_o":
+        roots = [REPO, *dirs]
+        for i, root in enumerate(roots + roots[::-1] if len(roots) > 1 else roots):
+            for row in run_in(root, ATTN_O, str(root), "1" if i == 0 else "0"):
                 print(json.dumps(row), flush=True)
     else:
         raise SystemExit(__doc__)

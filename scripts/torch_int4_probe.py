@@ -197,9 +197,9 @@ _STAMP_EDITS = [
      "    mbar_wait(&full[pos.stage], pos.phase);\n"
      "    if (rec && first) { g_stamps[blockIdx.x][1] = now_ns(); first = false; }\n"
      "    if constexpr (!kConsume)"),
-    (INT4, "  float d[1][NT][4];  // the two chains' sum",
+    (INT4, "  float d[NT][4];  // the two chains' sum",
      "  if (rec) g_stamps[blockIdx.x][2] = now_ns();\n"
-     "  float d[1][NT][4];  // the two chains' sum"),
+     "  float d[NT][4];  // the two chains' sum"),
 ]
 
 

@@ -176,15 +176,12 @@ _STAMP_EDITS = [
      + _STAMP.format(2) + "\n"),
     (PAGED, "  if constexpr (!kProducts) sink_into(acc[0][0], sink);",
      "  " + _STAMP.format(3) + "\n  if constexpr (!kProducts) sink_into(acc[0][0], sink);"),
-    (PAGED, "  named_barrier(1, 32 * kConsumers);\n  __nv_bfloat16* orow",
-     "  named_barrier(1, 32 * kConsumers);\n  " + _STAMP.format(4) + "\n  __nv_bfloat16* orow"),
-    (PAGED, "  const int quads = G * D / 4;", "  " + _STAMP.format(5) + "\n  const int quads = G * D / 4;"),
-    (PAGED, "  if constexpr (kClusterMerge) cluster_wait();\n}",
-     "  " + _STAMP.format(6) + "\n  if constexpr (kClusterMerge) cluster_wait();\n}"),
+    (PAGED, "splits, orow);\n  if (splits > 1)",
+     "splits, orow);\n  " + _STAMP.format(4) + "\n  if (splits > 1)"),
+    (PAGED, "rank, orow);\n}", "rank, orow);\n  " + _STAMP.format(5) + "\n}"),
 ]
 _STAMP_NAMES = ["after the first barrier", "warp 0's first tile arrived", "warp 0's tiles done",
-                "the warps' merge done", "after the cluster's first barrier",
-                "before the cluster's last wait"]
+                "the warps' merge done", "the cluster's merge done"]
 
 
 def stamps() -> None:

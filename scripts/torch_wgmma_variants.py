@@ -1,7 +1,7 @@
 """Time variants of the port's wgmma and tensor-core kernels on one CUDA card.
 
     python3 scripts/torch_wgmma_variants.py [--only fused|w8a8|mlp|decode|attention|int4] [--out DIR]
-                                            [NAME ...]
+                                            [--parent DIR] [NAME ...]
 
 For each variant the package is copied to a temporary directory, a few
 source constants are replaced there (the ring depth, the w8a8 row tile;
@@ -21,9 +21,15 @@ the two wgmma attention kernels (`--only attention`): `prefill_attention`
 (csrc/prefill_attention.cu) at b = 8 and 64, t = 564, 28 q and 4 kv heads
 of 128, prompts of 545-564 tokens left-packed, and `fused_vit_attention`
 (csrc/vit_attention.cuh) at CLIP's 64 x 16 heads x 257 tokens and HuBERT's
-99, each beside SDPA (the unedited variant), with `attn_sublayer`
-(csrc/vit_sublayer.cu, whose step (iii) is that attention) and the device
-ms of each of its launches; `diag_attention_no_products` drops both
+99, each beside SDPA (the unedited variant), and `attn_sublayer`
+(`sublayer_as_is`: csrc/vit_sublayer.cu, whose attention step is that
+attention) at CLIP's and HuBERT's shapes with the device ms of each of its
+launches, its largest error against the plain version, whether two calls
+give the same bits, its launch plan and, on the first visit, its library
+chain (layer_norm, one addmm for q/k/v, SDPA, addmm + residual) by launch
+too; with `--parent DIR` (another checkout, such as the parent commit
+unpacked by `git archive`) `sublayer_as_is` runs from this tree and from
+DIR in the order A B B A; `diag_attention_no_products` drops both
 kernels' wgmma products and `diag_attention_no_exp` their exp2, which
 splits the time into loads, products and softmax; the two int4 decode
 wrappers (`--only int4`, csrc/quant_swapab.cu) per Qwen2.5-7B layer
@@ -97,7 +103,7 @@ VARIANTS = {
     "diag_w8a8_no_products": ("w8a8", [(W8A8, _W8A8_MMA,
                                         "        acc_i[0] ^= (int)xor_fold(a[s]);")]),
     "mlp_as_is": ("mlp", []),
-    "mlp_cluster1": ("mlp", [("affectgpt_tpu_torch/ops/vit_mlp.py",
+    "mlp_cluster1": ("mlp", [("affectgpt_tpu_torch/ops/vit_gemm.py",
                               "GEMM_CLUSTER = 128, 256, 64, 4, 2",
                               "GEMM_CLUSTER = 128, 256, 64, 4, 1")]),
     # expf, an IEEE division and erff (vit_gemm.cuh's activate) in fc1's epilogue
@@ -110,9 +116,10 @@ VARIANTS = {
                                           "++half) {")]),
     "decode_as_is": ("decode", []),
     "attention_as_is": ("attention", []),
+    "sublayer_as_is": ("sublayer", []),
     # CLIP's five key tiles through the two-pass design
-    "vit_two_pass": ("attention", [(VIT_ATTN, "case 5: return launch<5>(",
-                                    "case 5: return launch<0>(")]),
+    "vit_two_pass": ("attention", [(VIT_ATTN, "return launch<5>(",
+                                    "return launch<0>(")]),
     # neither kernel's tensor-core products (both attention kernels share them)
     "diag_attention_no_products": ("attention", _NO_ATTN_PRODUCTS),
     # no exp2 in either kernel's softmax (the values go on as they are)
@@ -150,7 +157,7 @@ from affectgpt_tpu_torch.ops import decode_mlp, quant, vit_attention, vit_mlp, v
 from affectgpt_tpu_torch.ops import vit_sublayer
 from affectgpt_tpu_torch.ops.prefill_attention import prefill_attention, prefill_attention_reference
 
-kind, name = sys.argv[1], sys.argv[2]
+kind, name, chain = sys.argv[1], sys.argv[2], sys.argv[3:] == ["chain"]
 g = torch.Generator(device="cuda").manual_seed(0)
 
 def rnd(*shape, scale=1.0, shift=0.0):
@@ -254,14 +261,44 @@ elif kind == "attention":
             out[f"vit_{tower}_sdpa_ms"] = graph_ms([lambda t=t: sdpa(*t, attn_mask=mask)
                                                     for t in qkv] * 4)
         del qkv
+elif kind == "sublayer":
+    b, h, w = 64, 16, 1024
+    for tower, n in (("clip", 257), ("hubert", 99)):  # 64 images or clips, 16 heads of 64
         x = rnd(b, n, w)
         layers = [(rnd(w, scale=0.1, shift=1.0), rnd(w, scale=0.1),
                    *[m for _ in range(4) for m in (rnd(w, w, scale=0.02), rnd(w, scale=0.1))])
                   for _ in range(4)]
-        out[f"attn_sublayer_{tower}_ms"] = graph_ms(
+        got = vit_sublayer.attn_sublayer(x, *layers[0], h, n)
+        out[f"{tower}_same_bits"] = torch.equal(got, vit_sublayer.attn_sublayer(x, *layers[0], h, n))
+        out[f"{tower}_max_abs_err"] = float((got.float() - vit_sublayer.attn_sublayer_reference(
+            x, *layers[0], h, n).float()).abs().max())
+        out[f"{tower}_ms"] = graph_ms(
             [lambda p=p: vit_sublayer.attn_sublayer(x, *p, h, n) for p in layers] * 2)
-        out[f"attn_sublayer_{tower}_kernel_ms"] = kernel_ms(
-            lambda: vit_sublayer.attn_sublayer(x, *layers[0], h, n))
+        out[f"{tower}_launch_ms"] = kernel_ms(lambda: vit_sublayer.attn_sublayer(x, *layers[0], h, n))
+        if chain:  # layer_norm, one addmm for q/k/v, SDPA, addmm + residual
+            mask = torch.ones((1, 1, 1, n), dtype=torch.bool, device="cuda")
+            cat = [(torch.cat(p[2:8:2], dim=1), torch.cat(p[3:8:2])) for p in layers]
+
+            def library_chain(p, wqkv, bqkv):
+                hh = torch.nn.functional.layer_norm(x, (w,), p[0], p[1], 1e-5)
+                qkv = torch.addmm(bqkv, hh.view(-1, w), wqkv).view(b, n, 3, h, w // h)
+                q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+                o = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+                return torch.addmm(p[9], o.transpose(1, 2).reshape(-1, w), p[8]).view_as(x) + x
+
+            out[f"{tower}_chain_ms"] = graph_ms(
+                [lambda p=p, c=c: library_chain(p, *c) for p, c in zip(layers, cat)] * 2)
+            out[f"{tower}_chain_launch_ms"] = kernel_ms(lambda: library_chain(layers[0], *cat[0]))
+        try:
+            from affectgpt_tpu_torch.ops.vit_sublayer import attn_sublayer_plan
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            pl = attn_sublayer_plan(b * n, w, sms)
+            out[f"{tower}_plan"] = {k: {f: pl[k][f] for f in ("n_tiles", "m_tiles", "cluster",
+                                                            "units", "rounds")}
+                                    for k in ("qkv", "o")}
+        except ImportError:  # the parent's package has no plan
+            pass
+        del layers
 elif kind == "int4":
     # Qwen2.5-7B's split layer and lm_head; (M, wrapper) as the main path routes them
     layer = {"q": (3584, 3584), "k": (3584, 512), "v": (3584, 512), "o": (3584, 3584),
@@ -333,10 +370,10 @@ print(json.dumps(out), flush=True)
 """
 
 
-def copy_package(name: str, edits: list, tmp_root: Path) -> Path:
-    """The package copied under tmp_root with each (file, old, new) edit made."""
+def copy_package(name: str, edits: list, tmp_root: Path, source: Path = REPO) -> Path:
+    """source's package copied under tmp_root with each (file, old, new) edit made."""
     root = Path(tempfile.mkdtemp(dir=tmp_root))
-    shutil.copytree(REPO / "affectgpt_tpu_torch", root / "affectgpt_tpu_torch",
+    shutil.copytree(source / "affectgpt_tpu_torch", root / "affectgpt_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     for rel, old, new in edits:
         path = root / rel
@@ -347,12 +384,14 @@ def copy_package(name: str, edits: list, tmp_root: Path) -> Path:
     return root
 
 
-def run_variant(name: str, kind: str, edits: list, tmp_root: Path, bench: str = BENCH) -> None:
-    """Build and run `bench` (argv: kind, name) in a copy with `edits`; print its last line."""
-    root = copy_package(name, edits, tmp_root)
+def run_variant(name: str, kind: str, edits: list, tmp_root: Path, bench: str = BENCH,
+                source: Path = REPO, chain: bool = False) -> None:
+    """Build and run `bench` (argv: kind, name[, chain]) in a copy of source's
+    package with `edits`; print its last line."""
+    root = copy_package(name, edits, tmp_root, source)
     env = {**os.environ, "PYTHONPATH": str(root)}
-    proc = subprocess.run([sys.executable, "-c", bench, kind, name], env=env, cwd=root,
-                          capture_output=True, text=True, timeout=900)
+    proc = subprocess.run([sys.executable, "-c", bench, kind, name, *(["chain"] if chain else [])],
+                          env=env, cwd=root, capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         print(json.dumps({"variant": name, "error": proc.stderr[-2000:]}), flush=True)
     else:
@@ -363,15 +402,23 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("fused", "w8a8", "mlp", "decode", "attention", "int4"))
     ap.add_argument("--out", default=None, help="scratch directory (default: a temporary one)")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="another checkout: sublayer_as_is from it too, A B B A")
     ap.add_argument("names", nargs="*", help="only these variants (default: all, or --only's)")
     args = ap.parse_args()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     tmp_root = Path(args.out or tempfile.mkdtemp())
     tmp_root.mkdir(parents=True, exist_ok=True)
+    kinds = {None: None, "attention": ("attention", "sublayer")}.get(args.only, (args.only,))
     for name, (kind, edits) in VARIANTS.items():
-        if args.only in (None, kind) and (not args.names or name in args.names):
-            run_variant(name, kind, edits, tmp_root)
+        if (kinds is None or kind in kinds) and (not args.names or name in args.names):
+            if name == "sublayer_as_is" and args.parent:
+                for i, src in enumerate((REPO, args.parent.resolve(), args.parent.resolve(), REPO)):
+                    run_variant(f"{name}_{'parent' if i in (1, 2) else 'tree'}", kind, edits,
+                                tmp_root, source=src, chain=i == 0)
+            else:
+                run_variant(name, kind, edits, tmp_root, chain=name == "sublayer_as_is")
 
 
 if __name__ == "__main__":

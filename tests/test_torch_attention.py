@@ -68,8 +68,15 @@ def test_decode_attention_plain_matches_pallas(b, kv, g, d, t):
     assert not got[1].any()
 
 
-@pytest.mark.parametrize("b,kv,g,d,t,h", [(16, 2, 4, 128, 64, 256), (8, 2, 2, 64, 48, 128)])
-def test_decode_attn_o_plain_matches_pallas(b, kv, g, d, t, h):
+@pytest.mark.parametrize("b,kv,g,d,t,h,edges", [
+    pytest.param(16, 2, 4, 128, 64, 256, False, id="16-2-4-128-64-256"),
+    pytest.param(8, 2, 2, 64, 48, 128, False, id="8-2-2-64-48-128"),
+    # a row with no valid column (the window [0, T - 1]), windows that end
+    # before T - 1, one that starts past a 16-column tile's first column
+    pytest.param(8, 4, 7, 128, 64, 256, True, id="edges-8-4-7-128-64-256"),
+    pytest.param(8, 2, 3, 64, 48, 128, True, id="edges-8-2-3-64-48-128"),
+])
+def test_decode_attn_o_plain_matches_pallas(b, kv, g, d, t, h, edges):
     rng = np.random.RandomState(1)
     x = rng.randn(b, h).astype(np.float32)
     q = rng.randn(b, kv, g, d).astype(np.float32)
@@ -77,6 +84,12 @@ def test_decode_attn_o_plain_matches_pallas(b, kv, g, d, t, h):
     v = rng.randn(b, kv, t, d).astype(np.float32)
     wo = (rng.randn(kv * g * d, h) * 0.05).astype(np.float32)
     mask = _windows(rng, b, t, 8, 16)  # as tests/test_decode_attn_o_pallas.py:35-39
+    if edges:
+        cols = np.arange(t)
+        mask[0] = False
+        mask[1] = (cols >= 5) & (cols <= t // 2)
+        mask[2] = (cols >= 17) & (cols <= t - 3)
+        mask[3] = cols == t - 7
     want = jax_decode_attn_o(*map(jnp.asarray, (x, q, k, v, mask, wo)), block_m=8,
                              block_t=16, interpret=True)
     decode_attn_o.launches = 0

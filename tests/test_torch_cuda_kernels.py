@@ -187,6 +187,49 @@ def test_decode_attn_o_kernel_matches_plain(gen, b, kv, g, d, h, t):
     torch.testing.assert_close(got.float(), decode_attn_o_reference(*args).float(), **TOL)
 
 
+def _decode_window_edges(gen, b, t):
+    """`_window_mask`'s windows with the edges of the kernel's window split:
+    row 0 has no valid column (all of [0, T - 1]), row 1 runs from a column
+    that is no multiple of 16 to T - 1, row 2 is one column."""
+    mask = _window_mask(gen, b, t)
+    cols = torch.arange(t, device="cuda")
+    mask[0] = False
+    if b > 1:
+        mask[1] = cols >= 21
+    if b > 2:
+        mask[2] = cols == t // 3
+    return mask
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 64])
+@pytest.mark.parametrize("t", [577, 640])
+def test_decode_attn_o_kernel_matches_plain_at_qwen_width(gen, b, t):
+    kv, g, d, h = 4, 7, 128, 3584  # Qwen2.5-7B
+    args = (_rnd(gen, b, h), _rnd(gen, b, kv, g, d), _rnd(gen, b, kv, t, d),
+            _rnd(gen, b, kv, t, d), _decode_window_edges(gen, b, t),
+            _rnd(gen, kv * g * d, h, scale=0.02))
+    before = decode_attn_o.launches
+    got = decode_attn_o(*args)
+    again = decode_attn_o(*args)
+    torch.cuda.synchronize()
+    assert decode_attn_o.launches == before + 2
+    assert torch.equal(got, again)  # one order of sums, no atomics: the same bits
+    torch.testing.assert_close(got.float(), decode_attn_o_reference(*args).float(), **TOL)
+
+
+def test_decode_attn_o_raises_on_what_the_kernels_do_not_take(gen):
+    kv, g, d, t = 2, 3, 64, 40
+    mask = torch.ones(2, t, dtype=torch.bool, device="cuda")
+    q, k = _rnd(gen, 2, kv, g, d), _rnd(gen, 2, kv, t, d)
+    with pytest.raises(ValueError):  # hidden 192: no whole 128-column o_proj tiles
+        decode_attn_o(_rnd(gen, 2, 192), q, k, k, mask, _rnd(gen, kv * g * d, 192))
+    b = 513  # past the swap-AB kernel's rows
+    with pytest.raises(ValueError):
+        decode_attn_o(_rnd(gen, b, 256), _rnd(gen, b, kv, g, d), _rnd(gen, b, kv, t, d),
+                      _rnd(gen, b, kv, t, d), torch.ones(b, t, dtype=torch.bool, device="cuda"),
+                      _rnd(gen, kv * g * d, 256))
+
+
 @pytest.mark.parametrize("b", [1, 3, 8])
 @pytest.mark.parametrize("heads,kv,d", [(4, 2, 64), (14, 2, 128)])
 @pytest.mark.parametrize("t", [37, 130])
@@ -595,6 +638,25 @@ def test_attn_sublayer_kernel_matches_plain(gen, w, n, valid):
     assert vit_sublayer.attn_sublayer.launches == before + 1
     torch.testing.assert_close(got.float(), vit_sublayer.attn_sublayer_reference(
         *args, w // 64, valid).float(), **TOL)
+
+
+@pytest.mark.parametrize("b,n,valid", [(5, 99, 90), (2, 257, 257), (3, 77, 77), (1, 257, 200)])
+def test_attn_sublayer_kernel_at_the_towers_width(gen, b, n, valid):
+    """w = 1024, 16 heads (CLIP ViT-L/14, HuBERT-large) at row counts that
+    are no multiple of the GEMM's 128-row tile, keys past valid_len masked;
+    two calls give the same bits."""
+    w = 1024
+    p = _vit_block(gen, w, 64)
+    args = (_rnd(gen, b, n, w), *(p[k] for k in ("lns", "lnb", "wq", "bq", "wk", "bk", "wv",
+                                                  "bv", "wo", "bo")))
+    before = vit_sublayer.attn_sublayer.launches
+    got = vit_sublayer.attn_sublayer(*args, 16, valid)
+    again = vit_sublayer.attn_sublayer(*args, 16, valid)
+    torch.cuda.synchronize()
+    assert vit_sublayer.attn_sublayer.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), vit_sublayer.attn_sublayer_reference(
+        *args, 16, valid).float(), **TOL)
 
 
 @pytest.mark.parametrize("w", [256, 384])

@@ -51,6 +51,19 @@ card: tests/test_torch_cuda_kernels.py).
   an emulation of one tile through one warp (S^T = K Q^T with int8 keys in
   ldmatrix's order, P^T by movmatrix, Out^T = V^T P^T) gives the exact
   products.
+- `vit_sublayer.attn_sublayer_plan` (the encoder attention sublayer's
+  products on the wgmma GEMM): q/k/v's one launch covers every (product,
+  column tile, row tile) once, column tiles fastest, and so does o's, at
+  CLIP's and HuBERT's rows, at a ragged 3 x 77 and at narrow widths; it
+  raises on widths the kernels do not take.
+- `decode_attn_o.attention_plan` (with the kernel's shares, `_window_shares`) and
+  `decode_attn_o_plan`
+  (the decode attention sublayer): every column of a row's window is in
+  exactly one split's whole 16-column tiles (left pads, a window start that
+  is no multiple of 16, T = 577, a window that ends early, a row with no
+  valid column taking all of [0, T - 1]); the grid fits the card at once;
+  o_proj's swap-AB plan loads each W_o byte once a call at every b of
+  1-512; the plan raises on what the kernels do not take.
 """
 
 import numpy as np
@@ -58,8 +71,9 @@ import pytest
 
 import torch
 
-from affectgpt_tpu_torch.ops import decode_mlp, paged_attention, prefill_attention, quant
-from affectgpt_tpu_torch.ops import vit_attention, vit_mlp, vit_mlp_fused
+from affectgpt_tpu_torch.ops import _build, decode_attn_o, decode_gemm, decode_mlp, paged_attention
+from affectgpt_tpu_torch.ops import prefill_attention, quant
+from affectgpt_tpu_torch.ops import vit_attention, vit_mlp, vit_mlp_fused, vit_sublayer
 
 SMEM_LIMIT = 232_448  # bytes of shared memory an H100 block can use
 SMS = 132
@@ -870,3 +884,165 @@ def test_paged_fragments_compute_one_tile(int8, d):
             dd = 16 * i + (2 * (row % 8) + row // 8 if int8 else row)
             out[dd] = acc[row]
     np.testing.assert_allclose(out, vf.T @ pb, rtol=1e-12, atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# The encoder attention sublayer's products (csrc/vit_sublayer.cu on
+# csrc/vit_gemm_wgmma.cuh): q/k/v as one launch of three products, o alone
+
+SUBLAYER_SHAPES = [(64 * 257, 1024), (64 * 99, 1024), (3 * 77, 1024), (3 * 77, 384),
+                   (2 * 40, 256)]
+
+
+@pytest.mark.parametrize("rows,w", SUBLAYER_SHAPES)
+def test_attn_sublayer_plan_covers_every_product_tile_once(rows, w):
+    plan = vit_sublayer.attn_sublayer_plan(rows, w, SMS)
+    assert plan["launches"] == 4
+    for name, products in (("qkv", 3), ("o", 1)):
+        p = plan[name]
+        bm, bn = p["tile"]
+        cl, nt, mt = p["cluster"], p["n_tiles"], p["m_tiles"]
+        assert p["products"] == products and p["grid"][0] <= SMS and p["grid"][0] % cl == 0
+        assert (nt - 1) * bn < w <= nt * bn and (mt - cl) * bm < rows <= mt * bm
+        assert p["units"] == products * nt * mt // cl and p["rounds"] == p["units"] / (
+            p["grid"][0] // cl)
+        seen = np.zeros((products, nt, mt), np.int32)  # (product, column tile, row tile)
+        for b, mine in enumerate(p["tiles"]):
+            for c, r in mine:
+                seen[c // nt, c % nt, r] += 1
+            if cl == 2:  # the cluster's blocks: one column tile, neighbouring row tiles
+                other = p["tiles"][b ^ 1]
+                assert [t[0] for t in mine] == [t[0] for t in other]
+                assert all(t[1] // 2 == o[1] // 2 and t[1] % 2 == b % 2
+                           for t, o in zip(mine, other))
+            # column tiles fastest: a block's consecutive units walk the columns of
+            # the three products before the next rows
+            assert all(t1[1] >= t0[1] for t0, t1 in zip(mine, mine[1:]))
+        assert (seen == 1).all()
+        assert (p["k_steps"] - 1) * p["stage_k"] < w <= p["k_steps"] * p["stage_k"]
+        assert p["smem_bytes"] <= SMEM_LIMIT
+
+
+def test_attn_sublayer_plan_at_the_towers_shapes():
+    """CLIP and HuBERT: clusters of two on every SM, q/k/v's units three times
+    o's; HuBERT's o launch takes 1.52 rounds of units (100 on 66 clusters), as
+    a 128-column tile would (200 on 66 = 3.03 rounds of half the work)."""
+    for rows, o_units in ((64 * 257, 4 * 65), (64 * 99, 4 * 25)):
+        plan = vit_sublayer.attn_sublayer_plan(rows, 1024, SMS)
+        for p in (plan["qkv"], plan["o"]):
+            assert p["cluster"] == 2 and p["grid"] == (SMS,)
+        assert plan["o"]["units"] == o_units and plan["qkv"]["units"] == 3 * o_units
+    assert vit_sublayer.attn_sublayer_plan(64 * 99, 1024, SMS)["o"]["rounds"] == 100 / 66
+
+
+@pytest.mark.parametrize("rows,w", [(99, 100), (99, 2080), (0, 1024)])
+def test_attn_sublayer_plan_raises_on_what_the_kernels_do_not_take(rows, w):
+    with pytest.raises(ValueError):  # width % 32 or > 2048, no rows
+        vit_sublayer.attn_sublayer_plan(rows, w, SMS)
+
+
+# ---------------------------------------------------------------------------
+# The decode attention sublayer (csrc/decode_attn_o.cu): the attention launch
+# over each row's window, o_proj + residual on the swap-AB kernel
+
+def _window_row(t: int, case: str) -> torch.Tensor:
+    """A [1, t] bool mask row of one decode-step shape."""
+    cols = torch.arange(t)
+    if case == "left_pads":  # pads before a window to the end
+        return (cols >= 32)[None]
+    if case == "lo_unaligned":  # a window from column 21 to 400
+        return ((cols >= 21) & (cols <= 400))[None]
+    if case == "ends_early":  # a window that ends before T - 1
+        return ((cols >= 3) & (cols <= t - 40))[None]
+    if case == "one_column":
+        return (cols == t // 2)[None]
+    if case == "no_valid_column":  # all of [0, T - 1]
+        return torch.zeros((1, t), dtype=torch.bool)
+    return torch.ones((1, t), dtype=torch.bool)
+
+
+# The kernel's split of a window, which this file's `_window_shares` copies:
+# the test below fails when these lines of the kernel change. The kernel's
+# own split is run by the card tests (tests/test_torch_cuda_kernels.py,
+# `test_decode_attn_o_kernel_matches_plain_at_qwen_width`).
+_KERNEL_SHARES = (
+    "const int first = lo / kTile, tiles = hi / kTile - first + 1;",
+    "const int t0 = first + rank * tiles / splits, t1 = first + (rank + 1) * tiles / splits;",
+)
+
+
+def _window_shares(lo: int, hi: int, splits: int) -> list:
+    """The tiles [t0, t1) (16 columns each) that the `splits` blocks of a
+    pair take of the window [lo, hi], as the kernel computes them
+    (csrc/dense_decode_attention.cuh, `_KERNEL_SHARES`): the window's tiles
+    lo // 16 .. hi // 16, block r taking [r W / C, (r + 1) W / C) of its W
+    tiles."""
+    first, tiles = lo // 16, hi // 16 - lo // 16 + 1
+    return [(first + r * tiles // splits, first + (r + 1) * tiles // splits)
+            for r in range(splits)]
+
+
+@pytest.mark.parametrize("t", [577, 640])
+@pytest.mark.parametrize("case", ["left_pads", "lo_unaligned", "ends_early", "one_column",
+                                  "no_valid_column", "all_valid"])
+def test_decode_attn_o_window_shares_give_every_column_to_one_share(t, case):
+    kernel = (_build.CSRC_DIR / "dense_decode_attention.cuh").read_text()
+    assert all(line in kernel for line in _KERNEL_SHARES)  # the copy is the kernel's split
+    lo, hi = (int(v) for v in decode_attn_o.key_window(_window_row(t, case))[0])
+    if case == "no_valid_column":
+        assert (lo, hi) == (0, t - 1)
+    plans = [decode_attn_o.attention_plan(b, 4, 7, 128, t, SMS)["splits"] for b in (1, 8, 64)]
+    assert plans == [8, 4, 1]  # small batches split over a cluster, b = 64 not at all
+    for splits in range(1, 9):
+        shares = _window_shares(lo, hi, splits)
+        assert len(shares) == splits
+        cover = np.zeros(-(-t // 16) * 16, np.int32)
+        for t0, t1 in shares:
+            assert 0 <= t0 <= t1 <= -(-t // 16)  # whole 16-column tiles of the cache
+            cover[16 * t0:16 * t1] += 1
+        assert (cover[lo:hi + 1] == 1).all()  # every window column in one share
+        assert cover.sum() - (hi - lo + 1) < 32  # beyond it, the first and last tiles' rest
+
+
+@pytest.mark.parametrize("b", [1, 8, 64, 512])
+def test_decode_attn_o_attention_plan_fills_the_card_at_once(b):
+    for t in (577, 640):
+        p = decode_attn_o.attention_plan(b, 4, 7, 128, t, SMS)
+        c = p["splits"]
+        assert 1 <= c <= 8 and p["cluster"] == c and p["grid"] == (b * 4 * c,)
+        assert b * 4 * c <= SMS or c == 1  # the whole grid at one block an SM
+        assert p["stages"] % 4 == 0 and p["smem_bytes"] <= SMEM_LIMIT
+        assert 2 * p["smem_bytes"] <= 233_472  # two blocks an SM
+
+
+def test_decode_attn_o_plan_loads_each_wo_byte_once_a_call():
+    h, kv, g, d = 3584, 4, 7, 128  # Qwen2.5-7B
+    nq = kv * g * d
+    for b in range(1, 513):
+        plan = decode_attn_o.decode_attn_o_plan(b, kv, g, d, 640, h, SMS)
+        o = plan["o_proj"]
+        assert plan["launches"] == 2 and o["tiles"] == h // 128 and o["k"] == nq
+        assert o["wgmma"] == f"m64n{o['nb']}k16" and o["cb"] * o["nb"] >= b
+        spans = {}
+        rows = {}
+        for tile, kr, br, boxes, (r0, r1) in decode_gemm.block_loads(o, plan["segments"]):
+            for m, c, k0, k1 in boxes:
+                assert m == 0
+                spans.setdefault(c, []).append((k0, k1))
+            rows.setdefault((tile, kr), []).append((r0, r1))
+        assert sorted(spans) == list(range(0, h, 64))  # every 64-column box of W_o
+        for s in spans.values():  # its K rows once, in the K shares of one cluster
+            s.sort()
+            assert s[0][0] == 0 and s[-1][1] == nq
+            assert all(x[1] == y[0] for x, y in zip(s, s[1:]))
+        for r in rows.values():  # every batch row once a (tile, K share)
+            r.sort()
+            assert r[0][0] == 0 and r[-1][1] >= b and all(x[1] == y[0] for x, y in zip(r, r[1:]))
+
+
+@pytest.mark.parametrize("kwargs", [dict(h=3520), dict(d=96), dict(g=9), dict(b=0),
+                                    dict(t_len=0)])
+def test_decode_attn_o_plan_raises_on_what_the_kernels_do_not_take(kwargs):
+    args = dict(b=8, kv=4, g=7, d=128, t_len=640, h=3584, sms=SMS)
+    with pytest.raises(ValueError):
+        decode_attn_o.decode_attn_o_plan(**{**args, **kwargs})
