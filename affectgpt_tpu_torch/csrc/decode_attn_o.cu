@@ -50,7 +50,7 @@ extern "C" int agk_decode_attn_o_bf16(const void* x, const void* q, const void* 
   const int nq = kv * g * d;
   if (h % 128 || nq % 64) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_dense_decode_attention(
+  cudaError_t err = launch_dense_decode_attention<dense::Keys::kWindow>(
       static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v),
       static_cast<const unsigned char*>(mask), static_cast<bf*>(attn), b, kv, g, T, d, splits,
       stages, st);

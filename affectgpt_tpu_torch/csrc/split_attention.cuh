@@ -32,7 +32,7 @@ constexpr int kMaxSplits = 8;  // blocks of a pair's cluster
 
 // The merge's scratch, over the drained ring: each of the CONSUMERS warps'
 // accumulator [kHeads][D] and max and sum [2][kHeads]; then the block's.
-// Also computed by the plans (ops/paged_attention.py, ops/decode_attn_o.py).
+// Also computed by the plans (ops/paged_attention.py, ops/decode_attention.py).
 template <int CONSUMERS, int D>
 __host__ __device__ constexpr int merge_bytes() {
   return (CONSUMERS + 1) * (kHeads * D + 2 * kHeads) * 4;
@@ -100,6 +100,13 @@ __device__ __forceinline__ bool column_masks(int tile, int lo, int hi, uint32_t&
   m01 = (in(c) ? 0xFFFFu : 0u) | (in(c + 1) ? 0xFFFF0000u : 0u);
   m23 = (in(c + 8) ? 0xFFFFu : 0u) | (in(c + 9) ? 0xFFFF0000u : 0u);
   return tile * kTile < lo || tile * kTile + kTile - 1 > hi;
+}
+
+// column_masks for any set of valid tokens of a tile: bits, bit i for token i.
+__device__ __forceinline__ void token_masks(uint32_t bits, uint32_t& m01, uint32_t& m23) {
+  const int c = 2 * (threadIdx.x % 4);
+  m01 = ((bits >> c) & 1u ? 0xFFFFu : 0u) | ((bits >> (c + 1)) & 1u ? 0xFFFF0000u : 0u);
+  m23 = ((bits >> (c + 8)) & 1u ? 0xFFFFu : 0u) | ((bits >> (c + 9)) & 1u ? 0xFFFF0000u : 0u);
 }
 
 // Out^T += V^T P^T over a bf16 V tile at shared address vt, read transposed

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "agk_decode_qkv_bf16": [_P] * 13 + [_I] * 9 + [_F, _F, _P],
     "agk_decode_mlp_bf16": [_P] * 8 + [_I] * 11 + [_F, _P],
     "agk_decode_swapab_active_clusters": [_I] * 3,
-    "agk_decode_attention_bf16": [_P] * 7 + [_I] * 5 + [_P],
+    "agk_decode_attention_bf16": [_P] * 5 + [_I] * 8 + [_P],
     "agk_decode_attn_o_bf16": [_P] * 8 + [_I] * 12 + [_P],
     "agk_prefill_attention_bf16": [_P] * 7 + [_I] * 5 + [_P],
     "agk_int8_matmul": [_P] * 5 + [_I] * 5 + [_P],

@@ -2,10 +2,18 @@
 masked softmax in f32, then PV.
 
 Port of affectgpt_tpu/ops/decode_attention_pallas.py::decode_attention_pallas.
-On a CUDA tensor `decode_attention` launches the hand-written kernels in
-csrc/decode_attention.cu (or raises); on a CPU tensor it runs
-`decode_attention_reference`, the plain PyTorch version, which is also the
-oracle the kernels are checked against on the card.
+On a CUDA tensor `decode_attention` launches the hand-written kernel of
+csrc/decode_attention.cu once (or raises): the attention kernel of
+csrc/dense_decode_attention.cuh in a mode that takes any key mask, each
+(row, kv head) pair's tiles split over a cluster of blocks, products on
+tensor cores, the splits merged through distributed shared memory. On a CPU
+tensor it runs `decode_attention_reference`, the plain PyTorch version,
+which is also the oracle the kernel is checked against on the card.
+
+`attention_plan` plans that kernel's launch for both wrappers that launch
+it: `decode_attention` (any mask: a column is valid exactly when its mask
+byte is set, a row with no valid column gives zeros) and
+ops/decode_attn_o.py (a window of keys).
 
 Layouts are the JAX package's: q [b, kv, groups, d], cache [b, kv, T, d],
 key mask [b, T] bool, output [b, kv, groups, d] (which, flattened, is the
@@ -14,12 +22,36 @@ head-major [b, H*d] that o_proj takes).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from affectgpt_tpu_torch.ops import _build
 
-CHUNK = 64  # cache columns per block of the split kernel (csrc/flash_decode.cuh)
-MAX_GROUPS = 8  # query heads per kv head the kernels hold in registers
+# csrc/dense_decode_attention.cuh: a stage is 16 tokens of one kv head (the
+# m16 rows of S^T = K Q^T, the k16 of PV); four consumer warps take a block's
+# tiles in turn; at most 8 blocks (a cluster) share a (row, kv head) pair's
+# tiles; at most 8 query heads a kv head (the n8 operand)
+TILE, CONSUMERS, MAX_SPLITS, MAX_GROUPS = 16, 4, 8, 8
+# the ring; one that holds a block's whole share (12-16 stages) was 1-10% slower
+# on an H100 at b = 8-64, T = 640
+MAX_STAGES = 8
+# dense::Keys, which cache columns a row attends to: WINDOW (decode_attn_o)
+# every column from the row's first valid one to its last, all of them where
+# none is valid; MASK_WINDOW and MASK_ALL (decode_attention) exactly the
+# valid ones, taking the tiles of that window or all tiles of the row
+WINDOW, MASK_WINDOW, MASK_ALL = 0, 1, 2
+KEYS = {WINDOW: "window", MASK_WINDOW: "mask_window", MASK_ALL: "mask_all"}
+# the splits C of a pair. WINDOW: the most with b * kv * C <= SMs, the whole
+# grid at one block an SM, so that the o_proj blocks that decode_attn_o
+# launches as the attention's dependents fit beside it and load their first
+# stages of W_o during the attention (on an H100 at b = 8, T = 640: 0.0215 ms
+# a call against 0.0232 with two attention blocks an SM). MASK_*: the most
+# that leave a quarter of the SMs free, or 2 where that would split no pair
+# and 2 fit the SMs, the best of every split count measured on an H100 at
+# T = 640: 8 at b = 1 (0.0062 ms a call), 6 at b = 4 (0.0071; 8: 0.0077),
+# 3 at b = 8 (0.0086; 4: 0.0090), 2 at b = 16 (0.0118; 1: 0.0131), 1 at
+# b = 32 (0.0181; 2: 0.0193)
 
 
 def attend_f32(q, k_cache, v_cache, key_mask):
@@ -66,14 +98,55 @@ def check_cache_operands(name, q, k_cache, v_cache, key_mask):
         )
 
 
-def partials(q, t_len):
-    """Per-chunk scratch of the split kernel, in one allocation: running
-    (max, sum) pairs [b*kv, chunks, groups, 2] and unnormalized f32
-    accumulators [b*kv, chunks, groups, d]."""
-    b, kv, groups, d = q.shape
-    n = b * kv * ((t_len + CHUNK - 1) // CHUNK) * groups
-    scratch = torch.empty(n * (2 + d), dtype=torch.float32, device=q.device)
-    return scratch[: 2 * n], scratch[2 * n:]
+def attention_plan(b: int, kv: int, g: int, d: int, t_len: int, sm_count: int,
+                   keys: int) -> dict:
+    """The attention launch (csrc/dense_decode_attention.cuh) for b rows of
+    kv heads with g query heads each, head_dim d, a cache of t_len columns
+    and the key rule `keys` (WINDOW, MASK_WINDOW, MASK_ALL): the splits C of
+    each (row, kv head) pair's tiles (as the note on the module's constants
+    says, at least 1, at most 8 and at most T's 16-token tiles), the grid
+    (one cluster of C blocks a pair), the ring's stages (a multiple of the
+    four consumer warps) and the dynamic shared memory. Raises on what the
+    kernel does not take."""
+    if d not in (64, 128) or not 1 <= g <= MAX_GROUPS:
+        raise ValueError(f"decode attention kernel takes head_dim 64 or 128 and 1-{MAX_GROUPS} "
+                         f"query heads per kv head (head_dim={d}, g={g})")
+    if min(b, kv, t_len) < 1:
+        raise ValueError(f"decode attention kernel needs b, kv, T >= 1 (b={b}, kv={kv}, "
+                         f"T={t_len})")
+    if keys not in KEYS:
+        raise ValueError(f"decode attention kernel: no key rule {keys}")
+    tiles = -(-t_len // TILE)  # all of a row's; a window holds at most as many
+    pairs = b * kv
+    fit = sm_count // pairs if keys == WINDOW else max(
+        3 * sm_count // 4 // pairs, min(2, sm_count // pairs))
+    splits = min(MAX_SPLITS, tiles, max(1, fit))
+    per_block = -(-tiles // splits)
+    stages = min(MAX_STAGES, -(-per_block // CONSUMERS) * CONSUMERS)
+    stage = 2 * (d // 64) * TILE * 128  # a K and a V tile: 128-byte rows of 64 values
+    merge = (CONSUMERS + 1) * (8 * d + 16) * 4  # the warps' and the block's states
+    keys_bytes = 0 if keys == WINDOW else 16 * (per_block + 1)  # a share's mask bytes
+    return {"keys": keys, "splits": splits, "cluster": splits, "grid": (b * kv * splits,),
+            "stages": stages, "stage_bytes": stage, "threads": 32 * (CONSUMERS + 1),
+            "keys_bytes": keys_bytes,
+            # ring (or the merge over it), barriers, mask bytes, alignment slack
+            "smem_bytes": max(stages * stage, merge) + 2 * stages * 8 + keys_bytes + 1024}
+
+
+def decode_attention_plan(b: int, kv: int, g: int, d: int, t_len: int, sm_count: int) -> dict:
+    """decode_attention's launch: `attention_plan` under MASK_ALL while the b
+    kv pairs fit the SMs, the grid one wave whose first loads would wait for
+    the mask row's reduction (on an H100 at T = 640: 0.0087 ms a call against
+    0.0092 under MASK_WINDOW at b = 8, 0.0177 against 0.0180 at b = 32);
+    beyond, MASK_WINDOW, which reads no pad and no unwritten column (0.0316
+    against 0.0321 at b = 64)."""
+    return attention_plan(b, kv, g, d, t_len, sm_count,
+                          MASK_ALL if b * kv <= sm_count else MASK_WINDOW)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_on(b, kv, g, d, t_len, device_index) -> dict:
+    return decode_attention_plan(b, kv, g, d, t_len, _build.sm_count(device_index))
 
 
 def decode_attention(q, k_cache, v_cache, key_mask):
@@ -86,13 +159,13 @@ def decode_attention(q, k_cache, v_cache, key_mask):
     check_cache_operands("decode_attention", q, k_cache, v_cache, key_mask)
     b, kv, groups, d = q.shape
     t_len = k_cache.shape[2]
+    plan = _plan_on(b, kv, groups, d, t_len, q.device.index or 0)
     key_mask = key_mask.contiguous()
-    ml, acc = partials(q, t_len)
     out = torch.empty_like(q)
     lib = _build.load_library()
     status = lib.agk_decode_attention_bf16(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), key_mask.data_ptr(),
-        ml.data_ptr(), acc.data_ptr(), out.data_ptr(), b, kv, groups, t_len, d,
+        out.data_ptr(), b, kv, groups, t_len, d, plan["splits"], plan["stages"], plan["keys"],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "decode_attention")
@@ -100,4 +173,4 @@ def decode_attention(q, k_cache, v_cache, key_mask):
     return out
 
 
-decode_attention.launches = 0  # wrapper calls that launched the kernels since the last reset
+decode_attention.launches = 0  # wrapper calls that launched the kernel since the last reset

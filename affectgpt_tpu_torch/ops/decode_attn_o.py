@@ -5,10 +5,11 @@ Port of affectgpt_tpu/ops/decode_attn_o_pallas.py::decode_attn_o. On a CUDA
 tensor `decode_attn_o` launches the hand-written kernels of
 csrc/decode_attn_o.cu (or raises): the attention in one launch
 (csrc/dense_decode_attention.cuh: each (row, kv head) window split over a
-cluster of blocks by `attention_plan`, products on tensor cores, the splits
-merged through distributed shared memory), then o_proj + residual on the
-swap-AB wgmma kernel of csrc/decode_swapab.cuh (`decode_gemm.gemm_plan`),
-launched as the attention's programmatic dependent. On a CPU tensor it runs
+cluster of blocks by ops/decode_attention.py's `attention_plan`, products on
+tensor cores, the splits merged through distributed shared memory), then
+o_proj + residual on the swap-AB wgmma kernel of csrc/decode_swapab.cuh
+(`decode_gemm.gemm_plan`), launched as the attention's programmatic
+dependent. On a CPU tensor it runs
 `decode_attn_o_reference`, the plain PyTorch version, which is also the
 oracle the kernels are checked against on the card.
 
@@ -32,20 +33,12 @@ import functools
 import torch
 
 from affectgpt_tpu_torch.ops import _build, decode_gemm
-from affectgpt_tpu_torch.ops.decode_attention import attend_f32, check_cache_operands
-
-# csrc/dense_decode_attention.cuh: a stage is 16 tokens of one kv head (the
-# m16 rows of S^T = K Q^T, the k16 of PV); four consumer warps take a block's
-# tiles in turn; at most 8 blocks (a cluster) share a (row, kv head) pair's
-# window
-TILE, CONSUMERS, MAX_SPLITS, MAX_GROUPS = 16, 4, 8, 8
-# the splits C of a pair are the most with b * kv * C <= SPLIT_FILL * SMs: the
-# whole grid fits the card at once, one block (at most 66 KB of shared memory)
-# an SM, so that the o_proj blocks launched as its dependents fit beside it and
-# load their first stages of W_o during the attention (on an H100 at b = 8,
-# T = 640: 0.0215 ms a call against 0.0232 with two attention blocks an SM)
-SPLIT_FILL = 1
-MAX_STAGES = 8  # the ring: a block's whole share in flight at T = 640, b = 8
+from affectgpt_tpu_torch.ops.decode_attention import (
+    WINDOW,
+    attend_f32,
+    attention_plan,
+    check_cache_operands,
+)
 
 
 def key_window(key_mask: torch.Tensor) -> torch.Tensor:
@@ -69,43 +62,19 @@ def decode_attn_o_reference(x_res, q, k_cache, v_cache, key_mask, wo):
     return (x_res.float() + y).to(x_res.dtype)
 
 
-def attention_plan(b: int, kv: int, g: int, d: int, t_len: int, sm_count: int) -> dict:
-    """The attention launch (csrc/dense_decode_attention.cuh) for b rows of
-    kv heads with g query heads each, head_dim d, a cache of t_len columns:
-    the splits C of each (row, kv head) pair's window (the most that keep
-    the grid within SPLIT_FILL blocks an SM, at least 1, at most 8 and at
-    most T's 16-token tiles), the grid (one cluster of C blocks a pair), the
-    ring's stages (a multiple of the four consumer warps) and the dynamic
-    shared memory. Raises on what the kernel does not take."""
-    if d not in (64, 128) or not 1 <= g <= MAX_GROUPS:
-        raise ValueError(f"decode_attn_o kernel takes head_dim 64 or 128 and 1-{MAX_GROUPS} "
-                         f"query heads per kv head (head_dim={d}, g={g})")
-    if min(b, kv, t_len) < 1:
-        raise ValueError(f"decode_attn_o kernel needs b, kv, T >= 1 (b={b}, kv={kv}, T={t_len})")
-    tiles = -(-t_len // TILE)  # the most a window can hold
-    splits = min(MAX_SPLITS, tiles, max(1, SPLIT_FILL * sm_count // (b * kv)))
-    per_block = -(-tiles // splits)
-    stages = min(MAX_STAGES, -(-per_block // CONSUMERS) * CONSUMERS)
-    stage = 2 * (d // 64) * TILE * 128  # a K and a V tile: 128-byte rows of 64 values
-    merge = (CONSUMERS + 1) * (8 * d + 16) * 4  # the warps' and the block's states
-    return {"splits": splits, "cluster": splits, "grid": (b * kv * splits,), "stages": stages,
-            "stage_bytes": stage, "threads": 32 * (CONSUMERS + 1),
-            # ring (or the merge over it), barriers, alignment slack
-            "smem_bytes": max(stages * stage, merge) + 2 * stages * 8 + 1024}
-
-
 def decode_attn_o_plan(b: int, kv: int, g: int, d: int, t_len: int, h: int, sms: int,
                        active_clusters=None) -> dict:
     """The call's plan on a card of `sms` SMs: the attention launch
-    (`attention_plan`) and o_proj + residual (K = kv g d over h / 128
-    tiles; `decode_gemm.gemm_plan`, active_clusters as it takes it) with its
-    one segment (128 columns of h a tile, the residual epilogue), the
-    launches a call makes. Raises on what the kernels do not take."""
+    (`decode_attention.attention_plan` under its WINDOW rule) and o_proj +
+    residual (K = kv g d over h / 128 tiles; `decode_gemm.gemm_plan`,
+    active_clusters as it takes it) with its one segment (128 columns of h a
+    tile, the residual epilogue), the launches a call makes. Raises on what
+    the kernels do not take."""
     nq = kv * g * d
     if h % 128 or nq % 64:
         raise ValueError(f"decode_attn_o kernel needs hidden % 128 == 0 and kv * groups * "
                          f"head_dim % 64 == 0 (hidden={h}, kv*groups*head_dim={nq})")
-    return {"attention": attention_plan(b, kv, g, d, t_len, sms),
+    return {"attention": attention_plan(b, kv, g, d, t_len, sms, WINDOW),
             "o_proj": decode_gemm.gemm_plan(b, nq, h // 128, sms, active_clusters),
             "segments": [dict(tiles=h // 128, kind=decode_gemm.RESIDUAL, map0=0, map1=0,
                               head_dim=0)], "launches": 2}

@@ -18,8 +18,10 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    (calls captured in a CUDA graph, 20 replays, weights read from device
    memory); `eager_*` are eager calls with the L2 flushed before each, which
    include the host's launch overhead. The attention kernels are checked at
-   T = 640 and at a T that is not a multiple of their 64-column tile, with
-   ragged per-row windows of valid cache columns (decode) and prompt lengths
+   T = 640 and at a T that is not a multiple of their 16-column tile, with
+   ragged per-row windows of valid cache columns (decode; decode_attention
+   also on the dense BatchServer's masks, [0, pos] per slot with two slots
+   inactive, whose rows must come back exactly zero) and prompt lengths
    545-564 left-packed into t = 564 (prefill, timed at b = 8 and 64 with its
    TFLOP/s and its launch plan; also checked on segment ids in runs whose ids
    come back after others, at t = 564 and 37); `library_ms` times one PyTorch
@@ -76,11 +78,13 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    the activation, addmm) as `chain_ms`, as do the bf16 decode kernels
    (rms_norm, addmm, RoPE; rms_norm, matmul, silu * up, addmm) and
    decode_attn_o (SDPA, addmm). The attention sublayer (its four products
-   on the wgmma GEMM, q/k/v in one launch) and decode_attn_o (the attention
-   in one launch, o_proj on the swap-AB wgmma kernel) must give the same
-   bits on a second call at every checked shape, print their plans
-   (`variant`) and, beside their times, `stages`: the device ms of each
-   launch of one call, from torch.profiler.
+   on the wgmma GEMM, q/k/v in one launch), decode_attn_o (the attention
+   in one launch, o_proj on the swap-AB wgmma kernel) and decode_attention
+   (the same attention kernel under a key rule that takes any mask) must
+   give the same bits on a second call at every checked shape, print their
+   plans (`variant`; decode_attention's with its key rule, all tiles of a
+   row or its window's) and, beside their times (at b = 8 and 64),
+   `stages`: the device ms of each launch of one call, from torch.profiler.
 4. Main path: bootstrap.build_model at Qwen2.5-7B width with random bf16
    weights from a seed, LoRA merged by serving_llm, then Chat.answer_batch
    on 8 preextracted clips, greedy, 32 new tokens, under three attention
@@ -110,15 +114,17 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    cycling 32, 24, 16, 8), all submitted up front: paged_bf16 (bf16 tree
    and pool, PAGED_ATTENTION="pallas"), paged_bf16_gather (the same with
    the gather chain, PAGED_ATTENTION="xla"), paged_kv8 (int8 pool),
-   paged_w8 (int8 split tree, DECODE_MLP="pallas") and server_bf16 (the
-   dense BatchServer, 16 slots, max_len 640). One counted run each asserts
-   that each kernel of the configuration launched num_layers x the decode
-   steps the engine made (int8_matmul by its own count), every other kernel
-   0 times, one result per request and finite logits; it prints how many
-   requests' tokens paged_bf16, paged_bf16_gather and server_bf16 share
-   pairwise; then one timed run each prints requests/s, TTFT and end-to-end
-   percentiles, generated tokens/s, the engine's phase times and counters,
-   the cache's GiB and the peak memory.
+   paged_w8 (int8 split tree, DECODE_MLP="pallas"), server_bf16 (the
+   dense BatchServer, 16 slots, max_len 640) and server_bf16_da (the same
+   under DECODE_ATTENTION="pallas", decoding through decode_attention).
+   One counted run each asserts that each kernel of the configuration
+   launched num_layers x the decode steps the engine made (int8_matmul by
+   its own count), every other kernel 0 times, one result per request and
+   finite logits; it prints how many requests' tokens paged_bf16,
+   paged_bf16_gather and server_bf16 share pairwise, and server_bf16_da with
+   server_bf16 (not gated); then one timed run each prints requests/s, TTFT
+   and end-to-end percentiles, generated tokens/s, the engine's phase times
+   and counters, the cache's GiB and the peak memory.
 6. Realtime: the phase-4 model, built with_encoders=True (CLIP ViT-L/14 and
    HuBERT-large beside the LLM), answers 8 clips from raw media made from a
    seed (720p frames, 112² face crops, 2 s of 16 kHz audio) through
@@ -155,6 +161,7 @@ from affectgpt_tpu_torch.inference.chat import Chat, encode_media_features, prep
 from affectgpt_tpu_torch.models import affectgpt, clip_vit, encoders, hubert, nn, qwen2
 from affectgpt_tpu_torch.ops import _build, decode_attn_o as decode_attn_o_module
 from affectgpt_tpu_torch.ops import decode_gemm, quant, vit_mlp
+from affectgpt_tpu_torch.ops import decode_attention as decode_attention_module
 from affectgpt_tpu_torch.ops import decode_mlp as decode_mlp_module
 from affectgpt_tpu_torch.ops.vit_attention import (
     fused_self_attention,
@@ -613,6 +620,24 @@ def prefill_variant(b: int, t: int, heads: int, kv: int, d: int, seg: torch.Tens
             "kv_tiles_loaded": plan["kv_tiles_loaded"]}
 
 
+def server_mask(g: torch.Generator, b: int, t_len: int) -> torch.Tensor:
+    """The dense BatchServer's decode mask, [b, T] bool: columns [0, pos] of
+    each slot valid, slots 1 and 3 inactive (no valid column)."""
+    pos = torch.randint(0, t_len, (b,), generator=g, device="cuda")
+    mask = torch.arange(t_len, device="cuda")[None, :] <= pos[:, None]
+    mask[[1, 3]] = False
+    return mask
+
+
+def attention_variant(b: int, kv: int, g: int, d: int, t_len: int) -> dict:
+    """What decode_attention launches: its key rule (all tiles of a row, or
+    its window's), splits a (row, kv head) pair, ring and grid."""
+    plan = decode_attention_module.decode_attention_plan(b, kv, g, d, t_len, sm_count())
+    return {"attention": f"mma.sync, TMA ring of {plan['stages']}, cluster of "
+                         f"{plan['splits']} a (row, kv head), grid {plan['grid'][0]}",
+            "keys": decode_attention_module.KEYS[plan["keys"]]}
+
+
 def attn_o_variant(b: int, kv: int, g: int, d: int, t_len: int, h: int) -> dict:
     """What decode_attn_o launches: the attention's splits a (row, kv head)
     pair, ring and grid, and o_proj's swap-AB plan on the card."""
@@ -626,7 +651,7 @@ def attn_o_variant(b: int, kv: int, g: int, d: int, t_len: int, h: int) -> dict:
 
 def phase_attention_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
     """The attention kernels against their plain versions at the main path's
-    widths, T = 640 and 577 (not a multiple of the 64-column tile) for the
+    widths, T = 640 and 577 (not a multiple of the 16-column tile) for the
     decode kernels, prompt lengths 545-564 for the prefill. Returns
     per-kernel {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}:
     the largest error over all checks, and device times per call at b = BATCH
@@ -675,8 +700,17 @@ def phase_attention_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
             sets = [(rnd(b, kv, t_len, d), rnd(b, kv, t_len, d), rnd(nq, h, scale=0.02))
                     for _ in range(copies)]
             k, v, wo = sets[0]
-            check("decode_attention", decode_attention(q, k, v, mask),
-                  decode_attention_reference(q, k, v, mask), b, T=t_len)
+            got = decode_attention(q, k, v, mask)
+            if not torch.equal(got, decode_attention(q, k, v, mask)):
+                raise AssertionError(f"decode_attention b={b} T={t_len}: two calls differ")
+            check("decode_attention", got, decode_attention_reference(q, k, v, mask), b,
+                  T=t_len, variant=json.dumps(attention_variant(b, kv, groups, d, t_len)))
+            smask = server_mask(g, b, t_len)  # BatchServer's: inactive slots give zeros
+            got = decode_attention(q, k, v, smask)
+            if got[~smask.any(dim=1)].any():
+                raise AssertionError(f"decode_attention b={b} T={t_len}: inactive rows not 0")
+            check("decode_attention", got, decode_attention_reference(q, k, v, smask), b,
+                  T=t_len, masks="server", inactive_rows_zero=True)
             got = decode_attn_o(x, q, k, v, mask, wo)
             if not torch.equal(got, decode_attn_o(x, q, k, v, mask, wo)):
                 raise AssertionError(f"decode_attn_o b={b} T={t_len}: two calls differ")
@@ -698,7 +732,9 @@ def phase_attention_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
                     for k, v, _ in sets] * reps,
                    [lambda k=k, v=v: sdpa(q4, k, v, attn_mask=mask4, enable_gqa=True)
                     for k, v, _ in sets] * reps,
-                   kv_bytes + 2 * 2 * q.numel() + b * t_len, qk_pv_flops, lib_err)
+                   kv_bytes + 2 * 2 * q.numel() + b * t_len, qk_pv_flops, lib_err,
+                   variant=json.dumps(attention_variant(b, kv, groups, d, t_len)),
+                   stages=json.dumps(stage_ms(lambda: decode_attention(q, k, v, mask))))
             record("decode_attn_o", b,
                    [lambda k=k, v=v, wo=wo: decode_attn_o(x, q, k, v, mask, wo)
                     for k, v, wo in sets] * reps,
@@ -1624,6 +1660,7 @@ class ServeConfig:
     pool: Optional[torch.dtype] = None  # the paged pool's dtype, the table's by default
     decode_mlp: str = "auto"  # qwen2.DECODE_MLP
     attention: str = "pallas"  # paged.PAGED_ATTENTION of a paged engine
+    decode_attention: str = "xla"  # qwen2.DECODE_ATTENTION (the dense engine's decode)
 
 
 SERVE = {
@@ -1636,6 +1673,10 @@ SERVE = {
     "paged_w8": ServeConfig(("paged_attention", "decode_mlp"), tree="int8",
                             decode_mlp="pallas"),
     "server_bf16": ServeConfig(("decode_qkv", "decode_mlp_bf16"), engine="dense"),
+    # the dense engine decoding through decode_attention (any mask: inactive
+    # slots' rows have no valid column)
+    "server_bf16_da": ServeConfig(("decode_qkv", "decode_mlp_bf16", "decode_attention"),
+                                  engine="dense", decode_attention="pallas"),
 }
 SERVE_NEW_TOKENS = (32, 24, 16, 8)  # max_new_tokens, cycling over the requests
 
@@ -1673,11 +1714,12 @@ def serve_engine(config: str, model: tuple, max_prompt: int):
 
 
 def serve_switches(config: str):
-    """paged.PAGED_ATTENTION and qwen2.DECODE_MLP of the configuration, for
-    the duration of a block."""
+    """paged.PAGED_ATTENTION, qwen2.DECODE_MLP and qwen2.DECODE_ATTENTION of
+    the configuration, for the duration of a block."""
     c = SERVE[config]
     return switched([(paged, "PAGED_ATTENTION", c.attention),
-                     (qwen2, "DECODE_MLP", c.decode_mlp)])
+                     (qwen2, "DECODE_MLP", c.decode_mlp),
+                     (qwen2, "DECODE_ATTENTION", c.decode_attention)])
 
 
 def serve_counted(config: str, model: tuple, requests: list) -> tuple:
@@ -1791,6 +1833,7 @@ def phase_serve(card: str, model: tuple) -> dict:
     say("serve", paged_bf16_requests_equal_to_server_bf16=equal("paged_bf16", "server_bf16"),
         paged_bf16_gather_equal_to_server_bf16=equal("paged_bf16_gather", "server_bf16"),
         paged_bf16_equal_to_paged_bf16_gather=equal("paged_bf16", "paged_bf16_gather"),
+        server_bf16_da_requests_equal_to_server_bf16=equal("server_bf16_da", "server_bf16"),
         of=len(requests))
     for config in SERVE:
         serve_timed(config, model, requests, card)

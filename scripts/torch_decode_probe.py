@@ -8,6 +8,7 @@ csrc/decode_swapab.cuh), and the decode step of `generate` that runs them.
     python3 scripts/torch_decode_probe.py sweep               # every K split, through the C entries
     python3 scripts/torch_decode_probe.py generate [DIR ...]  # decode ms per step, 3B, b = 384
     python3 scripts/torch_decode_probe.py attn_o [DIR ...]    # decode_attn_o, by launch
+    python3 scripts/torch_decode_probe.py attention [DIR ...] # decode_attention, by launch
 
 `check`: both wrappers against their plain versions (rtol 1.6e-2, atol
 1e-2 in bf16) at b = 1, 8, 13, 16, 24, 64, 100, 384 and 392 on small widths
@@ -45,7 +46,19 @@ each launch of a call (torch.profiler, by kernel name), the largest error
 against the plain version and whether two calls give the same bits; beside
 it (the first package only) the library chain (SDPA with GQA and the bool
 mask, addmm onto the residual) and the bound (valid K/V rows, W_o, q, x and
-y at 3.35 TB/s); this tree and each DIR's package, A B B A.
+y at 3.35 TB/s); this tree and each DIR's package, A B B A. `attention`:
+`decode_attention` (csrc/decode_attention.cu, the opt-in
+DECODE_ATTENTION="pallas" route, which the dense BatchServer decodes
+through) at the same width, b = 8 and 64 at T = 640 and 577, b = 1, 4, 16
+and 32 at T = 640, with the same windows, as `attn_o` takes it (device ms per
+call, by launch, error, same bits; beside it, the first package only,
+SDPA with GQA and the bool mask and the bound: valid K/V rows, q, out and
+the mask at 3.35 TB/s); for a package whose plan has key modes
+(ops/decode_attention.py `attention_plan`), also its plan and `modes`: the
+C entry's ms and largest error against the plain version under each key
+mode, at every split count whose grid fits two blocks an SM (and 1), with
+a ring of up to 8 stages and one that holds a block's whole share (up to
+16).
 """
 
 from __future__ import annotations
@@ -212,6 +225,86 @@ for b in (8, 64):
                 for k, v, wo in sets] * reps)
         print(json.dumps(row), flush=True)
         del sets, k, v, wo
+        torch.cuda.empty_cache()
+'''
+
+ATTENTION = COMMON + r'''
+from torch.profiler import ProfilerActivity, profile
+from affectgpt_tpu_torch.ops import decode_attention as da
+label, extras = sys.argv[1], sys.argv[2] == "1"
+kv, groups, d = 4, 7, 128
+sdpa = torch.nn.functional.scaled_dot_product_attention
+sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+def kernel_ms(fn, reps=10):  # device ms of each kernel a call launches, by name
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(2):  # a process's first profiler session may record no device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+            if e.count and t:
+                out[e.key.split("(")[0][-48:]] = t / e.count / 1000
+        if out:
+            break
+    return out
+
+for b in (1, 4, 8, 16, 32, 64):
+    for t in ((640, 577) if b in (8, 64) else (640,)):
+        lo = torch.randint(0, 20, (b,), generator=g, device="cuda")
+        hi = torch.randint(t - 95, t - 1, (b,), generator=g, device="cuda")
+        cols = torch.arange(t, device="cuda")
+        mask = (cols[None, :] >= lo[:, None]) & (cols[None, :] <= hi[:, None])
+        q = rnd(b, kv, groups, d)
+        copies = max(2, -(-64 * 2**20 // (2 * b * kv * t * d * 2)))  # past the L2 a cycle
+        sets = [(rnd(b, kv, t, d), rnd(b, kv, t, d)) for _ in range(copies)]
+        reps = max(1, 24 // copies)
+        k, v = sets[0]
+        got = da.decode_attention(q, k, v, mask)
+        same = torch.equal(got, da.decode_attention(q, k, v, mask))
+        err = float((got.float() - da.decode_attention_reference(q, k, v, mask).float())
+                    .abs().max())
+        valid = int(mask.sum())
+        nbytes = 2 * valid * kv * d * 2 + 2 * 2 * q.numel() + b * t
+        row = {"label": label, "b": b, "T": t, "max_abs_err": err, "same_bits": same,
+               "ms": graph_ms([lambda k=k, v=v: da.decode_attention(q, k, v, mask)
+                               for k, v in sets] * reps),
+               "bound_ms": nbytes / 3.35e12 * 1e3,
+               "launch_ms": kernel_ms(lambda: da.decode_attention(q, k, v, mask))}
+        if extras:
+            q4, mask4 = q.reshape(b, kv * groups, 1, d), mask[:, None, None, :]
+            row["sdpa_ms"] = graph_ms([lambda k=k, v=v: sdpa(q4, k, v, attn_mask=mask4,
+                                                            enable_gqa=True)
+                                       for k, v in sets] * reps)
+        if hasattr(da, "attention_plan"):
+            row["plan"] = da.decode_attention_plan(b, kv, groups, d, t, sms)
+            lib, out = da._build.load_library(), torch.empty_like(q)
+            ref = da.decode_attention_reference(q, k, v, mask).float()
+            tiles = -(-t // 16)
+            row["modes"] = {}
+            for keys in (da.MASK_WINDOW, da.MASK_ALL):
+                for splits in range(1, 9):
+                    if splits > tiles or splits > 1 and b * kv * splits > 2 * sms:
+                        break
+                    fill = -(-(-(-tiles // splits)) // 4) * 4  # a block's whole share
+                    for stages in sorted({min(8, fill), min(16, fill)}):
+                        def call(k, v, splits=splits, stages=stages, keys=keys):
+                            st = lib.agk_decode_attention_bf16(
+                                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                                out.data_ptr(), b, kv, groups, t, d, splits, stages, keys,
+                                torch.cuda.current_stream().cuda_stream)
+                            assert st == 0, st
+                        call(k, v)
+                        torch.cuda.synchronize()
+                        err_m = float((out.float() - ref).abs().max())
+                        row["modes"][f"{da.KEYS[keys]}_c{splits}_s{stages}"] = [
+                            graph_ms([lambda k=k, v=v: call(k, v) for k, v in sets] * reps), err_m]
+        print(json.dumps(row), flush=True)
+        del sets, k, v
         torch.cuda.empty_cache()
 '''
 
@@ -446,6 +539,11 @@ def main() -> None:
         roots = [REPO, *dirs]
         for root in roots + roots[::-1] if len(roots) > 1 else roots:
             for row in run_in(root, GENERATE, str(root), "384", "3", timeout=1800):
+                print(json.dumps(row), flush=True)
+    elif cmd == "attention":
+        roots = [REPO, *dirs]
+        for i, root in enumerate(roots + roots[::-1] if len(roots) > 1 else roots):
+            for row in run_in(root, ATTENTION, str(root), "1" if i == 0 else "0"):
                 print(json.dumps(row), flush=True)
     elif cmd == "attn_o":
         roots = [REPO, *dirs]

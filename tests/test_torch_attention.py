@@ -68,6 +68,26 @@ def test_decode_attention_plain_matches_pallas(b, kv, g, d, t):
     assert not got[1].any()
 
 
+def test_decode_attention_plain_matches_pallas_on_a_ragged_last_tile():
+    """T = 577's raggedness at a small width: t = 37 ends in a partial
+    16-column tile, and row 2's only valid column is the last; row 0 has
+    holes, row 1 no valid column (zeros)."""
+    b, kv, g, d, t = 3, 2, 3, 64, 37
+    rng = np.random.RandomState(3)
+    q = rng.randn(b, kv, g, d).astype(np.float32)
+    k = rng.randn(b, kv, t, d).astype(np.float32)
+    v = rng.randn(b, kv, t, d).astype(np.float32)
+    mask = _windows(rng, b, t, 8, t // 2)
+    mask[0, ::4] = False
+    mask[1] = False
+    mask[2] = np.arange(t) == t - 1
+    want = decode_attention_pallas(*map(jnp.asarray, (q, k, v, mask)), interpret=True)
+    got = decode_attention(*map(torch.from_numpy, (q, k, v, mask)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+    assert not got[1].any()
+    np.testing.assert_allclose(got[2].numpy(), v[2, :, None, t - 1].repeat(g, 1), atol=1e-6)
+
+
 @pytest.mark.parametrize("b,kv,g,d,t,h,edges", [
     pytest.param(16, 2, 4, 128, 64, 256, False, id="16-2-4-128-64-256"),
     pytest.param(8, 2, 2, 64, 48, 128, False, id="8-2-2-64-48-128"),

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from affectgpt_tpu_torch.ops.decode_attention import decode_attention, decode_attention_reference
+from affectgpt_tpu_torch.ops import decode_attention as decode_attention_module
 from affectgpt_tpu_torch.ops.decode_attn_o import decode_attn_o, decode_attn_o_reference
 from affectgpt_tpu_torch.ops.decode_mlp import decode_mlp, decode_mlp_reference
 from affectgpt_tpu_torch.ops.decode_mlp_bf16 import decode_mlp_bf16, decode_mlp_bf16_reference
@@ -159,7 +160,7 @@ def _window_mask(gen, b, t):
 
 @pytest.mark.parametrize("b", [1, 3, 8])
 @pytest.mark.parametrize("kv,g,d", [(2, 3, 64), (4, 7, 128)])
-@pytest.mark.parametrize("t", [77, 200])  # not multiples of the 64-column chunk
+@pytest.mark.parametrize("t", [77, 200])  # not multiples of the 16-column tile
 def test_decode_attention_kernel_matches_plain(gen, b, kv, g, d, t):
     q, k, v = _rnd(gen, b, kv, g, d), _rnd(gen, b, kv, t, d), _rnd(gen, b, kv, t, d)
     mask = _window_mask(gen, b, t)
@@ -170,6 +171,77 @@ def test_decode_attention_kernel_matches_plain(gen, b, kv, g, d, t):
     got = decode_attention(q, k, v, mask)
     torch.cuda.synchronize()
     assert decode_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), decode_attention_reference(q, k, v, mask).float(),
+                               **TOL)
+
+
+def _any_mask(gen, b, t, case):
+    """Decode masks of decode_attention's kinds: `windows` (0-19 left pads,
+    valid through a write index in [T - 95, T - 2], as chip_smoke.py's),
+    `holes` (windows with every fifth column of row 0 and a 40-column run of
+    row 1 masked), `server` (BatchServer's: [0, pos] per slot, slots 1 and 3
+    inactive), `last_tile` (row 0's only valid column the last, in T = 577's
+    partial last tile), `none` (no valid column anywhere). With b > 1 the
+    last row has no valid column in every case."""
+    cols = torch.arange(t, device="cuda")
+    if case == "server":
+        pos = torch.randint(0, t, (b,), generator=gen, device="cuda")
+        mask = cols[None, :] <= pos[:, None]
+        mask[[r for r in (1, 3) if r < b]] = False
+    else:
+        lo = torch.randint(0, 20, (b,), generator=gen, device="cuda")
+        hi = torch.randint(t - 95, t - 1, (b,), generator=gen, device="cuda")
+        mask = (cols[None, :] >= lo[:, None]) & (cols[None, :] <= hi[:, None])
+    if case == "holes":
+        mask[0, ::5] = False
+        if b > 1:
+            mask[1, 100:140] = False
+    if case == "last_tile":
+        mask[0] = cols == t - 1
+    if case == "none":
+        mask[:] = False
+    if b > 1:
+        mask[-1] = False
+    return mask
+
+
+@pytest.mark.parametrize("keys", ["mask_all", "mask_window"])
+@pytest.mark.parametrize("case", ["windows", "holes", "server", "last_tile", "none"])
+@pytest.mark.parametrize("b", [1, 8, 64])
+@pytest.mark.parametrize("t", [577, 640])
+def test_decode_attention_kernel_matches_plain_at_qwen_width(gen, monkeypatch, b, t, case, keys):
+    """Both of decode_attention's key modes (the plan picks one by b: here
+    each is forced through the wrapper's plan) against the plain version at
+    Qwen2.5-7B width; rows with no valid column exactly zero, two calls the
+    same bits."""
+    da = decode_attention_module
+    rule = da.MASK_ALL if keys == "mask_all" else da.MASK_WINDOW
+    monkeypatch.setattr(da, "_plan_on", lambda b_, kv_, g_, d_, t_, dev: da.attention_plan(
+        b_, kv_, g_, d_, t_, da._build.sm_count(dev), rule))
+    kv, g, d = 4, 7, 128
+    q, k, v = _rnd(gen, b, kv, g, d), _rnd(gen, b, kv, t, d), _rnd(gen, b, kv, t, d)
+    mask = _any_mask(gen, b, t, case)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, mask)
+    again = decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    assert torch.equal(got, again)  # one order of sums, no atomics: the same bits
+    empty = ~mask.any(dim=1)
+    assert not got[empty].any()  # no valid column: exactly zero
+    torch.testing.assert_close(got.float(), decode_attention_reference(q, k, v, mask).float(),
+                               **TOL)
+
+
+def test_decode_attention_kernel_launches_at_bench_geometry(gen):
+    """bench.py's 3B geometry, b = 384 rows of 2 kv heads of 8 query heads
+    over T = 192 (768 pairs), BatchServer-shaped masks."""
+    b, kv, g, d, t = 384, 2, 8, 128, 192
+    q, k, v = _rnd(gen, b, kv, g, d), _rnd(gen, b, kv, t, d), _rnd(gen, b, kv, t, d)
+    mask = _any_mask(gen, b, t, "server")
+    got = decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert not got[~mask.any(dim=1)].any()
     torch.testing.assert_close(got.float(), decode_attention_reference(q, k, v, mask).float(),
                                **TOL)
 

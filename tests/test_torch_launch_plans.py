@@ -56,14 +56,24 @@ card: tests/test_torch_cuda_kernels.py).
   column tile, row tile) once, column tiles fastest, and so does o's, at
   CLIP's and HuBERT's rows, at a ragged 3 x 77 and at narrow widths; it
   raises on widths the kernels do not take.
-- `decode_attn_o.attention_plan` (with the kernel's shares, `_window_shares`) and
-  `decode_attn_o_plan`
-  (the decode attention sublayer): every column of a row's window is in
-  exactly one split's whole 16-column tiles (left pads, a window start that
-  is no multiple of 16, T = 577, a window that ends early, a row with no
-  valid column taking all of [0, T - 1]); the grid fits the card at once;
-  o_proj's swap-AB plan loads each W_o byte once a call at every b of
+- `decode_attention.attention_plan` (with the kernel's shares,
+  `_window_shares`) under decode_attn_o's WINDOW rule, and
+  `decode_attn_o_plan` (the decode attention sublayer): every column of a
+  row's window is in exactly one split's whole 16-column tiles (left pads, a
+  window start that is no multiple of 16, T = 577, a window that ends early,
+  a row with no valid column taking all of [0, T - 1]); the grid fits the
+  card at once; the attention plan is the one decode_attn_o had before it
+  moved; o_proj's swap-AB plan loads each W_o byte once a call at every b of
   1-512; the plan raises on what the kernels do not take.
+- `decode_attention.decode_attention_plan` (any key mask, the MASK_ALL and
+  MASK_WINDOW rules of the same kernel): the mode by batch, splits, ring,
+  grid and shared memory at b 1-384 and T 77, 577, 640; every column of
+  [0, T) in one share under MASK_ALL, every valid column in one share of the
+  window's tiles under MASK_WINDOW and no tile for a row with no valid
+  column; an emulation of `share_keys` (the mask bytes of a share copied in
+  aligned 16-byte chunks from a row at any byte offset) and of the tiles'
+  valid bits gives each tile exactly its valid columns below T, reads no
+  chunk outside the mask and fits the plan's bytes.
 """
 
 import numpy as np
@@ -71,7 +81,8 @@ import pytest
 
 import torch
 
-from affectgpt_tpu_torch.ops import _build, decode_attn_o, decode_gemm, decode_mlp, paged_attention
+from affectgpt_tpu_torch.ops import _build, decode_attention, decode_attn_o, decode_gemm
+from affectgpt_tpu_torch.ops import decode_mlp, paged_attention
 from affectgpt_tpu_torch.ops import prefill_attention, quant
 from affectgpt_tpu_torch.ops import vit_attention, vit_mlp, vit_mlp_fused, vit_sublayer
 
@@ -966,7 +977,7 @@ def _window_row(t: int, case: str) -> torch.Tensor:
 # own split is run by the card tests (tests/test_torch_cuda_kernels.py,
 # `test_decode_attn_o_kernel_matches_plain_at_qwen_width`).
 _KERNEL_SHARES = (
-    "const int first = lo / kTile, tiles = hi / kTile - first + 1;",
+    "const int first = lo / kTile, tiles = hi < lo ? 0 : hi / kTile - first + 1;",
     "const int t0 = first + rank * tiles / splits, t1 = first + (rank + 1) * tiles / splits;",
 )
 
@@ -976,8 +987,9 @@ def _window_shares(lo: int, hi: int, splits: int) -> list:
     pair take of the window [lo, hi], as the kernel computes them
     (csrc/dense_decode_attention.cuh, `_KERNEL_SHARES`): the window's tiles
     lo // 16 .. hi // 16, block r taking [r W / C, (r + 1) W / C) of its W
-    tiles."""
-    first, tiles = lo // 16, hi // 16 - lo // 16 + 1
+    tiles; none when hi < lo (lo, hi >= -1: C's / and Python's // agree)."""
+    first = lo // 16
+    tiles = 0 if hi < lo else hi // 16 - first + 1
     return [(first + r * tiles // splits, first + (r + 1) * tiles // splits)
             for r in range(splits)]
 
@@ -991,7 +1003,8 @@ def test_decode_attn_o_window_shares_give_every_column_to_one_share(t, case):
     lo, hi = (int(v) for v in decode_attn_o.key_window(_window_row(t, case))[0])
     if case == "no_valid_column":
         assert (lo, hi) == (0, t - 1)
-    plans = [decode_attn_o.attention_plan(b, 4, 7, 128, t, SMS)["splits"] for b in (1, 8, 64)]
+    plans = [decode_attention.attention_plan(b, 4, 7, 128, t, SMS, decode_attention.WINDOW)
+             ["splits"] for b in (1, 8, 64)]
     assert plans == [8, 4, 1]  # small batches split over a cluster, b = 64 not at all
     for splits in range(1, 9):
         shares = _window_shares(lo, hi, splits)
@@ -1007,7 +1020,7 @@ def test_decode_attn_o_window_shares_give_every_column_to_one_share(t, case):
 @pytest.mark.parametrize("b", [1, 8, 64, 512])
 def test_decode_attn_o_attention_plan_fills_the_card_at_once(b):
     for t in (577, 640):
-        p = decode_attn_o.attention_plan(b, 4, 7, 128, t, SMS)
+        p = decode_attention.attention_plan(b, 4, 7, 128, t, SMS, decode_attention.WINDOW)
         c = p["splits"]
         assert 1 <= c <= 8 and p["cluster"] == c and p["grid"] == (b * 4 * c,)
         assert b * 4 * c <= SMS or c == 1  # the whole grid at one block an SM
@@ -1046,3 +1059,205 @@ def test_decode_attn_o_plan_raises_on_what_the_kernels_do_not_take(kwargs):
     args = dict(b=8, kv=4, g=7, d=128, t_len=640, h=3584, sms=SMS)
     with pytest.raises(ValueError):
         decode_attn_o.decode_attn_o_plan(**{**args, **kwargs})
+
+
+def _parent_window_plan(b, kv, g, d, t_len, sm_count):
+    """decode_attn_o's attention plan as it stood before it moved to
+    ops/decode_attention.py (its WINDOW rule must give the same launch)."""
+    tiles = -(-t_len // 16)
+    splits = min(8, tiles, max(1, 1 * sm_count // (b * kv)))
+    per_block = -(-tiles // splits)
+    stages = min(8, -(-per_block // 4) * 4)
+    stage = 2 * (d // 64) * 16 * 128
+    merge = 5 * (8 * d + 16) * 4
+    return {"splits": splits, "cluster": splits, "grid": (b * kv * splits,), "stages": stages,
+            "stage_bytes": stage, "threads": 160,
+            "smem_bytes": max(stages * stage, merge) + 2 * stages * 8 + 1024}
+
+
+@pytest.mark.parametrize("kv,g,d", [(4, 7, 128), (2, 8, 128), (2, 3, 64)])
+def test_decode_attn_o_attention_plan_is_unchanged_by_the_move(kv, g, d):
+    for b in (1, 3, 8, 16, 64, 384, 512):
+        for t in (1, 77, 192, 577, 640, 4096):
+            got = decode_attn_o.decode_attn_o_plan(b, kv, g, d, t, 3584, SMS)["attention"]
+            assert got.pop("keys") == decode_attention.WINDOW and got.pop("keys_bytes") == 0
+            assert got == _parent_window_plan(b, kv, g, d, t, SMS)
+
+
+def test_decode_attention_key_rules_are_the_kernel_s():
+    kernel = (_build.CSRC_DIR / "dense_decode_attention.cuh").read_text()
+    assert "enum class Keys : int { kWindow = 0, kMaskWindow = 1, kMaskAll = 2 };" in kernel
+    assert (decode_attention.WINDOW, decode_attention.MASK_WINDOW,
+            decode_attention.MASK_ALL) == (0, 1, 2)
+    # the share's mask bytes, as attention_plan counts them
+    assert ("return K == Keys::kWindow ? 0 : 16 * (((T + kTile - 1) / kTile + splits - 1) / "
+            "splits + 1);") in kernel
+
+
+@pytest.mark.parametrize("b", [1, 4, 8, 16, 32, 64, 384])
+@pytest.mark.parametrize("t", [77, 577, 640])
+@pytest.mark.parametrize("kv,g", [(4, 7), (2, 8)])
+def test_decode_attention_plan_at_decode_shapes(b, t, kv, g):
+    p = decode_attention.decode_attention_plan(b, kv, g, 128, t, SMS)
+    tiles = -(-t // 16)
+    want = decode_attention.MASK_ALL if b * kv <= SMS else decode_attention.MASK_WINDOW
+    assert p["keys"] == want  # all tiles while the pairs fit the SMs
+    c = p["splits"]
+    assert 1 <= c <= min(8, tiles) and p["cluster"] == c and p["grid"] == (b * kv * c,)
+    assert b * kv * c <= SMS or c == 1  # the whole grid at one block an SM
+    if c > 2:  # a quarter of the SMs free, and no more splits would leave it
+        assert 4 * b * kv * c <= 3 * SMS and (c == min(8, tiles) or 4 * b * kv * (c + 1) > 3 * SMS)
+    best = {1: 8, 4: 6, 8: 3, 16: 2, 32: 1, 64: 1, 384: 1}  # on an H100 at T = 640, kv = 4
+    per_block = -(-tiles // c)
+    assert p["stages"] % 4 == 0 and p["stages"] == min(8, -(-per_block // 4) * 4)
+    assert p["keys_bytes"] == 16 * (per_block + 1)
+    assert p["smem_bytes"] == (max(p["stages"] * 8192, 5 * (8 * 128 + 16) * 4)
+                               + 16 * p["stages"] + p["keys_bytes"] + 1024)
+    assert 2 * p["smem_bytes"] <= 233_472  # two blocks an SM
+    if (kv, t) == (4, 640):
+        assert c == best[b]
+
+
+def _mask_row(t: int, case: str, rng: np.random.RandomState) -> np.ndarray:
+    cols = np.arange(t)
+    if case == "window":
+        return (cols >= rng.randint(0, 20)) & (cols <= rng.randint(t - 95, t - 1))
+    if case == "holes":  # a window with holes, and a run of masked columns
+        row = (cols >= 3) & (cols <= t - 5)
+        row[::5] = False
+        row[40:70] = False
+        return row
+    if case == "last_column":  # the only valid column in a partial last tile at T = 577
+        return cols == t - 1
+    if case == "server":  # BatchServer: [0, pos]
+        return cols <= rng.randint(0, t)
+    if case == "random":
+        return rng.rand(t) < 0.3
+    return np.zeros(t, bool)  # "none"
+
+
+def _kernel_shares(row: np.ndarray, keys: int, splits: int) -> list:
+    """The tiles a (row, kv head) pair's blocks take under MASK_ALL (lo = 0,
+    hi = T - 1) or MASK_WINDOW (the first and last valid column, (T, -1)
+    when none), as dense_kernel sets lo and hi before `_KERNEL_SHARES`."""
+    t = len(row)
+    valid = np.flatnonzero(row)
+    if keys == decode_attention.MASK_ALL:
+        lo, hi = 0, t - 1
+    else:
+        lo, hi = (int(valid[0]), int(valid[-1])) if len(valid) else (t, -1)
+    return _window_shares(lo, hi, splits)
+
+
+@pytest.mark.parametrize("keys", [1, 2])
+@pytest.mark.parametrize("t", [77, 577, 640])
+@pytest.mark.parametrize("case", ["window", "holes", "last_column", "server", "random", "none"])
+def test_decode_attention_shares_give_every_column_to_one_share(keys, t, case):
+    kernel = (_build.CSRC_DIR / "dense_decode_attention.cuh").read_text()
+    assert all(line in kernel for line in _KERNEL_SHARES)  # the copy is the kernel's split
+    row = _mask_row(t, case, np.random.RandomState(t))
+    n_tiles = -(-t // 16)
+    for splits in range(1, 9):
+        shares = _kernel_shares(row, keys, splits)
+        cover = np.zeros(16 * n_tiles, np.int32)
+        for t0, t1 in shares:
+            assert 0 <= t0 <= t1 <= n_tiles and t1 - t0 <= -(-n_tiles // splits)
+            cover[16 * t0:16 * t1] += 1
+        assert cover.max() <= 1
+        if keys == decode_attention.MASK_ALL:
+            assert (cover == 1).all()  # every tile of the row, padding past T included
+        else:
+            assert (cover[:t][row] == 1).all()  # every valid column
+            if not row.any():
+                assert cover.sum() == 0  # no valid column: no tile, no load
+            else:  # only the window's tiles
+                v = np.flatnonzero(row)
+                assert cover.sum() == 16 * (v[-1] // 16 - v[0] // 16 + 1)
+
+
+# The lines of dense_decode_attention.cuh that `_share_keys` and
+# `_window_bits` copy: the tests below fail when these lines change.
+_KERNEL_KEYS = (
+    "const int end = off + min(kTile * t1, T) - kTile * t0;",
+    "for (int c = threadIdx.x; 16 * c < off + kTile * (t1 - t0); c += 32 * kConsumers) {",
+    "const int keep = end - 16 * c;",
+    "uint4 v = keep > 0 ? __ldg(chunks + c) : make_uint4(0u, 0u, 0u, 0u);",
+    "const int n = keep - 4 * j;",
+    "if (n < 4) w[j] &= n <= 0 ? 0u : (1u << (8 * n)) - 1u;",
+    "return buf + off;",
+    "bits = __ballot_sync(0xffffffffu, keys[(tile - t0) * kTile + lane % kTile] != 0) & 0xFFFFu;",
+)
+_KERNEL_WINDOW_BITS = (
+    "const int a = max(lo - kTile * tile, 0), e = min(hi - kTile * tile, kTile - 1);",
+    "return e < a ? 0u : (0xFFFFu >> (kTile - 1 - e)) & (0xFFFFu << a);",
+)
+
+
+def _share_keys(mem: np.ndarray, row_start: int, t: int, t0: int, t1: int, buf_bytes: int):
+    """dense_decode_attention.cuh `share_keys` on the mask's bytes `mem`
+    (the [b, T] mask flattened, its allocation 16-byte aligned): the
+    chunks' copy into a buffer of buf_bytes, then the pointer's offset.
+    Returns (buffer, off, chunks read)."""
+    addr = row_start + 16 * t0
+    off = addr % 16
+    base = addr - off
+    end = off + min(16 * t1, t) - 16 * t0
+    buf = np.full(buf_bytes, 0xAB, np.uint8)  # what shared memory held before
+    read = []
+    c = 0
+    while 16 * c < off + 16 * (t1 - t0):
+        keep = end - 16 * c
+        chunk = np.zeros(16, np.uint8)
+        if keep > 0:
+            read.append(base // 16 + c)
+            src = mem[base + 16 * c:base + 16 * c + 16]
+            chunk[:len(src)] = src
+        for j in range(4):  # the words' byte masks
+            n = keep - 4 * j
+            if n < 4:
+                chunk[4 * j + max(n, 0):4 * j + 4] = 0
+        assert 16 * c + 16 <= buf_bytes  # inside the plan's keys_bytes
+        buf[16 * c:16 * c + 16] = chunk
+        c += 1
+    return buf, off, read
+
+
+def _window_bits(tile: int, lo: int, hi: int) -> int:
+    """dense_decode_attention.cuh `window_bits`."""
+    a, e = max(lo - 16 * tile, 0), min(hi - 16 * tile, 15)
+    return 0 if e < a else (0xFFFF >> (15 - e)) & (0xFFFF << a) & 0xFFFF
+
+
+@pytest.mark.parametrize("t", [77, 577, 640])
+@pytest.mark.parametrize("keys", [1, 2])
+def test_decode_attention_share_keys_give_each_tile_its_valid_columns(t, keys):
+    kernel = (_build.CSRC_DIR / "dense_decode_attention.cuh").read_text()
+    assert all(line in kernel for line in _KERNEL_KEYS)  # the copy is the kernel's
+    rng = np.random.RandomState(t + keys)
+    cases = ["window", "holes", "last_column", "server", "random", "none"]
+    b = 2 * len(cases)  # every case at two byte offsets of its row
+    mask = np.stack([_mask_row(t, cases[r % len(cases)], rng) for r in range(b)])
+    mem = mask.astype(np.uint8).reshape(-1)
+    n_chunks = -(-len(mem) // 16)  # the aligned chunks the allocation holds
+    for splits in range(1, 9):
+        buf_bytes = 16 * (-(-(-(-t // 16)) // splits) + 1)  # the kernel's keys_bytes
+        for r in range(b):
+            for t0, t1 in _kernel_shares(mask[r], keys, splits):
+                buf, off, read = _share_keys(mem, r * t, t, t0, t1, buf_bytes)
+                assert all(0 <= c < n_chunks for c in read)  # no chunk outside the mask
+                for tile in range(t0, t1):
+                    keys_ = buf[off + 16 * (tile - t0):off + 16 * (tile - t0) + 16]
+                    bits = sum(1 << i for i in range(16) if keys_[i])  # the warp's ballot
+                    cols = 16 * tile + np.arange(16)
+                    want = [c < t and mask[r, c] for c in cols]
+                    assert bits == sum(1 << i for i in range(16) if want[i])
+
+
+def test_decode_attention_window_bits_are_the_window_s_columns():
+    kernel = (_build.CSRC_DIR / "dense_decode_attention.cuh").read_text()
+    assert all(line in kernel for line in _KERNEL_WINDOW_BITS)  # the copy is the kernel's
+    for lo in range(0, 40):
+        for hi in range(lo, 60):
+            for tile in range(4):
+                want = sum(1 << i for i in range(16) if lo <= 16 * tile + i <= hi)
+                assert _window_bits(tile, lo, hi) == want
