@@ -7,9 +7,8 @@ features on the device (preprocessing, CLIP ViT-L/14, HuBERT-large); on the
 preextracted path the features come from a cache. Prompt assembly and
 tokenization use the port's own copies of the host modules (`constants`,
 `prompts`, `tokenization`), then mergers → splice → prefill → decode run in
-the port.
-
-Not ported yet: speculative decoding and the repetition penalty.
+the port. Greedy requests without a repetition penalty take prompt-lookup
+speculative decoding when `speculative_draft_len` > 0.
 """
 
 from __future__ import annotations
@@ -75,6 +74,10 @@ class Chat:
     # "int8" → the quantized KV cache (qwen2.init_cache), None → the
     # embeddings' dtype
     kv_cache_dtype: Optional[str] = None
+    # > 0: greedy requests without a repetition penalty take prompt-lookup
+    # speculative decoding (gen.generate_speculative: the same tokens, fewer
+    # weight sweeps); sampled or penalized requests take gen.generate
+    speculative_draft_len: int = 0
     # seeds the instance's sampling generator, used when answer_batch is
     # called without one; repeated sampled calls advance it
     seed: int = 0
@@ -140,11 +143,15 @@ class Chat:
         do_sample: bool = True,
         top_p: float = 0.9,
         temperature: float = 1.0,
+        repetition_penalty: float = 1.0,
         nonverbal_texts: Optional[List[Optional[str]]] = None,
     ) -> List[str]:
         """Batched clip → text with the reference answer_sample semantics
-        (top-p sampling or greedy, '###'/eos stop). features[m] are
-        [b, t, d] tensors on the model's device. LoRA is applied as a
+        (top-p sampling or greedy, temperature and repetition_penalty with
+        1.0 defaults, '###'/eos stop). With repetition_penalty != 1.0 only
+        generated tokens are penalized: the spliced prompts carry patch
+        placeholders, so their ids mean nothing to HF's penalty. features[m]
+        are [b, t, d] tensors on the model's device. LoRA is applied as a
         parallel branch when trainable["lora"] is present, and is already in
         the weights when it is None (see bootstrap.serving_llm)."""
         ids, lengths, offsets = self.build_prompt_batch(
@@ -152,22 +159,27 @@ class Chat:
         )
         gcfg = gen.GenerateConfig(
             max_new_tokens=max_new_tokens, do_sample=do_sample, top_p=top_p,
-            temperature=temperature, eos_token_id=self.tokenizer.eos_token_id,
-            stop_token_ids=self._stop_ids,
+            temperature=temperature, repetition_penalty=repetition_penalty,
+            eos_token_id=self.tokenizer.eos_token_id, stop_token_ids=self._stop_ids,
         )
         dev = self.device
+        input_ids = torch.as_tensor(ids, dtype=torch.long, device=dev)
         embeds = affectgpt.build_inputs_embeds(
-            self.frozen, self.trainable, self.cfg,
-            torch.as_tensor(ids, dtype=torch.long, device=dev),
-            features,
+            self.frozen, self.trainable, self.cfg, input_ids, features,
             {m: torch.as_tensor(v, dtype=torch.long, device=dev) for m, v in offsets.items()},
         )
-        tokens, num_valid = gen.generate(
-            self.frozen["llm"], self.cfg.llm, gcfg, embeds,
-            torch.as_tensor(lengths, device=dev), generator or self._generator,
-            max_len=self.max_len, lora=self.trainable.get("lora"),
-            cache_dtype=torch.int8 if self.kv_cache_dtype == "int8" else None,
-        )
+        common = dict(lora=self.trainable.get("lora"),
+                      cache_dtype=torch.int8 if self.kv_cache_dtype == "int8" else None)
+        lengths = torch.as_tensor(lengths, device=dev)
+        if self.speculative_draft_len > 0 and not do_sample and repetition_penalty == 1.0:
+            tokens, num_valid = gen.generate_speculative(
+                self.frozen["llm"], self.cfg.llm, gcfg, embeds, lengths, input_ids,
+                max_len=self.max_len + self.speculative_draft_len,  # verify-write headroom
+                draft_len=self.speculative_draft_len, **common)
+        else:
+            tokens, num_valid = gen.generate(
+                self.frozen["llm"], self.cfg.llm, gcfg, embeds, lengths,
+                generator or self._generator, max_len=self.max_len, **common)
         tokens, num_valid = tokens.cpu().numpy(), num_valid.cpu().numpy()
         return [
             gen.trim_output_text(

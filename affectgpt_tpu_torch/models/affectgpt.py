@@ -146,8 +146,8 @@ MERGER_GROUP = {
     "frame": "video", "face": "video",
     "audio": "audio", "image": "image", "au": "au",
 }
-_GROUPS = ("video", "audio", "image", "au")
-_GROUP_CFG_MODALITY = {"video": "frame", "audio": "audio", "image": "image", "au": "au"}
+# each merger group's parameters, and the modality whose config builds them
+GROUP_MODALITY = {"video": "frame", "audio": "audio", "image": "image", "au": "au"}
 
 
 def init_trainable(generator: torch.Generator, cfg: AffectGPTConfig,
@@ -155,9 +155,8 @@ def init_trainable(generator: torch.Generator, cfg: AffectGPTConfig,
     """LoRA + mergers + projections, on the generator's device."""
     params: dict = {
         "mergers": {
-            g: mergers.init_merger(generator, cfg.merger_config(_GROUP_CFG_MODALITY[g]),
-                                   dtype=dtype)
-            for g in _GROUPS
+            g: mergers.init_merger(generator, cfg.merger_config(m), dtype=dtype)
+            for g, m in GROUP_MODALITY.items()
         },
         "lora": qwen2.init_lora(generator, cfg.llm, dtype=dtype),
     }

@@ -1,11 +1,13 @@
-"""CLIP vision tower (ViT-L/14), in PyTorch.
+"""CLIP vision tower (ViT-L/14) and text tower (ViT-B/32), in PyTorch.
 
-Port of the vision half of affectgpt_tpu/models/clip_vit.py
+Port of affectgpt_tpu/models/clip_vit.py. The vision tower
 (`ClipVisionConfig`, `init_vision_params`, `patchify`, `quick_gelu`,
-`encode_image`): raw-frame features of the realtime path, matching HF
-CLIPModel.get_image_features (embeddings → pre-LN stack → post-LN on CLS →
-visual projection → [b, 768]). The patch embedding is an unfold + dense
-[P²·3 → width], as in JAX. The text tower waits with utils/clip_text.py.
+`encode_image`) gives the raw-frame features of the realtime path, matching
+HF CLIPModel.get_image_features (embeddings → pre-LN stack → post-LN on CLS
+→ visual projection → [b, 768]). The patch embedding is an unfold + dense
+[P²·3 → width], as in JAX. The text tower (`ClipTextConfig`,
+`init_text_params`, `encode_text`) encodes AU descriptions: causal blocks,
+pooled at the EOT token (the highest id), projected to [b, 512].
 
 Routes of a block, JAX's switches with JAX's defaults; on the port "the
 TPU" of JAX's rule reads "always", and each kernel wrapper takes its plain
@@ -20,9 +22,12 @@ version for CPU tensors:
   kernel pair (ops/vit_mlp.py); "fused", the one-call kernel
   (ops/vit_mlp_fused.py); "xla", the plain chain.
 
-A block without a bf16 `"w"` leaf in its q projection leaves the sublayer
-route for "flash" (JAX's layout rule). The kernels take any token count, so
-the token axis is not padded (JAX pads 257 to 264, a TPU sublane layout).
+A block without a bf16 `"w"` leaf in its q projection (the int8 `w_q`
+leaves of `ops.quant.quantize_encoder_tree`) leaves the sublayer route for
+"flash" (JAX's layout rule), and so does a masked block: the text tower's
+causal blocks then take the plain chain, as on the TPU. The kernels take any
+token count, so the token axis is not padded (JAX pads 257 to 264, a TPU
+sublane layout).
 """
 
 from __future__ import annotations
@@ -62,6 +67,28 @@ class ClipVisionConfig:
     def tiny(cls):
         return cls(image_size=28, patch_size=14, width=16, num_layers=2,
                    num_heads=2, mlp_dim=32, projection_dim=12)
+
+
+@dataclass(frozen=True)
+class ClipTextConfig:
+    vocab_size: int = 49408
+    context_length: int = 77
+    width: int = 512
+    num_layers: int = 12
+    num_heads: int = 8
+    mlp_dim: int = 2048
+    projection_dim: int = 512
+    layer_norm_eps: float = 1e-5
+
+    @classmethod
+    def vit_b_32_text(cls):
+        """openai/clip-vit-base-patch32 text geometry (the AU encoder)."""
+        return cls()
+
+    @classmethod
+    def tiny(cls):
+        return cls(vocab_size=64, context_length=16, width=16, num_layers=2,
+                   num_heads=2, mlp_dim=32, projection_dim=8)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -134,7 +161,11 @@ def encode_image(params: dict, cfg: ClipVisionConfig, images: torch.Tensor) -> t
     the weights' dtype."""
     b = images.shape[0]
     pe = params["patch_embed"]
-    x = nn.dense_nobias(pe, patchify(images.to(pe["w"].dtype), cfg.patch_size))  # [b, N, w]
+    # an int8 patch embedding has no float weight to take the dtype from:
+    # the tower then computes in its other leaves' dtype (JAX takes the
+    # images' f32 there, which the port's bf16 fused attention would refuse)
+    patch_dtype = pe["w"].dtype if "w" in pe else params["class_embed"].dtype
+    x = nn.dense_nobias(pe, patchify(images.to(patch_dtype), cfg.patch_size))  # [b, N, w]
     cls = params["class_embed"].to(x.dtype).expand(b, 1, cfg.width)
     x = torch.cat([cls, x], dim=1)
     x = x + params["pos_embed"]["table"][None, : x.shape[1]].to(x.dtype)
@@ -143,4 +174,34 @@ def encode_image(params: dict, cfg: ClipVisionConfig, images: torch.Tensor) -> t
     for block in params["blocks"]:
         x = _apply_block(block, x, cfg.num_heads, cfg.layer_norm_eps, valid_len=valid_len)
     pooled = nn.layernorm(params["post_ln"], x[:, 0], cfg.layer_norm_eps)
+    return nn.dense_nobias(params["proj"], pooled)
+
+
+def init_text_params(generator: torch.Generator, cfg: ClipTextConfig,
+                     dtype=torch.bfloat16) -> dict:
+    """Random text-tower weights on the generator's device (JAX's tree and
+    scales; the values differ from JAX's for the same seed)."""
+    dev = generator.device
+    return {
+        "token_embed": nn.embedding_init(generator, cfg.vocab_size, cfg.width, dtype=dtype),
+        "pos_embed": nn.embedding_init(generator, cfg.context_length, cfg.width, dtype=dtype),
+        "blocks": [_init_block(generator, cfg.width, cfg.num_heads, cfg.mlp_dim, dtype)
+                   for _ in range(cfg.num_layers)],
+        "final_ln": nn.layernorm_init(cfg.width, dtype=dtype, device=dev),
+        "proj": nn.dense_nobias_init(generator, cfg.width, cfg.projection_dim, dtype=dtype),
+    }
+
+
+def encode_text(params: dict, cfg: ClipTextConfig, token_ids: torch.Tensor) -> torch.Tensor:
+    """token_ids [b, T] (0 after the EOT token, which has the highest id:
+    the CLIP convention) → [b, projection_dim]."""
+    t = token_ids.shape[1]
+    x = nn.embedding(params["token_embed"], token_ids)
+    x = x + params["pos_embed"]["table"][None, :t].to(x.dtype)
+    causal = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))[None, None]
+    for block in params["blocks"]:
+        x = _apply_block(block, x, cfg.num_heads, cfg.layer_norm_eps, causal)
+    x = nn.layernorm(params["final_ln"], x, cfg.layer_norm_eps)
+    eot = torch.argmax(token_ids, dim=-1)  # the highest id is the EOT token
+    pooled = x[torch.arange(x.shape[0], device=x.device), eot]
     return nn.dense_nobias(params["proj"], pooled)

@@ -3,9 +3,11 @@
 `from_jax` takes the JAX package's `frozen` and `trainable` trees after
 `np.asarray` on every leaf (nested dicts and lists of numpy arrays) and
 returns the same trees as tensors, on the card unless `device` says
-otherwise. It covers the LLM, LoRA, the mergers, the multi-fusion block and
-the media encoders (`visual_encoder`: the CLIP vision tower,
-`acoustic_encoder`: HuBERT), and never imports jax.
+otherwise. It covers the LLM, LoRA, the mergers (their Q-Formers too), the
+multi-fusion block and the media encoders (`visual_encoder`: the CLIP vision
+tower, `acoustic_encoder`: HuBERT), bf16 or with the int8 `w_q` leaves of
+`ops.quant.quantize_encoder_tree`; `text_tower_from_jax` carries the CLIP
+text tower. Neither imports jax.
 
 Layouts: the port keeps the JAX layouts and dtypes unchanged, the split
 (`q_proj` ...) and fused (`qkv_proj`, `gateup_proj`) serving layouts alike.
@@ -28,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from affectgpt_tpu_torch.models import encoders
+from affectgpt_tpu_torch.models import affectgpt, encoders
 
 
 def _tensor(arr, device) -> torch.Tensor:
@@ -85,13 +87,70 @@ def from_jax(frozen_np: dict, trainable_np: dict, cfg, device="cuda"):
     if "acoustic_encoder" in frozen:
         _check_hubert(frozen["acoustic_encoder"], cfg.audio_cfg_override
                       or encoders.get_acoustic_encoder(cfg.acoustic_encoder_name).make_config())
+    for group, modality in affectgpt.GROUP_MODALITY.items():
+        if group in trainable.get("mergers", {}):
+            mcfg = cfg.merger_config(modality)
+            _check_merger(trainable["mergers"][group], mcfg.fusion_type, mcfg.feat_dim,
+                          mcfg.max_time, mcfg.qformer_config(), f"{group} merger")
+    if "multi" in trainable:
+        mcfg = cfg.multi_config()
+        _check_merger(trainable["multi"], mcfg.fusion_type, mcfg.max_dim, mcfg.max_time,
+                      mcfg.qformer_config(), "multi fusion")
     return frozen, trainable
+
+
+def text_tower_from_jax(tree_np: dict, cfg, device="cuda") -> dict:
+    """The JAX package's CLIP text tower (numpy tree) → tensors, checked
+    against its ClipTextConfig."""
+    tree = tree_to_torch(tree_np, device)
+    if tuple(tree["token_embed"]["table"].shape) != (cfg.vocab_size, cfg.width):
+        raise ValueError("from_jax: text token_embed does not match the config")
+    if tuple(tree["pos_embed"]["table"].shape) != (cfg.context_length, cfg.width):
+        raise ValueError("from_jax: text pos_embed does not match the config")
+    if len(tree["blocks"]) != cfg.num_layers:
+        raise ValueError(f"from_jax: the text tower has {len(tree['blocks'])} blocks, "
+                         f"the config {cfg.num_layers}")
+    if _dense_shape(tree["blocks"][0]["mlp_in"]) != (cfg.width, cfg.mlp_dim):
+        raise ValueError(f"from_jax: text mlp_in is not [{cfg.width}, {cfg.mlp_dim}]")
+    if _dense_shape(tree["proj"]) != (cfg.width, cfg.projection_dim):
+        raise ValueError(f"from_jax: text proj is not [{cfg.width}, {cfg.projection_dim}]")
+    return tree
+
+
+def _check_merger(tree: dict, fusion_type: str, feat_dim: int, max_time: int, qcfg,
+                  what: str) -> None:
+    """A qformer merger or pre-fusion block against its config: the position
+    table [max_time, feat_dim], the query tokens, the layer count and each
+    cross-attention's key projection [feat_dim, hidden]."""
+    if fusion_type != "qformer":
+        if "qformer" in tree:
+            raise ValueError(f"from_jax: the {what} holds a Q-Former, the config asks for "
+                             f"{fusion_type!r}")
+        return
+    if "qformer" not in tree:
+        raise ValueError(f"from_jax: the {what} has no Q-Former, the config asks for one")
+    if tuple(tree["pos_embed"]["table"].shape) != (max_time, feat_dim):
+        raise ValueError(f"from_jax: {what} pos_embed is not [{max_time}, {feat_dim}]")
+    q = tree["qformer"]
+    if tuple(q["query_tokens"].shape) != (1, qcfg.num_query_tokens, qcfg.hidden_size):
+        raise ValueError(f"from_jax: {what} query_tokens is not "
+                         f"[1, {qcfg.num_query_tokens}, {qcfg.hidden_size}]")
+    if len(q["layers"]) != qcfg.num_layers:
+        raise ValueError(f"from_jax: the {what} Q-Former has {len(q['layers'])} layers, the "
+                         f"config {qcfg.num_layers}")
+    for i, layer in enumerate(q["layers"]):
+        if "cross_attn" in layer and \
+                _dense_shape(layer["cross_attn"]["k"]) != (feat_dim, qcfg.hidden_size):
+            raise ValueError(f"from_jax: {what} layer {i} cross-attention keys are not "
+                             f"[{feat_dim}, {qcfg.hidden_size}]")
+    if _dense_shape(tree["proj"])[0] != qcfg.hidden_size:
+        raise ValueError(f"from_jax: {what} proj does not take the Q-Former's width")
 
 
 def _check_vision(tree: dict, vc) -> None:
     """The CLIP vision tower's geometry against its ClipVisionConfig."""
     patch = (vc.patch_size * vc.patch_size * 3, vc.width)
-    if tuple(tree["patch_embed"]["w"].shape) != patch:
+    if _dense_shape(tree["patch_embed"]) != patch:
         raise ValueError(f"from_jax: visual patch_embed is not {list(patch)}")
     if len(tree["blocks"]) != vc.num_layers:
         raise ValueError(f"from_jax: the vision tower has {len(tree['blocks'])} blocks, "

@@ -16,8 +16,10 @@ chain for both): ATTN_IMPL "sublayer" runs the attention-sublayer kernel
 (ops/vit_sublayer.py); MLP_IMPL "pallas" the two-call MLP kernel pair
 (ops/vit_mlp.py) and "fused" the one-call kernel (ops/vit_mlp_fused.py),
 both with the erf gelu. A kernel route needs bf16 `"w"` leaves (JAX's
-layout rule); JAX's TPU gates (backend, head_dim % 64) are dropped, and the
-token axis is not padded to a multiple of 8.
+layout rule): a tower with the int8 `w_q` leaves of
+`ops.quant.quantize_encoder_tree` runs the plain stack, its dense layers in
+`ops.quant.dense_w8a8_xla`. JAX's TPU gates (backend, head_dim % 64) are
+dropped, and the token axis is not padded to a multiple of 8.
 """
 
 from __future__ import annotations

@@ -1,9 +1,20 @@
 """Temporal mergers and audio-video pre-fusion, in PyTorch.
 
-Port of affectgpt_tpu/models/mergers.py for the `attention` and `mean`
-mergers and the `attention` pre-fusion (the shipped best configuration).
-The `qformer` variants (and models/qformer.py) are not ported yet; asking
-for one raises NotImplementedError.
+Port of affectgpt_tpu/models/mergers.py: compress [b, t, d] modality
+features into a fixed number of LLM-space tokens.
+
+Merger variants per modality:
+- "qformer":   + learned temporal position embedding, 2-layer Q-Former
+               → [b, num_query, 768] → linear proj → [b, num_query, llm_dim]
+- "attention": linear attention pooling over time → [b, d] → proj →
+               broadcast to [b, num_query, llm_dim]
+- "mean":      temporal mean → proj → broadcast.
+
+Pre-fusion ("multi") variants:
+- "qformer":   project audio/video to the larger width, concatenate along
+               time, + position embedding, Q-Former → num_query tokens
+- "attention": mean-pool each modality, 2-way attention gate, proj,
+               broadcast (the shipped best configuration).
 """
 
 from __future__ import annotations
@@ -12,7 +23,7 @@ from dataclasses import dataclass
 
 import torch
 
-from affectgpt_tpu_torch.models import nn
+from affectgpt_tpu_torch.models import nn, qformer
 
 
 @dataclass(frozen=True)
@@ -21,29 +32,48 @@ class MergerConfig:
     feat_dim: int
     llm_dim: int
     num_query_tokens: int
-    max_time: int
+    max_time: int  # position-embedding slots of the qformer merger
 
-
-def _no_qformer(kind: str):
-    return NotImplementedError(f"{kind} fusion_type 'qformer' is not ported to PyTorch yet")
+    def qformer_config(self) -> qformer.QFormerConfig:
+        return qformer.QFormerConfig(encoder_width=self.feat_dim,
+                                     num_query_tokens=self.num_query_tokens)
 
 
 def init_merger(generator: torch.Generator, cfg: MergerConfig, dtype=torch.float32) -> dict:
     params: dict = {}
-    if cfg.fusion_type == "attention":
+    if cfg.fusion_type == "qformer":
+        params["pos_embed"] = nn.embedding_init(generator, cfg.max_time, cfg.feat_dim,
+                                                dtype=dtype)
+        params["qformer"] = qformer.init_params(generator, cfg.qformer_config(), dtype=dtype)
+        proj_in = cfg.qformer_config().hidden_size
+    elif cfg.fusion_type == "attention":
         params["attn_mlp"] = nn.dense_init(generator, cfg.feat_dim, 1, dtype=dtype)
-    elif cfg.fusion_type == "qformer":
-        raise _no_qformer("merger")
-    elif cfg.fusion_type != "mean":
+        proj_in = cfg.feat_dim
+    elif cfg.fusion_type == "mean":
+        proj_in = cfg.feat_dim
+    else:
         raise ValueError(f"Unknown fusion_type: {cfg.fusion_type}")
-    params["proj"] = nn.dense_init(generator, cfg.feat_dim, cfg.llm_dim, dtype=dtype)
+    params["proj"] = nn.dense_init(generator, proj_in, cfg.llm_dim, dtype=dtype)
     return params
 
 
+def _qformer_tokens(params: dict, qcfg: qformer.QFormerConfig, h: torch.Tensor) -> torch.Tensor:
+    """h [b, t, d] or [b, t, q, d]: each time step's position row added to
+    its rows, flattened to [b, t·q, d] → Q-Former → proj."""
+    t = h.shape[1]
+    pos = nn.embedding(params["pos_embed"], torch.arange(t, device=h.device))
+    pos = pos.reshape((1, t) + (1,) * (h.ndim - 3) + (pos.shape[-1],))
+    h = (h + pos.to(h.dtype)).reshape(h.shape[0], -1, h.shape[-1])
+    return nn.dense(params["proj"], qformer.apply(params["qformer"], qcfg, h))
+
+
 def apply_merger(params: dict, cfg: MergerConfig, features: torch.Tensor) -> torch.Tensor:
-    """[b, t, feat_dim] (or [b, t, q, feat_dim]) → [b, num_query_tokens, llm_dim]."""
+    """[b, t, feat_dim] (or [b, t, q, feat_dim]) → [b, num_query_tokens, llm_dim].
+    A 4-D input to the qformer merger gets the position of its frame added
+    to each of its q rows and is flattened to [b, t·q, d]; the other mergers
+    average its q rows first."""
     if cfg.fusion_type == "qformer":
-        raise _no_qformer("merger")
+        return _qformer_tokens(params, cfg.qformer_config(), features)
     if features.ndim == 4:
         features = features.mean(dim=2)
     b, t, _ = features.shape
@@ -72,36 +102,51 @@ class MultiFusionConfig:
     audio_dim: int
     llm_dim: int
     num_query_tokens: int
-    max_time: int = 264
+    max_time: int = 264  # qformer position slots
 
     @property
     def max_dim(self) -> int:
         return max(self.video_dim, self.audio_dim)
 
+    def qformer_config(self) -> qformer.QFormerConfig:
+        return qformer.QFormerConfig(encoder_width=self.max_dim,
+                                     num_query_tokens=self.num_query_tokens)
+
 
 def init_multi_fusion(generator: torch.Generator, cfg: MultiFusionConfig,
                       dtype=torch.float32) -> dict:
-    if cfg.fusion_type == "qformer":
-        raise _no_qformer("multi")
-    if cfg.fusion_type != "attention":
-        raise ValueError(f"Unknown multi fusion_type: {cfg.fusion_type}")
-    return {
+    params = {
         "video_embs": nn.dense_init(generator, cfg.video_dim, cfg.max_dim, dtype=dtype),
         "audio_embs": nn.dense_init(generator, cfg.audio_dim, cfg.max_dim, dtype=dtype),
-        "attn_mlp": nn.dense_init(generator, cfg.max_dim * 2, cfg.max_dim, dtype=dtype),
-        "fc_att": nn.dense_init(generator, cfg.max_dim, 2, dtype=dtype),
-        "proj": nn.dense_init(generator, cfg.max_dim, cfg.llm_dim, dtype=dtype),
     }
+    if cfg.fusion_type == "qformer":
+        params["pos_embed"] = nn.embedding_init(generator, cfg.max_time, cfg.max_dim,
+                                                dtype=dtype)
+        params["qformer"] = qformer.init_params(generator, cfg.qformer_config(), dtype=dtype)
+        proj_in = cfg.qformer_config().hidden_size
+    elif cfg.fusion_type == "attention":
+        params["attn_mlp"] = nn.dense_init(generator, cfg.max_dim * 2, cfg.max_dim, dtype=dtype)
+        params["fc_att"] = nn.dense_init(generator, cfg.max_dim, 2, dtype=dtype)
+        proj_in = cfg.max_dim
+    else:
+        raise ValueError(f"Unknown multi fusion_type: {cfg.fusion_type}")
+    params["proj"] = nn.dense_init(generator, proj_in, cfg.llm_dim, dtype=dtype)
+    return params
 
 
 def apply_multi_fusion(params: dict, cfg: MultiFusionConfig, video_hidden: torch.Tensor,
                        audio_hidden: torch.Tensor) -> torch.Tensor:
     """video_hidden [b, tv, video_dim], audio_hidden [b, ta, audio_dim]
-    → [b, num_query_tokens, llm_dim]: mean-pool each stream, a 2-way
-    attention gate, weighted sum, projection (affectgpt.py:464-489)."""
-    if cfg.fusion_type != "attention":
-        raise _no_qformer("multi")
+    → [b, num_query_tokens, llm_dim]."""
     b = video_hidden.shape[0]
+    if cfg.fusion_type == "qformer":
+        v = nn.dense(params["video_embs"], video_hidden)  # [b, tv, maxdim]
+        a = nn.dense(params["audio_embs"], audio_hidden)  # [b, ta, maxdim]
+        return _qformer_tokens(params, cfg.qformer_config(), torch.cat([v, a], dim=1))
+    if cfg.fusion_type != "attention":
+        raise ValueError(cfg.fusion_type)
+    # attention gate: mean-pool each stream, score the 2 modalities, weighted
+    # sum (affectgpt.py:464-489)
     v = nn.dense(params["video_embs"], video_hidden.mean(dim=1))  # [b, maxdim]
     a = nn.dense(params["audio_embs"], audio_hidden.mean(dim=1))
     gate = nn.dense(params["fc_att"], nn.dense(params["attn_mlp"], torch.cat([v, a], dim=-1)))

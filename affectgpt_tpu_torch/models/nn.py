@@ -1,7 +1,10 @@
 """Neural-net building blocks on explicit parameter dictionaries.
 
-Port of affectgpt_tpu/models/nn.py; `mha`'s train-mode `probs_drop`,
-`dropout` and the int8 `w_q` encoder leaves are not ported yet. Parameters
+Port of affectgpt_tpu/models/nn.py; `mha`'s train-mode `probs_drop` and
+`dropout` are not ported yet. A dense leaf holds a float `w`, or int8 `w_q`
+with its `scales` (the encoder towers' serving mode,
+`ops.quant.quantize_encoder_tree`), which `dense` and `dense_nobias` send to
+`ops.quant.dense_w8a8_xla`. Parameters
 are nested dicts of tensors with the JAX package's keys and layouts (dense
 `w` is `[in, out]`, applied as `x @ w`), so a converted JAX tree drops in
 unchanged.
@@ -17,6 +20,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from affectgpt_tpu_torch.ops import quant
 
 
 def normal(generator: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
@@ -52,7 +57,14 @@ def dense_init(generator, in_dim: int, out_dim: int, scale: float = 0.02, dtype=
     }
 
 
+def out_dim(params) -> int:
+    """Output width of a dense leaf, float or int8."""
+    return params.get("w", params.get("w_q")).shape[1]
+
+
 def dense(params, x: torch.Tensor) -> torch.Tensor:
+    if "w_q" in params:  # int8 tower serving mode
+        return quant.dense_w8a8_xla(x, params["w_q"], params["scales"], params.get("b"))
     y = matmul_f32(x, params["w"]) + params["b"].float()
     return y.to(x.dtype)
 
@@ -63,6 +75,8 @@ def dense_nobias_init(generator, in_dim: int, out_dim: int, scale: float = 0.02,
 
 
 def dense_nobias(params, x: torch.Tensor) -> torch.Tensor:
+    if "w_q" in params:  # int8 tower serving mode
+        return quant.dense_w8a8_xla(x, params["w_q"], params["scales"])
     return matmul_f32(x, params["w"]).to(x.dtype)
 
 
@@ -143,7 +157,7 @@ def mha(params, q_input: torch.Tensor, kv_input: torch.Tensor, num_heads: int,
         raise NotImplementedError("mha: probs_drop (train-mode dropout) is not ported yet")
     b, tq, _ = q_input.shape
     tk = kv_input.shape[1]
-    inner = params["q"]["w"].shape[1]
+    inner = out_dim(params["q"])
     head_dim = inner // num_heads
     q = dense(params["q"], q_input).reshape(b, tq, num_heads, head_dim)
     k = dense(params["k"], kv_input).reshape(b, tk, num_heads, head_dim)

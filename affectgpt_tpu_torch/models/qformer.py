@@ -1,0 +1,103 @@
+"""Q-Former: learned query tokens cross-attending over encoder states, in
+PyTorch.
+
+Port of affectgpt_tpu/models/qformer.py in eval mode: the temporal and
+fusion Q-Formers of the `qformer` mergers (the reference's vendored BERT,
+my_affectgpt/models/Qformer.py, with the text FFN and cls head stripped).
+Per layer, post-LN:
+
+    x = LN(x + SelfAttn(x))
+    x = LN(x + CrossAttn(x, enc))   # every cross_attention_freq-th layer
+    x = LN(x + FFN(x))
+
+after a LayerNorm of the query embeddings. Train-mode dropout waits for the
+training slice and raises.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from affectgpt_tpu_torch.models import nn
+
+
+@dataclass(frozen=True)
+class QFormerConfig:
+    hidden_size: int = 768
+    num_heads: int = 12
+    num_layers: int = 2
+    intermediate_size: int = 3072
+    encoder_width: int = 768
+    num_query_tokens: int = 32
+    layer_norm_eps: float = 1e-12
+    # cross-attention every Nth layer (1 for the temporal Q-Formers, 2 for
+    # the BLIP2 image Q-Former)
+    cross_attention_freq: int = 1
+    # BERT dropouts, applied only in train mode (not ported yet)
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+
+    @classmethod
+    def blip2(cls, num_query_tokens: int = 32, encoder_width: int = 1408):
+        return cls(num_layers=12, cross_attention_freq=2,
+                   num_query_tokens=num_query_tokens, encoder_width=encoder_width)
+
+    @classmethod
+    def tiny(cls, encoder_width: int = 16, num_query_tokens: int = 4):
+        return cls(hidden_size=16, num_heads=2, num_layers=2, intermediate_size=32,
+                   encoder_width=encoder_width, num_query_tokens=num_query_tokens)
+
+
+def init_params(generator: torch.Generator, cfg: QFormerConfig, dtype=torch.float32) -> dict:
+    """Random Q-Former weights on the generator's device (JAX's tree and
+    scales; the values differ from JAX's for the same seed)."""
+    dev = generator.device
+    h = cfg.hidden_size
+    layers = []
+    for i in range(cfg.num_layers):
+        layer = {
+            "self_attn": nn.mha_init(generator, h, h, cfg.num_heads, dtype=dtype),
+            "self_ln": nn.layernorm_init(h, dtype=dtype, device=dev),
+            "ffn_in": nn.dense_init(generator, h, cfg.intermediate_size, dtype=dtype),
+            "ffn_out": nn.dense_init(generator, cfg.intermediate_size, h, dtype=dtype),
+            "ffn_ln": nn.layernorm_init(h, dtype=dtype, device=dev),
+        }
+        if i % cfg.cross_attention_freq == 0:
+            layer["cross_attn"] = nn.mha_init(generator, h, cfg.encoder_width, cfg.num_heads,
+                                              dtype=dtype)
+            layer["cross_ln"] = nn.layernorm_init(h, dtype=dtype, device=dev)
+        layers.append(layer)
+    return {
+        "query_tokens": nn.normal(generator, (1, cfg.num_query_tokens, h), 0.02, dtype),
+        "embed_ln": nn.layernorm_init(h, dtype=dtype, device=dev),
+        "layers": layers,
+    }
+
+
+def apply(params: dict, cfg: QFormerConfig, encoder_hidden_states: torch.Tensor,
+          encoder_mask: Optional[torch.Tensor] = None, dropout_rng=None) -> torch.Tensor:
+    """encoder_hidden_states [b, t, encoder_width] → [b, num_query, hidden].
+    encoder_mask [b, t] bool (True = valid) folds padded timesteps out of the
+    cross-attention; a row with no valid step attends uniformly over all of
+    them, as JAX's finfo.min fill gives. dropout_rng (train mode) raises."""
+    if dropout_rng is not None:
+        raise NotImplementedError("qformer.apply: train-mode dropout is not ported yet "
+                                  "(ROADMAP queue 1 item 8)")
+    b = encoder_hidden_states.shape[0]
+    x = params["query_tokens"].to(encoder_hidden_states.dtype).expand(
+        b, cfg.num_query_tokens, cfg.hidden_size)
+    x = nn.layernorm(params["embed_ln"], x, cfg.layer_norm_eps)
+    cross_mask = None if encoder_mask is None else encoder_mask.bool()[:, None, None, :]
+    for layer in params["layers"]:
+        x = nn.layernorm(layer["self_ln"], x + nn.mha(layer["self_attn"], x, x, cfg.num_heads),
+                         cfg.layer_norm_eps)
+        if "cross_attn" in layer:
+            cross = nn.mha(layer["cross_attn"], x, encoder_hidden_states, cfg.num_heads,
+                           cross_mask)
+            x = nn.layernorm(layer["cross_ln"], x + cross, cfg.layer_norm_eps)
+        h = nn.dense(layer["ffn_out"], nn.gelu(nn.dense(layer["ffn_in"], x)))
+        x = nn.layernorm(layer["ffn_ln"], x + h, cfg.layer_norm_eps)
+    return x

@@ -35,8 +35,11 @@ it. The kernel wrappers launch their CUDA kernels for CUDA tensors (or
 raise) and run their plain versions for CPU tensors. Everything else is
 plain torch, mirroring the JAX default chain.
 
-Not ported yet: per-row cache writes of t > 1 rows (speculative verify,
-with `generate_speculative`), the CE losses, remat and LoRA dropout.
+`cache_index` may also be a [b] tensor on a t > 1 forward: the
+speculative verify of `inference.generate.generate_speculative`, each row's
+t rows at its own columns.
+
+Not ported yet: the CE losses, remat and LoRA dropout.
 """
 
 from __future__ import annotations
@@ -436,40 +439,60 @@ def _project_qkv(layer, lora_layer, cfg: QwenConfig, x, positions, decode: bool)
     return q, k, v.reshape(b, t, kv, d), False
 
 
-# 1/127 rounded to f32: XLA compiles JAX's `amax / 127.0` into a product
-# with this constant, and every JAX caller of _quantize_kv runs compiled
-_INV_127 = torch.tensor(1 / 127, dtype=torch.float32).item()
-
-
 def _quantize_kv(x: torch.Tensor):
     """Symmetric per-row int8 quantization over the trailing (head_dim) axis,
     bit for bit JAX's compiled qwen2.py:716-722: scale = amax x f32(1/127),
     values round(x / max(scale, 1e-20)), half to even. Returns (int8
     values, f32 scale [..., 1])."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1, keepdim=True) * _INV_127
+    scale = xf.abs().amax(dim=-1, keepdim=True) * quant.INV_127
     return torch.round(xf / scale.clamp_min(1e-20)).to(torch.int8), scale
+
+
+def _per_row(cache_index) -> bool:
+    """cache_index is one column per row (a [b] tensor), not a shared one."""
+    return torch.is_tensor(cache_index) and cache_index.ndim == 1
 
 
 def _write_cache(cache: dict, k: torch.Tensor, v: torch.Tensor, cache_index) -> None:
     """Write k/v [b, kv, t, d] into a layer's cache IN PLACE (JAX returns a
-    new cache): at the shared column `cache_index` (an int), or for t == 1 at
-    a per-row column (a [b] tensor, the continuous-batching server; clamped
-    into the cache as JAX's dynamic_update_slice clamps). An int8 cache
-    stores the quantized rows and their scales [b, kv, T]."""
+    new cache): at the shared column `cache_index` (an int), or at a per-row
+    column (a [b] tensor). For t == 1 (the continuous-batching server) that
+    column is clamped into the cache, as JAX's dynamic_update_slice clamps;
+    for t > 1 (speculative verify) row i's t rows go to columns
+    cache_index[i] + [0, t), and those outside the cache are dropped, as
+    JAX's one-hot rewrite (qwen2.py:818-845) drops them. An int8 cache
+    stores the quantized rows and their scales [b, kv, T]. No step here
+    waits for the device."""
     writes = {"k": k, "v": v}
     if cache["k"].dtype == torch.int8:
         (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
         writes = {"k": kq, "v": vq, "k_scale": ks[..., 0], "v_scale": vs[..., 0]}
     b, _, t = k.shape[:3]
-    if torch.is_tensor(cache_index) and cache_index.ndim == 1:
-        if t > 1:
-            raise NotImplementedError(
-                "per-row cache writes of t > 1 rows (speculative verify) are not ported yet")
-        rows = torch.arange(b, device=k.device)
-        cols = cache_index.to(device=k.device, dtype=torch.long).clamp(0, cache["k"].shape[2] - 1)
+    if _per_row(cache_index):
+        size = cache["k"].shape[2]
+        start = cache_index.to(device=k.device, dtype=torch.long)
+        if t == 1:
+            rows = torch.arange(b, device=k.device)
+            cols = start.clamp(0, size - 1)
+            for name, new in writes.items():
+                cache[name][rows, :, cols] = new[:, :, 0].to(cache[name].dtype)
+            return
+        # a write outside the cache goes to the nearest column instead,
+        # carrying what that column ends up holding (the step that writes it,
+        # else its old value), so every write to a column carries one value:
+        # the drop needs no boolean mask, whose count the host would wait for
+        # and a CUDA graph of the verify could not capture
+        rows = torch.arange(b, device=k.device)[:, None].expand(b, t)
+        cols = (start[:, None] + torch.arange(t, device=k.device)).clamp(0, size - 1)
+        step = cols - start[:, None]  # the step that writes each target column
+        written = (step >= 0) & (step < t)
+        step = step.clamp(0, t - 1)
         for name, new in writes.items():
-            cache[name][rows, :, cols] = new[:, :, 0]
+            buf = cache[name]
+            val = new.transpose(1, 2)[rows, step].to(buf.dtype)  # [b, t, kv, ...]
+            keep = written.view(b, t, *([1] * (val.ndim - 2)))
+            buf[rows, :, cols] = torch.where(keep, val, buf[rows, :, cols])
     else:
         for name, new in writes.items():
             cache[name][:, :, cache_index:cache_index + t] = new
@@ -494,7 +517,11 @@ def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, ca
         _write_cache(cache, k, v, cache_index)
         # an int8 cache takes none of the three attention kernels (JAX
         # qwen2.py:863, :889, :916): the plain chain reads the quantized cache
-        if PREFILL_ATTENTION == "flash" and t > 1 and not kv_quant:
+        # and a per-row index is a speculative verify, whose queries also
+        # read the earlier cache columns (JAX qwen2.py:864, "prefill, not
+        # verify")
+        if PREFILL_ATTENTION == "flash" and t > 1 and not kv_quant \
+                and not _per_row(cache_index):
             # the cache holds nothing beyond the prompt yet: attend over the
             # local k/v; pads are segment 0, tokens 1, read off the last
             # query row's mask (JAX qwen2.py:869-878, :698)
@@ -568,7 +595,8 @@ def forward(
 
     inputs_embeds [b, t, d]; attention_mask [b, t] validity without a cache
     (causal mask built here), or [b, t, max_len] bool key mask with one.
-    cache_index: the int column the t new k/v rows are written at.
+    cache_index: the int column the t new k/v rows are written at, or a [b]
+    tensor of per-row columns (`_write_cache`).
     last_token_only: project only the final position through the lm_head.
     Returns (logits [b, t or 1, vocab] f32, cache or None).
     """

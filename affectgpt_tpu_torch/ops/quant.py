@@ -46,9 +46,11 @@ not a multiple of its 256-row block to the w8 XLA path (qwen2.py
 tiles, so w8a8 always runs the kernel, as the JAX comment on the route
 intends ("w8a8 always runs the Pallas kernel").
 
-The w8a8 encoder trees (`dense_w8a8_xla`, `quantize_encoder_tree` and the
-`w_q` branch of nn.dense) are not ported yet: the port's CLIP and HuBERT
-towers (models/clip_vit.py, models/hubert.py) run on bf16 weights.
+The encoder towers' int8 serving mode: `quantize_encoder_tree` gives a
+tower `w_q` leaves, and `nn.dense` / `nn.dense_nobias` send them to
+`dense_w8a8_xla`, JAX's XLA product (per-row activation quantization, int8 x
+int8 → int32 in `torch._int_mm`, f32 rescale). As in JAX it runs outside any
+hand-written kernel: no TPU kernel computes it.
 """
 
 from __future__ import annotations
@@ -145,6 +147,47 @@ def quantize_dense_tree(params, bits: int = 8):
         return node
 
     return visit(params)
+
+
+# Encoder towers reuse the decoder's leaf format ({"w_q", "scales", "b"?});
+# conv, layernorm and embedding leaves (not 2-D, or no "w") stay as they are.
+quantize_encoder_tree = quantize_dense_tree
+
+# 1/127 rounded to f32: XLA compiles JAX's `absmax / 127.0` into a product
+# with this constant, and every JAX caller of dense_w8a8_xla (and of the
+# int8 KV cache's qwen2._quantize_kv) runs compiled
+INV_127 = torch.tensor(1 / 127, dtype=torch.float32).item()
+
+
+def _int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] int8 @ b [K, N] int8 → int32, exactly. torch._int_mm on the
+    card takes M > 16 and K, N multiples of 8: the operands are padded with
+    zeros to that, which leaves the sums unchanged."""
+    if not a.is_cuda:
+        return torch._int_mm(a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    pm, pk, pn = max(0, 17 - m), -k % 8, -n % 8
+    if pm or pk:
+        a = torch.nn.functional.pad(a, (0, pk, 0, pm))
+    if pk or pn:
+        b = torch.nn.functional.pad(b, (0, pn, 0, pk))
+    return torch._int_mm(a.contiguous(), b.contiguous())[:m, :n]
+
+
+def dense_w8a8_xla(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor,
+                   b=None) -> torch.Tensor:
+    """The encoder towers' W8A8 dense (JAX quant.py:502-521): x quantized per
+    row (absmax / 127, round half to even, clip to ±127), int8 x int8 →
+    int32, then × the row's scale × scales [1, N] in f32, + b, → x.dtype."""
+    xf = x.float()
+    sx = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) * INV_127
+    xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    y = _int8_mm(xq.reshape(-1, xq.shape[-1]), w_q).reshape(*x.shape[:-1], w_q.shape[1])
+    y = y.float() * sx * scales.float()
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -141,7 +141,7 @@ def mha_fused(params: dict, x, num_heads: int, valid_len: int):
     from affectgpt_tpu_torch.models import nn
 
     b, n, _ = x.shape
-    inner = params["q"]["w"].shape[1]
+    inner = nn.out_dim(params["q"])
     d = inner // num_heads
     q = nn.dense(params["q"], x).reshape(b, n, num_heads, d)
     k = nn.dense(params["k"], x).reshape(b, n, num_heads, d)

@@ -44,9 +44,12 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    and at 64 and 1000 (the 128 x 64 tile), and also timed at M = 16 on the split layout's attention
    products and the lm_head (paged_w8's decode M); `int4_matmul` is also
    timed at M = 256, bench.py's 7B batch, beside cuBLAS bf16 (a measurement
-   only). The serving kernels: paged attention (bf16 and int8 pools of 2048
-   blocks of 16, 16 rows of 545-596 tokens plus a 1-token row and a
-   one-page row, pages drawn from a shuffled permutation, table widths 38
+   only); `int4_matmul` and `int8_matmul` are also checked and timed at
+   M = 40, the speculative verify's rows (8 clips x (4 drafts + 1)), over the
+   7B split layer and the lm_head, beside cuBLAS bf16. The serving kernels:
+   paged attention (bf16 and int8 pools of 2048 blocks of 16, 16 rows of
+   545-596 tokens plus a 1-token row and a one-page row, pages drawn from a
+   shuffled permutation, table widths 38
    and 64, each call's plan printed (splits, cluster, ring), the same bits
    from a second call; times at both widths over three disjoint table sets
    on two pools, so a replay cycle reads more than the L2; `chain_ms` times
@@ -134,6 +137,35 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    logits and one string per clip, and prints the features' distance from
    rt_plain's; timed visits print the stages' ms, clips/s from raw media to
    text and the peak memory.
+7. Serving variants, on the phase-4 model; each sub-run a counted run
+   (exact launches, every other kernel 0 times) and one timed run.
+   spec_bf16, spec_q4, spec_kv8: Chat(speculative_draft_len=4), greedy, 8
+   clips, 32 tokens, on the bf16 tree, the q4 tree and the bf16 tree with
+   the int8 KV cache; the decode kernels take t = 1 only, so the bf16 setups
+   launch none, and spec_q4 launches int4_matmul 197 x its verify
+   iterations (7 products x 28 layers + the lm_head at M = 40) and
+   int4_matmul_smallm once (the prefill's last-token lm_head); prints the
+   verify iterations, tokens per iteration, decode ms beside plain greedy's,
+   and how many rows equal the same tree's greedy answer (not gated). The
+   f32 exactness gate: the speculative call at 2 layers of the 7B width in
+   f32 must emit greedy's tokens row for row. On the random weights a row
+   may part where greedy's top-two logit gap is below 1e-4 of the logits'
+   scale (printed); on a rig whose greedy stream is a 2-cycle (projections
+   zeroed, a two-column lm_head) the drafts are accepted, and tokens,
+   num_valid and more than one token per iteration are gated.
+   au_agent: AUAgent on the merged 7B LLM (T 0.7, top-p 0.9, repetition
+   penalty 1.1, 256 tokens) over 8 OpenFace rows from a seed, one neutral;
+   rows 1-2 launched 28 x 256 times, the neutral row's fixed string, one
+   step's penalty on the card bit-identical to the CPU's; prints tokens/s.
+   qformer: video, audio and multi mergers all "qformer" (768 wide, 12
+   heads, 2 layers) from a seed before the phase-4 LLM, greedy on the 8
+   clips; rows 1-2 launched 28 x 32 times; prints merger and prefill ms.
+   clip_text: encode_texts of the ViT-B/32 text geometry over 64 AU strings,
+   f32 within 1e-4 of the CPU's tower, no kernel; prints its bf16 ms.
+   rt_w8a8: phase 6's path with both towers from quantize_encoder_tree;
+   fused_vit_attention launched 24 x per CLIP call, the other encoder
+   kernels 0 times; prints the features' distance from rt_plain's and the
+   stages' ms.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -158,7 +190,7 @@ from affectgpt_tpu_torch import bootstrap
 from affectgpt_tpu_torch.inference import generate as gen
 from affectgpt_tpu_torch.inference import paged, server
 from affectgpt_tpu_torch.inference.chat import Chat, encode_media_features, prepare_frames
-from affectgpt_tpu_torch.models import affectgpt, clip_vit, encoders, hubert, nn, qwen2
+from affectgpt_tpu_torch.models import affectgpt, au_agent, clip_vit, encoders, hubert, nn, qwen2
 from affectgpt_tpu_torch.ops import _build, decode_attn_o as decode_attn_o_module
 from affectgpt_tpu_torch.ops import decode_gemm, quant, vit_mlp
 from affectgpt_tpu_torch.ops import decode_attention as decode_attention_module
@@ -206,6 +238,7 @@ from affectgpt_tpu_torch.ops.prefill_attention import (
     prefill_attention_reference,
     prefill_plan,
 )
+from affectgpt_tpu_torch.utils import clip_text
 
 # both sides round at the same points (xn and silu·up to bf16, attention
 # before o_proj), so they differ by f32 summation order plus one final bf16
@@ -213,6 +246,8 @@ from affectgpt_tpu_torch.ops.prefill_attention import (
 RTOL, ATOL = 1.6e-2, 1e-2
 NEW_TOKENS = 32
 BATCH = 8
+DRAFT_LEN = 4  # phase 7's speculative draft length
+SPEC_M = BATCH * (DRAFT_LEN + 1)  # the rows of a speculative verify's products
 MAX_LEN = 640
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, device memory
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
@@ -802,8 +837,9 @@ def layer_shapes(cfg: qwen2.QwenConfig, fused: bool) -> dict:
 QUANT_PHASE = {
     "int4_matmul_smallm": (4, quant.int4_matmul_smallm_reference, (1, 8, 13), 8, False,
                            BF16_FLOP_PER_S),
-    "int4_matmul": (4, quant.int4_matmul_reference, (16, 64, 1000), 16, False, BF16_FLOP_PER_S),
-    "int8_matmul": (8, quant.int8_matmul_reference, tuple(range(1, 17)) + (64, 1000), 8, True,
+    "int4_matmul": (4, quant.int4_matmul_reference, (16, 40, 64, 1000), 16, False,
+                    BF16_FLOP_PER_S),
+    "int8_matmul": (8, quant.int8_matmul_reference, tuple(range(1, 17)) + (40, 64, 1000), 8, True,
                     BF16_FLOP_PER_S),
     "int8_matmul_w8a8": (8, quant.int8_matmul_w8a8_reference, (8, 4512), 8, False,
                          S8_OPS_PER_S),
@@ -888,15 +924,19 @@ def phase_quant_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
                     **extra)
         # the main path's M first; w8a8 also at its prefill M, int4_matmul at
         # bench.py's 7B batch (M = 256, a measurement only), int8_matmul at
-        # paged_w8's M = 16 on the split layout's attention products
-        extra_m = {"int8_matmul_w8a8": max(ms_checked), "int4_matmul": 256,
-                   "int8_matmul": 16}.get(name)
+        # paged_w8's M = 16 on the split layout's attention products; both
+        # weight-only kernels at the speculative verify's M = SPEC_M over the
+        # split layer (phase 7's spec_q4 runs int4_matmul there)
+        extra_m = {"int8_matmul_w8a8": (max(ms_checked),), "int4_matmul": (256, SPEC_M),
+                   "int8_matmul": (16, SPEC_M)}.get(name, ())
         per_layer = []
-        for m in (m_path,) if extra_m is None else (m_path, extra_m):
+        for m in (m_path, *extra_m):
             layer = layer_shapes(cfg, fused)
-            if name == "int8_matmul" and m != m_path:
+            if name == "int8_matmul" and m == 16:
                 layer = {p: kn for p, kn in layer_shapes(cfg, False).items()
                          if p in ("q_proj", "k_proj", "v_proj", "o_proj")}
+            elif m == SPEC_M:
+                layer = layer_shapes(cfg, False)
             sums = dict.fromkeys(("ms", "plain_ms", "bf16_cublas_ms"), 0.0)
             nbytes = flops = 0
             for pname, (k, n) in {**layer, "lm_head": shapes["lm_head"]}.items():
@@ -1643,7 +1683,8 @@ def phase_main_path(card: str) -> tuple:
             visits=json.dumps([{key: round(r[key], 4) for key in
                                 ("prefill_ms", "decode_ms_per_step", "clips_per_s")}
                                for r in runs]), card=repr(card))
-    serving = {"bf16": trees["bf16"], "int8": trees["int8"]}  # what the serve phase runs
+    # what the serve phase runs, and phase 7's q4 tree
+    serving = {"bf16": trees["bf16"], "int8": trees["int8"], "int4": trees["int4"]}
     del trees, served
     torch.cuda.empty_cache()
     return launches, (cfg, frozen, trainable, tok, feats, serving)
@@ -1883,18 +1924,21 @@ def realtime_media(seed: int = 1) -> dict:
     }
 
 
-def rt_counted(config: str, chat: Chat, raw: dict, baseline: dict) -> dict:
+def rt_counted(config: str, chat: Chat, raw: dict, baseline: dict,
+               rt: Optional[RtConfig] = None) -> dict:
     """One answer from raw media under a configuration, every kernel count
     set to 0 just before and read just after: asserts the exact launches,
     features of the expected shapes, finite features and logits, and one
     string per clip; prints each modality's largest difference and least
     cosine similarity against rt_plain's features (not asserted: the kernel
-    routes round at other points than the plain chain)."""
+    routes round at other points than the plain chain). `rt` overrides the
+    configuration's RT entry (phase 7's rt_w8a8)."""
+    rt = rt or RT[config]
     cfg = chat.cfg
     _, vcfg, _, acfg = encoder_configs(cfg)
     n = NEW_TOKENS * cfg.llm.num_layers
     expected = {**dict.fromkeys(KERNELS, 0), "decode_qkv": n, "decode_mlp_bf16": n,
-                **RT[config].launches(vcfg.num_layers, acfg.num_layers)}
+                **rt.launches(vcfg.num_layers, acfg.num_layers)}
     finite = []
     forward = qwen2.forward
 
@@ -1903,7 +1947,7 @@ def rt_counted(config: str, chat: Chat, raw: dict, baseline: dict) -> dict:
         finite.append(torch.isfinite(out).all())
         return out, cache
 
-    with switched(RT[config].switches):
+    with switched(rt.switches):
         qwen2.forward = checked_forward
         for wrapper in WRAPPERS.values():
             wrapper.launches = 0
@@ -1916,7 +1960,7 @@ def rt_counted(config: str, chat: Chat, raw: dict, baseline: dict) -> dict:
             qwen2.forward = forward
     launches = {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
     say("realtime", config=config, switches=json.dumps(
-        {f"{mod.__name__.split('.')[-1]}.{name}": v for mod, name, v in RT[config].switches}),
+        {f"{mod.__name__.split('.')[-1]}.{name}": v for mod, name, v in rt.switches}),
         launches=json.dumps({k: v for k, v in launches.items() if v}), strings=len(texts))
     if launches != expected:
         raise AssertionError(f"realtime {config}: kernel launches {launches} != {expected}")
@@ -1943,7 +1987,7 @@ def rt_counted(config: str, chat: Chat, raw: dict, baseline: dict) -> dict:
     return launches
 
 
-def rt_timed(config: str, chat: Chat, raw: dict) -> dict:
+def rt_timed(config: str, chat: Chat, raw: dict, rt: Optional[RtConfig] = None) -> dict:
     """One timed visit: each stage alone as the entry point runs it
     (preprocessing of frames and faces, CLIP on frames, CLIP on faces, HuBERT,
     answer_batch on those features), each ending in a synchronize; then the
@@ -1960,7 +2004,7 @@ def rt_timed(config: str, chat: Chat, raw: dict) -> dict:
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
-    with switched(RT[config].switches):
+    with switched((rt or RT[config]).switches):
         torch.cuda.reset_peak_memory_stats()
         prepped, pre_ms = timed(lambda: {m: prepare_frames(raw[m], vcfg.image_size,
                                                            vspec.normalize)
@@ -2015,6 +2059,398 @@ def phase_realtime(card: str, model: tuple) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: serving variants on the phase-4 model
+
+# setup: (the serving tree of phase 4, the KV cache dtype)
+SPEC = {"spec_bf16": ("bf16", None), "spec_q4": ("int4", None), "spec_kv8": ("bf16", "int8")}
+AU_ROWS = 8
+NEUTRAL_ROW = 3  # every AU at or below 0.5: answered without generating
+AU_NEW_TOKENS = 256  # the reference AU agent's max_new_tokens
+CLIP_TEXTS = 64
+# the CLIP calls of rt_w8a8 (frames and faces): int8 blocks leave the sublayer
+# route for "flash", the fused attention with the plain MLP
+RT_W8A8 = RtConfig((), lambda c, h: {"fused_vit_attention": 2 * c})
+
+
+def spec_launches(setup: str, layers: int, iters: int) -> dict:
+    """Launches of one speculative answer. The decode kernels (rows 1-4) take
+    t = 1 only, and neither the prefill nor a verify (t = DRAFT_LEN + 1) is:
+    the bf16 setups launch nothing. spec_q4: each verify runs the split
+    layout's seven products in every layer and the lm_head at M = SPEC_M
+    (int4_matmul); the prefill's products (M = 8 t_pad > 1024) take the
+    dequantize route and its last-token lm_head (M = 8) int4_matmul_smallm."""
+    if setup == "spec_q4":
+        return {"int4_matmul": (7 * layers + 1) * iters, "int4_matmul_smallm": 1}
+    return {}
+
+
+def counted_call(fn):
+    """fn() with every kernel count set to 0 just before and read just after;
+    returns (its result, the counts)."""
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+
+
+def check_launches(what: str, launches: dict, expected: dict) -> None:
+    expected = {**dict.fromkeys(KERNELS, 0), **expected}
+    if launches != expected:
+        raise AssertionError(f"{what}: kernel launches {launches} != {expected}")
+
+
+@contextlib.contextmanager
+def patched(module, name: str, make):
+    """module.name replaced by make(original) for the duration of the block."""
+    inner = getattr(module, name)
+    setattr(module, name, make(inner))
+    try:
+        yield
+    finally:
+        setattr(module, name, inner)
+
+
+def recording_forward(record: list):
+    """A wrapper of qwen2.forward that appends each call's last-position
+    logits [b, vocab] to `record`."""
+    def make(forward):
+        def wrapped(*args, **kwargs):
+            out, cache = forward(*args, **kwargs)
+            record.append(out[:, -1].float())
+            return out, cache
+        return wrapped
+    return make
+
+
+def spec_stats(record: list):
+    """A wrapper of gen.generate_speculative that appends (verify
+    iterations, mean num_valid) of each call to `record`."""
+    def make(inner):
+        def wrapped(*args, **kwargs):
+            tokens, num_valid, iters = inner(*args, **kwargs, return_stats=True)
+            record.append((iters, float(num_valid.float().mean())))
+            return tokens, num_valid
+        return wrapped
+    return make
+
+
+def check_finite(what: str, logits: list, count: Optional[int] = None) -> None:
+    if not logits or (count is not None and len(logits) != count) \
+            or not bool(torch.stack([torch.isfinite(x).all() for x in logits]).all()):
+        raise AssertionError(f"{what}: {len(logits)} forwards, or non-finite logits")
+
+
+def check_strings(what: str, texts, n: int) -> None:
+    if len(texts) != n or not all(isinstance(t, str) for t in texts):
+        raise AssertionError(f"{what}: expected {n} strings, got {texts!r}")
+
+
+def prefill_ms(chat: Chat, feats: dict, cache_dtype=None) -> float:
+    """Wall ms of the answer's prefill alone: generate with 0 new tokens on
+    the spliced prompt embeddings."""
+    served = Served(chat, feats, SUBTITLES)
+    gcfg = gen.GenerateConfig(max_new_tokens=0, do_sample=False)
+    return wall(lambda: gen.generate(chat.frozen["llm"], chat.cfg.llm, gcfg, served.embeds,
+                                     served.lengths, None, max_len=chat.max_len,
+                                     cache_dtype=cache_dtype), reps=1)
+
+
+def spec_setup(card: str, setup: str, model: tuple) -> None:
+    """One speculative setup of SPEC: a counted answer (exact launches from
+    its verify iterations, finite logits, one string per clip), the same
+    tree's plain greedy answer (rows equal: printed, not gated, since bf16
+    ties may part a t = 1 step from a t = DRAFT_LEN + 1 verify), then one
+    timed answer of each."""
+    cfg, frozen, trainable, tok, feats, trees = model
+    tree, kv = SPEC[setup]
+    llm = {**frozen, "llm": trees[tree]}
+    spec = Chat(llm, trainable, cfg, tok, max_len=MAX_LEN, kv_cache_dtype=kv,
+                speculative_draft_len=DRAFT_LEN)
+    plain = Chat(llm, trainable, cfg, tok, max_len=MAX_LEN, kv_cache_dtype=kv)
+
+    def answer(chat):
+        return chat.answer_batch(MODE, SUBTITLES, QUESTION, feats, max_new_tokens=NEW_TOKENS,
+                                 do_sample=False)
+
+    stats, logits = [], []
+    with patched(gen, "generate_speculative", spec_stats(stats)), \
+            patched(qwen2, "forward", recording_forward(logits)):
+        texts, launches = counted_call(lambda: answer(spec))
+    iters, mean_valid = stats[0]
+    say("serving", setup=setup, tree=tree, kv_cache=kv or "bf16", draft_len=DRAFT_LEN,
+        verify_iterations=iters, launches=json.dumps({k: v for k, v in launches.items() if v}))
+    check_launches(setup, launches, spec_launches(setup, cfg.llm.num_layers, iters))
+    check_finite(setup, logits, iters + 1)
+    check_strings(setup, texts, BATCH)
+    greedy = answer(plain)
+    cache_dtype = torch.int8 if kv == "int8" else None
+    pre = prefill_ms(spec, feats, cache_dtype)
+    spec_ms, plain_ms = wall(lambda: answer(spec), reps=1), wall(lambda: answer(plain), reps=1)
+    out = {"verify_iterations": iters, "tokens_per_iteration": mean_valid / iters,
+           "rows_equal_to_greedy": sum(a == b for a, b in zip(texts, greedy)),
+           "prefill_ms": pre, "spec_decode_ms": spec_ms - pre, "greedy_decode_ms": plain_ms - pre,
+           "spec_answer_ms": spec_ms, "greedy_answer_ms": plain_ms}
+    say("serving", setup=setup, **{k: f"{v:.4f}" if isinstance(v, float) else v
+                                   for k, v in out.items()}, card=repr(card))
+
+
+def tree_to(tree, dtype=None, device=None):
+    """A parameter tree moved to `device` (if given), every floating tensor
+    cast to `dtype` (if given)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dtype, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, dtype, device) for v in tree]
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    return tree.to(device=device, dtype=dtype if tree.is_floating_point() else None)
+
+
+PERIODIC = (42, 43)  # the rigged lm_head's two columns
+
+
+def periodic_rig(llm: dict, cfg: qwen2.QwenConfig) -> dict:
+    """llm with every projection zeroed, so that each position's final
+    hidden state is its own token's final-normed embedding h(x), and an
+    lm_head that is zero except columns 42 and 43 = +-(u43 - u42), u the unit
+    h(x): 42 is followed by 43 and 43 by 42, whatever came before. The
+    stream is the 2-cycle, which the lookup drafts from its own history."""
+    layers = [{**lyr, **{n: {k: torch.zeros_like(v) for k, v in lyr[n].items()}
+                         for n in qwen2._LORA_TARGETS}} for lyr in llm["layers"]]
+    dev = llm["embed_tokens"]["table"].device
+    h = qwen2.embed_tokens(llm, torch.as_tensor(PERIODIC, device=dev))
+    u = nn.rmsnorm(llm["final_ln"], h, cfg.rms_eps).float()
+    u = u / u.norm(dim=-1, keepdim=True)
+    w = torch.zeros((cfg.hidden_size, cfg.vocab_size), device=dev)
+    w[:, PERIODIC[0]], w[:, PERIODIC[1]] = u[1] - u[0], u[0] - u[1]
+    return {**llm, "layers": layers, "lm_head": {"w": w}}
+
+
+def spec_exactness(card: str, model: tuple) -> None:
+    """The speculative call at 2 layers of the 7B width in f32 (TF32 is off,
+    the decode kernels take bf16, so every product is a plain f32 one) must
+    emit, row for row, the tokens of generate(do_sample=False). On the
+    random weights each verify keeps t0 and the bonus token alone, and a row
+    may part only where greedy's top-two logit gap at that step is below
+    1e-4 of the logits' largest magnitude, a tie that f32 summation order
+    may flip. On periodic_rig the drafts are accepted (tokens per iteration
+    > 1): there the tokens and num_valid must equal greedy's in every row."""
+    cfg, frozen, trainable, tok, feats, _ = model
+    llm = frozen["llm"]
+    llm32 = tree_to({**llm, "layers": llm["layers"][:2]}, torch.float32)
+    cfg2 = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_layers=2))
+    chat = Chat({**frozen, "llm": llm32}, trainable, cfg2, tok, max_len=MAX_LEN)
+    ids, lengths, offsets = chat.build_prompt_batch(MODE, SUBTITLES, QUESTION)
+    ids = torch.as_tensor(ids, dtype=torch.long, device="cuda")
+    embeds = affectgpt.build_inputs_embeds(
+        chat.frozen, trainable, cfg2, ids, tree_to(feats, torch.float32),
+        {m: torch.as_tensor(v, dtype=torch.long, device="cuda") for m, v in offsets.items()})
+    lengths = torch.as_tensor(lengths, device="cuda")
+    gcfg = gen.GenerateConfig(max_new_tokens=NEW_TOKENS, do_sample=False,
+                              eos_token_id=tok.eos_token_id, stop_token_ids=chat._stop_ids)
+    for rig, params in (("random", llm32), ("periodic", periodic_rig(llm32, cfg2.llm))):
+        logits = []
+        with switched([(qwen2, "DECODE_QKV", "xla"), (qwen2, "DECODE_MLP", "xla")]):
+            spec, spec_nv, iters = gen.generate_speculative(
+                params, cfg2.llm, gcfg, embeds, lengths, ids, max_len=MAX_LEN + DRAFT_LEN,
+                draft_len=DRAFT_LEN, return_stats=True)
+            with patched(qwen2, "forward", recording_forward(logits)):
+                greedy, greedy_nv = gen.generate(params, cfg2.llm, gcfg, embeds, lengths, None,
+                                                 max_len=MAX_LEN)
+        parted = {}
+        for row in range(BATCH):
+            diff = (spec[row] != greedy[row]).nonzero()
+            if len(diff):
+                step = int(diff[0])
+                top2 = logits[step][row].topk(2).values
+                gap, scale = float(top2[0] - top2[1]), float(logits[step][row].abs().max())
+                parted[row] = {"step": step, "gap": gap, "gap_over_scale": gap / scale}
+        per_iter = float(spec_nv.float().mean()) / max(iters, 1)
+        nv_equal = bool(torch.equal(spec_nv, greedy_nv))
+        say("serving", setup=f"spec_exactness_f32_{rig}", layers=2, verify_iterations=iters,
+            tokens_per_iteration=f"{per_iter:.4f}", rows_equal=BATCH - len(parted),
+            parted=json.dumps(parted), num_valid_equal=nv_equal, card=repr(card))
+        if rig == "random":
+            for row, p in parted.items():
+                if p["gap_over_scale"] >= 1e-4:
+                    raise AssertionError(
+                        f"spec_exactness_f32: row {row} parts from greedy at step {p['step']} "
+                        f"with a top-two gap of {p['gap_over_scale']:.3g} of the logits' scale")
+        elif parted or not nv_equal or per_iter <= 1.0 \
+                or set(spec.unique().tolist()) != set(PERIODIC):
+            raise AssertionError(
+                f"spec_exactness_f32_periodic: rows parted {sorted(parted)}, num_valid "
+                f"{spec_nv.tolist()} vs greedy {greedy_nv.tolist()}, {per_iter:.3f} tokens per "
+                f"iteration, tokens {sorted(set(spec.unique().tolist()))}")
+        del params, logits
+    del llm32, chat, embeds
+    torch.cuda.empty_cache()
+
+
+def au_rows(seed: int = 7) -> list:
+    """AU_ROWS OpenFace rows from a numpy seed: the 17 `AU??_r` intensities
+    in [0, 3), and row NEUTRAL_ROW with every AU at or below 0.5."""
+    rng = np.random.RandomState(seed)
+    names = sorted(au_agent.AU_NAME_MAP)
+    rows = []
+    for i in range(AU_ROWS):
+        values = rng.rand(len(names)) * (0.5 if i == NEUTRAL_ROW else 3.0)
+        rows.append({f"{au}_r": f"{v:.2f}" for au, v in zip(names, values)})
+    return rows
+
+
+def au_agent_run(card: str, model: tuple) -> None:
+    """AUAgent on the merged 7B LLM with the reference's sampling (T 0.7,
+    top-p 0.9, repetition penalty 1.1, 256 new tokens): a counted run (rows
+    1-2 launched num_layers x the decode steps, one string per row, the
+    neutral row's fixed description), one step's penalty on the card against
+    the same f32 formula on the CPU (the same bits), then a timed run."""
+    cfg, frozen, _, tok, _, _ = model
+    rows = [au_agent.parse_openface_row(r) for r in au_rows()]
+    agent = au_agent.AUAgent(frozen["llm"], cfg.llm, tok, max_new_tokens=AU_NEW_TOKENS)
+    penalties = []
+
+    def keep_first(inner):
+        def wrapped(logits, seen, penalty):
+            out = inner(logits, seen, penalty)
+            if not penalties:
+                penalties.append((logits, seen.clone(), penalty, out))
+            return out
+        return wrapped
+
+    logits = []
+    with patched(gen, "apply_repetition_penalty", keep_first), \
+            patched(qwen2, "forward", recording_forward(logits)):
+        texts, launches = counted_call(lambda: agent.generate_descriptions(
+            rows, generator=torch.Generator(device="cuda").manual_seed(0)))
+    n = cfg.llm.num_layers * AU_NEW_TOKENS
+    say("serving", setup="au_agent", rows=AU_ROWS, decode_steps=AU_NEW_TOKENS,
+        launches=json.dumps({k: v for k, v in launches.items() if v}),
+        sample=json.dumps(texts[0][:60]))
+    check_launches("au_agent", launches, {"decode_qkv": n, "decode_mlp_bf16": n})
+    check_finite("au_agent", logits, AU_NEW_TOKENS + 1)
+    check_strings("au_agent", texts, AU_ROWS)
+    if texts[NEUTRAL_ROW] != au_agent.NEUTRAL_DESCRIPTION:
+        raise AssertionError(f"au_agent: neutral row gave {texts[NEUTRAL_ROW]!r}")
+    x, seen, penalty, got = penalties[0]
+    want = gen.apply_repetition_penalty(x.cpu(), seen.cpu(), penalty)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("au_agent: the penalty on the card differs from the CPU's bits")
+    ms = wall(lambda: agent.generate_descriptions(
+        rows, generator=torch.Generator(device="cuda").manual_seed(1)), reps=1)
+    generated = (AU_ROWS - 1) * AU_NEW_TOKENS
+    say("serving", setup="au_agent", penalty_bits_equal_cpu=True, seen_tokens=int(seen.sum()),
+        wall_ms=f"{ms:.4f}", tokens_per_s=f"{generated / ms * 1e3:.4f}", card=repr(card))
+
+
+def qformer_run(card: str, model: tuple) -> None:
+    """The phase-4 frozen LLM behind new random Q-Former mergers from a seed
+    (video, audio and the multi pre-fusion all "qformer": 768 wide, 12
+    heads, 2 layers): a counted greedy answer on the 8 preextracted clips
+    (rows 1-2 launched num_layers x the steps, finite logits, one string per
+    clip), then the mergers, the prefill and the answer timed."""
+    cfg, frozen, _, tok, feats, _ = model
+    qcfg = dataclasses.replace(cfg, video_fusion_type="qformer", audio_fusion_type="qformer",
+                               multi_fusion_type="qformer")
+    trainable = affectgpt.init_trainable(torch.Generator(device="cuda").manual_seed(3), qcfg)
+    trainable["lora"] = None  # the LLM's LoRA is merged
+    chat = Chat(frozen, trainable, qcfg, tok, max_len=MAX_LEN)
+
+    def answer():
+        return chat.answer_batch(MODE, SUBTITLES, QUESTION, feats, max_new_tokens=NEW_TOKENS,
+                                 do_sample=False)
+
+    logits = []
+    with patched(qwen2, "forward", recording_forward(logits)):
+        texts, launches = counted_call(answer)
+    n = cfg.llm.num_layers * NEW_TOKENS
+    say("serving", setup="qformer", launches=json.dumps({k: v for k, v in launches.items() if v}),
+        sample=json.dumps(texts[0][:60]))
+    check_launches("qformer", launches, {"decode_qkv": n, "decode_mlp_bf16": n})
+    check_finite("qformer", logits, NEW_TOKENS + 1)
+    check_strings("qformer", texts, BATCH)
+    blocks = affectgpt.encode_modalities(trainable, qcfg, feats)
+    say("serving", setup="qformer", blocks=json.dumps({m: list(b.shape) for m, b in
+                                                       blocks.items()}),
+        merger_ms=f"{wall(lambda: affectgpt.encode_modalities(trainable, qcfg, feats)):.4f}",
+        prefill_ms=f"{prefill_ms(chat, feats):.4f}", answer_ms=f"{wall(answer, reps=1):.4f}",
+        card=repr(card))
+
+
+def clip_text_run(card: str) -> None:
+    """encode_texts of the ViT-B/32 text geometry over CLIP_TEXTS AU
+    description strings: f32 weights from a seed on the card within 1e-4 of
+    the same tower on the CPU (TF32 off), no kernel launched (the causal
+    blocks take the plain chain); then the bf16 tower timed."""
+    tcfg = clip_vit.ClipTextConfig.vit_b_32_text()
+    params = clip_vit.init_text_params(torch.Generator(device="cuda").manual_seed(4), tcfg,
+                                       dtype=torch.float32)
+    rng = np.random.RandomState(8)
+    names = sorted(au_agent.AU_NAME_MAP)
+    texts = [au_agent.build_au_input({au: float(v) for au, v in zip(names, rng.rand(17) * 3)})
+             for _ in range(CLIP_TEXTS)]
+    got, launches = counted_call(lambda: clip_text.encode_texts(params, tcfg, texts))
+    check_launches("clip_text", launches, {})
+    want = clip_text.encode_texts(tree_to(params, device="cpu"), tcfg, texts)
+    err = float(np.abs(got - want).max())
+    params16 = tree_to(params, torch.bfloat16)
+    feats16 = clip_text.encode_texts(params16, tcfg, texts)
+    say("serving", setup="clip_text", texts=CLIP_TEXTS, shape=list(got.shape),
+        max_abs_err_vs_cpu_f32=f"{err:.6g}", tol=1e-4,
+        bf16_min_cos_vs_f32=f"{float((feats16 * got).sum(-1).min()):.6f}",
+        bf16_ms=f"{wall(lambda: clip_text.encode_texts(params16, tcfg, texts)):.4f}",
+        card=repr(card))
+    if not np.isfinite(got).all() or err > 1e-4:
+        raise AssertionError(f"clip_text: {err:.3g} from the CPU's f32 tower (tolerance 1e-4)")
+
+
+def rt_w8a8_run(card: str, model: tuple) -> None:
+    """The realtime path (phase 6) with both towers from
+    quant.quantize_encoder_tree: rt_plain's counted run on the bf16 towers
+    as the baseline, then rt_w8a8's counted run (fused_vit_attention 24 x
+    per CLIP call, the other encoder kernels 0 times; the features'
+    distance from rt_plain's printed) and one timed visit."""
+    cfg, frozen, trainable, tok, _, _ = model
+    t0 = time.perf_counter()
+    qfrozen = {**frozen, **{tower: quant.quantize_encoder_tree(frozen[tower])
+                            for tower in ("visual_encoder", "acoustic_encoder")}}
+    raw = realtime_media()
+    torch.cuda.synchronize()
+    towers = [qfrozen["visual_encoder"], qfrozen["acoustic_encoder"]]
+    say("serving", setup="rt_w8a8", encoder_gib=f"{tree_gib(towers):.3f}",
+        setup_s=f"{time.perf_counter() - t0:.3f}")
+    baseline = {}
+    rt_counted("rt_plain", Chat(frozen, trainable, cfg, tok, max_len=MAX_LEN), raw, baseline)
+    chat = Chat(qfrozen, trainable, cfg, tok, max_len=MAX_LEN)
+    rt_counted("rt_w8a8", chat, raw, baseline, RT_W8A8)
+    visit = rt_timed("rt_w8a8", chat, raw, RT_W8A8)
+    say("serving", setup="rt_w8a8", **{k: f"{v:.4f}" for k, v in visit.items()}, card=repr(card))
+    # where a w8a8 dense spends its time: CLIP's fc1 on a tower call's rows
+    leaf = qfrozen["visual_encoder"]["blocks"][0]["mlp_in"]
+    x = torch.randn((ENCODER_B * 257, leaf["w_q"].shape[0]), device="cuda").to(torch.bfloat16)
+    say("serving", setup="rt_w8a8", dense=f"{list(x.shape)} @ {list(leaf['w_q'].shape)}",
+        stages_ms=json.dumps(stage_ms(lambda: nn.dense(leaf, x))), card=repr(card))
+    del raw, qfrozen, chat
+    torch.cuda.empty_cache()
+
+
+def phase_serving_variants(card: str, model: tuple) -> None:
+    """Phase 7 on the phase-4 model: spec_bf16, spec_q4, spec_kv8 and the f32
+    exactness gate, au_agent, qformer, clip_text, rt_w8a8, each gating its
+    own launch counts."""
+    t0 = time.perf_counter()
+    for setup in SPEC:
+        spec_setup(card, setup, model)
+    spec_exactness(card, model)
+    au_agent_run(card, model)
+    qformer_run(card, model)
+    clip_text_run(card)
+    rt_w8a8_run(card, model)
+    say("serving", phase_seconds=f"{time.perf_counter() - t0:.3f}", card=repr(card))
+
+
 def main() -> None:
     card = phase_device()
     phase_build(card)
@@ -2030,6 +2466,7 @@ def main() -> None:
         launches.setdefault(name, count)
     for name, count in phase_realtime(card, model).items():  # the encoder kernels
         launches.setdefault(name, count)
+    phase_serving_variants(card, model)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],

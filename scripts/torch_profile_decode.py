@@ -1,7 +1,7 @@
 """Where the time of the PyTorch port's decode goes, on one CUDA card.
 
     python3 scripts/torch_profile_decode.py [--steps 8] [--batch 8] [--attention a]
-                                            [--bits 4|8 [--w8a8]]
+                                            [--bits 4|8 [--w8a8]] [--speculative D]
 
 Builds the port's main path as chip_smoke.py does (Qwen2.5-7B width, random
 bf16 weights from a seed, LoRA merged, 8 preextracted clips) under one of
@@ -17,7 +17,9 @@ the full table and a Chrome trace to chiprun_out/. With `--bits`, one more
 run outside the profiler times the host side of every quantized-matmul
 wrapper call (its checks, allocations and launch; the kernels run
 asynchronously) and prints, per wrapper, the calls, the median and mean
-microseconds, and their share of the run's wall time.
+microseconds, and their share of the run's wall time. `--speculative D`
+profiles generate_speculative with draft length D instead (`--steps` new
+tokens; device operations counted per verify iteration).
 """
 
 from __future__ import annotations
@@ -73,6 +75,8 @@ def main() -> None:
     ap.add_argument("--attention", choices=ATTENTION, default="default")
     ap.add_argument("--bits", type=int, choices=(4, 8), default=None)
     ap.add_argument("--w8a8", action="store_true")
+    ap.add_argument("--speculative", type=int, default=0, metavar="D",
+                    help="profile generate_speculative with draft length D")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
     if args.w8a8 and args.bits != 8:
@@ -82,7 +86,7 @@ def main() -> None:
     if args.w8a8:
         quant.MATMUL_MODE = "w8a8"
     label = args.attention + (f"_int{args.bits}" if args.bits else "") + \
-        ("_w8a8" if args.w8a8 else "")
+        ("_w8a8" if args.w8a8 else "") + (f"_spec{args.speculative}" if args.speculative else "")
     if not torch.cuda.is_available():
         raise SystemExit("torch_profile_decode: needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -110,11 +114,20 @@ def main() -> None:
         frozen, trainable, cfg, torch.as_tensor(ids, dtype=torch.long, device="cuda"), feats,
         {m: torch.as_tensor(v, dtype=torch.long, device="cuda") for m, v in offsets.items()})
     lengths_t = torch.as_tensor(lengths, device="cuda")
+    ids_t = torch.as_tensor(ids, dtype=torch.long, device="cuda")
+    iters = []  # verify iterations of each speculative run
 
     def run(steps=args.steps):
-        out = gen.generate(frozen["llm"], cfg.llm, gen.GenerateConfig(
-            max_new_tokens=steps, do_sample=False, eos_token_id=tok.eos_token_id),
-            embeds, lengths_t, None, chat.max_len)
+        gcfg = gen.GenerateConfig(max_new_tokens=steps, do_sample=False,
+                                  eos_token_id=tok.eos_token_id)
+        if args.speculative:
+            *out, n = gen.generate_speculative(
+                frozen["llm"], cfg.llm, gcfg, embeds, lengths_t, ids_t,
+                chat.max_len + args.speculative, draft_len=args.speculative, return_stats=True)
+            iters.append(n)
+        else:
+            out = gen.generate(frozen["llm"], cfg.llm, gcfg, embeds, lengths_t, None,
+                               chat.max_len)
         torch.cuda.synchronize()
         return out
 
@@ -136,14 +149,18 @@ def main() -> None:
     kernels = device_events(prof)
     device_us = {e.key: e.self_device_time_total for e in kernels}
     total_device_ms = sum(device_us.values()) / 1e3
+    # a decode step, or a verify iteration of the speculative loop
+    loops = iters[-1] if args.speculative else args.steps
     ops_per_step = (sum(e.count for e in kernels)
-                    - sum(e.count for e in device_events(prefill_prof))) / args.steps
+                    - sum(e.count for e in device_events(prefill_prof))) / loops
     print(f"[profile] card={card!r} config={label} batch={b} "
-          f"prompt_tokens={ids.shape[1]} "
-          f"decode_steps={args.steps} wall_ms={wall_ms:.3f} "
+          f"prompt_tokens={ids.shape[1]} new_tokens={args.steps} "
+          f"{'verify_iterations' if args.speculative else 'decode_steps'}={loops} "
+          f"wall_ms={wall_ms:.3f} "
           f"kernel_device_ms={total_device_ms:.3f} "
           f"device_busy_share={total_device_ms / wall_ms:.4f} "
-          f"device_ops_per_decode_step={ops_per_step:.1f}", flush=True)
+          f"device_ops_per_{'verify' if args.speculative else 'decode_step'}={ops_per_step:.1f}",
+          flush=True)
     for key, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:20]:
         count = next(e.count for e in kernels if e.key == key)
         print(f"[profile] {us / 1e3:10.3f} ms  {count:6d} calls  {key[:90]}", flush=True)

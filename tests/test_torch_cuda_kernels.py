@@ -903,3 +903,35 @@ def test_mlp_sublayer_kernel_matches_plain_at_tower_width(gen, n, act):
     assert torch.equal(got, again)
     torch.testing.assert_close(got.float(), vit_mlp.mlp_sublayer_reference(
         *args, act=act).float(), **TOL)
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 64])
+@pytest.mark.parametrize("k,n", [(588, 1024), (1024, 4096), (4096, 1024), (1024, 768)])
+def test_dense_w8a8_xla_on_the_card_equals_the_cpu(gen, m, k, n):
+    """The encoder towers' w8a8 dense (a library product, padded on the card
+    to torch._int_mm's M > 16 and K, N multiples of 8) gives the CPU's bits:
+    the int8 product is exact, the f32 steps are the same operations."""
+    x = _rnd(gen, m, k)
+    w_q = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    scales = torch.rand((1, n), generator=gen, device="cuda") * 1e-3
+    b = _rnd(gen, n)
+    got = quant.dense_w8a8_xla(x, w_q, scales, b)
+    want = quant.dense_w8a8_xla(x.cpu(), w_q.cpu(), scales.cpu(), b.cpu())
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_per_row_block_cache_write_on_the_card_equals_the_cpu(gen, dtype):
+    """The speculative verify's cache write (t = 5 rows at per-row columns,
+    a row starting before the cache, one running past its end) on CUDA
+    tensors gives the CPU's cache."""
+    from affectgpt_tpu_torch.models import qwen2
+
+    k, v = _rnd(gen, 4, 2, 5, 128), _rnd(gen, 4, 2, 5, 128)
+    start = torch.tensor([-3, 7, 30, 38], device="cuda")
+    caches = [qwen2.kv_buffers((4, 2, 40, 128), dtype, device) for device in ("cuda", "cpu")]
+    qwen2._write_cache(caches[0], k, v, start)
+    qwen2._write_cache(caches[1], k.cpu(), v.cpu(), start.cpu())
+    for name in caches[1]:
+        assert torch.equal(caches[0][name].cpu(), caches[1][name]), name

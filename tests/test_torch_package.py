@@ -20,6 +20,7 @@ from affectgpt_tpu.models import affectgpt as ja
 from affectgpt_tpu.models import clip_vit as jclip
 from affectgpt_tpu.models import hubert as jhub
 from affectgpt_tpu.models import mergers as jm
+from affectgpt_tpu.models import qformer as jqf
 from affectgpt_tpu.models import qwen2 as jq
 from affectgpt_tpu_torch.inference import generate as tgen
 from affectgpt_tpu_torch.inference import paged as tpaged
@@ -28,6 +29,7 @@ from affectgpt_tpu_torch.models import clip_vit as tclip
 from affectgpt_tpu_torch.models import convert
 from affectgpt_tpu_torch.models import hubert as thub
 from affectgpt_tpu_torch.models import mergers as tm
+from affectgpt_tpu_torch.models import qformer as tqf
 from affectgpt_tpu_torch.models import qwen2 as tq
 from affectgpt_tpu_torch.ops import _build
 from affectgpt_tpu_torch.ops import paged_attention as paged_ops
@@ -49,6 +51,8 @@ def test_port_imports_without_jax():
     `import jax` and `import affectgpt_tpu` made to fail."""
     modules = _port_modules() + ["chip_smoke"]
     assert "affectgpt_tpu_torch.inference.chat" in modules and len(modules) >= 22
+    assert {"affectgpt_tpu_torch.models.au_agent", "affectgpt_tpu_torch.models.qformer",
+            "affectgpt_tpu_torch.utils.clip_text"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises ImportError
@@ -114,7 +118,9 @@ def _defaults(cls):
     (jm.MultiFusionConfig, tm.MultiFusionConfig),
     (jgen.GenerateConfig, tgen.GenerateConfig),
     (jclip.ClipVisionConfig, tclip.ClipVisionConfig),
+    (jclip.ClipTextConfig, tclip.ClipTextConfig),
     (jhub.HubertConfig, thub.HubertConfig),
+    (jqf.QFormerConfig, tqf.QFormerConfig),
 ], ids=lambda p: p[0].__name__)
 def test_config_fields_and_defaults_match_jax(pair):
     jax_cls, port_cls = pair

@@ -194,9 +194,20 @@ def test_chat_int8_kv_cache_matches_jax():
 
 
 def test_per_row_write_of_several_rows_is_not_ported():
+    """Per-row writes of t > 1 rows (the speculative verify) are ported now:
+    each row's three rows land at its own columns, as a shared-column write
+    of that row alone puts them, and no other column is touched."""
     _, tcfg, _, tparams = _llm()
+    x = torch.randn(2, 3, LLM["hidden_size"], generator=torch.Generator().manual_seed(0))
     cache = tq.init_cache(tcfg, 2, 8, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tq.forward(tparams, tcfg, torch.zeros(2, 3, LLM["hidden_size"]),
-                   torch.ones(2, 3, 8, dtype=torch.bool), positions=torch.zeros(2, 3).long(),
-                   cache=cache, cache_index=torch.tensor([1, 2]))
+    tq.forward(tparams, tcfg, x, torch.ones(2, 3, 8, dtype=torch.bool),
+               positions=torch.zeros(2, 3).long(), cache=cache,
+               cache_index=torch.tensor([1, 2]))
+    for row, start in ((0, 1), (1, 2)):
+        alone = tq.init_cache(tcfg, 1, 8, dtype=torch.float32, device="cpu")
+        tq.forward(tparams, tcfg, x[row:row + 1], torch.ones(1, 3, 8, dtype=torch.bool),
+                   positions=torch.zeros(1, 3).long(), cache=alone, cache_index=start)
+        for layer, want in zip(cache, alone):
+            for name in ("k", "v"):
+                torch.testing.assert_close(layer[name][row], want[name][0], rtol=1e-6,
+                                           atol=1e-6)
