@@ -6,10 +6,12 @@ config from the YAML `model:` section given as a plain dict
 random weights from a seed on the chosen device: the LLM and, with
 `with_encoders` (the realtime path), the CLIP ViT-L/14 and HuBERT-large
 towers; `model.int8` quantizes the LLM's projections to per-channel int8.
+The trainable tree takes the checkpoint overlays `ckpt`, `ckpt_2`, `ckpt_3`
+(`training.checkpoint.apply_checkpoint_overlays`, the port's torch-format
+checkpoints).
 
-Not ported yet: HF checkpoint conversion (of the LLM and of the encoders)
-and the checkpoint overlays (`ckpt`, `ckpt_2`, `ckpt_3`); a node that asks
-for them, or names a model directory that exists, raises
+Not ported yet: HF checkpoint conversion (of the LLM and of the encoders);
+a node that names a model directory that exists raises
 NotImplementedError.
 """
 
@@ -25,6 +27,7 @@ import torch
 from affectgpt_tpu_torch import paths
 from affectgpt_tpu_torch.models import affectgpt, clip_vit, encoders, hubert, qwen2
 from affectgpt_tpu_torch.tokenization import ByteTokenizer
+from affectgpt_tpu_torch.training import checkpoint
 
 logger = logging.getLogger(__name__)
 
@@ -50,11 +53,10 @@ def build_model(
     `visual_encoder` and `acoustic_encoder` towers the node names, drawn
     from `seed + 2`: at their registry geometry with `keep_full_llm`, else
     shrunk to the tiny CLIP and HuBERT with projection_dim = visual_dim and
-    hidden_size = acoustic_dim, recorded in the config's overrides."""
+    hidden_size = acoustic_dim, recorded in the config's overrides. The
+    node's `ckpt`, `ckpt_2` and `ckpt_3` overlay the trainable tree in that
+    order."""
     node = dict(model_node or {})
-    for key in ("ckpt", "ckpt_2", "ckpt_3"):
-        if node.get(key):
-            raise NotImplementedError(f"checkpoint overlay {key!r} is not ported to PyTorch yet")
     llm_dir = paths.PATH_TO_LLM.get(_llm_name(node), "")
     if llm_dir and os.path.isdir(llm_dir):
         raise NotImplementedError(
@@ -91,6 +93,8 @@ def build_model(
         frozen["llm"] = qwen2.quantize_params(frozen["llm"])
     trainable = affectgpt.init_trainable(
         torch.Generator(device=device).manual_seed(seed + 1), model_cfg)
+    trainable = checkpoint.apply_checkpoint_overlays(
+        trainable, node.get("ckpt"), node.get("ckpt_2"), node.get("ckpt_3"))
     return model_cfg, frozen, trainable, tokenizer
 
 

@@ -1,13 +1,12 @@
 """AffectGPT in PyTorch: modality features → LLM input embeddings.
 
-Port of affectgpt_tpu/models/affectgpt.py for the serving paths: modality
-features [b, t, d] (preextracted, or from the media encoders of the
-realtime path) → temporal mergers (+ audio-video pre-fusion) → splice into
-the prompt embeddings. Parameters are split as in the JAX package into
-`frozen` (the LLM and, with `with_encoders`, the CLIP and HuBERT towers) and
-`trainable` (LoRA, mergers, pre-fusion) trees.
-
-Not ported yet: `forward_loss`.
+Port of affectgpt_tpu/models/affectgpt.py: modality features [b, t, d]
+(preextracted, or from the media encoders of the realtime path) → temporal
+mergers (+ audio-video pre-fusion) → splice into the prompt embeddings →
+the LLM, and `forward_loss`, the training forward's causal-LM loss.
+Parameters are split as in the JAX package into `frozen` (the LLM and, with
+`with_encoders`, the CLIP and HuBERT towers) and `trainable` (LoRA,
+mergers, pre-fusion) trees.
 """
 
 from __future__ import annotations
@@ -17,7 +16,7 @@ from typing import Dict, Optional
 
 import torch
 
-from affectgpt_tpu_torch.models import clip_vit, hubert, mergers, qwen2, splice
+from affectgpt_tpu_torch.models import clip_vit, hubert, mergers, nn, qwen2, splice
 
 
 @dataclass(frozen=True)
@@ -183,31 +182,66 @@ def init_frozen(generator: torch.Generator, cfg: AffectGPTConfig, dtype=torch.bf
 
 
 def encode_modalities(trainable: dict, cfg: AffectGPTConfig,
-                      features: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                      features: Dict[str, torch.Tensor],
+                      dropout_rng=None) -> Dict[str, torch.Tensor]:
     """Per-modality [b, t, d] features → LLM-space blocks [b, q_m, llm_dim],
-    plus the pre-fusion 'multi' block (face preferred over frame)."""
+    plus the pre-fusion 'multi' block (face preferred over frame).
+    dropout_rng: train-mode dropout key; modality i of MODALITIES folds in
+    i, the pre-fusion len(MODALITIES), as in JAX."""
+    def key(i):
+        return None if dropout_rng is None else nn.fold_in(dropout_rng, i)
+
     blocks: Dict[str, torch.Tensor] = {}
-    for m in MODALITIES:
+    for i, m in enumerate(MODALITIES):
         if m in features:
             blocks[m] = mergers.apply_merger(
-                trainable["mergers"][MERGER_GROUP[m]], cfg.merger_config(m), features[m]
-            )
+                trainable["mergers"][MERGER_GROUP[m]], cfg.merger_config(m), features[m],
+                dropout_rng=key(i))
     if cfg.use_multi and "multi" in trainable and "audio" in features:
         video_hidden = features.get("face", features.get("frame"))
         if video_hidden is not None:
             blocks["multi"] = mergers.apply_multi_fusion(
-                trainable["multi"], cfg.multi_config(), video_hidden, features["audio"]
-            )
+                trainable["multi"], cfg.multi_config(), video_hidden, features["audio"],
+                dropout_rng=key(len(MODALITIES)))
     return blocks
 
 
 def build_inputs_embeds(frozen: dict, trainable: dict, cfg: AffectGPTConfig,
                         input_ids: torch.Tensor, features: Dict[str, torch.Tensor],
-                        offsets: Dict[str, torch.Tensor]) -> torch.Tensor:
+                        offsets: Dict[str, torch.Tensor], dropout_rng=None) -> torch.Tensor:
     """Token ids (patch ids zeroed host-side) + modality features → spliced
     embedding sequence [b, t, d]; offsets[m] [b] start positions (-1 = absent)."""
     embeds = qwen2.embed_tokens(frozen["llm"], input_ids)
-    for m, block in encode_modalities(trainable, cfg, features).items():
+    for m, block in encode_modalities(trainable, cfg, features, dropout_rng).items():
         if m in offsets:
             embeds = splice.splice_embeddings(embeds, block, offsets[m])
     return embeds
+
+
+def forward_loss(frozen: dict, trainable: dict, cfg: AffectGPTConfig,
+                 batch: Dict[str, torch.Tensor], remat=False, dropout_rng=None) -> torch.Tensor:
+    """One training forward: the scalar causal-LM loss (JAX
+    affectgpt.py:290-334; the reference forward's {"loss"}).
+
+    batch: input_ids [b, t] (patch ids zeroed), attention_mask [b, t],
+    labels [b, t] (-100 outside the target), features {m: [b, tm, dm]},
+    offsets {m: [b]}. remat: see `qwen2.forward`. dropout_rng: a dropout key
+    (`nn.fold_in`) turns on the LoRA dropout and the qformer mergers' BERT
+    dropouts, the mergers on its fold 1, the LLM on its fold 2; None is the
+    eval-mode forward. A tied lm_head or a float one takes
+    `qwen2.fused_cross_entropy_loss` (the [b, t, vocab] logits never exist),
+    a quantized one the plain loss over its logits, as in JAX."""
+    merger_rng = llm_rng = None
+    if dropout_rng is not None:
+        merger_rng, llm_rng = nn.fold_in(dropout_rng, 1), nn.fold_in(dropout_rng, 2)
+    embeds = build_inputs_embeds(frozen, trainable, cfg, batch["input_ids"],
+                                 batch["features"], batch["offsets"], dropout_rng=merger_rng)
+    llm = frozen["llm"]
+    if cfg.llm.tie_embeddings or "w" in llm["lm_head"]:
+        hidden, _ = qwen2.forward(llm, cfg.llm, embeds, batch["attention_mask"],
+                                  lora=trainable["lora"], remat=remat, return_hidden=True,
+                                  dropout_rng=llm_rng)
+        return qwen2.fused_cross_entropy_loss(hidden, llm, cfg.llm, batch["labels"])
+    logits, _ = qwen2.forward(llm, cfg.llm, embeds, batch["attention_mask"],
+                              lora=trainable["lora"], remat=remat, dropout_rng=llm_rng)
+    return qwen2.cross_entropy_loss(logits, batch["labels"])

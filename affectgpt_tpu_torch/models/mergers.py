@@ -57,23 +57,29 @@ def init_merger(generator: torch.Generator, cfg: MergerConfig, dtype=torch.float
     return params
 
 
-def _qformer_tokens(params: dict, qcfg: qformer.QFormerConfig, h: torch.Tensor) -> torch.Tensor:
+def _qformer_tokens(params: dict, qcfg: qformer.QFormerConfig, h: torch.Tensor,
+                    dropout_rng=None) -> torch.Tensor:
     """h [b, t, d] or [b, t, q, d]: each time step's position row added to
-    its rows, flattened to [b, t·q, d] → Q-Former → proj."""
+    its rows, flattened to [b, t·q, d] → Q-Former → proj. dropout_rng: the
+    Q-Former's train-mode dropout key."""
     t = h.shape[1]
     pos = nn.embedding(params["pos_embed"], torch.arange(t, device=h.device))
     pos = pos.reshape((1, t) + (1,) * (h.ndim - 3) + (pos.shape[-1],))
     h = (h + pos.to(h.dtype)).reshape(h.shape[0], -1, h.shape[-1])
-    return nn.dense(params["proj"], qformer.apply(params["qformer"], qcfg, h))
+    return nn.dense(params["proj"], qformer.apply(params["qformer"], qcfg, h,
+                                                  dropout_rng=dropout_rng))
 
 
-def apply_merger(params: dict, cfg: MergerConfig, features: torch.Tensor) -> torch.Tensor:
+def apply_merger(params: dict, cfg: MergerConfig, features: torch.Tensor,
+                 dropout_rng=None) -> torch.Tensor:
     """[b, t, feat_dim] (or [b, t, q, feat_dim]) → [b, num_query_tokens, llm_dim].
     A 4-D input to the qformer merger gets the position of its frame added
     to each of its q rows and is flattened to [b, t·q, d]; the other mergers
-    average its q rows first."""
+    average its q rows first. dropout_rng: train-mode dropout key of the
+    qformer merger's BERT dropouts; the attention and mean mergers have no
+    dropout and ignore it."""
     if cfg.fusion_type == "qformer":
-        return _qformer_tokens(params, cfg.qformer_config(), features)
+        return _qformer_tokens(params, cfg.qformer_config(), features, dropout_rng)
     if features.ndim == 4:
         features = features.mean(dim=2)
     b, t, _ = features.shape
@@ -135,14 +141,15 @@ def init_multi_fusion(generator: torch.Generator, cfg: MultiFusionConfig,
 
 
 def apply_multi_fusion(params: dict, cfg: MultiFusionConfig, video_hidden: torch.Tensor,
-                       audio_hidden: torch.Tensor) -> torch.Tensor:
+                       audio_hidden: torch.Tensor, dropout_rng=None) -> torch.Tensor:
     """video_hidden [b, tv, video_dim], audio_hidden [b, ta, audio_dim]
-    → [b, num_query_tokens, llm_dim]."""
+    → [b, num_query_tokens, llm_dim]. dropout_rng: see apply_merger."""
     b = video_hidden.shape[0]
     if cfg.fusion_type == "qformer":
         v = nn.dense(params["video_embs"], video_hidden)  # [b, tv, maxdim]
         a = nn.dense(params["audio_embs"], audio_hidden)  # [b, ta, maxdim]
-        return _qformer_tokens(params, cfg.qformer_config(), torch.cat([v, a], dim=1))
+        return _qformer_tokens(params, cfg.qformer_config(), torch.cat([v, a], dim=1),
+                               dropout_rng)
     if cfg.fusion_type != "attention":
         raise ValueError(cfg.fusion_type)
     # attention gate: mean-pool each stream, score the 2 modalities, weighted

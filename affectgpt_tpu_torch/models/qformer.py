@@ -1,8 +1,7 @@
 """Q-Former: learned query tokens cross-attending over encoder states, in
 PyTorch.
 
-Port of affectgpt_tpu/models/qformer.py in eval mode: the temporal and
-fusion Q-Formers of the `qformer` mergers (the reference's vendored BERT,
+Port of affectgpt_tpu/models/qformer.py: the temporal and fusion Q-Formers of the `qformer` mergers (the reference's vendored BERT,
 my_affectgpt/models/Qformer.py, with the text FFN and cls head stripped).
 Per layer, post-LN:
 
@@ -10,8 +9,9 @@ Per layer, post-LN:
     x = LN(x + CrossAttn(x, enc))   # every cross_attention_freq-th layer
     x = LN(x + FFN(x))
 
-after a LayerNorm of the query embeddings. Train-mode dropout waits for the
-training slice and raises.
+after a LayerNorm of the query embeddings. In train mode (a dropout key)
+the BERT dropouts run as in JAX: the query embeddings, each attention's
+probabilities and each sublayer's output before its residual.
 """
 
 from __future__ import annotations
@@ -36,7 +36,8 @@ class QFormerConfig:
     # cross-attention every Nth layer (1 for the temporal Q-Formers, 2 for
     # the BLIP2 image Q-Former)
     cross_attention_freq: int = 1
-    # BERT dropouts, applied only in train mode (not ported yet)
+    # BERT dropouts (bert-base-uncased's 0.1 / 0.1), applied only in train
+    # mode, when apply() receives a dropout key
     hidden_dropout_prob: float = 0.1
     attention_probs_dropout_prob: float = 0.1
 
@@ -82,22 +83,35 @@ def apply(params: dict, cfg: QFormerConfig, encoder_hidden_states: torch.Tensor,
     """encoder_hidden_states [b, t, encoder_width] → [b, num_query, hidden].
     encoder_mask [b, t] bool (True = valid) folds padded timesteps out of the
     cross-attention; a row with no valid step attends uniformly over all of
-    them, as JAX's finfo.min fill gives. dropout_rng (train mode) raises."""
-    if dropout_rng is not None:
-        raise NotImplementedError("qformer.apply: train-mode dropout is not ported yet "
-                                  "(ROADMAP queue 1 item 8)")
+    them, as JAX's finfo.min fill gives. dropout_rng: a dropout key (train
+    mode; `nn.fold_in`) or None (eval mode). Site keys follow JAX: the
+    embeddings fold 10000 then 5; layer i folds i, then 0 self-probs, 1
+    self-hidden, 2 cross-probs, 3 cross-hidden, 4 ffn-hidden."""
     b = encoder_hidden_states.shape[0]
     x = params["query_tokens"].to(encoder_hidden_states.dtype).expand(
         b, cfg.num_query_tokens, cfg.hidden_size)
     x = nn.layernorm(params["embed_ln"], x, cfg.layer_norm_eps)
+    h_p, a_p = cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob
+    drop_on = dropout_rng is not None and (h_p > 0.0 or a_p > 0.0)
+
+    def hdrop(key, y):
+        return nn.dropout(key, h_p, y) if drop_on and h_p > 0.0 else y
+
+    def pdrop(key):
+        return (key, a_p) if drop_on and a_p > 0.0 else None
+
+    if drop_on:
+        x = hdrop(nn.fold_in(nn.fold_in(dropout_rng, 10_000), 5), x)
     cross_mask = None if encoder_mask is None else encoder_mask.bool()[:, None, None, :]
-    for layer in params["layers"]:
-        x = nn.layernorm(layer["self_ln"], x + nn.mha(layer["self_attn"], x, x, cfg.num_heads),
-                         cfg.layer_norm_eps)
+    for i, layer in enumerate(params["layers"]):
+        lk = nn.fold_in(dropout_rng, i) if drop_on else None
+        site = (lambda s: nn.fold_in(lk, s)) if drop_on else (lambda s: None)
+        attn = nn.mha(layer["self_attn"], x, x, cfg.num_heads, probs_drop=pdrop(site(0)))
+        x = nn.layernorm(layer["self_ln"], x + hdrop(site(1), attn), cfg.layer_norm_eps)
         if "cross_attn" in layer:
             cross = nn.mha(layer["cross_attn"], x, encoder_hidden_states, cfg.num_heads,
-                           cross_mask)
-            x = nn.layernorm(layer["cross_ln"], x + cross, cfg.layer_norm_eps)
+                           cross_mask, probs_drop=pdrop(site(2)))
+            x = nn.layernorm(layer["cross_ln"], x + hdrop(site(3), cross), cfg.layer_norm_eps)
         h = nn.dense(layer["ffn_out"], nn.gelu(nn.dense(layer["ffn_in"], x)))
-        x = nn.layernorm(layer["ffn_ln"], x + h, cfg.layer_norm_eps)
+        x = nn.layernorm(layer["ffn_ln"], x + hdrop(site(4), h), cfg.layer_norm_eps)
     return x

@@ -1,6 +1,6 @@
 """Qwen2/2.5-family causal decoder with LoRA, in PyTorch.
 
-Port of affectgpt_tpu/models/qwen2.py for the serving path: dense weights
+Port of affectgpt_tpu/models/qwen2.py, serving and training: dense weights
 in the split q/k/v layout or the fused serving layouts (`fuse_qkv_gateup`:
 `qkv_proj`, and `gateup_proj` unless gate/up stay split), bf16 or quantized
 (`quantize_params`, `init_quantized_params`: int8 `w_q` or int4 `w_q4`
@@ -39,15 +39,21 @@ plain torch, mirroring the JAX default chain.
 speculative verify of `inference.generate.generate_speculative`, each row's
 t rows at its own columns.
 
-Not ported yet: the CE losses, remat and LoRA dropout.
+Training (JAX qwen2.py:978-1208): `forward(remat=, dropout_rng=,
+return_hidden=)` with per-layer activation checkpointing and LoRA dropout,
+and the causal-LM losses `cross_entropy_loss` and
+`fused_cross_entropy_loss`. The training forward takes no cache, so it
+reaches none of the decode or prefill kernels.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from affectgpt_tpu_torch.models import nn
 from affectgpt_tpu_torch.ops import quant
@@ -88,6 +94,10 @@ DECODE_MLP = "auto"
 # value ("xla") takes the per-projection route. JAX's TPU-only gates (the
 # 12 MB resident-weight limit of "auto", b % 8, the backend) are not carried.
 DECODE_QKV = "auto"
+# JAX's opt-in AFFECTGPT_DROPOUT_VJP (qwen2.py:390): True sends each
+# dropped LoRA branch through `_LoraDropBranch`, which regenerates its mask in
+# the backward instead of keeping the dropped copy of x alive.
+DROPOUT_VJP = False
 
 
 @dataclass(frozen=True)
@@ -326,7 +336,42 @@ def _quantized_matmul(x2d: torch.Tensor, base: dict) -> torch.Tensor:
     return quant.int8_matmul(x2d, w, s)
 
 
-def _lora_dense(base, lora, x, scaling: float, has_bias: bool = True) -> torch.Tensor:
+class _LoraDropBranch(torch.autograd.Function):
+    """B(A(dropout(x))) whose backward regenerates the dropout mask from its
+    key (JAX `_lora_drop_branch`, qwen2.py:339-393): what it keeps for the
+    backward is x, a and b, all alive anyway. The forward is the plain
+    branch's arithmetic; the gradients agree with autograd's up to the
+    products' summation order."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, key, rate):
+        ctx.key, ctx.rate = key, rate
+        ctx.save_for_backward(x, a, b)
+        xl = nn.dropout(key, rate, x)
+        z = nn.matmul_f32(xl, a.to(x.dtype))
+        return nn.matmul_f32(z.to(x.dtype), b.to(x.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a, b = ctx.saved_tensors
+        keep = nn.dropout_keep(ctx.key, ctx.rate, x.shape, x.device)
+        inv = nn.keep_scale(ctx.rate, x.dtype)
+        x2d = torch.where(keep, x / inv, 0.0).reshape(-1, x.shape[-1])
+        ax, bx = a.to(x.dtype), b.to(x.dtype)
+        g2d = g.reshape(-1, g.shape[-1]).to(x.dtype)
+        z1 = nn.mm_f32(x2d, ax).to(x.dtype)
+        db = nn.mm_f32(z1.t(), g2d).to(b.dtype)
+        g1 = nn.mm_f32(g2d, bx.t()).to(x.dtype)
+        da = nn.mm_f32(x2d.t(), g1).to(a.dtype)
+        dxl = nn.mm_f32(g1, ax.t()).to(x.dtype).reshape(x.shape)
+        return torch.where(keep, dxl / inv, 0.0), da, db, None, None
+
+
+def _lora_dense(base, lora, x, scaling: float, has_bias: bool = True,
+                drop=None) -> torch.Tensor:
+    """x @ base (+ the LoRA branch · scaling) (+ bias). drop: optional (key,
+    rate), inverted dropout on the LoRA branch's input only, peft's
+    train-mode `B(A(dropout(x)))`; the frozen product is never dropped."""
     if "w" in base:
         y = nn.matmul_f32(x, base["w"])
     else:
@@ -336,8 +381,12 @@ def _lora_dense(base, lora, x, scaling: float, has_bias: bool = True) -> torch.T
             return y  # already x.dtype: the f32 round trip below is the identity
         y = y.float()
     if lora is not None:
-        z = nn.matmul_f32(x, lora["a"].to(x.dtype))
-        z = nn.matmul_f32(z.to(x.dtype), lora["b"].to(x.dtype))
+        if drop is not None and DROPOUT_VJP:
+            z = _LoraDropBranch.apply(x, lora["a"], lora["b"], drop[0], drop[1])
+        else:
+            xl = x if drop is None else nn.dropout(drop[0], drop[1], x)
+            z = nn.matmul_f32(xl, lora["a"].to(x.dtype))
+            z = nn.matmul_f32(z.to(x.dtype), lora["b"].to(x.dtype))
         y = y + scaling * z
     if has_bias and "b" in base:
         y = y + base["b"].float()
@@ -411,12 +460,30 @@ def _decode_mlp_fused(layer, lora_layer, cfg: QwenConfig, x: torch.Tensor):
     return y[:, None, :]
 
 
-def _project_qkv(layer, lora_layer, cfg: QwenConfig, x, positions, decode: bool):
+# stable per-projection dropout-key offsets (peft: one independent
+# nn.Dropout per wrapped module), JAX qwen2.py:727-730
+_LORA_DROP_IDS = {
+    "q_proj": 0, "k_proj": 1, "v_proj": 2, "o_proj": 3,
+    "gate_proj": 4, "up_proj": 5, "down_proj": 6,
+}
+
+
+def _lora_drop(drop_rng, cfg: QwenConfig, name: str):
+    """(key, rate) of projection `name`'s LoRA dropout in a layer whose key
+    is drop_rng, or None in eval mode."""
+    if drop_rng is None or cfg.lora_dropout <= 0.0:
+        return None
+    return nn.fold_in(drop_rng, _LORA_DROP_IDS[name]), cfg.lora_dropout
+
+
+def _project_qkv(layer, lora_layer, cfg: QwenConfig, x, positions, decode: bool,
+                 drop_rng=None):
     """q [b, t, heads, d], k and v [b, t, kv, d], RoPE applied, from the RAW
     residual stream x [b, t, hidden]; this function owns the pre-attention
     rmsnorm. decode: a decode step (a cache, t == 1), where the decode-QKV
-    kernel is tried. Returns (q, k, v, fused), fused telling that the kernel
-    ran (x was left un-normed for it)."""
+    kernel is tried. drop_rng: the layer's LoRA-dropout key. Returns (q, k,
+    v, fused), fused telling that the kernel ran (x was left un-normed for
+    it)."""
     b, t, _ = x.shape
     heads, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     fused = _decode_qkv_fused(layer, lora_layer, cfg, x[:, 0, :], positions[:, 0]) \
@@ -433,7 +500,8 @@ def _project_qkv(layer, lora_layer, cfg: QwenConfig, x, positions, decode: bool)
         y = _lora_dense(layer["qkv_proj"], None, x, 0.0)
         q, k, v = y[..., :heads * d], y[..., heads * d:(heads + kv) * d], y[..., (heads + kv) * d:]
     else:
-        q, k, v = (_lora_dense(layer[n], lget(n), x, scaling) for n in _QKV)
+        q, k, v = (_lora_dense(layer[n], lget(n), x, scaling,
+                               drop=_lora_drop(drop_rng, cfg, n)) for n in _QKV)
     q = _rope(q.reshape(b, t, heads, d), positions, cfg.rope_theta)
     k = _rope(k.reshape(b, t, kv, d), positions, cfg.rope_theta)
     return q, k, v.reshape(b, t, kv, d), False
@@ -498,17 +566,19 @@ def _write_cache(cache: dict, k: torch.Tensor, v: torch.Tensor, cache_index) -> 
             cache[name][:, :, cache_index:cache_index + t] = new
 
 
-def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, cache_index):
+def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, cache_index,
+               drop_rng=None):
     """x is the RAW residual stream; this function owns the pre-attention
     rmsnorm (folded into the decode-QKV kernel on the decode step).
-    Returns (out, residual_done): residual_done means that out already
-    holds x + attention (decode_attn_o adds the residual itself), so the
-    caller must not add x again."""
+    drop_rng: the layer's LoRA-dropout key (q/k/v, and o_proj on the plain
+    chain, as JAX drops them). Returns (out, residual_done): residual_done
+    means that out already holds x + attention (decode_attn_o adds the
+    residual itself), so the caller must not add x again."""
     b, t, _ = x.shape
     scaling = cfg.lora_alpha / cfg.lora_r
     lget = (lambda n: lora_layer[n]) if lora_layer is not None else (lambda n: None)
     q, k, v, fused = _project_qkv(layer, lora_layer, cfg, x, positions,
-                                  decode=cache is not None and t == 1)
+                                  decode=cache is not None and t == 1, drop_rng=drop_rng)
     k = k.transpose(1, 2)  # [b, kv, t, d]
     v = v.transpose(1, 2)
     groups = cfg.num_heads // cfg.num_kv_heads
@@ -563,10 +633,11 @@ def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, ca
     probs = probs.to(v.dtype)
     out = torch.einsum("bhgqk,bhkd->bqhgd", probs.float(), v.float())
     out = out.to(x.dtype).reshape(b, t, cfg.num_heads * cfg.head_dim)
-    return _lora_dense(layer["o_proj"], lget("o_proj"), out, scaling, has_bias=False), False
+    return _lora_dense(layer["o_proj"], lget("o_proj"), out, scaling, has_bias=False,
+                       drop=_lora_drop(drop_rng, cfg, "o_proj")), False
 
 
-def _mlp(layer, lora_layer, cfg: QwenConfig, x: torch.Tensor) -> torch.Tensor:
+def _mlp(layer, lora_layer, cfg: QwenConfig, x: torch.Tensor, drop_rng=None) -> torch.Tensor:
     scaling = cfg.lora_alpha / cfg.lora_r
     lget = (lambda n: lora_layer[n]) if lora_layer is not None else (lambda n: None)
     if "gateup_proj" in layer:
@@ -574,10 +645,23 @@ def _mlp(layer, lora_layer, cfg: QwenConfig, x: torch.Tensor) -> torch.Tensor:
             raise ValueError("the fused layout serves merged-LoRA weights")
         gate, up = _lora_dense(layer["gateup_proj"], None, x, 0.0, has_bias=False).chunk(2, dim=-1)
     else:
-        gate = _lora_dense(layer["gate_proj"], lget("gate_proj"), x, scaling, has_bias=False)
-        up = _lora_dense(layer["up_proj"], lget("up_proj"), x, scaling, has_bias=False)
+        gate = _lora_dense(layer["gate_proj"], lget("gate_proj"), x, scaling, has_bias=False,
+                           drop=_lora_drop(drop_rng, cfg, "gate_proj"))
+        up = _lora_dense(layer["up_proj"], lget("up_proj"), x, scaling, has_bias=False,
+                         drop=_lora_drop(drop_rng, cfg, "up_proj"))
     return _lora_dense(layer["down_proj"], lget("down_proj"),
-                       torch.nn.functional.silu(gate) * up, scaling, has_bias=False)
+                       torch.nn.functional.silu(gate) * up, scaling, has_bias=False,
+                       drop=_lora_drop(drop_rng, cfg, "down_proj"))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """remat="dots": keep the outputs of the products without batch dims
+    (every projection, LoRA's two factors included, is a 2-D `mm`) and
+    recompute the rest, the attention's batched products among it (JAX's
+    `dots_with_no_batch_dims_saveable`)."""
+    if op.overloadpacket in (torch.ops.aten.mm, torch.ops.aten.addmm):
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def forward(
@@ -590,6 +674,9 @@ def forward(
     cache: Optional[list] = None,
     cache_index: Optional[int] = None,
     last_token_only: bool = False,
+    remat=False,
+    return_hidden: bool = False,
+    dropout_rng=None,
 ):
     """Run the decoder stack.
 
@@ -598,7 +685,16 @@ def forward(
     cache_index: the int column the t new k/v rows are written at, or a [b]
     tensor of per-row columns (`_write_cache`).
     last_token_only: project only the final position through the lm_head.
-    Returns (logits [b, t or 1, vocab] f32, cache or None).
+    remat: True recomputes each layer in the backward
+    (`torch.utils.checkpoint`, non-reentrant); "dots" keeps the layer's
+    projection outputs and recomputes the rest (`_dots_policy`); False keeps
+    every activation.
+    return_hidden: return the final-normed hidden states [b, t, d] instead
+    of the logits (the fused loss's input).
+    dropout_rng: a dropout key turns on LoRA dropout (cfg.lora_dropout) with
+    a LoRA tree; layer i's key folds in i. The masks are drawn inside the
+    recomputed region from the key's ints, so a recompute draws them again.
+    Returns (logits [b, t or 1, vocab] f32 or hidden, cache or None).
     """
     b, t, _ = inputs_embeds.shape
     dev = inputs_embeds.device
@@ -610,24 +706,37 @@ def forward(
     else:
         mask = attention_mask[:, None, :, :]  # [b, 1, t, max_len]
 
-    x = inputs_embeds
-    for i, layer in enumerate(params["layers"]):
-        lora_layer = lora["layers"][i] if lora is not None else None
-        layer_cache = cache[i] if cache is not None else None
+    def layer_fn(x, layer, lora_layer, layer_cache, layer_drop):
         out, residual_done = _attention(layer, lora_layer, cfg, x, positions, mask,
-                                        layer_cache, cache_index)
+                                        layer_cache, cache_index, drop_rng=layer_drop)
         x = out if residual_done else x + out
         y = _decode_mlp_fused(layer, lora_layer, cfg, x) \
             if layer_cache is not None and t == 1 else None
         if y is not None:
-            x = y
-        else:
-            h = nn.rmsnorm(layer["post_attn_ln"], x, cfg.rms_eps)
-            x = x + _mlp(layer, lora_layer, cfg, h)
+            return y
+        h = nn.rmsnorm(layer["post_attn_ln"], x, cfg.rms_eps)
+        return x + _mlp(layer, lora_layer, cfg, h, drop_rng=layer_drop)
+
+    run = layer_fn
+    if remat:
+        context = (functools.partial(torch_checkpoint.create_selective_checkpoint_contexts,
+                                     _dots_policy)
+                   if remat == "dots" else torch_checkpoint.noop_context_fn)
+        run = functools.partial(torch_checkpoint.checkpoint, layer_fn, use_reentrant=False,
+                                context_fn=context)
+    drop_on = dropout_rng is not None and lora is not None and cfg.lora_dropout > 0.0
+    x = inputs_embeds
+    for i, layer in enumerate(params["layers"]):
+        lora_layer = lora["layers"][i] if lora is not None else None
+        layer_cache = cache[i] if cache is not None else None
+        x = run(x, layer, lora_layer, layer_cache,
+                nn.fold_in(dropout_rng, i) if drop_on else None)
 
     x = nn.rmsnorm(params["final_ln"], x, cfg.rms_eps)
     if last_token_only:
         x = x[:, -1:, :]
+    if return_hidden:
+        return x, cache
     return _logits(params, cfg, x), cache
 
 
@@ -666,3 +775,67 @@ def kv_buffers(shape: tuple, dtype, device) -> dict:
         buf["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
         buf["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
     return buf
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Shifted causal-LM loss with ignore-index masking, the mean over valid
+    positions (HF labels= semantics; JAX qwen2.py:1123)."""
+    shift_logits = logits[:, :-1, :].float()
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != ignore_index
+    safe = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
+    logprobs = torch.log_softmax(shift_logits, dim=-1)
+    token_ll = logprobs.gather(-1, safe[..., None].long())[..., 0]
+    loss_sum = -torch.where(valid, token_ll, torch.zeros_like(token_ll)).sum()
+    return loss_sum / valid.sum().clamp_min(1)
+
+
+def _chunk_stats(xs, w_chunk, safe, off: int, m, s, tgt):
+    """One vocab chunk of the online logsumexp: the chunk's f32 logits
+    [N, width], the running max m, the rescaled sum s and the target logit
+    tgt of the rows whose label falls in the chunk."""
+    logits = nn.matmul_f32(xs, w_chunk)
+    width = logits.shape[-1]
+    m_new = torch.maximum(m, logits.amax(dim=-1))
+    s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(dim=-1)
+    in_chunk = (safe >= off) & (safe < off + width)
+    picked = logits.gather(1, (safe - off).clamp(0, width - 1)[:, None])[:, 0]
+    return m_new, s, tgt + torch.where(in_chunk, picked, torch.zeros_like(picked))
+
+
+def fused_cross_entropy_loss(hidden: torch.Tensor, params: dict, cfg: QwenConfig,
+                             labels: torch.Tensor, ignore_index: int = -100,
+                             chunk: int = 16384) -> torch.Tensor:
+    """The shifted causal-LM loss of `cross_entropy_loss(lm_head(hidden))`,
+    streaming the lm_head over vocab chunks with an online logsumexp, so
+    the [b, t, vocab] f32 logits never exist (JAX qwen2.py:1138-1208).
+    hidden [b, t, d] = forward(..., return_hidden=True). Each chunk runs
+    under `torch.utils.checkpoint`: the backward recomputes its [N, chunk]
+    logits, so one chunk is live at a time. The chunk product is
+    `nn.matmul_f32`, as JAX computes it outside any kernel."""
+    b, t, d = hidden.shape
+    xs = hidden[:, :-1, :].reshape(-1, d)
+    lab = labels[:, 1:].reshape(-1)
+    n = xs.shape[0]
+    valid = lab != ignore_index
+    safe = torch.where(valid, lab, torch.zeros_like(lab)).long()
+    if cfg.tie_embeddings:
+        table = params["embed_tokens"]["table"]  # [V, d]
+        vocab = table.shape[0]
+        get_chunk = lambda off, width: table[off:off + width].t()  # noqa: E731
+    else:
+        w = params["lm_head"]["w"]  # [d, V]
+        vocab = w.shape[1]
+        get_chunk = lambda off, width: w[:, off:off + width]  # noqa: E731
+    f32 = dict(dtype=torch.float32, device=hidden.device)
+    m = torch.full((n,), float("-inf"), **f32)
+    s = torch.zeros((n,), **f32)
+    tgt = torch.zeros((n,), **f32)
+    for off in range(0, vocab, chunk):
+        w_chunk = get_chunk(off, min(chunk, vocab - off))
+        m, s, tgt = torch_checkpoint.checkpoint(_chunk_stats, xs, w_chunk, safe, off, m, s, tgt,
+                                                use_reentrant=False)
+    token_nll = torch.log(s) + m - tgt
+    loss_sum = torch.where(valid, token_nll, torch.zeros_like(token_nll)).sum()
+    return loss_sum / valid.sum().clamp_min(1)

@@ -153,6 +153,21 @@ def check(status: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {status} ({reason}) at launch")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and an operand on the card requires grad.
+    No hand-written kernel has a backward (nor had its TPU original), and a
+    wrapper's output carries no `grad_fn`, so a launch there would cut the
+    autograd graph without a word. CPU operands take the plain version,
+    which stays differentiable; call the kernels under `torch.no_grad()`
+    (the frozen encoders of the training step do)."""
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if torch.is_tensor(t) and t.requires_grad and t.device.type != "cpu":
+            raise RuntimeError(f"{name}: the CUDA kernel has no backward, and an operand "
+                               "requires grad; call it under torch.no_grad()")
+
+
 def check_bf16_operands(name: str, device: torch.device, operands) -> None:
     """Raise unless every (tensor, shape) pair lies on `device` as a
     contiguous, 16-byte aligned bf16 tensor of that shape: what the encoder

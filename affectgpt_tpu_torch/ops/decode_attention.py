@@ -152,6 +152,7 @@ def _plan_on(b, kv, g, d, t_len, device_index) -> dict:
 def decode_attention(q, k_cache, v_cache, key_mask):
     """q [b, kv, groups, d] (roped), k_cache/v_cache [b, kv, T, d], key_mask
     [b, T] bool (valid cache columns). Returns [b, kv, groups, d] in q.dtype."""
+    _build.refuse_grad("decode_attention", q, k_cache, v_cache, key_mask)
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, key_mask)
     if q.device.type != "cuda":

@@ -91,6 +91,7 @@ def decode_attn_o(x_res, q, k_cache, v_cache, key_mask, wo):
     groups, d] (roped), k_cache/v_cache [b, kv, T, d] (already holding the
     new token's k/v), key_mask [b, T] bool, wo [kv*groups*d, h]. Returns
     x_res + o_proj(attention) [b, h] in x_res.dtype."""
+    _build.refuse_grad("decode_attn_o", x_res, q, k_cache, v_cache, key_mask, wo)
     if q.device.type == "cpu":
         return decode_attn_o_reference(x_res, q, k_cache, v_cache, key_mask, wo)
     if q.device.type != "cuda":

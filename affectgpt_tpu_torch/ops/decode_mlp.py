@@ -134,6 +134,7 @@ def decode_mlp(x, ln_scale, w_gate, s_gate, w_up, s_up, w_down, s_down, *, eps: 
     """x [b, h] (the post-attention residual stream), ln_scale [h], int8
     w_gate/w_up [h, I] with scales [1, I], int8 w_down [I, h] with scales
     [1, h] → the new residual stream [b, h]."""
+    _build.refuse_grad("decode_mlp", x, ln_scale, w_gate, s_gate, w_up, s_up, w_down, s_down)
     args = (x, ln_scale, w_gate, s_gate, w_up, s_up, w_down, s_down)
     if x.device.type == "cpu":
         return decode_mlp_reference(*args, eps=eps)

@@ -90,6 +90,7 @@ def _check_operands(x, ln_scale, w_gate, w_up, w_down):
 def decode_mlp_bf16(x, ln_scale, w_gate, w_up, w_down, *, eps: float = 1e-6):
     """x [b, h] (the post-attention residual stream), ln_scale [h],
     w_gate/w_up [h, I], w_down [I, h] → the new residual stream [b, h]."""
+    _build.refuse_grad("decode_mlp_bf16", x, ln_scale, w_gate, w_up, w_down)
     if x.device.type == "cpu":
         return decode_mlp_bf16_reference(x, ln_scale, w_gate, w_up, w_down, eps=eps)
     if x.device.type != "cuda":

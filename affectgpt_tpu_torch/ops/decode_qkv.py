@@ -133,6 +133,7 @@ def decode_qkv(
     already normalized), positions [b] int; wq [h, H*d], wk/wv [h, kv*d],
     biases [H*d]/[kv*d]. Returns (q [b, H*d], k [b, kv*d], v [b, kv*d]) in
     x.dtype, q and k roped at positions."""
+    _build.refuse_grad("decode_qkv", x, positions, wq, bq, wk, bk, wv, bv, ln_scale)
     kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads, head_dim=head_dim,
               theta=theta, ln_scale=ln_scale, eps=eps)
     if x.device.type == "cpu":

@@ -161,6 +161,7 @@ def _launch(name, entry, q, pool_k, pool_v, block_tables, seq_lens, scales):
 def paged_attention(q, pool_k, pool_v, block_tables, seq_lens):
     """bf16 pools: q [b, heads, d] against pages [blocks, block, kv, d]
     through block_tables [b, width] and seq_lens [b] → [b, heads, d]."""
+    _build.refuse_grad("paged_attention", q, pool_k, pool_v)
     if q.device.type == "cpu":
         return paged_attention_reference(q, pool_k, pool_v, block_tables, seq_lens)
     if q.device.type != "cuda":
@@ -175,6 +176,7 @@ def paged_attention(q, pool_k, pool_v, block_tables, seq_lens):
 def paged_attention_int8(q, pool_k, pool_v, block_tables, seq_lens, k_scale, v_scale):
     """int8 pools with f32 per-row scales [blocks, block, kv]: as
     `paged_attention`, the scales folded outside the two contractions."""
+    _build.refuse_grad("paged_attention_int8", q, pool_k, pool_v, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_attention_reference(q, pool_k, pool_v, block_tables, seq_lens,
                                          k_scale, v_scale)

@@ -114,6 +114,7 @@ def prefill_plan(b: int, t: int, heads: int, kv: int, d: int, sms: int = 132,
 def prefill_attention(q, k, v, segment_ids):
     """q [b, t, H, d] (roped), k/v [b, kv, t, d], segment_ids [b, t] (bool
     or int). Returns [b, t, H*d] in q.dtype."""
+    _build.refuse_grad("prefill_attention", q, k, v)
     if q.device.type == "cpu":
         return prefill_attention_reference(q, k, v, segment_ids)
     if q.device.type != "cuda":

@@ -441,6 +441,7 @@ def _int8_check(name, x, w_q, scales):
 
 def int8_matmul(x, w_q, scales):
     """x [M, K] @ dequant(w_q int8 [K, N], scales [1, N]) → [M, N] x.dtype."""
+    _build.refuse_grad("int8_matmul", x, w_q, scales)
     if x.device.type == "cpu":
         return int8_matmul_reference(x, w_q, scales)
     m, n, k = _int8_check("int8_matmul", x, w_q, scales)
@@ -460,6 +461,7 @@ def _int4_check(name, x, w_p, scales):
 def int4_matmul(x, w_p, scales):
     """x [M, K] @ dequant(w_p int4-packed [K/2, N], scales [K/128, N]) →
     [M, N] x.dtype, the group scales applied to f32 partial sums."""
+    _build.refuse_grad("int4_matmul", x, w_p, scales)
     if x.device.type == "cpu":
         return int4_matmul_reference(x, w_p, scales)
     m, n, k = _int4_check("int4_matmul", x, w_p, scales)
@@ -475,6 +477,7 @@ def int4_matmul(x, w_p, scales):
 def int4_matmul_smallm(x, w_p, scales):
     """Decode-shaped int4 matmul: the same contract as `int4_matmul`, the
     weights dequantized with their scales before the product."""
+    _build.refuse_grad("int4_matmul_smallm", x, w_p, scales)
     if x.device.type == "cpu":
         return int4_matmul_smallm_reference(x, w_p, scales)
     m, n, k = _int4_check("int4_matmul_smallm", x, w_p, scales)
@@ -518,6 +521,7 @@ def int8_matmul_w8a8(x, w_q, scales):
     int8 × int8 products on wgmma → [M, N] x.dtype. Two launches (quantize
     x, then the product), plus the fixed-order reduce of the K splits when
     there are several (`w8a8_plan`)."""
+    _build.refuse_grad("int8_matmul_w8a8", x, w_q, scales)
     if x.device.type == "cpu":
         return int8_matmul_w8a8_reference(x, w_q, scales)
     m, n, k = _check_operands("int8_matmul_w8a8", x, w_q, scales, x.shape[-1], 1, 64)

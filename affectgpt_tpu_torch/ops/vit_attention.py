@@ -110,6 +110,7 @@ def _attention(q, k, v, valid_len: int, out):
 def fused_vit_attention(q, k, v, valid_len: int):
     """q, k, v [b, h, n, d] (keys ≥ valid_len masked) → [b, h, n, d] in
     q.dtype."""
+    _build.refuse_grad("fused_vit_attention", q, k, v)
     if q.device.type == "cpu":
         return fused_vit_attention_reference(q, k, v, valid_len)
     if q.device.type != "cuda":
@@ -122,6 +123,7 @@ fused_vit_attention.launches = 0  # kernel launches since the last reset
 
 def fused_self_attention(q, k, v, valid_len: int):
     """q, k, v [b, t, h, d] (keys ≥ valid_len masked) → [b, t, h, d]."""
+    _build.refuse_grad("fused_self_attention", q, k, v)
     if q.device.type == "cpu":
         o = fused_vit_attention_reference(q.transpose(1, 2), k.transpose(1, 2),
                                           v.transpose(1, 2), valid_len)

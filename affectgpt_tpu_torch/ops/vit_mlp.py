@@ -102,6 +102,7 @@ def mlp_sublayer(x, ln_scale, ln_bias, w_in, b_in, w_out, b_out, eps: float = 1e
     over groups of images (the largest divisor of b not above image_chunk),
     bounding the [chunk, n, I] intermediate; rows are independent, so the
     result is the unchunked one."""
+    _build.refuse_grad("mlp_sublayer", x, ln_scale, ln_bias, w_in, b_in, w_out, b_out)
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     args = (ln_scale, ln_bias, w_in, b_in, w_out, b_out)

@@ -89,6 +89,7 @@ def mlp_sublayer_fused(x, ln_scale, ln_bias, w_in, b_in, w_out, b_out, eps: floa
                        act: str = "quick_gelu", k_chunks: int = K_CHUNKS, acc: str = ACC):
     """x [b, n, w] → x + fc2(act(fc1(LN(x)))) in x.dtype, one kernel launch.
     w_in [w, I], w_out [I, w] in the `[in, out]` layout."""
+    _build.refuse_grad("mlp_sublayer_fused", x, ln_scale, ln_bias, w_in, b_in, w_out, b_out)
     if act not in ACTS or acc not in ("bf16", "f32"):
         raise ValueError(f"mlp_sublayer_fused: act {act!r}, acc {acc!r}")
     args = (x, ln_scale, ln_bias, w_in, b_in, w_out, b_out)

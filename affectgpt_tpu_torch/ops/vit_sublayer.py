@@ -92,6 +92,7 @@ def attn_sublayer(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
     """x [b, n, w] (keys ≥ valid_len masked) → x + o_proj(attention(LN(x)))
     in x.dtype. Weights [w, w] in the `[in, out]` layout, biases and LN
     parameters [w]."""
+    _build.refuse_grad("attn_sublayer", x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo)
     args = (x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo)
     if x.device.type == "cpu":
         return attn_sublayer_reference(*args, num_heads, valid_len, eps)

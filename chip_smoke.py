@@ -166,6 +166,29 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    fused_vit_attention launched 24 x per CLIP call, the other encoder
    kernels 0 times; prints the features' distance from rt_plain's and the
    stages' ms.
+8. Train: `training.train_step.make_train_step` on the phase-4 LLM at
+   Qwen2.5-7B width (its bf16 weights frozen; f32 LoRA r = 16 with B drawn
+   from a seed, and the attention mergers; AdamW, weight decay 0.05, clip
+   1.0), preextracted features [b, 8, 768|1024], prompts of t = 256
+   (scripts/bench_train.py) whose last 64 positions are labels, dropout on
+   (seed 42). Runs of 2 warm-up and 5 timed steps: b = 8 remat=True, b = 4
+   remat=False, b = 4 remat="dots", b = 4 accum_steps=2; each prints step
+   ms, samples/s, target tokens/s and peak memory, and launches no kernel;
+   the b = 8 run also prints one step's forward, backward and optimizer ms,
+   its device busy share and its kernels by device time (torch.profiler).
+   Gates: (1) every loss and grad_norm is finite; (2) on one fixed batch,
+   dropout off, lr 1e-4, the loss after 10 steps is below the first
+   step's; (3) on the first 2 layers of the LLM at 7B width, the bf16 loss
+   and trainable gradients are within the bf16 bounds of the same model
+   upcast to f32 on the card (BF16_LOSS_RTOL on the loss; relative L2
+   errors: BF16_TOTAL_RTOL on the whole gradient, BF16_GRAD_RTOL on each
+   leaf of at least GATED_LEAF_SIZE elements); (4) on that 2-layer model
+   with dropout on, remat=True and "dots" give remat=False's loss and
+   gradients within the same bounds; (5) a
+   realtime step at b = 2, the frozen CLIP ViT-L/14 and HuBERT-large under
+   torch.no_grad on raw media, launches attn_sublayer and mlp_sublayer 48
+   times each (as rt_default) and nothing else, and gives the mergers
+   finite, non-zero gradients.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -238,6 +261,7 @@ from affectgpt_tpu_torch.ops.prefill_attention import (
     prefill_attention_reference,
     prefill_plan,
 )
+from affectgpt_tpu_torch.training import optim, train_step
 from affectgpt_tpu_torch.utils import clip_text
 
 # both sides round at the same points (xn and silu·up to bf16, attention
@@ -2451,6 +2475,367 @@ def phase_serving_variants(card: str, model: tuple) -> None:
     say("serving", phase_seconds=f"{time.perf_counter() - t0:.3f}", card=repr(card))
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the training step at Qwen2.5-7B width
+
+TRAIN_T = 256  # scripts/bench_train.py:32
+TRAIN_LABELS = 64  # the target positions at the end of each prompt
+TRAIN_OFFSETS = {"multi": 2, "audio": 5, "face": 20, "frame": 30}  # scripts/bench_train.py:83
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+DROPOUT_SEED = 42
+# runs: (batch, remat, accum_steps)
+TRAIN_RUNS = {"b8_remat": (8, True, 1), "b4_noremat": (4, False, 1),
+              "b4_dots": (4, "dots", 1), "b4_accum2": (4, True, 2)}
+# gates 3-4: bf16 against f32 on the card, and remat routes against each
+# other, at 2 layers of 7B width: the loss within 2%, the whole trainable
+# gradient (every leaf in one vector) within 5% relative L2 and each leaf of
+# at least GATED_LEAF_SIZE elements within 10% (bf16 keeps 8 significant
+# bits, and the upstream gradients of the two runs part by 1-3%). A smaller
+# leaf is one cancelling sum, such as the attention merger's 1-element bias
+# (the sum over every feature row of its weight's gradient), whose relative
+# error is that of one number: those leaves are printed and weigh in the
+# whole-gradient bound only.
+BF16_LOSS_RTOL, BF16_TOTAL_RTOL, BF16_GRAD_RTOL = 2e-2, 5e-2, 0.1
+GATED_LEAF_SIZE = 1024
+
+
+def train_batch(cfg: affectgpt.AffectGPTConfig, b: int, seed: int = 0,
+                dtype=torch.bfloat16) -> dict:
+    """scripts/bench_train.py's batch at t = TRAIN_T from a numpy seed, on
+    the card: random ids with the patch runs zeroed at fixed offsets,
+    labels on the last TRAIN_LABELS positions, preextracted features [b,
+    8, 768|1024] in `dtype`."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(1, min(1000, cfg.llm.vocab_size), (b, TRAIN_T)).astype(np.int64)
+    labels = np.full_like(ids, -100)
+    labels[:, -TRAIN_LABELS:] = ids[:, -TRAIN_LABELS:]
+    for m, off in TRAIN_OFFSETS.items():
+        ids[:, off:off + cfg.num_query_tokens(m)] = 0
+    dims = {"frame": cfg.visual_dim, "face": cfg.visual_dim, "audio": cfg.acoustic_dim}
+    return {
+        "input_ids": torch.as_tensor(ids, device="cuda"),
+        "attention_mask": torch.ones((b, TRAIN_T), dtype=torch.float32, device="cuda"),
+        "labels": torch.as_tensor(labels, device="cuda"),
+        "features": {m: torch.as_tensor(rng.randn(b, 8, d).astype(np.float32), device="cuda")
+                     .to(dtype) for m, d in dims.items()},
+        "offsets": {m: torch.full((b,), off, dtype=torch.int64, device="cuda")
+                    for m, off in TRAIN_OFFSETS.items()},
+    }
+
+
+def train_trainable(cfg: affectgpt.AffectGPTConfig, seed: int) -> dict:
+    """The f32 trainable tree on the card from a seed, LoRA's B drawn too
+    (the PEFT start B = 0 gives A no gradient, which gates 3-4 compare)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tree = affectgpt.init_trainable(g, cfg)
+    for layer in tree["lora"]["layers"]:
+        for leaf in layer.values():
+            leaf["b"].normal_(0.0, 0.02, generator=g)
+    return tree
+
+
+def loss_and_grads(cfg, frozen, trainable, batch, remat=False, key=None):
+    """forward_loss and the gradient of every trainable leaf (zeros where the
+    loss does not reach) on copies of the leaves."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in optim.tree_leaves(trainable)]
+    tree = optim.tree_unflatten(trainable, leaves)
+    loss = affectgpt.forward_loss(frozen, tree, cfg, batch, remat=remat, dropout_rng=key)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+
+
+def grad_errors(got: list, want: list, names: list) -> dict:
+    """Relative L2 error of each gradient leaf against `want`'s, by leaf
+    path, over the leaves whose `want` is non-zero, and under "(all)" that
+    of every leaf in one vector."""
+    out = {}
+    for a, b, name in zip(got, want, names):
+        ref = float(torch.linalg.vector_norm(b.float()))
+        if ref > 0:
+            out[name] = float(torch.linalg.vector_norm(a.float() - b.float())) / ref
+    diff = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(a.float() - b.float()) for a, b in zip(got, want)]))
+    out["(all)"] = float(diff) / float(optim.global_norm(want))
+    return out
+
+
+def grad_errors_hold(errs: dict, sizes: dict) -> bool:
+    """Gates 3-4's gradient bounds: "(all)" within BF16_TOTAL_RTOL, every
+    leaf of at least GATED_LEAF_SIZE elements within BF16_GRAD_RTOL."""
+    return errs["(all)"] <= BF16_TOTAL_RTOL and all(
+        v <= BF16_GRAD_RTOL for k, v in errs.items()
+        if k != "(all)" and sizes[k] >= GATED_LEAF_SIZE)
+
+
+def make_tx(accum_steps: int = 1, lr: Optional[float] = None) -> optim.AdamW:
+    schedule = (lambda step: lr) if lr is not None else optim.linear_warmup_cosine_lr(
+        init_lr=1e-4, min_lr=1e-6, warmup_steps=2, total_steps=200)
+    return optim.make_optimizer(schedule, weight_decay=0.05, max_grad_norm=1.0,
+                                accum_steps=accum_steps)
+
+
+def train_step_flops(lc: qwen2.QwenConfig, b: int, t: int, remat) -> float:
+    """Operations of one training step estimated from shapes: the frozen
+    projections twice (forward, dx) and once more under remat=True; the
+    attention products (full t x t, as the plain chain computes them) three
+    times and once more under any remat; the fused loss's lm_head three
+    times (forward, its chunk's recompute, dx). LoRA's rank-16 products are
+    left out."""
+    h, inter = lc.hidden_size, lc.intermediate_size
+    nq, nkv = lc.num_heads * lc.head_dim, lc.num_kv_heads * lc.head_dim
+    n = b * t
+    mm = 2 * n * lc.num_layers * (h * nq + 2 * h * nkv + nq * h + 3 * h * inter)
+    attn = 4 * n * t * nq * lc.num_layers
+    head = 2 * b * (t - 1) * h * lc.vocab_size
+    return mm * (3 if remat is True else 2) + attn * (4 if remat else 3) + 3 * head
+
+
+def step_breakdown(cfg, frozen, state, batch, remat, tx) -> dict:
+    """One step in its three parts, each ending in a synchronize: forward
+    (the loss), backward (the gradients), optimizer. Then one whole step
+    under torch.profiler: its kernels' device time, the busy share of its
+    wall time, and the six kernels with the most device time."""
+    step_fn = train_step.make_train_step(cfg, tx, remat=remat, dropout_seed=DROPOUT_SEED)
+    leaves = optim.tree_leaves(state.trainable)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    loss = affectgpt.forward_loss(frozen, state.trainable, cfg, batch, remat=remat,
+                                  dropout_rng=(DROPOUT_SEED, state.step))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    state.opt_state = tx.apply(optim.tree_unflatten(state.trainable, grads), state.opt_state,
+                               state.trainable)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    out = {"forward_ms": (t1 - t0) * 1e3, "backward_ms": (t2 - t1) * 1e3,
+           "optimizer_ms": (t3 - t2) * 1e3}
+    kernels = {}
+    for _ in range(2):  # a process's first profiler session may record no device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            state, _ = step_fn(state, frozen, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - w0) * 1e3
+        kernels = {e.key: getattr(e, "device_time_total", 0) / 1e3 for e in prof.key_averages()
+                   if getattr(e, "device_time_total", 0)}
+        if kernels:
+            break
+    device_ms = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    out.update(profiled_wall_ms=wall_ms, device_ms=device_ms,
+               busy_share=device_ms / wall_ms if wall_ms else float("nan"),
+               top_kernels={k.split("(")[0][-60:]: round(v, 3) for k, v in top})
+    return out
+
+
+def train_run(card: str, name: str, cfg, frozen: dict) -> None:
+    """One run of TRAIN_RUNS: TRAIN_WARMUP + TRAIN_TIMED steps on one batch,
+    dropout on; the timed steps' mean ms, samples/s, target tokens/s, the
+    peak memory; gate 1 and no kernel launched."""
+    b, remat, accum = TRAIN_RUNS[name]
+    tx = make_tx(accum)
+    state = train_step.create_train_state(train_trainable(cfg, 1), tx)
+    step_fn = train_step.make_train_step(cfg, tx, remat=remat, dropout_seed=DROPOUT_SEED)
+    batch = train_batch(cfg, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+
+    def steps(n):
+        nonlocal state
+        for _ in range(n):
+            state, m = step_fn(state, frozen, batch)
+            metrics.append(m)
+
+    _, launches = counted_call(lambda: steps(TRAIN_WARMUP))
+    check_launches(f"train {name}", launches, {})
+    t0 = time.perf_counter()
+    steps(TRAIN_TIMED)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_TIMED
+    losses = torch.stack([m["loss"] for m in metrics]).float().cpu()
+    norms = torch.stack([m["grad_norm"] for m in metrics]).float().cpu()
+    if not bool(torch.isfinite(losses).all() and torch.isfinite(norms).all()):
+        raise AssertionError(f"train {name}: non-finite loss {losses} or grad_norm {norms}")
+    flops = train_step_flops(cfg.llm, b, TRAIN_T, remat)
+    say("train", run=name, batch=b, remat=remat, accum_steps=accum, seq=TRAIN_T,
+        step_ms=f"{step_s * 1e3:.4f}", samples_per_s=f"{b / step_s:.4f}",
+        target_tokens_per_s=f"{b * TRAIN_LABELS / step_s:.4f}",
+        est_tflops_per_s=f"{flops / step_s / 1e12:.2f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+        updates=state.opt_state["count"], losses=json.dumps([round(float(x), 4) for x in losses]),
+        grad_norm_last=f"{float(norms[-1]):.4f}", card=repr(card))
+    if name == "b8_remat":
+        parts = step_breakdown(cfg, frozen, state, batch, remat, tx)
+        say("train", run=name, breakdown=json.dumps(
+            {k: round(v, 4) if isinstance(v, float) else v for k, v in parts.items()}),
+            card=repr(card))
+    del state, batch, metrics
+    torch.cuda.empty_cache()
+
+
+def train_loss_falls(card: str, cfg, frozen: dict) -> None:
+    """Gate 2: 10 steps on one fixed batch (b = 4, remat=True), dropout off,
+    constant lr 1e-4; the loss after them must be below the first step's."""
+    tx = make_tx(lr=1e-4)
+    state = train_step.create_train_state(train_trainable(cfg, 2), tx)
+    step_fn = train_step.make_train_step(cfg, tx, remat=True)
+    batch = train_batch(cfg, 4, seed=1)
+    losses = []
+    for _ in range(10):
+        state, m = step_fn(state, frozen, batch)
+        losses.append(m["loss"])
+    with torch.no_grad():
+        after = affectgpt.forward_loss(frozen, state.trainable, cfg, batch)
+    losses = [float(x) for x in losses] + [float(after)]
+    say("train", gate="loss_falls", losses=json.dumps([round(x, 5) for x in losses]),
+        card=repr(card))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall over 10 steps: {losses}")
+
+
+def numerics_model(cfg, frozen: dict):
+    """The first 2 layers of the LLM at its width, their config, a trainable
+    tree and a b = 2 batch: the model of gates 3 and 4."""
+    cfg2 = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_layers=2))
+    llm2 = {**frozen["llm"], "layers": frozen["llm"]["layers"][:2]}
+    return cfg2, {"llm": llm2}, train_trainable(cfg2, 3), train_batch(cfg2, 2, seed=2)
+
+
+def bf16_errors(cfg, frozen: dict) -> tuple:
+    """Gate 3's measurement: (bf16 loss, f32 loss, {leaf: relative L2 error
+    of its bf16 gradient against the f32 one}) on `numerics_model`, the f32
+    side the same weights and features upcast."""
+    cfg2, small, trainable, batch = numerics_model(cfg, frozen)
+    names = optim.tree_paths(trainable)
+    loss16, g16 = loss_and_grads(cfg2, small, trainable, batch)
+    batch32 = {**batch, "features": tree_to(batch["features"], torch.float32)}
+    loss32, g32 = loss_and_grads(cfg2, tree_to(small, torch.float32), trainable, batch32)
+    return float(loss16), float(loss32), grad_errors(g16, g32, names)
+
+
+def leaf_sizes(cfg, frozen: dict) -> dict:
+    """Elements of each trainable leaf of `numerics_model`, by path."""
+    trainable = numerics_model(cfg, frozen)[2]
+    return {k: t.numel() for k, t in zip(optim.tree_paths(trainable), optim.tree_leaves(trainable))}
+
+
+def remat_errors(cfg, frozen: dict, key: tuple) -> tuple:
+    """Gate 4's measurement on `numerics_model` with dropout key `key`: the
+    remat=False loss and, for remat True and "dots", (loss, {leaf:
+    relative L2 error against remat=False's gradient})."""
+    cfg2, small, trainable, batch = numerics_model(cfg, frozen)
+    names = optim.tree_paths(trainable)
+    loss0, g0 = loss_and_grads(cfg2, small, trainable, batch, remat=False, key=key)
+    out = {}
+    for remat in (True, "dots"):
+        loss, g = loss_and_grads(cfg2, small, trainable, batch, remat=remat, key=key)
+        out[str(remat)] = (float(loss), grad_errors(g, g0, names))
+    return float(loss0), out
+
+
+def worst(errs: dict, n: int = 4) -> str:
+    return json.dumps({k: f"{v:.3e}" for k, v in sorted(errs.items(), key=lambda kv: -kv[1])[:n]})
+
+
+def train_numerics(card: str, cfg, frozen: dict) -> None:
+    """Gates 3 and 4 on the first 2 layers of the LLM at its width, b = 2."""
+    sizes = leaf_sizes(cfg, frozen)
+    loss16, loss32, errs = bf16_errors(cfg, frozen)
+    loss_err = abs(loss16 - loss32) / abs(loss32)
+    gated = {k: v for k, v in errs.items() if k != "(all)" and sizes[k] >= GATED_LEAF_SIZE}
+    say("train", gate="bf16_vs_f32", loss_bf16=f"{loss16:.6f}", loss_f32=f"{loss32:.6f}",
+        loss_rel_err=f"{loss_err:.3e}", leaves=len(errs) - 1, gated_leaves=len(gated),
+        grad_rel_err_all=f"{errs['(all)']:.4e}",
+        grad_rel_err_median=f"{statistics.median(gated.values()):.4e}",
+        worst_gated=worst(gated, 3), worst_small=worst(
+            {k: v for k, v in errs.items() if k != "(all)" and k not in gated}, 3),
+        card=repr(card))
+    if not (np.isfinite(loss16) and loss_err <= BF16_LOSS_RTOL and gated
+            and grad_errors_hold(errs, sizes)):
+        raise AssertionError(f"train: bf16 against f32: loss error {loss_err}, gradient "
+                             f"errors {worst(errs)}")
+    key = (DROPOUT_SEED, 0)
+    loss0, routes = remat_errors(cfg, frozen, key)
+    say("train", gate="remat_invariance", dropout_key=json.dumps(key),
+        loss_dropout=f"{loss0:.6f}", loss_no_dropout=f"{loss16:.6f}",
+        **{f"remat_{r}": f"loss={loss:.6f} worst={worst(e, 2)}" for r, (loss, e) in routes.items()},
+        card=repr(card))
+    for remat, (loss, e) in routes.items():
+        if abs(loss - loss0) > BF16_LOSS_RTOL * abs(loss0) or not grad_errors_hold(e, sizes):
+            raise AssertionError(f"train: remat={remat} against remat=False with dropout: "
+                                 f"loss {loss} / {loss0}, errors {worst(e)}")
+    if loss0 == loss16:
+        raise AssertionError("train: dropout on left the 2-layer loss unchanged")
+
+
+def train_realtime(card: str, cfg, frozen: dict) -> None:
+    """Gate 5: a realtime training step at b = 2. The frozen towers encode
+    raw media under torch.no_grad (rt_default's kernels: attn_sublayer and
+    mlp_sublayer once per CLIP layer, frames and faces), the step trains on
+    their features; then the mergers' gradients on the same features."""
+    _, vcfg, _, _ = encoder_configs(cfg)
+    raw = {m: v[:2] for m, v in realtime_media().items()}
+    batch = train_batch(cfg, 2, seed=3)
+    tx = make_tx()
+    state = train_step.create_train_state(train_trainable(cfg, 4), tx)
+    step_fn = train_step.make_train_step(cfg, tx, remat=True, dropout_seed=DROPOUT_SEED)
+
+    def run():
+        with torch.no_grad():
+            feats = encode_media_features(frozen, cfg, raw)
+        return feats, step_fn(state, frozen, {**batch, "features": feats})
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (feats, (_, metrics)), launches = counted_call(run)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    expected = {"attn_sublayer": 2 * vcfg.num_layers, "mlp_sublayer": 2 * vcfg.num_layers}
+    say("train", gate="realtime", batch=2, launches=json.dumps({k: v for k, v in launches.items()
+                                                                if v}),
+        loss=f"{float(metrics['loss']):.5f}", grad_norm=f"{float(metrics['grad_norm']):.4f}",
+        step_ms=f"{step_ms:.3f}", card=repr(card))
+    check_launches("train realtime", launches, expected)
+    _, grads = loss_and_grads(cfg, frozen, state.trainable, {**batch, "features": feats},
+                              remat=True, key=(DROPOUT_SEED, 1))
+    merger = optim.tree_unflatten(state.trainable, grads)
+    used = [g for grp in ("video", "audio") for g in optim.tree_leaves(merger["mergers"][grp])]
+    used += optim.tree_leaves(merger["multi"])
+    if not (bool(torch.isfinite(metrics["loss"])) and all(bool(torch.isfinite(g).all()) for g in used)
+            and all(bool(g.abs().sum() > 0) for g in used)):
+        raise AssertionError("train realtime: non-finite loss or merger gradients, or a zero one")
+
+
+def phase_train(card: str, model: tuple) -> None:
+    """Phase 8 on the phase-4 model: the runs of TRAIN_RUNS and gates 2-5.
+    The quantized serving trees of phases 4-7 are released first."""
+    cfg, frozen, _, _, _, trees = model
+    for tree in ("int8", "int4"):
+        trees.pop(tree, None)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    llm_only = {"llm": frozen["llm"]}
+    say("train", hidden=cfg.llm.hidden_size, layers=cfg.llm.num_layers,
+        frozen_gib=f"{tree_gib(llm_only):.3f}",
+        trainable_gib=f"{tree_gib(train_trainable(cfg, 0)):.3f}", lora_r=cfg.llm.lora_r,
+        lora_dropout=cfg.llm.lora_dropout, allocated_gib=f"{torch.cuda.memory_allocated() / 2**30:.3f}")
+    for name in TRAIN_RUNS:
+        train_run(card, name, cfg, llm_only)
+    train_loss_falls(card, cfg, llm_only)
+    train_numerics(card, cfg, llm_only)
+    train_realtime(card, cfg, frozen)
+    say("train", phase_seconds=f"{time.perf_counter() - t0:.3f}", card=repr(card))
+
+
 def main() -> None:
     card = phase_device()
     phase_build(card)
@@ -2467,6 +2852,7 @@ def main() -> None:
     for name, count in phase_realtime(card, model).items():  # the encoder kernels
         launches.setdefault(name, count)
     phase_serving_variants(card, model)
+    phase_train(card, model)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],

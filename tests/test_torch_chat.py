@@ -92,5 +92,6 @@ def test_build_model_tiny_and_serving_llm():
         "multiface_audio_face_text", ["a", "b"], "Q?", feats, max_new_tokens=4, do_sample=True)
     assert len(out) == 2 and all(isinstance(s, str) for s in out)
 
-    with pytest.raises(NotImplementedError):
-        bootstrap.build_model({"keep_full_llm": False, "ckpt": "some.ckpt"})
+    # the checkpoint overlays are ported: a missing checkpoint is a missing file
+    with pytest.raises(FileNotFoundError):
+        bootstrap.build_model({"keep_full_llm": False, "ckpt": "some.ckpt"}, device="cpu")

@@ -33,7 +33,7 @@ from affectgpt_tpu_torch import bootstrap
 from affectgpt_tpu_torch.inference.chat import Chat, encode_media_features
 from affectgpt_tpu_torch.models import affectgpt as ta
 from affectgpt_tpu_torch.models import clip_vit, convert, encoders, hubert, nn
-from affectgpt_tpu_torch.ops import image
+from affectgpt_tpu_torch.ops import image, vit_attention
 from affectgpt_tpu_torch.tokenization import ByteTokenizer as TorchByteTokenizer
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -103,11 +103,23 @@ def test_mha_matches_jax(monkeypatch, tq, tk, masked, fused):
         fused == "auto" and not masked and tq == tk and tq >= 192)
 
 
-def test_mha_raises_on_probs_drop():
+def test_mha_raises_on_probs_drop(monkeypatch):
+    """probs_drop (train mode) takes a dropout key, a tuple of ints: a bare
+    int raises. A call with probs_drop stays on the plain chain where the
+    same call without it takes the fused route."""
     params = convert.tree_to_torch(_mha_params(0, 16, 16, 2), "cpu")
     x = torch.zeros(1, 3, 16)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         nn.mha(params, x, x, 2, probs_drop=(0, 0.1))
+
+    def fused(*args, **kwargs):
+        raise RuntimeError("fused route")
+
+    monkeypatch.setattr(vit_attention, "fused_self_attention", fused)
+    x = torch.randn(1, 192, 16, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="fused route"):
+        nn.mha(params, x, x, 2)
+    assert nn.mha(params, x, x, 2, probs_drop=((0,), 0.1)).shape == x.shape
 
 
 @functools.lru_cache(maxsize=None)

@@ -52,7 +52,10 @@ def test_port_imports_without_jax():
     modules = _port_modules() + ["chip_smoke"]
     assert "affectgpt_tpu_torch.inference.chat" in modules and len(modules) >= 22
     assert {"affectgpt_tpu_torch.models.au_agent", "affectgpt_tpu_torch.models.qformer",
-            "affectgpt_tpu_torch.utils.clip_text"} <= set(modules)
+            "affectgpt_tpu_torch.utils.clip_text", "affectgpt_tpu_torch.registry",
+            "affectgpt_tpu_torch.training.optim", "affectgpt_tpu_torch.training.train_step",
+            "affectgpt_tpu_torch.training.checkpoint", "affectgpt_tpu_torch.ops.audio",
+            "affectgpt_tpu_torch.ops.augment", "affectgpt_tpu_torch.ops.jpeg"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises ImportError
@@ -190,3 +193,60 @@ def test_kernel_build_is_keyed_by_source_hash():
         "int4_matmul_smallm.cu", "decode_mlp_int8.cu", "paged_attention.cu",
         "vit_attention.cu", "vit_sublayer.cu", "vit_mlp.cu", "vit_mlp_fused.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def _wrappers():
+    from affectgpt_tpu_torch.ops import (decode_attention, decode_attn_o, prefill_attention,
+                                         quant, vit_attention, vit_mlp, vit_mlp_fused,
+                                         vit_sublayer)
+    qkv_kw = dict(num_heads=1, num_kv_heads=1, head_dim=128, theta=1e6)
+    return {
+        "decode_qkv": (decode_qkv, 8, qkv_kw), "decode_mlp_bf16": (decode_mlp_bf16, 5, {}),
+        "decode_mlp": (decode_mlp, 8, {}),
+        "decode_attention": (decode_attention.decode_attention, 4, {}),
+        "decode_attn_o": (decode_attn_o.decode_attn_o, 6, {}),
+        "prefill_attention": (prefill_attention.prefill_attention, 4, {}),
+        "paged_attention": (paged_ops.paged_attention, 5, {}),
+        "paged_attention_int8": (paged_ops.paged_attention_int8, 7, {}),
+        "int8_matmul": (quant.int8_matmul, 3, {}), "int4_matmul": (quant.int4_matmul, 3, {}),
+        "int4_matmul_smallm": (quant.int4_matmul_smallm, 3, {}),
+        "int8_matmul_w8a8": (quant.int8_matmul_w8a8, 3, {}),
+        "fused_vit_attention": (vit_attention.fused_vit_attention, 3, {"valid_len": 1}),
+        "fused_self_attention": (vit_attention.fused_self_attention, 3, {"valid_len": 1}),
+        "mlp_sublayer": (vit_mlp.mlp_sublayer, 7, {}),
+        "mlp_sublayer_fused": (vit_mlp_fused.mlp_sublayer_fused, 7, {}),
+        "attn_sublayer": (vit_sublayer.attn_sublayer, 11, {"num_heads": 1, "valid_len": 1}),
+    }
+
+
+@pytest.mark.parametrize("name", list(_wrappers()))
+def test_kernel_wrapper_refuses_grad_off_the_cpu(name):
+    """Every wrapper of a hand-written kernel raises before launching when
+    grad mode is on and an operand off the CPU requires grad (a "meta"
+    tensor stands in for the card's here): no kernel has a backward, and
+    its output would silently cut the graph. Under no_grad the same call
+    goes on to the device check."""
+    fn, n_args, kwargs = _wrappers()[name]
+    args = [torch.empty(2, 2, device="meta") for _ in range(n_args)]
+    args[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fn(*args, **kwargs)
+    with torch.no_grad(), pytest.raises(Exception) as info:
+        fn(*args, **kwargs)
+    assert "no backward" not in str(info.value)
+
+
+def test_refuse_grad_keeps_the_cpu_plain_version_differentiable():
+    """A CPU operand that requires grad takes the plain version, whose
+    result keeps its graph."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(3, 128, generator=g, requires_grad=True)
+    w_q = torch.randint(-127, 128, (128, 64), generator=g, dtype=torch.int8)
+    from affectgpt_tpu_torch.ops import quant
+
+    y = quant.int8_matmul(x, w_q, torch.rand(1, 64, generator=g) * 0.01)
+    (dx,) = torch.autograd.grad(y.sum(), x)
+    assert dx.shape == x.shape and bool(dx.abs().sum() > 0)
+    _build.refuse_grad("k", x, None, 3)  # CPU tensors and non-tensors pass
+    with pytest.raises(RuntimeError, match="k: the CUDA kernel has no backward"):
+        _build.refuse_grad("k", torch.empty(1, device="meta", requires_grad=True))

@@ -74,10 +74,15 @@ def test_apply_matches_jax(mask, cross_attention_freq):
 
 
 def test_apply_raises_in_train_mode():
+    """Train mode is ported: its dropout key is a tuple of ints (a bare int
+    raises), and a key gives the train-mode output."""
     cfg = tqf.QFormerConfig.tiny()
     params = tqf.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match=r"\(ROADMAP queue 1 item 8\)"):
-        tqf.apply(params, cfg, torch.zeros(1, 3, cfg.encoder_width), dropout_rng=0)
+    enc = torch.zeros(1, 3, cfg.encoder_width)
+    with pytest.raises(TypeError):
+        tqf.apply(params, cfg, enc, dropout_rng=0)
+    out = tqf.apply(params, cfg, enc, dropout_rng=(0,))
+    assert out.shape == (1, cfg.num_query_tokens, cfg.hidden_size) and torch.isfinite(out).all()
 
 
 def test_init_params_has_jax_tree():
