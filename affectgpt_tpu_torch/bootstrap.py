@@ -1,8 +1,9 @@
 """Model bootstrap for the PyTorch port.
 
 Port of affectgpt_tpu/bootstrap.py: resolve the tokenizer, build the model
-config from the YAML `model:` section given as a plain dict
-(affectgpt_tpu.config needs PyYAML, which the port does not), and make
+config from the YAML `model:` section given as a plain dict (a
+`config.Config`'s `cfg.model.to_dict()`, as the runner's entry point passes
+it), and make
 random weights from a seed on the chosen device: the LLM and, with
 `with_encoders` (the realtime path), the CLIP ViT-L/14 and HuBERT-large
 towers; `model.int8` quantizes the LLM's projections to per-channel int8.

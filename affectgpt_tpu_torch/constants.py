@@ -3,8 +3,8 @@
 The port's own copy of the part of affectgpt_tpu/constants.py it uses: the
 reference's global token table (AffectGPT/config.py:121-126), whose six
 placeholders are special tokens of the tokenizer, replicated once per query
-token in prompts before tokenization; the audio clip constants; the image
-normalization stats of the encoders' processors.
+token in prompts before tokenization; the label-masking sentinel; the audio
+clip constants; the image normalization stats of the encoders' processors.
 """
 
 DEFAULT_IMAGE_PATCH_TOKEN = "<ImageHere>"
@@ -22,6 +22,9 @@ ALL_PATCH_TOKENS = (
     DEFAULT_MULTI_PATCH_TOKEN,
     DEFAULT_NONVERBAL_PATCH_TOKEN,
 )
+
+# labels outside the answer, ignored by the loss (HF convention)
+IGNORE_INDEX = -100
 
 # Audio front-end constants (reference: my_affectgpt/models/ImageBind/data.py:117-239).
 AUDIO_SAMPLE_RATE = 16_000

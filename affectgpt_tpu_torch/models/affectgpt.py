@@ -219,7 +219,8 @@ def build_inputs_embeds(frozen: dict, trainable: dict, cfg: AffectGPTConfig,
 
 
 def forward_loss(frozen: dict, trainable: dict, cfg: AffectGPTConfig,
-                 batch: Dict[str, torch.Tensor], remat=False, dropout_rng=None) -> torch.Tensor:
+                 batch: Dict[str, torch.Tensor], remat=False, dropout_rng=None,
+                 return_sum: bool = False):
     """One training forward: the scalar causal-LM loss (JAX
     affectgpt.py:290-334; the reference forward's {"loss"}).
 
@@ -230,7 +231,9 @@ def forward_loss(frozen: dict, trainable: dict, cfg: AffectGPTConfig,
     dropouts, the mergers on its fold 1, the LLM on its fold 2; None is the
     eval-mode forward. A tied lm_head or a float one takes
     `qwen2.fused_cross_entropy_loss` (the [b, t, vocab] logits never exist),
-    a quantized one the plain loss over its logits, as in JAX."""
+    a quantized one the plain loss over its logits, as in JAX. return_sum:
+    return (the loss summed over the target tokens, their count) instead of
+    the mean, which the data-parallel step takes over every rank's tokens."""
     merger_rng = llm_rng = None
     if dropout_rng is not None:
         merger_rng, llm_rng = nn.fold_in(dropout_rng, 1), nn.fold_in(dropout_rng, 2)
@@ -241,7 +244,8 @@ def forward_loss(frozen: dict, trainable: dict, cfg: AffectGPTConfig,
         hidden, _ = qwen2.forward(llm, cfg.llm, embeds, batch["attention_mask"],
                                   lora=trainable["lora"], remat=remat, return_hidden=True,
                                   dropout_rng=llm_rng)
-        return qwen2.fused_cross_entropy_loss(hidden, llm, cfg.llm, batch["labels"])
+        return qwen2.fused_cross_entropy_loss(hidden, llm, cfg.llm, batch["labels"],
+                                              return_sum=return_sum)
     logits, _ = qwen2.forward(llm, cfg.llm, embeds, batch["attention_mask"],
                               lora=trainable["lora"], remat=remat, dropout_rng=llm_rng)
-    return qwen2.cross_entropy_loss(logits, batch["labels"])
+    return qwen2.cross_entropy_loss(logits, batch["labels"], return_sum=return_sum)

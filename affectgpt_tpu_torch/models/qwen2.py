@@ -476,14 +476,26 @@ def _lora_drop(drop_rng, cfg: QwenConfig, name: str):
     return nn.fold_in(drop_rng, _LORA_DROP_IDS[name]), cfg.lora_dropout
 
 
+def _direct(fn, *args):
+    return fn(*args)
+
+
+def _recomputed(fn, *args):
+    """fn(*args) whose intermediates the backward recomputes from args:
+    remat="dots"'s segments between the products."""
+    return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                       preserve_rng_state=False)
+
+
 def _project_qkv(layer, lora_layer, cfg: QwenConfig, x, positions, decode: bool,
-                 drop_rng=None):
+                 drop_rng=None, seg=_direct):
     """q [b, t, heads, d], k and v [b, t, kv, d], RoPE applied, from the RAW
     residual stream x [b, t, hidden]; this function owns the pre-attention
     rmsnorm. decode: a decode step (a cache, t == 1), where the decode-QKV
-    kernel is tried. drop_rng: the layer's LoRA-dropout key. Returns (q, k,
-    v, fused), fused telling that the kernel ran (x was left un-normed for
-    it)."""
+    kernel is tried. drop_rng: the layer's LoRA-dropout key. seg runs the
+    rmsnorm and RoPE (`_direct`, or `_recomputed` under remat="dots").
+    Returns (q, k, v, fused), fused telling that the kernel ran (x was left
+    un-normed for it)."""
     b, t, _ = x.shape
     heads, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     fused = _decode_qkv_fused(layer, lora_layer, cfg, x[:, 0, :], positions[:, 0]) \
@@ -493,7 +505,7 @@ def _project_qkv(layer, lora_layer, cfg: QwenConfig, x, positions, decode: bool,
         return q[:, None], k[:, None], v[:, None], True
     scaling = cfg.lora_alpha / cfg.lora_r
     lget = (lambda n: lora_layer[n]) if lora_layer is not None else (lambda n: None)
-    x = nn.rmsnorm(layer["input_ln"], x, cfg.rms_eps)
+    x = seg(nn.rmsnorm, layer["input_ln"], x, cfg.rms_eps)
     if "qkv_proj" in layer:  # fused serving layout: one matmul, split columns
         if lora_layer is not None:
             raise ValueError("the fused layout serves merged-LoRA weights")
@@ -502,8 +514,8 @@ def _project_qkv(layer, lora_layer, cfg: QwenConfig, x, positions, decode: bool,
     else:
         q, k, v = (_lora_dense(layer[n], lget(n), x, scaling,
                                drop=_lora_drop(drop_rng, cfg, n)) for n in _QKV)
-    q = _rope(q.reshape(b, t, heads, d), positions, cfg.rope_theta)
-    k = _rope(k.reshape(b, t, kv, d), positions, cfg.rope_theta)
+    q = seg(_rope, q.reshape(b, t, heads, d), positions, cfg.rope_theta)
+    k = seg(_rope, k.reshape(b, t, kv, d), positions, cfg.rope_theta)
     return q, k, v.reshape(b, t, kv, d), False
 
 
@@ -566,19 +578,51 @@ def _write_cache(cache: dict, k: torch.Tensor, v: torch.Tensor, cache_index) -> 
             cache[name][:, :, cache_index:cache_index + t] = new
 
 
+def _attention_core(q, k, v, mask, cfg: QwenConfig, dtype, k_scale=None, v_scale=None):
+    """The plain attention chain: q [b, t, heads, d], k and v [b, kv, T, d],
+    mask [b, 1, t, T] → [b, t, heads · d] in `dtype`.
+
+    GQA without repeating K/V: fold the query-head groups into a 5-D
+    product; scores and softmax in f32, probabilities rounded to v's dtype
+    before PV, as the JAX chain does (qwen2.py:929-958). An int8 cache is
+    read in q's dtype with its per-row scales k_scale / v_scale [b, kv, T]
+    folded outside the contractions: scores x k_scale, probabilities x
+    v_scale."""
+    b, t = q.shape[:2]
+    groups = cfg.num_heads // cfg.num_kv_heads
+    qg = q.reshape(b, t, cfg.num_kv_heads, groups, cfg.head_dim)
+    if k_scale is not None:
+        k, v = k.to(qg.dtype), v.to(qg.dtype)
+    logits = torch.einsum("bqhgd,bhkd->bhgqk", qg.float(), k.float())
+    if k_scale is not None:
+        logits = logits * k_scale[:, :, None, None, :]
+    logits = logits / float(cfg.head_dim) ** 0.5
+    mask5 = mask[:, :, None, :, :]
+    logits = logits.masked_fill(~mask5, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale[:, :, None, None, :]
+    probs = probs.to(v.dtype)
+    out = torch.einsum("bhgqk,bhkd->bqhgd", probs.float(), v.float())
+    return out.to(dtype).reshape(b, t, cfg.num_heads * cfg.head_dim)
+
+
 def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, cache_index,
-               drop_rng=None):
+               drop_rng=None, seg=_direct):
     """x is the RAW residual stream; this function owns the pre-attention
     rmsnorm (folded into the decode-QKV kernel on the decode step).
     drop_rng: the layer's LoRA-dropout key (q/k/v, and o_proj on the plain
-    chain, as JAX drops them). Returns (out, residual_done): residual_done
-    means that out already holds x + attention (decode_attn_o adds the
-    residual itself), so the caller must not add x again."""
+    chain, as JAX drops them). seg runs the segments between the products
+    (`_project_qkv`'s, and the plain attention chain). Returns (out,
+    residual_done): residual_done means that out already holds x +
+    attention (decode_attn_o adds the residual itself), so the caller must
+    not add x again."""
     b, t, _ = x.shape
     scaling = cfg.lora_alpha / cfg.lora_r
     lget = (lambda n: lora_layer[n]) if lora_layer is not None else (lambda n: None)
     q, k, v, fused = _project_qkv(layer, lora_layer, cfg, x, positions,
-                                  decode=cache is not None and t == 1, drop_rng=drop_rng)
+                                  decode=cache is not None and t == 1, drop_rng=drop_rng,
+                                  seg=seg)
     k = k.transpose(1, 2)  # [b, kv, t, d]
     v = v.transpose(1, 2)
     groups = cfg.num_heads // cfg.num_kv_heads
@@ -613,31 +657,18 @@ def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, ca
             return _lora_dense(layer["o_proj"], lget("o_proj"), out, scaling,
                                has_bias=False), False
 
-    # GQA without repeating K/V: fold the query-head groups into a 5-D
-    # product; scores and softmax in f32, probabilities rounded to the
-    # compute dtype before PV, as the JAX chain does (qwen2.py:929-958). An
-    # int8 cache is read in the compute dtype with its per-row scales folded
-    # outside the contractions: scores x k_scale, probabilities x v_scale.
-    qg = q.reshape(b, t, cfg.num_kv_heads, groups, cfg.head_dim)
-    if kv_quant:
-        k, v = k.to(qg.dtype), v.to(qg.dtype)
-    logits = torch.einsum("bqhgd,bhkd->bhgqk", qg.float(), k.float())
-    if kv_quant:
-        logits = logits * cache["k_scale"][:, :, None, None, :]
-    logits = logits / float(cfg.head_dim) ** 0.5
-    mask5 = mask[:, :, None, :, :]
-    logits = logits.masked_fill(~mask5, torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits, dim=-1)
-    if kv_quant:
-        probs = probs * cache["v_scale"][:, :, None, None, :]
-    probs = probs.to(v.dtype)
-    out = torch.einsum("bhgqk,bhkd->bqhgd", probs.float(), v.float())
-    out = out.to(x.dtype).reshape(b, t, cfg.num_heads * cfg.head_dim)
+    scales = (cache["k_scale"], cache["v_scale"]) if kv_quant else (None, None)
+    out = seg(_attention_core, q, k, v, mask, cfg, x.dtype, *scales)
     return _lora_dense(layer["o_proj"], lget("o_proj"), out, scaling, has_bias=False,
                        drop=_lora_drop(drop_rng, cfg, "o_proj")), False
 
 
-def _mlp(layer, lora_layer, cfg: QwenConfig, x: torch.Tensor, drop_rng=None) -> torch.Tensor:
+def _silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.silu(gate) * up
+
+
+def _mlp(layer, lora_layer, cfg: QwenConfig, x: torch.Tensor, drop_rng=None,
+         seg=_direct) -> torch.Tensor:
     scaling = cfg.lora_alpha / cfg.lora_r
     lget = (lambda n: lora_layer[n]) if lora_layer is not None else (lambda n: None)
     if "gateup_proj" in layer:
@@ -649,19 +680,8 @@ def _mlp(layer, lora_layer, cfg: QwenConfig, x: torch.Tensor, drop_rng=None) -> 
                            drop=_lora_drop(drop_rng, cfg, "gate_proj"))
         up = _lora_dense(layer["up_proj"], lget("up_proj"), x, scaling, has_bias=False,
                          drop=_lora_drop(drop_rng, cfg, "up_proj"))
-    return _lora_dense(layer["down_proj"], lget("down_proj"),
-                       torch.nn.functional.silu(gate) * up, scaling, has_bias=False,
-                       drop=_lora_drop(drop_rng, cfg, "down_proj"))
-
-
-def _dots_policy(ctx, op, *args, **kwargs):
-    """remat="dots": keep the outputs of the products without batch dims
-    (every projection, LoRA's two factors included, is a 2-D `mm`) and
-    recompute the rest, the attention's batched products among it (JAX's
-    `dots_with_no_batch_dims_saveable`)."""
-    if op.overloadpacket in (torch.ops.aten.mm, torch.ops.aten.addmm):
-        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
-    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+    return _lora_dense(layer["down_proj"], lget("down_proj"), seg(_silu_mul, gate, up),
+                       scaling, has_bias=False, drop=_lora_drop(drop_rng, cfg, "down_proj"))
 
 
 def forward(
@@ -686,9 +706,12 @@ def forward(
     tensor of per-row columns (`_write_cache`).
     last_token_only: project only the final position through the lm_head.
     remat: True recomputes each layer in the backward
-    (`torch.utils.checkpoint`, non-reentrant); "dots" keeps the layer's
-    projection outputs and recomputes the rest (`_dots_policy`); False keeps
-    every activation.
+    (`torch.utils.checkpoint`, non-reentrant); "dots" keeps what the
+    projections (LoRA's factors included) take and give, and recomputes
+    each segment between them (the rmsnorms, RoPE, the attention's batched
+    products and softmax, silu·mul) under its own checkpoint, as JAX's
+    `dots_with_no_batch_dims_saveable` (qwen2.py:1040-1052); False keeps
+    every activation. No route dispatches through a Python mode.
     return_hidden: return the final-normed hidden states [b, t, d] instead
     of the logits (the fused loss's input).
     dropout_rng: a dropout key turns on LoRA dropout (cfg.lora_dropout) with
@@ -706,24 +729,23 @@ def forward(
     else:
         mask = attention_mask[:, None, :, :]  # [b, 1, t, max_len]
 
+    dots = remat == "dots"
+    seg = _recomputed if dots else _direct
+
     def layer_fn(x, layer, lora_layer, layer_cache, layer_drop):
         out, residual_done = _attention(layer, lora_layer, cfg, x, positions, mask,
-                                        layer_cache, cache_index, drop_rng=layer_drop)
+                                        layer_cache, cache_index, drop_rng=layer_drop, seg=seg)
         x = out if residual_done else x + out
         y = _decode_mlp_fused(layer, lora_layer, cfg, x) \
             if layer_cache is not None and t == 1 else None
         if y is not None:
             return y
-        h = nn.rmsnorm(layer["post_attn_ln"], x, cfg.rms_eps)
-        return x + _mlp(layer, lora_layer, cfg, h, drop_rng=layer_drop)
+        h = seg(nn.rmsnorm, layer["post_attn_ln"], x, cfg.rms_eps)
+        return x + _mlp(layer, lora_layer, cfg, h, drop_rng=layer_drop, seg=seg)
 
     run = layer_fn
-    if remat:
-        context = (functools.partial(torch_checkpoint.create_selective_checkpoint_contexts,
-                                     _dots_policy)
-                   if remat == "dots" else torch_checkpoint.noop_context_fn)
-        run = functools.partial(torch_checkpoint.checkpoint, layer_fn, use_reentrant=False,
-                                context_fn=context)
+    if remat and not dots:
+        run = functools.partial(torch_checkpoint.checkpoint, layer_fn, use_reentrant=False)
     drop_on = dropout_rng is not None and lora is not None and cfg.lora_dropout > 0.0
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):
@@ -778,9 +800,11 @@ def kv_buffers(shape: tuple, dtype, device) -> dict:
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       ignore_index: int = -100) -> torch.Tensor:
+                       ignore_index: int = -100, return_sum: bool = False):
     """Shifted causal-LM loss with ignore-index masking, the mean over valid
-    positions (HF labels= semantics; JAX qwen2.py:1123)."""
+    positions (HF labels= semantics; JAX qwen2.py:1123). return_sum: return
+    (the sum over valid positions, their count) instead, for a mean over a
+    batch spread over several ranks."""
     shift_logits = logits[:, :-1, :].float()
     shift_labels = labels[:, 1:]
     valid = shift_labels != ignore_index
@@ -788,6 +812,8 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     logprobs = torch.log_softmax(shift_logits, dim=-1)
     token_ll = logprobs.gather(-1, safe[..., None].long())[..., 0]
     loss_sum = -torch.where(valid, token_ll, torch.zeros_like(token_ll)).sum()
+    if return_sum:
+        return loss_sum, valid.sum()
     return loss_sum / valid.sum().clamp_min(1)
 
 
@@ -806,14 +832,15 @@ def _chunk_stats(xs, w_chunk, safe, off: int, m, s, tgt):
 
 def fused_cross_entropy_loss(hidden: torch.Tensor, params: dict, cfg: QwenConfig,
                              labels: torch.Tensor, ignore_index: int = -100,
-                             chunk: int = 16384) -> torch.Tensor:
+                             chunk: int = 16384, return_sum: bool = False):
     """The shifted causal-LM loss of `cross_entropy_loss(lm_head(hidden))`,
     streaming the lm_head over vocab chunks with an online logsumexp, so
     the [b, t, vocab] f32 logits never exist (JAX qwen2.py:1138-1208).
     hidden [b, t, d] = forward(..., return_hidden=True). Each chunk runs
     under `torch.utils.checkpoint`: the backward recomputes its [N, chunk]
     logits, so one chunk is live at a time. The chunk product is
-    `nn.matmul_f32`, as JAX computes it outside any kernel."""
+    `nn.matmul_f32`, as JAX computes it outside any kernel. return_sum: as
+    in `cross_entropy_loss`."""
     b, t, d = hidden.shape
     xs = hidden[:, :-1, :].reshape(-1, d)
     lab = labels[:, 1:].reshape(-1)
@@ -838,4 +865,6 @@ def fused_cross_entropy_loss(hidden: torch.Tensor, params: dict, cfg: QwenConfig
                                                 use_reentrant=False)
     token_nll = torch.log(s) + m - tgt
     loss_sum = torch.where(valid, token_nll, torch.zeros_like(token_nll)).sum()
+    if return_sum:
+        return loss_sum, valid.sum()
     return loss_sum / valid.sum().clamp_min(1)

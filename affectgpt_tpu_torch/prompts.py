@@ -1,14 +1,15 @@
 """Prompt assembly for multimodal conversations.
 
-The port's own copy of `get_prompt_for_multimodal` and
-`replace_token_for_multimodal` from affectgpt_tpu/prompts.py: string-for-string
+The port's own copy of `get_prompt_for_multimodal`,
+`replace_token_for_multimodal` and the `NEEDED_DATA` table from
+affectgpt_tpu/prompts.py: string-for-string
 the reference templates (my_affectgpt/datasets/datasets/base_dataset.py:798-927),
 so that tokenized prompts are identical in both packages.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 from affectgpt_tpu_torch import constants
 
@@ -31,6 +32,36 @@ _NONVERBAL_PART = (
     "The nonverbal clues (facial action units and audio emotion clues) are: "
     "<Nonverbal>{nonverbal_text}</Nonverbal>. "
 )
+
+
+# face_or_frame mode → which device-side modalities must be loaded
+# (reference: base_dataset.py:298-335).
+NEEDED_DATA = {
+    "faceframe": ["audio", "frame", "face"],
+    "face": ["audio", "face"],
+    "frame": ["audio", "frame"],
+    "audioonly": ["audio"],
+    "textonly": [],
+    "faceonly": ["face"],
+    "frameonly": ["frame"],
+    "multiface_text": ["face", "audio", "multi"],
+    "multiface_audio_face_text": ["face", "audio", "multi"],
+    "image": ["image"],
+    "multiframe_audio_frame_text": ["frame", "audio", "multi"],
+    "multiface_audio_face_frame_text": ["frame", "face", "audio", "multi"],
+    "multiface_audio_face_frame_au_text": ["frame", "face", "audio", "multi"],
+    "multiface_audio_face_au_text": ["face", "audio", "multi"],
+    "audio_text": ["audio"],
+    "face_text": ["face"],
+    "frame_text": ["frame"],
+}
+
+
+def get_needed_data(face_or_frame: str) -> List[str]:
+    try:
+        return list(NEEDED_DATA[face_or_frame])
+    except KeyError:
+        raise ValueError(f"Unknown face_or_frame mode: {face_or_frame}") from None
 
 
 def get_prompt_for_multimodal(

@@ -2,15 +2,19 @@
 
 A copy of the parts of affectgpt_tpu/registry.py that the port uses: the
 `lr_scheduler` namespace, which `training.optim` fills with its schedules,
-and the `get` / `names` lookups. A plain module-level table: registering
-resolves names only and holds no state.
+the `dataset` namespace (`data.datasets`, `data.instruction_datasets`), the
+`task` namespace (`training.runner.build_datasets`) and the `runner`
+namespace (`training.runner.Runner`), and the `get` / `names` lookups. A
+plain module-level table: registering resolves names only and holds no
+state.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
-_REGISTRY: Dict[str, Dict[str, Callable]] = {"lr_scheduler": {}}
+_REGISTRY: Dict[str, Dict[str, Callable]] = {
+    ns: {} for ns in ("lr_scheduler", "dataset", "task", "runner")}
 
 
 def register(namespace: str, name: str) -> Callable:
@@ -41,3 +45,15 @@ def names(namespace: str):
 
 def register_lr_scheduler(name):
     return register("lr_scheduler", name)
+
+
+def register_dataset(name):
+    return register("dataset", name)
+
+
+def register_task(name):
+    return register("task", name)
+
+
+def register_runner(name):
+    return register("runner", name)

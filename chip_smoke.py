@@ -188,7 +188,29 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    realtime step at b = 2, the frozen CLIP ViT-L/14 and HuBERT-large under
    torch.no_grad on raw media, launches attn_sublayer and mlp_sublayer 48
    times each (as rt_default) and nothing else, and gives the mergers
-   finite, non-zero gradients.
+   finite, non-zero gradients. The runs include b = 4 remat=True beside
+   remat=False and "dots" at the same batch.
+9. Runner: the training entry point's path (`config.Config.from_dict` →
+   `training.runner.build_datasets` → `Runner.train`) on the phase-4 model
+   (its LLM frozen, f32 trainable leaves from a seed), over a synthetic
+   MERCaptionPlus corpus of 16 clips written to a temporary directory
+   (subtitles and the track2 / track3 label CSVs, preextracted frame, face
+   and audio features, raw OpenFace crops and wav files). Run A,
+   runner_bestsetup: the model, datasets and run nodes of
+   train_configs/mercaptionplus_bestsetup.yaml (BESTSETUP, a literal: the
+   card has no YAML parser) with RUN_A_OVERRIDES, 2 epochs of 6
+   iterations, validation; it prints each iteration's ms, their median
+   after each epoch's first, the share spent waiting on the prefetcher,
+   the bare step's median on one resident batch, the losses, each
+   checkpoint's bytes and save seconds and the peak memory; gates: finite
+   losses, checkpoints of epochs 0, 1 and 2 and a best one, log.txt's
+   config line and two epoch lines, the median iteration at most
+   ITERATION_RATIO_MAX x the bare step's, and a Runner resumed from epoch
+   1's checkpoint at epoch 1, step 6 and its optimizer count; no kernel
+   launches. Run B, runner_realtime: the face and audio read raw and
+   encoded by the towers inside the prefetcher, b = 2, 3 iterations; rows
+   11 and 12 launch once a CLIP layer for every batch the prefetcher
+   encoded, nothing else.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -2485,7 +2507,7 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 5
 DROPOUT_SEED = 42
 # runs: (batch, remat, accum_steps)
 TRAIN_RUNS = {"b8_remat": (8, True, 1), "b4_noremat": (4, False, 1),
-              "b4_dots": (4, "dots", 1), "b4_accum2": (4, True, 2)}
+              "b4_dots": (4, "dots", 1), "b4_remat": (4, True, 1), "b4_accum2": (4, True, 2)}
 # gates 3-4: bf16 against f32 on the card, and remat routes against each
 # other, at 2 layers of 7B width: the loss within 2%, the whole trainable
 # gradient (every leaf in one vector) within 5% relative L2 and each leaf of
@@ -2500,13 +2522,13 @@ GATED_LEAF_SIZE = 1024
 
 
 def train_batch(cfg: affectgpt.AffectGPTConfig, b: int, seed: int = 0,
-                dtype=torch.bfloat16) -> dict:
-    """scripts/bench_train.py's batch at t = TRAIN_T from a numpy seed, on
-    the card: random ids with the patch runs zeroed at fixed offsets,
-    labels on the last TRAIN_LABELS positions, preextracted features [b,
-    8, 768|1024] in `dtype`."""
+                dtype=torch.bfloat16, t: int = TRAIN_T) -> dict:
+    """scripts/bench_train.py's batch at t = TRAIN_T (or `t`) from a numpy
+    seed, on the card: random ids with the patch runs zeroed at fixed
+    offsets, labels on the last TRAIN_LABELS positions, preextracted
+    features [b, 8, 768|1024] in `dtype`."""
     rng = np.random.RandomState(seed)
-    ids = rng.randint(1, min(1000, cfg.llm.vocab_size), (b, TRAIN_T)).astype(np.int64)
+    ids = rng.randint(1, min(1000, cfg.llm.vocab_size), (b, t)).astype(np.int64)
     labels = np.full_like(ids, -100)
     labels[:, -TRAIN_LABELS:] = ids[:, -TRAIN_LABELS:]
     for m, off in TRAIN_OFFSETS.items():
@@ -2514,7 +2536,7 @@ def train_batch(cfg: affectgpt.AffectGPTConfig, b: int, seed: int = 0,
     dims = {"frame": cfg.visual_dim, "face": cfg.visual_dim, "audio": cfg.acoustic_dim}
     return {
         "input_ids": torch.as_tensor(ids, device="cuda"),
-        "attention_mask": torch.ones((b, TRAIN_T), dtype=torch.float32, device="cuda"),
+        "attention_mask": torch.ones((b, t), dtype=torch.float32, device="cuda"),
         "labels": torch.as_tensor(labels, device="cuda"),
         "features": {m: torch.as_tensor(rng.randn(b, 8, d).astype(np.float32), device="cuda")
                      .to(dtype) for m, d in dims.items()},
@@ -2836,6 +2858,313 @@ def phase_train(card: str, model: tuple) -> None:
     say("train", phase_seconds=f"{time.perf_counter() - t0:.3f}", card=repr(card))
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the training entry point (config → datasets → Runner) at 7B width
+
+# the model, datasets and run nodes of train_configs/mercaptionplus_bestsetup.yaml
+# (the card has no YAML parser; tests/test_torch_config.py holds this literal
+# equal to Config.from_file of the file)
+BESTSETUP = {
+    "model": {
+        "arch": "affectgpt", "llama_model": "Qwen25", "visual_encoder": "CLIP_VIT_LARGE",
+        "acoustic_encoder": "HUBERT_LARGE", "skip_encoders": True,
+        "preextracted_visual_dim": 768, "preextracted_acoustic_dim": 1024,
+        "multi_fusion_type": "attention", "video_fusion_type": "attention",
+        "audio_fusion_type": "attention", "image_fusion_type": "mean",
+        "num_audio_query_token": 1, "num_video_query_token": 1, "num_multi_query_token": 1,
+        "num_image_query_token": 1, "lora_r": 16, "lora_dropout": 0.05, "max_length": 1024,
+        "frozen_llm": False, "frozen_video_proj": False, "frozen_video_Qformer": False,
+        "frozen_audio_Qformer": False, "frozen_audio_proj": False,
+        "frozen_multi_Qformer": False, "frozen_multi_llama_proj": False,
+        "ckpt": "", "ckpt_2": "", "ckpt_3": "",
+    },
+    "datasets": {
+        "mercaptionplus": {
+            "data_type": "video", "face_or_frame": "multiface_audio_face_frame_text",
+            "label_type": "hybird", "frame_n_frms": 8, "frame_sampling": "uniform",
+            "use_preextracted_frame": True, "use_preextracted_face": True,
+            "use_preextracted_audio": True, "preextracted_root": "./preextracted_features",
+            "visual_encoder_name": "CLIP_VIT_LARGE", "acoustic_encoder_name": "HUBERT_LARGE",
+            "ratio": 1.0,
+        },
+    },
+    "run": {
+        "task": "video_text_pretrain", "lr_sched": "linear_warmup_cosine_lr", "init_lr": 1.0e-5,
+        "min_lr": 1.0e-5, "warmup_lr": 1.0e-6, "weight_decay": 0.05, "max_epoch": 100,
+        "iters_per_epoch": 5000, "warmup_steps": 5000, "batch_size_train": 4,
+        "accum_grad_iters": 1, "tp": 1, "remat": False, "seed": 42, "log_freq": 50,
+        "resume_ckpt_path": None,
+    },
+}
+# run A's overrides of the file's run node (output_dir and the corpus paths
+# are set to the phase's temporary directory besides)
+RUN_A_OVERRIDES = {"max_epoch": 2, "iters_per_epoch": 6, "warmup_steps": 4, "log_freq": 1,
+                   "evaluate": True, "val_iters": 2}
+# run B: the realtime dataset mode through the towers of phase 4's model
+RUN_B_DATASET = {"face_or_frame": "multiface_audio_face_text", "use_preextracted_face": False,
+                 "use_preextracted_audio": False}
+RUN_B_OVERRIDES = {"batch_size_train": 2, "max_epoch": 1, "iters_per_epoch": 3,
+                   "warmup_steps": 0, "log_freq": 1}
+RUNNER_CLIPS = 16
+FACE_CROPS = 16  # OpenFace crops a clip, of which the dataset samples 8
+ITERATION_RATIO_MAX = 1.25  # run A's median iteration against the bare step's
+BARE_STEPS = 5
+OPENSETS = ["['happy', 'excited']", "['sad']", "['angry', 'frustrated']", "[]",
+            "['surprised']", "['worried', 'nervous']", "['calm']", "['disappointed']"]
+
+
+def write_runner_corpus(root: str, seed: int = 9) -> tuple:
+    """A synthetic MERCaptionPlus corpus of RUNNER_CLIPS clips under `root`:
+    subtitles.csv and the track2 / track3 label CSVs (written with csv),
+    preextracted frame and face [8, 768] and audio [8, 1024] features, raw
+    OpenFace crops [FACE_CROPS, 112, 112, 3] and 2 s of 16 kHz audio a clip.
+    Returns (the `paths:` section that points the tables at it, the
+    feature root)."""
+    import csv
+    import os
+    import wave
+
+    rng = np.random.RandomState(seed)
+    data = os.path.join(root, "mercaptionplus")
+    feat_root = os.path.join(root, "features")
+    names = [f"clip_{i:04d}" for i in range(RUNNER_CLIPS)]
+    subdirs = {"frame": ("frame_CLIP_VIT_LARGE_uniform_8frms", 768),
+               "face": ("face_CLIP_VIT_LARGE_8frms", 768),
+               "audio": ("audio_HUBERT_LARGE_8clips", 1024)}
+    for sub, _ in subdirs.values():
+        os.makedirs(os.path.join(feat_root, "MERCaptionPlus", sub), exist_ok=True)
+    os.makedirs(os.path.join(data, "audio"), exist_ok=True)
+    for i, name in enumerate(names):
+        for sub, dim in subdirs.values():
+            np.save(os.path.join(feat_root, "MERCaptionPlus", sub, f"{name}.npy"),
+                    rng.randn(8, dim).astype(np.float32))
+        face_dir = os.path.join(data, "openface_face", name)
+        os.makedirs(face_dir, exist_ok=True)
+        np.save(os.path.join(face_dir, f"{name}.npy"),
+                rng.randint(0, 256, (FACE_CROPS, 112, 112, 3), dtype=np.uint8))
+        pcm = (np.clip(rng.randn(RT_SAMPLES) * 0.1, -1, 1) * 32767).astype("<i2")
+        with wave.open(os.path.join(data, "audio", f"{name}.wav"), "wb") as handle:
+            handle.setnchannels(1)
+            handle.setsampwidth(2)
+            handle.setframerate(16000)
+            handle.writeframes(pcm.tobytes())
+    tables = {
+        "subtitles.csv": (["name", "english"],
+                          [[n, SUBTITLES[i % len(SUBTITLES)]] for i, n in enumerate(names)]),
+        "track2_train_mercaptionplus.csv": (["name", "openset"],
+                                            [[n, OPENSETS[i % len(OPENSETS)]]
+                                             for i, n in enumerate(names)]),
+        "track3_train_mercaptionplus.csv": (["name", "reason"], [
+            [n, f"In clip {i}, the speaker's voice drops and the face tightens, so the mood "
+                f"reads as {OPENSETS[i % len(OPENSETS)].strip('[]') or 'neutral'}."]
+            for i, n in enumerate(names)]),
+    }
+    for file, (header, rows) in tables.items():
+        with open(os.path.join(data, file), "w", newline="") as handle:
+            writer = csv.writer(handle)
+            writer.writerow(header)
+            writer.writerows(rows)
+    section = {"DATA_DIR": {"MERCaptionPlus": data},
+               "PATH_TO_RAW_AUDIO": {"MERCaptionPlus": os.path.join(data, "audio")},
+               "PATH_TO_RAW_FACE": {"MERCaptionPlus": os.path.join(data, "openface_face")},
+               "PATH_TO_TRANSCRIPTIONS": {"MERCaptionPlus": os.path.join(data, "subtitles.csv")}}
+    return section, feat_root
+
+
+def runner_config(section: dict, feat_root: str, out_dir: str, run: dict,
+                  dataset: Optional[dict] = None):
+    """BESTSETUP with `run` and `dataset` over its run and dataset nodes,
+    the corpus's paths and `out_dir`, as a runner Config."""
+    from affectgpt_tpu_torch.config import Config
+
+    raw = json.loads(json.dumps(BESTSETUP))
+    raw["datasets"]["mercaptionplus"].update(preextracted_root=feat_root, **(dataset or {}))
+    raw["run"].update(output_dir=out_dir, **run)
+    raw["paths"] = section
+    return Config.from_dict(raw, name="mercaptionplus_bestsetup")
+
+
+def make_runner(cfg, frozen: dict, tok, job: str, seed: int = 5):
+    """A Runner on `cfg`'s model node with phase 4's frozen trees and f32
+    trainable leaves drawn from `seed` on the card."""
+    from affectgpt_tpu_torch.training import runner
+
+    model_cfg = affectgpt.AffectGPTConfig.from_model_cfg(cfg.model.to_dict())
+    trainable = affectgpt.init_trainable(torch.Generator(device="cuda").manual_seed(seed),
+                                         model_cfg)
+    datasets, ratios = runner.build_datasets(cfg, tok, model_cfg, device="cuda")
+    return runner.Runner(cfg, tok, frozen, trainable, model_cfg, datasets, ratios, job_id=job,
+                         device="cuda")
+
+
+def timed_saves(record: list):
+    """A wrapper of checkpoint.save_checkpoint that appends (directory,
+    seconds) of each save to `record`."""
+    def make(inner):
+        def save(*args, **kwargs):
+            t0 = time.perf_counter()
+            path = inner(*args, **kwargs)
+            record.append((path, time.perf_counter() - t0))
+            return path
+        return save
+    return make
+
+
+def dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def bare_step_ms(r, batch: dict) -> list:
+    """BARE_STEPS of the runner's step on one resident device batch, each
+    read back as the runner's loop reads it at a log boundary."""
+    out = []
+    for _ in range(BARE_STEPS):
+        t0 = time.perf_counter()
+        r.state, metrics = r.step_fn(r.state, r.frozen, batch)
+        float(metrics["loss"])
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def runner_bestsetup(card: str, model: tuple, tmp: str, section: dict, feat_root: str) -> None:
+    """Run A: mercaptionplus_bestsetup.yaml's training through the Runner
+    (2 epochs of 6 iterations, validation, checkpoints), its iterations
+    against the bare step's, then a resumed Runner."""
+    import os
+
+    from affectgpt_tpu_torch.training import checkpoint
+
+    _, frozen, _, tok, _, _ = model
+    cfg = runner_config(section, feat_root, os.path.join(tmp, "out"), RUN_A_OVERRIDES)
+    saves: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched(checkpoint, "save_checkpoint", timed_saves(saves)):
+        r = make_runner(cfg, {"llm": frozen["llm"]}, tok, "run_a")
+        assert r.model_cfg.llm == qwen2.QwenConfig.qwen25_7b(), r.model_cfg.llm
+        (_, launches) = counted_call(r.train)
+    run_s = time.perf_counter() - t0
+    check_launches("runner_bestsetup", launches, {})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    batch = r._device_batch(next(r.loader))
+    bare = bare_step_ms(r, batch)
+    per_epoch = r.iters_per_epoch
+    iters = [ms for i, ms in enumerate(r.iteration_ms) if i % per_epoch]  # each epoch's first out
+    iter_med, bare_med = statistics.median(iters), statistics.median(bare[1:])
+    losses = r.visualizer.history["loss"]
+    out = os.path.join(tmp, "out", "mercaptionplus_bestsetup", "run_a")
+    lines = [json.loads(x) for x in open(os.path.join(out, "log.txt")).read().splitlines()]
+    say("runner", run="runner_bestsetup", batch=r.batch_size, seq=cfg.model["max_length"],
+        remat=r.remat, lora_dropout=r.model_cfg.llm.lora_dropout, iterations=len(r.iteration_ms),
+        iteration_ms=json.dumps([round(x, 2) for x in r.iteration_ms]),
+        iteration_median_ms=f"{iter_med:.3f}", bare_step_ms=json.dumps([round(x, 2) for x in bare]),
+        bare_step_median_ms=f"{bare_med:.3f}", ratio=f"{iter_med / bare_med:.4f}",
+        prefetch_wait_share=f"{sum(r.wait_ms) / sum(r.iteration_ms):.4f}",
+        losses=json.dumps([round(x, 5) for x in losses]),
+        val_losses=json.dumps([round(x.get("val_loss", float("nan")), 5) for x in lines[1:]]),
+        checkpoints=json.dumps([[os.path.relpath(p, out), dir_bytes(p), round(s, 3)]
+                                for p, s in saves]),
+        run_s=f"{run_s:.3f}", peak_mem_gib=f"{peak:.3f}", card=repr(card))
+    epochs = sorted(e for e, _ in checkpoint.list_checkpoints(out))
+    best = checkpoint.list_checkpoints(os.path.join(out, "best"))
+    if not (all(np.isfinite(losses)) and all(np.isfinite(x["val_loss"]) for x in lines[1:])):
+        raise AssertionError(f"runner_bestsetup: non-finite losses {losses}, {lines[1:]}")
+    if epochs != [0, 1, 2] or not best:
+        raise AssertionError(f"runner_bestsetup: checkpoints {epochs}, best {best}")
+    if not ("config" in lines[0] and [x.get("epoch") for x in lines[1:]] == [0, 1]):
+        raise AssertionError(f"runner_bestsetup: log.txt holds {[sorted(x) for x in lines]}")
+    if iter_med > ITERATION_RATIO_MAX * bare_med:
+        raise AssertionError(f"runner_bestsetup: the median iteration {iter_med:.1f} ms exceeds "
+                             f"{ITERATION_RATIO_MAX} x the bare step's {bare_med:.1f} ms")
+    epoch1 = dict(checkpoint.list_checkpoints(out))[1]
+    payload = checkpoint.load_checkpoint(epoch1)
+    del r, batch
+    torch.cuda.empty_cache()
+    resume = runner_config(section, feat_root, os.path.join(tmp, "out"),
+                           {**RUN_A_OVERRIDES, "resume_ckpt_path": epoch1})
+    resumed = make_runner(resume, {"llm": frozen["llm"]}, tok, "run_a_resumed")
+    say("runner", run="runner_bestsetup_resume", checkpoint=os.path.relpath(epoch1, out),
+        start_epoch=resumed.start_epoch, step=resumed.state.step,
+        optimizer_count=resumed.state.opt_state["count"], card=repr(card))
+    if not (resumed.start_epoch == 1 and resumed.state.step == 6 == payload["step"]
+            and resumed.state.opt_state["count"] == payload["opt_state"]["count"]):
+        raise AssertionError(f"runner_bestsetup: resumed at epoch {resumed.start_epoch}, step "
+                             f"{resumed.state.step}, count {resumed.state.opt_state['count']}")
+    del resumed
+    torch.cuda.empty_cache()
+
+
+def runner_realtime(card: str, model: tuple, tmp: str, section: dict, feat_root: str) -> None:
+    """Run B: the face and audio of each clip read raw (OpenFace crops, wav)
+    and encoded by phase 4's CLIP ViT-L/14 and HuBERT-large inside the
+    prefetcher; 1 epoch of 3 iterations at b = 2. The CLIP tower launches
+    rows 11 and 12 once a layer for every batch the prefetcher encodes
+    (HuBERT runs its plain stack): their counts over the run must be
+    num_layers x the batches encoded, and nothing else may launch."""
+    import os
+
+    cfg, frozen, _, tok, _, _ = model
+    _, vcfg, _, _ = encoder_configs(cfg)
+    run_cfg = runner_config(section, feat_root, os.path.join(tmp, "out"), RUN_B_OVERRIDES,
+                            RUN_B_DATASET)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    r = make_runner(run_cfg, frozen, tok, "run_b", seed=6)
+    encoded = []
+    device_batch = r._device_batch
+
+    def counting(batch):
+        encoded.append(len(batch["names"]))
+        return device_batch(batch)
+
+    r._device_batch = counting
+    t0 = time.perf_counter()
+    _, launches = counted_call(r.train)
+    run_s = time.perf_counter() - t0
+    n = len(encoded)
+    expected = {"attn_sublayer": n * vcfg.num_layers, "mlp_sublayer": n * vcfg.num_layers}
+    losses = r.visualizer.history["loss"]
+    say("runner", run="runner_realtime", batch=r.batch_size, iterations=len(r.iteration_ms),
+        batches_encoded=n, launches=json.dumps({k: v for k, v in launches.items() if v}),
+        launches_per_batch=json.dumps({k: v / n for k, v in launches.items() if v}),
+        iteration_ms=json.dumps([round(x, 2) for x in r.iteration_ms]),
+        prefetch_wait_share=f"{sum(r.wait_ms) / sum(r.iteration_ms):.4f}",
+        losses=json.dumps([round(x, 5) for x in losses]), run_s=f"{run_s:.3f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}", card=repr(card))
+    check_launches("runner_realtime", launches, expected)
+    if not (n >= r.iters_per_epoch == len(losses) and all(np.isfinite(losses))):
+        raise AssertionError(f"runner_realtime: {n} batches encoded, losses {losses}")
+    del r
+    torch.cuda.empty_cache()
+
+
+def phase_runner(card: str, model: tuple) -> None:
+    """Phase 9 on the phase-4 model: run A and run B in a temporary
+    directory that the phase removes."""
+    import shutil
+    import tempfile
+
+    from affectgpt_tpu_torch import paths
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="runner_")
+    saved = {k: dict(v) for k, v in paths.TABLES.items()}
+    try:
+        section, feat_root = write_runner_corpus(tmp)
+        say("runner", clips=RUNNER_CLIPS, corpus_seconds=f"{time.perf_counter() - t0:.3f}")
+        runner_bestsetup(card, model, tmp, section, feat_root)
+        runner_realtime(card, model, tmp, section, feat_root)
+    finally:
+        for k, v in saved.items():
+            paths.TABLES[k].clear()
+            paths.TABLES[k].update(v)
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("runner", phase_seconds=f"{time.perf_counter() - t0:.3f}", card=repr(card))
+
+
 def main() -> None:
     card = phase_device()
     phase_build(card)
@@ -2853,6 +3182,7 @@ def main() -> None:
         launches.setdefault(name, count)
     phase_serving_variants(card, model)
     phase_train(card, model)
+    phase_runner(card, model)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],

@@ -17,6 +17,9 @@ given):
   generator (what every dropout site does). The table goes to
   chiprun_out/train_profile.txt.
 - runs: chip_smoke.py's TRAIN_RUNS (step ms, samples/s, peak memory).
+- memory: one step at b = 4, t = 1024 (mercaptionplus_bestsetup.yaml's
+  batch and max_length) under remat False, "dots" and True: its ms and
+  peak memory, or the out-of-memory error it raised.
 
 Every line carries the card's name and power limit.
 """
@@ -90,6 +93,31 @@ def profile_step(card: str, cfg, frozen: dict) -> None:
            card=repr(card))
 
 
+def memory(card: str, cfg, frozen: dict) -> None:
+    batch = cs.train_batch(cfg, 4, t=1024)
+    for remat in (True, "dots", False):
+        tx = cs.make_tx()
+        state = train_step.create_train_state(cs.train_trainable(cfg, 1), tx)
+        step_fn = train_step.make_train_step(cfg, tx, remat=remat, dropout_seed=cs.DROPOUT_SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                state, m = step_fn(state, frozen, batch)
+                float(m["loss"])
+                times.append((time.perf_counter() - t0) * 1e3)
+            result = {"step_ms": [round(x, 2) for x in times]}
+        except torch.cuda.OutOfMemoryError as error:
+            result = {"oom": str(error).split(".")[0]}
+        cs.say("probe", what="memory", batch=4, seq=1024, remat=remat,
+               peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+               **{k: json.dumps(v) for k, v in result.items()}, card=repr(card))
+        del state, step_fn
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     what = set(sys.argv[1:]) or {"numerics", "profile", "runs"}
     card = cs.phase_device()
@@ -100,6 +128,8 @@ def main() -> None:
         numerics(card, cfg, frozen)
     if "profile" in what:
         profile_step(card, cfg, frozen)
+    if "memory" in what:
+        memory(card, cfg, frozen)
     if "runs" in what:
         for name in cs.TRAIN_RUNS:
             cs.train_run(card, name, cfg, frozen)

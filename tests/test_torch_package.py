@@ -48,21 +48,28 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     """Every port module, and chip_smoke.py with all it imports, load with
-    `import jax` and `import affectgpt_tpu` made to fail."""
+    `import jax`, `import affectgpt_tpu`, `import yaml` and `import pandas`
+    made to fail (the card has neither PyYAML nor pandas)."""
     modules = _port_modules() + ["chip_smoke"]
     assert "affectgpt_tpu_torch.inference.chat" in modules and len(modules) >= 22
     assert {"affectgpt_tpu_torch.models.au_agent", "affectgpt_tpu_torch.models.qformer",
             "affectgpt_tpu_torch.utils.clip_text", "affectgpt_tpu_torch.registry",
             "affectgpt_tpu_torch.training.optim", "affectgpt_tpu_torch.training.train_step",
             "affectgpt_tpu_torch.training.checkpoint", "affectgpt_tpu_torch.ops.audio",
-            "affectgpt_tpu_torch.ops.augment", "affectgpt_tpu_torch.ops.jpeg"} <= set(modules)
+            "affectgpt_tpu_torch.ops.augment", "affectgpt_tpu_torch.ops.jpeg",
+            "affectgpt_tpu_torch.config", "affectgpt_tpu_torch.train",
+            "affectgpt_tpu_torch.training.runner", "affectgpt_tpu_torch.parallel.mesh",
+            "affectgpt_tpu_torch.data.datasets", "affectgpt_tpu_torch.data.loaders",
+            "affectgpt_tpu_torch.data.media", "affectgpt_tpu_torch.ops.sampling",
+            "affectgpt_tpu_torch.utils.logging"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises ImportError
         "sys.modules['affectgpt_tpu'] = None\n"  # and so does the JAX package
+        "sys.modules['yaml'] = sys.modules['pandas'] = None\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
-        "assert not any(k.split('.')[0] in ('jax', 'affectgpt_tpu')\n"
+        "assert not any(k.split('.')[0] in ('jax', 'affectgpt_tpu', 'yaml', 'pandas')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
     )

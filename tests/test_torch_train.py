@@ -39,6 +39,16 @@ B, T = 3, 24
 OFFSETS = {"multi": 1, "audio": 3, "face": 6, "frame": 9}
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: ops this small gain nothing from more, and in a
+    parallel test run more threads only contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def numpy_tree(tree, rng, scale: float):
     """A tree of the same structure with values from `rng`: norm scales
     1 + noise, every other leaf noise · scale."""
@@ -63,8 +73,12 @@ def configs(tied: bool, fusion: str):
 def model(tied: bool, fusion: str):
     jc, tc = configs(tied, fusion)
     rng = np.random.RandomState(0)
-    frozen = numpy_tree(ja.init_frozen(jax.random.PRNGKey(0), jc, dtype=jnp.float32), rng, 0.1)
-    trainable = numpy_tree(ja.init_trainable(jax.random.PRNGKey(1), jc), rng, 0.1)
+    # the shapes alone (nothing is computed): numpy_tree replaces every value
+    frozen, trainable = jax.eval_shape(
+        lambda: (ja.init_frozen(jax.random.PRNGKey(0), jc, dtype=jnp.float32),
+                 ja.init_trainable(jax.random.PRNGKey(1), jc)))
+    frozen = numpy_tree(frozen, rng, 0.1)
+    trainable = numpy_tree(trainable, rng, 0.1)
     tfrozen, ttrain = convert.from_jax(frozen, trainable, tc, device="cpu")
     return jc, tc, frozen, trainable, tfrozen, ttrain
 
