@@ -6,9 +6,10 @@ my_affectgpt/common/config.py:9-173): a YAML file with `model` / `datasets`
 a.b.c=value`), an experiment name from the YAML basename, and an optional
 `paths:` section that feeds `paths.update_from_dict`.
 
-PyYAML is imported by `Config.from_file` alone: a caller that builds its
-config with `Config.from_dict` (a dict literal, as `chip_smoke.py` does on a
-machine without PyYAML) needs no YAML parser. Override values are typed by
+PyYAML is imported by `Config.from_file` alone, for a YAML file: a caller
+that builds its config with `Config.from_dict` (a dict literal, as
+`chip_smoke.py` does on a machine without PyYAML) or reads a `.json` config
+needs no YAML parser. Override values are typed by
 `parse_scalar`, which resolves a plain scalar as PyYAML's `safe_load` does
 (YAML 1.1: `yes`/`on` are booleans, `1e-5` without a dot stays a string)
 and reads flow lists `[a, b]` and quoted strings.
@@ -173,10 +174,14 @@ class Config:
 
     @classmethod
     def from_file(cls, cfg_path: str, options: Optional[List[str]] = None) -> "Config":
-        import yaml
-
+        """A YAML config, or a JSON one (`.json`, read without PyYAML)."""
         with open(cfg_path) as handle:
-            raw = yaml.safe_load(handle) or {}
+            if cfg_path.endswith(".json"):
+                raw = json.load(handle) or {}
+            else:
+                import yaml
+
+                raw = yaml.safe_load(handle) or {}
         return cls.from_dict(raw, options=options,
                              name=os.path.splitext(os.path.basename(cfg_path))[0],
                              cfg_path=cfg_path)

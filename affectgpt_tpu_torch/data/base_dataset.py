@@ -17,7 +17,7 @@ As in the JAX package:
   per-sample loop (affectgpt.py:967-1009); the count and consecutiveness
   invariants are enforced here (splice.find_patch_run).
 - Realtime media loading produces uint8 frames and float32 audio clips
-  (cut on the host from torch tensors, ops/audio.extract_clips); the
+  (cut on the host, ops/audio.host_audio_clips); the
   pixel and mel math runs on the device.
 - The realtime AU texts are encoded by the CLIP text tower on the
   dataset's `device` (the card unless the caller says otherwise), from
@@ -33,8 +33,6 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
-
-import torch
 
 from affectgpt_tpu_torch import constants, prompts
 from affectgpt_tpu_torch.data import media, qa
@@ -230,13 +228,7 @@ class BaseDataset:
                 )
             elif m == "audio":
                 wav, rate = media.read_wav(self._get_audio_path(sample))
-                wav = audio_ops.resample_numpy(wav, rate, constants.AUDIO_SAMPLE_RATE)
-                wav = wav.mean(axis=0) if wav.ndim == 2 else wav
-                min_len = int(constants.AUDIO_CLIP_SECONDS * constants.AUDIO_SAMPLE_RATE)
-                if wav.shape[0] < min_len:
-                    wav = np.pad(wav, (0, min_len - wav.shape[0]))
-                clips = audio_ops.extract_clips(torch.from_numpy(np.ascontiguousarray(wav)))
-                out["raw"]["audio"] = clips.numpy()  # [8, 1, 32000]
+                out["raw"]["audio"] = audio_ops.host_audio_clips(wav, rate)  # [8, 1, 32000]
             elif m == "image":
                 from PIL import Image
 

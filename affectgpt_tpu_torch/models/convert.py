@@ -23,9 +23,32 @@ stored. The encoder towers keep the JAX layouts too, which already are
 torch's: dense `[in, out]` applied as `x @ w`, the CLIP patch embedding
 `[P²·3, width]` over channel-major patches, Conv1d kernels `OIH`
 `[out, in, k]`. No transpose or repacking happens here.
+
+The HF checkpoint converters (`convert_qwen2`, `convert_llama`,
+`convert_baichuan2`, `convert_clip_vision`, `convert_clip_text`,
+`convert_hubert`, `llm_config_from_hf`; `convert_reference_affectgpt` for a
+reference `AffectGPT.state_dict()`) are the port of affectgpt_tpu/models/
+convert.py. They read a model directory with the port's own readers: the
+safetensors format (an 8-byte little-endian header length, a JSON header,
+then the data; BF16, F16 and F32), one file or the shards that
+`model.safetensors.index.json` names, else `*.bin` through
+`torch.load(weights_only=True, mmap=True)`. One tensor at a time goes from
+its own memory map to the device, is cast there to the tree's dtype
+(f32 → bf16 rounds to nearest even, as JAX's cast does) and transposed
+there from HF's `[out, in]` into a contiguous `[in, out]`; no f32 or
+whole-state copy is held on the host. The two products JAX computes in f32
+numpy (Baichuan2's NormHead row norms and HuBERT's weight norm `g·v/‖v‖`)
+are computed in f32 numpy here too, row block by row block for the head,
+so the trees equal JAX's bit for bit.
 """
 
 from __future__ import annotations
+
+import glob
+import json
+import os
+import struct
+from typing import Dict
 
 import numpy as np
 import torch
@@ -71,6 +94,15 @@ def from_jax(frozen_np: dict, trainable_np: dict, cfg, device="cuda"):
     geometry is checked against it."""
     frozen = tree_to_torch(frozen_np, device)
     trainable = tree_to_torch(trainable_np, device)
+    check_trees(frozen, trainable, cfg)
+    return frozen, trainable
+
+
+def check_trees(frozen: dict, trainable: dict, cfg) -> None:
+    """Raise ValueError where a (frozen, trainable) pair of tensor trees does
+    not have the geometry of cfg (the port's AffectGPTConfig): the LLM's
+    embedding, layer count and q (or fused qkv) projection, the towers
+    present, the mergers and the multi-fusion block."""
     llm, lc = frozen["llm"], cfg.llm
     if tuple(llm["embed_tokens"]["table"].shape) != (lc.vocab_size, lc.hidden_size):
         raise ValueError("from_jax: embedding table does not match cfg.llm")
@@ -82,11 +114,11 @@ def from_jax(frozen_np: dict, trainable_np: dict, cfg, device="cuda"):
     if _dense_shape(layer0[name]) != (lc.hidden_size, width):
         raise ValueError(f"from_jax: {name} is not [hidden, {width}]")
     if "visual_encoder" in frozen:
-        _check_vision(frozen["visual_encoder"], cfg.vision_cfg_override
-                      or encoders.get_visual_encoder(cfg.visual_encoder_name).make_config())
+        check_tower("visual_encoder", frozen["visual_encoder"], cfg.vision_cfg_override
+                    or encoders.get_visual_encoder(cfg.visual_encoder_name).make_config())
     if "acoustic_encoder" in frozen:
-        _check_hubert(frozen["acoustic_encoder"], cfg.audio_cfg_override
-                      or encoders.get_acoustic_encoder(cfg.acoustic_encoder_name).make_config())
+        check_tower("acoustic_encoder", frozen["acoustic_encoder"], cfg.audio_cfg_override
+                    or encoders.get_acoustic_encoder(cfg.acoustic_encoder_name).make_config())
     for group, modality in affectgpt.GROUP_MODALITY.items():
         if group in trainable.get("mergers", {}):
             mcfg = cfg.merger_config(modality)
@@ -96,13 +128,17 @@ def from_jax(frozen_np: dict, trainable_np: dict, cfg, device="cuda"):
         mcfg = cfg.multi_config()
         _check_merger(trainable["multi"], mcfg.fusion_type, mcfg.max_dim, mcfg.max_time,
                       mcfg.qformer_config(), "multi fusion")
-    return frozen, trainable
 
 
 def text_tower_from_jax(tree_np: dict, cfg, device="cuda") -> dict:
     """The JAX package's CLIP text tower (numpy tree) → tensors, checked
     against its ClipTextConfig."""
-    tree = tree_to_torch(tree_np, device)
+    return check_text_tower(tree_to_torch(tree_np, device), cfg)
+
+
+def check_text_tower(tree: dict, cfg) -> dict:
+    """`tree` if a CLIP text tower's geometry matches its ClipTextConfig,
+    else ValueError."""
     if tuple(tree["token_embed"]["table"].shape) != (cfg.vocab_size, cfg.width):
         raise ValueError("from_jax: text token_embed does not match the config")
     if tuple(tree["pos_embed"]["table"].shape) != (cfg.context_length, cfg.width):
@@ -147,6 +183,14 @@ def _check_merger(tree: dict, fusion_type: str, feat_dim: int, max_time: int, qc
         raise ValueError(f"from_jax: {what} proj does not take the Q-Former's width")
 
 
+def check_tower(key: str, tree: dict, tower_cfg) -> dict:
+    """`tree` if the `key` tower ("visual_encoder": CLIP's ClipVisionConfig,
+    "acoustic_encoder": HuBERT's HubertConfig) has tower_cfg's geometry,
+    else ValueError."""
+    (_check_vision if key == "visual_encoder" else _check_hubert)(tree, tower_cfg)
+    return tree
+
+
 def _check_vision(tree: dict, vc) -> None:
     """The CLIP vision tower's geometry against its ClipVisionConfig."""
     patch = (vc.patch_size * vc.patch_size * 3, vc.width)
@@ -175,3 +219,453 @@ def _check_hubert(tree: dict, ac) -> None:
     pos = (ac.hidden_size, ac.hidden_size // ac.pos_conv_groups, ac.pos_conv_kernel)
     if tuple(tree["pos_conv"]["w"].shape) != pos:
         raise ValueError(f"from_jax: pos_conv is not {list(pos)}")
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoint reading
+
+# safetensors dtype → (numpy dtype of the stored bytes, torch dtype to view
+# them as); numpy has no bfloat16, so its bits are read as int16
+_SAFETENSORS_DTYPES = {
+    "BF16": (np.int16, torch.bfloat16),
+    "F16": (np.float16, torch.float16),
+    "F32": (np.float32, torch.float32),
+}
+
+
+class SafetensorsFile:
+    """One `.safetensors` file: the header is read when it opens, each
+    tensor is mapped from the file on its own when asked for."""
+
+    def __init__(self, path: str):
+        with open(path, "rb") as handle:
+            (n,) = struct.unpack("<Q", handle.read(8))
+            header = json.loads(handle.read(n))
+        header.pop("__metadata__", None)
+        self.path, self.base, self.header = path, 8 + n, header
+
+    def keys(self):
+        return self.header.keys()
+
+    def tensor(self, key: str) -> torch.Tensor:
+        """The tensor `key` in its stored dtype, on the CPU, over a private
+        memory map of its bytes (copy it before the map goes)."""
+        entry = self.header[key]
+        if entry["dtype"] not in _SAFETENSORS_DTYPES:
+            raise ValueError(f"{self.path}: {key} has dtype {entry['dtype']}; the reader takes "
+                             f"{sorted(_SAFETENSORS_DTYPES)}")
+        np_dtype, torch_dtype = _SAFETENSORS_DTYPES[entry["dtype"]]
+        shape = tuple(entry["shape"])
+        start, end = entry["data_offsets"]
+        if end == start:
+            return torch.empty(shape, dtype=torch_dtype)
+        mapped = np.memmap(self.path, dtype=np_dtype, mode="c", offset=self.base + start,
+                           shape=shape)
+        return torch.from_numpy(np.asarray(mapped)).view(torch_dtype)
+
+
+class CheckpointState:
+    """Name → tensor over the checkpoint files of an HF model directory,
+    read lazily: safetensors (the shards of `model.safetensors.index.json`'s
+    `weight_map` when the index exists, else every `*.safetensors`), else
+    every `*.bin`, loaded with `torch.load(weights_only=True, mmap=True)`.
+    `state[key]` is a CPU tensor in the stored dtype."""
+
+    def __init__(self, model_dir: str):
+        self._where: Dict[str, object] = {}
+        index = os.path.join(model_dir, "model.safetensors.index.json")
+        if os.path.exists(index):
+            with open(index) as handle:
+                weight_map = json.load(handle)["weight_map"]
+            files = {name: SafetensorsFile(os.path.join(model_dir, name))
+                     for name in sorted(set(weight_map.values()))}
+            self._where = {key: files[name] for key, name in weight_map.items()}
+        else:
+            for path in sorted(glob.glob(os.path.join(model_dir, "*.safetensors"))):
+                file = SafetensorsFile(path)
+                self._where.update(dict.fromkeys(file.keys(), file))
+        if not self._where:
+            paths = sorted(glob.glob(os.path.join(model_dir, "*.bin")))
+            if not paths:
+                raise FileNotFoundError(f"{model_dir} holds no *.safetensors or *.bin checkpoint")
+            for path in paths:
+                state = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+                self._where.update({key: value for key, value in state.items()})
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._where
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        where = self._where[key]
+        return where.tensor(key) if isinstance(where, SafetensorsFile) else where
+
+    def keys(self):
+        return self._where.keys()
+
+
+def _load_torch_state(model_dir: str) -> CheckpointState:
+    """The tensors of a HF model directory (safetensors preferred), lazily."""
+    return CheckpointState(model_dir)
+
+
+class _Put:
+    """Stored CPU tensors → the tree's tensors: each is copied to `device`,
+    cast there to `dtype` and, for a dense weight, transposed there into a
+    contiguous [in, out]."""
+
+    def __init__(self, state, device, dtype):
+        self.state, self.device, self.dtype = state, torch.device(device), dtype
+
+    def __call__(self, value, transpose: bool = False) -> torch.Tensor:
+        if isinstance(value, str):
+            value = self.state[value]
+        if isinstance(value, np.ndarray):
+            value = torch.from_numpy(value)
+        out = value.to(device=self.device, copy=True).to(self.dtype)
+        return out.t().contiguous() if transpose else out
+
+    def dense(self, prefix: str, bias: bool = True) -> dict:
+        out = {"w": self(f"{prefix}.weight", transpose=True)}
+        if bias and f"{prefix}.bias" in self.state:
+            out["b"] = self(f"{prefix}.bias")
+        return out
+
+    def ln(self, prefix: str) -> dict:
+        return {"scale": self(f"{prefix}.weight"), "bias": self(f"{prefix}.bias")}
+
+
+def _count(state, pattern: str) -> int:
+    n = 0
+    while pattern.format(n) in state:
+        n += 1
+    return n
+
+
+def _llm_layer(put: _Put, p: str, qkv: dict) -> dict:
+    return {
+        **qkv,
+        "o_proj": put.dense(f"{p}.self_attn.o_proj", bias=False),
+        "gate_proj": put.dense(f"{p}.mlp.gate_proj", bias=False),
+        "up_proj": put.dense(f"{p}.mlp.up_proj", bias=False),
+        "down_proj": put.dense(f"{p}.mlp.down_proj", bias=False),
+        "input_ln": {"scale": put(f"{p}.input_layernorm.weight")},
+        "post_attn_ln": {"scale": put(f"{p}.post_attention_layernorm.weight")},
+    }
+
+
+def convert_qwen2(model_dir: str, dtype=torch.float32, device="cuda") -> dict:
+    """HF Qwen2ForCausalLM state → the qwen2 parameter tree."""
+    state = _load_torch_state(model_dir)
+    put = _Put(state, device, dtype)
+    layers = [
+        _llm_layer(put, f"model.layers.{i}", {
+            name: put.dense(f"model.layers.{i}.self_attn.{name}")
+            for name in ("q_proj", "k_proj", "v_proj")})
+        for i in range(_count(state, "model.layers.{}.self_attn.q_proj.weight"))
+    ]
+    params = {
+        "embed_tokens": {"table": put("model.embed_tokens.weight")},
+        "layers": layers,
+        "final_ln": {"scale": put("model.norm.weight")},
+    }
+    if "lm_head.weight" in state:
+        params["lm_head"] = {"w": put("lm_head.weight", transpose=True)}
+    return params
+
+
+# HF LlamaForCausalLM uses Qwen2's state-dict names (q/k/v carry no bias
+# tensors, which `_Put.dense` treats as optional)
+convert_llama = convert_qwen2
+
+# rows of Baichuan2's head whose norms one numpy call computes
+_NORM_ROWS = 4096
+
+
+def _row_norms(head: torch.Tensor) -> np.ndarray:
+    """[vocab, 1] f32 L2 norms of the head's rows, as np.linalg.norm(axis=-1)
+    computes them in f32 (a row's sum does not depend on the rows beside
+    it, so blocks of rows give the same bits)."""
+    out = []
+    for start in range(0, head.shape[0], _NORM_ROWS):
+        x = head[start:start + _NORM_ROWS].float().numpy()
+        out.append(np.sqrt(np.add.reduce(x * x, axis=-1, keepdims=True)))
+    return np.concatenate(out)
+
+
+def convert_baichuan2(model_dir: str, dtype=torch.float32, device="cuda") -> dict:
+    """HF Baichuan2-7B state (BaichuanForCausalLM) → the qwen2 parameter tree.
+    Two deltas from Llama: W_pack [3·hidden, hidden] holds q, k and v, split
+    here; NormHead L2-normalizes the head's rows on every forward, folded in
+    here (in f32, before the cast) so the served head is a plain matmul."""
+    state = _load_torch_state(model_dir)
+    put = _Put(state, device, dtype)
+    layers = []
+    for i in range(_count(state, "model.layers.{}.self_attn.W_pack.weight")):
+        p = f"model.layers.{i}"
+        w_pack = state[f"{p}.self_attn.W_pack.weight"]
+        h = w_pack.shape[1]
+        if w_pack.shape[0] != 3 * h:
+            raise ValueError(f"{p}.self_attn.W_pack is {list(w_pack.shape)}, not [3·{h}, {h}]")
+        qkv = {name: {"w": put(w_pack[j * h:(j + 1) * h], transpose=True)}
+               for j, name in enumerate(("q_proj", "k_proj", "v_proj"))}
+        layers.append(_llm_layer(put, p, qkv))
+    head = state["lm_head.weight"]  # [vocab, h]
+    norms = torch.from_numpy(np.maximum(_row_norms(head), np.float32(1e-7)))
+    folded = head.to(device=put.device, copy=True).float() / norms.to(put.device)
+    return {
+        "embed_tokens": {"table": put("model.embed_tokens.weight")},
+        "layers": layers,
+        "final_ln": {"scale": put("model.norm.weight")},
+        "lm_head": {"w": folded.to(dtype).t().contiguous()},
+    }
+
+
+def llm_config_from_hf(model_dir: str, lora_r: int = 16):
+    """A qwen2.QwenConfig from a HF checkpoint's config.json: Qwen2/2.5,
+    Llama-2 and Baichuan2 geometries (vocab, widths, GQA heads, rope theta,
+    rms eps, tied embeddings, qkv bias)."""
+    from affectgpt_tpu_torch.models import qwen2
+
+    with open(os.path.join(model_dir, "config.json")) as handle:
+        hf = json.load(handle)
+    arch = (hf.get("architectures") or [""])[0]
+    is_llama = "Llama" in arch or "Baichuan" in arch  # both families: no qkv bias
+    heads = int(hf["num_attention_heads"])
+    return qwen2.QwenConfig(
+        vocab_size=int(hf["vocab_size"]),
+        hidden_size=int(hf["hidden_size"]),
+        intermediate_size=int(hf["intermediate_size"]),
+        num_layers=int(hf["num_hidden_layers"]),
+        num_heads=heads,
+        num_kv_heads=int(hf.get("num_key_value_heads", heads)),
+        head_dim=int(hf.get("head_dim", hf["hidden_size"] // heads)),
+        rope_theta=float(hf.get("rope_theta", 10_000.0)),
+        rms_eps=float(hf.get("rms_norm_eps", 1e-6)),
+        tie_embeddings=bool(hf.get("tie_word_embeddings", False)),
+        qkv_bias=bool(hf.get("attention_bias", not is_llama)),
+        lora_r=lora_r,
+    )
+
+
+def _clip_block(put: _Put, p: str) -> dict:
+    return {
+        "ln1": put.ln(f"{p}.layer_norm1"),
+        "attn": {key: put.dense(f"{p}.self_attn.{name}")
+                 for key, name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                                   ("o", "out_proj"))},
+        "ln2": put.ln(f"{p}.layer_norm2"),
+        "mlp_in": put.dense(f"{p}.mlp.fc1"),
+        "mlp_out": put.dense(f"{p}.mlp.fc2"),
+    }
+
+
+def convert_clip_vision(model_dir: str, dtype=torch.float32, device="cuda") -> dict:
+    """HF CLIPModel vision tower + visual_projection → the clip_vit layout;
+    the patch convolution [O, C, kH, kW] becomes the dense [C·kH·kW, O]."""
+    state = _load_torch_state(model_dir)
+    put = _Put(state, device, dtype)
+    pre = "vision_model"
+    conv = state[f"{pre}.embeddings.patch_embedding.weight"]
+    n_layers = _count(state, pre + ".encoder.layers.{}.layer_norm1.weight")
+    return {
+        "patch_embed": {"w": put(conv.reshape(conv.shape[0], -1), transpose=True)},
+        "class_embed": put(state[f"{pre}.embeddings.class_embedding"].reshape(-1)),
+        "pos_embed": {"table": put(f"{pre}.embeddings.position_embedding.weight")},
+        "pre_ln": put.ln(f"{pre}.pre_layrnorm"),
+        "blocks": [_clip_block(put, f"{pre}.encoder.layers.{i}") for i in range(n_layers)],
+        "post_ln": put.ln(f"{pre}.post_layernorm"),
+        "proj": {"w": put("visual_projection.weight", transpose=True)},
+    }
+
+
+def convert_clip_text(model_dir: str, dtype=torch.float32, device="cuda") -> dict:
+    """HF CLIPModel text tower + text_projection → the clip_vit text layout."""
+    state = _load_torch_state(model_dir)
+    put = _Put(state, device, dtype)
+    pre = "text_model"
+    n_layers = _count(state, pre + ".encoder.layers.{}.layer_norm1.weight")
+    return {
+        "token_embed": {"table": put(f"{pre}.embeddings.token_embedding.weight")},
+        "pos_embed": {"table": put(f"{pre}.embeddings.position_embedding.weight")},
+        "blocks": [_clip_block(put, f"{pre}.encoder.layers.{i}") for i in range(n_layers)],
+        "final_ln": put.ln(f"{pre}.final_layer_norm"),
+        "proj": {"w": put("text_projection.weight", transpose=True)},
+    }
+
+
+def _pos_conv_weight(state) -> torch.Tensor:
+    """HuBERT's positional conv weight, the weight norm materialized as
+    w = g·v / max(‖v‖, 1e-12) in f32 numpy (‖v‖ over the out and in axes).
+    The key names vary with the torch version that saved it: weight_g /
+    weight_v, parametrizations.weight.original0 / original1, or a plain
+    weight once the norm was removed."""
+    base = "encoder.pos_conv_embed.conv"
+    if f"{base}.weight_g" in state:
+        g, v = state[f"{base}.weight_g"], state[f"{base}.weight_v"]
+    elif f"{base}.parametrizations.weight.original0" in state:
+        g = state[f"{base}.parametrizations.weight.original0"]
+        v = state[f"{base}.parametrizations.weight.original1"]
+    else:
+        return state[f"{base}.weight"]
+    g, v = g.float().numpy(), v.float().numpy()
+    norm = np.linalg.norm(v, axis=(0, 1), keepdims=True)
+    return torch.from_numpy(g * v / np.maximum(norm, np.float32(1e-12)))
+
+
+def convert_hubert(model_dir: str, dtype=torch.float32, device="cuda") -> dict:
+    """HF HubertModel (large, stable layer norm) → the hubert layout."""
+    state = _load_torch_state(model_dir)
+    put = _Put(state, device, dtype)
+    convs = []
+    for i in range(_count(state, "feature_extractor.conv_layers.{}.conv.weight")):
+        p = f"feature_extractor.conv_layers.{i}"
+        w = put(f"{p}.conv.weight")  # [out, in, k]: the port's layout
+        convs.append({
+            "w": w,
+            "b": put(f"{p}.conv.bias") if f"{p}.conv.bias" in state
+            else torch.zeros(w.shape[0], dtype=dtype, device=put.device),
+            "ln": put.ln(f"{p}.layer_norm"),
+        })
+
+    def layer(p: str) -> dict:
+        return {
+            "attn_ln": put.ln(f"{p}.layer_norm"),
+            "attn": {key: put.dense(f"{p}.attention.{name}")
+                     for key, name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                                       ("o", "out_proj"))},
+            "ffn_ln": put.ln(f"{p}.final_layer_norm"),
+            "ffn_in": put.dense(f"{p}.feed_forward.intermediate_dense"),
+            "ffn_out": put.dense(f"{p}.feed_forward.output_dense"),
+        }
+
+    n_layers = _count(state, "encoder.layers.{}.layer_norm.weight")
+    return {
+        "convs": convs,
+        "feat_proj_ln": put.ln("feature_projection.layer_norm"),
+        "feat_proj": put.dense("feature_projection.projection"),
+        "pos_conv": {"w": put(_pos_conv_weight(state)),
+                     "b": put("encoder.pos_conv_embed.conv.bias")},
+        "layers": [layer(f"encoder.layers.{i}") for i in range(n_layers)],
+        "final_ln": put.ln("encoder.layer_norm"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# An assembled reference model
+
+
+def convert_reference_affectgpt(state: dict, dtype=torch.float32, device="cuda") -> dict:
+    """A reference `AffectGPT.state_dict()` (torch tensors or numpy arrays)
+    → {"frozen": {"llm": ...}, "trainable": {...}} tensor trees.
+
+    - `llama_model.base_model.model.model.*` → the frozen LLM (peft's
+      `base_layer` weights), `...model.lm_head` → its head;
+    - `...<proj>.lora_A/lora_B.default.weight` → LoRA (a = Aᵀ, b = Bᵀ);
+    - `video_attention_mlp` + `affectgpt_proj` → the video merger, shared by
+      the frame and face streams; `audio_*` → the audio merger;
+      `image_llama_proj` / `au_*` → the image and AU mergers;
+    - `multi_*` → the multi pre-fusion: `attention_mlp` + `fc_att` (the
+      attention variant) or `multi_Qformer` (the Q-Former variant);
+    - a `<group>_Qformer` (BLIP-2 BertLMHeadModel, query path only) with its
+      query tokens and position table → a Q-Former merger.
+    """
+    put = _Put(state, device, dtype)
+    llm_prefix = "llama_model.base_model.model.model"
+    head_prefix = "llama_model.base_model.model"
+
+    def base_dense(prefix):
+        if f"{prefix}.base_layer.weight" in state:  # a LoRA-wrapped Linear
+            key, bkey = f"{prefix}.base_layer.weight", f"{prefix}.base_layer.bias"
+        else:
+            key, bkey = f"{prefix}.weight", f"{prefix}.bias"
+        out = {"w": put(key, transpose=True)}
+        if bkey in state:
+            out["b"] = put(bkey)
+        return out
+
+    def lora_leaf(prefix):
+        return {"a": put(f"{prefix}.lora_A.default.weight", transpose=True),  # [r, in]ᵀ
+                "b": put(f"{prefix}.lora_B.default.weight", transpose=True)}  # [out, r]ᵀ
+
+    modules = (("q_proj", "self_attn"), ("k_proj", "self_attn"), ("v_proj", "self_attn"),
+               ("o_proj", "self_attn"), ("gate_proj", "mlp"), ("up_proj", "mlp"),
+               ("down_proj", "mlp"))
+    layers, lora_layers = [], []
+    for i in range(_count(state, llm_prefix + ".layers.{}.self_attn.q_proj.base_layer.weight")):
+        p = f"{llm_prefix}.layers.{i}"
+        layers.append({
+            **{name: base_dense(f"{p}.{mod}.{name}") for name, mod in modules},
+            "input_ln": {"scale": put(f"{p}.input_layernorm.weight")},
+            "post_attn_ln": {"scale": put(f"{p}.post_attention_layernorm.weight")},
+        })
+        lora_layers.append({name: lora_leaf(f"{p}.{mod}.{name}") for name, mod in modules})
+    llm = {
+        "embed_tokens": {"table": put(f"{llm_prefix}.embed_tokens.weight")},
+        "layers": layers,
+        "final_ln": {"scale": put(f"{llm_prefix}.norm.weight")},
+    }
+    if f"{head_prefix}.lm_head.weight" in state:
+        llm["lm_head"] = {"w": put(f"{head_prefix}.lm_head.weight", transpose=True)}
+
+    def ref_qformer(prefix, query_key):
+        """The BLIP-2 Q-Former's query path (Qformer.py BertLMHeadModel; the
+        query FFN is `intermediate_query` / `output_query`) → the qformer
+        tree."""
+        qlayers = []
+        for j in range(_count(state, prefix + ".bert.encoder.layer.{}.attention.self.query.weight")):
+            p = f"{prefix}.bert.encoder.layer.{j}"
+            qlayer = {
+                "self_attn": {"q": put.dense(f"{p}.attention.self.query"),
+                              "k": put.dense(f"{p}.attention.self.key"),
+                              "v": put.dense(f"{p}.attention.self.value"),
+                              "o": put.dense(f"{p}.attention.output.dense")},
+                "self_ln": put.ln(f"{p}.attention.output.LayerNorm"),
+                "ffn_in": put.dense(f"{p}.intermediate_query.dense"),
+                "ffn_out": put.dense(f"{p}.output_query.dense"),
+                "ffn_ln": put.ln(f"{p}.output_query.LayerNorm"),
+            }
+            if f"{p}.crossattention.self.query.weight" in state:
+                qlayer["cross_attn"] = {"q": put.dense(f"{p}.crossattention.self.query"),
+                                        "k": put.dense(f"{p}.crossattention.self.key"),
+                                        "v": put.dense(f"{p}.crossattention.self.value"),
+                                        "o": put.dense(f"{p}.crossattention.output.dense")}
+                qlayer["cross_ln"] = put.ln(f"{p}.crossattention.output.LayerNorm")
+            qlayers.append(qlayer)
+        return {"query_tokens": put(query_key),
+                "embed_ln": put.ln(f"{prefix}.bert.embeddings.LayerNorm"),
+                "layers": qlayers}
+
+    def merger_for(qformer_prefix, query_key, pos_key, attn_mlp_name, proj_name):
+        if f"{qformer_prefix}.bert.embeddings.LayerNorm.weight" in state:
+            return {"pos_embed": {"table": put(pos_key)},
+                    "qformer": ref_qformer(qformer_prefix, query_key),
+                    "proj": put.dense(proj_name)}
+        out = {"proj": put.dense(proj_name)}
+        if f"{attn_mlp_name}.weight" in state:
+            out["attn_mlp"] = put.dense(attn_mlp_name)
+        return out
+
+    mergers = {
+        "video": merger_for("video_Qformer", "video_query_tokens",
+                            "video_frame_position_embedding.weight", "video_attention_mlp",
+                            "affectgpt_proj"),
+        "audio": merger_for("audio_Qformer", "audio_query_tokens",
+                            "audio_position_embedding.weight", "audio_attention_mlp",
+                            "audio_llama_proj"),
+        "image": {"proj": put.dense("image_llama_proj")},
+        "au": merger_for("au_Qformer", "au_query_tokens", "au_position_embedding.weight",
+                         "au_attention_mlp", "au_llama_proj"),
+    }
+    trainable = {"mergers": mergers, "lora": {"layers": lora_layers}}
+    if "multi_llama_proj.weight" in state:
+        multi = {"video_embs": put.dense("multi_video_embs"),
+                 "audio_embs": put.dense("multi_audio_embs"),
+                 "proj": put.dense("multi_llama_proj")}
+        if "multi_Qformer.bert.embeddings.LayerNorm.weight" in state:
+            multi["pos_embed"] = {"table": put("multi_position_embedding.weight")}
+            multi["qformer"] = ref_qformer("multi_Qformer", "multi_query_tokens")
+        elif "attention_mlp.weight" in state:
+            multi["attn_mlp"] = put.dense("attention_mlp")
+            multi["fc_att"] = put.dense("fc_att")
+        trainable["multi"] = multi
+    return {"frozen": {"llm": llm}, "trainable": trainable}

@@ -2,7 +2,7 @@
 
 Port of affectgpt_tpu/models/encoders.py over a plain dict: each
 `EncoderSpec` bundles a tower's output width, its config, its init, its HF
-checkpoint conversion (not ported yet: None) and its batch encode, so the
+checkpoint conversion (models/convert.py) and its batch encode, so the
 `visual_encoder: CLIP_VIT_LARGE` style YAML keys resolve as in JAX. encode():
 visual [b, t, H, W, 3] normalized floats → [b, t, d]; acoustic
 [b, clips, 1, samples] → [b, clips, d]. The port has CLIP_VIT_LARGE and
@@ -23,11 +23,22 @@ class EncoderSpec:
     hidden_size: int
     make_config: Callable
     init_params: Callable  # (generator, cfg, dtype) -> params
-    convert: Optional[Callable]  # model_dir -> params
+    convert: Optional[Callable]  # (model_dir, dtype=, device=) -> params
     encode: Callable  # (params, cfg, batch) -> features
     # pixel-normalization scheme of the tower's own image processor
     # (ops/image.NORM_STATS); acoustic specs ignore it
     normalize: str = "clip"
+
+
+def _converter(name: str) -> Callable:
+    """models.convert's `name`, imported when called (convert imports this
+    module)."""
+    def fn(model_dir, **kwargs):
+        from affectgpt_tpu_torch.models import convert
+
+        return getattr(convert, name)(model_dir, **kwargs)
+
+    return fn
 
 
 def _encode_frames(encode_one):
@@ -45,7 +56,7 @@ VISUAL = {
         hidden_size=768,  # projection dim (reference encoder.py:193)
         make_config=clip_vit.ClipVisionConfig.vit_l_14,
         init_params=clip_vit.init_vision_params,
-        convert=None,
+        convert=_converter("convert_clip_vision"),
         encode=_encode_frames(clip_vit.encode_image),
     ),
 }
@@ -55,7 +66,7 @@ ACOUSTIC = {
         hidden_size=1024,
         make_config=hubert.HubertConfig.large,
         init_params=hubert.init_params,
-        convert=None,
+        convert=_converter("convert_hubert"),
         encode=hubert.encode_clips,
     ),
 }

@@ -168,6 +168,19 @@ def extract_clips(waveform: torch.Tensor, sample_rate: int = constants.AUDIO_SAM
     return waveform[idx.to(waveform.device)][:, None, :]
 
 
+def host_audio_clips(waveform: np.ndarray, orig_freq: int) -> np.ndarray:
+    """The reference `load_audio` pipeline for one file on the host, as the
+    data loaders and the command lines run it: resample_numpy to 16 kHz →
+    mono → zero-pad to 2 s → 8 uniform 2 s clips. Returns [8, 1, 32000]
+    f32."""
+    wav = resample_numpy(waveform, orig_freq, constants.AUDIO_SAMPLE_RATE)
+    wav = wav.mean(axis=0) if wav.ndim == 2 else wav
+    min_len = int(constants.AUDIO_CLIP_SECONDS * constants.AUDIO_SAMPLE_RATE)
+    if wav.shape[0] < min_len:
+        wav = np.pad(wav, (0, min_len - wav.shape[0]))
+    return extract_clips(torch.from_numpy(np.ascontiguousarray(wav))).numpy()
+
+
 def load_audio_clips(waveform: np.ndarray, orig_freq: int, device="cuda") -> torch.Tensor:
     """The reference `load_audio` pipeline for one file (data.py:170-215) on
     `device`: resample → mono → zero-pad to 2 s → 8 uniform 2 s clips.

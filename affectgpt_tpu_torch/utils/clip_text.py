@@ -1,8 +1,9 @@
 """The CLIP ViT-B/32 text tower for AU text features, in PyTorch.
 
 Port of affectgpt_tpu/utils/clip_text.py: resolve the tower
-(`PATH_TO_VISUAL["CLIP_VIT_BASE32"]`; random weights from a seed when the
-directory is absent), tokenize by bytes when no CLIP BPE assets exist, and
+(`PATH_TO_VISUAL["CLIP_VIT_BASE32"]`: the HF checkpoint there, converted by
+models/convert.py; random weights from a seed when the directory is
+absent), tokenize by bytes (the CLIP BPE is not used, as in JAX), and
 encode texts to row-normalized [N, 512] features, as the reference's AU
 extraction normalizes them.
 """
@@ -16,21 +17,20 @@ import numpy as np
 import torch
 
 from affectgpt_tpu_torch import paths
-from affectgpt_tpu_torch.models import clip_vit
+from affectgpt_tpu_torch.models import clip_vit, convert
 
 logger = logging.getLogger(__name__)
 
 
 def load_text_tower(device="cuda", dtype=torch.bfloat16, seed: int = 2):
-    """(params, ClipTextConfig) of the ViT-B/32 text tower: random weights
-    drawn from `seed` on `device` when the checkpoint directory is absent.
-    Loading a checkpoint is not ported yet and raises."""
+    """(params, ClipTextConfig) of the ViT-B/32 text tower: the checkpoint of
+    the directory, checked against the config, or random weights drawn from
+    `seed` on `device` when the directory is absent."""
     cfg = clip_vit.ClipTextConfig.vit_b_32_text()
     text_dir = paths.PATH_TO_VISUAL.get("CLIP_VIT_BASE32", "")
     if text_dir and os.path.isdir(text_dir):
-        raise NotImplementedError(
-            f"loading the CLIP text checkpoint in {text_dir} is not ported to PyTorch yet "
-            "(ROADMAP queue 1 item 13)")
+        params = convert.convert_clip_text(text_dir, dtype=dtype, device=device)
+        return convert.check_text_tower(params, cfg), cfg
     logger.warning("CLIP text dir %s not found — random init (smoke mode)", text_dir)
     generator = torch.Generator(device=torch.device(device)).manual_seed(seed)
     return clip_vit.init_text_params(generator, cfg, dtype=dtype), cfg

@@ -211,6 +211,35 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    encoded by the towers inside the prefetcher, b = 2, 3 iterations; rows
    11 and 12 launch once a CLIP layer for every batch the prefetcher
    encoded, nothing else.
+10. Load: the phase-4 model written as HF directories in a temporary
+   directory (its free space checked first): a Qwen2.5-7B-Instruct-shaped
+   LLM directory (config.json with the published geometry, the LLM in HF's
+   names and [out, in] layout as LOAD_SHARDS bf16 safetensors shards with
+   an index, written by the script's own safetensors writer; a
+   tokenizer.json of Qwen2's form whose byte-level BPE the script learns
+   from its prompts' text, the vocabulary filled to Qwen2.5's 151643 so the
+   22 special tokens take their ids 151643-151664, and a
+   tokenizer_config.json with eos <|im_end|>), CLIP ViT-L/14's
+   model.safetensors and HuBERT-large's pytorch_model.bin with the
+   positional conv in the parametrizations.weight.original0/1 form; the
+   path tables then name them. Gate 1: bootstrap.build_model loads every
+   tensor bit for bit (HuBERT's positional conv equals g·v/‖v‖ of the
+   written g and v in f32 numpy); prints the load's seconds and GB/s (warm
+   page cache), the host's RSS before and at its peak. Gate 2:
+   Chat.answer_batch on the 8 clips, greedy, 32 tokens, gives the same
+   tokens from the loaded LLM as from the in-memory one under the loaded
+   tokenizer, rows 1-2 launched layers x 32 times in each; prints the prompt
+   tokens under the BPE beside the ByteTokenizer's. Gate 3:
+   inference_hybird.main over a MER2023-style corpus of 16 preextracted
+   clips with a checkpoint that save_checkpoint wrote (a LoRA that the
+   merge changes), --greedy, once on the bf16 serving weights and once with
+   --int4: one .npz of 16 answers each, the kernels launched as their
+   routes say (hybird_launches) and no other. Gate 4:
+   extract_multimodal_features_precompute.main over 8 raw clips (720p
+   frames, OpenFace crops, 2 s wav) with the towers loaded from their
+   directories writes the frame, face, audio and multi caches, within
+   FEATURE_RTOL of the in-memory towers' features, rows 11 and 12 launched
+   24 times per CLIP call and nothing else.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -3165,6 +3194,725 @@ def phase_runner(card: str, model: tuple) -> None:
     say("runner", phase_seconds=f"{time.perf_counter() - t0:.3f}", card=repr(card))
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: load — HF directories of the phase-4 model read back by the
+# port's loaders, tokenizer and command lines
+
+LOAD_SHARDS = 4  # Qwen2.5-7B-Instruct ships 4 shards
+LOAD_DISK_MARGIN = 4 * 2**30  # bytes left free beside the written directories
+QWEN_VOCAB = 151643  # Qwen2.5's BPE vocabulary; its special tokens follow it
+QWEN_SPECIALS = ["<|endoftext|>", "<|im_start|>", "<|im_end|>", "<|object_ref_start|>",
+                 "<|object_ref_end|>", "<|box_start|>", "<|box_end|>", "<|quad_start|>",
+                 "<|quad_end|>", "<|vision_start|>", "<|vision_end|>", "<|vision_pad|>",
+                 "<|image_pad|>", "<|video_pad|>", "<tool_call>", "</tool_call>",
+                 "<|fim_prefix|>", "<|fim_middle|>", "<|fim_suffix|>", "<|fim_pad|>",
+                 "<|repo_name|>", "<|file_sep|>"]
+HYBIRD_CLIPS = 16
+PRECOMPUTE_CLIPS = 8
+HYBIRD_MESSAGE = "Please infer the person's emotional state and provide your reasoning process."
+# features of the towers loaded from disk against the in-memory towers: CLIP's
+# trees load bit for bit; HuBERT's positional conv is rematerialized from its
+# weight norm (g·v/‖v‖ in f32, then bf16), one bf16 rounding of each weight
+FEATURE_RTOL = 2e-2  # of the reference features' largest magnitude
+_ST_DTYPE = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
+
+
+def hf_llm_entries(llm: dict) -> list:
+    """(HF key, tensor, transpose) of the port's LLM tree in Qwen2ForCausalLM's
+    names; transpose=True marks a dense [in, out] weight stored [out, in]."""
+    out = [("model.embed_tokens.weight", llm["embed_tokens"]["table"], False)]
+    for i, layer in enumerate(llm["layers"]):
+        p = f"model.layers.{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            out.append((f"{p}.self_attn.{name}.weight", layer[name]["w"], True))
+            if "b" in layer[name]:
+                out.append((f"{p}.self_attn.{name}.bias", layer[name]["b"], False))
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            out.append((f"{p}.mlp.{name}.weight", layer[name]["w"], True))
+        out.append((f"{p}.input_layernorm.weight", layer["input_ln"]["scale"], False))
+        out.append((f"{p}.post_attention_layernorm.weight", layer["post_attn_ln"]["scale"],
+                    False))
+    out.append(("model.norm.weight", llm["final_ln"]["scale"], False))
+    out.append(("lm_head.weight", llm["lm_head"]["w"], True))
+    return out
+
+
+def entry_bytes(entries: list) -> int:
+    return sum(t.numel() * t.element_size() for _, t, _ in entries)
+
+
+def write_safetensors(path: str, entries: list) -> None:
+    """A safetensors file (8-byte little-endian header length, JSON header,
+    data) written one tensor at a time from the card: each is transposed
+    there when asked, copied to the host and written."""
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for key, t, transpose in entries:
+        nbytes = t.numel() * t.element_size()
+        shape = list(t.shape[::-1]) if transpose else list(t.shape)
+        header[key] = {"dtype": _ST_DTYPE[t.dtype], "shape": shape,
+                       "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as handle:
+        handle.write(len(blob).to_bytes(8, "little"))
+        handle.write(blob)
+        for _, t, transpose in entries:
+            host = (t.t() if transpose else t).contiguous().cpu()
+            handle.write(host.reshape(-1).view(torch.uint8).numpy().data)
+
+
+def write_llm_dir(root: str, llm: dict, cfg: qwen2.QwenConfig) -> int:
+    """Qwen2.5-7B-Instruct's layout: config.json with the published
+    geometry, LOAD_SHARDS bf16 safetensors shards of about equal bytes and
+    model.safetensors.index.json. Returns the bytes written."""
+    import os
+
+    entries = hf_llm_entries(llm)
+    total = entry_bytes(entries)
+    shards, cur, acc = [[]], 0, 0
+    for e in entries:
+        if acc >= (len(shards)) * total / LOAD_SHARDS and len(shards) < LOAD_SHARDS:
+            shards.append([])
+        shards[-1].append(e)
+        acc += e[1].numel() * e[1].element_size()
+    weight_map = {}
+    for i, shard in enumerate(shards):
+        name = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        write_safetensors(os.path.join(root, name), shard)
+        weight_map.update({key: name for key, _, _ in shard})
+    with open(os.path.join(root, "model.safetensors.index.json"), "w") as handle:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, handle)
+    with open(os.path.join(root, "config.json"), "w") as handle:
+        json.dump({"architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
+                   "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+                   "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+                   "num_key_value_heads": cfg.num_kv_heads, "vocab_size": cfg.vocab_size,
+                   "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_eps,
+                   "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+                   "hidden_act": "silu", "max_position_embeddings": 32768}, handle)
+    return total
+
+
+def train_bpe(texts: list) -> tuple:
+    """A byte-level BPE learned from `texts` by the rule of HF's trainer
+    (the most frequent adjacent pair of Qwen2's pre-tokenized pieces, ties
+    to the smaller pair, merged everywhere) until every piece is one token:
+    (vocab, merges), the 256 byte tokens first."""
+    import collections
+    import unicodedata
+
+    from affectgpt_tpu_torch import tokenization
+
+    words = collections.Counter()
+    for text in texts:
+        for piece in tokenization.pre_tokenize(unicodedata.normalize("NFC", text)):
+            words["".join(tokenization.BYTE_TO_CHAR[b] for b in piece.encode())] += 1
+    splits = {w: list(w) for w in words}
+    vocab = {tokenization.BYTE_TO_CHAR[b]: b for b in range(256)}
+    merges = []
+    while True:
+        pairs = collections.Counter()
+        for w, n in words.items():
+            s = splits[w]
+            for pair in zip(s, s[1:]):
+                pairs[pair] += n
+        if not pairs:
+            break
+        best = max(pairs.values())
+        a, b = min(p for p, n in pairs.items() if n == best)
+        merges.append((a, b))
+        vocab.setdefault(a + b, len(vocab))
+        for w, s in splits.items():
+            k, out = 0, []
+            while k < len(s):
+                if k + 1 < len(s) and s[k] == a and s[k + 1] == b:
+                    out.append(a + b)
+                    k += 2
+                else:
+                    out.append(s[k])
+                    k += 1
+            splits[w] = out
+    return vocab, merges
+
+
+def write_tokenizer(root: str, texts: list) -> dict:
+    """tokenizer.json of Qwen2's form (NFC, its split pattern, byte-level
+    BPE and decoder) with merges learned from `texts`, the vocabulary
+    filled to Qwen2.5's 151643 entries so the 22 special tokens take their
+    ids 151643-151664, and tokenizer_config.json with eos <|im_end|>."""
+    import os
+
+    from affectgpt_tpu_torch import tokenization
+
+    vocab, merges = train_bpe(texts)
+    learned = len(vocab)
+    for i in range(len(vocab), QWEN_VOCAB):
+        vocab[f"<|reserved_{i}|>"] = i
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": QWEN_VOCAB + i, "content": tok, "single_word": False,
+                          "lstrip": False, "rstrip": False, "normalized": False,
+                          "special": True} for i, tok in enumerate(QWEN_SPECIALS)],
+        "normalizer": {"type": "NFC"},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": tokenization.QWEN2_PATTERN},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False,
+             "use_regex": False}]},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False,
+                    "use_regex": False},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": "", "end_of_word_suffix": "", "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": False, "vocab": vocab,
+                  "merges": [f"{a} {b}" for a, b in merges]},
+    }
+    with open(os.path.join(root, "tokenizer.json"), "w", encoding="utf-8") as handle:
+        json.dump(spec, handle, ensure_ascii=False)
+    with open(os.path.join(root, "tokenizer_config.json"), "w") as handle:
+        json.dump({"eos_token": "<|im_end|>", "pad_token": "<|endoftext|>", "bos_token": None,
+                   "clean_up_tokenization_spaces": False, "model_max_length": 131072,
+                   "tokenizer_class": "Qwen2Tokenizer"}, handle)
+    return {"merges": len(merges), "learned_vocab": learned}
+
+
+def hf_clip_entries(tree: dict) -> list:
+    """(HF key, tensor, transpose) of a CLIP vision tree in CLIPModel's
+    names (vision_model.* and visual_projection)."""
+    pre = "vision_model"
+    w = tree["patch_embed"]["w"]  # [3·P·P, width], channel-major patches
+    p = int(round((w.shape[0] // 3) ** 0.5))
+    out = [(f"{pre}.embeddings.patch_embedding.weight",
+            w.t().contiguous().reshape(w.shape[1], 3, p, p), False),
+           (f"{pre}.embeddings.class_embedding", tree["class_embed"], False),
+           (f"{pre}.embeddings.position_embedding.weight", tree["pos_embed"]["table"], False)]
+
+    def ln(key, leaf):
+        return [(f"{key}.weight", leaf["scale"], False), (f"{key}.bias", leaf["bias"], False)]
+
+    def dense(key, leaf):
+        return [(f"{key}.weight", leaf["w"], True)] + \
+            ([(f"{key}.bias", leaf["b"], False)] if "b" in leaf else [])
+
+    out += ln(f"{pre}.pre_layrnorm", tree["pre_ln"])
+    for i, blk in enumerate(tree["blocks"]):
+        k = f"{pre}.encoder.layers.{i}"
+        out += ln(f"{k}.layer_norm1", blk["ln1"]) + ln(f"{k}.layer_norm2", blk["ln2"])
+        for key, name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+            out += dense(f"{k}.self_attn.{name}", blk["attn"][key])
+        out += dense(f"{k}.mlp.fc1", blk["mlp_in"]) + dense(f"{k}.mlp.fc2", blk["mlp_out"])
+    out += ln(f"{pre}.post_layernorm", tree["post_ln"])
+    out += dense("visual_projection", tree["proj"])
+    return out
+
+
+def hubert_weight_norm(w: torch.Tensor) -> tuple:
+    """(g, v) of a weight norm over the out and in axes that gives back `w`:
+    v = w, g = ‖w‖ (norm in f32, stored in w's dtype)."""
+    g = torch.linalg.vector_norm(w.float(), dim=(0, 1), keepdim=True)
+    return g.to(w.dtype), w
+
+
+def hf_hubert_state(tree: dict) -> dict:
+    """HuBERT's tree → a HubertModel state dict on the host (HF's [out, in]
+    layout), the positional conv in the `parametrizations.weight.original0
+    / original1` form that torch >= 2.1 saves."""
+    sd = {}
+
+    def put(key, t, transpose=False):
+        sd[key] = (t.t() if transpose else t).contiguous().cpu()
+
+    def ln(key, leaf):
+        put(f"{key}.weight", leaf["scale"])
+        put(f"{key}.bias", leaf["bias"])
+
+    def dense(key, leaf):
+        put(f"{key}.weight", leaf["w"], True)
+        if "b" in leaf:
+            put(f"{key}.bias", leaf["b"])
+
+    for i, conv in enumerate(tree["convs"]):
+        k = f"feature_extractor.conv_layers.{i}"
+        put(f"{k}.conv.weight", conv["w"])
+        put(f"{k}.conv.bias", conv["b"])
+        ln(f"{k}.layer_norm", conv["ln"])
+    ln("feature_projection.layer_norm", tree["feat_proj_ln"])
+    dense("feature_projection.projection", tree["feat_proj"])
+    g, v = hubert_weight_norm(tree["pos_conv"]["w"])
+    put("encoder.pos_conv_embed.conv.parametrizations.weight.original0", g)
+    put("encoder.pos_conv_embed.conv.parametrizations.weight.original1", v)
+    put("encoder.pos_conv_embed.conv.bias", tree["pos_conv"]["b"])
+    for i, layer in enumerate(tree["layers"]):
+        k = f"encoder.layers.{i}"
+        ln(f"{k}.layer_norm", layer["attn_ln"])
+        ln(f"{k}.final_layer_norm", layer["ffn_ln"])
+        for key, name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+            dense(f"{k}.attention.{name}", layer["attn"][key])
+        dense(f"{k}.feed_forward.intermediate_dense", layer["ffn_in"])
+        dense(f"{k}.feed_forward.output_dense", layer["ffn_out"])
+    ln("encoder.layer_norm", tree["final_ln"])
+    return sd
+
+
+@contextlib.contextmanager
+def rss_peak(record: dict):
+    """Samples the process's resident set (/proc/self/statm, read only) every
+    5 ms in a thread: record["before_gib"] is the first reading,
+    record["peak_gib"] the largest."""
+    import os
+    import threading
+
+    page = os.sysconf("SC_PAGE_SIZE")
+    stop, peak = threading.Event(), [0]
+
+    def rss() -> int:
+        with open("/proc/self/statm") as handle:
+            return int(handle.read().split()[1]) * page
+
+    record["before_gib"] = rss() / 2**30
+
+    def sample():
+        while not stop.is_set():
+            peak[0] = max(peak[0], rss())
+            stop.wait(0.005)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield record
+    finally:
+        stop.set()
+        thread.join()
+        record["peak_gib"] = peak[0] / 2**30
+
+
+def leaf_pairs(got, want, prefix: str = ""):
+    """(path, got leaf, want leaf) over two trees of the same structure."""
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"load: {prefix} has keys {sorted(got)}, want {sorted(want)}")
+        for k in want:
+            yield from leaf_pairs(got[k], want[k], f"{prefix}/{k}")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"load: {prefix} has {len(got)} items, want {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            yield from leaf_pairs(g, w, f"{prefix}/{i}")
+    else:
+        yield prefix, got, want
+
+
+def check_bits(what: str, got, want, skip=()) -> int:
+    """Asserts every leaf of `got` equals `want`'s bit for bit (dtype, shape
+    and values; `skip` paths are compared by the caller); returns the
+    leaves compared."""
+    bad, n = [], 0
+    for path, g, w in leaf_pairs(got, want):
+        if path in skip:
+            continue
+        n += 1
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            bad.append(path)
+    if bad:
+        raise AssertionError(f"load: {what}: {len(bad)} of {n} tensors differ from those "
+                             f"written, e.g. {bad[:5]}")
+    return n
+
+
+def dir_gb(path: str) -> float:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files) / 1e9
+
+
+def load_texts() -> list:
+    """The text the smoke's BPE learns from: the prompts the smoke's paths
+    send (the clips' subtitles in every face_or_frame mode under both
+    questions, the AU agent's prompts for au_rows(), the runner corpus's
+    reasons), with the patch tokens taken out."""
+    import re
+
+    from affectgpt_tpu_torch import constants, prompts
+
+    texts = []
+    for mode in prompts.NEEDED_DATA:
+        for question in (QUESTION, HYBIRD_MESSAGE):
+            for sub in SUBTITLES:
+                texts.append(prompts.get_prompt_for_multimodal(mode, sub, question,
+                                                               "brows lowered, lips pressed"))
+    texts += [au_agent.build_chat_prompt(au_agent.build_au_input(au_agent.parse_openface_row(r)))
+              for r in au_rows()]
+    texts += [f"In clip {i}, the speaker's voice drops and the face tightens, so the mood reads "
+              f"as {o.strip('[]') or 'neutral'}." for i, o in enumerate(OPENSETS)]
+    pattern = "|".join(re.escape(t) for t in constants.ALL_PATCH_TOKENS)
+    return [re.sub(pattern, " ", t) for t in texts]
+
+
+def write_mer2023_corpus(root: str, n: int, seed: int = 11) -> tuple:
+    """A MER2023-style corpus of n clips: label-6way.npz (test1_corpus),
+    transcription-engchi-polish.csv and preextracted frame / face [8, 768]
+    and audio [8, 1024] features. Returns (the `paths:` section, the
+    feature root)."""
+    import csv
+    import os
+
+    rng = np.random.RandomState(seed)
+    data, feat_root = os.path.join(root, "mer2023"), os.path.join(root, "features")
+    names = [f"sample_{i:05d}" for i in range(n)]
+    os.makedirs(data, exist_ok=True)
+    for sub, dim in (("frame_CLIP_VIT_LARGE_uniform_8frms", 768),
+                     ("face_CLIP_VIT_LARGE_8frms", 768), ("audio_HUBERT_LARGE_8clips", 1024)):
+        os.makedirs(os.path.join(feat_root, "MER2023", sub))
+        for name in names:
+            np.save(os.path.join(feat_root, "MER2023", sub, f"{name}.npy"),
+                    rng.randn(8, dim).astype(np.float32))
+    emos = ["happy", "sad", "angry", "neutral", "worried", "surprise"]
+    corpus = {name: {"emo": emos[i % len(emos)]} for i, name in enumerate(names)}
+    label = os.path.join(data, "label-6way.npz")
+    np.savez(label, train_corpus=np.array(corpus, dtype=object),
+             test1_corpus=np.array(corpus, dtype=object))
+    subtitles = os.path.join(data, "transcription-engchi-polish.csv")
+    with open(subtitles, "w", newline="") as handle:
+        writer = csv.writer(handle)
+        writer.writerow(["name", "english"])
+        writer.writerows([name, SUBTITLES[i % len(SUBTITLES)]] for i, name in enumerate(names))
+    section = {"DATA_DIR": {"MER2023": data}, "PATH_TO_LABEL": {"MER2023": label},
+               "PATH_TO_TRANSCRIPTIONS": {"MER2023": subtitles}}
+    return section, feat_root
+
+
+def write_raw_clips(root: str, n: int, seed: int = 12) -> dict:
+    """n raw clips for the precompute: 8 decoded 720p frames (a
+    `{name}.avi.frames.npy` dump beside the absent video, which
+    data/media.py reads when no decoder takes the file), 16 OpenFace crops
+    of 112² ({root}/openface_face/{name}/{name}.npy) and 2 s of 16 kHz mono
+    audio (a wav file). Returns {name: the wav's path}."""
+    import os
+    import wave
+
+    rng = np.random.RandomState(seed)
+    clips = {}
+    for sub in ("video", "audio", "openface_face"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i in range(n):
+        name = f"raw_{i:04d}"
+        frames = rng.randint(0, 256, (8, 720, 1280, 3), dtype=np.uint8)
+        np.save(os.path.join(root, "video", f"{name}.avi.frames.npy"), frames)
+        faces = rng.randint(0, 256, (FACE_CROPS, 112, 112, 3), dtype=np.uint8)
+        os.makedirs(os.path.join(root, "openface_face", name))
+        np.save(os.path.join(root, "openface_face", name, f"{name}.npy"), faces)
+        wav = os.path.join(root, "audio", f"{name}.wav")
+        pcm = (np.clip(rng.randn(RT_SAMPLES) * 0.1, -1, 1) * 32767).astype("<i2")
+        with wave.open(wav, "wb") as handle:
+            handle.setnchannels(1)
+            handle.setsampwidth(2)
+            handle.setframerate(16000)
+            handle.writeframes(pcm.tobytes())
+        clips[name] = wav
+    return clips
+
+
+def hybird_launches(tree: str, layers: int, steps: int, b: int, t_prefill: int) -> dict:
+    """The kernel launches of one inference_hybird batch: the decode kernels
+    once a layer and step (bf16), or each int4 product once a call at the
+    M that routes it (qwen2._lora_dense): the decode's 7 a layer plus the
+    lm_head at M = b, the prefill's last-token lm_head at M = b, and the
+    prefill's 7 a layer at M = b·t unless that M takes the dequantize
+    route."""
+    if tree == "bf16":
+        return {"decode_qkv": steps * layers, "decode_mlp_bf16": steps * layers}
+    out = {}
+
+    def add(m, count):
+        if m <= quant.PALLAS_DEQUANT_MAX_M:
+            name = "int4_matmul_smallm" if m < quant.PALLAS_INT4_MIN_M else "int4_matmul"
+            out[name] = out.get(name, 0) + count
+    add(b, steps * (7 * layers + 1) + 1)
+    add(b * t_prefill, 7 * layers)
+    return out
+
+
+def load_gate_bootstrap(card: str, model: tuple, dirs: dict) -> tuple:
+    """Gate 1: bootstrap.build_model on the written directories; every LLM
+    and CLIP tensor equals the one written, HuBERT's too but its positional
+    conv, which equals the f32 numpy materialization of the written g, v.
+    Prints the load's seconds, GB/s and host peak RSS."""
+    cfg, frozen, _, _, _, _ = model
+    torch.cuda.synchronize()
+    record = {}
+    t0 = time.perf_counter()
+    with rss_peak(record):
+        lcfg, loaded, _, tok = bootstrap.build_model(
+            {"llama_model": "Qwen25", "keep_full_llm": True}, with_encoders=True, device="cuda")
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    gb = sum(dir_gb(d) for d in dirs.values())
+    n_llm = check_bits("llm", loaded["llm"], frozen["llm"])
+    n_clip = check_bits("CLIP", loaded["visual_encoder"], frozen["visual_encoder"])
+    pos = "/pos_conv/w"
+    n_hub = check_bits("HuBERT", loaded["acoustic_encoder"], frozen["acoustic_encoder"], {pos})
+    g, v = hubert_weight_norm(frozen["acoustic_encoder"]["pos_conv"]["w"])
+    g, v = g.float().cpu().numpy(), v.float().cpu().numpy()
+    norm = np.linalg.norm(v, axis=(0, 1), keepdims=True)
+    want_pos = torch.from_numpy(g * v / np.maximum(norm, np.float32(1e-12))).to(torch.bfloat16)
+    got_pos = loaded["acoustic_encoder"]["pos_conv"]["w"]
+    pos_err = float((got_pos.float() - frozen["acoustic_encoder"]["pos_conv"]["w"].float())
+                    .abs().max())
+    say("load", gate="bootstrap", layers=len(loaded["llm"]["layers"]), tensors_equal=n_llm + n_clip + n_hub,
+        llm_tensors=n_llm, clip_tensors=n_clip, hubert_tensors=n_hub,
+        pos_conv_vs_written_w_max_abs=f"{pos_err:.6g}", load_seconds=f"{seconds:.3f}",
+        gb=f"{gb:.3f}", gb_per_s=f"{gb / seconds:.3f}", page_cache="warm (written by this phase)",
+        host_rss_before_gib=f"{record['before_gib']:.3f}",
+        host_peak_rss_gib=f"{record['peak_gib']:.3f}",
+        device_gib=f"{tree_gib(loaded):.3f}", card=repr(card))
+    if not torch.equal(got_pos.cpu(), want_pos):
+        raise AssertionError("load: HuBERT's pos_conv is not g·v/‖v‖ of the written g, v")
+    if lcfg.llm != cfg.llm:
+        raise AssertionError(f"load: the loaded config {lcfg.llm} is not the preset's")
+    return loaded, tok
+
+
+def load_gate_serving(card: str, model: tuple, loaded: dict, tok) -> None:
+    """Gate 2: Chat.answer_batch on the 8 clips, greedy, from the loaded LLM
+    and from the in-memory one, both under the loaded tokenizer: the same
+    tokens; rows 1-2 launch num_layers x the decode steps in each. Prints the
+    prompt tokens under the BPE and the ByteTokenizer."""
+    from affectgpt_tpu_torch.tokenization import ByteTokenizer
+
+    cfg, frozen, trainable, byte_tok, feats, _ = model
+    tokens, runs = {}, {}
+    for side, llm in (("loaded", loaded["llm"]), ("in_memory", frozen["llm"])):
+        chat = Chat({**frozen, "llm": llm}, trainable, cfg, tok, max_len=MAX_LEN)
+        record = []
+
+        def recorder(inner):
+            def wrapped(*args, **kwargs):
+                out = inner(*args, **kwargs)
+                record.append(out[0].cpu())
+                return out
+            return wrapped
+
+        with patched(gen, "generate", recorder):
+            t0 = time.perf_counter()
+            texts, launches = counted_call(lambda: chat.answer_batch(
+                MODE, SUBTITLES, QUESTION, feats, max_new_tokens=NEW_TOKENS, do_sample=False))
+            runs[side] = time.perf_counter() - t0
+        check_launches(f"load {side}", launches, hybird_launches(
+            "bf16", cfg.llm.num_layers, NEW_TOKENS, BATCH, 0))
+        check_strings(f"load {side}", texts, BATCH)
+        tokens[side] = record[0]
+    bpe_ids, bpe_len, _ = Chat(frozen, trainable, cfg, tok).build_prompt_batch(
+        MODE, SUBTITLES, QUESTION)
+    byte_ids, byte_len, _ = Chat(frozen, trainable, cfg, ByteTokenizer()).build_prompt_batch(
+        MODE, SUBTITLES, QUESTION)
+    same = int((tokens["loaded"] == tokens["in_memory"]).all(dim=1).sum())
+    say("load", gate="serving", rows_with_the_same_tokens=f"{same}/{BATCH}",
+        new_tokens=NEW_TOKENS, launches_each=json.dumps(launches),
+        prompt_tokens_bpe=bpe_ids.shape[1], prompt_tokens_byte=byte_ids.shape[1],
+        mean_prompt_tokens_bpe=f"{float(bpe_len.mean()):.2f}",
+        mean_prompt_tokens_byte=f"{float(byte_len.mean()):.2f}",
+        vocab_size=tok.vocab_size, eos=tok.eos_token_id, bos=tok.bos_token_id,
+        answer_s=json.dumps({k: round(v, 3) for k, v in runs.items()}), card=repr(card))
+    if same != BATCH:
+        raise AssertionError(f"load: the loaded model's greedy tokens differ on "
+                             f"{BATCH - same} of {BATCH} rows")
+
+
+def load_gate_hybird(card: str, model: tuple, tmp: str) -> None:
+    """Gate 3: inference_hybird.main over HYBIRD_CLIPS preextracted
+    MER2023-style clips with a checkpoint that save_checkpoint wrote, once
+    with the default serving weights and once with --int4 (both --greedy):
+    one .npz of HYBIRD_CLIPS answers each, the kernels launched as their
+    switches say and no other."""
+    import os
+
+    from affectgpt_tpu_torch import inference_hybird
+    from affectgpt_tpu_torch.training import checkpoint
+
+    cfg = model[0]
+    section, feat_root = write_mer2023_corpus(tmp, HYBIRD_CLIPS)
+    trainable = affectgpt.init_trainable(torch.Generator(device="cuda").manual_seed(13), cfg)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    for layer in trainable["lora"]["layers"]:  # a LoRA that the merge changes
+        for leaf in layer.values():
+            leaf["b"] = nn.normal(g, tuple(leaf["b"].shape), 1e-3, leaf["b"].dtype)
+    run = os.path.join(tmp, "out", "exp_load", "run")
+    checkpoint.save_checkpoint(run, 0, trainable, loss=1.0)
+    del trainable
+    raw = {"model": {"llama_model": "Qwen25", "keep_full_llm": True, "skip_encoders": True},
+           "datasets": {"mer2023": {"face_or_frame": MODE, "use_preextracted_frame": True,
+                                    "use_preextracted_face": True,
+                                    "use_preextracted_audio": True,
+                                    "preextracted_root": feat_root}},
+           "run": {"output_dir": os.path.join(tmp, "out")},
+           "inference": {"face_or_frame": MODE}, "paths": section}
+    cfg_path = os.path.join(tmp, "exp_load.json")
+    with open(cfg_path, "w") as handle:
+        json.dump(raw, handle)
+    cwd = os.getcwd()
+    for tree, flags in (("bf16", []), ("int4", ["--int4"])):
+        os.chdir(tmp)
+        shapes = []
+
+        def recorder(inner):
+            def wrapped(*args, **kwargs):
+                shapes.append(tuple(args[2].shape))
+                return inner(*args, **kwargs)
+            return wrapped
+
+        try:
+            with patched(qwen2, "forward", recorder):
+                t0 = time.perf_counter()
+                _, launches = counted_call(lambda: inference_hybird.main(
+                    ["--cfg-path", cfg_path, "--dataset", "MER2023", "--batch_size",
+                     str(HYBIRD_CLIPS), "--max_new_tokens", str(NEW_TOKENS), "--greedy",
+                     "--ckpt_root", run, "--device", "cuda", *flags]))
+                seconds = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        out = os.path.join(tmp, "output", "results", "exp_load", "result-mer2023", "0.npz")
+        with np.load(out, allow_pickle=True) as npz:
+            keys, answers = sorted(npz.files), npz["name2reason"].tolist()
+        os.remove(out)
+        expected = hybird_launches(tree, cfg.llm.num_layers, NEW_TOKENS, HYBIRD_CLIPS,
+                                   shapes[0][1])
+        say("load", gate="inference_hybird", tree=tree, flags=json.dumps(flags),
+            clips=len(answers), npz_keys=json.dumps(keys), prefill=list(shapes[0]),
+            forwards=len(shapes), launches=json.dumps({k: v for k, v in launches.items() if v}),
+            sample=json.dumps(next(iter(answers.values()), "")[:60]),
+            run_s=f"{seconds:.3f}", card=repr(card))
+        check_launches(f"inference_hybird {tree}", launches, expected)
+        if keys != ["name2reason"] or len(answers) != HYBIRD_CLIPS \
+                or not all(isinstance(a, str) for a in answers.values()):
+            raise AssertionError(f"inference_hybird {tree}: {keys}, {len(answers)} answers")
+        if len(shapes) != NEW_TOKENS + 1:
+            raise AssertionError(f"inference_hybird {tree}: {len(shapes)} forwards")
+        torch.cuda.empty_cache()
+
+
+def load_gate_precompute(card: str, model: tuple, tmp: str) -> None:
+    """Gate 4: the precompute entry over PRECOMPUTE_CLIPS raw clips with the
+    towers loaded from their directories writes the frame, face, audio and
+    multi caches; each equals encode_media_features (frame, face) or
+    hubert.encode_clips (audio) on the in-memory towers, one clip a call as
+    the entry calls them, within FEATURE_RTOL; rows 11 and 12 launch
+    num_layers times per CLIP call (two calls a clip) and nothing else
+    launches."""
+    import os
+
+    from affectgpt_tpu_torch import extract_multimodal_features_precompute as pre
+    from affectgpt_tpu_torch.data import media
+    from affectgpt_tpu_torch.ops import audio as audio_ops
+
+    cfg, frozen, _, _, _, _ = model
+    _, vcfg, _, _ = encoder_configs(cfg)
+    root = os.path.join(tmp, "raw")
+    clips = write_raw_clips(root, PRECOMPUTE_CLIPS)
+    names = os.path.join(tmp, "names.txt")
+    with open(names, "w") as handle:
+        handle.write("\n".join(clips) + "\n")
+    save_root = os.path.join(tmp, "feats")
+    t0 = time.perf_counter()
+    _, launches = counted_call(lambda: pre.main([
+        "--dataset", "MER2023", "--sample_list", names, "--modality", "all",
+        "--video_root", os.path.join(root, "video"), "--face_root",
+        os.path.join(root, "openface_face"), "--audio_root", os.path.join(root, "audio"),
+        "--save_root", save_root, "--device", "cuda"]))
+    seconds = time.perf_counter() - t0
+    calls = 2 * PRECOMPUTE_CLIPS
+    expected = {"attn_sublayer": calls * vcfg.num_layers, "mlp_sublayer": calls * vcfg.num_layers}
+    encoder = {"frame": "CLIP_VIT_LARGE", "face": "CLIP_VIT_LARGE", "audio": "HUBERT_LARGE",
+               "multi": "CLIP_VIT_LARGE+HUBERT_LARGE"}
+    acfg = hubert.HubertConfig.large()
+    errs = dict.fromkeys(encoder, 0.0)
+    for name, wav in clips.items():
+        got = {m: np.load(media.feature_cache_path(save_root, "MER2023", m, enc, name))
+               for m, enc in encoder.items()}
+        want = {}
+        for m, raw in (("frame", media.read_video_frames(
+                os.path.join(root, "video", f"{name}.avi"), 8)), ("face", media.read_face_crops(
+                os.path.join(root, "openface_face", name, f"{name}.npy"), 8))):
+            want[m] = encode_media_features(
+                frozen, None, {m: torch.as_tensor(raw[None], device="cuda")},
+                vision_cfg=vcfg)[m][0].float().cpu().numpy()
+        audio = torch.as_tensor(audio_ops.host_audio_clips(*media.read_wav(wav))[None],
+                                device="cuda")
+        want["audio"] = hubert.encode_clips(frozen["acoustic_encoder"], acfg, audio)[0] \
+            .float().cpu().numpy()
+        want["multi"] = np.concatenate([want["face"].mean(0), want["audio"].mean(0)])
+        for m in errs:
+            if got[m].shape != want[m].shape or not np.isfinite(got[m]).all():
+                raise AssertionError(f"precompute {name} {m}: {got[m].shape} vs "
+                                     f"{want[m].shape}, or non-finite")
+            errs[m] = max(errs[m], float(np.abs(got[m] - want[m]).max()
+                                         / max(np.abs(want[m]).max(), 1e-6)))
+    say("load", gate="precompute", clips=PRECOMPUTE_CLIPS, clip_calls=calls,
+        launches=json.dumps({k: v for k, v in launches.items() if v}),
+        rel_err=json.dumps({k: float(f"{v:.6g}") for k, v in errs.items()}),
+        rtol=FEATURE_RTOL, run_s=f"{seconds:.3f}", card=repr(card))
+    check_launches("precompute", launches, expected)
+    if max(errs.values()) > FEATURE_RTOL:
+        raise AssertionError(f"precompute: features off the in-memory towers' by {errs}")
+
+
+def phase_load(card: str, model: tuple) -> None:
+    """Phase 10: write the phase-4 model as HF directories (the LLM at its
+    own depth in 4 bf16 shards with a tokenizer, CLIP ViT-L/14's
+    model.safetensors, HuBERT-large's pytorch_model.bin) into a temporary
+    directory, point the path tables at them, and run the four gates."""
+    import os
+    import shutil
+    import tempfile
+
+    from affectgpt_tpu_torch import paths
+
+    t0 = time.perf_counter()
+    cfg, frozen, _, _, _, _ = model
+    tmp = tempfile.mkdtemp(prefix="load_")
+    saved = {k: dict(v) for k, v in paths.TABLES.items()}
+    try:
+        free = shutil.disk_usage(tmp).free
+        llm_bytes = entry_bytes(hf_llm_entries(frozen["llm"]))
+        towers = tree_gib([frozen["visual_encoder"], frozen["acoustic_encoder"]]) * 2**30
+        say("load", tmp_free_gb=f"{free / 1e9:.3f}",
+            needed_gb=f"{(llm_bytes + towers + LOAD_DISK_MARGIN) / 1e9:.3f}",
+            layers=len(frozen["llm"]["layers"]), card=repr(card))
+        if llm_bytes + towers + LOAD_DISK_MARGIN > free:
+            raise AssertionError(f"load: {free / 1e9:.1f} GB free in {tmp}, the directories "
+                                 f"need {(llm_bytes + towers) / 1e9:.1f} GB")
+        dirs = {k: os.path.join(tmp, k) for k in ("llm", "clip", "hubert")}
+        for d in dirs.values():
+            os.makedirs(d)
+        t1 = time.perf_counter()
+        write_llm_dir(dirs["llm"], frozen["llm"], cfg.llm)
+        bpe = write_tokenizer(dirs["llm"], load_texts())
+        write_safetensors(os.path.join(dirs["clip"], "model.safetensors"),
+                          hf_clip_entries(frozen["visual_encoder"]))
+        torch.save(hf_hubert_state(frozen["acoustic_encoder"]),
+                   os.path.join(dirs["hubert"], "pytorch_model.bin"))
+        write_s = time.perf_counter() - t1
+        say("load", written_gb=json.dumps({k: round(dir_gb(d), 3) for k, d in dirs.items()}),
+            shards=LOAD_SHARDS, bpe_merges=bpe["merges"], bpe_learned_vocab=bpe["learned_vocab"],
+            write_s=f"{write_s:.3f}", card=repr(card))
+        paths.PATH_TO_LLM["Qwen25"] = dirs["llm"]
+        paths.PATH_TO_VISUAL["CLIP_VIT_LARGE"] = dirs["clip"]
+        paths.PATH_TO_AUDIO["HUBERT_LARGE"] = dirs["hubert"]
+        loaded, tok = load_gate_bootstrap(card, model, dirs)
+        load_gate_serving(card, model, loaded, tok)
+        del loaded
+        torch.cuda.empty_cache()
+        load_gate_hybird(card, model, tmp)
+        load_gate_precompute(card, model, tmp)
+    finally:
+        for k, v in saved.items():
+            paths.TABLES[k].clear()
+            paths.TABLES[k].update(v)
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("load", phase_seconds=f"{time.perf_counter() - t0:.3f}", card=repr(card))
+
+
 def main() -> None:
     card = phase_device()
     phase_build(card)
@@ -3183,6 +3931,9 @@ def main() -> None:
     phase_serving_variants(card, model)
     phase_train(card, model)
     phase_runner(card, model)
+    model = (*model[:5], {})  # phase 10 needs no serving tree: free their memory
+    torch.cuda.empty_cache()
+    phase_load(card, model)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],

@@ -95,9 +95,41 @@ def test_load_text_tower(monkeypatch, tmp_path):
     assert torch.equal(params["proj"]["w"], again["proj"]["w"])  # drawn from the seed
     monkeypatch.setattr(clip_text, "_CACHED_TOWER", {})
     assert clip_text.cached_text_tower("cpu") is clip_text.cached_text_tower("cpu")
+    # a directory that exists is loaded: a checkpoint of another geometry
+    # than ViT-B/32's fails the geometry check, an empty one names what it lacks
     monkeypatch.setitem(paths.PATH_TO_VISUAL, "CLIP_VIT_BASE32", str(tmp_path))
-    with pytest.raises(NotImplementedError, match=r"\(ROADMAP queue 1 item 13\)"):
+    with pytest.raises(FileNotFoundError, match="no \\*.safetensors"):
         clip_text.load_text_tower(device="cpu")
+    torch.save(text_state(params), tmp_path / "pytorch_model.bin")
+    loaded, _ = clip_text.load_text_tower(device="cpu")
+    assert torch.equal(loaded["proj"]["w"], params["proj"]["w"])
+    monkeypatch.setattr(clip_vit.ClipTextConfig, "vit_b_32_text",
+                        classmethod(lambda cls: clip_vit.ClipTextConfig.tiny()))
+    with pytest.raises(ValueError, match="text token_embed"):
+        clip_text.load_text_tower(device="cpu")
+
+
+def text_state(params: dict) -> dict:
+    """The port's text tower → a HF CLIPModel state dict of it (text_model.*
+    and text_projection, HF's [out, in] layout)."""
+    sd = {"embeddings.token_embedding.weight": params["token_embed"]["table"],
+          "embeddings.position_embedding.weight": params["pos_embed"]["table"],
+          "final_layer_norm.weight": params["final_ln"]["scale"],
+          "final_layer_norm.bias": params["final_ln"]["bias"]}
+    for i, blk in enumerate(params["blocks"]):
+        p = f"encoder.layers.{i}"
+        for ln in ("1", "2"):
+            sd[f"{p}.layer_norm{ln}.weight"] = blk[f"ln{ln}"]["scale"]
+            sd[f"{p}.layer_norm{ln}.bias"] = blk[f"ln{ln}"]["bias"]
+        for key, name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+            sd[f"{p}.self_attn.{name}.weight"] = blk["attn"][key]["w"].t().contiguous()
+            sd[f"{p}.self_attn.{name}.bias"] = blk["attn"][key]["b"]
+        for key, name in (("mlp_in", "fc1"), ("mlp_out", "fc2")):
+            sd[f"{p}.mlp.{name}.weight"] = blk[key]["w"].t().contiguous()
+            sd[f"{p}.mlp.{name}.bias"] = blk[key]["b"]
+    out = {f"text_model.{k}": v.clone() for k, v in sd.items()}
+    out["text_projection.weight"] = params["proj"]["w"].t().contiguous()
+    return out
 
 
 def test_text_tower_from_jax_checks_the_geometry():

@@ -38,6 +38,8 @@ from affectgpt_tpu_torch.ops.decode_mlp_bf16 import decode_mlp_bf16
 from affectgpt_tpu_torch.ops.decode_qkv import decode_qkv
 
 REPO = Path(__file__).resolve().parent.parent
+# packages the card's installation lacks
+ABSENT_ON_THE_CARD = ("yaml", "pandas", "transformers", "tokenizers", "safetensors", "regex")
 
 
 def _port_modules():
@@ -48,8 +50,9 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     """Every port module, and chip_smoke.py with all it imports, load with
-    `import jax`, `import affectgpt_tpu`, `import yaml` and `import pandas`
-    made to fail (the card has neither PyYAML nor pandas)."""
+    `import jax`, `import affectgpt_tpu`, `import yaml`, `import pandas`,
+    `import transformers`, `import tokenizers`, `import safetensors` and
+    `import regex` made to fail (the card has none of the last six)."""
     modules = _port_modules() + ["chip_smoke"]
     assert "affectgpt_tpu_torch.inference.chat" in modules and len(modules) >= 22
     assert {"affectgpt_tpu_torch.models.au_agent", "affectgpt_tpu_torch.models.qformer",
@@ -61,15 +64,19 @@ def test_port_imports_without_jax():
             "affectgpt_tpu_torch.training.runner", "affectgpt_tpu_torch.parallel.mesh",
             "affectgpt_tpu_torch.data.datasets", "affectgpt_tpu_torch.data.loaders",
             "affectgpt_tpu_torch.data.media", "affectgpt_tpu_torch.ops.sampling",
-            "affectgpt_tpu_torch.utils.logging"} <= set(modules)
+            "affectgpt_tpu_torch.utils.logging", "affectgpt_tpu_torch.inference_hybird",
+            "affectgpt_tpu_torch.inference_sample",
+            "affectgpt_tpu_torch.extract_multimodal_features_precompute"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises ImportError
         "sys.modules['affectgpt_tpu'] = None\n"  # and so does the JAX package
-        "sys.modules['yaml'] = sys.modules['pandas'] = None\n"
+        f"for blocked in {ABSENT_ON_THE_CARD!r}:\n"
+        "    sys.modules[blocked] = None\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
-        "assert not any(k.split('.')[0] in ('jax', 'affectgpt_tpu', 'yaml', 'pandas')\n"
+        "assert not any(k.split('.')[0] in ('jax', 'affectgpt_tpu') + "
+        f"{ABSENT_ON_THE_CARD!r}\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
     )
@@ -80,10 +87,26 @@ def test_port_imports_without_jax():
 
 @pytest.mark.parametrize("entry", [bootstrap.build_model, convert.from_jax,
                                    convert.tree_to_torch, tq.init_cache,
-                                   tpaged.init_paged_cache],
+                                   tpaged.init_paged_cache, convert.convert_qwen2,
+                                   convert.convert_baichuan2, convert.convert_clip_vision,
+                                   convert.convert_clip_text, convert.convert_hubert,
+                                   convert.convert_reference_affectgpt],
                          ids=lambda f: f.__name__)
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_no_import_of_what_the_card_lacks():
+    """No line of the port or of chip_smoke.py imports a package the card
+    lacks, not even inside a function (which the import test cannot see)."""
+    import re
+
+    pattern = re.compile(r"^\s*(?:import|from)\s+(" + "|".join(ABSENT_ON_THE_CARD[2:])
+                         + r")\b")
+    sources = sorted((REPO / "affectgpt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    found = [f"{path.relative_to(REPO)}:{i}" for path in sources
+             for i, line in enumerate(path.read_text().splitlines(), 1) if pattern.match(line)]
+    assert len(sources) > 60 and not found, found
 
 
 def test_init_cache_without_device_needs_a_card():
