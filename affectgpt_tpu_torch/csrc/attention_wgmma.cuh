@@ -35,9 +35,10 @@ constexpr int kKeys = 64;       // keys of a tile
 constexpr int kBox = 64 * 128;  // bytes of one 64-row x 64-value bf16 box
 constexpr float kLog2e = 1.4426950408889634f;
 
-// bytes of one 64-row tile of head_dim D (D / 64 boxes side by side)
+// bytes of one 64-row tile of head_dim D (ceil(D / 64) boxes side by side;
+// the columns of the last box past D arrive as zeros)
 template <int D>
-constexpr int kTileBytes = (D / 64) * kBox;
+constexpr int kTileBytes = ((D + 63) / 64) * kBox;
 
 // Where this thread's accumulators lie: warp w of its warpgroup, lane
 // (g, tq); element 4j + 2h + e of an m64 accumulator is row 16w + g + 8h,

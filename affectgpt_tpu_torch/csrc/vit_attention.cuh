@@ -3,7 +3,8 @@
 // alone) and vit_sublayer.cu (step (iii) of the whole attention sublayer).
 //
 // out = softmax(q k^T / sqrt(d), keys >= valid_len masked) v per (image,
-// head), head_dim 64, n <= 512. The TPU kernel
+// head), head_dim 64, at most 512 valid keys (vit_attention_stream.cuh takes
+// every other shape of vit_attention.cu's C entry). The TPU kernel
 // (affectgpt_tpu/ops/vit_attention_pallas.py::_kernel) holds a whole score
 // row on chip, normalises p, rounds p to bf16 and only then multiplies by
 // v: a streaming (flash) softmax would round the unnormalised p instead and
@@ -402,7 +403,7 @@ static cudaError_t launch(const CUtensorMap& q_map, const CUtensorMap& k_map,
 }  // namespace wgattn
 
 // q, k, v share the element strides `in`; out has its own. Needs 1 <=
-// valid_len <= n <= kAttnMaxN, all strides multiples of 8 and 16-byte
+// valid_len <= n and valid_len <= kAttnMaxN, all strides multiples of 8 and 16-byte
 // aligned pointers (the tensor maps' rules). dependent: q, k and v are
 // written by the launch just before on the stream, which calls
 // launch_dependents; the grid is launched as its programmatic dependent.
@@ -412,7 +413,8 @@ static inline cudaError_t launch_vit_attention(const __nv_bfloat16* q, const __n
                                                AttnStrides in, AttnStrides os,
                                                cudaStream_t stream, bool dependent = false) {
   using namespace wgattn;
-  if (n < 1 || n > kAttnMaxN || valid_len < 1 || valid_len > n) return cudaErrorInvalidValue;
+  if (n < 1 || valid_len < 1 || valid_len > n || valid_len > kAttnMaxN)
+    return cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
   int inner = 0;
   if (head_rows_map(&q_map, q, kAttnD, b, heads, n, in.b, in.h, in.n, &inner) ||

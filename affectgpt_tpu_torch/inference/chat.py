@@ -3,7 +3,8 @@
 Port of affectgpt_tpu/inference/chat.py (`encode_media_features`,
 `Chat.build_prompt_batch` and `Chat.answer_batch`): on the realtime path
 `encode_media_features` turns raw frames, face crops and audio clips into
-features on the device (preprocessing, CLIP ViT-L/14, HuBERT-large); on the
+features on the device (preprocessing, then the towers the config names:
+CLIP ViT-L/14 and HuBERT-large by default, any tower of models/encoders.py); on the
 preextracted path the features come from a cache. Prompt assembly and
 tokenization use the port's own copies of the host modules (`constants`,
 `prompts`, `tokenization`), then mergers → splice → prefill → decode run in
@@ -45,7 +46,8 @@ def encode_media_features(
     """Raw media on the device → per-modality [b, t, d] features through the
     frozen encoders the config names (the realtime path; reference
     encoder.py forward wrappers). raw: frame / face / image [b, T, H, W, 3]
-    uint8, audio [b, clips, 1, samples]. Frames are resized and normalized
+    uint8, audio [b, clips, 1, samples] (IMAGEBIND: mel clips [b, clips, 1,
+    128, 204] from ops/audio.transform_audio, as in JAX). Frames are resized and normalized
     with the visual tower's own processor stats, as one [b·T] batch."""
     vis_spec = encoders.get_visual_encoder(
         cfg.visual_encoder_name if cfg is not None else "CLIP_VIT_LARGE")

@@ -126,10 +126,14 @@ def init_vision_params(generator: torch.Generator, cfg: ClipVisionConfig,
 
 def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
     """[b, H, W, 3] → [b, n_patches, P·P·3], channel-major within a patch
-    (the HF conv weight (O, C, kH, kW) flattened to (C·kH·kW, O))."""
+    (the HF conv weight (O, C, kH, kW) flattened to (C·kH·kW, O)). Pixels
+    past the last whole patch are dropped, as HF's patch convolution (stride
+    = kernel, no padding) drops them: SigLIP so400m's 384 px at patch 14
+    gives 27 x 27 patches (JAX's reshape raises there)."""
     b, H, W, c = images.shape
     gh, gw = H // patch_size, W // patch_size
-    x = images.reshape(b, gh, patch_size, gw, patch_size, c)
+    x = images[:, :gh * patch_size, :gw * patch_size].reshape(b, gh, patch_size, gw, patch_size,
+                                                               c)
     x = x.permute(0, 1, 3, 5, 2, 4)  # [b, gh, gw, c, ph, pw]
     return x.reshape(b, gh * gw, c * patch_size * patch_size)
 

@@ -4,8 +4,9 @@
 `np.asarray` on every leaf (nested dicts and lists of numpy arrays) and
 returns the same trees as tensors, on the card unless `device` says
 otherwise. It covers the LLM, LoRA, the mergers (their Q-Formers too), the
-multi-fusion block and the media encoders (`visual_encoder`: the CLIP vision
-tower, `acoustic_encoder`: HuBERT), bf16 or with the int8 `w_q` leaves of
+multi-fusion block and the media encoders (`visual_encoder`: any visual
+tower of the registry, `acoustic_encoder`: any acoustic one; `check_tower`
+holds each to its config), bf16 or with the int8 `w_q` leaves of
 `ops.quant.quantize_encoder_tree`; `text_tower_from_jax` carries the CLIP
 text tower. Neither imports jax.
 
@@ -26,7 +27,10 @@ torch's: dense `[in, out]` applied as `x @ w`, the CLIP patch embedding
 
 The HF checkpoint converters (`convert_qwen2`, `convert_llama`,
 `convert_baichuan2`, `convert_clip_vision`, `convert_clip_text`,
-`convert_hubert`, `llm_config_from_hf`; `convert_reference_affectgpt` for a
+`convert_hubert`, `convert_dinov2`, `convert_siglip_vision`,
+`convert_wavlm`, `convert_data2vec_audio`, `llm_config_from_hf`;
+`eva_vit.convert_eva_state` and `imagebind_audio.convert_imagebind_audio`
+take raw state dicts; `convert_reference_affectgpt` for a
 reference `AffectGPT.state_dict()`) are the port of affectgpt_tpu/models/
 convert.py. They read a model directory with the port's own readers: the
 safetensors format (an 8-byte little-endian header length, a JSON header,
@@ -53,7 +57,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from affectgpt_tpu_torch.models import affectgpt, encoders
+from affectgpt_tpu_torch.models import affectgpt, clip_vit, encoders, hubert
 
 
 def _tensor(arr, device) -> torch.Tensor:
@@ -184,10 +188,31 @@ def _check_merger(tree: dict, fusion_type: str, feat_dim: int, max_time: int, qc
 
 
 def check_tower(key: str, tree: dict, tower_cfg) -> dict:
-    """`tree` if the `key` tower ("visual_encoder": CLIP's ClipVisionConfig,
-    "acoustic_encoder": HuBERT's HubertConfig) has tower_cfg's geometry,
-    else ValueError."""
-    (_check_vision if key == "visual_encoder" else _check_hubert)(tree, tower_cfg)
+    """`tree` if the `key` tower ("visual_encoder" or "acoustic_encoder") has
+    the geometry of tower_cfg, the config of any tower the registry names
+    (models/encoders.py), else ValueError. An EVA_CLIP_G tree ({"vit",
+    "head"}) is held by its ViT and its Q-Former head."""
+    from affectgpt_tpu_torch.models import eva_vit, imagebind_audio, vit_variants, wav_encoders
+
+    if key == "visual_encoder" and isinstance(tower_cfg, eva_vit.EvaVitConfig) \
+            and "head" in tree:
+        _check_vit(tree["vit"], tower_cfg, "the EVA tower", cls=1)
+        _check_blip2_head(tree["head"], tower_cfg)
+        return tree
+    checks = {
+        clip_vit.ClipVisionConfig: _check_vision,
+        hubert.HubertConfig: _check_hubert,
+        vit_variants.Dinov2Config: lambda t, c: _check_vit(t, c, "DINOv2", cls=1,
+                                                           any_grid=True),
+        vit_variants.SiglipConfig: lambda t, c: _check_vit(t, c, "SigLIP", cls=0),
+        eva_vit.EvaVitConfig: lambda t, c: _check_vit(t, c, "the EVA tower", cls=1),
+        wav_encoders.WavLMConfig: _check_wavlm,
+        wav_encoders.Data2VecAudioConfig: _check_data2vec,
+        imagebind_audio.ImageBindAudioConfig: _check_imagebind,
+    }
+    if type(tower_cfg) not in checks:
+        raise ValueError(f"from_jax: no geometry check for a {type(tower_cfg).__name__}")
+    checks[type(tower_cfg)](tree, tower_cfg)
     return tree
 
 
@@ -203,9 +228,56 @@ def _check_vision(tree: dict, vc) -> None:
         raise ValueError("from_jax: visual pos_embed does not match the config")
 
 
+def _check_vit(tree: dict, vc, what: str, cls: int, any_grid: bool = False) -> None:
+    """A DINOv2, SigLIP or EVA tower against its config: the patch embedding
+    [P²·3, width], the block count, each block's MLP [width, mlp_dim] and the
+    position table [grid + cls, width] (DINOv2 resizes a table of another
+    square grid to the image's: any_grid)."""
+    patch = (vc.patch_size * vc.patch_size * 3, vc.width)
+    if _dense_shape(tree["patch_embed"]) != patch:
+        raise ValueError(f"from_jax: {what}'s patch_embed is not {list(patch)}")
+    if len(tree["blocks"]) != vc.num_layers:
+        raise ValueError(f"from_jax: {what} has {len(tree['blocks'])} blocks, the config "
+                         f"{vc.num_layers}")
+    if _dense_shape(tree["blocks"][0]["mlp_in"]) != (vc.width, vc.mlp_dim):
+        raise ValueError(f"from_jax: {what}'s mlp_in is not [{vc.width}, {vc.mlp_dim}]")
+    rows, width = tree["pos_embed"]["table"].shape
+    grid = (vc.image_size // vc.patch_size) ** 2
+    side = round((rows - cls) ** 0.5)
+    if width != vc.width or (rows != grid + cls and not (any_grid and side * side == rows - cls)):
+        raise ValueError(f"from_jax: {what}'s pos_embed is not [{grid + cls}, {vc.width}]")
+
+
+def _check_blip2_head(head: dict, vc) -> None:
+    """EVA_CLIP_G's head: ln_vision over the ViT's width and BLIP2's
+    12-layer Q-Former, whose cross-attention keys take that width."""
+    from affectgpt_tpu_torch.models import qformer
+
+    q = head["qformer"]
+    qcfg = qformer.QFormerConfig.blip2(q["query_tokens"].shape[1], vc.width)
+    if tuple(head["ln_vision"]["scale"].shape) != (vc.width,) \
+            or len(q["layers"]) != qcfg.num_layers:
+        raise ValueError(f"from_jax: the BLIP2 head is not ln_vision [{vc.width}] and "
+                         f"{qcfg.num_layers} Q-Former layers")
+    for i, layer in enumerate(q["layers"]):
+        if "cross_attn" in layer and \
+                _dense_shape(layer["cross_attn"]["k"]) != (vc.width, qcfg.hidden_size):
+            raise ValueError(f"from_jax: BLIP2 head layer {i} cross-attention keys are not "
+                             f"[{vc.width}, {qcfg.hidden_size}]")
+
+
 def _check_hubert(tree: dict, ac) -> None:
     """HuBERT's geometry against its HubertConfig: the conv kernels [out, in,
     k], the layer count, the positional conv [hidden, hidden / groups, k]."""
+    _check_wav_stack(tree, ac)
+    pos = (ac.hidden_size, ac.hidden_size // ac.pos_conv_groups, ac.pos_conv_kernel)
+    if tuple(tree["pos_conv"]["w"].shape) != pos:
+        raise ValueError(f"from_jax: pos_conv is not {list(pos)}")
+
+
+def _check_wav_stack(tree: dict, ac) -> None:
+    """The conv frontend [out, in, k] and the layer count of a HuBERT-style
+    tower."""
     in_ch = 1
     if len(tree["convs"]) != len(ac.conv_dim):
         raise ValueError("from_jax: the acoustic conv stack does not match the config")
@@ -214,11 +286,46 @@ def _check_hubert(tree: dict, ac) -> None:
             raise ValueError(f"from_jax: acoustic conv {i} is not [{out_ch}, {in_ch}, {k}]")
         in_ch = out_ch
     if len(tree["layers"]) != ac.num_layers:
-        raise ValueError(f"from_jax: HuBERT has {len(tree['layers'])} layers, the config "
-                         f"{ac.num_layers}")
+        raise ValueError(f"from_jax: the acoustic tower has {len(tree['layers'])} layers, the "
+                         f"config {ac.num_layers}")
+
+
+def _check_wavlm(tree: dict, ac) -> None:
+    """WavLM: HuBERT's geometry, the relative-position table [buckets, heads]
+    and each layer's gate [head_dim, 8]."""
+    _check_hubert(tree, ac.as_hubert())
+    if tuple(tree["rel_attn_embed"]["table"].shape) != (ac.num_buckets, ac.num_heads):
+        raise ValueError(f"from_jax: rel_attn_embed is not [{ac.num_buckets}, {ac.num_heads}]")
+    gate = (ac.hidden_size // ac.num_heads, 8)
+    if any(_dense_shape(layer["gru_rel_pos_linear"]) != gate for layer in tree["layers"]):
+        raise ValueError(f"from_jax: a WavLM gate is not {list(gate)}")
+
+
+def _check_data2vec(tree: dict, ac) -> None:
+    """data2vec-audio: the conv frontend, the layer count and the positional
+    convolutions [hidden, hidden / groups, k]."""
+    _check_wav_stack(tree, ac)
     pos = (ac.hidden_size, ac.hidden_size // ac.pos_conv_groups, ac.pos_conv_kernel)
-    if tuple(tree["pos_conv"]["w"].shape) != pos:
-        raise ValueError(f"from_jax: pos_conv is not {list(pos)}")
+    if len(tree["pos_convs"]) != ac.num_pos_conv_layers or \
+            any(tuple(conv["w"].shape) != pos for conv in tree["pos_convs"]):
+        raise ValueError(f"from_jax: the positional convs are not {ac.num_pos_conv_layers} x "
+                         f"{list(pos)}")
+
+
+def _check_imagebind(tree: dict, ac) -> None:
+    """ImageBind's audio tower: the stem [width, 1, k, k], the block count,
+    the position table [grid + 1, width] and the head [width, out]."""
+    k = ac.kernel_size
+    if tuple(tree["stem_conv"]["w"].shape) != (ac.width, 1, k, k):
+        raise ValueError(f"from_jax: the audio stem is not [{ac.width}, 1, {k}, {k}]")
+    if len(tree["blocks"]) != ac.num_layers:
+        raise ValueError(f"from_jax: the audio tower has {len(tree['blocks'])} blocks, the "
+                         f"config {ac.num_layers}")
+    h, w = ac.patch_grid
+    if tuple(tree["pos_embed"]["table"].shape) != (h * w + 1, ac.width):
+        raise ValueError(f"from_jax: the audio pos_embed is not [{h * w + 1}, {ac.width}]")
+    if _dense_shape(tree["head_proj"]) != (ac.width, ac.out_embed_dim):
+        raise ValueError(f"from_jax: head_proj is not [{ac.width}, {ac.out_embed_dim}]")
 
 
 # ---------------------------------------------------------------------------
@@ -547,6 +654,112 @@ def convert_hubert(model_dir: str, dtype=torch.float32, device="cuda") -> dict:
                      "b": put("encoder.pos_conv_embed.conv.bias")},
         "layers": [layer(f"encoder.layers.{i}") for i in range(n_layers)],
         "final_ln": put.ln("encoder.layer_norm"),
+    }
+
+
+def _patch_dense(put: _Put, prefix: str) -> dict:
+    """A patch convolution [O, C, kH, kW] with its bias → the dense
+    [C·kH·kW, O] the towers apply to channel-major patches."""
+    conv = put(f"{prefix}.weight")
+    return {"w": conv.reshape(conv.shape[0], -1).t().contiguous(), "b": put(f"{prefix}.bias")}
+
+
+def convert_dinov2(model_dir: str, dtype=torch.float32, device="cuda") -> dict:
+    """HF Dinov2Model → the vit_variants DINOv2 layout."""
+    state = _load_torch_state(model_dir)
+    put = _Put(state, device, dtype)
+
+    def block(p: str) -> dict:
+        return {
+            "ln1": put.ln(f"{p}.norm1"),
+            "attn": {key: put.dense(f"{p}.attention.{name}")
+                     for key, name in (("q", "attention.query"), ("k", "attention.key"),
+                                       ("v", "attention.value"), ("o", "output.dense"))},
+            "ls1": put(f"{p}.layer_scale1.lambda1"),
+            "ln2": put.ln(f"{p}.norm2"),
+            "mlp_in": put.dense(f"{p}.mlp.fc1"),
+            "mlp_out": put.dense(f"{p}.mlp.fc2"),
+            "ls2": put(f"{p}.layer_scale2.lambda1"),
+        }
+
+    n_layers = _count(state, "encoder.layer.{}.norm1.weight")
+    return {
+        "patch_embed": _patch_dense(put, "embeddings.patch_embeddings.projection"),
+        "cls_token": put("embeddings.cls_token").reshape(-1),
+        "pos_embed": {"table": put("embeddings.position_embeddings")[0]},
+        "blocks": [block(f"encoder.layer.{i}") for i in range(n_layers)],
+        "final_ln": put.ln("layernorm"),
+    }
+
+
+def convert_siglip_vision(model_dir: str, dtype=torch.float32, device="cuda") -> dict:
+    """HF SiglipVisionModel (or a SiglipModel's vision tower) → the
+    vit_variants SigLIP layout (the attention-pool head is not read)."""
+    state = _load_torch_state(model_dir)
+    put = _Put(state, device, dtype)
+    pre = "vision_model." if any(k.startswith("vision_model.") for k in state.keys()) else ""
+    n_layers = _count(state, pre + "encoder.layers.{}.layer_norm1.weight")
+    return {
+        "patch_embed": _patch_dense(put, f"{pre}embeddings.patch_embedding"),
+        "pos_embed": {"table": put(f"{pre}embeddings.position_embedding.weight")},
+        "blocks": [_clip_block(put, f"{pre}encoder.layers.{i}") for i in range(n_layers)],
+        "post_ln": put.ln(f"{pre}post_layernorm"),
+    }
+
+
+def convert_wavlm(model_dir: str, dtype=torch.float32, device="cuda") -> dict:
+    """HF WavLMModel (large, stable layer norm) → the wav_encoders WavLM
+    layout: HuBERT's tree plus the relative-position embedding (layer 0's)
+    and each layer's gate."""
+    params = convert_hubert(model_dir, dtype=dtype, device=device)
+    state = _load_torch_state(model_dir)
+    put = _Put(state, device, dtype)
+    params["rel_attn_embed"] = {
+        "table": put("encoder.layers.0.attention.rel_attn_embed.weight")}
+    for i, layer in enumerate(params["layers"]):
+        p = f"encoder.layers.{i}.attention"
+        layer["gru_rel_pos_linear"] = put.dense(f"{p}.gru_rel_pos_linear")
+        layer["gru_rel_pos_const"] = put(f"{p}.gru_rel_pos_const")
+    return params
+
+
+def convert_data2vec_audio(model_dir: str, dtype=torch.float32, device="cuda") -> dict:
+    """HF Data2VecAudioModel → the wav_encoders data2vec layout."""
+    state = _load_torch_state(model_dir)
+    put = _Put(state, device, dtype)
+    convs = []
+    for i in range(_count(state, "feature_extractor.conv_layers.{}.conv.weight")):
+        p = f"feature_extractor.conv_layers.{i}"
+        w = put(f"{p}.conv.weight")  # [out, in, k]: the port's layout
+        convs.append({
+            "w": w,
+            "b": put(f"{p}.conv.bias") if f"{p}.conv.bias" in state
+            else torch.zeros(w.shape[0], dtype=dtype, device=put.device),
+            "ln": put.ln(f"{p}.layer_norm"),
+        })
+    pos_convs = [{"w": put(f"encoder.pos_conv_embed.layers.{i}.conv.weight"),
+                  "b": put(f"encoder.pos_conv_embed.layers.{i}.conv.bias")}
+                 for i in range(_count(state, "encoder.pos_conv_embed.layers.{}.conv.weight"))]
+
+    def layer(p: str) -> dict:
+        return {
+            "attn": {key: put.dense(f"{p}.attention.{name}")
+                     for key, name in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                                       ("o", "out_proj"))},
+            "attn_ln": put.ln(f"{p}.layer_norm"),
+            "ffn_in": put.dense(f"{p}.feed_forward.intermediate_dense"),
+            "ffn_out": put.dense(f"{p}.feed_forward.output_dense"),
+            "ffn_ln": put.ln(f"{p}.final_layer_norm"),
+        }
+
+    n_layers = _count(state, "encoder.layers.{}.layer_norm.weight")
+    return {
+        "convs": convs,
+        "feat_proj_ln": put.ln("feature_projection.layer_norm"),
+        "feat_proj": put.dense("feature_projection.projection"),
+        "pos_convs": pos_convs,
+        "encoder_ln": put.ln("encoder.layer_norm"),
+        "layers": [layer(f"encoder.layers.{i}") for i in range(n_layers)],
     }
 
 

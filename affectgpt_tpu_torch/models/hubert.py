@@ -140,15 +140,21 @@ def _pos_conv(params: dict, cfg: HubertConfig, x: torch.Tensor) -> torch.Tensor:
     return nn.gelu(h).transpose(1, 2)
 
 
+def normalize(waveform: torch.Tensor) -> torch.Tensor:
+    """Zero mean, unit variance per clip (Wav2Vec2FeatureExtractor
+    do_normalize)."""
+    mean = waveform.mean(-1, keepdim=True)
+    var = waveform.var(-1, keepdim=True, unbiased=False)
+    return (waveform - mean) / torch.sqrt(var + 1e-7)
+
+
 def encode(params: dict, cfg: HubertConfig, waveform: torch.Tensor,
            normalize_input: bool = True) -> torch.Tensor:
     """[b, samples] raw audio → [b, hidden]: the mean of the last k layers'
     hidden states, then the time mean (the reference's pooling,
     encoder.py:424-429)."""
-    if normalize_input:  # Wav2Vec2FeatureExtractor do_normalize
-        mean = waveform.mean(-1, keepdim=True)
-        var = waveform.var(-1, keepdim=True, unbiased=False)
-        waveform = (waveform - mean) / torch.sqrt(var + 1e-7)
+    if normalize_input:
+        waveform = normalize(waveform)
     x = _conv_frontend(params, cfg, waveform)
     x = nn.layernorm(params["feat_proj_ln"], x, cfg.layer_norm_eps)
     x = nn.dense(params["feat_proj"], x)

@@ -23,7 +23,7 @@ import functools
 import torch
 
 from affectgpt_tpu_torch.ops import _build
-from affectgpt_tpu_torch.ops.vit_attention import HEAD_DIM, MAX_N, fused_vit_attention_reference
+from affectgpt_tpu_torch.ops.vit_attention import HEAD_DIM, RESIDENT_KEYS, fused_vit_attention_reference
 from affectgpt_tpu_torch.ops.vit_gemm import gemm_plan
 
 
@@ -102,9 +102,10 @@ def attn_sublayer(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
     vec, mat = (w,), (w, w)
     _build.check_bf16_operands("attn_sublayer", x.device, zip(
         args, ((b, n, w), vec, vec, mat, vec, mat, vec, mat, vec, mat, vec)))
-    if w != num_heads * HEAD_DIM or w % 32 or w > 2048 or not 1 <= valid_len <= n <= MAX_N:
+    if w != num_heads * HEAD_DIM or w % 32 or w > 2048 \
+            or not 1 <= valid_len <= n <= RESIDENT_KEYS:
         raise ValueError(f"attn_sublayer kernel takes head_dim {HEAD_DIM}, width % 32 == 0 up "
-                         f"to 2048 and 1 <= valid_len <= n <= {MAX_N} (width={w}, "
+                         f"to 2048 and 1 <= valid_len <= n <= {RESIDENT_KEYS} (width={w}, "
                          f"heads={num_heads}, n={n}, valid_len={valid_len})")
     plan = _plan_on(b * n, w, x.device.index or 0)
     scratch = torch.empty((5, b, n, w), dtype=x.dtype, device=x.device)  # h, q, k, v, attn

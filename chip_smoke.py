@@ -240,6 +240,32 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    directories writes the frame, face, audio and multi caches, within
    FEATURE_RTOL of the in-memory towers' features, rows 11 and 12 launched
    24 times per CLIP call and nothing else.
+11. Zoo: the encoder zoo and the Llama-2 / Baichuan2 families. (a) Row 13
+   (fused_vit_attention) against its plain version at the zoo's shapes
+   (ZOO_ATTENTION: DINOv2-large's 1370 tokens at head_dim 64 and SigLIP
+   so400m's 729 at 72, both on 2 clips x 8 frames x (frame + face) = 32
+   images of 16 heads; ImageBind's 229 at 64 on 16 mel clips of 12 heads;
+   CLIP's 257 beside them), in the [b, n, h, d] layout nn.mha gives it and
+   in [b, h, n, d]: the plan's mode, the largest error, the kernel's,
+   plain version's and one SDPA call's device ms, and the bound. (b) Each
+   of the seven zoo towers at registry geometry in bf16, random weights
+   from a seed, on 2 of the realtime clips (mel clips for IMAGEBIND): the
+   FUSED_MHA="auto" route against "0", within ZOO_REL_TOL of the plain
+   route's features, ms a call, and row 13's launches a call (24 DINOv2, 27
+   SigLIP, 12 ImageBind, none elsewhere). (c) Rows 1-4 and 15 against their
+   plain versions at Llama-2's MHA geometry (32 heads of 128, I = 11008, no
+   qkv bias), b = 8; then the Llama2 model (Llama-2-7B, SigLIP_SO +
+   WAVLM_LARGE) and the Baichuan2 model (vocab 125696, DINO2_LARGE +
+   IMAGEBIND on mel clips), each built by bootstrap.build_model(with_encoders
+   =True, keep_full_llm=True) with LoRA merged, served with its tokenizer
+   (a Llama-2-form tokenizer.json and a BPE sentencepiece tokenizer.model
+   that the script learns from its prompts and writes, read by
+   load_tokenizer), encode_media_features → greedy Chat.answer_batch on the
+   8 clips, 32 new tokens; gates: the launches (rows 1-2 layers x 32, row 13
+   as the towers' layers say, nothing else), features of the expected
+   shapes and finite, 8 strings, the tokenizer's round trip of the prompts'
+   text. One model is freed before the next is built. The kernel line's
+   fused_vit_attention entry carries phase 11's shapes and launches.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -3294,22 +3320,13 @@ def write_llm_dir(root: str, llm: dict, cfg: qwen2.QwenConfig) -> int:
     return total
 
 
-def train_bpe(texts: list) -> tuple:
-    """A byte-level BPE learned from `texts` by the rule of HF's trainer
-    (the most frequent adjacent pair of Qwen2's pre-tokenized pieces, ties
-    to the smaller pair, merged everywhere) until every piece is one token:
-    (vocab, merges), the 256 byte tokens first."""
+def learn_merges(words) -> list:
+    """BPE merges learned from `words` (a Counter of symbol strings) by the
+    rule of HF's trainer: the most frequent adjacent pair, ties to the
+    smaller pair, merged everywhere, until every word is one piece."""
     import collections
-    import unicodedata
 
-    from affectgpt_tpu_torch import tokenization
-
-    words = collections.Counter()
-    for text in texts:
-        for piece in tokenization.pre_tokenize(unicodedata.normalize("NFC", text)):
-            words["".join(tokenization.BYTE_TO_CHAR[b] for b in piece.encode())] += 1
     splits = {w: list(w) for w in words}
-    vocab = {tokenization.BYTE_TO_CHAR[b]: b for b in range(256)}
     merges = []
     while True:
         pairs = collections.Counter()
@@ -3318,11 +3335,10 @@ def train_bpe(texts: list) -> tuple:
             for pair in zip(s, s[1:]):
                 pairs[pair] += n
         if not pairs:
-            break
+            return merges
         best = max(pairs.values())
         a, b = min(p for p, n in pairs.items() if n == best)
         merges.append((a, b))
-        vocab.setdefault(a + b, len(vocab))
         for w, s in splits.items():
             k, out = 0, []
             while k < len(s):
@@ -3333,6 +3349,24 @@ def train_bpe(texts: list) -> tuple:
                     out.append(s[k])
                     k += 1
             splits[w] = out
+
+
+def train_bpe(texts: list) -> tuple:
+    """A byte-level BPE learned from `texts` (learn_merges over Qwen2's
+    pre-tokenized pieces): (vocab, merges), the 256 byte tokens first."""
+    import collections
+    import unicodedata
+
+    from affectgpt_tpu_torch import tokenization
+
+    words = collections.Counter()
+    for text in texts:
+        for piece in tokenization.pre_tokenize(unicodedata.normalize("NFC", text)):
+            words["".join(tokenization.BYTE_TO_CHAR[b] for b in piece.encode())] += 1
+    merges = learn_merges(words)
+    vocab = {tokenization.BYTE_TO_CHAR[b]: b for b in range(256)}
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
     return vocab, merges
 
 
@@ -3913,6 +3947,461 @@ def phase_load(card: str, model: tuple) -> None:
     say("load", phase_seconds=f"{time.perf_counter() - t0:.3f}", card=repr(card))
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the encoder zoo, and the Llama-2 and Baichuan2 families
+
+ZOO_CLIPS = 2  # clips of a zoo tower call: 2 clips x 8 frames (or 8 audio clips)
+# row 13 at the zoo's shapes: (images or audio clips, heads, tokens, head_dim)
+ZOO_ATTENTION = {
+    "dinov2": (ZOO_CLIPS * 8 * 2, 16, 1370, 64),  # frame + face, 518 px, patch 14
+    "siglip": (ZOO_CLIPS * 8 * 2, 16, 729, 72),  # 384 px, patch 14, 1152 / 16
+    "imagebind": (ZOO_CLIPS * 8, 12, 229, 64),  # 12 x 19 mel patches + cls
+    "clip": (ZOO_CLIPS * 8 * 2, 16, 257, 64),  # held beside them: CLIP's old shape
+}
+# a tower's FUSED_MHA="auto" route against "0" in bf16: the kernel and the
+# plain chain round at the same points but sum in another order, and the
+# difference passes through every later layer in bf16
+ZOO_REL_TOL = 0.02  # ||auto - plain|| / ||plain|| of the features
+ZOO_TOWERS = ("DINO2_LARGE", "SigLIP_SO", "EVA_CLIP_G_NO_QFORMER", "EVA_CLIP_G",
+              "WAVLM_LARGE", "IMAGEBIND", "DATA2VEC_BASE")
+# the two LLM families end to end: (visual tower, acoustic tower)
+FAMILIES = {"Llama2": ("SigLIP_SO", "WAVLM_LARGE"), "Baichuan2": ("DINO2_LARGE", "IMAGEBIND")}
+SP_SPECIALS = ["<unk>", "<s>", "</s>"]
+
+
+def zoo_attention(card: str) -> dict:
+    """Row 13 against its plain version at the zoo's shapes, in the [b, n, h,
+    d] layout nn.mha hands it and in [b, h, n, d]: the plan's mode, the
+    largest error, the kernel's device ms (CUDA graph, two copies of q, k,
+    v a replay cycle), the plain version's, one SDPA call's on the same
+    inputs, and the bound (q, k, v and out moved once; the two products'
+    operations). Returns {shape: record}."""
+    g = torch.Generator(device="cuda").manual_seed(23)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for shape, (b, heads, n, d) in ZOO_ATTENTION.items():
+        sets = [tuple(torch.randn((b, n, heads, d), generator=g, device="cuda")
+                      .to(torch.bfloat16) for _ in range(3)) for _ in range(2)]
+        q, k, v = sets[0]
+        heads_first = [t.transpose(1, 2) for t in sets[0]]
+        want = fused_vit_attention_reference(*heads_first, n)
+        got = fused_self_attention(q, k, v, n)
+        if not torch.equal(got, fused_self_attention(q, k, v, n)):
+            raise AssertionError(f"zoo fused_vit_attention {shape}: two calls differ")
+        err, rel = compare("fused_vit_attention", got.transpose(1, 2), want, b)
+        contiguous = [t.contiguous() for t in heads_first]
+        err2, _ = compare("fused_vit_attention", fused_vit_attention(*contiguous, n), want, b)
+        plan = vit_attention_plan(n, n, b=b, heads=heads, sms=sm_count(), head_dim=d)
+        lib_err = float((sdpa(*heads_first).float() - want.float()).abs().max())
+        del want, contiguous
+        times = {"ms": graph_ms([lambda t=t: fused_self_attention(*t, n) for t in sets] * 4),
+                 "plain_ms": graph_ms([lambda: fused_vit_attention_reference(*heads_first, n)],
+                                      reps=5),
+                 "library_ms": graph_ms([lambda t=t: sdpa(*(x.transpose(1, 2) for x in t))
+                                         for t in sets] * 4)}
+        cost = bound(4 * b * heads * n * d * 2, 4 * b * heads * n * n * d)
+        out[shape] = {"b": b, "heads": heads, "n": n, "head_dim": d, "mode": plan["kernel"],
+                      "max_abs_err": max(err, err2), **times, **cost}
+        say("zoo", kernel="fused_vit_attention", shape=shape, b=b, heads=heads, n=n,
+            head_dim=d, mode=plan["kernel"], max_abs_err=f"{max(err, err2):.6g}",
+            max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL,
+            **{k: f"{t:.5f}" for k, t in times.items()}, bound_ms=f"{cost['bound_ms']:.5f}",
+            bound_by=cost["bound_by"], sdpa_max_abs_err_vs_plain=f"{lib_err:.6g}",
+            plan=json.dumps(plan), card=repr(card))
+        del sets, q, k, v, heads_first, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_input(name: str, cfg, spec, raw: dict) -> torch.Tensor:
+    """A tower call's input from the realtime media of ZOO_CLIPS clips: the
+    frames resized and normalized as the tower's processor does, the 2 s
+    audio clips, or their log-mels (IMAGEBIND)."""
+    if name in encoders.VISUAL:
+        return prepare_frames(raw["frame"][:ZOO_CLIPS], cfg.image_size, spec.normalize)
+    clips = raw["audio"][:ZOO_CLIPS]
+    if name == "IMAGEBIND":
+        return mel_clips(clips)
+    return clips
+
+
+def mel_clips(clips: torch.Tensor) -> torch.Tensor:
+    """[b, t, 1, samples] audio → [b, t, 1, 128, 204] normalized log-mels
+    (ops/audio.transform_audio), IMAGEBIND's input."""
+    from affectgpt_tpu_torch.ops import audio
+
+    b, t = clips.shape[:2]
+    mels = audio.transform_audio(clips.float().reshape(b * t, 1, clips.shape[-1]))
+    return mels.reshape(b, t, *mels.shape[1:])
+
+
+def zoo_towers(card: str, raw: dict, tower_cfgs: Optional[dict] = None) -> dict:
+    """Each zoo tower at registry geometry (or tower_cfgs[name]) in bf16,
+    random weights from a seed, on ZOO_CLIPS clips: the FUSED_MHA="auto"
+    route (row 13 wherever nn.mha attends over >= 192 tokens) against "0"
+    (the plain chain), ms a call and row 13's launches a call. Returns
+    {name: launches a call}."""
+    out = {}
+    for i, name in enumerate(ZOO_TOWERS):
+        spec = encoders.VISUAL.get(name) or encoders.ACOUSTIC[name]
+        cfg = (tower_cfgs or {}).get(name) or spec.make_config()
+        t0 = time.perf_counter()
+        params = spec.init_params(torch.Generator(device="cuda").manual_seed(31 + i), cfg,
+                                  torch.bfloat16)
+        x = zoo_input(name, cfg, spec, raw)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        feats = {}
+        for route in ("0", "auto"):
+            with switched([(nn, "FUSED_MHA", route)]):
+                fused_vit_attention.launches = 0
+                feats[route] = spec.encode(params, cfg, x)
+                torch.cuda.synchronize()
+                launches = fused_vit_attention.launches
+                if route == "auto":
+                    ms = wall(lambda: spec.encode(params, cfg, x))
+            if route == "0" and launches:
+                raise AssertionError(f"zoo {name}: FUSED_MHA=0 launched row 13")
+        got, want = feats["auto"].float(), feats["0"].float()
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"zoo {name}: features {tuple(got.shape)} not finite")
+        rel = float((got - want).norm() / want.norm())
+        expected = zoo_launches(name, cfg)
+        say("zoo", tower=name, input=list(x.shape), features=list(got.shape),
+            fused_launches_a_call=launches, expected=expected, rel_err_vs_plain=f"{rel:.6g}",
+            max_abs_diff=f"{float((got - want).abs().max()):.6g}",
+            max_abs_plain=f"{float(want.abs().max()):.6g}", rel_tol=ZOO_REL_TOL,
+            ms_a_call=f"{ms:.4f}", init_s=f"{init_s:.3f}",
+            params_gib=f"{tree_gib(params):.3f}", card=repr(card))
+        if launches != expected:
+            raise AssertionError(f"zoo {name}: row 13 launched {launches} times, expected "
+                                 f"{expected}")
+        if rel > ZOO_REL_TOL:
+            raise AssertionError(f"zoo {name}: the fused route is {rel:.4g} from the plain "
+                                 f"chain, above {ZOO_REL_TOL}")
+        out[name] = launches
+        del params, x, feats, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_launches(name: str, cfg) -> int:
+    """Row 13's launches in one call of the tower: one a layer where nn.mha
+    attends over >= 192 tokens (DINOv2, SigLIP, ImageBind's trunk; data2vec
+    only on clips longer than 2 s: 99 frames there), none where the tower
+    has its own attention (EVA, WavLM)."""
+    from affectgpt_tpu_torch.models import imagebind_audio, vit_variants, wav_encoders
+
+    if isinstance(cfg, wav_encoders.Data2VecAudioConfig):
+        n = hubert_frames(cfg.as_hubert(), RT_SAMPLES)
+    elif isinstance(cfg, vit_variants.Dinov2Config):
+        n = (cfg.image_size // cfg.patch_size) ** 2 + 1
+    elif isinstance(cfg, vit_variants.SiglipConfig):
+        n = (cfg.image_size // cfg.patch_size) ** 2
+    elif isinstance(cfg, imagebind_audio.ImageBindAudioConfig):
+        h, w = cfg.patch_grid
+        n = h * w + 1
+    else:
+        return 0
+    return cfg.num_layers if nn._fused_self_attn_ok(n, n, None) else 0
+
+
+def metaspace_bpe(texts: list) -> tuple:
+    """Merges learned from `texts` as sentencepiece's BPE sees them ("▁"
+    before the text, spaces made "▁", words split before each "▁"), by
+    learn_merges. Returns (the characters, the merges)."""
+    import collections
+    import re
+
+    words = collections.Counter()
+    for text in texts:
+        for w in re.split("(?=▁)", "▁" + text.replace(" ", "▁")):
+            if w:
+                words[w] += 1
+    return sorted({c for w in words for c in w}), learn_merges(words)
+
+
+def write_llama2_tokenizer(root: str, chars: list, merges: list) -> int:
+    """tokenizer.json of Llama-2's form (Prepend + Replace normalizer, no
+    pre-tokenizer, BPE with byte_fallback and fuse_unk, the Replace /
+    ByteFallback / Fuse / Strip decoder), Llama-2's vocabulary layout (the
+    three specials, the 256 byte pieces, then the pieces), and
+    tokenizer_config.json. Returns the vocabulary's size."""
+    import os
+
+    from affectgpt_tpu_torch import tokenization
+
+    pieces = SP_SPECIALS + [f"<0x{b:02X}>" for b in range(256)] + chars \
+        + [a + b for a, b in merges]
+    vocab = {p: i for i, p in enumerate(dict.fromkeys(pieces))}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": t, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True}
+                         for i, t in enumerate(SP_SPECIALS)],
+        "normalizer": tokenization._LLAMA_NORMALIZER, "pre_tokenizer": None,
+        "post_processor": None, "decoder": tokenization._LLAMA_DECODER,
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": [f"{a} {b}" for a, b in merges]},
+    }
+    with open(os.path.join(root, "tokenizer.json"), "w", encoding="utf-8") as handle:
+        json.dump(spec, handle, ensure_ascii=False)
+    with open(os.path.join(root, "tokenizer_config.json"), "w") as handle:
+        json.dump({"bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>",
+                   "clean_up_tokenization_spaces": False, "legacy": False,
+                   "tokenizer_class": "LlamaTokenizer"}, handle)
+    return len(vocab)
+
+
+def pb_varint(value: int) -> bytes:
+    value &= (1 << 64) - 1
+    out = bytearray()
+    while True:
+        low, value = value & 0x7F, value >> 7
+        out.append(low | (0x80 if value else 0))
+        if not value:
+            return bytes(out)
+
+
+def pb_field(number: int, wire: int, payload: bytes) -> bytes:
+    """One protobuf field: its key, then `payload` (a varint, four bytes, or
+    a length-delimited body with its length)."""
+    if wire == 2:
+        payload = pb_varint(len(payload)) + payload
+    return pb_varint(number << 3 | wire) + payload
+
+
+def write_baichuan2_tokenizer(root: str, chars: list, merges: list) -> int:
+    """tokenizer.model: a sentencepiece ModelProto of BPE type, as Baichuan2
+    ships one (byte fallback, identity normalizer, no dummy prefix), in the
+    protobuf wire format: the specials, the 256 byte pieces, the merged
+    pieces scored by minus their merge rank, then the characters below
+    them. Returns the number of pieces."""
+    import os
+    import struct
+
+    merged = list(dict.fromkeys(a + b for a, b in merges))
+    singles = [c for c in chars if c not in merged]
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)] \
+        + [(f"<0x{b:02X}>", 0.0, 6) for b in range(256)] \
+        + [(p, -float(i), 1) for i, p in enumerate(merged)] \
+        + [(c, -float(len(merged) + i), 1) for i, c in enumerate(singles)]
+    body = b"".join(pb_field(1, 2, pb_field(1, 2, p.encode("utf-8"))
+                             + pb_field(2, 5, struct.pack("<f", s)) + pb_field(3, 0, pb_varint(t)))
+                    for p, s, t in pieces)
+    trainer = b"".join(pb_field(f, 0, pb_varint(v))
+                       for f, v in ((3, 2), (35, 1), (40, 0), (41, 1), (42, 2)))
+    normalizer = pb_field(1, 2, b"identity") + pb_field(3, 0, pb_varint(0)) \
+        + pb_field(4, 0, pb_varint(0))
+    with open(os.path.join(root, "tokenizer.model"), "wb") as handle:
+        handle.write(body + pb_field(2, 2, trainer) + pb_field(3, 2, normalizer))
+    return len(pieces)
+
+
+def family_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
+    """Rows 1-4 and 15 against their plain versions at a Llama-2-style
+    geometry (MHA, no qkv bias: zero biases), b = BATCH: decode_qkv and
+    decode_mlp_bf16, decode_attention and decode_attn_o at T = MAX_LEN with
+    ragged windows, prefill_attention over prompts of 545-564 tokens
+    left-packed into 564; each with its device ms and bound. Returns
+    {kernel: largest error}."""
+    g = torch.Generator(device="cuda").manual_seed(29)
+    b, h, inter, heads, kv, d = (BATCH, cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+                                 cfg.num_kv_heads, cfg.head_dim)
+    nq, nkv, groups = heads * d, kv * d, heads // kv
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale + shift).to(torch.bfloat16)
+
+    errs = {}
+
+    def held(name, got, want, calls, plain_calls, nbytes, flops, **shape):
+        err, rel = compare(name, got, want, b)
+        errs[name] = err
+        cost = bound(nbytes, flops)
+        say("zoo", kernel=name, geometry="llama2_mha", b=b, **shape, max_abs_err=f"{err:.6g}",
+            max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL, ms=f"{graph_ms(calls):.5f}",
+            plain_ms=f"{graph_ms(plain_calls, reps=5):.5f}", bound_ms=f"{cost['bound_ms']:.5f}",
+            bound_by=cost["bound_by"], card=repr(card))
+
+    x, ln = rnd(b, h), rnd(h, scale=0.1, shift=1.0)
+    pos = torch.randint(0, 4097, (b,), generator=g, device="cuda", dtype=torch.int32)
+    zeros = [torch.zeros(n, dtype=torch.bfloat16, device="cuda") for n in (nq, nkv, nkv)]
+    wq, wk, wv = rnd(h, nq, scale=0.02), rnd(h, nkv, scale=0.02), rnd(h, nkv, scale=0.02)
+    qkv_kw = dict(ln_scale=ln, num_heads=heads, num_kv_heads=kv, head_dim=d,
+                  theta=cfg.rope_theta, eps=cfg.rms_eps)
+    qkv_args = (x, pos, wq, zeros[0], wk, zeros[1], wv, zeros[2])
+    n_out = nq + 2 * nkv
+    held("decode_qkv", decode_qkv(*qkv_args, **qkv_kw),
+         decode_qkv_reference(*qkv_args, **qkv_kw), [lambda: decode_qkv(*qkv_args, **qkv_kw)] * 4,
+         [lambda: decode_qkv_reference(*qkv_args, **qkv_kw)],
+         2 * (h * n_out + n_out + h + b * h + b * n_out) + 4 * b, 2 * b * h * n_out,
+         variant=json.dumps(decode_variant(b, cfg, "qkv")))
+    wg, wu, wd = rnd(h, inter, scale=0.02), rnd(h, inter, scale=0.02), rnd(inter, h, scale=0.02)
+    mlp_args = (x, ln, wg, wu, wd)
+    held("decode_mlp_bf16", decode_mlp_bf16(*mlp_args, eps=cfg.rms_eps),
+         decode_mlp_bf16_reference(*mlp_args, eps=cfg.rms_eps),
+         [lambda: decode_mlp_bf16(*mlp_args, eps=cfg.rms_eps)] * 4,
+         [lambda: decode_mlp_bf16_reference(*mlp_args, eps=cfg.rms_eps)],
+         2 * (3 * h * inter + h + 2 * b * h), 6 * b * h * inter)
+    del wg, wu, wd, mlp_args
+    q, mask = rnd(b, kv, groups, d), decode_window_mask(g, b, MAX_LEN)
+    k, v, wo = rnd(b, kv, MAX_LEN, d), rnd(b, kv, MAX_LEN, d), rnd(nq, h, scale=0.02)
+    valid = int(mask.sum())
+    held("decode_attention", decode_attention(q, k, v, mask),
+         decode_attention_reference(q, k, v, mask), [lambda: decode_attention(q, k, v, mask)] * 4,
+         [lambda: decode_attention_reference(q, k, v, mask)],
+         2 * valid * kv * d * 2 + 4 * q.numel() + b * MAX_LEN, 4 * valid * kv * groups * d,
+         T=MAX_LEN)
+    held("decode_attn_o", decode_attn_o(x, q, k, v, mask, wo),
+         decode_attn_o_reference(x, q, k, v, mask, wo),
+         [lambda: decode_attn_o(x, q, k, v, mask, wo)] * 4,
+         [lambda: decode_attn_o_reference(x, q, k, v, mask, wo)],
+         2 * valid * kv * d * 2 + 2 * (q.numel() + nq * h + 2 * b * h) + b * MAX_LEN,
+         4 * valid * kv * groups * d + 2 * b * nq * h, T=MAX_LEN)
+    del q, k, v, wo
+    t_len = 564
+    lengths = torch.randint(545, t_len + 1, (b,), generator=g, device="cuda")
+    seg = torch.arange(t_len, device="cuda")[None, :] >= (t_len - lengths)[:, None]
+    q, k, v = rnd(b, t_len, heads, d), rnd(b, kv, t_len, d), rnd(b, kv, t_len, d)
+    causal = torch.ones((t_len, t_len), dtype=torch.bool, device="cuda").tril()
+    pairs = int((causal[None] & (seg[:, :, None] == seg[:, None, :])).sum())
+    held("prefill_attention", prefill_attention(q, k, v, seg),
+         prefill_attention_reference(q, k, v, seg), [lambda: prefill_attention(q, k, v, seg)] * 2,
+         [lambda: prefill_attention_reference(q, k, v, seg)],
+         2 * (q.numel() + k.numel() + v.numel() + b * t_len * nq) + b * t_len,
+         4 * d * heads * pairs, t=t_len, lengths=f"{int(lengths.min())}-{int(lengths.max())}",
+         variant=json.dumps(prefill_variant(b, t_len, heads, kv, d, seg.cpu())))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return errs
+
+
+def family_run(card: str, llm: str, root: str, texts: list, raw: dict) -> dict:
+    """One LLM family end to end: bootstrap.build_model (random weights at
+    the family's 7B geometry and its two towers at registry geometry, LoRA
+    merged), its tokenizer read by load_tokenizer from the directory the
+    script wrote, then encode_media_features → greedy Chat.answer_batch on
+    the 8 clips, 32 new tokens, every kernel count set to 0 just before and
+    read just after. Gates: the launches (rows 1-2 layers x 32, row 13 as
+    the towers' layers say, nothing else), features of the expected shapes
+    and finite, 8 strings, and the tokenizer giving back each prompt's text
+    (its patch tokens taken out). Returns the launches."""
+    import re
+
+    from affectgpt_tpu_torch import constants, paths
+    from affectgpt_tpu_torch.tokenization import encode_batch, load_tokenizer
+
+    vis, aud = FAMILIES[llm]
+    node = {"llama_model": llm, "keep_full_llm": True, "visual_encoder": vis,
+            "acoustic_encoder": aud,
+            "preextracted_visual_dim": encoders.get_visual_encoder(vis).hidden_size,
+            "preextracted_acoustic_dim": encoders.get_acoustic_encoder(aud).hidden_size}
+    t0 = time.perf_counter()
+    cfg, frozen, trainable, _ = bootstrap.build_model(node, with_encoders=True,
+                                                      device="cuda", seed=3)
+    frozen, trainable = bootstrap.serving_llm(frozen, trainable, cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    saved = paths.PATH_TO_LLM.get(llm)
+    paths.PATH_TO_LLM[llm] = root
+    try:
+        tok = load_tokenizer(llm)
+    finally:
+        paths.PATH_TO_LLM[llm] = saved
+    # text between added tokens takes a "▁" of its own in Llama-2's form (as
+    # in HF's), so the round trip is held on the prompts without them
+    plain = [re.sub("|".join(map(re.escape, constants.ALL_PATCH_TOKENS)), " ", t) for t in texts]
+    for text in plain:
+        if tok.decode(tok.encode(text)) != text:
+            raise AssertionError(f"zoo {llm}: the tokenizer does not give back {text!r}")
+    chat = Chat(frozen, trainable, cfg, tok, max_len=MAX_LEN)
+    prompts = [len(r) for r in encode_batch(tok, [text for text in texts[:BATCH]])[0]]
+    media = {**raw, "audio": mel_clips(raw["audio"])} if aud == "IMAGEBIND" else raw
+    _, vcfg, _, acfg = encoder_configs(cfg)
+    n = NEW_TOKENS * cfg.llm.num_layers
+    expected = {**dict.fromkeys(KERNELS, 0), "decode_qkv": n, "decode_mlp_bf16": n,
+                "fused_vit_attention": 2 * zoo_launches(vis, vcfg) + zoo_launches(aud, acfg)}
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    t1 = time.perf_counter()
+    feats = encode_media_features(frozen, cfg, media)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    texts_out = chat.answer_batch(MODE, SUBTITLES, QUESTION, feats, max_new_tokens=NEW_TOKENS,
+                                  do_sample=False)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+    dims = {"frame": cfg.visual_dim, "face": cfg.visual_dim, "audio": cfg.acoustic_dim}
+    shapes = {m: list(f.shape) for m, f in feats.items()}
+    say("zoo", llm=llm, towers=f"{vis}+{aud}", llm_layers=cfg.llm.num_layers,
+        vocab=cfg.llm.vocab_size, tokenizer_vocab=tok.vocab_size,
+        bos_eos_pad=[tok.bos_token_id, tok.eos_token_id, tok.pad_token_id],
+        prompt_tokens=json.dumps(prompts), features=json.dumps(shapes),
+        launches=json.dumps({k: v for k, v in launches.items() if v}),
+        build_s=f"{build_s:.3f}", encode_ms=f"{(t2 - t1) * 1e3:.3f}",
+        answer_batch_ms=f"{(t3 - t2) * 1e3:.3f}", strings=len(texts_out),
+        first=json.dumps(texts_out[0][:60]), card=repr(card))
+    if launches != expected:
+        raise AssertionError(f"zoo {llm}: kernel launches {launches} != {expected}")
+    for m, d in dims.items():
+        if shapes[m] != [BATCH, 8, d] or not bool(torch.isfinite(feats[m]).all()):
+            raise AssertionError(f"zoo {llm}: {m} features {shapes[m]}, expected finite "
+                                 f"[{BATCH}, 8, {d}]")
+    if len(texts_out) != BATCH or not all(isinstance(t, str) for t in texts_out):
+        raise AssertionError(f"zoo {llm}: expected {BATCH} strings, got {texts_out!r}")
+    del chat, frozen, trainable, feats
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_zoo(card: str, tower_cfgs: Optional[dict] = None, llm_cfg=None) -> dict:
+    """Phase 11: row 13 at the zoo's shapes (zoo_attention), each zoo tower's
+    kernel route against its plain route (zoo_towers), rows 1-4 and 15 at
+    Llama-2's MHA geometry (family_kernels), then the Llama2 and Baichuan2
+    models end to end with their own tokenizers (family_run), one built and
+    freed before the next. tower_cfgs and llm_cfg shrink the first parts
+    for a rehearsal on the CPU. Returns {"attention": zoo_attention's
+    records, "launches": row 13's launches of each tower call and family
+    run, "max_abs_err": the largest error of rows 1-4 and 15}."""
+    import os
+    import shutil
+    import tempfile
+
+    from affectgpt_tpu_torch import prompts
+
+    t0 = time.perf_counter()
+    attention = zoo_attention(card)
+    raw = realtime_media()
+    launches = {f"tower:{k}": v for k, v in zoo_towers(card, raw, tower_cfgs).items()}
+    errs = family_kernels(card, llm_cfg or qwen2.QwenConfig.llama2_7b())
+    texts = [prompts.replace_token_for_multimodal(
+        prompts.get_prompt_for_multimodal(MODE, sub, QUESTION), 8, 8, 1, 8)
+        for sub in SUBTITLES]
+    chars, merges = metaspace_bpe(load_texts() + texts)
+    tmp = tempfile.mkdtemp(prefix="zoo_")
+    try:
+        for llm in FAMILIES:
+            root = os.path.join(tmp, llm)
+            os.makedirs(root)
+            size = (write_llama2_tokenizer if llm == "Llama2" else write_baichuan2_tokenizer)(
+                root, chars, merges)
+            say("zoo", llm=llm, tokenizer=sorted(os.listdir(root)), pieces=size,
+                merges=len(merges))
+            family = family_run(card, llm, root, texts, raw)
+            launches[f"family:{llm}"] = family["fused_vit_attention"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del raw
+    torch.cuda.empty_cache()
+    say("zoo", launches=json.dumps(launches), phase_seconds=f"{time.perf_counter() - t0:.3f}",
+        card=repr(card))
+    return {"attention": attention, "launches": launches, "max_abs_err": errs}
+
+
 def main() -> None:
     card = phase_device()
     phase_build(card)
@@ -3934,10 +4423,22 @@ def main() -> None:
     model = (*model[:5], {})  # phase 10 needs no serving tree: free their memory
     torch.cuda.empty_cache()
     phase_load(card, model)
+    model = None  # phase 11 builds its own models
+    torch.cuda.empty_cache()
+    zoo = phase_zoo(card)
+    for name, err in zoo["max_abs_err"].items():
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+    row13 = kernels["fused_vit_attention"]
+    row13["max_abs_err"] = max([row13["max_abs_err"]]
+                               + [r["max_abs_err"] for r in zoo["attention"].values()])
+    row13["shapes"] = zoo["attention"]
+    row13["zoo_launches"] = zoo["launches"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],
-         **{key: kernels[name][key] for key in keys}}
+         **{key: kernels[name][key] for key in keys},
+         **{key: kernels[name][key] for key in ("shapes", "zoo_launches")
+            if key in kernels[name]}}
         for name in KERNELS
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

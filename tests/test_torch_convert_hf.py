@@ -368,5 +368,7 @@ def test_bootstrap_int8_and_baichuan_route(tiny_presets, model_dirs, monkeypatch
     _, frozen, _, _ = tboot.build_model({**NODE, "int8": True}, device="cpu")
     assert "w_q" in frozen["llm"]["layers"][0]["q_proj"]
     monkeypatch.setitem(tpaths.PATH_TO_LLM, "Baichuan2", str(model_dirs / "llm"))
-    with pytest.raises(NotImplementedError, match="item 13b"):  # its tokenizer
+    # its tokenizer is the directory's sentencepiece model, which a Qwen2
+    # directory lacks
+    with pytest.raises(FileNotFoundError, match="tokenizer.model"):
         tboot.build_model({"llama_model": "Baichuan2"}, device="cpu")

@@ -669,12 +669,19 @@ def test_paged_attention_wrappers_raise_on_what_the_kernel_does_not_take(gen):
 # (vit_attention.ONE_PASS_KEYS); a single valid key
 VIT_TOKENS = [(257, 250), (99, 90), (40, 33), (512, 512), (512, 449), (330, 320), (321, 321),
               (64, 1), (257, 1)]
+# the streamed design: DINOv2's 1370 tokens, past 512 valid keys, SigLIP's
+# head_dim 72 and the other head dims of JAX's gate, an odd count of query
+# tiles (the last item's second tile wholly past n), K and V resident past n
+# = 512 while the valid keys fit
+VIT_STREAM = [(1370, 1370, 64), (1370, 1000, 64), (513, 513, 64), (729, 729, 72),
+              (100, 77, 72), (200, 200, 32), (129, 129, 40), (330, 321, 96), (65, 65, 128),
+              (700, 300, 64), (64, 1, 72)]
 
 
-@pytest.mark.parametrize("n,valid", VIT_TOKENS)
+@pytest.mark.parametrize("n,valid,d", [(n, v, 64) for n, v in VIT_TOKENS] + VIT_STREAM)
 @pytest.mark.parametrize("layout", ["bhnd", "bnhd"])
-def test_vit_attention_kernel_matches_plain(gen, n, valid, layout):
-    b, h, d = 3, 4, 64
+def test_vit_attention_kernel_matches_plain(gen, n, valid, d, layout):
+    b, h = 3, 4
     q, k, v = (_rnd(gen, b, h, n, d) for _ in range(3))
     want = vit_attention.fused_vit_attention_reference(q, k, v, valid)
     before = vit_attention.fused_vit_attention.launches
@@ -778,9 +785,10 @@ def test_vit_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         vit_sublayer.attn_sublayer(x, *sub, 8, 99)
     with pytest.raises(ValueError):  # valid_len past n
         vit_sublayer.attn_sublayer(x, *sub, 4, 100)
-    q = _rnd(gen, 1, 2, 520, 64)
-    with pytest.raises(ValueError):  # more tokens than the kernel holds
+    q = _rnd(gen, 1, 2, 520, 20)
+    with pytest.raises(ValueError):  # head_dim 20: below JAX's gate of 32
         vit_attention.fused_vit_attention(q, q, q, 520)
+    q = _rnd(gen, 1, 2, 520, 64)
     with pytest.raises(ValueError):  # q, k and v in different layouts
         vit_attention.fused_vit_attention(q, q.transpose(1, 2).contiguous().transpose(1, 2), q, 9)
     wide = _vit_block(gen, 256, 2048)

@@ -288,10 +288,8 @@ def test_encoder_registry():
     assert encoders.get_visual_encoder("CLIP_VIT_LARGE").make_config() == \
         clip_vit.ClipVisionConfig.vit_l_14()
     assert encoders.get_acoustic_encoder("HUBERT_LARGE").hidden_size == 1024
-    for name, get in (("DINO2_LARGE", encoders.get_visual_encoder),
-                      ("WAVLM_LARGE", encoders.get_acoustic_encoder)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-            get(name)
+    assert encoders.get_visual_encoder("DINO2_LARGE").normalize == "imagenet"
+    assert encoders.get_acoustic_encoder("WAVLM_LARGE").hidden_size == 1024
     with pytest.raises(KeyError):
         encoders.get_visual_encoder("NO_SUCH_TOWER")
 

@@ -33,9 +33,13 @@ card: tests/test_torch_cuda_kernels.py).
   every (row, q head, query tile) once, heaviest (latest query tile) first;
   the shared memory fits; the plan raises on what the kernel does not take.
 - `vit_attention.vit_attention_plan` (the encoders' attention on wgmma +
-  TMA): a kernel for every 1 <= valid_len <= n <= 512, one pass up to 320
-  valid keys, the shared memory of the blocks an SM holds fits, and it
-  raises beyond.
+  TMA): a kernel for every 1 <= valid_len <= n and every head_dim % 8 from
+  32 to 128, K and V resident at head_dim 64 up to 512 valid keys (one pass
+  up to 320), streamed otherwise; the stream's items cover every query tile
+  once; the shared memory of the blocks an SM holds fits; it raises
+  beyond; and every tower of the registry whose attention reaches the
+  kernel (`nn.mha`'s route: unmasked self-attention of >= 192 tokens) is
+  inside the plan at its registry geometry.
 - `quant.int4_plan` and `quant.int8_plan` (the swap-AB weight-only kernel,
   csrc/quant_swapab.cu): every (16-column strip, K unit) once, clusters of
   at most 8 that split K for the narrow products only, two blocks an SM;
@@ -352,27 +356,96 @@ def test_prefill_plan_raises_on_what_the_kernel_does_not_take(b, t, heads, kv, d
 
 
 def test_vit_attention_plan_picks_a_kernel_for_every_n():
-    for n in range(1, vit_attention.MAX_N + 1):
+    for n in list(range(1, 2 * vit_attention.RESIDENT_KEYS + 2)) + [1370, 4097]:
         for valid in sorted({1, n // 2 + 1, n}):
-            plan = vit_attention.vit_attention_plan(n, valid, b=64, heads=16, sms=SMS)
-            keys = plan["key_tiles"] * vit_attention.TILE
-            assert keys - vit_attention.TILE < valid <= keys
-            assert plan["kernel"] == ("one_pass" if keys <= vit_attention.ONE_PASS_KEYS
-                                      else "two_pass")
-            assert plan["score_registers"] <= 160
-            assert plan["smem_bytes"] <= SMEM_LIMIT
-            per_sm = plan["blocks_per_sm"]
-            assert per_sm * (plan["smem_bytes"] + 1024) <= vit_attention.SMEM_PER_SM
-            assert plan["blocks"] == min(1024, per_sm * SMS) and 1 <= plan["kv_slots"] <= 4
+            for d in (64, 72) if n % 7 == 0 else (64,):
+                plan = vit_attention.vit_attention_plan(n, valid, b=64, heads=16, sms=SMS,
+                                                        head_dim=d)
+                keys = plan["key_tiles"] * vit_attention.TILE
+                assert keys - vit_attention.TILE < valid <= keys
+                resident = d == 64 and valid <= vit_attention.RESIDENT_KEYS
+                assert plan["kernel"] == ("stream" if not resident else "one_pass"
+                                          if keys <= vit_attention.ONE_PASS_KEYS else "two_pass")
+                assert plan["score_registers"] <= 160
+                assert plan["smem_bytes"] <= SMEM_LIMIT
+                per_sm = plan["blocks_per_sm"]
+                assert per_sm * (plan["smem_bytes"] + 1024) <= vit_attention.SMEM_PER_SM
+                if resident:
+                    assert plan["blocks"] == min(1024, per_sm * SMS) and \
+                        1 <= plan["kv_slots"] <= 4
+                else:  # items of two query tiles cover every tile once
+                    assert plan["items"] == 64 * 16 * -(-plan["q_tiles"] // 2)
+                    assert 2 * plan["items"] >= 64 * 16 * plan["q_tiles"]
+                    assert plan["blocks"] == min(plan["items"], SMS)
     assert vit_attention.vit_attention_plan(257)["kernel"] == "one_pass"  # CLIP
     assert vit_attention.vit_attention_plan(99)["blocks_per_sm"] == 2  # HuBERT
     assert vit_attention.vit_attention_plan(512, 320)["kernel"] == "one_pass"
+    assert vit_attention.vit_attention_plan(1370, 300)["kernel"] == "one_pass"
 
 
-@pytest.mark.parametrize("n,valid", [(0, 0), (513, 513), (100, 0), (100, 101)])
-def test_vit_attention_plan_raises_beyond_max_n(n, valid):
-    with pytest.raises(ValueError):
-        vit_attention.vit_attention_plan(n, valid)
+@pytest.mark.parametrize("d", list(vit_attention.HEAD_DIMS))
+def test_vit_attention_plan_pads_each_head_dim_to_the_wgmma_k_step(d):
+    plan = vit_attention.vit_attention_plan(729, head_dim=d, b=32, heads=16, sms=SMS)
+    assert plan["padded_head_dim"] == (64 if plan["kernel"] != "stream" else -(-d // 16) * 16)
+    assert plan["padded_head_dim"] % 16 == 0 and plan["padded_head_dim"] - d < 16
+    boxes = -(-plan["padded_head_dim"] // 64)  # 64-value TMA boxes a tile
+    assert plan["smem_bytes"] == 1024 + 256 + (4 + vit_attention.STREAM_STAGES) * boxes * 8192
+    assert plan["smem_bytes"] <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n,valid,d", [(0, 0, 64), (100, 0, 64), (100, 101, 64),
+                                       (513, 513, 24), (1370, 1370, 136), (729, 729, 76)])
+def test_vit_attention_plan_raises_beyond_max_n(n, valid, d):
+    """Outside 1 <= valid_len <= n, or a head_dim not a multiple of 8 from
+    32 to 128 (JAX's route gate), the plan raises naming the limit."""
+    with pytest.raises(ValueError, match="valid_len|head_dim"):
+        vit_attention.vit_attention_plan(n, valid, head_dim=d)
+
+
+def _mha_shape(name):
+    """(tokens, head_dim) of the self-attention `nn.mha` runs in the zoo
+    tower `name` at its registry geometry, or None where the tower's
+    attention does not go through nn.mha with a token count of >= 192
+    (CLIP and HuBERT run their own sublayer routes by default, EVA and
+    WavLM their own attention chains, data2vec 99 frames a 2 s clip)."""
+    from affectgpt_tpu_torch.models import encoders, imagebind_audio, vit_variants
+
+    spec = encoders.VISUAL.get(name) or encoders.ACOUSTIC[name]
+    cfg = spec.make_config()
+    if isinstance(cfg, vit_variants.Dinov2Config):
+        return (cfg.image_size // cfg.patch_size) ** 2 + 1, cfg.width // cfg.num_heads
+    if isinstance(cfg, vit_variants.SiglipConfig):
+        return (cfg.image_size // cfg.patch_size) ** 2, cfg.width // cfg.num_heads
+    if isinstance(cfg, imagebind_audio.ImageBindAudioConfig):
+        h, w = cfg.patch_grid
+        return h * w + 1, cfg.width // cfg.num_heads
+    return None
+
+
+@pytest.mark.parametrize("name", ["DINO2_LARGE", "SigLIP_SO", "IMAGEBIND", "CLIP_VIT_LARGE",
+                                  "EVA_CLIP_G", "EVA_CLIP_G_NO_QFORMER", "HUBERT_LARGE",
+                                  "WAVLM_LARGE", "DATA2VEC_BASE"])
+def test_every_zoo_tower_fits_the_fused_attention_plan(name):
+    """nn._fused_self_attn_ok sends every unmasked self-attention of >= 192
+    tokens to the kernel at any head_dim: each tower that reaches it must be
+    inside the plan at its registry geometry (DINOv2-large 1370 tokens at
+    64, SigLIP so400m 729 at 72, ImageBind 229 at 64), so a tower the kernel
+    cannot take fails here, not first on the card. CLIP's flash route (257
+    at 64) is held too."""
+    from affectgpt_tpu_torch.models import clip_vit, nn
+
+    shape = _mha_shape(name)
+    if name == "CLIP_VIT_LARGE":
+        cfg = clip_vit.ClipVisionConfig.vit_l_14()
+        shape = (cfg.num_patches + 1, cfg.width // cfg.num_heads)
+    want = {"DINO2_LARGE": (1370, 64), "SigLIP_SO": (729, 72), "IMAGEBIND": (229, 64),
+            "CLIP_VIT_LARGE": (257, 64)}.get(name)
+    assert shape == want
+    if shape is not None:
+        n, d = shape
+        assert nn._fused_self_attn_ok(n, n, None)
+        plan = vit_attention.vit_attention_plan(n, n, b=32, heads=16, sms=SMS, head_dim=d)
+        assert plan["smem_bytes"] <= SMEM_LIMIT
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,8 @@ from affectgpt_tpu_torch.ops.decode_qkv import decode_qkv
 
 REPO = Path(__file__).resolve().parent.parent
 # packages the card's installation lacks
-ABSENT_ON_THE_CARD = ("yaml", "pandas", "transformers", "tokenizers", "safetensors", "regex")
+ABSENT_ON_THE_CARD = ("yaml", "pandas", "transformers", "tokenizers", "safetensors", "regex",
+                      "google.protobuf", "sentencepiece")
 
 
 def _port_modules():
@@ -51,8 +52,9 @@ def _port_modules():
 def test_port_imports_without_jax():
     """Every port module, and chip_smoke.py with all it imports, load with
     `import jax`, `import affectgpt_tpu`, `import yaml`, `import pandas`,
-    `import transformers`, `import tokenizers`, `import safetensors` and
-    `import regex` made to fail (the card has none of the last six)."""
+    `import transformers`, `import tokenizers`, `import safetensors`,
+    `import regex`, `import google.protobuf` and `import sentencepiece` made
+    to fail (the card has none of the last eight)."""
     modules = _port_modules() + ["chip_smoke"]
     assert "affectgpt_tpu_torch.inference.chat" in modules and len(modules) >= 22
     assert {"affectgpt_tpu_torch.models.au_agent", "affectgpt_tpu_torch.models.qformer",
@@ -66,7 +68,10 @@ def test_port_imports_without_jax():
             "affectgpt_tpu_torch.data.media", "affectgpt_tpu_torch.ops.sampling",
             "affectgpt_tpu_torch.utils.logging", "affectgpt_tpu_torch.inference_hybird",
             "affectgpt_tpu_torch.inference_sample",
-            "affectgpt_tpu_torch.extract_multimodal_features_precompute"} <= set(modules)
+            "affectgpt_tpu_torch.extract_multimodal_features_precompute",
+            "affectgpt_tpu_torch.models.vit_variants", "affectgpt_tpu_torch.models.eva_vit",
+            "affectgpt_tpu_torch.models.wav_encoders",
+            "affectgpt_tpu_torch.models.imagebind_audio"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises ImportError
@@ -75,7 +80,7 @@ def test_port_imports_without_jax():
         "    sys.modules[blocked] = None\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
-        "assert not any(k.split('.')[0] in ('jax', 'affectgpt_tpu') + "
+        "assert not any(k == b or k.startswith(b + '.') for b in ('jax', 'affectgpt_tpu') + "
         f"{ABSENT_ON_THE_CARD!r}\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"
@@ -101,8 +106,8 @@ def test_no_import_of_what_the_card_lacks():
     lacks, not even inside a function (which the import test cannot see)."""
     import re
 
-    pattern = re.compile(r"^\s*(?:import|from)\s+(" + "|".join(ABSENT_ON_THE_CARD[2:])
-                         + r")\b")
+    pattern = re.compile(r"^\s*(?:import|from)\s+("
+                         + "|".join(map(re.escape, ABSENT_ON_THE_CARD[2:])) + r")\b")
     sources = sorted((REPO / "affectgpt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     found = [f"{path.relative_to(REPO)}:{i}" for path in sources
              for i, line in enumerate(path.read_text().splitlines(), 1) if pattern.match(line)]

@@ -133,12 +133,31 @@ def test_added_token_ids_follow_hf_on_a_gap(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["Llama2", "Baichuan2"])
-def test_other_tokenizers_raise(name):
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        ttok.load_tokenizer(name)
+def test_other_tokenizers_raise(name, tmp_path):
+    """The Llama2 and Baichuan2 routes take only their own forms: a
+    tokenizer.json of Qwen2's form is not Llama-2's, and a sentencepiece
+    model of the WORD type is neither unigram nor BPE (both tokenizers are
+    held against their oracles in tests/test_torch_tokenizer_spm.py)."""
+    if name == "Llama2":
+        write_qwen2_tokenizer(tmp_path, vocab_size=600)
+        match = "Llama-2's form"
+    else:
+        from tests.torch_hf_models import sentencepiece_proto
+
+        proto = sentencepiece_proto("bpe", vocab_size=400)
+        proto.trainer_spec.model_type = 3  # WORD
+        (tmp_path / "tokenizer.model").write_bytes(proto.SerializeToString())
+        match = "model type WORD"
+    saved = tpaths.PATH_TO_LLM.get(name)
+    tpaths.PATH_TO_LLM[name] = str(tmp_path)
+    try:
+        with pytest.raises(NotImplementedError, match=match):
+            ttok.load_tokenizer(name)
+    finally:
+        tpaths.PATH_TO_LLM[name] = saved
 
 
 def test_other_tokenizer_json_raises():
     spec = {"model": {"type": "BPE", "byte_fallback": True, "vocab": {}, "merges": []}}
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    with pytest.raises(NotImplementedError, match="Qwen2's form"):
         ttok.Qwen2BPE(spec)

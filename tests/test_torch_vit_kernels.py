@@ -54,6 +54,12 @@ def _check(got: torch.Tensor, want, dtype: str):
     ("float32", 2, 3, 24, 16, 19),  # padded keys masked
     ("float32", 1, 2, 264, 64, 257),  # CLIP's padded token count
     ("bfloat16", 2, 4, 40, 64, 37),
+    # the zoo's shapes: SigLIP's head_dim 72, and more tokens than K and V of a
+    # unit hold in shared memory (DINOv2-large's 1370), where the kernel streams
+    ("float32", 2, 2, 48, 72, 45),
+    ("float32", 1, 2, 528, 64, 521),
+    ("float32", 1, 1, 736, 72, 729),
+    ("bfloat16", 1, 2, 520, 72, 515),
 ])
 def test_fused_vit_attention_plain_matches_pallas(dtype, b, h, n, d, valid):
     a = _arrays(n + valid, dtype, q=((b, h, n, d), 1.0, 0.0), k=((b, h, n, d), 1.0, 0.0),

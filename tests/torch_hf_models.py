@@ -240,3 +240,222 @@ def write_model_dirs(root, monkeypatch):
         for paths in (jpaths, tpaths):
             monkeypatch.setitem(getattr(paths, table), key, str(root / sub))
     return root
+
+
+# ---------------------------------------------------------------------------
+# Llama-2 and Baichuan2 tokenizers: a Llama-2-form tokenizer.json and
+# sentencepiece tokenizer.model files (unigram and BPE), learned from CORPUS
+# by `tokenizers` and written with the protobuf schema transformers vendors
+
+SP_SPECIALS = ["<unk>", "<s>", "</s>"]
+BYTE_PIECES = [f"<0x{b:02X}>" for b in range(256)]
+USER_DEFINED = "<sep>"  # a user-defined piece of the sentencepiece models
+
+
+def _train_metaspace(model, trainer):
+    """`model` trained by `trainer` on CORPUS with Llama's normalizer
+    ("▁" prepended, spaces replaced) and words split before each "▁"."""
+    from tokenizers import Tokenizer, normalizers, pre_tokenizers
+
+    tok = Tokenizer(model)
+    tok.normalizer = normalizers.Sequence([normalizers.Prepend("▁"),
+                                           normalizers.Replace(" ", "▁")])
+    tok.pre_tokenizer = pre_tokenizers.Metaspace(replacement="▁", prepend_scheme="never",
+                                                 split=True)
+    tok.train_from_iterator(CORPUS * 20, trainer)
+    return json.loads(tok.to_str())["model"]
+
+
+def _bpe_pieces(vocab_size: int):
+    """(pieces in Llama's order: the specials, the 256 byte pieces, the
+    merged pieces in merge order, then the single characters; merges)."""
+    from tokenizers import models, trainers
+
+    model = _train_metaspace(models.BPE(unk_token="<unk>"), trainers.BpeTrainer(
+        vocab_size=vocab_size, special_tokens=SP_SPECIALS, show_progress=False))
+    merges = [tuple(m.split(" ")) if isinstance(m, str) else tuple(m) for m in model["merges"]]
+    merged = list(dict.fromkeys(a + b for a, b in merges))
+    chars = [t for t in sorted(model["vocab"], key=model["vocab"].get)
+             if t not in SP_SPECIALS and t not in merged]
+    return SP_SPECIALS + BYTE_PIECES + merged + chars, merges
+
+
+def write_llama2_tokenizer(out_dir, vocab_size: int = 700) -> None:
+    """tokenizer.json of Llama-2's form (Prepend + Replace normalizer, no
+    pre-tokenizer, BPE with byte_fallback and fuse_unk, the Replace /
+    ByteFallback / Fuse / Strip decoder) with the vocabulary laid out as
+    Llama-2's, and Llama-2's tokenizer_config.json."""
+    from tokenizers import AddedToken, Tokenizer, decoders, models, normalizers
+
+    pieces, merges = _bpe_pieces(vocab_size)
+    tok = Tokenizer(models.BPE({p: i for i, p in enumerate(pieces)}, merges,
+                               unk_token="<unk>", fuse_unk=True, byte_fallback=True))
+    tok.normalizer = normalizers.Sequence([normalizers.Prepend("▁"),
+                                           normalizers.Replace(" ", "▁")])
+    tok.decoder = decoders.Sequence([decoders.Replace("▁", " "), decoders.ByteFallback(),
+                                     decoders.Fuse(), decoders.Strip(" ", 1, 0)])
+    tok.add_special_tokens([AddedToken(t, normalized=False) for t in SP_SPECIALS])
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tok.save(str(out_dir / "tokenizer.json"))
+    (out_dir / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "LlamaTokenizer", "bos_token": "<s>", "eos_token": "</s>",
+        "unk_token": "<unk>", "pad_token": None, "add_bos_token": True,
+        "add_eos_token": False, "clean_up_tokenization_spaces": False, "legacy": False,
+        "model_max_length": 4096}))
+
+
+def sentencepiece_proto(kind: str, vocab_size: int = 500, add_dummy_prefix: bool = True):
+    """A sentencepiece ModelProto (transformers' vendored schema) learned
+    from CORPUS: "unigram" (the specials, the byte pieces, USER_DEFINED, then
+    the unigram pieces with their log-probabilities) or "bpe" (Llama's
+    layout, each merged piece scored by minus its merge rank, the characters
+    below them), identity normalizer, byte fallback."""
+    try:
+        from transformers.utils import sentencepiece_model_pb2_new as sp
+    except ImportError:  # older transformers layout
+        from transformers.utils import sentencepiece_model_pb2 as sp
+    from tokenizers import models, trainers
+
+    piece_type = sp.ModelProto.SentencePiece
+    if kind == "unigram":
+        model = _train_metaspace(models.Unigram(), trainers.UnigramTrainer(
+            vocab_size=vocab_size, special_tokens=SP_SPECIALS, unk_token="<unk>",
+            show_progress=False))
+        learned = [(p, s) for p, s in model["vocab"] if p not in SP_SPECIALS]
+        body = [(USER_DEFINED, 0.0, piece_type.USER_DEFINED)] + \
+            [(p, s, piece_type.NORMAL) for p, s in learned]
+    else:
+        pieces, merges = _bpe_pieces(vocab_size)
+        body = [(p, -float(i), piece_type.NORMAL)
+                for i, p in enumerate(pieces[len(SP_SPECIALS) + 256:])]
+    m = sp.ModelProto()
+    m.trainer_spec.model_type = sp.TrainerSpec.UNIGRAM if kind == "unigram" else sp.TrainerSpec.BPE
+    m.trainer_spec.unk_id, m.trainer_spec.bos_id, m.trainer_spec.eos_id = 0, 1, 2
+    m.trainer_spec.byte_fallback = True
+    m.normalizer_spec.name = "identity"
+    m.normalizer_spec.add_dummy_prefix = add_dummy_prefix
+    m.normalizer_spec.remove_extra_whitespaces = False
+    head = [("<unk>", 0.0, piece_type.UNKNOWN), ("<s>", 0.0, piece_type.CONTROL),
+            ("</s>", 0.0, piece_type.CONTROL)] + [(b, 0.0, piece_type.BYTE) for b in BYTE_PIECES]
+    for piece, score, kind_ in head + body:
+        p = m.pieces.add()
+        p.piece, p.score, p.type = piece, score, kind_
+    return m
+
+
+def write_sentencepiece_model(out_dir, kind: str, **kw) -> None:
+    """tokenizer.model (sentencepiece_proto) and a tokenizer_config.json
+    naming a sentencepiece-backed class, as a Baichuan2 directory holds."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "tokenizer.model").write_bytes(sentencepiece_proto(kind, **kw).SerializeToString())
+    (out_dir / "tokenizer_config.json").write_text(
+        json.dumps({"tokenizer_class": "LlamaTokenizer"}))
+
+
+# ---------------------------------------------------------------------------
+# The encoder zoo's HF towers at the JAX package's tiny geometries
+
+_NO_DROPOUT = dict(hidden_dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+                   feat_proj_dropout=0.0, layerdrop=0.0, apply_spec_augment=False)
+_WAV = dict(vocab_size=32, hidden_size=16, num_hidden_layers=3, num_attention_heads=2,
+            intermediate_size=32, conv_dim=(8, 8), conv_kernel=(10, 3), conv_stride=(5, 2),
+            num_feat_extract_layers=2, conv_bias=True, feat_extract_norm="layer")
+
+
+def _perturbed(model):
+    """HF inits biases, norms and layer scales to constants: give them
+    values, so every leaf shapes the output."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias") or "norm" in name or "lambda" in name or "const" in name:
+                p.add_(torch.randn_like(p) * 0.1)
+    return model.eval()
+
+
+def dinov2_model(seed: int = 0):
+    """Dinov2Model at Dinov2Config.tiny() (28 px, patch 14, width 16)."""
+    from transformers import Dinov2Config, Dinov2Model
+
+    torch.manual_seed(seed)
+    return _perturbed(Dinov2Model(Dinov2Config(
+        hidden_size=16, num_hidden_layers=2, num_attention_heads=2, mlp_ratio=2,
+        image_size=28, patch_size=14, use_swiglu_ffn=False, attn_implementation="eager")))
+
+
+def siglip_model(seed: int = 0):
+    """SiglipVisionModel at SiglipConfig.tiny() (32 px, patch 16, width 16)."""
+    from transformers import SiglipVisionConfig, SiglipVisionModel
+
+    torch.manual_seed(seed)
+    return _perturbed(SiglipVisionModel(SiglipVisionConfig(
+        hidden_size=16, num_hidden_layers=2, num_attention_heads=2, intermediate_size=32,
+        image_size=32, patch_size=16, attn_implementation="eager")))
+
+
+def wavlm_model(seed: int = 0):
+    """WavLMModel at WavLMConfig.tiny() (stable layer norm, 8 buckets)."""
+    from transformers import WavLMConfig, WavLMModel
+
+    torch.manual_seed(seed)
+    return _perturbed(WavLMModel(WavLMConfig(
+        **_WAV, do_stable_layer_norm=True, num_conv_pos_embeddings=8,
+        num_conv_pos_embedding_groups=2, num_buckets=8, max_bucket_distance=16, **_NO_DROPOUT)))
+
+
+def data2vec_audio_model(seed: int = 0):
+    """Data2VecAudioModel at Data2VecAudioConfig.tiny() (2 positional
+    convolutions of kernel 5)."""
+    from transformers import Data2VecAudioConfig, Data2VecAudioModel
+
+    torch.manual_seed(seed)
+    return _perturbed(Data2VecAudioModel(Data2VecAudioConfig(
+        **_WAV, num_conv_pos_embeddings=2, conv_pos_kernel_size=5,
+        num_conv_pos_embedding_groups=2, **_NO_DROPOUT)))
+
+
+def eva_state(seed: int = 0, width: int = 16, layers: int = 2, mlp: int = 32, patch: int = 14,
+              grid: int = 2) -> dict:
+    """A state dict with the names and shapes of an EVA ViT checkpoint
+    (eva_vit.py's VisionTransformer), random values."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g) * 0.1  # noqa: E731
+    state = {"patch_embed.proj.weight": r(width, 3, patch, patch),
+             "patch_embed.proj.bias": r(width), "cls_token": r(1, 1, width),
+             "pos_embed": r(1, grid * grid + 1, width)}
+    for i in range(layers):
+        p = f"blocks.{i}"
+        state.update({f"{p}.norm1.weight": 1 + r(width), f"{p}.norm1.bias": r(width),
+                      f"{p}.attn.qkv.weight": r(3 * width, width), f"{p}.attn.q_bias": r(width),
+                      f"{p}.attn.v_bias": r(width), f"{p}.attn.proj.weight": r(width, width),
+                      f"{p}.attn.proj.bias": r(width), f"{p}.norm2.weight": 1 + r(width),
+                      f"{p}.norm2.bias": r(width), f"{p}.mlp.fc1.weight": r(mlp, width),
+                      f"{p}.mlp.fc1.bias": r(mlp), f"{p}.mlp.fc2.weight": r(width, mlp),
+                      f"{p}.mlp.fc2.bias": r(width)})
+    return state
+
+
+def imagebind_audio_state(seed: int = 0, width: int = 16, layers: int = 2, mlp: int = 32,
+                          kernel: int = 16, tokens: int = 9, out: int = 12) -> dict:
+    """A state dict with the names and shapes of imagebind_huge's audio
+    branch (ImageBindAudioConfig.tiny(): 2 x 4 patches + cls), random
+    values."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g) * 0.1  # noqa: E731
+    pre, trunk = "modality_preprocessors.audio", "modality_trunks.audio"
+    state = {f"{pre}.audio_stem.proj.0.weight": r(width, 1, kernel, kernel),
+             f"{pre}.audio_stem.norm_layer.weight": 1 + r(width),
+             f"{pre}.audio_stem.norm_layer.bias": r(width), f"{pre}.cls_token": r(1, 1, width),
+             f"{pre}.pos_embedding_helper.pos_embed": r(1, tokens, width),
+             "modality_heads.audio.0.weight": 1 + r(width), "modality_heads.audio.0.bias": r(width),
+             "modality_heads.audio.2.weight": r(out, width)}
+    for i in range(layers):
+        p = f"{trunk}.blocks.{i}"
+        state.update({f"{p}.norm_1.weight": 1 + r(width), f"{p}.norm_1.bias": r(width),
+                      f"{p}.attn.in_proj_weight": r(3 * width, width),
+                      f"{p}.attn.in_proj_bias": r(3 * width),
+                      f"{p}.attn.out_proj.weight": r(width, width),
+                      f"{p}.attn.out_proj.bias": r(width), f"{p}.norm_2.weight": 1 + r(width),
+                      f"{p}.norm_2.bias": r(width), f"{p}.mlp.fc1.weight": r(mlp, width),
+                      f"{p}.mlp.fc1.bias": r(mlp), f"{p}.mlp.fc2.weight": r(width, mlp),
+                      f"{p}.mlp.fc2.bias": r(width)})
+    return state
