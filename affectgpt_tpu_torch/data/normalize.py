@@ -16,6 +16,7 @@ in the layout of a pandas `to_csv(index=False)`) and split generation.
 from __future__ import annotations
 
 import csv
+import math
 import os
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
@@ -39,15 +40,22 @@ def write_transcriptions(
     name2english: Dict[str, str],
     name2chinese: Optional[Dict[str, str]] = None,
 ) -> None:
-    """Emit the transcription csv contract (columns: name, english[, chinese])."""
+    """Emit the transcription csv contract (columns: name, english[, chinese]).
+    A missing value (None or NaN, what the csv reader gives an empty cell)
+    is written as an empty cell, as pandas' to_csv writes it."""
     columns = ["name", "english"] + (["chinese"] if name2chinese is not None else [])
+
+    def cell(value):
+        missing = value is None or (isinstance(value, float) and math.isnan(value))
+        return "" if missing else value
+
     with open(save_path, "w", newline="") as handle:
         writer = csv.writer(handle, lineterminator="\n")
         writer.writerow(columns)
         for name, english in name2english.items():
-            row = [name, english]
+            row = [cell(name), cell(english)]
             if name2chinese is not None:
-                row.append(name2chinese.get(name, ""))
+                row.append(cell(name2chinese.get(name, "")))
             writer.writerow(row)
 
 

@@ -12,6 +12,16 @@ coefficients' device:
 - color conversion and rounding follow native/videodec.cpp (lround as
   floor(x + 0.5) on the ranges involved), so device frames equal host
   frames within 1 LSB (float summation order).
+
+The encoder's front half (`encode_mjpeg_coefficients`), which the JAX
+package leaves to PIL, mirrors it on the frames' device: libjpeg's
+fixed-point RGB → YCbCr, 4:2:0 by its 2x2 mean with alternating rounding
+bias, the frame padded to whole 16-pixel MCUs by replicating its last row
+and column (libjpeg's edge expansion), the forward DCT as one [N, 64] x
+[64, 64] product with the transpose of the iDCT operator, and
+quantization by the IJG tables scaled to a quality as libjpeg's
+`jpeg_set_quality` scales them (`quality_tables`), rounding half away
+from zero. data/jpeg_encode.py Huffman-codes the result on the host.
 """
 
 from __future__ import annotations
@@ -98,3 +108,64 @@ def decode_mjpeg_frames(coefs: torch.Tensor, quants: torch.Tensor, width: int, h
     rgb = torch.stack([y + 1.402 * cr, y - 0.344136 * cb - 0.714136 * cr, y + 1.772 * cb],
                       dim=-1)
     return torch.clamp(_round_half_up(rgb), 0.0, 255.0).to(torch.uint8)
+
+
+# the IJG example tables (T.81 K.1), natural order
+_STD_LUMINANCE = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99], np.int64)
+_STD_CHROMINANCE = np.full(64, 99, np.int64)
+_STD_CHROMINANCE[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = [
+    17, 18, 24, 47, 18, 21, 26, 66, 24, 26, 56, 47, 66]
+_FDCT_M = np.ascontiguousarray(_IDCT_M.T)  # the basis is orthonormal
+
+
+def quality_tables(quality: int) -> np.ndarray:
+    """[2, 64] luminance and chrominance tables (natural order) at an IJG
+    quality, as libjpeg's jpeg_set_quality(force_baseline=TRUE) makes them:
+    scale 5000 / q below 50, else 200 - 2q; each entry (base · scale + 50)
+    // 100, clamped to 1-255."""
+    q = min(max(int(quality), 1), 100)
+    scale = 5000 // q if q < 50 else 200 - 2 * q
+    tables = (np.stack([_STD_LUMINANCE, _STD_CHROMINANCE]) * scale + 50) // 100
+    return np.clip(tables, 1, 255).astype(np.int64)
+
+
+def _blocks(plane: torch.Tensor) -> torch.Tensor:
+    """[n, H, W] (multiples of 8) → [n, H/8 · W/8, 64], row-major blocks."""
+    n, h, w = plane.shape
+    return plane.reshape(n, h // 8, 8, w // 8, 8).permute(0, 1, 3, 2, 4).reshape(n, -1, 64)
+
+
+def encode_mjpeg_coefficients(frames: torch.Tensor, quality: int) -> torch.Tensor:
+    """frames [n, H, W, 3] uint8 RGB → [n, blocks, 64] int16 quantized
+    coefficients of a baseline 4:2:0 JPEG (natural order), on the frames'
+    device, in decode_mjpeg_frames' layout: Y over its (2·mcuy, 2·mcux) block
+    grid, then Cb and Cr over (mcuy, mcux), each row-major."""
+    n, h, w, _ = frames.shape
+    dev = frames.device
+    hp, wp = -(-h // 16) * 16, -(-w // 16) * 16
+    rows = torch.arange(hp, device=dev).clamp_max(h - 1)
+    cols = torch.arange(wp, device=dev).clamp_max(w - 1)
+    rgb = frames.index_select(1, rows).index_select(2, cols).to(torch.int32)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    # libjpeg's rgb_ycc_convert: 16-bit fixed point, FIX(x) = round(x · 2^16)
+    y = (19595 * r + 38470 * g + 7471 * b + 32768) >> 16
+    cb = (-11059 * r - 21709 * g + 32768 * b + (128 << 16) + 32767) >> 16
+    cr = (32768 * r - 27439 * g - 5329 * b + (128 << 16) + 32767) >> 16
+    # h2v2_downsample: the 2x2 sum plus a bias of 1, 2, 1, 2, ... across columns
+    bias = 1 + (torch.arange(wp // 2, device=dev, dtype=torch.int32) & 1)
+
+    def down(plane):
+        s = plane.reshape(n, hp // 2, 2, wp // 2, 2).sum(dim=(2, 4), dtype=torch.int32)
+        return (s + bias) >> 2
+
+    tables = torch.as_tensor(quality_tables(quality), dtype=torch.float32, device=dev)
+    fdct = torch.from_numpy(_FDCT_M).to(dev)
+    out = []
+    for plane, table in ((y, tables[0]), (down(cb), tables[1]), (down(cr), tables[1])):
+        k = (_blocks(plane).to(torch.float32) - 128.0) @ fdct
+        out.append(torch.sign(k) * torch.floor(k.abs() / table + 0.5))
+    return torch.cat(out, dim=1).to(torch.int16)

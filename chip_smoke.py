@@ -266,6 +266,36 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    shapes and finite, 8 strings, the tokenizer's round trip of the prompts'
    text. One model is freed before the next is built. The kernel line's
    fused_vit_attention entry carries phase 11's shapes and launches.
+12. Eval: the evaluation slice on phase 10's Qwen2.5-7B-shaped directory
+   (kept on disk through phase 11) and its CLIP and HuBERT directories. (7)
+   The OV-MER zero-shot harness over an OV-MERD+ label tree of 8 clips, its
+   model_fn the port's Chat on the loaded LLM (LoRA merged), text only,
+   greedy, 32 tokens: one string a clip in the npz, rows 1-2 launched
+   layers x 8 x 32 times. (1) `python -m affectgpt_tpu_torch.evaluation
+   --input-dir` over that root plus a result-mer2023 root of 16 answers and
+   a result-cmumosi root of 8, their label trees written beside: the LLM
+   judge (the lexicon judge refused) samples 5 batches of 8 prompts, 512
+   tokens each, on the card; rows 1-2 launched layers x 5 x 512 times, the
+   four judge caches written, every score finite; prints the judge's
+   tokens/s and the scores. (2) evaluation_scoreonly over the same root
+   gives the same scores with no model built. (3) compare_outputs --ours
+   (the 16 answers) --reference (8 of them, 4 with the same text): 8 common,
+   4 exact, two judge batches. (4) prepare_au_instruction_dataset over a
+   MER-Factory tree of 16 AU rows (and verify_au_pipeline over it: 4 files
+   ok), then train_au_agent on the 7B directory at r 64, --max-length 512,
+   3 epochs of the 16 records at the largest batch of 8, 4, 2 that fits
+   (printed), lr 5e-4: finite losses, the last epoch's mean below the
+   first's, no kernel launched, the last checkpoint reloading to the trained
+   leaves; prints each step's ms and the peak GiB. (5) The MER-UniBench
+   precompute over a MER2023 tree of 8 raw clips (720p frame dumps,
+   OpenFace crops, 2 s wav) with the towers loaded from their directories:
+   rows 11-12 launched 24 x 2 calls a clip, every cache within 1e-3 of a
+   direct FeatureExtractor run's (equal bits printed). (6) 8 clips of 16
+   smooth 360 x 638 frames transcoded to MJPEG-AVI (the DCT on the card),
+   read back by data/media.py's native decoder and device decode within
+   JPEG_ATOL; normalize_mer2023 over a raw tree, loaded by the dataset class.
+   The kernel line carries the launches of rows 1-2 and 11-12 in phase 12
+   as `eval_launches`.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -277,8 +307,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
+import tempfile
 import time
 from typing import Callable, Optional
 
@@ -3370,19 +3403,37 @@ def train_bpe(texts: list) -> tuple:
     return vocab, merges
 
 
+def filler_pieces():
+    """Vocabulary entries past the learned ones: the two- and three-character
+    strings of letters and digits, short as Qwen2.5's own entries are, so a
+    random model's sampled tokens decode to text that encodes again at a
+    few tokens each (phase 12's judge feeds its answers back as prompts)."""
+    import itertools
+    import string
+
+    chars = string.ascii_letters + string.digits
+    for n in (2, 3):
+        for piece in itertools.product(chars, repeat=n):
+            yield "".join(piece)
+
+
 def write_tokenizer(root: str, texts: list) -> dict:
     """tokenizer.json of Qwen2's form (NFC, its split pattern, byte-level
     BPE and decoder) with merges learned from `texts`, the vocabulary
-    filled to Qwen2.5's 151643 entries so the 22 special tokens take their
-    ids 151643-151664, and tokenizer_config.json with eos <|im_end|>."""
+    filled to Qwen2.5's 151643 entries (filler_pieces) so the 22 special
+    tokens take their ids 151643-151664, and tokenizer_config.json with eos
+    <|im_end|>."""
+    import itertools
     import os
 
     from affectgpt_tpu_torch import tokenization
 
     vocab, merges = train_bpe(texts)
     learned = len(vocab)
-    for i in range(len(vocab), QWEN_VOCAB):
-        vocab[f"<|reserved_{i}|>"] = i
+    for piece in itertools.takewhile(lambda _: len(vocab) < QWEN_VOCAB, filler_pieces()):
+        vocab.setdefault(piece, len(vocab))
+    if len(vocab) != QWEN_VOCAB:
+        raise AssertionError(f"load: the tokenizer's vocabulary has {len(vocab)} entries")
     spec = {
         "version": "1.0", "truncation": None, "padding": None,
         "added_tokens": [{"id": QWEN_VOCAB + i, "content": tok, "single_word": False,
@@ -3891,20 +3942,20 @@ def load_gate_precompute(card: str, model: tuple, tmp: str) -> None:
         raise AssertionError(f"precompute: features off the in-memory towers' by {errs}")
 
 
-def phase_load(card: str, model: tuple) -> None:
+def phase_load(card: str, model: tuple, tmp: str) -> dict:
     """Phase 10: write the phase-4 model as HF directories (the LLM at its
     own depth in 4 bf16 shards with a tokenizer, CLIP ViT-L/14's
-    model.safetensors, HuBERT-large's pytorch_model.bin) into a temporary
-    directory, point the path tables at them, and run the four gates."""
+    model.safetensors, HuBERT-large's pytorch_model.bin) into `tmp`, point
+    the path tables at them, and run the four gates. The directories stay
+    for phase 12 (the caller removes `tmp`); returns {"llm", "clip",
+    "hubert": their paths}."""
     import os
     import shutil
-    import tempfile
 
     from affectgpt_tpu_torch import paths
 
     t0 = time.perf_counter()
     cfg, frozen, _, _, _, _ = model
-    tmp = tempfile.mkdtemp(prefix="load_")
     saved = {k: dict(v) for k, v in paths.TABLES.items()}
     try:
         free = shutil.disk_usage(tmp).free
@@ -3943,8 +3994,8 @@ def phase_load(card: str, model: tuple) -> None:
         for k, v in saved.items():
             paths.TABLES[k].clear()
             paths.TABLES[k].update(v)
-        shutil.rmtree(tmp, ignore_errors=True)
     say("load", phase_seconds=f"{time.perf_counter() - t0:.3f}", card=repr(card))
+    return dirs
 
 
 # ---------------------------------------------------------------------------
@@ -4402,6 +4453,575 @@ def phase_zoo(card: str, tower_cfgs: Optional[dict] = None, llm_cfg=None) -> dic
     return {"attention": attention, "launches": launches, "max_abs_err": errs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the evaluation slice
+
+EVAL_CLIPS = 16  # answers of the result-mer2023 root
+EVAL_SMALL = 8  # clips of the OV-MERD+ and CMU-MOSI roots and of compare's reference
+JUDGE_TOKENS = 512  # LLMJudge's max_new_tokens: random weights never emit eos
+HARNESS_TOKENS = 32  # the OV-MER harness's greedy answers through Chat
+AU_RECORDS = 16
+AU_EPOCHS = 3
+AU_LR = "5e-4"  # above the recipe's 1e-4, so six steps move the loss visibly
+AU_BATCHES = (8, 4, 2)  # the recipe's 8 first, then smaller where it does not fit
+UNIBENCH_CLIPS = 8
+TRANSCODE_CLIPS = 8
+TRANSCODE_FRAMES = 16
+TRANSCODE_SHAPE = (360, 638)  # neither side a multiple of 16: the edge MCUs are padded
+# the largest pixel error of a transcoded frame against its smooth source
+# (tests/test_torch_ingest.py's JPEG_ATOL)
+JPEG_ATOL = 24
+MOSI_VALENCE = [1.4, -0.6, 2.2, -1.8, 0.4, -2.6, 0.8, -0.2]
+EVAL_REASONS = [
+    "The speaker smiles and sounds happy and excited about the news.",
+    "Her voice trembles; she seems sad and a little worried.",
+    "He raises his voice, clearly angry and frustrated with the answer.",
+    "The character looks calm and relaxed, with a neutral tone.",
+    "A sudden gasp: she is surprised, then cheerful.",
+    "He sighs and looks disappointed, his shoulders dropping.",
+    "She speaks nervously, anxious about what comes next.",
+    "A warm laugh: the person is joyful and content.",
+]
+
+
+def smooth_frames(n: int, h: int, w: int, seed: int = 0) -> np.ndarray:
+    """n RGB frames of smooth gradients and waves with mild noise, content a
+    JPEG keeps within JPEG_ATOL (tests/test_torch_ingest.py's generator)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = []
+    for i in range(n):
+        chans = [128 + 80 * np.sin(xx / (9 + c) + i / 3) * np.cos(yy / (7 + c)) + 30 * c
+                 for c in range(3)]
+        out.append(np.clip(np.stack(chans, -1) + rng.randn(h, w, 3) * 3, 0, 255))
+    return np.stack(out).astype(np.uint8)
+
+
+def write_csv(path: str, header: list, rows) -> None:
+    import csv
+
+    with open(path, "w", newline="") as handle:
+        csv.writer(handle).writerows([header] + [list(r) for r in rows])
+
+
+def write_eval_trees(root: str) -> tuple:
+    """The label trees the three scored datasets read, one of each scoring
+    kind: MER2023 (EVAL_CLIPS clips, discrete labels), OV-MERD+ (EVAL_SMALL,
+    open-vocabulary labels) and CMU-MOSI (EVAL_SMALL, valences), each with
+    its subtitles. Returns (the `paths:` tables' entries, {dataset: its
+    names})."""
+    import os
+
+    emos = ["happy", "sad", "angry", "neutral", "surprise", "sad", "worried", "happy"]
+    names = {"MER2023": [f"m23_{i:03d}" for i in range(EVAL_CLIPS)],
+             "OVMERDPlus": [f"ov_{i:03d}" for i in range(EVAL_SMALL)],
+             "CMUMOSI": [f"mosi_{i:03d}" for i in range(EVAL_SMALL)]}
+    section = {"DATA_DIR": {}, "PATH_TO_LABEL": {}, "PATH_TO_TRANSCRIPTIONS": {}}
+    for ds, clips in names.items():
+        d = os.path.join(root, ds.lower())
+        os.makedirs(d)
+        subs = [(n, SUBTITLES[i % len(SUBTITLES)]) for i, n in enumerate(clips)]
+        if ds == "OVMERDPlus":
+            label, subtitles = os.path.join(d, "ovlabel.csv"), os.path.join(d, "subtitle_eng.csv")
+            write_csv(label, ["name", "openset"], zip(clips, OPENSETS))
+            write_csv(subtitles, ["name", "sentence"], subs)
+        else:
+            label = os.path.join(d, "label-6way.npz" if ds == "MER2023" else "label.npz")
+            corpus = ({n: {"emo": emos[i % len(emos)]} for i, n in enumerate(clips)}
+                      if ds == "MER2023" else
+                      {n: {"emo": 0, "val": v} for n, v in zip(clips, MOSI_VALENCE)})
+            test_key = "test1_corpus" if ds == "MER2023" else "test_corpus"
+            np.savez(label, train_corpus=np.array(corpus, dtype=object),
+                     **{test_key: np.array(corpus, dtype=object)})
+            subtitles = os.path.join(d, "transcription.csv")
+            write_csv(subtitles, ["name", "english"], subs)
+        section["DATA_DIR"][ds] = d
+        section["PATH_TO_LABEL"][ds] = label
+        section["PATH_TO_TRANSCRIPTIONS"][ds] = subtitles
+    return section, names
+
+
+def write_reasons(root: str, ds_key: str, names: list, offset: int = 0) -> str:
+    """result-{ds_key}/0.npz of name2reason from EVAL_REASONS; returns its path."""
+    import os
+
+    os.makedirs(os.path.join(root, f"result-{ds_key}"), exist_ok=True)
+    path = os.path.join(root, f"result-{ds_key}", "0.npz")
+    np.savez_compressed(path, name2reason={
+        n: EVAL_REASONS[(i + offset) % len(EVAL_REASONS)] for i, n in enumerate(names)})
+    return path
+
+
+def judge_recorder(record: list):
+    """gen.generate wrapped to record each call's (rows, new tokens, device,
+    seconds)."""
+    def make(inner):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*args, **kwargs)
+            torch.cuda.synchronize()
+            record.append((args[3].shape[0], args[2].max_new_tokens, args[3].device.type,
+                           time.perf_counter() - t0))
+            return out
+        return wrapped
+    return make
+
+
+def refuse(what: str):
+    def make(inner):
+        def wrapped(*args, **kwargs):
+            raise AssertionError(f"eval: {what}")
+        return wrapped
+    return make
+
+
+def judge_run(card: str, what: str, fn, layers: int, batches: list) -> tuple:
+    """fn() with the lexicon judge refused: its judge batches must be the
+    port's generate calls of JUDGE_TOKENS steps on the card of `batches`
+    rows, rows 1-2 launched layers x their steps and nothing else. Returns
+    (fn's result, the launches)."""
+    from affectgpt_tpu_torch.evaluation import judge
+
+    record = []
+    with patched(gen, "generate", judge_recorder(record)), \
+            patched(judge.LexiconJudge, "reason_to_openset", refuse("the lexicon judge ran")), \
+            patched(judge.LexiconJudge, "openset_to_sentiment", refuse("the lexicon judge ran")):
+        t0 = time.perf_counter()
+        out, launches = counted_call(fn)
+        seconds = time.perf_counter() - t0
+    steps = sum(tokens for _, tokens, _, _ in record)
+    gen_s = sum(s for _, _, _, s in record)
+    say("eval", run=what, judge_batches=json.dumps([b for b, _, _, _ in record]),
+        decode_steps=steps, devices=sorted({d for _, _, d, _ in record}),
+        judge_tokens_per_s=f"{sum(b * t for b, t, _, _ in record) / max(gen_s, 1e-9):.1f}",
+        generate_s=f"{gen_s:.3f}", run_s=f"{seconds:.3f}",
+        launches=json.dumps({k: v for k, v in launches.items() if v}), card=repr(card))
+    if sorted(b for b, _, _, _ in record) != sorted(batches) or any(
+            t != JUDGE_TOKENS or d != "cuda" for _, t, d, _ in record):
+        raise AssertionError(f"eval {what}: judge batches {record}, want rows {batches} of "
+                             f"{JUDGE_TOKENS} tokens on cuda")
+    check_launches(f"eval {what}", launches, {"decode_qkv": layers * steps,
+                                              "decode_mlp_bf16": layers * steps})
+    return out, launches
+
+
+def eval_caches(root: str) -> list:
+    import glob
+    import os
+
+    return sorted(os.path.relpath(p, root) for p in glob.glob(os.path.join(root, "*", "*-*.npz")))
+
+
+def eval_harness(card: str, root: str) -> tuple:
+    """Step 7, run first: its npz is the OV-MERD+ root that step 1 scores.
+    The OV-MER zero-shot harness over OV-MERD+ with a model_fn over the
+    port's Chat on the loaded 7B model (LoRA merged), text only, greedy,
+    HARNESS_TOKENS tokens a clip: one string a clip, rows 1-2 launched
+    layers x the decode steps. Returns (the LLM's layers, the launches)."""
+    import os
+
+    from affectgpt_tpu_torch.ovmer import zero_shot_harness
+
+    cfg, frozen, trainable, tok = bootstrap.build_model(
+        {"llama_model": "Qwen25", "keep_full_llm": True, "skip_encoders": True}, device="cuda")
+    frozen, trainable = bootstrap.serving_llm(frozen, trainable, cfg)
+    chat = Chat(frozen, trainable, cfg, tok, max_len=MAX_LEN)
+    layers = cfg.llm.num_layers
+
+    def model_fn(video, audio, subtitle, prompt):
+        return chat.answer_batch("textonly", [subtitle], prompt, {},
+                                 max_new_tokens=HARNESS_TOKENS, do_sample=False)[0]
+
+    save = os.path.join(root, "result-ovmerdplus", "0.npz")
+    t0 = time.perf_counter()
+    answers, launches = counted_call(lambda: zero_shot_harness.run_zero_shot(
+        "OVMERDPlus", model_fn, save))
+    seconds = time.perf_counter() - t0
+    del chat, frozen, trainable
+    torch.cuda.empty_cache()
+    with np.load(save, allow_pickle=True) as data:
+        saved, keys = data["name2reason"].item(), sorted(data.files)
+    say("eval", run="ov_harness", clips=len(answers), npz_keys=json.dumps(keys),
+        sample=json.dumps(next(iter(answers.values()))[:60]), run_s=f"{seconds:.3f}",
+        launches=json.dumps({k: v for k, v in launches.items() if v}), card=repr(card))
+    check_strings("eval ov_harness", list(saved.values()), EVAL_SMALL)
+    if saved != answers:
+        raise AssertionError("eval ov_harness: the npz differs from the answers")
+    steps = EVAL_SMALL * HARNESS_TOKENS
+    check_launches("eval ov_harness", launches, {"decode_qkv": layers * steps,
+                                                 "decode_mlp_bf16": layers * steps})
+    return layers, launches
+
+
+def eval_scores(card: str, root: str, layers: int) -> tuple:
+    """Steps 1-2: `python -m affectgpt_tpu_torch.evaluation --input-dir
+    root` with the LLM judge on the card (2 openset batches for MER2023, 1
+    for OV-MERD+, openset and sentiment for CMU-MOSI), its caches written and
+    its scores finite; then evaluation_scoreonly over the same root gives
+    the same scores with no model built."""
+    from affectgpt_tpu_torch import evaluation_scoreonly
+    from affectgpt_tpu_torch.evaluation import __main__ as evaluation
+
+    results, launches = judge_run(
+        card, "evaluation", lambda: evaluation.main(["--input-dir", root, "--device", "cuda"]),
+        layers, [8, 8, 8, 8, 8])
+    torch.cuda.empty_cache()
+    caches = eval_caches(root)
+    want = ["result-cmumosi/0-openset-sentiment.npz", "result-cmumosi/0-openset.npz",
+            "result-mer2023/0-openset.npz", "result-ovmerdplus/0-openset.npz"]
+    with np.load(f"{root}/result-mer2023/0-openset.npz", allow_pickle=True) as data:
+        sample = data["fileitems"].tolist()[0]
+    say("eval", scores=json.dumps({k: [e, round(float(s), 6)] for k, (e, s) in results.items()}),
+        caches=json.dumps(caches), openset_sample=json.dumps(str(sample)[:60]), card=repr(card))
+    if sorted(results) != ["CMUMOSI", "MER2023", "OVMERDPlus"] or not all(
+            np.isfinite(s) for _, s in results.values()) or caches != want:
+        raise AssertionError(f"eval: scores {results}, caches {caches}")
+    with patched(bootstrap, "build_model", refuse("score-only built a model")), \
+            patched(evaluation, "build_model", refuse("score-only built a model")):
+        cached, none = counted_call(lambda: evaluation_scoreonly.main(["--input-dir", root]))
+    say("eval", run="score_only", scores=json.dumps(
+        {k: [e, round(float(s), 6)] for k, (e, s) in cached.items()}), card=repr(card))
+    if cached != results:
+        raise AssertionError(f"eval score_only: {cached} != {results}")
+    check_launches("eval score_only", none, {})
+    return launches
+
+
+def eval_compare(card: str, root: str, names: list, layers: int) -> dict:
+    """Step 3: compare_outputs --ours (the MER2023 root's 16 answers)
+    --reference (8 of its clips, 4 with the same text) with the LLM judge:
+    8 common clips, two judge batches."""
+    import os
+
+    from affectgpt_tpu_torch import compare_outputs
+
+    ref_root = os.path.join(os.path.dirname(root), "reference")
+    ref = write_reasons(ref_root, "mer2023", names[:EVAL_SMALL])
+    with np.load(ref, allow_pickle=True) as data:
+        reasons = data["name2reason"].item()
+    np.savez_compressed(ref, name2reason={n: r if i < 4 else r + " Maybe not."
+                                          for i, (n, r) in enumerate(reasons.items())})
+    report, launches = judge_run(card, "compare_outputs", lambda: compare_outputs.main(
+        ["--ours", os.path.join(root, "result-mer2023", "0.npz"), "--reference", ref,
+         "--device", "cuda"]), layers, [EVAL_SMALL, EVAL_SMALL])
+    torch.cuda.empty_cache()
+    say("eval", run="compare_outputs", common=report["common"], exact_text=report["exact_text"],
+        label_sets_equal=report["label_sets_equal"],
+        mean_jaccard=f"{report['mean_jaccard']:.4f}", card=repr(card))
+    if (report["common"], report["exact_text"]) != (EVAL_SMALL, 4) \
+            or not np.isfinite(report["mean_jaccard"]):
+        raise AssertionError(f"eval compare_outputs: {report}")
+    return launches
+
+
+def write_mer_factory(root: str, seed: int = 17) -> None:
+    """MER-Factory outputs of AU_RECORDS // 4 clips, four frames each: the
+    17 AU intensities from a numpy seed, five of them in [0.6, 3) (above the
+    0.5 threshold) and the rest below it, a summary a frame, and the emotion
+    peak."""
+    import os
+
+    rng = np.random.RandomState(seed)
+    aus = sorted(au_agent.AU_NAME_MAP)
+
+    def intensities():
+        values = rng.rand(len(aus)) * 0.5
+        active = rng.choice(len(aus), 5, replace=False)
+        values[active] = 0.6 + rng.rand(5) * 2.4
+        return {f"{au}_r": round(float(v), 2) for au, v in zip(aus, values)}
+
+    for c in range(AU_RECORDS // 4):
+        name = f"au_{c:03d}"
+        frames = [{"au_values": intensities(),
+                   "summary_description": f"Frame {f}: {EVAL_REASONS[(c + f) % 8]}"}
+                  for f in range(4)]
+        data = {"au_info": {"frames": frames, "peak_frames": [
+            {"peak_index": 2, "frames_before_peak": 2, "frames_after_peak": 1}]}}
+        os.makedirs(os.path.join(root, name))
+        with open(os.path.join(root, name, f"{name}_au_analysis.json"), "w") as handle:
+            json.dump(data, handle)
+
+
+def au_train(card: str, data: str, out: str, batch: int) -> dict:
+    """train_au_agent on the 7B directory at r 64, --max-length 512, `batch`
+    a step, timing each step (synchronized) and the peak memory."""
+    from affectgpt_tpu_torch.au_agent_finetune import train_au_agent
+
+    times = []
+
+    def timed(inner):
+        def make(*args, **kwargs):
+            step = inner(*args, **kwargs)
+
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = step(*a, **k)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                return result
+            return run
+        return make
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with patched(train_au_agent, "make_step", timed):
+        result, launches = counted_call(lambda: train_au_agent.main([
+            "--data", data, "--lora-r", "64", "--epochs", str(AU_EPOCHS), "--batch-size",
+            str(batch), "--lr", AU_LR, "--max-length", "512", "--output-dir", out,
+            "--device", "cuda"]))
+    result.update(times=times, launches=launches,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return result
+
+
+def eval_au_agent(card: str, root: str) -> None:
+    """Step 4, with step 6's verify_au_pipeline: prepare_au_instruction_dataset
+    over AU_RECORDS synthetic OpenFace rows; train_au_agent on the 7B
+    directory (r 64, alpha 128, dropout 0.05, max-length 512) at the largest
+    of AU_BATCHES that fits, AU_EPOCHS epochs of the same records: finite
+    losses, the last epoch's mean below the first's, no kernel launched, the
+    last checkpoint reloading to the trained leaves."""
+    import os
+
+    from affectgpt_tpu_torch import verify_au_pipeline
+    from affectgpt_tpu_torch.au_agent_finetune import prepare_au_instruction_dataset
+    from affectgpt_tpu_torch.training import checkpoint
+
+    mf = os.path.join(root, "mer_factory")
+    write_mer_factory(mf)
+    data = os.path.join(root, "au_sft.json")
+    prepare_au_instruction_dataset.main(["--mer-factory-output", mf, "--save-path", data])
+    with open(data) as handle:
+        records = json.load(handle)
+    report = verify_au_pipeline.main(["--mer-factory-output", mf])
+    say("eval", run="au_data", records=len(records), verify=json.dumps(
+        {k: report[k] for k in ("files", "ok", "bad")}), card=repr(card))
+    if len(records) != AU_RECORDS or (report["ok"], report["bad"]) != (AU_RECORDS // 4, 0):
+        raise AssertionError(f"eval au_data: {len(records)} records, verify {report}")
+    result, refused = None, []
+    for batch in AU_BATCHES:
+        try:
+            result = au_train(card, data, os.path.join(root, f"au_out_b{batch}"), batch)
+            break
+        except torch.cuda.OutOfMemoryError:
+            refused.append(batch)
+        torch.cuda.empty_cache()
+    if result is None:
+        raise AssertionError(f"eval au_agent: no batch of {AU_BATCHES} fits")
+    losses, times = result["losses"], result["times"]
+    per_epoch = len(losses) // AU_EPOCHS
+    first, last = np.mean(losses[:per_epoch]), np.mean(losses[-per_epoch:])
+    saved = checkpoint.load_checkpoint(result["checkpoints"][-1])["trainable"]["lora"]
+    same = all(torch.equal(saved["layers"][i][k][ab], layer[k][ab].cpu())
+               for i, layer in enumerate(result["lora"]["layers"]) for k in layer for ab in "ab")
+    say("eval", run="au_agent", batch=batch, did_not_fit=json.dumps(refused), steps=len(losses),
+        losses=json.dumps([round(v, 4) for v in losses]), first_epoch_mean=f"{first:.4f}",
+        last_epoch_mean=f"{last:.4f}", step_ms=json.dumps([round(t * 1e3, 1) for t in times]),
+        median_step_ms=f"{statistics.median(times) * 1e3:.1f}",
+        peak_gib=f"{result['peak_gib']:.2f}", checkpoint_reloads=same, card=repr(card))
+    launches = result["launches"]
+    del result
+    torch.cuda.empty_cache()
+    if not (np.isfinite(losses).all() and min(losses) > 0 and last < first and same):
+        raise AssertionError(f"eval au_agent: losses {losses}, reload {same}")
+    check_launches("eval au_agent", launches, {})
+
+
+def eval_unibench(card: str, root: str) -> dict:
+    """Step 5: mer_unibench/extract_frame_emotion_peak_batch over a
+    MER2023 tree of UNIBENCH_CLIPS raw clips (phase 10's write_raw_clips)
+    with CLIP ViT-L/14 and HuBERT-large loaded from phase 10's directories:
+    rows 11-12 launched the CLIP layers x 2 calls a clip, nothing else, and
+    every cache equal to a direct FeatureExtractor run's."""
+    import os
+
+    from affectgpt_tpu_torch import extract_multimodal_features_precompute as pre
+    from affectgpt_tpu_torch import paths
+    from affectgpt_tpu_torch.data import media
+    from affectgpt_tpu_torch.mer_unibench import extract_frame_emotion_peak_batch as unibench
+
+    raw = os.path.join(root, "unibench")
+    clips = sorted(write_raw_clips(raw, UNIBENCH_CLIPS))
+    corpus = {n: {"emo": "happy"} for n in clips}
+    label = os.path.join(raw, "label-6way.npz")
+    np.savez(label, train_corpus=np.array(corpus, dtype=object),
+             test1_corpus=np.array(corpus, dtype=object))
+    subtitles = os.path.join(raw, "transcription.csv")
+    write_csv(subtitles, ["name", "english"], [(n, "hello") for n in clips])
+    paths.update_from_dict({
+        "DATA_DIR": {"MER2023": raw}, "PATH_TO_LABEL": {"MER2023": label},
+        "PATH_TO_TRANSCRIPTIONS": {"MER2023": subtitles},
+        "PATH_TO_RAW_VIDEO": {"MER2023": os.path.join(raw, "video")},
+        "PATH_TO_RAW_FACE": {"MER2023": os.path.join(raw, "openface_face")},
+        "PATH_TO_RAW_AUDIO": {"MER2023": os.path.join(raw, "audio")}})
+    save = os.path.join(root, "unibench_feats")
+    t0 = time.perf_counter()
+    _, launches = counted_call(lambda: unibench.main(
+        ["--datasets", "mer2023", "--save_root", save, "--device", "cuda"]))
+    seconds = time.perf_counter() - t0
+    direct = os.path.join(root, "direct_feats")
+    extractor = pre.FeatureExtractor("CLIP_VIT_LARGE", "HUBERT_LARGE", "uniform", 8, 8, direct,
+                                     "MER2023", device="cuda")
+    for name in clips:
+        extractor.extract_frame(name, paths.PATH_TO_RAW_VIDEO["MER2023"])
+        extractor.extract_face(name, paths.PATH_TO_RAW_FACE["MER2023"])
+        extractor.extract_audio(name, paths.PATH_TO_RAW_AUDIO["MER2023"])
+    del extractor
+    torch.cuda.empty_cache()
+    encoders_of = {"frame": "CLIP_VIT_LARGE", "face": "CLIP_VIT_LARGE", "audio": "HUBERT_LARGE"}
+    err, equal = 0.0, 0
+    for name in clips:
+        for m, enc in encoders_of.items():
+            got = np.load(media.feature_cache_path(save, "MER2023", m, enc, name))
+            want = np.load(media.feature_cache_path(direct, "MER2023", m, enc, name))
+            if got.shape != want.shape or not np.isfinite(got).all():
+                raise AssertionError(f"eval unibench {name} {m}: {got.shape} vs {want.shape}")
+            equal += int(np.array_equal(got, want))
+            err = max(err, float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-6)))
+    layers = encoders.get_visual_encoder("CLIP_VIT_LARGE").make_config().num_layers
+    calls = 2 * UNIBENCH_CLIPS
+    say("eval", run="mer_unibench", clips=UNIBENCH_CLIPS, clip_calls=calls,
+        caches_equal_bits=f"{equal}/{3 * UNIBENCH_CLIPS}", rel_err_vs_direct=f"{err:.3g}",
+        launches=json.dumps({k: v for k, v in launches.items() if v}), run_s=f"{seconds:.3f}",
+        card=repr(card))
+    check_launches("eval mer_unibench", launches, {"attn_sublayer": calls * layers,
+                                                   "mlp_sublayer": calls * layers})
+    if err > 1e-3:
+        raise AssertionError(f"eval mer_unibench: caches off the direct run's by {err}")
+    return launches
+
+
+def eval_ingest(card: str, root: str) -> None:
+    """Step 6: TRANSCODE_CLIPS clips of TRANSCODE_FRAMES smooth frames
+    (`.frames.npy` sources: the card has neither cv2 nor decord) transcoded
+    to MJPEG-AVI with the DCT on the card, read back by data/media.py (the
+    native decoder, and its device decode) within JPEG_ATOL of the source;
+    normalize_mer2023 over a raw tree, loaded by the dataset class."""
+    import os
+
+    from affectgpt_tpu_torch import paths, registry
+    from affectgpt_tpu_torch.data import corpus_recipes, ingest, jpeg_encode, media
+    from affectgpt_tpu_torch.data.base_dataset import DatasetConfig, ModelDataConfig
+    from affectgpt_tpu_torch.ops import jpeg
+    from affectgpt_tpu_torch.ops.sampling import uniform_indices
+    from affectgpt_tpu_torch.tokenization import ByteTokenizer
+
+    src_dir, dst_dir = os.path.join(root, "src"), os.path.join(root, "avi")
+    os.makedirs(src_dir)
+    sources = {}
+    for c in range(TRANSCODE_CLIPS):
+        sources[c] = smooth_frames(TRANSCODE_FRAMES, *TRANSCODE_SHAPE, seed=c)
+        np.save(os.path.join(src_dir, f"clip_{c}.mp4.frames.npy"), sources[c])
+    t0 = time.perf_counter()
+    for c in sources:
+        n = ingest.transcode_video(os.path.join(src_dir, f"clip_{c}.mp4"),
+                                   os.path.join(dst_dir, f"clip_{c}.avi"), device="cuda")
+        if n != TRANSCODE_FRAMES:
+            raise AssertionError(f"eval ingest: clip {c} transcoded {n} frames")
+    seconds = time.perf_counter() - t0
+    batch = torch.as_tensor(sources[0], device="cuda")
+    jpeg.encode_mjpeg_coefficients(batch, 90)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(5):
+        jpeg.encode_mjpeg_coefficients(batch, 90)
+    torch.cuda.synchronize()
+    dct_ms = (time.perf_counter() - t1) / 5 * 1e3
+    t1 = time.perf_counter()
+    list(jpeg_encode.encode_frames(sources[0], 90, device="cuda"))
+    clip_ms = (time.perf_counter() - t1) * 1e3
+    err = {"native": 0, "device": 0}
+    idx = uniform_indices(TRANSCODE_FRAMES, 8)
+    for c, frames in sources.items():
+        avi = os.path.join(dst_dir, f"clip_{c}.avi")
+        native = media.read_video_frames(avi, 8)
+        device = media.read_video_frames_device(avi, 8, device="cuda")
+        if native.shape != (8, *TRANSCODE_SHAPE, 3) or device is None:
+            raise AssertionError(f"eval ingest: clip {c} read back as {native.shape}, {device}")
+        err["native"] = max(err["native"], int(np.abs(native.astype(int) - frames[idx]).max()))
+        err["device"] = max(err["device"], int(np.abs(
+            device.cpu().numpy().astype(int) - frames[idx]).max()))
+    avi_mb = sum(os.path.getsize(os.path.join(dst_dir, f)) for f in os.listdir(dst_dir)) / 1e6
+    say("eval", run="transcode", clips=TRANSCODE_CLIPS, frames=TRANSCODE_FRAMES,
+        shape=list(TRANSCODE_SHAPE), quality=90, transcode_s=f"{seconds:.3f}",
+        frames_per_s=f"{TRANSCODE_CLIPS * TRANSCODE_FRAMES / seconds:.1f}",
+        dct_ms_a_clip=f"{dct_ms:.3f}", encode_ms_a_clip=f"{clip_ms:.1f}", avi_mb=f"{avi_mb:.3f}",
+        max_abs_err=json.dumps(err), atol=JPEG_ATOL, card=repr(card))
+    if max(err.values()) > JPEG_ATOL:
+        raise AssertionError(f"eval ingest: read back {err} off the source")
+
+    raw, out = os.path.join(root, "mer2023_raw"), os.path.join(root, "mer2023_norm")
+    os.makedirs(raw)
+    split_names = {}
+    for split, n in (("train", 4), ("test1", 3), ("test2", 2), ("test3", 2)):
+        names = [f"{split}_{i:05d}" for i in range(n)]
+        split_names[split] = names
+        rows = [[nm, ["happy", "sad", "angry", "worried"][i % 4]] + ([0.5 - i] if split != "test3"
+                                                                       else [])
+                for i, nm in enumerate(names)]
+        write_csv(os.path.join(raw, f"{split}-label.csv"),
+                  ["name", "discrete"] + (["valence"] if split != "test3" else []), rows)
+        os.makedirs(os.path.join(raw, split))
+        for nm in names:
+            with open(os.path.join(raw, split, f"{nm}.mp4"), "wb") as handle:
+                handle.write(b"\x00" * 16)
+    counts = corpus_recipes.normalize_mer2023(raw, out)
+    subtitles = os.path.join(out, "transcription.csv")
+    write_csv(subtitles, ["name", "english"], [(n, "hi") for n in split_names["test1"]])
+    paths.update_from_dict({"DATA_DIR": {"MER2023": out},
+                            "PATH_TO_LABEL": {"MER2023": os.path.join(out, "label-6way.npz")},
+                            "PATH_TO_TRANSCRIPTIONS": {"MER2023": subtitles}})
+    dataset = registry.get("dataset", "MER2023")(
+        ByteTokenizer(), DatasetConfig(face_or_frame="textonly"), ModelDataConfig(), device="cpu")
+    gt = dataset.get_test_name2gt()
+    copied = len(os.listdir(os.path.join(out, "video")))
+    say("eval", run="normalize_mer2023", counts=json.dumps(counts), test1=json.dumps(gt),
+        videos_copied=copied, card=repr(card))
+    if counts != {"train": 4, "test1": 3, "test2": 2, "test3": 2} or copied != 11 or gt != {
+            n: ["happy", "sad", "angry"][i] for i, n in enumerate(split_names["test1"])}:
+        raise AssertionError(f"eval normalize_mer2023: {counts}, {gt}, {copied} videos")
+
+
+def phase_eval(card: str, dirs: dict, tmp: str) -> dict:
+    """Phase 12: the evaluation slice on phase 10's Qwen2.5-7B-shaped
+    directory (and its CLIP and HuBERT), in `tmp`: the OV-MER harness over
+    the port's Chat (step 7, whose npz step 1 scores), the evaluation entry
+    with the LLM judge and score-only (steps 1-2), compare_outputs (3), the
+    AU agent's data and LoRA training (4), the MER-UniBench precompute (5),
+    the transcode and corpus recipes with the AU check (6). Returns {step:
+    its launches}."""
+    import os
+
+    from affectgpt_tpu_torch import paths
+
+    t0 = time.perf_counter()
+    saved = {k: dict(v) for k, v in paths.TABLES.items()}
+    root = os.path.join(tmp, "results")
+    try:
+        paths.PATH_TO_LLM["Qwen25"] = dirs["llm"]
+        paths.PATH_TO_VISUAL["CLIP_VIT_LARGE"] = dirs["clip"]
+        paths.PATH_TO_AUDIO["HUBERT_LARGE"] = dirs["hubert"]
+        section, names = write_eval_trees(tmp)
+        paths.update_from_dict(section)
+        launches = {}
+        layers, launches["ov_harness"] = eval_harness(card, root)
+        write_reasons(root, "mer2023", names["MER2023"])
+        write_reasons(root, "cmumosi", names["CMUMOSI"], offset=2)
+        launches["evaluation"] = eval_scores(card, root, layers)
+        launches["compare_outputs"] = eval_compare(card, root, names["MER2023"], layers)
+        eval_au_agent(card, tmp)
+        launches["mer_unibench"] = eval_unibench(card, tmp)
+        eval_ingest(card, tmp)
+    finally:
+        for k, v in saved.items():
+            paths.TABLES[k].clear()
+            paths.TABLES[k].update(v)
+    say("eval", phase_seconds=f"{time.perf_counter() - t0:.3f}", card=repr(card))
+    return launches
+
+
 def main() -> None:
     card = phase_device()
     phase_build(card)
@@ -4422,10 +5042,15 @@ def main() -> None:
     phase_runner(card, model)
     model = (*model[:5], {})  # phase 10 needs no serving tree: free their memory
     torch.cuda.empty_cache()
-    phase_load(card, model)
-    model = None  # phase 11 builds its own models
-    torch.cuda.empty_cache()
-    zoo = phase_zoo(card)
+    tmp = tempfile.mkdtemp(prefix="smoke_")  # phase 10's directories, read again in phase 12
+    try:
+        dirs = phase_load(card, model, tmp)
+        model = None  # phases 11 and 12 build their own models
+        torch.cuda.empty_cache()
+        zoo = phase_zoo(card)
+        evaluation = phase_eval(card, dirs, os.path.join(tmp, "eval"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     for name, err in zoo["max_abs_err"].items():
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
     row13 = kernels["fused_vit_attention"]
@@ -4433,11 +5058,15 @@ def main() -> None:
                                + [r["max_abs_err"] for r in zoo["attention"].values()])
     row13["shapes"] = zoo["attention"]
     row13["zoo_launches"] = zoo["launches"]
+    for run, counts in evaluation.items():  # rows 1-2 and 11-12 in phase 12
+        for name, count in counts.items():
+            if count:
+                kernels[name].setdefault("eval_launches", {})[run] = count
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],
          **{key: kernels[name][key] for key in keys},
-         **{key: kernels[name][key] for key in ("shapes", "zoo_launches")
+         **{key: kernels[name][key] for key in ("shapes", "zoo_launches", "eval_launches")
             if key in kernels[name]}}
         for name in KERNELS
     ]}), flush=True)
