@@ -18,7 +18,9 @@ unless `keep_full_llm` is set. `model.int8` then quantizes the LLM's
 projections to per-channel int8, and the trainable tree takes the
 checkpoint overlays `ckpt`, `ckpt_2`, `ckpt_3`
 (`training.checkpoint.apply_checkpoint_overlays`, the port's torch-format
-checkpoints).
+checkpoints). Under a tensor-parallel `layout` the LLM is this rank's
+shard (a model directory is read a slice at a time by the converters) and
+the config's LLM is the rank's (`mesh.shard_config`).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from affectgpt_tpu_torch import paths
 from affectgpt_tpu_torch.models import affectgpt, clip_vit, convert, encoders, hubert, qwen2
+from affectgpt_tpu_torch.parallel import mesh
 from affectgpt_tpu_torch.tokenization import ByteTokenizer, load_tokenizer
 from affectgpt_tpu_torch.training import checkpoint
 
@@ -82,6 +85,7 @@ def build_model(
     device="cuda",
     dtype=torch.bfloat16,
     seed: int = 0,
+    layout=None,
 ) -> Tuple[affectgpt.AffectGPTConfig, dict, dict, object]:
     """Returns (model_cfg, frozen, trainable, tokenizer), on the card unless
     `device` says otherwise (there is no fallback to the CPU). The LLM is
@@ -94,7 +98,14 @@ def build_model(
     geometry unless the LLM is tiny, else shrunk to the tiny CLIP and HuBERT
     with projection_dim = visual_dim and hidden_size = acoustic_dim,
     recorded in the config's overrides. The node's `ckpt`, `ckpt_2` and
-    `ckpt_3` overlay the trainable tree in that order."""
+    `ckpt_3` overlay the trainable tree in that order.
+
+    layout: a tp layout of `parallel.mesh`; the LLM comes back as this
+    rank's shard and model_cfg.llm as its shard config (the trainable tree,
+    LoRA included, stays whole, as checkpoints hold it: the decoder reads a
+    whole LoRA at its rank's slices). A model directory is read a slice at
+    a time; random weights are drawn whole from the seed (the same on every
+    rank) and then sliced."""
     node = dict(model_node or {})
     tokenizer = build_tokenizer(node)
     model_cfg = affectgpt.AffectGPTConfig.from_model_cfg(node)
@@ -110,10 +121,13 @@ def build_model(
         logger.info("Converting LLM weights from %s", llm_dir)
         llm_convert = convert.convert_baichuan2 if llm_name == "Baichuan2" else \
             convert.convert_qwen2
-        frozen = {"llm": llm_convert(llm_dir, dtype=dtype, device=device)}
+        frozen = {"llm": llm_convert(llm_dir, dtype=dtype, device=device, layout=layout,
+                                     cfg=model_cfg.llm)}
     else:
         frozen = affectgpt.init_frozen(
             torch.Generator(device=device).manual_seed(seed), model_cfg, dtype=dtype)
+        if layout is not None:
+            frozen["llm"] = mesh.shard_params(frozen["llm"], layout, model_cfg.llm, "llm/")
     if with_encoders and not node.get("skip_encoders", False):
         vis_spec = encoders.get_visual_encoder(model_cfg.visual_encoder_name)
         aud_spec = encoders.get_acoustic_encoder(model_cfg.acoustic_encoder_name)
@@ -130,9 +144,11 @@ def build_model(
                                                  generator, dtype, device)
     trainable = affectgpt.init_trainable(
         torch.Generator(device=device).manual_seed(seed + 1), model_cfg)
+    if layout is not None:
+        model_cfg = replace(model_cfg, llm=mesh.shard_config(model_cfg.llm, layout))
     convert.check_trees(frozen, trainable, model_cfg)
     if node.get("int8", False):  # serving mode: per-channel int8 decoder weights
-        frozen["llm"] = qwen2.quantize_params(frozen["llm"])
+        frozen["llm"] = qwen2.quantize_params(frozen["llm"], cfg=model_cfg.llm)
     trainable = checkpoint.apply_checkpoint_overlays(
         trainable, node.get("ckpt"), node.get("ckpt_2"), node.get("ckpt_3"))
     return model_cfg, frozen, trainable, tokenizer

@@ -39,12 +39,15 @@
 // bool. The plan (ops/decode_attn_o.py::decode_attn_o_plan): splits and
 // stages of (A); nb, cb, ck and stages of (B). The wrapper checks shapes,
 // dtypes and limits (h % 128 == 0, kv g d % 64 == 0, d 64 or 128, g <= 8, b
-// <= 512). Returns the first CUDA error of the two launches, or 0.
+// <= 512). residual 0 drops the + x of (B): y is o_proj(attention) alone, a
+// tensor-parallel rank's partial sum, which the caller reduces over the
+// ranks before it adds x once. Returns the first CUDA error of the two
+// launches, or 0.
 extern "C" int agk_decode_attn_o_bf16(const void* x, const void* q, const void* k,
                                       const void* v, const void* mask, const void* wo,
                                       void* attn, void* y, int b, int kv, int g, int T, int d,
                                       int h, int splits, int stages, int nb, int cb, int ck,
-                                      int stages_o, void* stream) {
+                                      int stages_o, int residual, void* stream) {
   using namespace agk;
   using bf = __nv_bfloat16;
   const int nq = kv * g * d;
@@ -57,8 +60,8 @@ extern "C" int agk_decode_attn_o_bf16(const void* x, const void* q, const void* 
   if (err != cudaSuccess) return (int)err;
   dsab::Params p = {};
   if (dsab::weight_map(&p.w[0], wo, nq, h)) return (int)cudaErrorInvalidValue;
-  p.seg[0] = {h / 128, dsab::kResidual, 0, 0, 0, h, nullptr, static_cast<const bf*>(x),
-              static_cast<bf*>(y)};
+  p.seg[0] = {h / 128, dsab::kResidual, 0, 0, 0, h, nullptr,
+              residual ? static_cast<const bf*>(x) : nullptr, static_cast<bf*>(y)};
   p.nseg = 1;
   p.b = b;
   p.K = nq;

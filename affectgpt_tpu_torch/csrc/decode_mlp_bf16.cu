@@ -30,13 +30,15 @@
 // wg, wu [h, I]; wd [I, h]; xn [b, h] and act [b, I] scratch. Each
 // product's plan (nb, cb, ck, stages) comes from the wrapper
 // (affectgpt_tpu_torch/ops/decode_mlp_bf16.py, decode_mlp_bf16_plan), which
-// checks shapes, alignment, I % 64 == 0 and h % 128 == 0. Returns the first
-// CUDA error of the three launches, or 0.
+// checks shapes, alignment, I % 64 == 0 and h % 128 == 0. residual 0 drops
+// the + x of (B): y is the MLP alone, a tensor-parallel rank's partial sum,
+// which the caller reduces over the ranks before it adds x once. Returns the
+// first CUDA error of the three launches, or 0.
 extern "C" int agk_decode_mlp_bf16(const void* x, const void* ln, const void* wg, const void* wu,
                                    const void* wd, void* xn, void* act, void* y, int b, int h,
                                    int inter, int nb_a, int cb_a, int ck_a, int stages_a,
                                    int nb_b, int cb_b, int ck_b, int stages_b, float eps,
-                                   void* stream) {
+                                   int residual, void* stream) {
   using namespace agk::dsab;
   if (inter % 64 || h % 128) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -57,8 +59,8 @@ extern "C" int agk_decode_mlp_bf16(const void* x, const void* ln, const void* wg
   if (err != cudaSuccess) return (int)err;
   Params pb = {};
   if (weight_map(&pb.w[0], wd, inter, h)) return (int)cudaErrorInvalidValue;
-  pb.seg[0] = {h / 128, kResidual, 0, 0, 0, h, nullptr, static_cast<const bf*>(x),
-               static_cast<bf*>(y)};
+  pb.seg[0] = {h / 128, kResidual, 0, 0, 0, h, nullptr,
+               residual ? static_cast<const bf*>(x) : nullptr, static_cast<bf*>(y)};
   pb.nseg = 1;
   pb.b = b;
   pb.K = inter;

@@ -273,7 +273,7 @@ gateup_kernel(const __grid_constant__ CUtensorMap wg_map, const __grid_constant_
 template <bool PRODUCTS>
 __global__ void __launch_bounds__(kThreads, 1)
 down_kernel(const __grid_constant__ CUtensorMap wd_map, const __grid_constant__ CUtensorMap act_map,
-            const __nv_bfloat16* __restrict__ x, const float* __restrict__ sd,
+            const __nv_bfloat16* __restrict__ residual, const float* __restrict__ sd,
             __nv_bfloat16* __restrict__ y, int b, int h, int inter, int row_tiles) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align1024(smem_raw);
@@ -363,7 +363,9 @@ down_kernel(const __grid_constant__ CUtensorMap wd_map, const __grid_constant__ 
     for (int src = 0; src < kSplit; ++src) sum += ld_cluster_f32(map_to_rank(local, src));
     if (row0 + m < b) {
       const size_t o = (size_t)(row0 + m) * h + n0 + c;
-      y[o] = f2bf(bf2f(x[o]) + sum * sd[n0 + c]);
+      // a null residual is the tensor-parallel partial: the product alone
+      y[o] = residual != nullptr ? f2bf(bf2f(residual[o]) + sum * sd[n0 + c])
+                                 : f2bf(sum * sd[n0 + c]);
     }
   }
   cluster_sync();  // (2) no block leaves while another may read its partials
@@ -374,7 +376,7 @@ cudaError_t launch(const CUtensorMap& wg_map, const CUtensorMap& wu_map, const C
                    const CUtensorMap& act_map, const __nv_bfloat16* x, const __nv_bfloat16* ln,
                    const float* sg, const float* su, const float* sd, __nv_bfloat16* act,
                    __nv_bfloat16* y, int b, int h, int inter, int ctas, int row_tiles, float eps,
-                   cudaStream_t st) {
+                   bool residual, cudaStream_t st) {
   static size_t granted_a = 48 * 1024, granted_b = 48 * 1024;
   const size_t smem_a = smem_gateup(h);
   cudaError_t err = ensure_smem(gateup_kernel<PRODUCTS>, smem_a, &granted_a);
@@ -397,8 +399,8 @@ cudaError_t launch(const CUtensorMap& wg_map, const CUtensorMap& wu_map, const C
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, down_kernel<PRODUCTS>, wd_map, act_map, x, sd, y, b, h, inter,
-                           row_tiles);
+  err = cudaLaunchKernelEx(&cfg, down_kernel<PRODUCTS>, wd_map, act_map,
+                           residual ? x : nullptr, sd, y, b, h, inter, row_tiles);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -414,11 +416,15 @@ cudaError_t launch(const CUtensorMap& wg_map, const CUtensorMap& wu_map, const C
 // (A)'s shared memory). variant: 0 the kernels; 1 the same without the
 // tensor-core products (a diagnostic: the loads and conversions alone; its
 // result is wrong); 2 the previous CUDA-core design (decode_mlp_int8_simt.cuh,
-// a yardstick). Returns the first CUDA error of the launches, or 0.
+// a yardstick, with the residual only). residual 0 drops the + x of (B): y is
+// the MLP alone, a tensor-parallel rank's partial sum, which the caller
+// reduces over the ranks before it adds x once. Returns the first CUDA error
+// of the launches, or 0.
 extern "C" int agk_decode_mlp_int8(const void* x, const void* ln, const void* wg, const void* sg,
                                    const void* wu, const void* su, const void* wd, const void* sd,
                                    void* act, void* y, int b, int h, int inter, int ctas,
-                                   int row_tiles, int variant, float eps, void* stream) {
+                                   int row_tiles, int variant, float eps, int residual,
+                                   void* stream) {
   using namespace agk;
   using bf = __nv_bfloat16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -429,6 +435,7 @@ extern "C" int agk_decode_mlp_int8(const void* x, const void* ln, const void* wg
   const auto* sdp = static_cast<const float*>(sd);
   auto* actp = static_cast<bf*>(act);
   auto* yp = static_cast<bf*>(y);
+  if (variant == 2 && !residual) return (int)cudaErrorInvalidValue;
   if (variant == 2)
     return (int)simt::launch(xp, lnp, static_cast<const int8_t*>(wg), sgp,
                              static_cast<const int8_t*>(wu), sup, static_cast<const int8_t*>(wd),
@@ -448,7 +455,9 @@ extern "C" int agk_decode_mlp_int8(const void* x, const void* ln, const void* wg
     return (int)cudaErrorInvalidValue;
   return (int)(variant == 0
                    ? dmlp::launch<true>(wg_map, wu_map, wd_map, act_map, xp, lnp, sgp, sup, sdp,
-                                        actp, yp, b, h, inter, ctas, row_tiles, eps, st)
+                                        actp, yp, b, h, inter, ctas, row_tiles, eps, residual != 0,
+                                        st)
                    : dmlp::launch<false>(wg_map, wu_map, wd_map, act_map, xp, lnp, sgp, sup, sdp,
-                                         actp, yp, b, h, inter, ctas, row_tiles, eps, st));
+                                         actp, yp, b, h, inter, ctas, row_tiles, eps,
+                                         residual != 0, st));
 }

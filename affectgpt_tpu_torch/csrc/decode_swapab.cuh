@@ -78,7 +78,7 @@ enum Epi : int { kRope = 0, kBias = 1, kSiluMul = 2, kResidual = 3 };
 struct Segment {
   int tiles, kind, map0, map1, head_dim, ld;  // ld: columns of out (and of residual)
   const bf* bias;                             // kRope, kBias
-  const bf* residual;                         // kResidual
+  const bf* residual;                         // kResidual (null: no residual add)
   bf* out;
 };
 
@@ -125,11 +125,14 @@ __device__ __forceinline__ void epilogue(const Params& p, const Segment& s, int 
     return;
   }
   if (s.kind == kResidual) {
-    const bf* r = s.residual + (size_t)row * s.ld;
+    // a null residual is the tensor-parallel partial: the product alone
+    if (s.residual != nullptr) {
+      const bf* r = s.residual + (size_t)row * s.ld;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      va[e] += bf2f(r[ca + e]);
-      vc[e] += bf2f(r[cc + e]);
+      for (int e = 0; e < 4; ++e) {
+        va[e] += bf2f(r[ca + e]);
+        vc[e] += bf2f(r[cc + e]);
+      }
     }
   } else {
 #pragma unroll

@@ -10,6 +10,12 @@ tokenization use the port's own copies of the host modules (`constants`,
 `prompts`, `tokenization`), then mergers → splice → prefill → decode run in
 the port. Greedy requests without a repetition penalty take prompt-lookup
 speculative decoding when `speculative_draft_len` > 0.
+
+`layout=` (JAX's `Chat.mesh`, chat.py:84, :110-116): the LLM sharded over the
+layout's tp groups (`parallel.mesh.shard_model`), each batch split over its
+dp groups by `generate`, and every rank given back the whole batch's
+answers; `encode_media_features(layout=)` runs the towers batch-parallel
+over the dp groups. Every rank calls with the same inputs.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from affectgpt_tpu_torch import constants, prompts
 from affectgpt_tpu_torch.inference import generate as gen
 from affectgpt_tpu_torch.models import affectgpt, clip_vit, encoders, hubert, splice
 from affectgpt_tpu_torch.ops import image as image_ops
+from affectgpt_tpu_torch.parallel import mesh
 from affectgpt_tpu_torch.tokenization import encode_batch
 
 
@@ -42,13 +49,22 @@ def encode_media_features(
     raw: Dict[str, torch.Tensor],
     vision_cfg: Optional[clip_vit.ClipVisionConfig] = None,
     audio_cfg: Optional[hubert.HubertConfig] = None,
+    layout: Optional[mesh.Layout] = None,
 ) -> Dict[str, torch.Tensor]:
     """Raw media on the device → per-modality [b, t, d] features through the
     frozen encoders the config names (the realtime path; reference
     encoder.py forward wrappers). raw: frame / face / image [b, T, H, W, 3]
     uint8, audio [b, clips, 1, samples] (IMAGEBIND: mel clips [b, clips, 1,
     128, 204] from ops/audio.transform_audio, as in JAX). Frames are resized and normalized
-    with the visual tower's own processor stats, as one [b·T] batch."""
+    with the visual tower's own processor stats, as one [b·T] batch. Under a
+    layout with dp > 1 each dp rank encodes its share of the clips (the
+    towers are replicated) and the ranks gather the whole batch's
+    features."""
+    if layout is not None and layout.dp > 1:
+        b = next(iter(raw.values())).shape[0]
+        share = {m: mesh.dp_share(v, layout) for m, v in raw.items()}
+        feats = encode_media_features(frozen, cfg, share, vision_cfg, audio_cfg)
+        return {m: mesh.dp_gather(f, b, layout) for m, f in feats.items()}
     vis_spec = encoders.get_visual_encoder(
         cfg.visual_encoder_name if cfg is not None else "CLIP_VIT_LARGE")
     aud_spec = encoders.get_acoustic_encoder(
@@ -83,8 +99,13 @@ class Chat:
     # seeds the instance's sampling generator, used when answer_batch is
     # called without one; repeated sampled calls advance it
     seed: int = 0
+    # a (dp, tp) layout of parallel.mesh: the LLM sharded over its tp groups,
+    # each batch split over its dp groups (None: one rank)
+    layout: Optional[mesh.Layout] = None
 
     def __post_init__(self):
+        self.frozen, self.trainable, self.cfg = mesh.shard_model(
+            self.frozen, self.trainable, self.cfg, self.layout)
         if self.kv_cache_dtype not in (None, "int8"):
             raise ValueError(
                 f"kv_cache_dtype must be None or 'int8', got {self.kv_cache_dtype!r}")

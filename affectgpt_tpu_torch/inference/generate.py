@@ -11,6 +11,16 @@ repetition penalty's `seen` mask stay on the device.
 tokens as `generate(do_sample=False)` with fewer weight sweeps. JAX's
 `lax.while_loop` becomes a host loop whose test (`any(~done)`) reads one
 flag from the device per verify iteration.
+
+Under a layout (`llm_cfg.layout`, a rank's shard config from
+`parallel.mesh.shard_config`): the batch is split over the dp groups, each
+dp group decodes its share (`mesh.dp_share`) and the ranks gather the
+tokens of the whole batch (`mesh.dp_gather`), as JAX's dp-sharded batch
+comes back whole. Within a tp group every rank takes the same token at
+every step: each rank samples from its gathered logits with a generator
+seeded alike, and tp rank 0's token (or, in the speculative verify, its
+predictions) is broadcast over the group, so that a last-bit difference
+between the ranks' logits can never split their streams.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from affectgpt_tpu_torch.models import qwen2
+from affectgpt_tpu_torch.parallel import mesh
 
 
 @dataclass(frozen=True)
@@ -128,6 +139,19 @@ def _stop_ids(gen_cfg: GenerateConfig, dev) -> torch.Tensor:
                         dtype=torch.long, device=dev)
 
 
+def _dp_split(llm_cfg: qwen2.QwenConfig, run, prompt_embeds, *batched):
+    """run(prompt_embeds, *batched) on this dp rank's share of the batch
+    (None entries pass as they are), its batch-shaped outputs gathered back
+    whole; anything else it returns is this rank's."""
+    layout = llm_cfg.layout
+    if layout is None or layout.dp <= 1:
+        return run(prompt_embeds, *batched)
+    b = prompt_embeds.shape[0]
+    out = run(*(None if t is None else mesh.dp_share(t, layout)
+                for t in (prompt_embeds, *batched)))
+    return tuple(mesh.dp_gather(o, b, layout) if torch.is_tensor(o) else o for o in out)
+
+
 def generate(
     frozen_llm: dict,
     llm_cfg: qwen2.QwenConfig,
@@ -157,6 +181,15 @@ def generate(
     Returns (tokens [b, max_new_tokens], num_valid [b]); tokens after a
     row's stop are eos.
     """
+    return _dp_split(
+        llm_cfg,
+        lambda e, lens, ids: _generate(frozen_llm, llm_cfg, gen_cfg, e, lens, generator,
+                                       max_len, lora, decode_llm, cache_dtype, ids),
+        prompt_embeds, prompt_lengths, prompt_ids)
+
+
+def _generate(frozen_llm, llm_cfg, gen_cfg, prompt_embeds, prompt_lengths, generator, max_len,
+              lora, decode_llm, cache_dtype, prompt_ids):
     b, t_pad, _ = prompt_embeds.shape
     max_new = gen_cfg.max_new_tokens
     if max_len < t_pad + max_new:
@@ -185,6 +218,7 @@ def generate(
             token = top_p_sample(generator, cur_logits, gen_cfg.top_p, gen_cfg.temperature)
         else:
             token = torch.argmax(cur_logits, dim=-1)
+        token = mesh.tp_broadcast(token, llm_cfg.layout)
         token = torch.where(done, torch.full_like(token, gen_cfg.eos_token_id), token)
         if penalty != 1.0:  # the emitted token joins the penalized set
             seen[rows, token] = True
@@ -238,8 +272,19 @@ def generate_speculative(
     positions may be 0). max_len >= t_pad + max_new_tokens + draft_len (the
     verify writes overshoot by up to draft_len). Returns (tokens [b,
     max_new_tokens], num_valid [b]) like `generate`, and with return_stats
-    also the number of verify iterations run.
+    also the number of verify iterations run (this dp rank's under a
+    layout).
     """
+    out = _dp_split(
+        llm_cfg,
+        lambda e, lens, ids: _generate_speculative(frozen_llm, llm_cfg, gen_cfg, e, lens, ids,
+                                                   max_len, lora, draft_len, cache_dtype),
+        prompt_embeds, prompt_lengths, prompt_ids)
+    return out if return_stats else out[:2]
+
+
+def _generate_speculative(frozen_llm, llm_cfg, gen_cfg, prompt_embeds, prompt_lengths,
+                          prompt_ids, max_len, lora, draft_len, cache_dtype):
     if gen_cfg.do_sample:
         raise ValueError("speculative decoding is greedy-only")
     if gen_cfg.repetition_penalty != 1.0:
@@ -253,7 +298,7 @@ def generate_speculative(
     lengths = prompt_lengths.to(device=dev, dtype=torch.long)
     key_valid_gen, cache, logits = _prefill(
         frozen_llm, llm_cfg, prompt_embeds, lengths, max_len, lora, cache_dtype)
-    t0 = torch.argmax(logits, dim=-1)  # the first new token
+    t0 = mesh.tp_broadcast(torch.argmax(logits, dim=-1), llm_cfg.layout)  # the first new token
     stop_ids = _stop_ids(gen_cfg, dev)
 
     def is_stop(tok):
@@ -307,7 +352,7 @@ def generate_speculative(
             frozen_llm, llm_cfg, tok_embeds, key_mask, lora=lora,
             positions=(lengths + n_emitted)[:, None] + steps, cache=cache, cache_index=cur_abs,
         )
-        preds = torch.argmax(logits_v, dim=-1)  # [b, d + 1]
+        preds = mesh.tp_broadcast(torch.argmax(logits_v, dim=-1), llm_cfg.layout)  # [b, d + 1]
 
         # greedy acceptance: a draft survives iff it equals the prediction
         # before it and every earlier draft survived
@@ -341,9 +386,7 @@ def generate_speculative(
                                 n_emitted)
         tail = torch.arange(max_new, device=dev)[None, :] > num_valid[:, None]
         tokens = torch.where(tail, torch.full_like(tokens, gen_cfg.eos_token_id), tokens)
-    if return_stats:
-        return tokens, num_valid, iters
-    return tokens, num_valid
+    return tokens, num_valid, iters
 
 
 def trim_output_text(text: str) -> str:

@@ -1,6 +1,6 @@
 """Paged KV cache and the continuous-batching engine over it, in PyTorch.
 
-Port of affectgpt_tpu/inference/paged.py (all of it but the mesh branch).
+Port of affectgpt_tpu/inference/paged.py.
 K/V live in per-layer pools of fixed-size blocks [blocks, block, kv, d];
 each sequence holds a table of block ids, so device memory is sized by the
 tokens in flight, not by slots x max_len. Block 0 is the null page: tables
@@ -18,6 +18,12 @@ pad with it, and dummy rows write and read there.
 - `PagedBatchServer`: reserve or optimistic admission (with recompute
   preemption), decode bursts bucketed to powers of two, gather-width
   bucketing, chunked prefill, `stats` and a `RequestClock`.
+- `layout=` (JAX's `mesh=`, paged.py:417-441): tensor-parallel serving over
+  a (dp = 1, tp) layout, as `server.BatchServer` takes it. The pools hold
+  the rank's kv heads; every sampled token is tp rank 0's, broadcast over
+  the group, so every rank admits, bursts, preempts and finishes alike
+  (the stats' wall times are recorded and steer nothing); every rank must
+  be given the same requests in the same order.
 
 Departures from the JAX package:
 - Pools (and the prefill's dense cache) are written IN PLACE where JAX
@@ -53,10 +59,12 @@ from affectgpt_tpu_torch.inference.server import (
     RequestClock,
     admission_embeds,
     bucket,
+    serving_shard,
     signature,
 )
 from affectgpt_tpu_torch.models import nn, qwen2
 from affectgpt_tpu_torch.ops import paged_attention as paged_ops
+from affectgpt_tpu_torch.parallel import mesh
 
 logger = logging.getLogger(__name__)
 
@@ -210,6 +218,7 @@ def _decode_core(frozen_llm: dict, llm_cfg: qwen2.QwenConfig, pools: list, token
     seq_lens = positions + 1
     heads, d = llm_cfg.num_heads, llm_cfg.head_dim
     for i, layer in enumerate(frozen_llm["layers"]):
+        lget = qwen2._lora_getter(None if lora is None else lora["layers"][i], llm_cfg, layer)
         lora_layer = lora["layers"][i] if lora is not None else None
         q, k, v, _ = qwen2._project_qkv(layer, lora_layer, llm_cfg, x, positions[:, None],
                                         decode=True)
@@ -218,8 +227,8 @@ def _decode_core(frozen_llm: dict, llm_cfg: qwen2.QwenConfig, pools: list, token
             q[:, 0], pool["k"], pool["v"], block_tables, seq_lens, llm_cfg.num_kv_heads,
             k_scale=pool.get("k_scale"), v_scale=pool.get("v_scale"),
         ).to(x.dtype).reshape(b, 1, heads * d)
-        o_lora = None if lora_layer is None else lora_layer["o_proj"]
-        x = x + qwen2._lora_dense(layer["o_proj"], o_lora, attn, scaling, has_bias=False)
+        x = x + qwen2._tp_sum(qwen2._lora_dense(layer["o_proj"], lget("o_proj"), attn, scaling,
+                                                has_bias=False), llm_cfg)
         y = qwen2._decode_mlp_fused(layer, lora_layer, llm_cfg, x)
         if y is not None:
             x = y
@@ -257,7 +266,7 @@ def paged_decode_burst(frozen_llm: dict, llm_cfg: qwen2.QwenConfig, pools: list,
             tokens = gen.top_p_sample(generator, logits, top_p, temperature)
         else:
             tokens = torch.argmax(logits, dim=-1)
-        tokens = tokens.to(torch.int32)
+        tokens = mesh.tp_broadcast(tokens, llm_cfg.layout).to(torch.int32)
         out.append(tokens)
         positions = positions + 1
     return torch.stack(out, dim=1), pools
@@ -346,7 +355,9 @@ class PagedBatchServer:
                  max_slots: int = 8, dtype=None, seed: int = 0, do_sample: bool = False,
                  top_p: float = 0.9, temperature: float = 1.0, prefill_bucket: int = 64,
                  decode_burst: int = 8, admission: str = "reserve", prefill_batch: int = 256,
-                 prefill_chunk_tokens: Optional[int] = None):
+                 prefill_chunk_tokens: Optional[int] = None,
+                 layout: Optional[mesh.Layout] = None):
+        frozen, trainable, cfg = serving_shard(frozen, trainable, cfg, layout)
         self.frozen, self.trainable, self.cfg = frozen, trainable, cfg
         self.tokenizer = tokenizer
         self.pcfg = pcfg or PagedConfig()
@@ -395,8 +406,10 @@ class PagedBatchServer:
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         """logits [b, vocab] → tokens [b]: top-p when sampling, else argmax."""
         if not self.do_sample:
-            return torch.argmax(logits, dim=-1)
-        return gen.top_p_sample(self.generator, logits, self.top_p, self.temperature)
+            token = torch.argmax(logits, dim=-1)
+        else:
+            token = gen.top_p_sample(self.generator, logits, self.top_p, self.temperature)
+        return mesh.tp_broadcast(token, self.cfg.llm.layout)
 
     def _lifetime_blocks(self, request) -> int:
         """Blocks an admission claims: the prompt's, plus under "reserve"

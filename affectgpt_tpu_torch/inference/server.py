@@ -10,7 +10,13 @@ token for all active slots at per-row cache columns (`qwen2.forward` with a
 Greedy by default; top-p sampling draws from a `torch.Generator` seeded
 from `seed` (JAX's keys give other numbers).
 
-Not ported yet: the `mesh` argument (tensor-parallel serving).
+`layout=` (JAX's `mesh=`, server.py:188-205): tensor-parallel serving over a
+(dp = 1, tp) layout of `parallel.mesh`. Every rank of the tp group runs the
+same engine on its shard (`mesh.shard_model`; the cache holds the rank's kv
+heads) and must be given the same requests in the same order; each sampled
+token is tp rank 0's, broadcast over the group, so every rank's admission,
+slot and stop decisions are the same. The wall-clock stats and the
+`RequestClock` are recorded on every rank and steer nothing.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 
 from affectgpt_tpu_torch.inference import generate as gen
 from affectgpt_tpu_torch.models import affectgpt, qwen2
+from affectgpt_tpu_torch.parallel import mesh
 
 logger = logging.getLogger(__name__)
 
@@ -150,6 +157,18 @@ def admission_embeds(frozen, trainable, cfg, batch: List[Request], n_bucket: int
     return embeds, lengths
 
 
+def serving_shard(frozen, trainable, cfg, layout: Optional[mesh.Layout]):
+    """(frozen, trainable, cfg) of this rank for a serving engine under a
+    tp layout (`mesh.shard_model`); unchanged without one. The engines run
+    one dp row: a layout with dp > 1 raises."""
+    if layout is None:
+        return frozen, trainable, cfg
+    if layout.dp > 1:
+        raise ValueError(f"the serving engines take a (dp = 1, tp) layout, got dp={layout.dp}: "
+                         f"run one engine a dp row")
+    return mesh.shard_model(frozen, trainable, cfg, layout)
+
+
 def _prefill(frozen, trainable, cfg, embeds, lengths, max_len):
     """Left-packed prefill of an admission into a fresh dense cache of
     max_len columns; each row's cache is then shifted so that its token 0
@@ -184,7 +203,8 @@ class BatchServer:
     def __init__(self, frozen, trainable, cfg: affectgpt.AffectGPTConfig, tokenizer,
                  max_slots: int = 8, max_len: int = 512, do_sample: bool = False,
                  top_p: float = 0.9, temperature: float = 1.0, seed: int = 0,
-                 prefill_bucket: int = 64):
+                 prefill_bucket: int = 64, layout: Optional[mesh.Layout] = None):
+        frozen, trainable, cfg = serving_shard(frozen, trainable, cfg, layout)
         self.frozen, self.trainable, self.cfg = frozen, trainable, cfg
         self.tokenizer = tokenizer
         self.max_slots, self.max_len = max_slots, max_len
@@ -234,8 +254,10 @@ class BatchServer:
     # -- scheduling ------------------------------------------------------------
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         if self.do_sample:
-            return gen.top_p_sample(self.generator, logits, self.top_p, self.temperature)
-        return torch.argmax(logits, dim=-1)
+            token = gen.top_p_sample(self.generator, logits, self.top_p, self.temperature)
+        else:
+            token = torch.argmax(logits, dim=-1)
+        return mesh.tp_broadcast(token, self.cfg.llm.layout)
 
     def _admit(self) -> None:
         free = [i for i, s in enumerate(self.slots) if s.done]

@@ -16,8 +16,18 @@ into the serving weights unless `--no_merge_lora`, then `--fuse_qkv` and
 `--int8` / `--int4` apply, in JAX's order.
 
 The run goes to the card unless `--device cpu` is given; there is no
-fallback to the CPU. Not ported: `--tp > 1` (tensor-parallel serving)
-raises NotImplementedError.
+fallback to the CPU.
+
+`--tp N` serves the LLM tensor-parallel over N ranks (JAX's 1 x N mesh,
+inference_hybird.py:158-165), one process a rank: the ranks of `torchrun
+--nproc_per_node N` when the environment names them, else N processes the
+entry point spawns itself. On `--device cuda` the ranks talk over NCCL with
+one rank a card (it asserts N cards, as JAX asserts N devices); on `--device
+cpu` over gloo. Every rank builds its shard (`bootstrap.build_model(
+layout=)`: a model directory is read a slice at a time), reads the same
+datasets and answers the same clips in the same order; rank 0 alone writes
+the results. `--fuse_qkv` is ignored under tp (the split layout shards), as
+in JAX.
 """
 
 from __future__ import annotations
@@ -26,9 +36,12 @@ import argparse
 import concurrent.futures
 import logging
 import os
+import socket
+import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from affectgpt_tpu_torch import registry
 from affectgpt_tpu_torch.bootstrap import build_model
@@ -37,6 +50,7 @@ from affectgpt_tpu_torch.data.base_dataset import DatasetConfig, ModelDataConfig
 from affectgpt_tpu_torch.data.datasets import get_dataset_class  # noqa: F401 (registers them)
 from affectgpt_tpu_torch.inference.chat import Chat, encode_media_features
 from affectgpt_tpu_torch.models import qwen2
+from affectgpt_tpu_torch.parallel import mesh
 from affectgpt_tpu_torch.training import checkpoint
 from affectgpt_tpu_torch.utils.logging import setup_logger
 
@@ -99,7 +113,8 @@ def parse_args(argv=None):
                              "tokens per verify step (greedy-exact: the same tokens). "
                              "Requires --greedy; dense engine only")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel degree (only 1 is ported)")
+                        help="tensor-parallel degree: shard the LLM over N ranks, one a card "
+                             "(torchrun's, or N processes spawned here)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default) or cpu")
     return parser.parse_args(argv)
@@ -146,29 +161,74 @@ def resolve_device(name: str) -> torch.device:
 
 def serving_weights(args, frozen: dict, trainable: dict, model_cfg, quant_bits):
     """(frozen, trainable) for one epoch: the LoRA folded in (unless
-    --no_merge_lora), then --fuse_qkv (dense engine) and --int8/--int4."""
+    --no_merge_lora), then --fuse_qkv (dense engine, one rank) and
+    --int8/--int4; under --tp each on the rank's shard."""
     if args.no_merge_lora:
         return frozen, trainable
     llm = frozen["llm"]
     if trainable.get("lora") is not None:
         llm = qwen2.merge_lora(llm, trainable["lora"], model_cfg.llm)
         trainable = {**trainable, "lora": None}
-    if args.fuse_qkv and args.paged:
-        logger.warning("--fuse_qkv ignored (the paged engine keeps the split weight layout)")
-    if args.fuse_qkv and not args.paged:
+    if args.fuse_qkv and (args.paged or args.tp > 1):
+        logger.warning("--fuse_qkv ignored (tp > 1 and the paged engine keep the split "
+                       "weight layout)")
+    if args.fuse_qkv and not args.paged and args.tp == 1:
         llm = qwen2.fuse_qkv_gateup(llm, model_cfg.llm, fuse_gateup=args.fuse_mode == "full")
     if quant_bits:
-        llm = qwen2.quantize_params(llm, bits=quant_bits)
+        llm = qwen2.quantize_params(llm, bits=quant_bits, cfg=model_cfg.llm)
     return {**frozen, "llm": llm}, trainable
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, argv, world: int, address: str, backend: str) -> None:
+    """One spawned rank of `--tp`: join the group, run `main`, leave."""
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    dist.init_process_group(backend, init_method=address, world_size=world, rank=rank)
+    try:
+        main(argv)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_layout(args, device: torch.device):
+    """The --tp layout of this process, or None for --tp 1. Joins torchrun's
+    group from the environment when it names one and no group exists yet;
+    returns "spawned" after running the N ranks as child processes (the
+    caller then has nothing left to do)."""
+    if args.tp == 1:
+        return None
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda" and torch.cuda.device_count() < args.tp:
+        raise AssertionError(f"--tp {args.tp} needs {args.tp} cards, found "
+                             f"{torch.cuda.device_count()}")
+    if not mesh.distributed():
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            if device.type == "cuda":
+                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+            dist.init_process_group(backend, init_method="env://")
+        else:
+            import torch.multiprocessing as mp
+
+            mp.start_processes(_rank_main, args=(args.argv, args.tp,
+                                                 f"tcp://localhost:{_free_port()}", backend),
+                               nprocs=args.tp, join=True, start_method="spawn")
+            return "spawned"
+    if dist.get_world_size() != args.tp:
+        raise ValueError(f"--tp {args.tp} runs one tp group of {args.tp} ranks; the process "
+                         f"group has {dist.get_world_size()}")
+    return mesh.create_layout(device if device.type == "cpu" else "cuda", tp=args.tp)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    args.argv = list(sys.argv[1:] if argv is None else argv)  # what a spawned rank parses
     setup_logger()
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp > 1 (tensor-parallel serving) is not ported to PyTorch yet "
-            "(ROADMAP queue 1 item 11c)")
     if args.int8 and args.int4:
         raise ValueError("--int8 and --int4 are exclusive")
     if args.speculative and not args.greedy:
@@ -176,14 +236,20 @@ def main(argv=None) -> None:
     if args.speculative and args.paged:
         raise ValueError("--speculative runs on the dense engine")
     device = resolve_device(args.device)
+    layout = tp_layout(args, device)
+    if layout == "spawned":
+        return
+    if layout is not None:
+        device = layout.device
     cfg = Config.from_file(args.cfg_path, args.options) if args.cfg_path \
         else Config.from_dict({}, options=args.options)
 
     model_cfg, frozen, trainable, tokenizer = build_model(
-        cfg.model.to_dict(), with_encoders=True, device=device)
+        cfg.model.to_dict(), with_encoders=True, device=device, layout=layout)
     quant_bits = 4 if args.int4 else (8 if args.int8 else None)
     if quant_bits and args.no_merge_lora:
-        frozen = {**frozen, "llm": qwen2.quantize_params(frozen["llm"], bits=quant_bits)}
+        frozen = {**frozen, "llm": qwen2.quantize_params(frozen["llm"], bits=quant_bits,
+                                                         cfg=model_cfg.llm)}
     if args.fuse_qkv and args.no_merge_lora:
         logger.warning("--fuse_qkv ignored with --no_merge_lora (fusion only applies to the "
                        "merged serving weights)")
@@ -221,7 +287,7 @@ def main(argv=None) -> None:
                     speculative_draft_len=args.speculative
                     or int(inference_cfg.get("speculative_draft_len", 0) or 0))
         run_datasets(args, cfg, chat, frozen, model_cfg, tokenizer, datasets, face_or_frame,
-                     user_message, result_root, str(epoch), data_model_cfg)
+                     user_message, result_root, str(epoch), data_model_cfg, layout)
         del chat, serve_frozen
 
 
@@ -283,9 +349,20 @@ def stack_features(feats_per_name: list, frozen: dict, model_cfg, device) -> dic
     return stacked
 
 
+def _rank0_says(flag: bool, layout, device) -> bool:
+    """Rank 0's `flag` on every rank (one rank decides; the others follow)."""
+    if layout is None:
+        return flag
+    t = torch.tensor([int(flag)], device=device)
+    mesh.tp_broadcast(t, layout)
+    return bool(t.item())
+
+
 def run_datasets(args, cfg, chat: Chat, frozen, model_cfg, tokenizer, datasets,
-                 face_or_frame, user_message, result_root, epoch_tag, data_model_cfg):
+                 face_or_frame, user_message, result_root, epoch_tag, data_model_cfg,
+                 layout=None):
     device = chat.device
+    is_main = layout is None or layout.is_main
     for ds_name in datasets:
         node = dict(cfg.datasets.get(ds_name.lower(), {}) or {})
         node.setdefault("face_or_frame", face_or_frame)
@@ -299,9 +376,11 @@ def run_datasets(args, cfg, chat: Chat, frozen, model_cfg, tokenizer, datasets,
         dataset = registry.get("dataset", ds_name)(tokenizer, ds_cfg, data_model_cfg,
                                                    device=device)
         save_root = os.path.join(result_root, f"result-{ds_name.lower()}")
-        os.makedirs(save_root, exist_ok=True)
+        if is_main:
+            os.makedirs(save_root, exist_ok=True)
         save_path = os.path.join(save_root, f"{epoch_tag}.npz")
-        if os.path.exists(save_path):  # epoch-level resume (reference :276-281)
+        # epoch-level resume (reference :276-281), as rank 0 finds it
+        if _rank0_says(os.path.exists(save_path), layout, device):
             logger.info("skip %s (exists)", save_path)
             continue
 
@@ -355,8 +434,9 @@ def run_datasets(args, cfg, chat: Chat, frozen, model_cfg, tokenizer, datasets,
                 logger.info("paged request SLAs: %s", paged_server.clock.summary())
         finally:
             pool.shutdown(wait=True)
-        np.savez_compressed(save_path, name2reason=name2reason)
-        logger.info("saved %s (%d clips)", save_path, len(name2reason))
+        if is_main:
+            np.savez_compressed(save_path, name2reason=name2reason)
+            logger.info("saved %s (%d clips)", save_path, len(name2reason))
 
 
 if __name__ == "__main__":

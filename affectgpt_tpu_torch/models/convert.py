@@ -44,6 +44,15 @@ whole-state copy is held on the host. The two products JAX computes in f32
 numpy (Baichuan2's NormHead row norms and HuBERT's weight norm `g·v/‖v‖`)
 are computed in f32 numpy here too, row block by row block for the head,
 so the trees equal JAX's bit for bit.
+
+Tensor-parallel loading: `convert_qwen2` (and `convert_llama`,
+`convert_baichuan2`) take a `layout` of `parallel.mesh`; each rank then
+reads only its slices of the sharded projections and of the lm_head
+(`mesh.leaf_kind`: the rows of HF's `[out, in]` for column-parallel q/k/v,
+gate/up and the vocabulary, the columns for row-parallel o/down), a tensor
+at a time, cut on the host before the copy to the device, so no rank holds
+the whole LLM on its card. The tree equals `mesh.shard_params` of the whole
+conversion.
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ import numpy as np
 import torch
 
 from affectgpt_tpu_torch.models import affectgpt, clip_vit, encoders, hubert
+from affectgpt_tpu_torch.parallel import mesh
 
 
 def _tensor(arr, device) -> torch.Tensor:
@@ -418,23 +428,43 @@ def _load_torch_state(model_dir: str) -> CheckpointState:
 class _Put:
     """Stored CPU tensors → the tree's tensors: each is copied to `device`,
     cast there to `dtype` and, for a dense weight, transposed there into a
-    contiguous [in, out]."""
+    contiguous [in, out]. With a tensor-parallel `layout` (and the LLM's
+    whole `cfg`), a sharded HF tensor is first cut on the host to the
+    rank's slice (`shard`)."""
 
-    def __init__(self, state, device, dtype):
+    def __init__(self, state, device, dtype, layout=None, cfg=None):
         self.state, self.device, self.dtype = state, torch.device(device), dtype
+        self.layout = layout if layout is not None and layout.tp > 1 else None
+        self.cfg = cfg
 
-    def __call__(self, value, transpose: bool = False) -> torch.Tensor:
+    def __call__(self, value, transpose: bool = False, shard: str = "") -> torch.Tensor:
         if isinstance(value, str):
             value = self.state[value]
         if isinstance(value, np.ndarray):
             value = torch.from_numpy(value)
+        if shard:
+            value = self.shard(value, shard)
         out = value.to(device=self.device, copy=True).to(self.dtype)
         return out.t().contiguous() if transpose else out
 
+    def shard(self, value: torch.Tensor, name: str) -> torch.Tensor:
+        """The rank's slice of an HF tensor named `name` ([out, in] weight
+        or [out] bias), still on the host: its rows for a column-parallel
+        or vocabulary leaf, its columns for a row-parallel one."""
+        kind = None if self.layout is None else mesh.leaf_kind(name)
+        if kind is None:
+            return value
+        axis = 0 if kind in ("col", "vocab") else 1
+        if axis >= value.ndim:
+            return value
+        start, stop = mesh.axis_range(kind, name, value.shape[axis], self.cfg, self.layout.tp,
+                                      self.layout.tp_rank)
+        return value.narrow(axis, start, stop - start)
+
     def dense(self, prefix: str, bias: bool = True) -> dict:
-        out = {"w": self(f"{prefix}.weight", transpose=True)}
+        out = {"w": self(f"{prefix}.weight", transpose=True, shard=prefix)}
         if bias and f"{prefix}.bias" in self.state:
-            out["b"] = self(f"{prefix}.bias")
+            out["b"] = self(f"{prefix}.bias", shard=prefix)
         return out
 
     def ln(self, prefix: str) -> dict:
@@ -460,10 +490,21 @@ def _llm_layer(put: _Put, p: str, qkv: dict) -> dict:
     }
 
 
-def convert_qwen2(model_dir: str, dtype=torch.float32, device="cuda") -> dict:
-    """HF Qwen2ForCausalLM state → the qwen2 parameter tree."""
+def _llm_put(model_dir: str, state, device, dtype, layout, cfg) -> _Put:
+    """The converters' `_Put`, sharding under a tp layout by the LLM's whole
+    geometry (cfg, else the directory's config.json)."""
+    if layout is not None and layout.tp > 1 and cfg is None:
+        cfg = llm_config_from_hf(model_dir)
+    return _Put(state, device, dtype, layout, cfg)
+
+
+def convert_qwen2(model_dir: str, dtype=torch.float32, device="cuda", layout=None,
+                  cfg=None) -> dict:
+    """HF Qwen2ForCausalLM state → the qwen2 parameter tree; under a tp
+    `layout`, this rank's shard of it (cfg: the LLM's whole QwenConfig,
+    read from config.json when None)."""
     state = _load_torch_state(model_dir)
-    put = _Put(state, device, dtype)
+    put = _llm_put(model_dir, state, device, dtype, layout, cfg)
     layers = [
         _llm_layer(put, f"model.layers.{i}", {
             name: put.dense(f"model.layers.{i}.self_attn.{name}")
@@ -476,7 +517,7 @@ def convert_qwen2(model_dir: str, dtype=torch.float32, device="cuda") -> dict:
         "final_ln": {"scale": put("model.norm.weight")},
     }
     if "lm_head.weight" in state:
-        params["lm_head"] = {"w": put("lm_head.weight", transpose=True)}
+        params["lm_head"] = {"w": put("lm_head.weight", transpose=True, shard="lm_head")}
     return params
 
 
@@ -499,13 +540,15 @@ def _row_norms(head: torch.Tensor) -> np.ndarray:
     return np.concatenate(out)
 
 
-def convert_baichuan2(model_dir: str, dtype=torch.float32, device="cuda") -> dict:
+def convert_baichuan2(model_dir: str, dtype=torch.float32, device="cuda", layout=None,
+                      cfg=None) -> dict:
     """HF Baichuan2-7B state (BaichuanForCausalLM) → the qwen2 parameter tree.
     Two deltas from Llama: W_pack [3·hidden, hidden] holds q, k and v, split
     here; NormHead L2-normalizes the head's rows on every forward, folded in
-    here (in f32, before the cast) so the served head is a plain matmul."""
+    here (in f32, before the cast) so the served head is a plain matmul.
+    layout, cfg: as `convert_qwen2` takes them."""
     state = _load_torch_state(model_dir)
-    put = _Put(state, device, dtype)
+    put = _llm_put(model_dir, state, device, dtype, layout, cfg)
     layers = []
     for i in range(_count(state, "model.layers.{}.self_attn.W_pack.weight")):
         p = f"model.layers.{i}"
@@ -513,10 +556,10 @@ def convert_baichuan2(model_dir: str, dtype=torch.float32, device="cuda") -> dic
         h = w_pack.shape[1]
         if w_pack.shape[0] != 3 * h:
             raise ValueError(f"{p}.self_attn.W_pack is {list(w_pack.shape)}, not [3·{h}, {h}]")
-        qkv = {name: {"w": put(w_pack[j * h:(j + 1) * h], transpose=True)}
+        qkv = {name: {"w": put(w_pack[j * h:(j + 1) * h], transpose=True, shard=name)}
                for j, name in enumerate(("q_proj", "k_proj", "v_proj"))}
         layers.append(_llm_layer(put, p, qkv))
-    head = state["lm_head.weight"]  # [vocab, h]
+    head = put.shard(state["lm_head.weight"], "lm_head")  # [vocab, h]: the rank's rows
     norms = torch.from_numpy(np.maximum(_row_norms(head), np.float32(1e-7)))
     folded = head.to(device=put.device, copy=True).float() / norms.to(put.device)
     return {

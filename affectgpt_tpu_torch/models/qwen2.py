@@ -39,6 +39,20 @@ plain torch, mirroring the JAX default chain.
 speculative verify of `inference.generate.generate_speculative`, each row's
 t rows at its own columns.
 
+Tensor parallelism: a config whose `layout` is set (`parallel.mesh.
+shard_config`) describes one rank's shard of the decoder (its query heads,
+the kv heads they read, its columns of I) over the tp group of that layout,
+and the params are that rank's slices (`parallel.mesh.shard_params`). Each
+rank runs the same dispatch on its shard, so the decode kernels run at the
+shard's shapes; o_proj and down_proj give partial sums, which one
+all-reduce each over the tp group sums before the residual is added, once
+(the three kernels that fuse `+ residual` run without it there: the
+`residual=False` mode of `decode_attn_o`, `decode_mlp_bf16` and
+`decode_mlp`). A row-parallel LoRA branch is linear, so a rank adds (x_r @
+a[rows_r]) @ b to its partial. `_logits` gathers the vocabulary-parallel
+lm_head's (or the tied table's rows') logits to the whole vocabulary. The
+KV cache holds the rank's kv heads. Training under tp is not ported.
+
 Training (JAX qwen2.py:978-1208): `forward(remat=, dropout_rng=,
 return_hidden=)` with per-layer activation checkpointing and LoRA dropout,
 and the causal-LM losses `cross_entropy_loss` and
@@ -48,8 +62,9 @@ reaches none of the decode or prefill kernels.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -63,6 +78,7 @@ from affectgpt_tpu_torch.ops.decode_mlp import decode_mlp
 from affectgpt_tpu_torch.ops.decode_mlp_bf16 import decode_mlp_bf16
 from affectgpt_tpu_torch.ops.decode_qkv import decode_qkv
 from affectgpt_tpu_torch.ops.prefill_attention import prefill_attention
+from affectgpt_tpu_torch.parallel import mesh
 
 # The attention switches of the JAX decoder (qwen2.py:481, :511, :524), read
 # at each call. "xla", the default, is the plain attention chain. The kernel
@@ -116,6 +132,8 @@ class QwenConfig:
     lora_r: int = 16
     lora_alpha: float = 32.0
     lora_dropout: float = 0.05  # train-only; the serving path never applies it
+    # not a field: a ShardConfig (a tensor-parallel rank's shard) sets it
+    layout = None
 
     @classmethod
     def qwen25_7b(cls, vocab_size: int = 152064, lora_r: int = 16):
@@ -145,6 +163,15 @@ class QwenConfig:
             num_layers=2, num_heads=4, num_kv_heads=2, head_dim=8,
             rope_theta=10_000.0, lora_r=lora_r, lora_alpha=4.0,
         )
+
+
+@dataclass(frozen=True)
+class ShardConfig(QwenConfig):
+    """One tensor-parallel rank's decoder geometry (`parallel.mesh.
+    shard_config`): its query heads, the kv heads they read and its columns
+    of I, with the layout whose tp group the decoder reduces over."""
+
+    layout: Optional[object] = field(default=None, compare=False, repr=False)
 
 
 _LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
@@ -205,8 +232,9 @@ def init_lora(generator: torch.Generator, cfg: QwenConfig, dtype=torch.float32) 
 
 def merge_lora(params: dict, lora: dict, cfg: QwenConfig) -> dict:
     """Fold LoRA into the base weights for serving: W' = W + (α/r)·A·B,
-    computed in f32 and stored in W's dtype. Returns a new tree; unchanged
-    leaves are shared with `params`."""
+    computed in f32 and stored in W's dtype. On a tensor-parallel shard each
+    W takes the rank's slice of a whole LoRA (`_rank_lora`). Returns a new
+    tree; unchanged leaves are shared with `params`."""
     scaling = cfg.lora_alpha / cfg.lora_r
     layers = []
     for layer, lora_layer in zip(params["layers"], lora["layers"]):
@@ -216,8 +244,9 @@ def merge_lora(params: dict, lora: dict, cfg: QwenConfig) -> dict:
                 continue
             if "w" not in layer[name]:
                 raise ValueError("merge_lora needs unquantized weights: merge, then quantize")
-            ab = lora_layer[name]["a"].float() @ lora_layer[name]["b"].float()
             w = layer[name]["w"]
+            leaf = _rank_lora(lora_layer[name], name, cfg, *w.shape)
+            ab = leaf["a"].float() @ leaf["b"].float()
             merged[name] = {**layer[name], "w": (w.float() + scaling * ab).to(w.dtype)}
         layers.append(merged)
     return {**params, "layers": layers}
@@ -246,14 +275,51 @@ def fuse_qkv_gateup(params: dict, cfg: QwenConfig, fuse_gateup: bool = True) -> 
     return {**params, "layers": layers}
 
 
-def quantize_params(params: dict, bits: int = 8) -> dict:
+def quantize_params(params: dict, bits: int = 8, cfg: Optional[QwenConfig] = None) -> dict:
     """Quantize the decoder's projection weights and the lm_head for serving
     (bits=8 per-channel int8, bits=4 group-128 int4); embeddings and norms
-    stay as they are."""
+    stay as they are. cfg: a tensor-parallel rank's config
+    (`parallel.mesh.shard_config`) when `params` is its shard; the shard then
+    quantizes to the rank's slice of the whole tree's quantization."""
     out = dict(params)
-    out["layers"] = [quant.quantize_dense_tree(layer, bits=bits) for layer in params["layers"]]
+    if _tp(cfg) is not None:
+        out["layers"] = [_quantize_shard_layer(layer, bits, cfg) for layer in params["layers"]]
+    else:
+        out["layers"] = [quant.quantize_dense_tree(layer, bits=bits)
+                         for layer in params["layers"]]
     if "lm_head" in params:
         out["lm_head"] = quant.quantize_dense_tree(params["lm_head"], bits=bits)
+    return out
+
+
+def _quantize_shard_layer(layer: dict, bits: int, cfg: QwenConfig) -> dict:
+    """One layer of a tensor-parallel shard quantized as `mesh.shard_params`
+    slices the whole layer's quantization: column-parallel leaves alone
+    (their scales are their columns'); a row-parallel int8 leaf with the
+    columns' absmax over the whole K (the ranks' maxima reduced); a
+    row-parallel int4 leaf on its own rows (its groups are its own), which
+    must keep the kernels' K % 256 where the whole K does."""
+    layout = cfg.layout
+    out = {}
+    for name, leaf in layer.items():
+        if name not in ("o_proj", "down_proj") or "w" not in leaf:
+            out[name] = quant.quantize_dense_tree(leaf, bits=bits) if isinstance(leaf, dict) \
+                and "w" in leaf else leaf
+            continue
+        w = leaf["w"]
+        k = w.shape[0]
+        whole_int4 = bits == 4 and (k * layout.tp) % (2 * quant.INT4_GROUP) == 0
+        if whole_int4:
+            if k % (2 * quant.INT4_GROUP):
+                raise ValueError(f"{name}: a rank's int4 row-parallel K = {k} does not keep the "
+                                 f"int4 kernels' K % {2 * quant.INT4_GROUP} == 0 at "
+                                 f"tp={layout.tp}; use fewer tp ranks or int8")
+            w_p, scales = quant.quantize_int4_grouped(w)
+            out[name] = {"w_q4": w_p, "scales": scales}
+        else:
+            absmax = mesh.tp_all_reduce_max(w.float().abs().amax(dim=0, keepdim=True), layout)
+            w_q, scales = quant.quantize_per_channel(w, absmax=absmax)
+            out[name] = {"w_q": w_q, "scales": scales}
     return out
 
 
@@ -316,6 +382,57 @@ def init_quantized_params(generator: torch.Generator, cfg: QwenConfig, bits: int
     if not cfg.tie_embeddings:
         params["lm_head"] = qdense(h, cfg.vocab_size, False)
     return params
+
+
+def _tp(cfg: Optional[QwenConfig]):
+    """The layout of a tensor-parallel shard's config, else None."""
+    layout = None if cfg is None else cfg.layout
+    return layout if layout is not None and layout.tp > 1 else None
+
+
+def _tp_sum(y: torch.Tensor, cfg: QwenConfig) -> torch.Tensor:
+    """A row-parallel product's partial sums y summed over the tp ranks."""
+    if _tp(cfg) is None:
+        return y
+    return mesh.tp_all_reduce(y.contiguous(), cfg.layout)
+
+
+def _base_shape(leaf: dict) -> tuple:
+    """(K, N) of a dense leaf in any of its stored forms."""
+    if "w_q4" in leaf:
+        return 2 * leaf["w_q4"].shape[0], leaf["w_q4"].shape[1]
+    return tuple((leaf["w"] if "w" in leaf else leaf["w_q"]).shape)
+
+
+def _rank_lora(leaf: dict, name: str, cfg: QwenConfig, k: int, n: int) -> dict:
+    """The LoRA leaf {a [K, r], b [r, N]} of projection `name` as a
+    tensor-parallel rank applies it to its base of [k, n]: a whole `a` at the
+    rank's rows (row-parallel: a partial sum of a linear branch), a whole
+    `b` at the rank's output columns (column-parallel, the kv heads' for
+    k/v); the slices `mesh.shard_params` makes pass as they are."""
+    layout = _tp(cfg)
+    if layout is None:
+        return leaf
+    a, b = leaf["a"], leaf["b"]
+    r = layout.tp_rank
+    if a.shape[0] != k:
+        a = a[r * k:(r + 1) * k]
+    if b.shape[1] != n:
+        whole = dataclasses.replace(cfg, num_heads=cfg.num_heads * layout.tp,
+                                    num_kv_heads=b.shape[1] // cfg.head_dim, layout=None)
+        start, stop = mesh.axis_range("col", name, b.shape[1], whole, layout.tp, r)
+        b = b[:, start:stop]
+    return {**leaf, "a": a, "b": b}
+
+
+def _lora_getter(lora_layer, cfg: QwenConfig, layer: dict):
+    """name → the projection's LoRA leaf as this rank applies it
+    (`_rank_lora`), or None without LoRA."""
+    if lora_layer is None:
+        return lambda n: None
+    if _tp(cfg) is None:
+        return lambda n: lora_layer[n]
+    return lambda n: _rank_lora(lora_layer[n], n, cfg, *_base_shape(layer[n]))
 
 
 def _quantized_matmul(x2d: torch.Tensor, base: dict) -> torch.Tensor:
@@ -443,20 +560,25 @@ def _decode_mlp_fused(layer, lora_layer, cfg: QwenConfig, x: torch.Tensor):
     `ops.decode_mlp_bf16`, "pallas" also a split int8 one ("w_q") to
     `ops.decode_mlp`, "xla" neither. x [b, 1, hidden] is the residual stream
     after attention; the post-attention rmsnorm runs in the kernel. Returns
-    the new residual stream [b, 1, hidden], or None."""
+    the new residual stream [b, 1, hidden], or None. On a tensor-parallel
+    shard the kernel runs without its residual add: its partial sum is
+    reduced over the tp ranks, then x is added once."""
     if DECODE_MLP == "xla" or lora_layer is not None:
         return None
     gate = layer.get("gate_proj", {})
     ln = layer["post_attn_ln"]["scale"]
+    residual = _tp(cfg) is None
     if "w" in gate:
         y = decode_mlp_bf16(x[:, 0, :], ln, gate["w"], layer["up_proj"]["w"],
-                            layer["down_proj"]["w"], eps=cfg.rms_eps)
+                            layer["down_proj"]["w"], eps=cfg.rms_eps, residual=residual)
     elif DECODE_MLP == "pallas" and "w_q" in gate:
         up, down = layer["up_proj"], layer["down_proj"]
         y = decode_mlp(x[:, 0, :], ln, gate["w_q"], gate["scales"], up["w_q"], up["scales"],
-                       down["w_q"], down["scales"], eps=cfg.rms_eps)
+                       down["w_q"], down["scales"], eps=cfg.rms_eps, residual=residual)
     else:
         return None
+    if not residual:
+        y = x[:, 0, :] + _tp_sum(y, cfg)
     return y[:, None, :]
 
 
@@ -504,7 +626,7 @@ def _project_qkv(layer, lora_layer, cfg: QwenConfig, x, positions, decode: bool,
         q, k, v = fused
         return q[:, None], k[:, None], v[:, None], True
     scaling = cfg.lora_alpha / cfg.lora_r
-    lget = (lambda n: lora_layer[n]) if lora_layer is not None else (lambda n: None)
+    lget = _lora_getter(lora_layer, cfg, layer)
     x = seg(nn.rmsnorm, layer["input_ln"], x, cfg.rms_eps)
     if "qkv_proj" in layer:  # fused serving layout: one matmul, split columns
         if lora_layer is not None:
@@ -616,10 +738,11 @@ def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, ca
     (`_project_qkv`'s, and the plain attention chain). Returns (out,
     residual_done): residual_done means that out already holds x +
     attention (decode_attn_o adds the residual itself), so the caller must
-    not add x again."""
+    not add x again. On a tensor-parallel shard out is the sum of the ranks'
+    o_proj partials, and residual_done is False."""
     b, t, _ = x.shape
     scaling = cfg.lora_alpha / cfg.lora_r
-    lget = (lambda n: lora_layer[n]) if lora_layer is not None else (lambda n: None)
+    lget = _lora_getter(lora_layer, cfg, layer)
     q, k, v, fused = _project_qkv(layer, lora_layer, cfg, x, positions,
                                   decode=cache is not None and t == 1, drop_rng=drop_rng,
                                   seg=seg)
@@ -640,8 +763,8 @@ def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, ca
             # local k/v; pads are segment 0, tokens 1, read off the last
             # query row's mask (JAX qwen2.py:869-878, :698)
             out = prefill_attention(q, k.contiguous(), v.contiguous(), mask[:, 0, t - 1, :t])
-            return _lora_dense(layer["o_proj"], lget("o_proj"), out, scaling,
-                               has_bias=False), False
+            return _tp_sum(_lora_dense(layer["o_proj"], lget("o_proj"), out, scaling,
+                                       has_bias=False), cfg), False
         k, v = cache["k"], cache["v"]
         # x is still the raw residual stream when decode_qkv ran
         attn_o = (DECODE_ATTN_O == "pallas" and fused and not kv_quant
@@ -649,18 +772,22 @@ def _attention(layer, lora_layer, cfg: QwenConfig, x, positions, mask, cache, ca
         if attn_o or DECODE_ATTENTION == "pallas" and t == 1 and not kv_quant:
             qd = q[:, 0].reshape(b, cfg.num_kv_heads, groups, cfg.head_dim)
             key_mask = mask[:, 0, 0, :]
+            if attn_o and _tp(cfg) is not None:
+                part = decode_attn_o(x[:, 0, :], qd, k, v, key_mask, layer["o_proj"]["w"],
+                                     residual=False)
+                return _tp_sum(part, cfg)[:, None, :], False
             if attn_o:
                 x_new = decode_attn_o(x[:, 0, :], qd, k, v, key_mask, layer["o_proj"]["w"])
                 return x_new[:, None, :], True
             out = decode_attention(qd, k, v, key_mask).reshape(
                 b, 1, cfg.num_heads * cfg.head_dim)
-            return _lora_dense(layer["o_proj"], lget("o_proj"), out, scaling,
-                               has_bias=False), False
+            return _tp_sum(_lora_dense(layer["o_proj"], lget("o_proj"), out, scaling,
+                                       has_bias=False), cfg), False
 
     scales = (cache["k_scale"], cache["v_scale"]) if kv_quant else (None, None)
     out = seg(_attention_core, q, k, v, mask, cfg, x.dtype, *scales)
-    return _lora_dense(layer["o_proj"], lget("o_proj"), out, scaling, has_bias=False,
-                       drop=_lora_drop(drop_rng, cfg, "o_proj")), False
+    return _tp_sum(_lora_dense(layer["o_proj"], lget("o_proj"), out, scaling, has_bias=False,
+                               drop=_lora_drop(drop_rng, cfg, "o_proj")), cfg), False
 
 
 def _silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
@@ -669,8 +796,10 @@ def _silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 def _mlp(layer, lora_layer, cfg: QwenConfig, x: torch.Tensor, drop_rng=None,
          seg=_direct) -> torch.Tensor:
+    """The MLP of the post-attention-normed x; on a tensor-parallel shard
+    the sum of the ranks' down_proj partials."""
     scaling = cfg.lora_alpha / cfg.lora_r
-    lget = (lambda n: lora_layer[n]) if lora_layer is not None else (lambda n: None)
+    lget = _lora_getter(lora_layer, cfg, layer)
     if "gateup_proj" in layer:
         if lora_layer is not None:
             raise ValueError("the fused layout serves merged-LoRA weights")
@@ -680,8 +809,9 @@ def _mlp(layer, lora_layer, cfg: QwenConfig, x: torch.Tensor, drop_rng=None,
                            drop=_lora_drop(drop_rng, cfg, "gate_proj"))
         up = _lora_dense(layer["up_proj"], lget("up_proj"), x, scaling, has_bias=False,
                          drop=_lora_drop(drop_rng, cfg, "up_proj"))
-    return _lora_dense(layer["down_proj"], lget("down_proj"), seg(_silu_mul, gate, up),
-                       scaling, has_bias=False, drop=_lora_drop(drop_rng, cfg, "down_proj"))
+    return _tp_sum(_lora_dense(layer["down_proj"], lget("down_proj"), seg(_silu_mul, gate, up),
+                               scaling, has_bias=False,
+                               drop=_lora_drop(drop_rng, cfg, "down_proj")), cfg)
 
 
 def forward(
@@ -765,12 +895,21 @@ def forward(
 def _logits(params: dict, cfg: QwenConfig, x: torch.Tensor) -> torch.Tensor:
     """f32 logits of final-normed hidden states x [b, t, hidden]: the tied
     embedding table, a quantized lm_head (rounded to x's dtype, then f32) or
-    a dense one."""
+    a dense one. On a tensor-parallel shard each rank computes its
+    vocabulary columns (the lm_head's, or its rows of the replicated tied
+    table) and the ranks' columns are gathered to the whole vocabulary."""
+    layout = _tp(cfg)
     if cfg.tie_embeddings:
-        return nn.matmul_f32(x, params["embed_tokens"]["table"].T)
-    if "w" not in params["lm_head"]:
-        return _lora_dense(params["lm_head"], None, x, 0.0, has_bias=False).float()
-    return nn.matmul_f32(x, params["lm_head"]["w"])
+        table = params["embed_tokens"]["table"]
+        if layout is not None:
+            per = table.shape[0] // layout.tp
+            table = table[layout.tp_rank * per:(layout.tp_rank + 1) * per]
+        logits = nn.matmul_f32(x, table.T)
+    elif "w" not in params["lm_head"]:
+        logits = _lora_dense(params["lm_head"], None, x, 0.0, has_bias=False).float()
+    else:
+        logits = nn.matmul_f32(x, params["lm_head"]["w"])
+    return mesh.tp_all_gather(logits, layout)
 
 
 def embed_tokens(params: dict, ids: torch.Tensor) -> torch.Tensor:

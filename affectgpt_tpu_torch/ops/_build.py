@@ -37,10 +37,10 @@ _L = ctypes.c_longlong
 # C signatures of the entries in csrc/*.cu
 _SIGNATURES = {
     "agk_decode_qkv_bf16": [_P] * 13 + [_I] * 9 + [_F, _F, _P],
-    "agk_decode_mlp_bf16": [_P] * 8 + [_I] * 11 + [_F, _P],
+    "agk_decode_mlp_bf16": [_P] * 8 + [_I] * 11 + [_F, _I, _P],
     "agk_decode_swapab_active_clusters": [_I] * 3,
     "agk_decode_attention_bf16": [_P] * 5 + [_I] * 8 + [_P],
-    "agk_decode_attn_o_bf16": [_P] * 8 + [_I] * 12 + [_P],
+    "agk_decode_attn_o_bf16": [_P] * 8 + [_I] * 13 + [_P],
     "agk_prefill_attention_bf16": [_P] * 7 + [_I] * 5 + [_P],
     "agk_int8_matmul": [_P] * 5 + [_I] * 5 + [_P],
     "agk_int4_matmul": [_P] * 5 + [_I] * 5 + [_P],
@@ -48,7 +48,7 @@ _SIGNATURES = {
     "agk_quant_swapab": [_P] * 4 + [_I] * 5 + [_P],
     "agk_quant_swapab_active_clusters": [_I] * 3,
     "agk_int8_matmul_w8a8": [_P] * 7 + [_I] * 8 + [_P],
-    "agk_decode_mlp_int8": [_P] * 10 + [_I] * 6 + [_F, _P],
+    "agk_decode_mlp_int8": [_P] * 10 + [_I] * 6 + [_F, _I, _P],
     "agk_paged_attention_bf16": [_P] * 6 + [_I] * 9 + [_P],
     "agk_paged_attention_int8": [_P] * 8 + [_I] * 9 + [_P],
     "agk_vit_attention_bf16": [_P] * 4 + [_I] * 5 + [_L] * 6 + [_P],

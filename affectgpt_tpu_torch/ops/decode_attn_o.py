@@ -1,5 +1,6 @@
 """The decode attention sublayer's back half: attention over the dense KV
-cache for one query token per row → o_proj → + residual.
+cache for one query token per row → o_proj → + residual (residual=False:
+without it, a tensor-parallel rank's partial sum).
 
 Port of affectgpt_tpu/ops/decode_attn_o_pallas.py::decode_attn_o. On a CUDA
 tensor `decode_attn_o` launches the hand-written kernels of
@@ -50,16 +51,17 @@ def key_window(key_mask: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi], dim=1).to(torch.int32)
 
 
-def decode_attn_o_reference(x_res, q, k_cache, v_cache, key_mask, wo):
+def decode_attn_o_reference(x_res, q, k_cache, v_cache, key_mask, wo, residual: bool = True):
     """Plain version with the TPU kernel's rounding points: attention over
     the key window in f32, rounded to x's dtype (decode_attn_o_pallas.py:100),
-    o_proj with f32 accumulation, + x in f32, one final rounding (:101-102)."""
+    o_proj with f32 accumulation, + x in f32 (unless residual=False), one
+    final rounding (:101-102)."""
     window = key_window(key_mask)
     cols = torch.arange(k_cache.shape[2], device=q.device)
     in_window = (cols[None, :] >= window[:, :1]) & (cols[None, :] <= window[:, 1:])
     attn = attend_f32(q, k_cache, v_cache, in_window).to(x_res.dtype)
     y = attn.reshape(x_res.shape[0], -1).float() @ wo.float()
-    return (x_res.float() + y).to(x_res.dtype)
+    return (x_res.float() + y if residual else y).to(x_res.dtype)
 
 
 def decode_attn_o_plan(b: int, kv: int, g: int, d: int, t_len: int, h: int, sms: int,
@@ -86,14 +88,17 @@ def _plan_on(b, kv, g, d, t_len, h, device_index) -> dict:
                               decode_gemm.active_clusters_on_card)
 
 
-def decode_attn_o(x_res, q, k_cache, v_cache, key_mask, wo):
+def decode_attn_o(x_res, q, k_cache, v_cache, key_mask, wo, residual: bool = True):
     """x_res [b, h] (the raw residual stream, pre-attention), q [b, kv,
     groups, d] (roped), k_cache/v_cache [b, kv, T, d] (already holding the
     new token's k/v), key_mask [b, T] bool, wo [kv*groups*d, h]. Returns
-    x_res + o_proj(attention) [b, h] in x_res.dtype."""
+    x_res + o_proj(attention) [b, h] in x_res.dtype; residual=False returns
+    o_proj(attention) alone, a tensor-parallel rank's partial sum over its
+    heads, which the caller reduces over the ranks and adds to x once."""
     _build.refuse_grad("decode_attn_o", x_res, q, k_cache, v_cache, key_mask, wo)
     if q.device.type == "cpu":
-        return decode_attn_o_reference(x_res, q, k_cache, v_cache, key_mask, wo)
+        return decode_attn_o_reference(x_res, q, k_cache, v_cache, key_mask, wo,
+                                       residual=residual)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn_o: no kernel for device {q.device}")
     check_cache_operands("decode_attn_o", q, k_cache, v_cache, key_mask)
@@ -121,7 +126,7 @@ def decode_attn_o(x_res, q, k_cache, v_cache, key_mask, wo):
     status = lib.agk_decode_attn_o_bf16(
         x_res.data_ptr(), q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         key_mask.data_ptr(), wo.data_ptr(), attn.data_ptr(), y.data_ptr(), b, kv, groups, t_len,
-        d, h, a["splits"], a["stages"], o["nb"], o["cb"], o["ck"], o["stages"],
+        d, h, a["splits"], a["stages"], o["nb"], o["cb"], o["ck"], o["stages"], int(residual),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "decode_attn_o")

@@ -1,5 +1,6 @@
 """Fused int8 decode MLP: x + down(silu(gate(rms x)) · up(rms x)) for the
-q=1 decode step, on per-channel int8 weights.
+q=1 decode step, on per-channel int8 weights (or, residual=False, the MLP
+alone: a tensor-parallel rank's partial sum).
 
 Port of affectgpt_tpu/ops/decode_mlp_pallas.py::decode_mlp_pallas. On a CUDA
 tensor `decode_mlp` launches the hand-written kernels in
@@ -22,12 +23,12 @@ from affectgpt_tpu_torch.ops import _build
 
 
 def decode_mlp_reference(x, ln_scale, w_gate, s_gate, w_up, s_up, w_down, s_down, *,
-                         eps: float = 1e-6):
+                         eps: float = 1e-6, residual: bool = True):
     """Plain version with the TPU kernel's rounding points, which are bf16
     whatever x's dtype (decode_mlp_pallas.py:66, :74): xn rounded to bf16,
     gate/up as f32 sums of bf16 products times their column scales,
     silu(g)·u rounded to bf16, down as an f32 sum times its column scales,
-    + x, then x.dtype."""
+    + x (unless residual=False), then x.dtype."""
     bf = torch.bfloat16
     xf = x.float()
     xn = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps) * ln_scale.float()
@@ -35,7 +36,8 @@ def decode_mlp_reference(x, ln_scale, w_gate, s_gate, w_up, s_up, w_down, s_down
     g = (xn @ w_gate.float()) * s_gate.float()
     u = (xn @ w_up.float()) * s_up.float()
     a = (torch.nn.functional.silu(g) * u).to(bf).float()
-    return (xf + (a @ w_down.float()) * s_down.float()).to(x.dtype)
+    y = (a @ w_down.float()) * s_down.float()
+    return (xf + y if residual else y).to(x.dtype)
 
 
 def _check_operands(x, ln_scale, w_gate, s_gate, w_up, s_up, w_down, s_down):
@@ -109,11 +111,12 @@ def decode_mlp_plan(b: int, h: int, inter: int, sm_count: int) -> dict:
     }
 
 
-def _launch(args, variant: int, eps: float):
+def _launch(args, variant: int, eps: float, residual: bool = True):
     """Both launches of csrc/decode_mlp_int8.cu as `decode_mlp_plan` lays
     them out. variant 0 is the kernels; 1 drops their tensor-core products
     (a diagnostic of the loads alone, its result wrong) and 2 runs the
-    previous CUDA-core design, both for chip_smoke.py's timings only."""
+    previous CUDA-core design (residual only), both for chip_smoke.py's
+    timings only. residual=False drops the + x."""
     x, w_gate = args[0], args[2]
     b, h = x.shape
     inter = w_gate.shape[1]
@@ -124,24 +127,28 @@ def _launch(args, variant: int, eps: float):
     ctas, row_tiles = plan["gateup"]["grid"]
     status = _build.load_library().agk_decode_mlp_int8(
         *(t.data_ptr() for t in args), act.data_ptr(), y.data_ptr(), b, h, inter, ctas,
-        row_tiles, variant, float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+        row_tiles, variant, float(eps), int(residual),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "decode_mlp")
     return y
 
 
-def decode_mlp(x, ln_scale, w_gate, s_gate, w_up, s_up, w_down, s_down, *, eps: float = 1e-6):
+def decode_mlp(x, ln_scale, w_gate, s_gate, w_up, s_up, w_down, s_down, *, eps: float = 1e-6,
+               residual: bool = True):
     """x [b, h] (the post-attention residual stream), ln_scale [h], int8
     w_gate/w_up [h, I] with scales [1, I], int8 w_down [I, h] with scales
-    [1, h] → the new residual stream [b, h]."""
+    [1, h] → the new residual stream [b, h]. residual=False returns the MLP
+    alone, a tensor-parallel rank's partial sum over its columns of I, which
+    the caller reduces over the ranks and adds to x once."""
     _build.refuse_grad("decode_mlp", x, ln_scale, w_gate, s_gate, w_up, s_up, w_down, s_down)
     args = (x, ln_scale, w_gate, s_gate, w_up, s_up, w_down, s_down)
     if x.device.type == "cpu":
-        return decode_mlp_reference(*args, eps=eps)
+        return decode_mlp_reference(*args, eps=eps, residual=residual)
     if x.device.type != "cuda":
         raise ValueError(f"decode_mlp: no kernel for device {x.device}")
     _check_operands(*args)
-    y = _launch(args, 0, eps)
+    y = _launch(args, 0, eps, residual)
     decode_mlp.launches += 1
     return y
 

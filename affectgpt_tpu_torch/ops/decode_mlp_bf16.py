@@ -1,5 +1,6 @@
 """Fused bf16 decode MLP: x + down(silu(gate(rms x)) · up(rms x)) for the
-q=1 decode step.
+q=1 decode step (or, residual=False, the MLP alone: a tensor-parallel
+rank's partial sum).
 
 Port of affectgpt_tpu/ops/decode_mlp_bf16_pallas.py::decode_mlp_bf16. On a
 CUDA tensor `decode_mlp_bf16` launches the hand-written kernels in
@@ -25,17 +26,20 @@ import torch
 from affectgpt_tpu_torch.ops import _build, decode_gemm
 
 
-def decode_mlp_bf16_reference(x, ln_scale, w_gate, w_up, w_down, *, eps: float = 1e-6):
+def decode_mlp_bf16_reference(x, ln_scale, w_gate, w_up, w_down, *, eps: float = 1e-6,
+                              residual: bool = True):
     """Plain version with the TPU kernel's rounding points: xn rounded to the
     weight dtype, gate/up with f32 accumulation, silu·up rounded to the
-    weight dtype, down with f32 accumulation, + x, then x.dtype."""
+    weight dtype, down with f32 accumulation, + x (unless residual=False),
+    then x.dtype."""
     xf = x.float()
     xn = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps) * ln_scale.float()
     xn = xn.to(w_gate.dtype).float()
     g = xn @ w_gate.float()
     u = xn @ w_up.float()
     a = (torch.nn.functional.silu(g) * u).to(w_gate.dtype).float()
-    return (xf + a @ w_down.float()).to(x.dtype)
+    y = a @ w_down.float()
+    return (xf + y if residual else y).to(x.dtype)
 
 
 def mlp_segments(h: int, inter: int) -> dict:
@@ -87,12 +91,17 @@ def _check_operands(x, ln_scale, w_gate, w_up, w_down):
             f"decode_mlp_bf16 kernel takes 1 to {2 * decode_gemm.NB_WIDTHS[-1]} rows, got {b}")
 
 
-def decode_mlp_bf16(x, ln_scale, w_gate, w_up, w_down, *, eps: float = 1e-6):
+def decode_mlp_bf16(x, ln_scale, w_gate, w_up, w_down, *, eps: float = 1e-6,
+                    residual: bool = True):
     """x [b, h] (the post-attention residual stream), ln_scale [h],
-    w_gate/w_up [h, I], w_down [I, h] → the new residual stream [b, h]."""
+    w_gate/w_up [h, I], w_down [I, h] → the new residual stream [b, h].
+    residual=False returns the MLP alone, without + x: a tensor-parallel
+    rank's partial sum over its columns of I, which the caller reduces over
+    the ranks and adds to x once."""
     _build.refuse_grad("decode_mlp_bf16", x, ln_scale, w_gate, w_up, w_down)
     if x.device.type == "cpu":
-        return decode_mlp_bf16_reference(x, ln_scale, w_gate, w_up, w_down, eps=eps)
+        return decode_mlp_bf16_reference(x, ln_scale, w_gate, w_up, w_down, eps=eps,
+                                         residual=residual)
     if x.device.type != "cuda":
         raise ValueError(f"decode_mlp_bf16: no kernel for device {x.device}")
     _check_operands(x, ln_scale, w_gate, w_up, w_down)
@@ -108,7 +117,7 @@ def decode_mlp_bf16(x, ln_scale, w_gate, w_up, w_down, *, eps: float = 1e-6):
         x.data_ptr(), ln_scale.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
         w_down.data_ptr(), xn.data_ptr(), act.data_ptr(), y.data_ptr(), b, h, inter,
         a["nb"], a["cb"], a["ck"], a["stages"], d["nb"], d["cb"], d["ck"], d["stages"],
-        float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+        float(eps), int(residual), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "decode_mlp_bf16")
     decode_mlp_bf16.launches += 1

@@ -78,10 +78,13 @@ PALLAS_INT4_MIN_M = 16
 # Formats
 
 
-def quantize_per_channel(w: torch.Tensor):
-    """[K, N] float → (int8 [K, N], scales f32 [1, N])."""
+def quantize_per_channel(w: torch.Tensor, absmax=None):
+    """[K, N] float → (int8 [K, N], scales f32 [1, N]). absmax: the columns'
+    f32 absmax [1, N] when it is not w's own (a tensor-parallel rank's rows
+    of a row-parallel leaf take the whole K's)."""
     w = w.float()
-    absmax = w.abs().amax(dim=0, keepdim=True)
+    if absmax is None:
+        absmax = w.abs().amax(dim=0, keepdim=True)
     scale = absmax.clamp_min(1e-8) / 127.0
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return q, scale

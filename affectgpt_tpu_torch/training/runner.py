@@ -99,18 +99,23 @@ class Runner:
         model_cfg: affectgpt.AffectGPTConfig,
         datasets,
         ratios,
-        layout: Optional[mesh_lib.DataParallel] = None,
+        layout: Optional[mesh_lib.Layout] = None,
         job_id: Optional[str] = None,
         device="cuda",
     ):
         """frozen and trainable: `bootstrap.build_model`'s trees. layout:
         this process's data-parallel place (default: from torch.distributed,
-        on `device`; `run.tp > 1` raises)."""
+        on `device`; `run.tp > 1` raises: tensor-parallel training is
+        ROADMAP queue 1 item 11d)."""
         self.cfg = cfg
         run = cfg.run
+        if int(run.get("tp", 1)) > 1 or (layout is not None and layout.tp > 1):
+            raise NotImplementedError(
+                "tensor-parallel training (run.tp > 1) is not ported to PyTorch yet "
+                "(ROADMAP queue 1 item 11d); tensor-parallel serving is (inference_hybird --tp)")
         self.model_cfg = model_cfg
         self.tokenizer = tokenizer
-        self.layout = layout or mesh_lib.create_layout(device=device, tp=int(run.get("tp", 1)))
+        self.layout = layout or mesh_lib.create_layout(device=device)
         self.device = self.layout.device
         self.is_main = self.layout.is_main
         seed = int(run.get("seed", 42))

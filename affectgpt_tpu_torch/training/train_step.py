@@ -44,7 +44,7 @@ def create_train_state(trainable: dict, tx: optim.AdamW) -> TrainState:
 
 def make_train_step(cfg: affectgpt.AffectGPTConfig, tx: optim.AdamW, remat=False,
                     dropout_seed: Optional[int] = None,
-                    layout: Optional[mesh_lib.DataParallel] = None) -> Callable:
+                    layout: Optional[mesh_lib.Layout] = None) -> Callable:
     """Returns train_step(state, frozen, batch) -> (state, metrics).
 
     dropout_seed: turns on train-mode dropout (the reference trains under
@@ -94,7 +94,7 @@ def make_train_step(cfg: affectgpt.AffectGPTConfig, tx: optim.AdamW, remat=False
     return train_step
 
 
-def shard_state(layout: mesh_lib.DataParallel, state: TrainState) -> TrainState:
+def shard_state(layout: mesh_lib.Layout, state: TrainState) -> TrainState:
     """The state on the layout's device, every rank holding rank 0's
     trainable leaves and optimizer state (JAX's `shard_state` places a
     replicated copy on each device)."""

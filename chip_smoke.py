@@ -296,6 +296,27 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    JPEG_ATOL; normalize_mer2023 over a raw tree, loaded by the dataset class.
    The kernel line carries the launches of rows 1-2 and 11-12 in phase 12
    as `eval_launches`.
+13. Tensor parallelism. (a) Rows 1, 2, 4 and 10 at Qwen2.5-7B's tp = 2 (14
+   query heads, 2 kv heads, I = 9472 a rank) and tp = 4 (7, 1, 4736) shard
+   shapes, b = 8 and 16, rows 2, 4 and 10 with and without their residual
+   add (a rank's partial sum), and rows 6, 8 and 9 over one layer's tp = 2
+   shard at their main-path M, each against its plain version at the bf16
+   tolerance, with ms, plain_ms and bound_ms (run right after phase 3's
+   encoder kernels). (b) Phase 10's directory (kept on disk through phase 13)
+   at tp = 2: the parent loads it whole and records the prefill and
+   teacher-forced decode logits (TP_FORCED, and 2 layers in f32), the greedy
+   answers and the paged engine's results; then two spawned ranks each load
+   their shard a slice at a time, merge the LoRA on it, quantize it (int4,
+   int8) and run the same logits, phase 4's default, (a), (b), q4 and q4_b16
+   and phase 5's paged_bf16 (48 requests) and paged_w8 (16) with exact launch
+   counts on each rank. The logits must be within TP_REL_L2_F32 (f32) and
+   TP_REL_L2 (bf16) of tp = 1's; the greedy strings' and paged tokens' match
+   share is printed, not gated. With one card the ranks share it over gloo
+   (CUDA tensors; NCCL takes one rank a card) and a time there is no
+   tensor-parallel speedup; with two cards or more `inference_hybird --tp 2`
+   also runs on NCCL. A rank that fails or outlives TP_TIMEOUT fails the
+   phase. The kernel line carries phase 13 (a)'s shapes as `tp_shapes` and
+   rank 0's launches in (b) as `tp_launches`.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -311,6 +332,7 @@ import os
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from typing import Callable, Optional
@@ -5022,6 +5044,491 @@ def phase_eval(card: str, dirs: dict, tmp: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: tensor-parallel serving
+
+TP = 2  # the ranks of phase 13 (b)
+# Qwen2.5-7B's shard a rank holds: tp -> (query heads, kv heads, columns of I)
+TP_SHARDS = {2: (14, 2, 9472), 4: (7, 1, 4736)}
+TP_FORCED_STEPS = 4  # teacher-forced decode steps after the prefill compared with tp = 1
+# ||logits(tp = 2) - logits(tp = 1)|| / ||logits(tp = 1)|| over the prefill and the
+# forced steps. In f32 (TP_F32_LAYERS layers of the 7B width, TF32 off, the plain
+# chain: the decode kernels take bf16) the two differ by summation order alone. In
+# bf16 each rank rounds its partial sums to bf16 before the all-reduce and the sum
+# again before the residual add, over 28 layers of random weights: on an "NVIDIA H100
+# 80GB HBM3, 700.00 W" this reads 0.044 at every step (argmax equal at 38 of 40 rows x
+# steps), a rounding drift that does not grow with the steps; the bound catches a
+# wrong head, shard or sum, which moves the logits by O(1)
+TP_REL_L2_F32 = 1e-4
+TP_F32_LAYERS = 2
+TP_REL_L2 = 0.1
+TP_TIMEOUT = 900  # seconds the ranks of phase 13 (b) may take together
+TP_CHAT = ("default", "a", "b", "q4", "q4_b16")  # phase 4's configurations run on each rank
+# phase 5's configurations and the requests each serves (paged_w8, which shows rows 5,
+# 6 and 10 on the shards, takes the first 16 of the 48 to keep the phase near 2 min)
+TP_SERVE = {"paged_bf16": 48, "paged_w8": 16}
+TP_FORCED = ("default", "a")  # the configurations whose logits are compared with tp = 1
+
+
+def tp_layer(g: torch.Generator, b: int, tp: int, h: int = 3584, d: int = 128) -> dict:
+    """Random bf16 operands of one Qwen2.5-7B layer's shard at tp ranks."""
+    heads, kv, inter = TP_SHARDS[tp]
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale + shift).to(torch.bfloat16)
+
+    return {"x": rnd(b, h), "ln": rnd(h, scale=0.1, shift=1.0),
+            "pos": torch.randint(0, 4096, (b,), generator=g, device="cuda", dtype=torch.int32),
+            "wq": rnd(h, heads * d, scale=0.02), "bq": rnd(heads * d, scale=0.1),
+            "wk": rnd(h, kv * d, scale=0.02), "bk": rnd(kv * d, scale=0.1),
+            "wv": rnd(h, kv * d, scale=0.02), "bv": rnd(kv * d, scale=0.1),
+            "wg": rnd(h, inter, scale=0.02), "wu": rnd(h, inter, scale=0.02),
+            "wd": rnd(inter, h, scale=0.02), "wo": rnd(heads * d, h, scale=0.02),
+            "q": rnd(b, kv, heads // kv, d), "k": rnd(b, kv, MAX_LEN, d),
+            "v": rnd(b, kv, MAX_LEN, d), "mask": decode_window_mask(g, b, MAX_LEN)}
+
+
+def tp_row_calls(s: dict, tp: int, residual: bool) -> dict:
+    """name -> (kernel call, plain call, bytes, operations) of rows 1, 2, 4
+    and 10 on a shard's operands (rows 2, 4, 10 with or without the
+    residual add; row 1 has none)."""
+    heads, kv, inter = TP_SHARDS[tp]
+    b, h = s["x"].shape
+    d = s["q"].shape[-1]
+    qkv = (s["x"], s["pos"], s["wq"], s["bq"], s["wk"], s["bk"], s["wv"], s["bv"])
+    qkv_kw = dict(num_heads=heads, num_kv_heads=kv, head_dim=d, theta=1e6, ln_scale=s["ln"],
+                  eps=1e-6)
+    mlp = (s["x"], s["ln"], s["wg"], s["wu"], s["wd"])
+    attn = (s["x"], s["q"], s["k"], s["v"], s["mask"], s["wo"])
+    int8 = (s["x"], s["ln"], *s["int8"])
+    valid = int(s["mask"].sum())
+    calls = {
+        "decode_mlp_bf16": (lambda: decode_mlp_bf16(*mlp, residual=residual),
+                            lambda: decode_mlp_bf16_reference(*mlp, residual=residual),
+                            2 * 3 * h * inter + 2 * 2 * b * h, 6 * b * h * inter),
+        "decode_attn_o": (lambda: decode_attn_o(*attn, residual=residual),
+                          lambda: decode_attn_o_reference(*attn, residual=residual),
+                          2 * (2 * valid * kv * d + heads * d * h + 2 * b * h + b * heads * d)
+                          + b * MAX_LEN, 4 * valid * heads * d + 2 * b * heads * d * h),
+        "decode_mlp": (lambda: decode_mlp(*int8, eps=1e-6, residual=residual),
+                       lambda: decode_mlp_reference(*int8, eps=1e-6, residual=residual),
+                       3 * h * inter + 4 * (2 * inter + h) + 2 * 2 * b * h, 6 * b * h * inter),
+    }
+    if residual:
+        calls["decode_qkv"] = (lambda: decode_qkv(*qkv, **qkv_kw),
+                               lambda: decode_qkv_reference(*qkv, **qkv_kw),
+                               2 * h * (heads + 2 * kv) * d + 2 * b * (h + (heads + 2 * kv) * d),
+                               2 * b * h * (heads + 2 * kv) * d)
+    return calls
+
+
+def tp_quant_calls(g: torch.Generator, tp: int) -> dict:
+    """name -> [(kernel call, plain call, bytes, operations)] over one layer's
+    seven products on a tp rank's shard (the rows of o and down, the columns
+    of the others), at each kernel's main-path M (QUANT_PHASE)."""
+    heads, kv, inter = TP_SHARDS[tp]
+    h, d = 3584, 128
+    shapes = [(h, heads * d), (h, kv * d), (h, kv * d), (heads * d, h), (h, inter), (h, inter),
+              (inter, h)]
+    out = {}
+    for name in ("int8_matmul", "int4_matmul", "int4_matmul_smallm"):
+        bits, plain, _, m, _, _ = QUANT_PHASE[name]
+        kernel = getattr(quant, name)
+        calls = []
+        for k, n in shapes:
+            sigma = k ** -0.5
+            if bits == 4:
+                w = torch.randint(-128, 128, (k // 2, n), generator=g, device="cuda",
+                                  dtype=torch.int8)
+                s = (torch.rand((k // quant.INT4_GROUP, n), generator=g, device="cuda") + 0.5) \
+                    * (3 * sigma / 7)
+                nbytes = k * n // 2 + 4 * s.numel()
+            else:
+                w = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                                  dtype=torch.int8)
+                s = (torch.rand((1, n), generator=g, device="cuda") + 0.5) * (3 * sigma / 127)
+                nbytes = k * n + 4 * n
+            x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+            calls.append((lambda x=x, w=w, s=s, f=kernel: f(x, w, s),
+                          lambda x=x, w=w, s=s, f=plain: f(x, w, s),
+                          nbytes + 2 * m * (k + n), 2 * m * k * n))
+        out[name] = (m, calls)
+    return out
+
+
+def phase_tp_kernels(card: str) -> dict:
+    """Phase 13 (a): rows 1, 2, 4 and 10 at Qwen2.5-7B's tp = 2 and tp = 4
+    shard shapes (rows 2, 4, 10 with and without their residual add: a
+    rank's partial sum), b = 8 and 16, and rows 6, 8 and 9 over one layer's
+    tp = 2 shard at their main-path M, each against its plain version at the
+    smoke's tolerance, with ms, plain_ms and bound_ms. Returns {kernel:
+    {shape key: {...}}} and the largest error of each kernel."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    shapes, errs = {}, {}
+    for tp in TP_SHARDS:
+        for b in (8, SERVE_SLOTS):
+            s = tp_layer(g, b, tp)
+            h, inter = 3584, TP_SHARDS[tp][2]
+            s["int8"] = []
+            for k, n in ((h, inter), (h, inter), (inter, h)):
+                s["int8"] += quant.quantize_per_channel(
+                    torch.randn(k, n, generator=g, device="cuda") * k ** -0.5)
+            for residual in (True, False):
+                for name, (kernel, plain, nbytes, flops) in tp_row_calls(s, tp, residual).items():
+                    got = kernel()
+                    err, rel = compare(f"{name} tp={tp} residual={residual}", got, plain(), b)
+                    errs[name] = max(errs.get(name, 0.0), err)
+                    cost = bound(nbytes, flops)
+                    row = {"max_abs_err": err, "ms": graph_ms([kernel] * 6),
+                           "plain_ms": graph_ms([plain] * 2, reps=5), **cost}
+                    key = f"tp{tp}_b{b}" + ("" if residual or name == "decode_qkv"
+                                            else "_partial")
+                    shapes.setdefault(name, {})[key] = {k: (round(v, 6) if isinstance(v, float)
+                                                            else v) for k, v in row.items()}
+                    say("tp", part="a", kernel=name, tp=tp, b=b, heads=TP_SHARDS[tp][0],
+                        kv_heads=TP_SHARDS[tp][1], intermediate=inter, residual=residual,
+                        max_abs_err=f"{err:.6g}", max_rel_err=f"{rel:.6g}", rtol=RTOL,
+                        atol=ATOL, ms=f"{row['ms']:.5f}", plain_ms=f"{row['plain_ms']:.5f}",
+                        bound_ms=f"{cost['bound_ms']:.5f}", bound_by=cost["bound_by"],
+                        card=repr(card))
+            del s
+            torch.cuda.empty_cache()
+    for name, (m, calls) in tp_quant_calls(g, 2).items():
+        err = 0.0
+        for kernel, plain, _, _ in calls:
+            e, _ = compare(f"{name} tp=2", kernel(), plain(), m)
+            err = max(err, e)
+        errs[name] = max(errs.get(name, 0.0), err)
+        ms = sum(graph_ms([kernel] * 8) for kernel, _, _, _ in calls)
+        plain_ms = sum(graph_ms([plain] * 2, reps=5) for _, plain, _, _ in calls)
+        cost = bound(sum(c[2] for c in calls), sum(c[3] for c in calls))
+        shapes.setdefault(name, {})[f"tp2_layer_m{m}"] = {
+            "max_abs_err": round(err, 6), "ms": round(ms, 6), "plain_ms": round(plain_ms, 6),
+            "bound_ms": round(cost["bound_ms"], 6), "bound_by": cost["bound_by"]}
+        say("tp", part="a", kernel=name, tp=2, M=m, products="one layer's 7 on the shard",
+            max_abs_err=f"{err:.6g}", rtol=RTOL, atol=ATOL, ms_per_layer=f"{ms:.5f}",
+            plain_ms_per_layer=f"{plain_ms:.5f}", bound_ms=f"{cost['bound_ms']:.5f}",
+            bound_by=cost["bound_by"], card=repr(card))
+        del calls
+        torch.cuda.empty_cache()
+    return {"shapes": shapes, "max_abs_err": errs}
+
+
+def tp_features(cfg) -> dict:
+    """The 8 clips' preextracted features of phase 4 (the same seed), bf16."""
+    rng = np.random.RandomState(0)
+    return {m: torch.as_tensor(rng.randn(BATCH, 8, d).astype(np.float32), device="cuda")
+            .to(torch.bfloat16)
+            for m, d in (("frame", cfg.visual_dim), ("face", cfg.visual_dim),
+                         ("audio", cfg.acoustic_dim))}
+
+
+def forced_logits(chat: Chat, feats: dict, tokens: torch.Tensor, steps: int) -> torch.Tensor:
+    """The f32 logits [b, 1 + steps, vocab] of the 8 clips' prompts: the
+    prefill's last position, then `steps` decode steps fed tokens[:, s]
+    (teacher forcing: the same inputs whatever a rank would have sampled),
+    on generate's own prefill and cache columns."""
+    served = Served(chat, feats, SUBTITLES)
+    llm, cfg = chat.frozen["llm"], chat.cfg.llm
+    embeds, lengths = served.embeds, served.lengths.long()
+    t_pad = embeds.shape[1]
+    key_valid, cache, logits = gen._prefill(llm, cfg, embeds, lengths, chat.max_len, None, None)
+    out = [logits.float()]
+    slots = torch.arange(chat.max_len, device=embeds.device)
+    pos = lengths.to(torch.int32)
+    for step in range(steps):
+        tok = qwen2.embed_tokens(llm, tokens[:, step])[:, None, :].to(embeds.dtype)
+        key_mask = (slots[None, None, :] <= t_pad + step) & key_valid[:, None, :]
+        step_logits, cache = qwen2.forward(llm, cfg, tok, key_mask, positions=pos[:, None],
+                                           cache=cache, cache_index=t_pad + step)
+        out.append(step_logits[:, 0].float())
+        pos = pos + 1
+    return torch.stack(out, dim=1)
+
+
+def f32_forced(model: tuple, tokens: torch.Tensor) -> torch.Tensor:
+    """forced_logits of the first TP_F32_LAYERS layers of `model`'s LLM (a
+    rank's shard or the whole) in f32, on the plain chain (DECODE_QKV and
+    DECODE_MLP "xla": the decode kernels take bf16)."""
+    cfg, frozen, trainable, tok, feats, _ = model
+    llm = tree_to({**frozen["llm"], "layers": frozen["llm"]["layers"][:TP_F32_LAYERS]},
+                  torch.float32)
+    small = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_layers=TP_F32_LAYERS))
+    chat = Chat({**frozen, "llm": llm}, trainable, small, tok, max_len=MAX_LEN)
+    with switched([(qwen2, "DECODE_QKV", "xla"), (qwen2, "DECODE_MLP", "xla")]):
+        return forced_logits(chat, tree_to(feats, torch.float32), tokens, TP_FORCED_STEPS).cpu()
+
+
+def tp_model(layout=None, quantized: bool = True) -> tuple:
+    """Phase 10's Qwen2.5-7B-shaped directory (PATH_TO_LLM) loaded whole or,
+    under a layout, as the rank's shard, LoRA merged; the serving trees of
+    TP_CHAT and TP_SERVE (bf16, and with `quantized` int4 and int8 split,
+    each quantized on the shard); the load's seconds."""
+    t0 = time.perf_counter()
+    cfg, frozen, trainable, tok = bootstrap.build_model(
+        {"llama_model": "Qwen25", "keep_full_llm": True},
+        device="cuda" if layout is None else layout.device, layout=layout)
+    frozen, trainable = bootstrap.serving_llm(frozen, trainable, cfg)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    trees = {"bf16": frozen["llm"]}
+    for bits, name in ((4, "int4"), (8, "int8")) if quantized else ():
+        trees[name] = qwen2.quantize_params(frozen["llm"], bits=bits, cfg=cfg.llm)
+    return (cfg, frozen, trainable, tok, tp_features(cfg), trees), load_s
+
+
+def tp_runs(model: tuple, chats=TP_CHAT, serves=TP_SERVE) -> dict:
+    """Phase 4's counted runs of `chats` (exact launch counts, one string a
+    clip) and phase 5's of `serves` (exact launch counts, a result a
+    request, over TP_SERVE's first requests) on `model`; each run's
+    launches and host seconds, the default configuration's strings, the
+    engines' results."""
+    cfg, frozen, trainable, tok, feats, trees = model
+    out = {"launches": {}, "seconds": {}, "texts": {}, "results": {}}
+    baseline = {}
+    for config in chats:
+        c = CONFIGS[config]
+        chat = Chat({**frozen, "llm": trees[c.tree]}, trainable, cfg, tok, max_len=MAX_LEN)
+        reps = c.batch // BATCH
+        served = Served(chat, {m: v.repeat(reps, 1, 1) for m, v in feats.items()},
+                        SUBTITLES * reps)
+        t0 = time.perf_counter()
+        out["launches"][config] = counted_run(config, served, baseline)
+        out["seconds"][config] = time.perf_counter() - t0
+    out["texts"]["default"] = baseline["texts"]
+    chat = Chat(frozen, trainable, cfg, tok, max_len=MAX_LEN)
+    requests = serve_requests(chat, feats)
+    for config in serves:
+        t0 = time.perf_counter()
+        out["launches"][config], out["results"][config] = serve_counted(
+            config, model, requests[:TP_SERVE[config]])
+        out["seconds"][config] = time.perf_counter() - t0
+    return out
+
+
+def tp_rank_main(rank: int, world: int, address: str, root: str, llm_dir: str) -> None:
+    """One rank of phase 13 (b), a spawned process: gloo over the one card
+    (NCCL refuses two ranks on a device), its shard of phase 10's directory,
+    the forced logits and the counted runs, saved for the parent; rank 1's
+    lines go to its log."""
+    import torch.distributed as dist
+
+    from affectgpt_tpu_torch import paths
+    from affectgpt_tpu_torch.parallel import mesh
+
+    if rank:
+        log = open(os.path.join(root, f"rank{rank}.log"), "w")
+        os.dup2(log.fileno(), 1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=address, world_size=world, rank=rank)
+    try:
+        layout = mesh.create_layout("cuda", tp=world)
+        paths.PATH_TO_LLM["Qwen25"] = llm_dir
+        ref = torch.load(os.path.join(root, "tp1.pt"), weights_only=False)
+        torch.cuda.reset_peak_memory_stats()
+        model, load_s = tp_model(layout)
+        cfg, frozen, trainable, tok, feats, trees = model
+        tokens = ref["tokens"].to(layout.device)
+        forced = {"f32": f32_forced(model, tokens)}
+        for config in TP_FORCED:
+            with config_switches(config):
+                forced[config] = forced_logits(Chat(frozen, trainable, cfg, tok, max_len=MAX_LEN),
+                                               feats, tokens, TP_FORCED_STEPS).cpu()
+        runs = tp_runs(model)
+        torch.save({"rank": rank, "backend": dist.get_backend(), "load_s": load_s,
+                    "weight_gib": {k: tree_gib(v) for k, v in trees.items()},
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "forced": forced if rank == 0 else None, **runs},
+                   os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_spawn(root: str, llm_dir: str) -> float:
+    """Run TP ranks of tp_rank_main and wait for them within TP_TIMEOUT: a
+    rank that raises, dies or outlives the limit fails the phase (the
+    others are stopped). Returns the seconds taken."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        address = f"tcp://localhost:{s.getsockname()[1]}"
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(tp_rank_main, args=(TP, address, root, llm_dir), nprocs=TP,
+                             join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > TP_TIMEOUT:
+                raise AssertionError(f"tp: the ranks did not finish within {TP_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return time.perf_counter() - t0
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).norm() / want.norm())
+
+
+def tp_hybird_nccl(card: str, tmp: str, llm_dir: str) -> None:
+    """Where the machine has two cards or more: `python -m affectgpt_tpu_torch.
+    inference_hybird --tp 2` (NCCL, one rank a card, the ranks spawned by
+    the entry point) over a MER2023-style corpus of HYBIRD_CLIPS
+    preextracted clips on phase 10's directory: one .npz of HYBIRD_CLIPS
+    answers, written by rank 0."""
+    root = os.path.join(tmp, "tp_hybird")
+    os.makedirs(root)
+    section, feat_root = write_mer2023_corpus(root, HYBIRD_CLIPS)
+    raw = {"model": {"llama_model": "Qwen25", "keep_full_llm": True, "skip_encoders": True},
+           "datasets": {"mer2023": {"face_or_frame": MODE, "use_preextracted_frame": True,
+                                    "use_preextracted_face": True,
+                                    "use_preextracted_audio": True,
+                                    "preextracted_root": feat_root}},
+           "run": {"output_dir": os.path.join(root, "out")},
+           "inference": {"face_or_frame": MODE},
+           "paths": {**section, "PATH_TO_LLM": {"Qwen25": llm_dir}}}
+    cfg_path = os.path.join(root, "exp_tp.json")
+    with open(cfg_path, "w") as handle:
+        json.dump(raw, handle)
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    proc = subprocess.run([sys.executable, "-m", "affectgpt_tpu_torch.inference_hybird",
+                           "--cfg-path", cfg_path, "--dataset", "MER2023", "--batch_size",
+                           str(HYBIRD_CLIPS), "--max_new_tokens", str(NEW_TOKENS), "--greedy",
+                           "--tp", str(TP)], cwd=root, env=env, capture_output=True, text=True,
+                          timeout=TP_TIMEOUT)
+    if proc.returncode:
+        raise AssertionError(f"tp: inference_hybird --tp {TP} failed:\n{proc.stderr[-4000:]}")
+    out = os.path.join(root, "output", "results", "exp_tp", "result-mer2023", "0.npz")
+    with np.load(out, allow_pickle=True) as npz:
+        answers = npz["name2reason"].tolist()
+    if len(answers) != HYBIRD_CLIPS or not all(isinstance(a, str) for a in answers.values()):
+        raise AssertionError(f"tp: inference_hybird --tp {TP} wrote {len(answers)} answers")
+    say("tp", part="b_nccl", command=f"inference_hybird --tp {TP}", backend="nccl",
+        cards=torch.cuda.device_count(), answers=len(answers),
+        seconds=f"{time.perf_counter() - t0:.3f}", card=repr(card))
+
+
+def phase_tp(card: str, dirs: dict, tmp: str) -> dict:
+    """Phase 13 (b): tensor-parallel serving of phase 10's directory at
+    tp = 2 on the card. The parent loads it whole (tp = 1) and records the
+    prefill and teacher-forced logits (TP_FORCED), the greedy tokens and
+    TP_CHAT's / TP_SERVE's counted runs; then TP ranks, spawned processes,
+    each load their shard (a slice at a time from the directory) and run
+    the same. On one card the ranks share it over gloo (CUDA tensors). The
+    ranks' logits must be within TP_REL_L2 of tp = 1's; every run's launches
+    must be exact on every rank (phase 4's and 5's counts, as at tp = 1) and
+    the ranks' outputs the same; the match share with tp = 1 of the greedy
+    strings and of the paged engine's tokens is printed, not gated (bf16 on
+    random weights). Returns rank 0's launches of each kernel over its
+    runs."""
+    from affectgpt_tpu_torch import paths
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "tp")
+    os.makedirs(root)
+    saved = dict(paths.PATH_TO_LLM)
+    paths.PATH_TO_LLM["Qwen25"] = dirs["llm"]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        model, load_s = tp_model(quantized=False)
+        cfg, frozen, trainable, tok, feats, trees = model
+        chat = Chat(frozen, trainable, cfg, tok, max_len=MAX_LEN)
+        record = []
+        with patched(gen, "generate", recording_generate(record)):
+            chat.answer_batch(MODE, SUBTITLES, QUESTION, feats, max_new_tokens=NEW_TOKENS,
+                              do_sample=False)
+        tokens = record[0]
+        forced = {"f32": f32_forced(model, tokens)}
+        for config in TP_FORCED:
+            with config_switches(config):
+                forced[config] = forced_logits(Chat(frozen, trainable, cfg, tok, max_len=MAX_LEN),
+                                               feats, tokens, TP_FORCED_STEPS).cpu()
+        torch.save({"tokens": tokens.cpu()}, os.path.join(root, "tp1.pt"))
+        one = tp_runs(model, chats=("default",), serves=("paged_bf16",))
+        one.update(weight_gib={k: tree_gib(v) for k, v in trees.items()}, load_s=load_s,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del model, cfg, frozen, trainable, trees, chat
+        torch.cuda.empty_cache()
+        spawn_s = tp_spawn(root, dirs["llm"])
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(TP)]
+        if torch.cuda.device_count() >= TP:
+            tp_hybird_nccl(card, tmp, dirs["llm"])
+        else:
+            say("tp", part="b_nccl", skipped=f"{torch.cuda.device_count()} card: NCCL takes "
+                f"one rank a card, so inference_hybird --tp {TP} needs {TP}", card=repr(card))
+    finally:
+        paths.PATH_TO_LLM.clear()
+        paths.PATH_TO_LLM.update(saved)
+    for config in ("f32",) + TP_FORCED:
+        got, want = ranks[0]["forced"][config], forced[config]
+        err = rel_l2(got, want)
+        limit = TP_REL_L2_F32 if config == "f32" else TP_REL_L2
+        per_step = [round(rel_l2(got[:, s], want[:, s]), 6) for s in range(got.shape[1])]
+        agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+        say("tp", part="b", config=config, logits="prefill + forced steps",
+            layers=TP_F32_LAYERS if config == "f32" else "all", steps=TP_FORCED_STEPS,
+            rel_l2=f"{err:.6g}", limit=limit, rel_l2_by_step=json.dumps(per_step),
+            max_abs=f"{float((got - want).abs().max()):.6g}",
+            argmax_agree=f"{agree}/{got.shape[0] * got.shape[1]}", card=repr(card))
+        if not err <= limit:
+            raise AssertionError(f"tp: {config} logits at tp={TP} are {err:.4g} (relative L2) "
+                                 f"from tp=1's, above {limit}")
+    for r in ranks:
+        if r["launches"] != ranks[0]["launches"]:
+            raise AssertionError(f"tp: rank {r['rank']}'s launches differ from rank 0's")
+        if r["results"] != ranks[0]["results"] or r["texts"] != ranks[0]["texts"]:
+            raise AssertionError(f"tp: rank {r['rank']}'s outputs differ from rank 0's")
+    same_texts = sum(a == b for a, b in zip(ranks[0]["texts"]["default"], one["texts"]["default"]))
+    same_paged = {c: sum(one["results"][c][k] == v for k, v in ranks[0]["results"][c].items())
+                  for c in one["results"]}
+    say("tp", part="b", backend=ranks[0]["backend"], ranks=TP, cards=torch.cuda.device_count(),
+        shared_card=torch.cuda.device_count() < TP,
+        note="two ranks on one card over gloo: a time here is no tensor-parallel speedup",
+        weight_gib_tp1=json.dumps({k: round(v, 3) for k, v in one["weight_gib"].items()}),
+        weight_gib_per_rank=json.dumps([{k: round(v, 3) for k, v in r["weight_gib"].items()}
+                                        for r in ranks]),
+        peak_gib_per_rank=json.dumps([round(r["peak_gib"], 3) for r in ranks]),
+        peak_gib_tp1=f"{one['peak_gib']:.3f}",
+        load_s_tp1=f"{one['load_s']:.3f}",
+        load_s_per_rank=json.dumps([round(r["load_s"], 3) for r in ranks]),
+        spawn_to_end_s=f"{spawn_s:.3f}", card=repr(card))
+    for config in TP_CHAT + tuple(TP_SERVE):
+        say("tp", part="b", config=config,
+            launches_per_rank=json.dumps([{k: v for k, v in r["launches"][config].items() if v}
+                                          for r in ranks]),
+            seconds_tp1=f"{one['seconds'][config]:.3f}" if config in one["seconds"] else "-",
+            seconds_per_rank=json.dumps([round(r["seconds"][config], 3) for r in ranks]),
+            card=repr(card))
+    say("tp", part="b", greedy_strings_equal_to_tp1=f"{same_texts}/{BATCH}",
+        paged_requests_with_tp1_tokens=json.dumps(
+            {c: f"{n}/{len(one['results'][c])}" for c, n in same_paged.items()}),
+        gated="no: bf16 greedy tokens on random weights part at near ties",
+        phase_seconds=f"{time.perf_counter() - t0:.3f}", card=repr(card))
+    launches = dict.fromkeys(KERNELS, 0)
+    for counts in ranks[0]["launches"].values():
+        for name, n in counts.items():
+            launches[name] += n
+    return launches
+
+
+def recording_generate(record: list):
+    """A wrapper of gen.generate that appends each call's tokens to `record`."""
+    def make(generate):
+        def wrapped(*args, **kwargs):
+            out = generate(*args, **kwargs)
+            record.append(out[0])
+            return out
+        return wrapped
+    return make
+
+
 def main() -> None:
     card = phase_device()
     phase_build(card)
@@ -5032,6 +5539,7 @@ def main() -> None:
     kernels.update(phase_serving_kernels(card, cfg))
     kernels.update(phase_encoder_kernels(card, clip_vit.ClipVisionConfig.vit_l_14(),
                                          hubert.HubertConfig.large()))
+    tp_kernels = phase_tp_kernels(card)
     launches, model = phase_main_path(card)
     for name, count in phase_serve(card, model).items():  # the serving slice's kernels
         launches.setdefault(name, count)
@@ -5049,6 +5557,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         zoo = phase_zoo(card)
         evaluation = phase_eval(card, dirs, os.path.join(tmp, "eval"))
+        tp_launches = phase_tp(card, dirs, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name, err in zoo["max_abs_err"].items():
@@ -5062,11 +5571,19 @@ def main() -> None:
         for name, count in counts.items():
             if count:
                 kernels[name].setdefault("eval_launches", {})[run] = count
+    for name, shapes in tp_kernels["shapes"].items():  # phase 13 (a) and (b)
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
+                                           tp_kernels["max_abs_err"][name])
+        kernels[name]["tp_shapes"] = shapes
+    for name, count in tp_launches.items():
+        if count:
+            kernels[name]["tp_launches"] = count
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],
          **{key: kernels[name][key] for key in keys},
-         **{key: kernels[name][key] for key in ("shapes", "zoo_launches", "eval_launches")
+         **{key: kernels[name][key] for key in ("shapes", "zoo_launches", "eval_launches",
+                                                "tp_shapes", "tp_launches")
             if key in kernels[name]}}
         for name in KERNELS
     ]}), flush=True)

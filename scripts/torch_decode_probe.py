@@ -381,7 +381,7 @@ for geom, b in json.loads(sys.argv[1]):
         assert lib.agk_decode_mlp_bf16(
             x.data_ptr(), ln.data_ptr(), *(t.data_ptr() for t in w), xn.data_ptr(),
             act.data_ptr(), y.data_ptr(), b, h, inter, pa["nb"], pa["cb"], ck_a, pa["stages"],
-            pd["nb"], pd["cb"], ck_b, pd["stages"], 1e-6,
+            pd["nb"], pd["cb"], ck_b, pd["stages"], 1e-6, 1,
             torch.cuda.current_stream().cuda_stream) == 0
 
     def cks(plan):  # the K splits the kernel takes

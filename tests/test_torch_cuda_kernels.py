@@ -943,3 +943,60 @@ def test_per_row_block_cache_write_on_the_card_equals_the_cpu(gen, dtype):
     qwen2._write_cache(caches[1], k.cpu(), v.cpu(), start.cpu())
     for name in caches[1]:
         assert torch.equal(caches[0][name].cpu(), caches[1][name]), name
+
+
+# the Qwen2.5-7B shard shapes of tensor-parallel serving: (tp, heads a rank,
+# kv heads a rank, the rank's columns of I)
+TP_SHARDS = [(2, 14, 2, 9472), (4, 7, 1, 4736)]
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("tp,heads,kv,inter", TP_SHARDS)
+@pytest.mark.parametrize("b", [1, 8, 16])
+def test_decode_mlp_bf16_residual_modes_at_tp_shards(gen, b, tp, heads, kv, inter, residual):
+    """Row 2 on a rank's shard, with its residual add and without it (the
+    partial sum a tensor-parallel rank reduces before adding x once)."""
+    h = 3584
+    args = (_rnd(gen, b, h), _rnd(gen, h, scale=0.1, shift=1.0), _rnd(gen, h, inter, scale=0.02),
+            _rnd(gen, h, inter, scale=0.02), _rnd(gen, inter, h, scale=0.02))
+    before = decode_mlp_bf16.launches
+    got = decode_mlp_bf16(*args, residual=residual)
+    again = decode_mlp_bf16(*args, residual=residual)
+    torch.cuda.synchronize()
+    assert decode_mlp_bf16.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(
+        got.float(), decode_mlp_bf16_reference(*args, residual=residual).float(), **TOL)
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("tp,heads,kv,inter", TP_SHARDS)
+@pytest.mark.parametrize("b", [1, 8, 16])
+def test_decode_attn_o_residual_modes_at_tp_shards(gen, b, tp, heads, kv, inter, residual):
+    """Row 4 on a rank's heads (o_proj's rows of those heads)."""
+    g, d, h, t = heads // kv, 128, 3584, 640
+    args = (_rnd(gen, b, h), _rnd(gen, b, kv, g, d), _rnd(gen, b, kv, t, d),
+            _rnd(gen, b, kv, t, d), _decode_window_edges(gen, b, t),
+            _rnd(gen, kv * g * d, h, scale=0.02))
+    before = decode_attn_o.launches
+    got = decode_attn_o(*args, residual=residual)
+    again = decode_attn_o(*args, residual=residual)
+    torch.cuda.synchronize()
+    assert decode_attn_o.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(
+        got.float(), decode_attn_o_reference(*args, residual=residual).float(), **TOL)
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("tp,heads,kv,inter", TP_SHARDS)
+@pytest.mark.parametrize("b", [1, 8, 16])
+def test_decode_mlp_int8_residual_modes_at_tp_shards(gen, b, tp, heads, kv, inter, residual):
+    """Row 10 on a rank's columns of I."""
+    args = _int8_mlp(gen, b, 3584, inter)
+    before = decode_mlp.launches
+    got = decode_mlp(*args, residual=residual)
+    torch.cuda.synchronize()
+    assert decode_mlp.launches == before + 1
+    torch.testing.assert_close(
+        got.float(), decode_mlp_reference(*args, residual=residual).float(), **TOL)

@@ -165,8 +165,9 @@ def test_inference_hybird_resumes_and_selects_epochs(env, monkeypatch):
 def test_inference_hybird_flags_that_raise(env):
     tmp_path, feat_root = env
     _, cfg_path = configs(tmp_path, feat_root)
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        thybird.main(["--cfg-path", cfg_path, "--tp", "2", "--device", "cpu"])
+    if not torch.cuda.is_available():  # --tp on the card: the cards are counted before any rank
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            thybird.main(["--cfg-path", cfg_path, "--tp", "2"])
     with pytest.raises(ValueError, match="exclusive"):
         thybird.main(["--cfg-path", cfg_path, "--int8", "--int4", "--device", "cpu"])
 

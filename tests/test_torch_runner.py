@@ -296,9 +296,18 @@ def test_legacy_modality_keyed_checkpoint_migrates(tmp_path, legacy):
 
 
 def test_tensor_parallel_is_not_ported(corpus, tmp_path):
+    """Tensor-parallel training (run.tp > 1) raises, naming ROADMAP item 11d;
+    the layout itself (serving's) takes tp and refuses one that does not
+    divide the ranks."""
     from affectgpt_tpu_torch.parallel import mesh
 
-    with pytest.raises(NotImplementedError, match="11c"):
+    feat_root, _ = corpus
+    raw = raw_cfg(tmp_path / "output", feat_root, max_epoch=1, iters_per_epoch=1)
+    raw["run"]["tp"] = 2
+    cfg = tconfig.Config.from_dict(raw, name="tiny_exp")
+    with pytest.raises(NotImplementedError, match="item 11d"):
+        trunner.Runner(cfg, None, {}, {}, None, {}, {}, device="cpu")
+    with pytest.raises(ValueError, match="does not divide"):
         mesh.create_layout(device="cpu", tp=2)
 
 
