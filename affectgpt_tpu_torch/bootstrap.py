@@ -110,9 +110,10 @@ def build_model(
     tokenizer = build_tokenizer(node)
     model_cfg = affectgpt.AffectGPTConfig.from_model_cfg(node)
     tiny = isinstance(tokenizer, ByteTokenizer) and not node.get("keep_full_llm", False)
-    if tiny:
-        model_cfg = replace(model_cfg, llm=qwen2.QwenConfig.tiny(
-            vocab_size=max(tokenizer.vocab_size, 300), lora_r=model_cfg.llm.lora_r))
+    if tiny:  # the node's LoRA dropout stays (JAX bootstrap.py:52-59 drops it)
+        model_cfg = replace(model_cfg, llm=replace(qwen2.QwenConfig.tiny(
+            vocab_size=max(tokenizer.vocab_size, 300), lora_r=model_cfg.llm.lora_r),
+            lora_dropout=model_cfg.llm.lora_dropout))
 
     device = torch.device(device)
     llm_name = _llm_name(node)

@@ -161,11 +161,14 @@ class DevicePrefetcher:
     realtime encoders) runs on the side stream too. An exception in the
     worker is raised by the `__next__` that would have returned its batch.
     `close()` stops the worker and joins it, even while it waits on a full
-    queue."""
+    queue. limit: the worker draws at most this many batches and stops
+    (None: no end), so a consumer that takes all of them leaves no batch
+    drawn and unused at `close()`."""
 
     def __init__(self, loader, put_fn: Optional[Callable] = None, depth: int = 2,
-                 device="cuda"):
+                 device="cuda", limit: Optional[int] = None):
         self.loader = loader
+        self.limit = limit
         self.device = torch.device(device)
         self.put_fn = put_fn or (lambda batch: to_device(batch, self.device))
         self.queue: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -185,9 +188,11 @@ class DevicePrefetcher:
         return False
 
     def _worker(self):
+        drawn = 0
         try:
-            while not self._stop.is_set():
+            while not self._stop.is_set() and (self.limit is None or drawn < self.limit):
                 batch = next(self.loader)
+                drawn += 1
                 event = None
                 if self.stream is not None:
                     with torch.cuda.stream(self.stream):

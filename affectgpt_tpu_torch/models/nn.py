@@ -112,12 +112,18 @@ def key_seed(key: tuple) -> int:
     return h >> 1
 
 
-def dropout_keep(key: tuple, rate: float, shape, device) -> torch.Tensor:
+def dropout_keep(key: tuple, rate: float, shape, device, cols=None) -> torch.Tensor:
     """The bool keep-mask of a dropout site, P(keep) = 1 - rate, drawn from a
     generator seeded from `key` on `device`: the same key gives the same
-    mask."""
+    mask. cols: (whole, start), the mask of columns [start, start +
+    shape[-1]) of the mask drawn at a last axis of `whole` (a
+    tensor-parallel rank's slice of a row-parallel input)."""
     g = torch.Generator(device=device).manual_seed(key_seed(key))
-    return torch.rand(shape, generator=g, device=device) < 1.0 - rate
+    if cols is None:
+        return torch.rand(shape, generator=g, device=device) < 1.0 - rate
+    whole, start = cols
+    mask = torch.rand((*shape[:-1], whole), generator=g, device=device) < 1.0 - rate
+    return mask[..., start:start + shape[-1]]
 
 
 def keep_scale(rate: float, dtype) -> float:
@@ -128,11 +134,12 @@ def keep_scale(rate: float, dtype) -> float:
     return torch.tensor(1.0 - rate, dtype=dtype).item()
 
 
-def dropout(key: tuple, rate: float, x: torch.Tensor) -> torch.Tensor:
+def dropout(key: tuple, rate: float, x: torch.Tensor, cols=None) -> torch.Tensor:
     """Inverted dropout (train-mode torch nn.Dropout): zero with prob
     `rate`, survivors divided by (1 - rate) in x's dtype, as JAX's
-    `nn.dropout`. Callers gate on key presence: eval mode never calls it."""
-    keep = dropout_keep(key, rate, x.shape, x.device)
+    `nn.dropout`. Callers gate on key presence: eval mode never calls it.
+    cols: as in `dropout_keep`."""
+    keep = dropout_keep(key, rate, x.shape, x.device, cols)
     return torch.where(keep, x / keep_scale(rate, x.dtype), 0.0)
 
 

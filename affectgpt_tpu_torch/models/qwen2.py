@@ -51,7 +51,19 @@ all-reduce each over the tp group sums before the residual is added, once
 `decode_mlp`). A row-parallel LoRA branch is linear, so a rank adds (x_r @
 a[rows_r]) @ b to its partial. `_logits` gathers the vocabulary-parallel
 lm_head's (or the tied table's rows') logits to the whole vocabulary. The
-KV cache holds the rank's kv heads. Training under tp is not ported.
+KV cache holds the rank's kv heads.
+
+Training under tp: where autograd records, the collectives are the
+differentiable ones of `parallel.mesh`. The normed input of q/k/v and of
+gate/up passes `copy_to_tp` (f: its gradient, a partial sum on each rank,
+is summed over the ranks), the row-parallel sums are `reduce_from_tp` (g),
+the logits are gathered by `gather_from_tp`, and
+`fused_cross_entropy_loss` streams the rank's vocabulary columns and
+combines the ranks' online logsumexps. The LoRA tree stays whole: the
+gradient a rank gives a leaf is its slice or a partial sum, which the
+training step sums over the tp group. LoRA dropout draws a row-parallel
+branch's mask at the whole input's shape and takes the rank's columns, so
+tp ranks drop what tp = 1 drops at the same key.
 
 Training (JAX qwen2.py:978-1208): `forward(remat=, dropout_rng=,
 return_hidden=)` with per-layer activation checkpointing and LoRA dropout,
@@ -391,10 +403,9 @@ def _tp(cfg: Optional[QwenConfig]):
 
 
 def _tp_sum(y: torch.Tensor, cfg: QwenConfig) -> torch.Tensor:
-    """A row-parallel product's partial sums y summed over the tp ranks."""
-    if _tp(cfg) is None:
-        return y
-    return mesh.tp_all_reduce(y.contiguous(), cfg.layout)
+    """A row-parallel product's partial sums y summed over the tp ranks (g
+    where autograd records y, else the in-place all-reduce)."""
+    return mesh.reduce_from_tp(y, _tp(cfg))
 
 
 def _base_shape(leaf: dict) -> tuple:
@@ -461,17 +472,17 @@ class _LoraDropBranch(torch.autograd.Function):
     products' summation order."""
 
     @staticmethod
-    def forward(ctx, x, a, b, key, rate):
-        ctx.key, ctx.rate = key, rate
+    def forward(ctx, x, a, b, key, rate, cols=None):
+        ctx.key, ctx.rate, ctx.cols = key, rate, cols
         ctx.save_for_backward(x, a, b)
-        xl = nn.dropout(key, rate, x)
+        xl = nn.dropout(key, rate, x, cols)
         z = nn.matmul_f32(xl, a.to(x.dtype))
         return nn.matmul_f32(z.to(x.dtype), b.to(x.dtype))
 
     @staticmethod
     def backward(ctx, g):
         x, a, b = ctx.saved_tensors
-        keep = nn.dropout_keep(ctx.key, ctx.rate, x.shape, x.device)
+        keep = nn.dropout_keep(ctx.key, ctx.rate, x.shape, x.device, ctx.cols)
         inv = nn.keep_scale(ctx.rate, x.dtype)
         x2d = torch.where(keep, x / inv, 0.0).reshape(-1, x.shape[-1])
         ax, bx = a.to(x.dtype), b.to(x.dtype)
@@ -481,14 +492,15 @@ class _LoraDropBranch(torch.autograd.Function):
         g1 = nn.mm_f32(g2d, bx.t()).to(x.dtype)
         da = nn.mm_f32(x2d.t(), g1).to(a.dtype)
         dxl = nn.mm_f32(g1, ax.t()).to(x.dtype).reshape(x.shape)
-        return torch.where(keep, dxl / inv, 0.0), da, db, None, None
+        return torch.where(keep, dxl / inv, 0.0), da, db, None, None, None
 
 
 def _lora_dense(base, lora, x, scaling: float, has_bias: bool = True,
                 drop=None) -> torch.Tensor:
     """x @ base (+ the LoRA branch · scaling) (+ bias). drop: optional (key,
-    rate), inverted dropout on the LoRA branch's input only, peft's
-    train-mode `B(A(dropout(x)))`; the frozen product is never dropped."""
+    rate, cols) of `_lora_drop`, inverted dropout on the LoRA branch's
+    input only, peft's train-mode `B(A(dropout(x)))`; the frozen product is
+    never dropped."""
     if "w" in base:
         y = nn.matmul_f32(x, base["w"])
     else:
@@ -499,9 +511,9 @@ def _lora_dense(base, lora, x, scaling: float, has_bias: bool = True,
         y = y.float()
     if lora is not None:
         if drop is not None and DROPOUT_VJP:
-            z = _LoraDropBranch.apply(x, lora["a"], lora["b"], drop[0], drop[1])
+            z = _LoraDropBranch.apply(x, lora["a"], lora["b"], *drop)
         else:
-            xl = x if drop is None else nn.dropout(drop[0], drop[1], x)
+            xl = x if drop is None else nn.dropout(drop[0], drop[1], x, drop[2])
             z = nn.matmul_f32(xl, lora["a"].to(x.dtype))
             z = nn.matmul_f32(z.to(x.dtype), lora["b"].to(x.dtype))
         y = y + scaling * z
@@ -591,11 +603,17 @@ _LORA_DROP_IDS = {
 
 
 def _lora_drop(drop_rng, cfg: QwenConfig, name: str):
-    """(key, rate) of projection `name`'s LoRA dropout in a layer whose key
-    is drop_rng, or None in eval mode."""
+    """(key, rate, cols) of projection `name`'s LoRA dropout in a layer whose
+    key is drop_rng, or None in eval mode. cols (`nn.dropout_keep`) is set
+    on a tensor-parallel shard's o_proj and down_proj: their input is the
+    rank's columns of the whole one, and so is their mask."""
     if drop_rng is None or cfg.lora_dropout <= 0.0:
         return None
-    return nn.fold_in(drop_rng, _LORA_DROP_IDS[name]), cfg.lora_dropout
+    cols, layout = None, _tp(cfg)
+    if layout is not None and name in ("o_proj", "down_proj"):
+        k = cfg.num_heads * cfg.head_dim if name == "o_proj" else cfg.intermediate_size
+        cols = (k * layout.tp, k * layout.tp_rank)
+    return nn.fold_in(drop_rng, _LORA_DROP_IDS[name]), cfg.lora_dropout, cols
 
 
 def _direct(fn, *args):
@@ -627,7 +645,7 @@ def _project_qkv(layer, lora_layer, cfg: QwenConfig, x, positions, decode: bool,
         return q[:, None], k[:, None], v[:, None], True
     scaling = cfg.lora_alpha / cfg.lora_r
     lget = _lora_getter(lora_layer, cfg, layer)
-    x = seg(nn.rmsnorm, layer["input_ln"], x, cfg.rms_eps)
+    x = mesh.copy_to_tp(seg(nn.rmsnorm, layer["input_ln"], x, cfg.rms_eps), _tp(cfg))
     if "qkv_proj" in layer:  # fused serving layout: one matmul, split columns
         if lora_layer is not None:
             raise ValueError("the fused layout serves merged-LoRA weights")
@@ -800,6 +818,7 @@ def _mlp(layer, lora_layer, cfg: QwenConfig, x: torch.Tensor, drop_rng=None,
     the sum of the ranks' down_proj partials."""
     scaling = cfg.lora_alpha / cfg.lora_r
     lget = _lora_getter(lora_layer, cfg, layer)
+    x = mesh.copy_to_tp(x, _tp(cfg))
     if "gateup_proj" in layer:
         if lora_layer is not None:
             raise ValueError("the fused layout serves merged-LoRA weights")
@@ -897,8 +916,11 @@ def _logits(params: dict, cfg: QwenConfig, x: torch.Tensor) -> torch.Tensor:
     embedding table, a quantized lm_head (rounded to x's dtype, then f32) or
     a dense one. On a tensor-parallel shard each rank computes its
     vocabulary columns (the lm_head's, or its rows of the replicated tied
-    table) and the ranks' columns are gathered to the whole vocabulary."""
+    table) and the ranks' columns are gathered to the whole vocabulary
+    (under autograd x passes f and the gather returns the rank's slice of
+    the gradient)."""
     layout = _tp(cfg)
+    x = mesh.copy_to_tp(x, layout)
     if cfg.tie_embeddings:
         table = params["embed_tokens"]["table"]
         if layout is not None:
@@ -909,7 +931,7 @@ def _logits(params: dict, cfg: QwenConfig, x: torch.Tensor) -> torch.Tensor:
         logits = _lora_dense(params["lm_head"], None, x, 0.0, has_bias=False).float()
     else:
         logits = nn.matmul_f32(x, params["lm_head"]["w"])
-    return mesh.tp_all_gather(logits, layout)
+    return mesh.gather_from_tp(logits, layout)
 
 
 def embed_tokens(params: dict, ids: torch.Tensor) -> torch.Tensor:
@@ -979,21 +1001,38 @@ def fused_cross_entropy_loss(hidden: torch.Tensor, params: dict, cfg: QwenConfig
     under `torch.utils.checkpoint`: the backward recomputes its [N, chunk]
     logits, so one chunk is live at a time. The chunk product is
     `nn.matmul_f32`, as JAX computes it outside any kernel. return_sum: as
-    in `cross_entropy_loss`."""
+    in `cross_entropy_loss`.
+
+    On a tensor-parallel shard (vocabulary-parallel): each rank streams its
+    own columns (the sharded lm_head's, or its rows of the replicated tied
+    table, as `_logits` takes them) from hidden passed through f; the
+    ranks' running maxima are reduced by max (no gradient: the result does
+    not depend on it), each rank's sum is rescaled to that maximum and the
+    sums and the target logits (nonzero on the rank holding the label) are
+    summed over the ranks by g. Every rank returns the same loss; its
+    backward gives the whole gradient of hidden, and of the rank's own
+    columns."""
     b, t, d = hidden.shape
     xs = hidden[:, :-1, :].reshape(-1, d)
     lab = labels[:, 1:].reshape(-1)
     n = xs.shape[0]
     valid = lab != ignore_index
     safe = torch.where(valid, lab, torch.zeros_like(lab)).long()
+    layout = _tp(cfg)
     if cfg.tie_embeddings:
         table = params["embed_tokens"]["table"]  # [V, d]
+        if layout is not None:
+            per = table.shape[0] // layout.tp
+            table = table[layout.tp_rank * per:(layout.tp_rank + 1) * per]
         vocab = table.shape[0]
         get_chunk = lambda off, width: table[off:off + width].t()  # noqa: E731
     else:
-        w = params["lm_head"]["w"]  # [d, V]
+        w = params["lm_head"]["w"]  # [d, V], or the rank's [d, V / tp]
         vocab = w.shape[1]
         get_chunk = lambda off, width: w[:, off:off + width]  # noqa: E731
+    if layout is not None:
+        xs = mesh.copy_to_tp(xs, layout)
+        safe = safe - layout.tp_rank * vocab  # labels outside [0, vocab) are another rank's
     f32 = dict(dtype=torch.float32, device=hidden.device)
     m = torch.full((n,), float("-inf"), **f32)
     s = torch.zeros((n,), **f32)
@@ -1002,6 +1041,11 @@ def fused_cross_entropy_loss(hidden: torch.Tensor, params: dict, cfg: QwenConfig
         w_chunk = get_chunk(off, min(chunk, vocab - off))
         m, s, tgt = torch_checkpoint.checkpoint(_chunk_stats, xs, w_chunk, safe, off, m, s, tgt,
                                                 use_reentrant=False)
+    if layout is not None:
+        m_all = mesh.tp_all_reduce_max(m.detach().clone(), layout)
+        s = mesh.reduce_from_tp(s * torch.exp(m - m_all), layout)
+        tgt = mesh.reduce_from_tp(tgt, layout)
+        m = m_all
     token_nll = torch.log(s) + m - tgt
     loss_sum = torch.where(valid, token_nll, torch.zeros_like(token_nll)).sum()
     if return_sum:

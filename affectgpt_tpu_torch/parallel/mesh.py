@@ -9,11 +9,20 @@ CPU), `torch.distributed` names its rank and the world, and the code calls
 the collectives itself. Ranks are laid out tp-fastest, as JAX's
 `np.asarray(devices).reshape(dp, tp)`: rank = dp_rank * tp + tp_rank.
 
-- Data parallelism (training, PR 16): every rank loads its own share of the
-  global batch (`run.batch_size_train` samples a rank, as JAX's
+- Data parallelism (training): every dp rank loads its own share of
+  the global batch (`run.batch_size_train` samples a rank, as JAX's
   `batch_size_train · dp`) and the training step sums its gradients over
-  the dp group (`training.train_step`). Training with tp > 1 is not ported
-  (ROADMAP queue 1 item 11d): the runner raises.
+  the dp group (`training.train_step`).
+- Tensor-parallel training: the decoder runs on the rank's shard under
+  autograd through three differentiable collectives over the tp group
+  (Megatron's f and g, and a gather): `copy_to_tp` (identity forward,
+  all-reduce of the gradient backward) before every column-parallel
+  product, `reduce_from_tp` (all-reduce forward, identity backward) after
+  every row-parallel one, `gather_from_tp` (all-gather forward, the rank's
+  slice of the gradient backward) on the vocabulary-parallel logits. Their
+  backward rules hold where what follows them is replicated over the tp
+  group, as the residual stream and the loss are. The training step sums
+  the LoRA gradients over the tp group (`all_reduce_sum(axis="tp")`).
 - Tensor-parallel serving: `shard_params` gives each rank its slice of the
   LLM by JAX's `param_spec` rules, `shard_config` the rank's decoder
   geometry (its query heads, the kv heads they read, its intermediate
@@ -131,19 +140,22 @@ def create_layout(device="cuda", tp: int = 1, dp: Optional[int] = None) -> Layou
 # Data-parallel collectives (training)
 
 
-def all_reduce_sum(tensors: List[torch.Tensor], layout: Optional[Layout]) -> None:
-    """Sum `tensors` over the dp group in place, as one flat buffer per
-    dtype (one collective each); nothing to do on one rank (or no layout)."""
-    if layout is None or layout.dp <= 1 or not tensors:
+def all_reduce_sum(tensors: List[torch.Tensor], layout: Optional[Layout],
+                   axis: str = "dp") -> None:
+    """Sum `tensors` over the layout's dp group (or, with axis="tp", its tp
+    group) in place, as one flat buffer per dtype (one collective each);
+    nothing to do where the axis has one rank (or no layout)."""
+    if layout is None or getattr(layout, axis) <= 1 or not tensors:
         return
+    pg = layout.dp_group if axis == "dp" else layout.tp_group
     by_dtype = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for group in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat, group=layout.dp_group)
+    for same in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in same])
+        dist.all_reduce(flat, group=pg)
         offset = 0
-        for t in group:
+        for t in same:
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
             offset += t.numel()
 
@@ -162,7 +174,7 @@ def barrier(layout: Layout) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Tensor-parallel collectives (serving)
+# Tensor-parallel collectives (serving, and under autograd training)
 
 
 def _tp_on(layout: Optional[Layout]) -> bool:
@@ -200,6 +212,83 @@ def tp_broadcast(t: torch.Tensor, layout: Optional[Layout]) -> torch.Tensor:
         t = t.contiguous()
         dist.broadcast(t, src=layout.tp_src, group=layout.tp_group)
     return t
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Megatron's f: identity forward; backward, the sum over the tp ranks
+    of their gradients (each rank's product reads its own columns, so its
+    gradient of the input is a partial sum)."""
+
+    @staticmethod
+    def forward(ctx, x, layout):
+        ctx.layout = layout
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tp_all_reduce(g.contiguous().clone(), ctx.layout), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Megatron's g: the sum over the tp ranks forward; identity backward
+    (what follows is replicated, so every rank's gradient of the sum is
+    already the gradient of its own partial)."""
+
+    @staticmethod
+    def forward(ctx, x, layout):
+        return tp_all_reduce(x.contiguous().clone(), layout)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    """The tp ranks' slices concatenated along the last axis forward; the
+    rank's slice of the (replicated) gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, layout):
+        ctx.layout, ctx.n = layout, x.shape[-1]
+        return tp_all_gather(x, layout)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, n = ctx.layout.tp_rank, ctx.n
+        return g[..., r * n:(r + 1) * n].contiguous(), None
+
+
+def _recorded(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def copy_to_tp(x: torch.Tensor, layout: Optional[Layout]) -> torch.Tensor:
+    """f before a column-parallel product: x itself, whose gradient the
+    backward sums over the tp ranks. The identity with tp = 1, no layout,
+    or where autograd does not record x."""
+    if not _tp_on(layout) or not _recorded(x):
+        return x
+    return _CopyToTP.apply(x, layout)
+
+
+def reduce_from_tp(t: torch.Tensor, layout: Optional[Layout]) -> torch.Tensor:
+    """g after a row-parallel product: the sum of the tp ranks' partials t,
+    with the identity backward; where autograd does not record t, the
+    in-place `tp_all_reduce` of the serving path."""
+    if not _tp_on(layout):
+        return t
+    if not _recorded(t):
+        return tp_all_reduce(t.contiguous(), layout)
+    return _ReduceFromTP.apply(t, layout)
+
+
+def gather_from_tp(t: torch.Tensor, layout: Optional[Layout]) -> torch.Tensor:
+    """The tp ranks' slices t concatenated along the last axis, whose
+    backward returns the rank's slice of the gradient (`tp_all_gather`
+    where autograd does not record t)."""
+    if not _tp_on(layout) or not _recorded(t):
+        return tp_all_gather(t, layout)
+    return _GatherFromTP.apply(t, layout)
 
 
 def dp_share(t: torch.Tensor, layout: Optional[Layout]) -> torch.Tensor:
@@ -366,15 +455,25 @@ def shard_params(tree, layout: Layout, cfg, prefix: str = ""):
     return tree
 
 
+def shard_llm(frozen: dict, cfg, layout: Optional[Layout]):
+    """(frozen, cfg) of the rank under `layout`: the LLM sharded
+    (`shard_params`), cfg.llm the rank's geometry (`shard_config`); the
+    rest of frozen (the towers) stays whole. Trees whose cfg.llm already
+    carries a layout (`bootstrap.build_model(layout=)`) pass unchanged."""
+    if layout is None or cfg.llm.layout is not None:
+        return frozen, cfg
+    frozen = {**frozen, "llm": shard_params(frozen["llm"], layout, cfg.llm, "llm/")}
+    return frozen, dataclasses.replace(cfg, llm=shard_config(cfg.llm, layout))
+
+
 def shard_model(frozen: dict, trainable: dict, cfg, layout: Optional[Layout]):
-    """(frozen, trainable, cfg) of the rank under `layout`: the LLM and LoRA
-    sharded (`shard_params`), cfg.llm the rank's geometry (`shard_config`).
-    Trees whose cfg.llm already carries a layout are a rank's shards
-    (`bootstrap.build_model(layout=)`) and pass unchanged."""
+    """(frozen, trainable, cfg) of the rank under `layout`: `shard_llm`, and
+    LoRA sharded too (serving; training keeps the trainable tree whole).
+    Trees whose cfg.llm already carries a layout pass unchanged."""
     if layout is None or cfg.llm.layout is not None:
         return frozen, trainable, cfg
-    frozen = {**frozen, "llm": shard_params(frozen["llm"], layout, cfg.llm, "llm/")}
     if trainable.get("lora") is not None:
         trainable = {**trainable, "lora": shard_params(trainable["lora"], layout, cfg.llm,
                                                        "lora/")}
-    return frozen, trainable, dataclasses.replace(cfg, llm=shard_config(cfg.llm, layout))
+    frozen, cfg = shard_llm(frozen, cfg, layout)
+    return frozen, trainable, cfg

@@ -12,8 +12,11 @@ one card; for several, launch one process per card with torchrun and pass
 
     torchrun --nproc_per_node 4 -m affectgpt_tpu_torch.train --cfg-path <yaml> --multihost
 
-The run goes to the card unless `--device cpu` is given; there is no
-fallback to the CPU.
+`run.tp` lays the ranks out (dp, tp), tp ranks a row (JAX's mesh): with
+`--options run.tp=2` the four ranks above train dp = 2 x tp = 2, each
+loading its slice of the LLM (`bootstrap.build_model(layout=)`). On the CPU
+(`--device cpu`) the ranks join a gloo group. The run goes to the card
+unless `--device cpu` is given; there is no fallback to the CPU.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from affectgpt_tpu_torch.bootstrap import build_model
 from affectgpt_tpu_torch.config import Config
+from affectgpt_tpu_torch.parallel import mesh
 from affectgpt_tpu_torch.training.runner import Runner, build_datasets
 from affectgpt_tpu_torch.utils.logging import setup_logger
 
@@ -73,12 +77,14 @@ def main(argv=None) -> None:
     # scripted resume workflows; the default is the reference's now() job id)
     job_id = str(cfg.run.get("job_id") or datetime.datetime.now().strftime("%Y%m%d%H%M"))
 
+    # the layout comes before the model: under tp each rank loads its slice
+    layout = mesh.create_layout(device=device, tp=int(cfg.run.get("tp", 1)))
     model_cfg, frozen, trainable, tokenizer = build_model(
         cfg.model.to_dict(), with_encoders=not cfg.model.get("skip_encoders", False),
-        device=device)
+        device=device, layout=layout if layout.tp > 1 else None)
     datasets, ratios = build_datasets(cfg, tokenizer, model_cfg, device=device)
     runner = Runner(cfg, tokenizer, frozen, trainable, model_cfg, datasets, ratios,
-                    job_id=job_id, device=device)
+                    layout=layout, job_id=job_id, device=device)
     try:
         runner.train()
     finally:

@@ -8,11 +8,23 @@ accumulation, ratio-mixed multi-dataset sampling, the epoch-0 zero-shot
 checkpoint, per-epoch trainable-only checkpoints with the loss in the name,
 the JSON-lines log.txt, training curves, validation with a best
 checkpoint, resume and a profiler window. One process runs on each card
-(or on the CPU); with a torch.distributed group of several ranks each rank
-loads its share of the global batch from its own sample stream (the seed
-offset by 7919 · rank) and the step sums the gradients over the ranks
-(`training.train_step`); rank 0 alone writes checkpoints and logs, after a
-barrier.
+(or on the CPU); with a torch.distributed group of several ranks laid out
+(dp, tp) by `run.tp` (JAX runner.py:88), each dp rank loads its share of
+the global batch from its own sample stream (the seed offset by 7919 · dp
+rank), which the tp ranks of its row draw alike; the frozen LLM is the
+rank's shard and the step sums the gradients as `training.train_step`
+says. Rank 0 alone writes checkpoints and logs, after a barrier; a
+checkpoint holds the whole trainable tree whatever tp is, so one written
+under tp resumes under any other.
+
+Each epoch's `DevicePrefetcher` draws exactly the epoch's batches
+(`limit=iters_per_epoch`), and every one is trained on, in the loader's
+order: a departure from JAX, whose epoch prefetcher draws ahead and drops
+what it holds at the epoch's end, a count that depends on thread timing.
+So the sample stream is the loader's own whatever the timing, the tp
+ranks of a row see the same batches in every epoch, and validation, whose
+loader shares the datasets (and their random state) with training, always
+draws between the same two training batches.
 
 The loop reads the device only at log boundaries (`float(loss)`); the
 schedule is a host function. `Runner.iteration_ms` and `Runner.wait_ms`
@@ -103,27 +115,29 @@ class Runner:
         job_id: Optional[str] = None,
         device="cuda",
     ):
-        """frozen and trainable: `bootstrap.build_model`'s trees. layout:
-        this process's data-parallel place (default: from torch.distributed,
-        on `device`; `run.tp > 1` raises: tensor-parallel training is
-        ROADMAP queue 1 item 11d)."""
+        """frozen and trainable: `bootstrap.build_model`'s trees, the LLM
+        whole or already the rank's shard (`build_model(layout=)`), the
+        trainable tree whole. layout: this process's (dp, tp) place
+        (default: from torch.distributed with `run.tp` tp ranks a row, on
+        `device`; its tp must equal `run.tp`)."""
         self.cfg = cfg
         run = cfg.run
-        if int(run.get("tp", 1)) > 1 or (layout is not None and layout.tp > 1):
-            raise NotImplementedError(
-                "tensor-parallel training (run.tp > 1) is not ported to PyTorch yet "
-                "(ROADMAP queue 1 item 11d); tensor-parallel serving is (inference_hybird --tp)")
+        tp = int(run.get("tp", 1))
+        self.layout = layout or mesh_lib.create_layout(device=device, tp=tp)
+        if self.layout.tp != tp:
+            raise ValueError(f"run.tp={tp} but the layout has tp={self.layout.tp}")
+        if self.layout.tp > 1:
+            frozen, model_cfg = mesh_lib.shard_llm(frozen, model_cfg, self.layout)
         self.model_cfg = model_cfg
         self.tokenizer = tokenizer
-        self.layout = layout or mesh_lib.create_layout(device=device)
         self.device = self.layout.device
         self.is_main = self.layout.is_main
         seed = int(run.get("seed", 42))
 
         self.max_epoch = int(run.get("max_epoch", 1))
         self.iters_per_epoch = int(run.get("iters_per_epoch", 100))
-        # batch_size_train is each rank's share; the global batch is
-        # batch_size_train · world_size (JAX: · the mesh's dp size)
+        # batch_size_train is each dp rank's share; the global batch is
+        # batch_size_train · dp (JAX runner.py:99)
         self.batch_size = int(run.get("batch_size_train", 1))
         self.log_freq = int(run.get("log_freq", 50))
 
@@ -159,8 +173,9 @@ class Runner:
         # (runner_base.py:461), so the seed is passed unconditionally and each
         # site's own rate gates it (LoRA dropout, the qformer mergers' BERT
         # dropouts); validation below runs in eval mode, as runner_base.py:496
-        self.step_fn = train_step.make_train_step(model_cfg, self.tx, remat=self.remat,
-                                                  dropout_seed=seed, layout=self.layout)
+        self.step_fn = train_step.make_train_step(
+            model_cfg, self.tx, remat=self.remat, dropout_seed=seed, layout=self.layout,
+            check_replicas=bool(run.get("check_tp_replicas", False)))
 
         if bool(run.get("smoke_check", True)):
             # fail fast on a broken corpus before any training work (the
@@ -169,9 +184,10 @@ class Runner:
                 ds.smoke_check()
                 logger.info("smoke check ok: %s (%d samples)", ds.dataset, len(ds))
 
-        # per-rank seed offset: ranks draw disjoint sample streams (the role
-        # of the reference's DistributedSampler)
-        rank_off = RANK_SEED_STRIDE * self.layout.rank
+        # per-dp-rank seed offset: dp ranks draw disjoint sample streams (the
+        # role of the reference's DistributedSampler), the tp ranks of a row
+        # the same one
+        rank_off = RANK_SEED_STRIDE * self.layout.dp_rank
         loaders = [IterLoader(ds, self.batch_size, seed=seed + i + rank_off)
                    for i, ds in enumerate(datasets)]
         self.loader = MultiIterLoader(loaders, ratios, seed=seed)
@@ -256,7 +272,8 @@ class Runner:
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         metrics_log = MetricLogger()
-        prefetcher = DevicePrefetcher(self.loader, put_fn=self._device_batch, device=self.device)
+        prefetcher = DevicePrefetcher(self.loader, put_fn=self._device_batch, device=self.device,
+                                      limit=self.iters_per_epoch)
         waited = len(self.wait_ms)
         tic = time.time()
         try:

@@ -274,8 +274,9 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    layers x 8 x 32 times. (1) `python -m affectgpt_tpu_torch.evaluation
    --input-dir` over that root plus a result-mer2023 root of 16 answers and
    a result-cmumosi root of 8, their label trees written beside: the LLM
-   judge (the lexicon judge refused) samples 5 batches of 8 prompts, 512
-   tokens each, on the card; rows 1-2 launched layers x 5 x 512 times, the
+   judge (the lexicon judge refused) samples 5 batches of 8 prompts,
+   JUDGE_TOKENS (256; the judge's default is 512) tokens each, on the card;
+   rows 1-2 launched layers x 5 x JUDGE_TOKENS times, the
    four judge caches written, every score finite; prints the judge's
    tokens/s and the scores. (2) evaluation_scoreonly over the same root
    gives the same scores with no model built. (3) compare_outputs --ours
@@ -310,13 +311,33 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    int8) and run the same logits, phase 4's default, (a), (b), q4 and q4_b16
    and phase 5's paged_bf16 (48 requests) and paged_w8 (16) with exact launch
    counts on each rank. The logits must be within TP_REL_L2_F32 (f32) and
-   TP_REL_L2 (bf16) of tp = 1's; the greedy strings' and paged tokens' match
+   TP_REL_L2 (bf16) of tp = 1's, and a negative control (the default
+   configuration's logits with the all-reduce after o_proj skipped) must
+   read above TP_REL_L2; the greedy strings' and paged tokens' match
    share is printed, not gated. With one card the ranks share it over gloo
    (CUDA tensors; NCCL takes one rank a card) and a time there is no
    tensor-parallel speedup; with two cards or more `inference_hybird --tp 2`
    also runs on NCCL. A rank that fails or outlives TP_TIMEOUT fails the
    phase. The kernel line carries phase 13 (a)'s shapes as `tp_shapes` and
    rank 0's launches in (b) as `tp_launches`.
+14. Tensor-parallel training on phase 10's directory at tp = 2 (kept on
+   disk through phase 14). The parent loads it whole with the towers and
+   records the references; two spawned ranks sharing the card over gloo
+   each load their shard (`bootstrap.build_model(layout=)`), train phase
+   8's trainable tree (f32 LoRA r = 16 with B drawn, the attention mergers;
+   whole on every rank) at phase 8's geometry, b = 4, remat, dropout on,
+   and hold five gates: (1) 10 steps on one batch, every loss and grad norm
+   finite, the loss after them below the first, the ranks' trees
+   identical; (2) f32 at 2 layers, dropout off and on: loss, whole gradient
+   and each leaf of GATED_LEAF_SIZE elements within TP_TRAIN_REL_L2_F32 of
+   tp = 1's; (3) bf16 over 28 layers within twice phase 8's BF16_* bounds;
+   (4) negative controls (the LoRA gradients not summed over tp, f's
+   backward all-reduce skipped) above TP_TRAIN_REL_L2_F32; (5) the realtime
+   step at b = 2 launching rows 11 and 12 48 times each on each rank. Step
+   ms, peak memory and weights a rank beside tp = 1's are printed; with two
+   cards or more `python -m affectgpt_tpu_torch.train --multihost` at tp =
+   2 runs on NCCL against tp = 1. The kernel line carries rank 0's launches
+   in gate 5 as `tp_train_launches`.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -4480,7 +4501,10 @@ def phase_zoo(card: str, tower_cfgs: Optional[dict] = None, llm_cfg=None) -> dic
 
 EVAL_CLIPS = 16  # answers of the result-mer2023 root
 EVAL_SMALL = 8  # clips of the OV-MERD+ and CMU-MOSI roots and of compare's reference
-JUDGE_TOKENS = 512  # LLMJudge's max_new_tokens: random weights never emit eos
+# the judge's max_new_tokens in phase 12: LLMJudge's default is 512, and random weights
+# never emit eos, so every batch runs them all; the smoke runs half of them, which keeps
+# every path and launch of the phase and leaves room in the time limit for phase 14
+JUDGE_TOKENS = 256
 HARNESS_TOKENS = 32  # the OV-MER harness's greedy answers through Chat
 AU_RECORDS = 16
 AU_EPOCHS = 3
@@ -5031,8 +5055,15 @@ def phase_eval(card: str, dirs: dict, tmp: str) -> dict:
         layers, launches["ov_harness"] = eval_harness(card, root)
         write_reasons(root, "mer2023", names["MER2023"])
         write_reasons(root, "cmumosi", names["CMUMOSI"], offset=2)
-        launches["evaluation"] = eval_scores(card, root, layers)
-        launches["compare_outputs"] = eval_compare(card, root, names["MER2023"], layers)
+        from affectgpt_tpu_torch.evaluation import judge
+
+        defaults = judge.LLMJudge.__init__.__defaults__
+        judge.LLMJudge.__init__.__defaults__ = (JUDGE_TOKENS, *defaults[1:])
+        try:
+            launches["evaluation"] = eval_scores(card, root, layers)
+            launches["compare_outputs"] = eval_compare(card, root, names["MER2023"], layers)
+        finally:
+            judge.LLMJudge.__init__.__defaults__ = defaults
         eval_au_agent(card, tmp)
         launches["mer_unibench"] = eval_unibench(card, tmp)
         eval_ingest(card, tmp)
@@ -5058,7 +5089,9 @@ TP_FORCED_STEPS = 4  # teacher-forced decode steps after the prefill compared wi
 # again before the residual add, over 28 layers of random weights: on an "NVIDIA H100
 # 80GB HBM3, 700.00 W" this reads 0.044 at every step (argmax equal at 38 of 40 rows x
 # steps), a rounding drift that does not grow with the steps; the bound catches a
-# wrong head, shard or sum, which moves the logits by O(1)
+# wrong head, shard or sum, which moves the logits by O(1): the negative control
+# TP_WRONG (the all-reduce after o_proj skipped on both ranks, so each adds only
+# its own heads' half of the attention output) must read above it
 TP_REL_L2_F32 = 1e-4
 TP_F32_LAYERS = 2
 TP_REL_L2 = 0.1
@@ -5068,6 +5101,18 @@ TP_CHAT = ("default", "a", "b", "q4", "q4_b16")  # phase 4's configurations run 
 # 6 and 10 on the shards, takes the first 16 of the 48 to keep the phase near 2 min)
 TP_SERVE = {"paged_bf16": 48, "paged_w8": 16}
 TP_FORCED = ("default", "a")  # the configurations whose logits are compared with tp = 1
+TP_WRONG = "default"  # the configuration of the negative control (o_proj's sum skipped)
+
+
+def skip_o_proj_sums(tp_sum):
+    """A wrapper of qwen2._tp_sum that returns each layer's first partial
+    sum (o_proj's; the MLP's down_proj sum comes second) unreduced."""
+    calls = [0]
+
+    def wrapped(y, cfg):
+        calls[0] += 1
+        return y if calls[0] % 2 else tp_sum(y, cfg)
+    return wrapped
 
 
 def tp_layer(g: torch.Generator, b: int, tp: int, h: int = 3584, d: int = 128) -> dict:
@@ -5336,6 +5381,9 @@ def tp_rank_main(rank: int, world: int, address: str, root: str, llm_dir: str) -
             with config_switches(config):
                 forced[config] = forced_logits(Chat(frozen, trainable, cfg, tok, max_len=MAX_LEN),
                                                feats, tokens, TP_FORCED_STEPS).cpu()
+        with config_switches(TP_WRONG), patched(qwen2, "_tp_sum", skip_o_proj_sums):
+            forced["wrong"] = forced_logits(Chat(frozen, trainable, cfg, tok, max_len=MAX_LEN),
+                                            feats, tokens, TP_FORCED_STEPS).cpu()
         runs = tp_runs(model)
         torch.save({"rank": rank, "backend": dist.get_backend(), "load_s": load_s,
                     "weight_gib": {k: tree_gib(v) for k, v in trees.items()},
@@ -5480,6 +5528,12 @@ def phase_tp(card: str, dirs: dict, tmp: str) -> dict:
         if not err <= limit:
             raise AssertionError(f"tp: {config} logits at tp={TP} are {err:.4g} (relative L2) "
                                  f"from tp=1's, above {limit}")
+    wrong = rel_l2(ranks[0]["forced"]["wrong"], forced[TP_WRONG])
+    say("tp", part="b", negative_control="o_proj's all-reduce skipped", config=TP_WRONG,
+        rel_l2=f"{wrong:.6g}", must_exceed=TP_REL_L2, card=repr(card))
+    if not wrong > TP_REL_L2:
+        raise AssertionError(f"tp: the negative control reads {wrong:.4g}, not above the bf16 "
+                             f"bound {TP_REL_L2}: the bound does not tell a wrong sum")
     for r in ranks:
         if r["launches"] != ranks[0]["launches"]:
             raise AssertionError(f"tp: rank {r['rank']}'s launches differ from rank 0's")
@@ -5516,6 +5570,382 @@ def phase_tp(card: str, dirs: dict, tmp: str) -> dict:
         for name, n in counts.items():
             launches[name] += n
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: tensor-parallel training
+
+TP_TRAIN_B = 4  # the step's batch, at phase 8's geometry (TRAIN_T, TRAIN_LABELS labelled)
+TP_TRAIN_STEPS = 10  # gate 1: steps on one fixed batch
+TP_TRAIN_TP1_STEPS = 3  # tp = 1's steps in the parent, the last two timed
+TP_TRAIN_F32_LAYERS = 2  # gates 2 and 4: the first layers of the LLM, in f32
+# gate 2: tp = 2 against tp = 1 in f32 on the plain chain (TF32 off): the two differ
+# by summation order alone. Gate 4's negative controls (the LoRA gradients not
+# summed over tp; f's backward all-reduce skipped) must read above it.
+TP_TRAIN_REL_L2_F32 = 1e-4
+# gate 3, bf16 over every layer: phase 8 holds one bf16 run within BF16_* of f32
+# (at 2 layers); tp = 2 and tp = 1 are two bf16 runs, which may part by the sum of
+# their errors, so twice each bound
+TP_TRAIN_LOSS_RTOL = 2 * BF16_LOSS_RTOL
+TP_TRAIN_TOTAL_RTOL = 2 * BF16_TOTAL_RTOL
+TP_TRAIN_GRAD_RTOL = 2 * BF16_GRAD_RTOL
+TP_TRAIN_TIMEOUT = 600  # seconds the ranks of phase 14 may take together
+TP_TRAIN_NODE = {"llama_model": "Qwen25", "keep_full_llm": True}
+TP_TRAIN_NCCL_ITERS = 3
+
+
+def tp_train_model(dirs: dict, layout=None) -> tuple:
+    """(cfg, frozen, whole cfg, load seconds): phase 10's directories loaded
+    through `bootstrap.build_model` with the towers, the LLM whole or, under
+    a layout, the rank's shard (cfg.llm its shard config); `whole` is the
+    config of the whole LLM, which the trainable tree keeps."""
+    from affectgpt_tpu_torch import paths
+
+    paths.PATH_TO_LLM["Qwen25"] = dirs["llm"]
+    paths.PATH_TO_VISUAL["CLIP_VIT_LARGE"] = dirs["clip"]
+    paths.PATH_TO_AUDIO["HUBERT_LARGE"] = dirs["hubert"]
+    t0 = time.perf_counter()
+    cfg, frozen, _, _ = bootstrap.build_model(
+        TP_TRAIN_NODE, with_encoders=True, device="cuda" if layout is None else layout.device,
+        layout=layout)
+    torch.cuda.synchronize()
+    whole = dataclasses.replace(
+        cfg, llm=affectgpt.AffectGPTConfig.from_model_cfg(TP_TRAIN_NODE).llm)
+    return cfg, frozen, whole, time.perf_counter() - t0
+
+
+def tp_train_f32(cfg, frozen: dict) -> tuple:
+    """(cfg, frozen) of the first TP_TRAIN_F32_LAYERS layers of the LLM (a
+    rank's shard or the whole) in f32."""
+    small = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm,
+                                                            num_layers=TP_TRAIN_F32_LAYERS))
+    llm = {**frozen["llm"], "layers": frozen["llm"]["layers"][:TP_TRAIN_F32_LAYERS]}
+    return small, {"llm": tree_to(llm, torch.float32)}
+
+
+def tp_train_grads(cfg, frozen: dict, whole, layout=None, controls: bool = False) -> dict:
+    """Gates 2-4's readings on one side (tp = 1 without a layout): the loss
+    and every trainable gradient in f32 at TP_TRAIN_F32_LAYERS layers with
+    dropout off ("f32") and on ("f32_dropout"), in bf16 over every layer
+    with remat and dropout on ("bf16"); with `controls`, the f32 ones of the
+    two negative controls ("lora_unsummed", "f_skipped"), dropout off. The
+    gradients come back on the CPU."""
+    from affectgpt_tpu_torch.parallel import mesh
+
+    trainable = train_trainable(whole, 14)
+    batch = train_batch(cfg, TP_TRAIN_B, seed=14)
+    key = (DROPOUT_SEED, 0)
+    small, small_frozen = tp_train_f32(cfg, frozen)
+    batch32 = {**batch, "features": tree_to(batch["features"], torch.float32)}
+
+    def run(c, f, b, **kw):
+        loss, grads = train_step.loss_and_grads(c, f, trainable, b, layout=layout, **kw)
+        return float(loss), [g.cpu() for g in grads]
+
+    out = {"f32": run(small, small_frozen, batch32),
+           "f32_dropout": run(small, small_frozen, batch32, key=key)}
+    if controls:
+        def no_tp_sum(inner):
+            def wrapped(tensors, lay, axis="dp"):
+                if axis != "tp":
+                    inner(tensors, lay, axis)
+            return wrapped
+
+        with patched(mesh, "all_reduce_sum", no_tp_sum):
+            out["lora_unsummed"] = run(small, small_frozen, batch32)
+        with patched(mesh, "copy_to_tp", lambda inner: lambda x, lay: x):
+            out["f_skipped"] = run(small, small_frozen, batch32)
+    del small_frozen
+    torch.cuda.empty_cache()
+    out["bf16"] = run(cfg, {"llm": frozen["llm"]}, batch, remat=True, key=key)
+    return out
+
+
+def tp_train_steps(cfg, frozen: dict, whole, n: int, layout=None) -> dict:
+    """n steps (b = TP_TRAIN_B, remat=True, dropout on, lr 1e-4) on one
+    fixed batch: each step's loss, grad norm and ms (each step synchronized),
+    the loss after them, and the peak memory of the steps (the resident
+    weights included); under a layout the ranks' trees must be identical
+    after them (`train_step.check_tp_replicas` raises)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tx = make_tx(lr=1e-4)
+    state = train_step.create_train_state(train_trainable(whole, 15), tx)
+    step_fn = train_step.make_train_step(cfg, tx, remat=True, dropout_seed=DROPOUT_SEED,
+                                         layout=layout)
+    batch = train_batch(cfg, TP_TRAIN_B, seed=15)
+    llm = {"llm": frozen["llm"]}
+    losses, norms, ms = [], [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, llm, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    with torch.no_grad():
+        after = float(affectgpt.forward_loss(llm, state.trainable, cfg, batch))
+    if layout is not None:
+        train_step.check_tp_replicas(state.trainable, layout)
+    return {"losses": losses, "grad_norms": norms, "step_ms": ms, "after": after,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def tp_train_realtime(cfg, frozen: dict, whole, layout) -> dict:
+    """Gate 5 on a rank: phase 8's realtime step at b = 2 (the towers encode
+    raw media under no_grad, replicated on every rank; the step trains on
+    their features), counted; its launches, loss and grad norm."""
+    raw = {m: v[:2] for m, v in realtime_media().items()}
+    batch = train_batch(cfg, 2, seed=3)
+    tx = make_tx()
+    state = train_step.create_train_state(train_trainable(whole, 4), tx)
+    step_fn = train_step.make_train_step(cfg, tx, remat=True, dropout_seed=DROPOUT_SEED,
+                                         layout=layout)
+
+    def run():
+        with torch.no_grad():
+            feats = encode_media_features(frozen, cfg, raw)
+        return step_fn(state, frozen, {**batch, "features": feats})
+
+    (_, metrics), launches = counted_call(run)
+    return {"launches": launches, "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"])}
+
+
+def tp_train_rank_main(rank: int, world: int, address: str, root: str, dirs: dict) -> None:
+    """One rank of phase 14, a spawned process: gloo over the one card, its
+    shard of phase 10's directory with the towers, gates 1-5's readings,
+    saved for the parent; rank 1's lines go to its log."""
+    import torch.distributed as dist
+
+    from affectgpt_tpu_torch.parallel import mesh
+
+    if rank:
+        log = open(os.path.join(root, f"rank{rank}.log"), "w")
+        os.dup2(log.fileno(), 1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=address, world_size=world, rank=rank)
+    try:
+        layout = mesh.create_layout("cuda", tp=world)
+        torch.cuda.reset_peak_memory_stats()
+        cfg, frozen, whole, load_s = tp_train_model(dirs, layout)
+        out = {"rank": rank, "backend": dist.get_backend(), "load_s": load_s,
+               "weight_gib": tree_gib(frozen["llm"]),
+               "grads": tp_train_grads(cfg, frozen, whole, layout, controls=True),
+               "steps": tp_train_steps(cfg, frozen, whole, TP_TRAIN_STEPS, layout),
+               "realtime": tp_train_realtime(cfg, frozen, whole, layout)}
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_train_spawn(root: str, dirs: dict) -> float:
+    """Run TP ranks of tp_train_rank_main within TP_TRAIN_TIMEOUT, as
+    tp_spawn does; returns the seconds taken."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        address = f"tcp://localhost:{s.getsockname()[1]}"
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(tp_train_rank_main, args=(TP, address, root, dirs), nprocs=TP,
+                             join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > TP_TRAIN_TIMEOUT:
+                raise AssertionError(f"tp_train: the ranks did not finish within "
+                                     f"{TP_TRAIN_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return time.perf_counter() - t0
+
+
+def tp_train_nccl(card: str, tmp: str, dirs: dict) -> None:
+    """Where the machine has two cards or more: `python -m
+    affectgpt_tpu_torch.train --multihost --options run.tp=2`, one rank a
+    card on NCCL (the environment torchrun gives each rank), for
+    TP_TRAIN_NCCL_ITERS iterations on phase 9's synthetic corpus and phase
+    10's directory, then the same run at tp = 1 on one card: each
+    iteration's loss within TP_TRAIN_LOSS_RTOL of tp = 1's."""
+    import re
+    import socket
+
+    root = os.path.join(tmp, "tp_train_nccl")
+    os.makedirs(root)
+    section, feat_root = write_runner_corpus(root)
+    raw = json.loads(json.dumps(BESTSETUP))
+    raw["model"].update(TP_TRAIN_NODE)
+    raw["datasets"]["mercaptionplus"].update(preextracted_root=feat_root)
+    raw["run"].update(output_dir=os.path.join(root, "out"), max_epoch=1,
+                      iters_per_epoch=TP_TRAIN_NCCL_ITERS, warmup_steps=0, log_freq=1,
+                      remat=True, job_id="nccl")
+    raw["paths"] = {**section, "PATH_TO_LLM": {"Qwen25": dirs["llm"]}}
+    cfg_path = os.path.join(root, "exp_tp_train.json")
+    with open(cfg_path, "w") as handle:
+        json.dump(raw, handle)
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    command = [sys.executable, "-m", "affectgpt_tpu_torch.train", "--cfg-path", cfg_path]
+
+    def losses(text: str) -> list:
+        return [float(x) for x in re.findall(r"iter \d+/\d+ loss ([0-9.naninf-]+)", text)]
+
+    t0 = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    procs = [subprocess.Popen(command + ["--multihost", "--options", f"run.tp={TP}",
+                                         f"run.job_id=nccl_tp{TP}"],
+                              cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True,
+                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r),
+                                   "WORLD_SIZE": str(TP), "MASTER_ADDR": "localhost",
+                                   "MASTER_PORT": port})
+             for r in range(TP)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=TP_TRAIN_TIMEOUT)[0])
+    finally:
+        for proc in procs:
+            proc.kill()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"tp_train: train --multihost run.tp={TP} failed:\n"
+                             + "\n".join(log[-3000:] for log in logs))
+    tp_s = time.perf_counter() - t0
+    one = subprocess.run(command + ["--options", "run.job_id=nccl_tp1"], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=TP_TRAIN_TIMEOUT)
+    if one.returncode:
+        raise AssertionError(f"tp_train: train at tp=1 failed:\n{one.stderr[-3000:]}")
+    got, want = losses(logs[0]), losses(one.stderr + one.stdout)
+    say("tp_train", part="nccl", command=f"train --multihost run.tp={TP}", backend="nccl",
+        cards=torch.cuda.device_count(), losses=json.dumps(got), losses_tp1=json.dumps(want),
+        seconds=f"{tp_s:.3f}", card=repr(card))
+    if len(got) != TP_TRAIN_NCCL_ITERS or len(want) != len(got) or not all(
+            abs(a - b) <= TP_TRAIN_LOSS_RTOL * abs(b) for a, b in zip(got, want)):
+        raise AssertionError(f"tp_train: NCCL losses {got} against tp=1's {want}")
+
+
+def tp_train_gate(what: str, got: tuple, want: tuple, names: list, sizes: dict,
+                  loss_rtol: float, total_rtol: float, leaf_rtol: float, card: str) -> dict:
+    """One comparison of (loss, gradients) with tp = 1's: printed, and
+    raised unless the loss, the whole gradient and every leaf of at least
+    GATED_LEAF_SIZE elements are within their bounds. Returns the errors."""
+    errs = grad_errors(got[1], want[1], names)
+    loss_err = abs(got[0] - want[0]) / abs(want[0])
+    gated = {k: v for k, v in errs.items() if k != "(all)" and sizes[k] >= GATED_LEAF_SIZE}
+    say("tp_train", gate=what, loss=f"{got[0]:.6f}", loss_tp1=f"{want[0]:.6f}",
+        loss_rel_err=f"{loss_err:.3e}", grad_rel_err_all=f"{errs['(all)']:.4e}",
+        gated_leaves=len(gated), worst_gated=worst(gated, 3),
+        bounds=json.dumps([loss_rtol, total_rtol, leaf_rtol]), card=repr(card))
+    if not (np.isfinite(got[0]) and loss_err <= loss_rtol and errs["(all)"] <= total_rtol
+            and gated and all(v <= leaf_rtol for v in gated.values())):
+        raise AssertionError(f"tp_train: {what}: loss error {loss_err:.4g}, gradient errors "
+                             f"{worst(errs)} above {loss_rtol}, {total_rtol}, {leaf_rtol}")
+    return errs
+
+
+def phase_tp_train(card: str, dirs: dict, tmp: str) -> dict:
+    """Phase 14: tensor-parallel training of phase 10's directory at tp = 2
+    on the card. The parent loads it whole (tp = 1) and records gates 2-3's
+    references and TP_TRAIN_TP1_STEPS timed steps; then TP ranks, spawned
+    processes sharing the card over gloo, each load their shard and run
+    gates 1-5 (`tp_train_rank_main`). Gates: (1) every loss and grad norm
+    finite and the loss after TP_TRAIN_STEPS steps on one batch below the
+    first step's, the ranks' trees identical after them; (2) f32 at
+    TP_TRAIN_F32_LAYERS layers, dropout off and on: the loss, the whole
+    gradient and each leaf of GATED_LEAF_SIZE elements within
+    TP_TRAIN_REL_L2_F32 of tp = 1's; (3) bf16 over every layer (remat,
+    dropout on) within TP_TRAIN_*_RTOL; (4) the negative controls above
+    TP_TRAIN_REL_L2_F32; (5) the realtime step launching rows 11 and 12 48
+    times each on each rank, and nothing else. With two cards or more
+    `tp_train_nccl` runs too. Returns rank 0's launches in gate 5."""
+    from affectgpt_tpu_torch import paths
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "tp_train")
+    os.makedirs(root)
+    saved = {k: dict(v) for k, v in paths.TABLES.items()}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        cfg, frozen, whole, load_s = tp_train_model(dirs)
+        one = {"grads": tp_train_grads(cfg, frozen, whole),
+               "steps": tp_train_steps(cfg, frozen, whole, TP_TRAIN_TP1_STEPS),
+               "weight_gib": tree_gib(frozen["llm"]), "load_s": load_s}
+        del cfg, frozen
+        torch.cuda.empty_cache()
+        spawn_s = tp_train_spawn(root, dirs)
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(TP)]
+        if torch.cuda.device_count() >= TP:
+            tp_train_nccl(card, tmp, dirs)
+        else:
+            say("tp_train", part="nccl", skipped=f"{torch.cuda.device_count()} card: NCCL takes "
+                f"one rank a card, so train --multihost run.tp={TP} needs {TP}", card=repr(card))
+    finally:
+        for k, v in saved.items():
+            paths.TABLES[k].clear()
+            paths.TABLES[k].update(v)
+    trainable = train_trainable(whole, 14)
+    names = optim.tree_paths(trainable)
+    sizes = {k: t.numel() for k, t in zip(names, optim.tree_leaves(trainable))}
+    del trainable
+    for r in ranks:
+        steps = r["steps"]
+        say("tp_train", gate="loss_falls", rank=r["rank"], batch=TP_TRAIN_B, remat=True,
+            dropout=True, losses=json.dumps([round(x, 5) for x in steps["losses"]]),
+            loss_after=f"{steps['after']:.5f}",
+            grad_norms=json.dumps([round(x, 4) for x in steps["grad_norms"]]),
+            trees_identical_across_ranks=True, card=repr(card))
+        if not (all(np.isfinite(steps["losses"] + steps["grad_norms"] + [steps["after"]]))
+                and steps["after"] < steps["losses"][0]):
+            raise AssertionError(f"tp_train: rank {r['rank']}: the loss did not fall over "
+                                 f"{TP_TRAIN_STEPS} steps: {steps['losses']}, {steps['after']}")
+    got, want = ranks[0]["grads"], one["grads"]
+    for name in ("f32", "f32_dropout"):
+        tp_train_gate(name, got[name], want[name], names, sizes, TP_TRAIN_REL_L2_F32,
+                      TP_TRAIN_REL_L2_F32, TP_TRAIN_REL_L2_F32, card)
+    tp_train_gate("bf16", got["bf16"], want["bf16"], names, sizes, TP_TRAIN_LOSS_RTOL,
+                  TP_TRAIN_TOTAL_RTOL, TP_TRAIN_GRAD_RTOL, card)
+    for control in ("lora_unsummed", "f_skipped"):
+        errs = grad_errors(got[control][1], want["f32"][1], names)
+        say("tp_train", negative_control=control, grad_rel_err_all=f"{errs['(all)']:.4e}",
+            worst=worst(errs, 3), must_exceed=TP_TRAIN_REL_L2_F32, card=repr(card))
+        if not errs["(all)"] > TP_TRAIN_REL_L2_F32:
+            raise AssertionError(f"tp_train: the negative control {control} reads "
+                                 f"{errs['(all)']:.4g}, not above {TP_TRAIN_REL_L2_F32}")
+    same = all(torch.equal(a, b) for name in ("f32", "f32_dropout", "bf16")
+               for a, b in zip(got[name][1], ranks[1]["grads"][name][1]))
+    vcfg = encoder_configs(whole)[1]
+    expected = {"attn_sublayer": 2 * vcfg.num_layers, "mlp_sublayer": 2 * vcfg.num_layers}
+    for r in ranks:
+        rt = r["realtime"]
+        say("tp_train", gate="realtime", rank=r["rank"], batch=2,
+            launches=json.dumps({k: v for k, v in rt["launches"].items() if v}),
+            loss=f"{rt['loss']:.5f}", grad_norm=f"{rt['grad_norm']:.4f}", card=repr(card))
+        check_launches(f"tp_train realtime rank {r['rank']}", rt["launches"], expected)
+        if not (np.isfinite(rt["loss"]) and np.isfinite(rt["grad_norm"])):
+            raise AssertionError(f"tp_train realtime rank {r['rank']}: non-finite loss")
+    step_ms = [statistics.mean(r["steps"]["step_ms"][1:]) for r in ranks]
+    say("tp_train", backend=ranks[0]["backend"], ranks=TP, cards=torch.cuda.device_count(),
+        shared_card=torch.cuda.device_count() < TP, batch=TP_TRAIN_B, seq=TRAIN_T, remat=True,
+        note="two ranks on one card over gloo: a time here is no tensor-parallel speedup",
+        step_ms_tp1=f"{statistics.mean(one['steps']['step_ms'][1:]):.3f}",
+        step_ms_per_rank=json.dumps([round(x, 3) for x in step_ms]),
+        peak_gib_tp1=f"{one['steps']['peak_gib']:.3f}",
+        peak_gib_per_rank=json.dumps([round(r["steps"]["peak_gib"], 3) for r in ranks]),
+        weight_gib_tp1=f"{one['weight_gib']:.3f}",
+        weight_gib_per_rank=json.dumps([round(r["weight_gib"], 3) for r in ranks]),
+        load_s_tp1=f"{one['load_s']:.3f}",
+        load_s_per_rank=json.dumps([round(r["load_s"], 3) for r in ranks]),
+        grads_identical_across_ranks=same, spawn_to_end_s=f"{spawn_s:.3f}",
+        phase_seconds=f"{time.perf_counter() - t0:.3f}", card=repr(card))
+    return ranks[0]["realtime"]["launches"]
 
 
 def recording_generate(record: list):
@@ -5558,6 +5988,7 @@ def main() -> None:
         zoo = phase_zoo(card)
         evaluation = phase_eval(card, dirs, os.path.join(tmp, "eval"))
         tp_launches = phase_tp(card, dirs, tmp)
+        tp_train_launches = phase_tp_train(card, dirs, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name, err in zoo["max_abs_err"].items():
@@ -5578,12 +6009,15 @@ def main() -> None:
     for name, count in tp_launches.items():
         if count:
             kernels[name]["tp_launches"] = count
+    for name, count in tp_train_launches.items():  # phase 14's realtime step, rank 0
+        if count:
+            kernels[name]["tp_train_launches"] = count
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],
          **{key: kernels[name][key] for key in keys},
          **{key: kernels[name][key] for key in ("shapes", "zoo_launches", "eval_launches",
-                                                "tp_shapes", "tp_launches")
+                                                "tp_shapes", "tp_launches", "tp_train_launches")
             if key in kernels[name]}}
         for name in KERNELS
     ]}), flush=True)

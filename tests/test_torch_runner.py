@@ -7,16 +7,19 @@ point, on the CPU.
   from rbg, the port from torch): the same sample stream, per-iteration
   losses within LOSS_RTOL, the final trainable within PARAM_TOL, the same
   checkpoint epochs, best checkpoint and log lines. Each epoch's
-  prefetcher in both packages closes only once its worker has filled the
-  queue and drawn one batch more (`settled`): how far a worker has drawn
-  when the epoch ends is thread timing, and it moves the next epoch's
-  stream (ROADMAP queue 3).
+  prefetcher of the port draws exactly the epoch's batches and trains on
+  all of them; JAX's draws ahead and drops what it holds at the epoch's
+  end, so its runner takes an on-demand iterator here (`on_demand`), which
+  drops nothing and leaves JAX's loop as it is. The port's stream over two
+  epochs is the loader's own whatever the worker's timing.
 - `python -m affectgpt_tpu_torch.train --device cpu`, mirroring
   tests/test_train_entry.py: checkpoints, validation with a best
   checkpoint, resume at the next epoch with its step and optimizer state,
   the accumulation schedule at iteration resolution, legacy checkpoint
   migrations, a rerun over the same directory; and the card as the default
   device.
+- The tiny mode of the port's bootstrap keeps the node's `lora_dropout`
+  (JAX's sets 0.05 whatever the node says).
 """
 
 import dataclasses
@@ -98,8 +101,9 @@ def raw_cfg(out_dir, feat_root, **run):
 
 def no_lora_dropout(model_cfg):
     """Both bootstraps shrink the LLM to its tiny geometry without a model
-    directory, and the tiny config keeps the default LoRA dropout 0.05
-    whatever the node says: set it to 0 again."""
+    directory, and JAX's tiny config keeps the default LoRA dropout 0.05
+    whatever the node says: set it to 0 again (the port's keeps the node's
+    0 already)."""
     return dataclasses.replace(model_cfg, llm=dataclasses.replace(model_cfg.llm,
                                                                   lora_dropout=0.0))
 
@@ -127,38 +131,44 @@ def port_runner(raw, job, frozen, trainable):
                           device="cpu")
 
 
-def settled(cls, drawn: list):
-    """A subclass of the DevicePrefetcher `cls` whose close() first waits
-    until its worker has filled the queue and holds one batch more: it then
-    has drawn exactly the batches taken + depth + 1, in either package,
-    whatever the thread timing. Appends each prefetcher's count to
-    `drawn` at close."""
-    class Settled(cls):
+def counted(cls, drawn: list):
+    """A subclass of the DevicePrefetcher `cls` that appends to `drawn` the
+    batches its worker drew, at close."""
+    class Counted(cls):
         def __init__(self, loader, *args, **kwargs):
-            self.drawn = self.taken = 0
+            self.drawn = 0
 
-            def counted():
+            def counting():
                 while True:
                     batch = next(loader)
                     self.drawn += 1
                     yield batch
 
-            super().__init__(counted(), *args, **kwargs)
-
-        def __next__(self):
-            batch = super().__next__()
-            self.taken += 1
-            return batch
+            super().__init__(counting(), *args, **kwargs)
 
         def close(self):
-            deadline = time.monotonic() + 60.0
-            while self.drawn < self.taken + self.queue.maxsize + 1:
-                assert time.monotonic() < deadline, "the prefetcher's worker stalled"
-                time.sleep(0.005)
-            drawn.append(self.drawn)
             super().close()
+            drawn.append(self.drawn)
 
-    return Settled
+    return Counted
+
+
+def on_demand(drawn: list):
+    """A stand-in for JAX's DevicePrefetcher that draws a batch when one is
+    asked for: nothing is drawn ahead, so nothing is dropped at an epoch's
+    end. Appends to `drawn` the batches each one drew, at close."""
+    class OnDemand:
+        def __init__(self, loader, put_fn=None, **_):
+            self.loader, self.put_fn, self.count = loader, put_fn or (lambda b: b), 0
+
+        def __next__(self):
+            self.count += 1
+            return self.put_fn(next(self.loader))
+
+        def close(self):
+            drawn.append(self.count)
+
+    return OnDemand
 
 
 def checkpoints(run_dir: Path):
@@ -184,13 +194,13 @@ def test_runner_trains_as_jax(corpus, tmp_path, monkeypatch):
     feat_root, _ = corpus
     raw = raw_cfg(tmp_path, feat_root)
     jax_drawn, port_drawn = [], []
-    monkeypatch.setattr(jrunner, "DevicePrefetcher", settled(jrunner.DevicePrefetcher, jax_drawn))
-    monkeypatch.setattr(trunner, "DevicePrefetcher", settled(trunner.DevicePrefetcher, port_drawn))
+    monkeypatch.setattr(jrunner, "DevicePrefetcher", on_demand(jax_drawn))
+    monkeypatch.setattr(trunner, "DevicePrefetcher", counted(trunner.DevicePrefetcher, port_drawn))
     jr, frozen, trainable = jax_runner(raw, "jax")
     tr = port_runner(raw, "port", frozen, trainable)
     jr.train()
     tr.train()
-    assert port_drawn == jax_drawn == [3 + 2 + 1] * 2  # iters_per_epoch + depth + 1
+    assert port_drawn == jax_drawn == [3, 3]  # one an epoch, each drawing what it trained on
     want, got = jr.visualizer.history["loss"], tr.visualizer.history["loss"]
     assert len(got) == len(want) == 6
     np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
@@ -296,19 +306,23 @@ def test_legacy_modality_keyed_checkpoint_migrates(tmp_path, legacy):
 
 
 def test_tensor_parallel_is_not_ported(corpus, tmp_path):
-    """Tensor-parallel training (run.tp > 1) raises, naming ROADMAP item 11d;
-    the layout itself (serving's) takes tp and refuses one that does not
-    divide the ranks."""
+    """Tensor-parallel training (run.tp > 1) is ported (tests/
+    test_torch_tp_train.py) and needs tp ranks: on one process run.tp = 2
+    raises, as the layout does, and a layout whose tp is not run.tp is
+    refused."""
     from affectgpt_tpu_torch.parallel import mesh
 
     feat_root, _ = corpus
     raw = raw_cfg(tmp_path / "output", feat_root, max_epoch=1, iters_per_epoch=1)
     raw["run"]["tp"] = 2
     cfg = tconfig.Config.from_dict(raw, name="tiny_exp")
-    with pytest.raises(NotImplementedError, match="item 11d"):
+    with pytest.raises(ValueError, match="does not divide the 1 ranks"):
         trunner.Runner(cfg, None, {}, {}, None, {}, {}, device="cpu")
     with pytest.raises(ValueError, match="does not divide"):
         mesh.create_layout(device="cpu", tp=2)
+    with pytest.raises(ValueError, match="run.tp=2 but the layout has tp=1"):
+        trunner.Runner(cfg, None, {}, {}, None, {}, {}, layout=mesh.create_layout("cpu"),
+                       device="cpu")
 
 
 def test_entry_point_defaults_to_the_card(corpus, tmp_path):
@@ -324,3 +338,65 @@ def test_entry_point_defaults_to_the_card(corpus, tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode != 0 and "--device cpu" in proc.stderr
+
+
+class Jittery:
+    """A loader that sleeps a random while before each batch it hands out,
+    so the prefetcher's worker runs ahead of or behind the step at random."""
+
+    def __init__(self, loader, seed: int):
+        self.loader, self.rng = loader, np.random.RandomState(seed)
+
+    def __next__(self):
+        time.sleep(float(self.rng.choice([0.0, 0.0, 0.002, 0.02])))
+        return next(self.loader)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_prefetcher_keeps_every_batch_across_epochs(corpus, tmp_path, seed):
+    """Over two epochs the steps see the loader's own stream, in order,
+    whatever the worker's timing: no batch drawn ahead is dropped at an
+    epoch's end. With validation on, whose loader shares the dataset's
+    random state, two timings give the same stream too."""
+    feat_root, _ = corpus
+    streams = {}
+    for evaluate, jitter in ((False, None), (False, seed), (True, seed), (True, seed + 10)):
+        raw = raw_cfg(tmp_path, feat_root, evaluate=evaluate, iters_per_epoch=4)
+        cfg = tconfig.Config.from_dict(raw, name="tiny_exp")
+        model_cfg, frozen, trainable, tok = tbootstrap.build_model(cfg.model.to_dict(),
+                                                                   device="cpu")
+        datasets, ratios = trunner.build_datasets(cfg, tok, model_cfg, device="cpu")
+        r = trunner.Runner(cfg, tok, frozen, trainable, model_cfg, datasets, ratios,
+                           job_id=f"jitter{seed}", device="cpu")
+        if jitter is None:  # the loader's own stream
+            streams[evaluate, jitter] = [next(r.loader)["input_ids"] for _ in range(8)]
+            continue
+        r.loader = Jittery(r.loader, jitter)
+        seen = []
+        r._device_batch = lambda batch: batch["input_ids"]
+        r.step_fn = lambda state, frozen, ids, seen=seen: (seen.append(ids) or state,
+                                                           {"loss": torch.zeros(())})
+        r.validate = lambda r=r: float(len(next(r._val_loader)["names"]))
+        r.train()
+        streams[evaluate, jitter] = seen
+
+    def same(a, b):
+        return len(a) == len(b) == 8 and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    assert same(streams[False, seed], streams[False, None])
+    assert same(streams[True, seed], streams[True, seed + 10])
+
+
+def test_tiny_mode_keeps_the_nodes_lora_dropout(corpus, tmp_path):
+    """Without a model directory the port's bootstrap shrinks the LLM to its
+    tiny geometry and keeps the node's LoRA dropout (a departure: JAX's
+    tiny config keeps 0.05 whatever the node says)."""
+    feat_root, _ = corpus
+    node = raw_cfg(tmp_path, feat_root)["model"]
+    for rate in (0.0, 0.2):
+        tcfg = tbootstrap.build_model({**node, "lora_dropout": rate}, device="cpu")[0]
+        assert tcfg.llm.hidden_size == 32 and tcfg.llm.lora_dropout == rate
+        jcfg = jbootstrap.build_model(jconfig.Config.from_dict(
+            {**raw_cfg(tmp_path, feat_root), "model": {**node, "lora_dropout": rate}},
+            name="tiny_exp"), dtype=jnp.float32)[0]
+        assert jcfg.llm.lora_dropout == 0.05
