@@ -22,12 +22,14 @@ version for CPU tensors:
   kernel pair (ops/vit_mlp.py); "fused", the one-call kernel
   (ops/vit_mlp_fused.py); "xla", the plain chain.
 
-A block without a bf16 `"w"` leaf in its q projection (the int8 `w_q`
-leaves of `ops.quant.quantize_encoder_tree`) leaves the sublayer route for
-"flash" (JAX's layout rule), and so does a masked block: the text tower's
-causal blocks then take the plain chain, as on the TPU. The kernels take any
-token count, so the token axis is not padded (JAX pads 257 to 264, a TPU
-sublane layout).
+Under grad mode a block whose leaves or input require grad (a trainable
+tower, `toolkit/e2e.py`) takes the plain chain whatever the switches say:
+no kernel has a backward. A block without a bf16 `"w"` leaf in its q
+projection (the int8 `w_q` leaves of `ops.quant.quantize_encoder_tree`)
+leaves the sublayer route for "flash" (JAX's layout rule), and so does a
+masked block: the text tower's causal blocks then take the plain chain, as
+on the TPU. The kernels take any token count, so the token axis is not
+padded (JAX pads 257 to 264, a TPU sublane layout).
 """
 
 from __future__ import annotations
@@ -141,6 +143,8 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
 def _apply_block(block: dict, x: torch.Tensor, num_heads: int, eps: float, mask=None,
                  valid_len=None) -> torch.Tensor:
     impl = "sublayer" if ATTN_IMPL == "auto" else ATTN_IMPL
+    if nn.needs_grad(x, block):
+        impl = "xla"  # a trainable block: no kernel has a backward
     fusable = valid_len is not None and mask is None
     if impl == "sublayer" and not (fusable and "w" in block["attn"]["q"]):
         impl = "flash"  # masked or non-bf16 blocks: the next route, as in JAX

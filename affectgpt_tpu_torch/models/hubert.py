@@ -18,8 +18,11 @@ chain for both): ATTN_IMPL "sublayer" runs the attention-sublayer kernel
 both with the erf gelu. A kernel route needs bf16 `"w"` leaves (JAX's
 layout rule): a tower with the int8 `w_q` leaves of
 `ops.quant.quantize_encoder_tree` runs the plain stack, its dense layers in
-`ops.quant.dense_w8a8_xla`. JAX's TPU gates (backend, head_dim % 64) are
-dropped, and the token axis is not padded to a multiple of 8.
+`ops.quant.dense_w8a8_xla`. Under grad mode a layer whose leaves or input
+require grad (a trainable tower, `toolkit/e2e.py`) takes the plain chain
+whatever the switches say: no kernel has a backward. JAX's TPU gates
+(backend, head_dim % 64) are dropped, and the token axis is not padded to a
+multiple of 8.
 """
 
 from __future__ import annotations
@@ -167,13 +170,14 @@ def encode(params: dict, cfg: HubertConfig, waveform: torch.Tensor,
     acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     eps = cfg.layer_norm_eps
     for i, layer in enumerate(params["layers"]):
-        if use_sublayer:
+        trained = nn.needs_grad(x, layer)  # a trainable layer: the plain chain
+        if use_sublayer and not trained:
             x = vit_sublayer.apply({"ln1": layer["attn_ln"], "attn": layer["attn"]}, x,
                                    cfg.num_heads, t_valid, eps)
         else:
             h = nn.layernorm(layer["attn_ln"], x, eps)
             x = x + nn.mha(layer["attn"], h, h, cfg.num_heads)
-        if use_mlp_kernel:
+        if use_mlp_kernel and not trained:
             mlp = vit_mlp_fused if MLP_IMPL == "fused" else vit_mlp
             x = mlp.apply_hubert(layer, x, eps)
         else:

@@ -230,11 +230,31 @@ def mha_init(generator, q_dim: int, kv_dim: int, num_heads: int, head_dim=None,
 FUSED_MHA = "auto"
 
 
-def _fused_self_attn_ok(tq: int, tk: int, mask) -> bool:
+def needs_grad(*trees) -> bool:
+    """True when grad mode is on and a tensor among `trees` (tensors, or
+    dicts and lists of them) requires grad: a trainable tower's block, which
+    takes the plain chain, since no hand-written kernel has a backward."""
+    if not torch.is_grad_enabled():
+        return False
+    stack = list(trees)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        elif torch.is_tensor(node) and node.requires_grad:
+            return True
+    return False
+
+
+def _fused_self_attn_ok(tq: int, tk: int, mask, *operands) -> bool:
     """JAX's route rule: full (unmasked) self-attention of at least 192
     tokens. Shorter sequences stay on the plain chain (on the TPU the kernel
-    lost 8% at HuBERT's 99 tokens)."""
-    return FUSED_MHA != "0" and mask is None and tq == tk and tq >= 192
+    lost 8% at HuBERT's 99 tokens), and so do operands that require grad
+    under grad mode (`needs_grad`: a trainable tower)."""
+    return (FUSED_MHA != "0" and mask is None and tq == tk and tq >= 192
+            and not needs_grad(*operands))
 
 
 def mha(params, q_input: torch.Tensor, kv_input: torch.Tensor, num_heads: int,
@@ -244,9 +264,10 @@ def mha(params, q_input: torch.Tensor, kv_input: torch.Tensor, num_heads: int,
     Logits are f32 sums divided by √d, masked with finfo(f32).min; the
     probabilities are rounded to v's dtype before the f32 PV product.
     Unmasked self-attention of at least 192 tokens goes to the fused kernel
-    (`_fused_self_attn_ok`). probs_drop: optional (key, rate), train-mode
-    dropout on the probabilities (BERT attention_probs_dropout_prob); it
-    keeps the call on the plain chain, as in JAX."""
+    (`_fused_self_attn_ok`) unless q, k or v requires grad. probs_drop:
+    optional (key, rate), train-mode dropout on the probabilities (BERT
+    attention_probs_dropout_prob); it keeps the call on the plain chain, as
+    in JAX."""
     b, tq, _ = q_input.shape
     tk = kv_input.shape[1]
     inner = out_dim(params["q"])
@@ -254,7 +275,7 @@ def mha(params, q_input: torch.Tensor, kv_input: torch.Tensor, num_heads: int,
     q = dense(params["q"], q_input).reshape(b, tq, num_heads, head_dim)
     k = dense(params["k"], kv_input).reshape(b, tk, num_heads, head_dim)
     v = dense(params["v"], kv_input).reshape(b, tk, num_heads, head_dim)
-    if probs_drop is None and _fused_self_attn_ok(tq, tk, mask):
+    if probs_drop is None and _fused_self_attn_ok(tq, tk, mask, q, k, v):
         from affectgpt_tpu_torch.ops import vit_attention
 
         out = vit_attention.fused_self_attention(q, k, v, valid_len=tk)

@@ -3,8 +3,9 @@
 A copy of the parts of affectgpt_tpu/registry.py that the port uses: the
 `lr_scheduler` namespace, which `training.optim` fills with its schedules,
 the `dataset` namespace (`data.datasets`, `data.instruction_datasets`), the
-`task` namespace (`training.runner.build_datasets`) and the `runner`
-namespace (`training.runner.Runner`), and the `get` / `names` lookups. A
+`task` namespace (`training.runner.build_datasets`), the `runner`
+namespace (`training.runner.Runner`) and the `model` namespace (the fusion
+baselines of `toolkit.models`), and the `get` / `names` lookups. A
 plain module-level table: registering resolves names only and holds no
 state.
 """
@@ -14,7 +15,7 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {
-    ns: {} for ns in ("lr_scheduler", "dataset", "task", "runner")}
+    ns: {} for ns in ("lr_scheduler", "dataset", "task", "runner", "model")}
 
 
 def register(namespace: str, name: str) -> Callable:
@@ -57,3 +58,7 @@ def register_task(name):
 
 def register_runner(name):
     return register("runner", name)
+
+
+def register_model(name):
+    return register("model", name)

@@ -103,12 +103,10 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    (qwen2.DECODE_QKV="xla", counted only, not timed). Each run must launch
    every kernel of its configuration exactly as often as the path calls it
    and the others not at all; all logits must be finite, one string per
-   clip must come back. Then each configuration is timed in the order
-   default, a, b, q4, q4_b16, decode_llm, q8_fused, q8a8 and back, (a) and
-   (b) only on the way there (their numbers stand in PERF.md since they
-   were ported; the quantized decode steps make this phase long); prints
-   peak memory and the mean prefill ms, decode ms per step and clips/s of
-   the visits, with each visit's numbers.
+   clip must come back. Then each configuration is timed once, in the
+   order default, a, b, q4, q4_b16, decode_llm, q8_fused, q8a8 (the
+   quantized decode steps make this phase long); prints peak memory and
+   the prefill ms, decode ms per step and clips/s of the visit.
 5. Serve: the continuous-batching engines on the merged model of phase 4,
    built as inference_hybird.py's make_paged_server builds the paged one
    (block 16, 2048 blocks, tables for the longest prompt + 32 tokens, 16
@@ -275,7 +273,7 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    --input-dir` over that root plus a result-mer2023 root of 16 answers and
    a result-cmumosi root of 8, their label trees written beside: the LLM
    judge (the lexicon judge refused) samples 5 batches of 8 prompts,
-   JUDGE_TOKENS (256; the judge's default is 512) tokens each, on the card;
+   JUDGE_TOKENS (128; the judge's default is 512) tokens each, on the card;
    rows 1-2 launched layers x 5 x JUDGE_TOKENS times, the
    four judge caches written, every score finite; prints the judge's
    tokens/s and the scores. (2) evaluation_scoreonly over the same root
@@ -309,7 +307,7 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    answers and the paged engine's results; then two spawned ranks each load
    their shard a slice at a time, merge the LoRA on it, quantize it (int4,
    int8) and run the same logits, phase 4's default, (a), (b), q4 and q4_b16
-   and phase 5's paged_bf16 (48 requests) and paged_w8 (16) with exact launch
+   and phase 5's paged_bf16 (24 requests) and paged_w8 (16) with exact launch
    counts on each rank. The logits must be within TP_REL_L2_F32 (f32) and
    TP_REL_L2 (bf16) of tp = 1's, and a negative control (the default
    configuration's logits with the all-reduce after o_proj skipped) must
@@ -326,7 +324,7 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    each load their shard (`bootstrap.build_model(layout=)`), train phase
    8's trainable tree (f32 LoRA r = 16 with B drawn, the attention mergers;
    whole on every rank) at phase 8's geometry, b = 4, remat, dropout on,
-   and hold five gates: (1) 10 steps on one batch, every loss and grad norm
+   and hold five gates: (1) 6 steps on one batch, every loss and grad norm
    finite, the loss after them below the first, the ranks' trees
    identical; (2) f32 at 2 layers, dropout off and on: loss, whole gradient
    and each leaf of GATED_LEAF_SIZE elements within TP_TRAIN_REL_L2_F32 of
@@ -338,6 +336,30 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    cards or more `python -m affectgpt_tpu_torch.train --multihost` at tp =
    2 runs on NCCL against tp = 1. The kernel line carries rank 0's launches
    in gate 5 as `tp_train_launches`.
+15. Toolkit: the MERBench toolkit (`affectgpt_tpu_torch/toolkit/`) at full
+   width, random weights from a seed. (a) The 13 fusion baselines at
+   MERBench's best MER2023 features (audio 1024, text 5120, video 768;
+   hidden 128; TFN's post1 [129³, 128] f32): one epoch of 3373 clips at
+   batch 32 through `train.train_fusion_model` (ef_lstm, mfn, graph_mfn and
+   mctn on frame-level sequences of 32 steps), then `evaluate_fusion_model`
+   on 411 clips; no kernel, finite losses and metrics; seconds, steps/s and
+   peak GiB a model. (b) `e2e` at CLIP ViT-L/14 + HuBERT-large, 4 clips of
+   8 224² frames and 2 audio clips of 2 s: a bf16 forward under no_grad
+   launching rows 11 and 12 24 times each (within TOOLKIT_REL_TOL of the
+   plain chain's), then 5 f32 Adam steps with autograd through both towers
+   launching no kernel, the loss falling and CLIP's patch embedding moving.
+   (c) VideoMAE at its default config, 8 videos of 16 224² frames (1568
+   tubes): 5 f32 pretraining steps (no kernel, the loss falling), then
+   `encode_video` in bf16 launching row 13 12 times (within TOOLKIT_REL_TOL
+   of the plain chain's), and row 13 at [8, 6, 1568, 64] against its plain
+   version with its times, bound and SDPA (as phase 11). (d) One batch of 8
+   JPEG images (encoded on the card) through `gptv.annotate_images` (the
+   mer2023 vocabulary) with `api_helpers.LocalJudgeTransport` over the LLM
+   judge loaded from phase 10's directory (kept on disk through phase 15),
+   JUDGE_TOKENS tokens: rows 1-2 launched 28 x the decode steps, one batch
+   file. The kernel line's fused_vit_attention entry carries the VideoMAE
+   shape, and rows 1-2 and 11-13 carry their phase-15 launches as
+   `toolkit_launches`.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -1694,8 +1716,7 @@ def config_switches(config: str):
                      (quant, "MATMUL_MODE", c.matmul_mode)])
 
 
-# configurations timed once, on the way there only, and those only counted
-TIMED_ONCE = ("a", "b")
+# configurations only counted, not timed
 COUNTED_ONLY = ("qkv_xla",)
 MODE = "multiface_audio_face_frame_text"
 
@@ -1793,9 +1814,9 @@ def timed_run(config: str, served: Served) -> dict:
     with config_switches(config):
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
-        total_ms = wall(served.answer)
-        prefill_ms = wall(lambda: served.generate(0))
-        decode_ms = (wall(lambda: served.generate(NEW_TOKENS)) - prefill_ms) / NEW_TOKENS
+        total_ms = wall(served.answer, reps=2)
+        prefill_ms = wall(lambda: served.generate(0), reps=2)
+        decode_ms = (wall(lambda: served.generate(NEW_TOKENS), reps=2) - prefill_ms) / NEW_TOKENS
     peak = torch.cuda.max_memory_allocated()
     return {"answer_batch_ms": total_ms, "prefill_ms": prefill_ms,
             "decode_ms_per_step": decode_ms, "clips_per_s": batch / (total_ms / 1e3),
@@ -1804,9 +1825,8 @@ def timed_run(config: str, served: Served) -> dict:
 
 def phase_main_path(card: str) -> tuple:
     """Every configuration of CONFIGS on one model, all serving trees
-    resident at once: a counted run each, then timings in the order of
-    CONFIGS and back (TIMED_ONCE only there), so that a drift of the host
-    over the phase weighs on the configurations alike. Returns each
+    resident at once: a counted run each, then one timed visit each in the
+    order of CONFIGS. Returns each
     kernel's launch count from the first configuration that runs it, and
     the model for the serve phase (cfg, frozen, trainable, tokenizer,
     features, the bf16 and int8 serving trees)."""
@@ -1845,7 +1865,7 @@ def phase_main_path(card: str) -> tuple:
                 launches[name] = count
     timed = [c for c in CONFIGS if c not in COUNTED_ONLY]
     visits = {config: [] for config in timed}
-    for config in (*timed, *(c for c in reversed(timed) if c not in TIMED_ONCE)):
+    for config in timed:
         visits[config].append(timed_run(config, served[config]))
     for config, runs in visits.items():
         c = CONFIGS[config]
@@ -2081,7 +2101,7 @@ RT = {
     "rt_mha": RtConfig(((clip_vit, "ATTN_IMPL", "xla"),),  # nn.mha's route at 257 tokens
                        lambda c, h: {"fused_vit_attention": 2 * c}),
 }
-RT_VISITS = ("rt_plain", "rt_default", "rt_a", "rt_b", "rt_mha", "rt_default", "rt_plain")
+RT_VISITS = ("rt_plain", "rt_default", "rt_a", "rt_b", "rt_mha")
 
 
 def realtime_media(seed: int = 1) -> dict:
@@ -4063,17 +4083,18 @@ FAMILIES = {"Llama2": ("SigLIP_SO", "WAVLM_LARGE"), "Baichuan2": ("DINO2_LARGE",
 SP_SPECIALS = ["<unk>", "<s>", "</s>"]
 
 
-def zoo_attention(card: str) -> dict:
-    """Row 13 against its plain version at the zoo's shapes, in the [b, n, h,
-    d] layout nn.mha hands it and in [b, h, n, d]: the plan's mode, the
-    largest error, the kernel's device ms (CUDA graph, two copies of q, k,
-    v a replay cycle), the plain version's, one SDPA call's on the same
-    inputs, and the bound (q, k, v and out moved once; the two products'
-    operations). Returns {shape: record}."""
+def zoo_attention(card: str, shapes: Optional[dict] = None, tag: str = "zoo") -> dict:
+    """Row 13 against its plain version at `shapes` (ZOO_ATTENTION unless
+    given; {name: (b, heads, n, head_dim)}), in the [b, n, h, d] layout
+    nn.mha hands it and in [b, h, n, d]: the plan's mode, the largest error,
+    the kernel's device ms (CUDA graph, two copies of q, k, v a replay
+    cycle), the plain version's, one SDPA call's on the same inputs, and the
+    bound (q, k, v and out moved once; the two products' operations).
+    Returns {shape: record}."""
     g = torch.Generator(device="cuda").manual_seed(23)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
-    for shape, (b, heads, n, d) in ZOO_ATTENTION.items():
+    for shape, (b, heads, n, d) in (shapes or ZOO_ATTENTION).items():
         sets = [tuple(torch.randn((b, n, heads, d), generator=g, device="cuda")
                       .to(torch.bfloat16) for _ in range(3)) for _ in range(2)]
         q, k, v = sets[0]
@@ -4096,7 +4117,7 @@ def zoo_attention(card: str) -> dict:
         cost = bound(4 * b * heads * n * d * 2, 4 * b * heads * n * n * d)
         out[shape] = {"b": b, "heads": heads, "n": n, "head_dim": d, "mode": plan["kernel"],
                       "max_abs_err": max(err, err2), **times, **cost}
-        say("zoo", kernel="fused_vit_attention", shape=shape, b=b, heads=heads, n=n,
+        say(tag, kernel="fused_vit_attention", shape=shape, b=b, heads=heads, n=n,
             head_dim=d, mode=plan["kernel"], max_abs_err=f"{max(err, err2):.6g}",
             max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL,
             **{k: f"{t:.5f}" for k, t in times.items()}, bound_ms=f"{cost['bound_ms']:.5f}",
@@ -4504,7 +4525,7 @@ EVAL_SMALL = 8  # clips of the OV-MERD+ and CMU-MOSI roots and of compare's refe
 # the judge's max_new_tokens in phase 12: LLMJudge's default is 512, and random weights
 # never emit eos, so every batch runs them all; the smoke runs half of them, which keeps
 # every path and launch of the phase and leaves room in the time limit for phase 14
-JUDGE_TOKENS = 256
+JUDGE_TOKENS = 128  # the judge's decode depth in phases 12 and 15 (its default: 512)
 HARNESS_TOKENS = 32  # the OV-MER harness's greedy answers through Chat
 AU_RECORDS = 16
 AU_EPOCHS = 3
@@ -4622,7 +4643,7 @@ def refuse(what: str):
     return make
 
 
-def judge_run(card: str, what: str, fn, layers: int, batches: list) -> tuple:
+def judge_run(card: str, what: str, fn, layers: int, batches: list, tag: str = "eval") -> tuple:
     """fn() with the lexicon judge refused: its judge batches must be the
     port's generate calls of JUDGE_TOKENS steps on the card of `batches`
     rows, rows 1-2 launched layers x their steps and nothing else. Returns
@@ -4638,7 +4659,7 @@ def judge_run(card: str, what: str, fn, layers: int, batches: list) -> tuple:
         seconds = time.perf_counter() - t0
     steps = sum(tokens for _, tokens, _, _ in record)
     gen_s = sum(s for _, _, _, s in record)
-    say("eval", run=what, judge_batches=json.dumps([b for b, _, _, _ in record]),
+    say(tag, run=what, judge_batches=json.dumps([b for b, _, _, _ in record]),
         decode_steps=steps, devices=sorted({d for _, _, d, _ in record}),
         judge_tokens_per_s=f"{sum(b * t for b, t, _, _ in record) / max(gen_s, 1e-9):.1f}",
         generate_s=f"{gen_s:.3f}", run_s=f"{seconds:.3f}",
@@ -5097,9 +5118,9 @@ TP_F32_LAYERS = 2
 TP_REL_L2 = 0.1
 TP_TIMEOUT = 900  # seconds the ranks of phase 13 (b) may take together
 TP_CHAT = ("default", "a", "b", "q4", "q4_b16")  # phase 4's configurations run on each rank
-# phase 5's configurations and the requests each serves (paged_w8, which shows rows 5,
-# 6 and 10 on the shards, takes the first 16 of the 48 to keep the phase near 2 min)
-TP_SERVE = {"paged_bf16": 48, "paged_w8": 16}
+# phase 5's configurations and the first requests of its 48 each serves (the same
+# engines and kernels at fewer requests, to keep the phase near 2 min)
+TP_SERVE = {"paged_bf16": 24, "paged_w8": 16}
 TP_FORCED = ("default", "a")  # the configurations whose logits are compared with tp = 1
 TP_WRONG = "default"  # the configuration of the negative control (o_proj's sum skipped)
 
@@ -5576,7 +5597,7 @@ def phase_tp(card: str, dirs: dict, tmp: str) -> dict:
 # Phase 14: tensor-parallel training
 
 TP_TRAIN_B = 4  # the step's batch, at phase 8's geometry (TRAIN_T, TRAIN_LABELS labelled)
-TP_TRAIN_STEPS = 10  # gate 1: steps on one fixed batch
+TP_TRAIN_STEPS = 6  # gate 1: steps on one fixed batch
 TP_TRAIN_TP1_STEPS = 3  # tp = 1's steps in the parent, the last two timed
 TP_TRAIN_F32_LAYERS = 2  # gates 2 and 4: the first layers of the LLM, in f32
 # gate 2: tp = 2 against tp = 1 in f32 on the plain chain (TF32 off): the two differ
@@ -5948,6 +5969,321 @@ def phase_tp_train(card: str, dirs: dict, tmp: str) -> dict:
     return ranks[0]["realtime"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the MERBench toolkit
+
+# MERBench's best MER2023 features (audio: chinese-hubert-large, text:
+# Baichuan-13B, video: CLIP ViT-L) and its hidden width
+TOOLKIT_ARGS = {"audio_dim": 1024, "text_dim": 5120, "video_dim": 768, "hidden_dim": 128}
+TOOLKIT_TRAIN = 3373  # MER2023's train set: one epoch of it a model
+TOOLKIT_TEST = 411  # MER2023's test1 set, the table evaluate_fusion_model scores
+TOOLKIT_BATCH = 32
+TOOLKIT_STEPS = 32  # the frame-level models' sequence length
+FRAME_LEVEL = ("ef_lstm", "mfn", "graph_mfn", "mctn")  # as JAX's tests split them
+E2E_CLIPS, E2E_FRAMES, E2E_AUDIO = 4, 8, 2  # clips; 224² frames and 2 s audio clips a clip
+E2E_STEPS = 5
+E2E_LR = 1e-5
+VMAE_B = 8
+VMAE_STEPS = 5
+VMAE_LR = 1.5e-4  # VideoMAE's base learning rate
+GPTV_IMAGES = 8  # one batch of annotate_images
+# a kernel route's output against the plain route's on the same bf16 tree
+TOOLKIT_REL_TOL = ZOO_REL_TOL
+
+
+def fusion_table(g: torch.Generator, frame: bool, n: int, seed: int):
+    """A FeatureTable of n clips made on the card: features N(0, 1), the
+    label in the audio stream's first column (a signal to learn), valence
+    from the label."""
+    from affectgpt_tpu_torch.toolkit.train import FeatureTable
+
+    rng = np.random.RandomState(seed)
+    emos = rng.randint(0, 6, n)
+    steps = (TOOLKIT_STEPS,) if frame else ()
+    feats = {k: torch.randn((n, *steps, TOOLKIT_ARGS[f"{k[:-1]}_dim"]), generator=g,
+                            device="cuda") for k in ("audios", "texts", "videos")}
+    label = torch.as_tensor(emos, dtype=torch.float32, device="cuda")
+    feats["audios"][..., 0] = label.reshape(n, *([1] * len(steps)))
+    return FeatureTable(names=[f"clip_{i:05d}" for i in range(n)], **feats, emos=emos,
+                        vals=((emos - 3) / 6).astype(np.float32))
+
+
+def noted_peak(peaks: list) -> str:
+    """The card's peak GiB since the last reset, appended to `peaks` (the
+    phase prints their largest)."""
+    peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+    return f"{peaks[-1]:.3f}"
+
+
+def toolkit_fusion(card: str, peaks: list) -> dict:
+    """The 13 fusion baselines at MERBench's MER2023 widths: one epoch of
+    TOOLKIT_TRAIN clips at batch 32 through train_fusion_model (Adam, lr
+    1e-3), then evaluate_fusion_model on TOOLKIT_TEST clips; frame-level
+    models on sequences of TOOLKIT_STEPS. No kernel; every loss and metric
+    finite. Returns {model: (steps, seconds)}."""
+    from affectgpt_tpu_torch.toolkit import train as fusion_train
+    from affectgpt_tpu_torch.toolkit.models import FUSION_MODELS, FusionArgs
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    tables = {frame: (fusion_table(g, frame, TOOLKIT_TRAIN, 1),
+                      fusion_table(g, frame, TOOLKIT_TEST, 2)) for frame in (False, True)}
+    args = FusionArgs(**TOOLKIT_ARGS)
+    steps = -(-TOOLKIT_TRAIN // TOOLKIT_BATCH)
+    out = {}
+    for name in FUSION_MODELS:
+        train_t, test_t = tables[name in FRAME_LEVEL]
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (params, history), launches = counted_call(lambda: fusion_train.train_fusion_model(
+            name, args, train_t, epochs=1, batch_size=TOOLKIT_BATCH, seed=0, device="cuda"))
+        seconds = time.perf_counter() - t0
+        metrics, more = counted_call(
+            lambda: fusion_train.evaluate_fusion_model(name, args, params, test_t))
+        check_launches(f"toolkit {name} train", launches, {})
+        check_launches(f"toolkit {name} evaluate", more, {})
+        loss = history[0]["train_loss"]
+        say("toolkit", model=name, level="frame" if name in FRAME_LEVEL else "utt",
+            clips=TOOLKIT_TRAIN, steps=steps, seconds=f"{seconds:.3f}",
+            steps_per_s=f"{steps / seconds:.2f}", train_loss=f"{loss:.5f}",
+            test=json.dumps({k: round(v, 5) for k, v in metrics.items()}),
+            params_gib=f"{tree_gib(params):.3f}",
+            peak_gib=noted_peak(peaks), card=repr(card))
+        want = ["combined", "emo_accuracy", "emo_waf1", "val_mse", "val_pcc"]
+        if not np.isfinite(loss) or sorted(metrics) != want or not all(
+                np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"toolkit {name}: loss {loss}, metrics {metrics}")
+        out[name] = (steps, seconds)
+        del params
+        torch.cuda.empty_cache()
+    del tables
+    return out
+
+
+def adam_steps(params: dict, loss_fn, n: int, lr: float) -> tuple:
+    """n steps of optax's adam(lr) (`optim.AdamW`, no weight decay) on the
+    f32 tree `params` under autograd; returns (losses, step seconds)."""
+    tx = optim.AdamW(schedule=lambda _s: lr, weight_decay=0.0)
+    leaves = optim.tree_leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    state = tx.init(params)
+    losses, seconds = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_fn(params)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if d is None else d for p, d in zip(leaves, grads)]
+        state = tx.apply(optim.tree_unflatten(params, grads), state, params)
+        losses.append(loss.item())
+        seconds.append(time.perf_counter() - t0)
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    return losses, seconds
+
+
+def routes_forward(what: str, fn, expected: dict, plain_switches) -> tuple:
+    """fn() under no_grad on the default route (its launches exactly
+    `expected`) and on the plain chain (`plain_switches`, no launch); the
+    first output of each, finite, within TOOLKIT_REL_TOL of each other.
+    Returns (the default route's output, its launches, its wall ms, the
+    relative error)."""
+    with torch.no_grad():
+        out, launches = counted_call(fn)
+        with switched(plain_switches):
+            plain, none = counted_call(fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    check_launches(f"toolkit {what}", launches, expected)
+    check_launches(f"toolkit {what} plain", none, {})
+    first = out[0] if isinstance(out, tuple) else out
+    want = plain[0] if isinstance(plain, tuple) else plain
+    err = rel_l2(first.float(), want.float())
+    if not bool(torch.isfinite(first).all()) or err > TOOLKIT_REL_TOL:
+        raise AssertionError(f"toolkit {what}: finite {bool(torch.isfinite(first).all())}, "
+                             f"rel. L2 {err} from the plain chain")
+    return out, launches, ms, err
+
+
+def toolkit_e2e(card: str, peaks: list, cfg=None) -> dict:
+    """The e2e raw-media model at CLIP ViT-L/14 + HuBERT-large (random f32
+    weights from a seed), E2E_CLIPS clips of E2E_FRAMES 224² frames and
+    E2E_AUDIO 2 s audio clips: a bf16 forward under no_grad through rows 11
+    and 12 (one launch each a CLIP layer, against the plain chain), then
+    E2E_STEPS f32 Adam steps with autograd through both towers (the plain
+    chain: no launch), the loss falling and CLIP's patch embedding moving.
+    Returns the forward's launches."""
+    from affectgpt_tpu_torch.toolkit import e2e
+
+    cfg = cfg or e2e.E2EConfig(vision=clip_vit.ClipVisionConfig.vit_l_14(),
+                               audio=hubert.HubertConfig.large())
+    g = torch.Generator(device="cuda").manual_seed(37)
+    params = e2e.init_params(g, cfg, dtype=torch.float32)
+    size = cfg.vision.image_size
+    batch = {"frames": torch.randn((E2E_CLIPS, E2E_FRAMES, size, size, 3), generator=g,
+                                   device="cuda"),
+             "audios": torch.randn((E2E_CLIPS, E2E_AUDIO, 1, RT_SAMPLES), generator=g,
+                                   device="cuda") * 0.1,
+             "texts": torch.randn((E2E_CLIPS, cfg.text_dim), generator=g, device="cuda")}
+    labels = torch.arange(E2E_CLIPS, device="cuda") % cfg.output_dim1
+    frozen = tree_to(params, torch.bfloat16)
+    layers = cfg.vision.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    out, launches, ms, err = routes_forward(
+        "e2e forward", lambda: e2e.apply(frozen, cfg, batch),
+        {"attn_sublayer": layers, "mlp_sublayer": layers},
+        [(clip_vit, "ATTN_IMPL", "xla"), (nn, "FUSED_MHA", "0")])
+    if tuple(out[1].shape) != (E2E_CLIPS, cfg.output_dim1):
+        raise AssertionError(f"toolkit e2e: logits of shape {tuple(out[1].shape)}")
+    forward_peak = noted_peak(peaks)
+    del frozen, out
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = params["visual"]["patch_embed"]["w"].clone()
+    (losses, seconds), none = counted_call(lambda: adam_steps(
+        params, lambda p: torch.nn.functional.cross_entropy(e2e.apply(p, cfg, batch)[1],
+                                                            labels), E2E_STEPS, E2E_LR))
+    check_launches("toolkit e2e training", none, {})
+    moved = not torch.equal(before, params["visual"]["patch_embed"]["w"])
+    say("toolkit", run="e2e", clips=E2E_CLIPS, frames=E2E_FRAMES, audio_clips=E2E_AUDIO,
+        forward_bf16_ms=f"{ms:.3f}", forward_rel_l2_vs_plain=f"{err:.5f}",
+        forward_peak_gib=forward_peak,
+        launches=json.dumps({k: v for k, v in launches.items() if v}),
+        train_losses=json.dumps([round(x, 5) for x in losses]),
+        step_s=json.dumps([round(x, 3) for x in seconds]),
+        steps_per_s=f"{len(seconds[1:]) / sum(seconds[1:]):.3f}", patch_embed_moved=moved,
+        params_gib=f"{tree_gib(params):.3f}", train_peak_gib=noted_peak(peaks), card=repr(card))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0] and moved):
+        raise AssertionError(f"toolkit e2e: losses {losses}, patch embedding moved {moved}")
+    return launches
+
+
+def toolkit_videomae(card: str, peaks: list, cfg=None) -> tuple:
+    """VideoMAE at its default config, VMAE_B videos of 16 224² frames (1568
+    tubes, 156 visible): VMAE_STEPS f32 pretraining steps under one mask
+    (the plain chain: no launch), the loss falling; then encode_video in
+    bf16 through row 13 (once a layer over all 1568 tubes, against the plain
+    chain); then row 13 at that shape against its plain version, timed
+    (zoo_attention). Returns (encode_video's launches, the shape's record)."""
+    from affectgpt_tpu_torch.toolkit import videomae
+
+    cfg = cfg or videomae.VideoMAEConfig()
+    g = torch.Generator(device="cuda").manual_seed(41)
+    params = videomae.init_params(g, cfg, dtype=torch.float32)
+    video = torch.rand((VMAE_B, cfg.num_frames, cfg.image_size, cfg.image_size, 3),
+                       generator=g, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    (losses, seconds), none = counted_call(lambda: adam_steps(
+        params, lambda p: videomae.pretrain_loss(p, cfg, video, (41, 0)), VMAE_STEPS, VMAE_LR))
+    check_launches("toolkit videomae pretraining", none, {})
+    peak = noted_peak(peaks)
+    frozen = tree_to(params, torch.bfloat16)
+    n = cfg.num_patches
+    expected = {"fused_vit_attention": cfg.num_layers} if nn._fused_self_attn_ok(n, n, None) \
+        else {}
+    out, launches, ms, err = routes_forward(
+        "videomae encode_video", lambda: videomae.encode_video(frozen, cfg, video), expected,
+        [(nn, "FUSED_MHA", "0")])
+    say("toolkit", run="videomae", videos=VMAE_B, tubes=n, visible=cfg.num_visible,
+        train_losses=json.dumps([round(x, 5) for x in losses]),
+        step_s=json.dumps([round(x, 3) for x in seconds]),
+        steps_per_s=f"{len(seconds[1:]) / sum(seconds[1:]):.3f}", train_peak_gib=peak,
+        encode_video_bf16_ms=f"{ms:.3f}", encode_rel_l2_vs_plain=f"{err:.5f}",
+        launches=json.dumps({k: v for k, v in launches.items() if v}), card=repr(card))
+    if tuple(out.shape) != (VMAE_B, cfg.width) or not (
+            all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"toolkit videomae: losses {losses}, features {tuple(out.shape)}")
+    del frozen, params, video, out
+    torch.cuda.empty_cache()
+    shape = {"videomae": (VMAE_B, cfg.num_heads, n, cfg.width // cfg.num_heads)}
+    return launches, zoo_attention(card, shape, tag="toolkit")
+
+
+def toolkit_gptv(card: str, peaks: list, dirs: dict, tmp: str) -> dict:
+    """One batch of GPTV_IMAGES JPEG images (encoded on the card) through
+    gptv.annotate_images with the mer2023 vocabulary, its transport
+    LocalJudgeTransport over the LLM judge loaded from phase 10's 7B
+    directory (JUDGE_TOKENS sampled tokens): one generate call of one row,
+    rows 1-2 launched layers x its steps, one batch file holding the images
+    in the persisted order and the response; parsing and top-1 scoring run
+    on it. Returns the launches."""
+    import os
+
+    from affectgpt_tpu_torch import paths
+    from affectgpt_tpu_torch.data import jpeg_encode
+    from affectgpt_tpu_torch.evaluation import __main__ as evaluation
+    from affectgpt_tpu_torch.evaluation.judge import LLMJudge
+    from affectgpt_tpu_torch.toolkit import api_helpers, gptv
+
+    saved = dict(paths.PATH_TO_LLM)
+    try:
+        paths.PATH_TO_LLM["Qwen25"] = dirs["llm"]
+        judge = evaluation.build_judge(True, device="cuda")
+    finally:
+        paths.PATH_TO_LLM.clear()
+        paths.PATH_TO_LLM.update(saved)
+    if not isinstance(judge, LLMJudge):
+        raise AssertionError("toolkit gptv: no LLM judge over phase 10's directory")
+    judge.max_new_tokens = JUDGE_TOKENS
+    os.makedirs(tmp, exist_ok=True)
+    images = []
+    for i, data in enumerate(jpeg_encode.encode_frames(smooth_frames(GPTV_IMAGES, 224, 224),
+                                                       90, device="cuda")):
+        images.append(os.path.join(tmp, f"face_{i}.jpg"))
+        with open(images[-1], "wb") as handle:
+            handle.write(data)
+    save_root, order = os.path.join(tmp, "gptv"), os.path.join(tmp, "order.npz")
+    _, launches = judge_run(card, "gptv", lambda: gptv.annotate_images(
+        api_helpers.LocalJudgeTransport(judge), images, save_root, order,
+        gptv.GPTV_EMOS["mer2023"], bsize=GPTV_IMAGES), judge.llm_cfg.num_layers, [1],
+        tag="toolkit")
+    files = sorted(os.listdir(save_root))
+    with np.load(os.path.join(save_root, "batch_1.npz"), allow_pickle=True) as pack:
+        names, response = pack["names"].tolist(), str(pack["gpt4v"])
+    with np.load(order, allow_pickle=True) as pack:
+        ordered = pack["image_paths"].tolist()
+    parsed = gptv.collect_batches(save_root, delete_bad=False)[1]
+    accuracy = gptv.score_top1(save_root, {os.path.basename(p): "happy" for p in images})
+    say("toolkit", run="gptv", images=GPTV_IMAGES, files=json.dumps(files),
+        parsed_results=len(parsed), top1=f"{accuracy:.3f}", peak_gib=noted_peak(peaks),
+        response=json.dumps(response[:80]), card=repr(card))
+    if files != ["batch_1.npz"] or names != ordered or sorted(names) != sorted(images) \
+            or not 0.0 <= accuracy <= 1.0:
+        raise AssertionError(f"toolkit gptv: files {files}, names {names}")
+    del judge
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_toolkit(card: str, dirs: dict, tmp: str, e2e_cfg=None, vmae_cfg=None) -> dict:
+    """Phase 15: the MERBench toolkit on the card. The fusion baselines
+    (toolkit_fusion), the e2e model (toolkit_e2e), VideoMAE
+    (toolkit_videomae) and the GPT-4V harness over the LLM judge
+    (toolkit_gptv); e2e_cfg / vmae_cfg replace the full-width configs for a
+    rehearsal on the CPU. Returns {"launches": {run: its launches},
+    "attention": row 13's record at VideoMAE's shape}."""
+    t0 = time.perf_counter()
+    peaks = []
+    fusion = toolkit_fusion(card, peaks)
+    launches = {"e2e_forward": toolkit_e2e(card, peaks, e2e_cfg)}
+    launches["videomae_encode"], attention = toolkit_videomae(card, peaks, vmae_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    launches["gptv"] = toolkit_gptv(card, peaks, dirs, tmp)
+    steps = sum(s for s, _ in fusion.values())
+    say("toolkit", fusion_models=len(fusion), fusion_steps=steps,
+        fusion_seconds=f"{sum(t for _, t in fusion.values()):.3f}",
+        fusion_steps_per_s=f"{steps / sum(t for _, t in fusion.values()):.2f}",
+        launches=json.dumps({run: {k: v for k, v in c.items() if v}
+                             for run, c in launches.items()}),
+        peak_gib=f"{max(peaks):.3f}", phase_seconds=f"{time.perf_counter() - t0:.3f}",
+        card=repr(card))
+    return {"launches": launches, "attention": attention}
+
+
 def recording_generate(record: list):
     """A wrapper of gen.generate that appends each call's tokens to `record`."""
     def make(generate):
@@ -5980,7 +6316,7 @@ def main() -> None:
     phase_runner(card, model)
     model = (*model[:5], {})  # phase 10 needs no serving tree: free their memory
     torch.cuda.empty_cache()
-    tmp = tempfile.mkdtemp(prefix="smoke_")  # phase 10's directories, read again in phase 12
+    tmp = tempfile.mkdtemp(prefix="smoke_")  # phase 10's directories, read again in phases 12-15
     try:
         dirs = phase_load(card, model, tmp)
         model = None  # phases 11 and 12 build their own models
@@ -5989,6 +6325,8 @@ def main() -> None:
         evaluation = phase_eval(card, dirs, os.path.join(tmp, "eval"))
         tp_launches = phase_tp(card, dirs, tmp)
         tp_train_launches = phase_tp_train(card, dirs, tmp)
+        torch.cuda.empty_cache()
+        toolkit = phase_toolkit(card, dirs, os.path.join(tmp, "toolkit"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name, err in zoo["max_abs_err"].items():
@@ -6012,12 +6350,20 @@ def main() -> None:
     for name, count in tp_train_launches.items():  # phase 14's realtime step, rank 0
         if count:
             kernels[name]["tp_train_launches"] = count
+    row13["shapes"].update(toolkit["attention"])  # phase 15: VideoMAE's shape
+    row13["max_abs_err"] = max([row13["max_abs_err"]] + [r["max_abs_err"] for r in
+                                                         toolkit["attention"].values()])
+    for run, counts in toolkit["launches"].items():  # rows 1-2 and 11-13 in phase 15
+        for name, count in counts.items():
+            if count:
+                kernels[name].setdefault("toolkit_launches", {})[run] = count
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],
          **{key: kernels[name][key] for key in keys},
          **{key: kernels[name][key] for key in ("shapes", "zoo_launches", "eval_launches",
-                                                "tp_shapes", "tp_launches", "tp_train_launches")
+                                                "tp_shapes", "tp_launches", "tp_train_launches",
+                                                "toolkit_launches")
             if key in kernels[name]}}
         for name in KERNELS
     ]}), flush=True)

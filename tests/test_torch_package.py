@@ -38,6 +38,7 @@ from affectgpt_tpu_torch.ops import paged_attention as paged_ops
 from affectgpt_tpu_torch.ops.decode_mlp import decode_mlp
 from affectgpt_tpu_torch.ops.decode_mlp_bf16 import decode_mlp_bf16
 from affectgpt_tpu_torch.ops.decode_qkv import decode_qkv
+from affectgpt_tpu_torch.toolkit import train as ttrain
 
 REPO = Path(__file__).resolve().parent.parent
 # packages the card's installation lacks
@@ -87,7 +88,14 @@ def test_port_imports_without_jax():
             "affectgpt_tpu_torch.au_agent_finetune.prepare_au_instruction_dataset",
             "affectgpt_tpu_torch.au_agent_finetune.train_au_agent",
             "affectgpt_tpu_torch.data.corpus_recipes", "affectgpt_tpu_torch.data.ingest",
-            "affectgpt_tpu_torch.data.jpeg_encode"} <= set(modules)
+            "affectgpt_tpu_torch.data.jpeg_encode", "affectgpt_tpu_torch.toolkit.metrics",
+            "affectgpt_tpu_torch.toolkit.io", "affectgpt_tpu_torch.toolkit.models",
+            "affectgpt_tpu_torch.toolkit.train", "affectgpt_tpu_torch.toolkit.e2e",
+            "affectgpt_tpu_torch.toolkit.videomae", "affectgpt_tpu_torch.toolkit.api_helpers",
+            "affectgpt_tpu_torch.toolkit.gptv",
+            "affectgpt_tpu_torch.scripts.encode_fine_grained",
+            "affectgpt_tpu_torch.scripts.ingest_transcode",
+            "affectgpt_tpu_torch.scripts.judge_ab"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises ImportError
@@ -115,7 +123,7 @@ def test_port_imports_without_jax():
                                    ingest.write_mjpeg_avi, ingest.transcode_video,
                                    ingest.transcode_tree, ingest.segment_transcode,
                                    jpeg_encode.encode_frames, teval.build_judge,
-                                   teval.main_zeroshot_scores],
+                                   teval.main_zeroshot_scores, ttrain.train_fusion_model],
                          ids=lambda f: f.__name__)
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
@@ -238,6 +246,30 @@ def test_serving_wrappers_on_cpu_count_no_launch():
     assert y.dtype == a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape == q.shape
     assert decode_mlp.launches == 0 and paged_ops.paged_attention.launches == 0
     assert paged_ops.paged_attention_int8.launches == 0
+
+
+SCRIPT_ARGV = {"encode_fine_grained": ["--mer-factory-output", "x"],
+               "ingest_transcode": ["--src", "x", "--dst", "y"], "judge_ab": ["--json", "j"]}
+
+
+@pytest.mark.parametrize("name", list(SCRIPT_ARGV))
+def test_script_twins_default_to_the_card(name, monkeypatch):
+    """The command-line twins take `--device`, the card unless told."""
+    import argparse
+    import importlib
+
+    module = importlib.import_module(f"affectgpt_tpu_torch.scripts.{name}")
+    seen = {}
+    original = argparse.ArgumentParser.parse_args
+
+    def capture(self, args=None, namespace=None):
+        seen.update(vars(original(self, args, namespace)))
+        raise SystemExit(0)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    with pytest.raises(SystemExit):
+        module.main(SCRIPT_ARGV[name])
+    assert seen["device"] == "cuda"
 
 
 def test_kernel_build_is_keyed_by_source_hash():
