@@ -13,7 +13,14 @@ Usage (python API):
     from affectgpt_tpu_torch.ovmer.zero_shot_harness import run_zero_shot
     run_zero_shot("MER2023", my_model_fn, save_npz="out/result-mer2023/0.npz")
 where my_model_fn(video_path, audio_path, subtitle, prompt) -> str. The
-model adapters (the repo's ovmer/adapters/) are not ported.
+model adapters of `affectgpt_tpu_torch.ovmer.adapters` supply such a
+model_fn for ten third-party MLLMs.
+
+A clip whose media cannot be read scores "" with a warning: the model_fn
+raises `ClipUnreadable` for it, around its host read of the clip only.
+Whatever else a model_fn raises (a CUDA error, a kernel's shape limit, a
+model's own error) ends the run and no npz is written. The root harness
+scores any exception of a clip as "".
 """
 
 from __future__ import annotations
@@ -30,6 +37,12 @@ from affectgpt_tpu_torch.data.datasets import get_dataset_class  # noqa: F401 (r
 from affectgpt_tpu_torch.tokenization import ByteTokenizer
 
 logger = logging.getLogger(__name__)
+
+
+class ClipUnreadable(Exception):
+    """This clip's media cannot be read (a missing path or file, or no
+    decoder for it): the harness scores the clip "" and goes on."""
+
 
 ZERO_SHOT_PROMPT = (
     "Please recognize all possible emotional states of the character."
@@ -61,8 +74,8 @@ def run_zero_shot(
         subtitle = name2sub.get(name, "") if with_subtitle else None
         try:
             name2reason[name] = model_fn(video, audio, subtitle, prompt)
-        except Exception as error:  # keep sweeping, like the reference drivers
-            logger.warning("%s/%s failed: %s", dataset_name, name, error)
+        except ClipUnreadable as error:  # keep sweeping, like the reference drivers
+            logger.warning("%s/%s: cannot read its media: %s", dataset_name, name, error)
             name2reason[name] = ""
         if (i + 1) % 50 == 0:
             logger.info("%s: %d/%d", dataset_name, i + 1, len(names))

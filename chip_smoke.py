@@ -360,6 +360,31 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    file. The kernel line's fused_vit_attention entry carries the VideoMAE
    shape, and rows 1-2 and 11-13 carry their phase-15 launches as
    `toolkit_launches`.
+16. OV-MER adapters (`affectgpt_tpu_torch/ovmer/adapters/`) through
+   `zero_shot_harness.run_zero_shot` over a two-clip MER2023 label root:
+   clip a an MJPEG-AVI of 150 frames of 112 x 192 written by the port's
+   JPEG encoder and a 2 s stereo wav at 48 kHz, clip b a video no decoder
+   reads and no wav. The card has no HF weights, so the wrapped HF
+   models do not run: doubles with an HF-shaped `config` at each family's
+   published vision geometry (llava-1.5-7b-hf 336 px / patch 14, 576
+   tokens a frame; LLaVA-NeXT-Video-7B-hf pooled by 2, 144; Video-LLaVA-7B-hf
+   224 px, 257) and a recording `generate` stand in, over a byte-level
+   tokenizer double. Each of the eight video adapters (Chat-UniVi also at
+   1 fps, its 100-frame read kept whole, and mPLUG-Owl at max_length 4096,
+   the prompt at its default 512 being overlong) must hand generate pixels
+   on the card of the [T, 3, S, S] (or [1, T, 3, S, S]) its rule gives,
+   within OVMER_PIXEL_ATOL of the port's CPU preprocessing of the same
+   frames, tokens a frame x T image tokens, and save the double's reply for
+   clip a and "" for clip b; Qwen-Audio and SALMONN read the wav as its
+   channels' mean at 16 kHz (within OVMER_WAV_ATOL), build the prompts from
+   the subtitle (and the transcript) and put their tensors on the card. A
+   double whose generate raises RuntimeError must end run_zero_shot with
+   it, no npz written. Every wrapper launches 0 times. Then `python -m
+   affectgpt_tpu_torch.scripts.quality_run --synthetic <tmp> --device
+   cuda` (the LLM at the 3B geometry) must exit 0 with its answers and the
+   judge's cache written. Prints T, S, image tokens and the ms of the host
+   read and the device preprocessing a clip, whether `transformers` is
+   importable, the recipe's seconds and the phase's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`, printed only when every
@@ -378,6 +403,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from typing import Callable, Optional
 
 import numpy as np
@@ -6284,6 +6310,420 @@ def phase_toolkit(card: str, dirs: dict, tmp: str, e2e_cfg=None, vmae_cfg=None) 
     return {"launches": launches, "attention": attention}
 
 
+OVMER_FRAMES = 150  # the clip: more frames than Chat-UniVi's and Video-ChatGPT's 100-frame reads
+OVMER_SHAPE = (112, 192)  # its frames (a dense read decodes 512 of them on the host)
+OVMER_RATE = 48000  # the stereo wav's rate, resampled to the extractor's 16 kHz
+OVMER_REPLY = "happy, with a calm smile"
+OVMER_TRANSCRIPT = "we won the final"
+OVMER_NAMES = ["ov_clip_a", "ov_clip_b"]  # a readable clip, then one no decoder reads
+# the vision geometry of each family's published HF checkpoint, and the
+# adapters' token ids (those of the checkpoints' tokenizers)
+OVMER_FAMILIES = {
+    "llava-1.5": dict(image_size=336, patch_size=14),  # llava-hf/llava-1.5-7b-hf
+    "llava-next-video": dict(image_size=336, patch_size=14,  # llava-hf/LLaVA-NeXT-Video-7B-hf
+                             spatial_pool_stride=2),
+    "video-llava": dict(image_size=224, patch_size=14),  # LanguageBind/Video-LLaVA-7B-hf
+}
+OVMER_SPECIALS = {"<image>": 32000, "<video>": 32001, "<|AUDIO|>": 151646}
+# run: (adapter, family, build kwargs, frames T its rule takes from the clip's read)
+OVMER_VIDEO = {
+    "videollava": ("videollava", "video-llava", {}, 8),
+    "chat_univi": ("chat_univi", "llava-1.5", {}, 4),  # 100 read, 25 fps stride: 4
+    "chat_univi_1fps": ("chat_univi", "llava-1.5", {"assumed_fps": 1.0}, 100),  # the cap: 100
+    "llama_vid": ("llama_vid", "llava-1.5", {}, 21),  # 512 read, stride 25
+    "mplug_owl": ("mplug_owl", "llava-1.5", {"max_length": 4096}, 4),  # 512 reaches no answer
+    "otter": ("otter", "llava-1.5", {}, 16),
+    "videochat": ("videochat", "llava-1.5", {}, 8),
+    "videochat2": ("videochat2", "llava-next-video", {}, 8),
+    "video_chatgpt": ("video_chatgpt", "llava-next-video", {}, 100),
+}
+OVMER_PIXEL_ATOL = 1e-5  # the card's preprocessing against the port's CPU preprocessing
+OVMER_WAV_ATOL = 1e-6
+
+
+class TokenizerDouble:
+    """An HF-shaped tokenizer: each of OVMER_SPECIALS is one id, any other
+    text one id a UTF-8 byte."""
+
+    def __init__(self):
+        import re
+
+        self.split = re.compile("(" + "|".join(map(re.escape, OVMER_SPECIALS)) + ")").split
+        self.tokens = {i: t for t, i in OVMER_SPECIALS.items()}
+
+    def convert_ids_to_tokens(self, index: int) -> str:
+        return self.tokens[index]
+
+    def encode(self, text: str) -> list:
+        ids = []
+        for piece in self.split(text):
+            ids.extend([OVMER_SPECIALS[piece]] if piece in OVMER_SPECIALS else piece.encode())
+        return ids
+
+    def decode(self, ids, skip_special_tokens: bool = False) -> str:
+        out, raw = [], bytearray()
+        for i in ids:
+            if i < 256:
+                raw.append(i)
+                continue
+            out.append(raw.decode(errors="replace"))
+            raw = bytearray()
+            if not skip_special_tokens:
+                out.append(self.tokens[i])
+        return "".join(out) + raw.decode(errors="replace")
+
+    def batch_decode(self, rows, skip_special_tokens: bool = False) -> list:
+        return [self.decode(r.tolist(), skip_special_tokens) for r in rows]
+
+    def __call__(self, texts, add_special_tokens: bool = False):
+        return types.SimpleNamespace(input_ids=[self.encode(t) for t in texts])
+
+
+class BatchDouble(dict):
+    """A processor's output: items as attributes, `.to(device)`."""
+
+    __getattr__ = dict.__getitem__
+
+    def to(self, device):
+        return BatchDouble({k: v.to(device) for k, v in self.items()})
+
+
+class ProcessorDouble:
+    """Qwen2-Audio's processor (text and audio) or Whisper's (audio as its
+    first argument): records each call; the features are the waveform."""
+
+    def __init__(self, tokenizer):
+        self.tokenizer = tokenizer
+        self.feature_extractor = types.SimpleNamespace(sampling_rate=16000)
+        self.calls = []
+
+    def __call__(self, *wav, text=None, audio=None, sampling_rate=None, return_tensors=None):
+        audio = list(wav) or audio
+        self.calls.append((text, audio, sampling_rate))
+        out = BatchDouble(input_features=torch.as_tensor(np.stack(audio))[:, None])
+        if text is not None:
+            out["input_ids"] = torch.tensor([self.tokenizer.encode(text)])
+            out["attention_mask"] = torch.ones_like(out["input_ids"])
+        return out
+
+    def batch_decode(self, rows, skip_special_tokens: bool = False) -> list:
+        return self.tokenizer.batch_decode(rows, skip_special_tokens)
+
+
+class ModelDouble:
+    """An HF-shaped model: a `config` of a family's published geometry, and a
+    generate that records its arguments and answers `reply` after the
+    prompt (or alone, as Whisper's does), or raises `error`."""
+
+    def __init__(self, config=None, reply: str = OVMER_REPLY, after_prompt: bool = True,
+                 error: Optional[Exception] = None):
+        self.config, self.after_prompt, self.error = config, after_prompt, error
+        self.reply = reply.encode()
+        self.calls = []
+
+    def generate(self, *args, **kwargs):
+        if self.error is not None:
+            raise self.error
+        self.calls.append((args, kwargs))
+        prompt = kwargs["input_ids"] if self.after_prompt else args[0]
+        reply = torch.tensor([list(self.reply)], device=prompt.device)
+        return torch.cat([prompt, reply], 1) if self.after_prompt else reply
+
+
+def ovmer_config(family: str):
+    geometry = dict(OVMER_FAMILIES[family])
+    pool = geometry.pop("spatial_pool_stride", None)
+    config = types.SimpleNamespace(
+        vision_config=types.SimpleNamespace(**geometry),
+        image_token_index=OVMER_SPECIALS["<image>"], video_token_index=OVMER_SPECIALS["<video>"],
+        audio_token_index=OVMER_SPECIALS["<|AUDIO|>"], vision_feature_select_strategy="default")
+    if pool is not None:
+        config.spatial_pool_stride = pool
+    return config
+
+
+def write_stereo_wav(path: str, samples: np.ndarray, rate: int) -> np.ndarray:
+    """16-bit PCM of [n, 2] samples in [-1, 1]; returns the int16 samples."""
+    import struct
+
+    pcm = (np.clip(samples, -1, 1) * 32767).astype("<i2")
+    data = pcm.tobytes()
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE")
+        f.write(b"fmt " + struct.pack("<IHHIIHH", 16, 1, 2, rate, rate * 4, 4, 16))
+        f.write(b"data" + struct.pack("<I", len(data)) + data)
+    return pcm
+
+
+def write_ovmer_root(root: str) -> tuple:
+    """A two-clip MER2023 label root: clip a an MJPEG-AVI of OVMER_FRAMES
+    frames (the port's JPEG encoder, DCT on the card) and a 2 s stereo wav
+    at OVMER_RATE; clip b a video file no decoder reads and no wav. Sets
+    the path tables; returns (the clip's subtitle, the 16 kHz mono waveform
+    the adapters should read, computed here from the int16 samples)."""
+    import os
+
+    from affectgpt_tpu_torch import paths
+    from affectgpt_tpu_torch.data import ingest
+
+    for sub in ("video", "audio"):
+        os.makedirs(os.path.join(root, sub))
+    ingest.write_mjpeg_avi(os.path.join(root, "video", f"{OVMER_NAMES[0]}.mp4"),
+                           smooth_frames(OVMER_FRAMES, *OVMER_SHAPE), fps=25.0, device="cuda")
+    with open(os.path.join(root, "video", f"{OVMER_NAMES[1]}.mp4"), "wb") as handle:
+        handle.write(b"\x00" * 64)
+    rng = np.random.RandomState(23)
+    pcm = write_stereo_wav(os.path.join(root, "audio", f"{OVMER_NAMES[0]}.wav"),
+                           rng.randn(2 * OVMER_RATE, 2) * 0.2, OVMER_RATE)
+    mono = (pcm.astype(np.float32) / 32768.0).mean(axis=1)
+    n_out = int(round(len(mono) * 16000 / OVMER_RATE))
+    want = np.interp(np.linspace(0.0, 1.0, n_out, endpoint=False),
+                     np.linspace(0.0, 1.0, len(mono), endpoint=False), mono)
+    corpus = {n: {"emo": "happy"} for n in OVMER_NAMES}
+    label = os.path.join(root, "label-6way.npz")
+    np.savez(label, train_corpus=np.array(corpus, dtype=object),
+             test1_corpus=np.array(corpus, dtype=object))
+    subtitles = os.path.join(root, "transcription.csv")
+    write_csv(subtitles, ["name", "english"], [(n, SUBTITLES[i]) for i, n in enumerate(OVMER_NAMES)])
+    paths.update_from_dict({"DATA_DIR": {"MER2023": root}, "PATH_TO_LABEL": {"MER2023": label},
+                            "PATH_TO_TRANSCRIPTIONS": {"MER2023": subtitles},
+                            "PATH_TO_RAW_VIDEO": {"MER2023": os.path.join(root, "video")},
+                            "PATH_TO_RAW_AUDIO": {"MER2023": os.path.join(root, "audio")}})
+    return SUBTITLES[0], want.astype(np.float32)
+
+
+def ovmer_saved(what: str, save: str) -> dict:
+    with np.load(save, allow_pickle=True) as data:
+        if data.files != ["name2reason"]:
+            raise AssertionError(f"ovmer {what}: npz keys {data.files}")
+        saved = data["name2reason"].item()
+    if saved != {OVMER_NAMES[0]: OVMER_REPLY, OVMER_NAMES[1]: ""}:
+        raise AssertionError(f"ovmer {what}: saved {saved!r}")
+    return saved
+
+
+def ovmer_video(card: str, run: str, root: str) -> None:
+    """One video adapter through run_zero_shot on the two-clip root with a
+    ModelDouble of its family's geometry: the pixels on the card at [T, 3,
+    S, S] (or [1, T, 3, S, S]) of the adapter's rule, equal to the port's CPU
+    preprocessing of the same frames, tokens a frame x T image tokens in the
+    prompt, the double's reply for clip a and "" for clip b."""
+    import importlib
+    import os
+
+    from affectgpt_tpu_torch.ovmer import zero_shot_harness
+    from affectgpt_tpu_torch.ovmer.adapters import _llava_base as base
+
+    adapter, family, kwargs, frames = OVMER_VIDEO[run]
+    module = importlib.import_module(f"affectgpt_tpu_torch.ovmer.adapters.{adapter}")
+    model, tok = ModelDouble(ovmer_config(family)), TokenizerDouble()
+    reads, preps = [], []
+
+    def timed_read(inner):
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            out = inner(*args, **kw)
+            reads.append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def timed_preprocess(inner):
+        def wrapped(frames_u8, out_size, device):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(frames_u8, out_size, device)
+            torch.cuda.synchronize()
+            preps.append((time.perf_counter() - t0, frames_u8, out_size))
+            return out
+        return wrapped
+
+    save = os.path.join(root, "out", f"result-{run}", "0.npz")
+    fn = module.build_model_fn(None, device="cuda", model=model, tokenizer=tok, **kwargs)
+    with patched(base, "read_video", timed_read), \
+            patched(base, "preprocess_frames", timed_preprocess):
+        zero_shot_harness.run_zero_shot("MER2023", fn, save)
+    ovmer_saved(run, save)
+    if len(model.calls) != 1 or len(preps) != 1 or len(reads) != 1:
+        raise AssertionError(f"ovmer {run}: {len(model.calls)} generate calls, {len(reads)} "
+                             f"reads, {len(preps)} preprocessings; want 1 each")
+    _, call = model.calls[0]
+    key = "pixel_values_videos" if "pixel_values_videos" in call else "pixel_values"
+    pixels, ids = call[key], call["input_ids"]
+    size = OVMER_FAMILIES[family]["image_size"]
+    shape = (frames, 3, size, size) if key == "pixel_values" else (1, frames, 3, size, size)
+    if tuple(pixels.shape) != shape or pixels.device.type != "cuda" \
+            or pixels.dtype != torch.float32 or ids.device.type != "cuda":
+        raise AssertionError(f"ovmer {run}: {key} {tuple(pixels.shape)} {pixels.dtype} on "
+                             f"{pixels.device}, ids on {ids.device}; want {shape} f32 on cuda")
+    _, frames_u8, out_size = preps[0]
+    err = float((pixels.reshape(shape[-4:]).cpu()
+                 - base.preprocess_frames(frames_u8, out_size, "cpu")).abs().max())
+    if adapter == "videollava":
+        token, per_frame = "<video>", module.num_video_tokens(model.config) // frames
+    elif key == "pixel_values_videos":
+        token, per_frame = "<video>", base.video_tokens_per_frame(model)[1]
+    else:
+        token, per_frame = "<image>", base.image_tokens_per_frame(model)[1]
+    image_tokens = int((ids == OVMER_SPECIALS[token]).sum())
+    say("ovmer", adapter=run, T=frames, S=size, pixels=key, image_tokens=image_tokens,
+        tokens_a_frame=per_frame, read_ms=f"{reads[0] * 1e3:.3f}",
+        preprocess_ms=f"{preps[0][0] * 1e3:.3f}",
+        read_and_preprocess_ms=f"{(reads[0] + preps[0][0]) * 1e3:.3f}",
+        pixel_max_abs_err=f"{err:.3e}", card=repr(card))
+    if image_tokens != per_frame * frames or err > OVMER_PIXEL_ATOL:
+        raise AssertionError(f"ovmer {run}: {image_tokens} image tokens (want {per_frame} x "
+                             f"{frames}), pixels {err:.3e} off the CPU's")
+
+
+def ovmer_audio(card: str, root: str, subtitle: str, wav_want: np.ndarray) -> None:
+    """qwen_audio and salmonn through run_zero_shot on the two-clip root
+    with doubles: the 48 kHz stereo wav read as wav_want, the prompts
+    built from the clip's subtitle (and SALMONN's from the transcript),
+    the features and ids on the card; clip b (no wav) scores ""."""
+    import os
+
+    from affectgpt_tpu_torch.ovmer import zero_shot_harness
+    from affectgpt_tpu_torch.ovmer.adapters import qwen_audio, salmonn
+
+    tok = TokenizerDouble()
+    processor, model = ProcessorDouble(tok), ModelDouble(ovmer_config("llava-1.5"))
+    save = os.path.join(root, "out", "result-qwen_audio", "0.npz")
+    t0 = time.perf_counter()
+    zero_shot_harness.run_zero_shot("MER2023", qwen_audio.build_model_fn(
+        None, device="cuda", model=model, processor=processor), save)
+    qwen_s = time.perf_counter() - t0
+    ovmer_saved("qwen_audio", save)
+    (text, audio, rate), = processor.calls
+    (_, call), = model.calls
+    wav_err = float(np.abs(audio[0] - wav_want).max()) if audio[0].shape == wav_want.shape \
+        else float("inf")
+    prompt = f"Audio 1: <|AUDIO|>\n{qwen_audio.PROMPT_WITH_SUBTITLE.format(subtitle=subtitle)}"
+    devices = {k: v.device.type for k, v in call.items() if isinstance(v, torch.Tensor)}
+
+    whisper, llm = ModelDouble(reply=OVMER_TRANSCRIPT, after_prompt=False), ModelDouble()
+    whisper_processor = ProcessorDouble(tok)
+    save_s = os.path.join(root, "out", "result-salmonn", "0.npz")
+    t0 = time.perf_counter()
+    zero_shot_harness.run_zero_shot("MER2023", salmonn.build_model_fn(
+        None, None, device="cuda", whisper=whisper, whisper_processor=whisper_processor,
+        llm=llm, llm_tokenizer=tok), save_s)
+    salmonn_s = time.perf_counter() - t0
+    ovmer_saved("salmonn", save_s)
+    (feats,), _ = whisper.calls[0]
+    (_, llm_call), = llm.calls
+    llm_prompt = tok.decode(llm_call["input_ids"][0].tolist())
+    llm_want = (f"USER: Speech content of the audio: {OVMER_TRANSCRIPT}. "
+                f"{salmonn.PROMPT_WITH_SUBTITLE.format(subtitle=subtitle)}ASSISTANT:")
+    salmonn_err = float(np.abs(whisper_processor.calls[0][1][0] - wav_want).max())
+    say("ovmer", adapter="qwen_audio", samples=len(audio[0]), rate=rate,
+        wav_max_abs_err=f"{wav_err:.3e}", generate_devices=json.dumps(devices),
+        run_s=f"{qwen_s:.3f}", card=repr(card))
+    say("ovmer", adapter="salmonn", samples=len(whisper_processor.calls[0][1][0]),
+        wav_max_abs_err=f"{salmonn_err:.3e}", whisper_features_on=feats.device.type,
+        llm_ids_on=llm_call["input_ids"].device.type, run_s=f"{salmonn_s:.3f}", card=repr(card))
+    if text != prompt or rate != 16000 or wav_err > OVMER_WAV_ATOL or set(devices.values()) != \
+            {"cuda"} or salmonn_err > OVMER_WAV_ATOL or feats.device.type != "cuda" \
+            or llm_call["input_ids"].device.type != "cuda" or llm_prompt != llm_want:
+        raise AssertionError(f"ovmer audio: prompt {text!r}, rate {rate}, wav {wav_err}, "
+                             f"{devices}; salmonn wav {salmonn_err}, {feats.device}, "
+                             f"{llm_prompt!r}")
+
+
+def ovmer_model_error(root: str) -> None:
+    """A double whose generate raises RuntimeError must end run_zero_shot
+    with it, and no npz is written."""
+    import os
+
+    from affectgpt_tpu_torch.ovmer import zero_shot_harness
+    from affectgpt_tpu_torch.ovmer.adapters import videochat
+
+    error = RuntimeError("CUDA error: an illegal memory access was encountered (a double)")
+    model = ModelDouble(ovmer_config("llava-1.5"), error=error)
+    save = os.path.join(root, "out", "result-error", "0.npz")
+    fn = videochat.build_model_fn(None, device="cuda", model=model, tokenizer=TokenizerDouble())
+    try:
+        zero_shot_harness.run_zero_shot("MER2023", fn, save)
+    except RuntimeError as raised:
+        if raised is not error or os.path.exists(save):
+            raise AssertionError(f"ovmer model_error: {raised!r}, npz written "
+                                 f"{os.path.exists(save)}") from raised
+        return
+    raise AssertionError("ovmer model_error: run_zero_shot swallowed the model's RuntimeError")
+
+
+def ovmer_quality_run(card: str, root: str) -> None:
+    """`python -m affectgpt_tpu_torch.scripts.quality_run --synthetic root
+    --device cuda` as a subprocess: exit 0, its three answers and the
+    judge's openset cache written."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (here, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "affectgpt_tpu_torch.scripts.quality_run",
+                           "--synthetic", root, "--device", "cuda"], cwd=here, env=env,
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    result = os.path.join(root, "output", "results", "quality_run", "result-mer2023")
+    files = sorted(os.listdir(result)) if os.path.isdir(result) else []
+    answers = {}
+    if "0.npz" in files:
+        with np.load(os.path.join(result, "0.npz"), allow_pickle=True) as data:
+            answers = data["name2reason"].item()
+    score = [line for line in proc.stderr.splitlines() + proc.stdout.splitlines()
+             if "BEST" in line]
+    steps = [line.split(": ", 1)[1] for line in proc.stdout.splitlines()
+             if line.startswith("quality_run: ") and " took " in line]
+    say("ovmer", run="quality_run", rc=proc.returncode, files=json.dumps(files),
+        answers=len(answers), non_empty=sum(bool(v) for v in answers.values()),
+        score=json.dumps(score[-1].split("] ")[-1] if score else None),
+        steps=json.dumps(steps), seconds=f"{seconds:.3f}", card=repr(card))
+    # the 3B LLM's random weights mostly pick ids past the ByteTokenizer's bytes, which
+    # decode to nothing: an answer must be a string, not a non-empty one
+    if proc.returncode or "quality_run complete" not in proc.stdout \
+            or files != ["0-openset.npz", "0.npz"] or len(answers) != 3 \
+            or not all(isinstance(v, str) for v in answers.values()):
+        raise AssertionError(f"ovmer quality_run: rc {proc.returncode}, {files}, {answers}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+
+
+def phase_ovmer(card: str, tmp: str) -> dict:
+    """Phase 16: the OV-MER adapters on the card through run_zero_shot, the
+    wrapped HF models replaced by doubles of their published geometry
+    (no HF weights here), then the quality-run recipe. Returns
+    the launches of the adapters' runs (all 0: they run no kernel)."""
+    import importlib.metadata
+    import importlib.util
+    import os
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "ovmer")
+    subtitle, wav_want = write_ovmer_root(root)
+
+    def adapters():
+        for run in OVMER_VIDEO:
+            ovmer_video(card, run, root)
+        ovmer_audio(card, root, subtitle, wav_want)
+        ovmer_model_error(root)
+
+    _, launches = counted_call(adapters)
+    check_launches("ovmer adapters", launches, {})
+    from affectgpt_tpu_torch.data import media
+
+    present = importlib.util.find_spec("transformers") is not None
+    say("ovmer", launches=json.dumps(launches),
+        transformers=importlib.metadata.version("transformers") if present else "absent",
+        hf_models="the wrapped HF models did not run: test doubles of their published "
+        "geometry stood in", video_rungs=json.dumps({
+            "cv2": media._try_cv2() is not None, "decord": media._try_decord() is not None,
+            "ffmpeg": media._ffmpeg_available(),
+            "native": media._native_video_reader() is not None}), card=repr(card))
+    ovmer_quality_run(card, os.path.join(tmp, "quality_run"))
+    say("ovmer", phase_seconds=f"{time.perf_counter() - t0:.3f}", card=repr(card))
+    return launches
+
+
 def recording_generate(record: list):
     """A wrapper of gen.generate that appends each call's tokens to `record`."""
     def make(generate):
@@ -6327,6 +6767,7 @@ def main() -> None:
         tp_train_launches = phase_tp_train(card, dirs, tmp)
         torch.cuda.empty_cache()
         toolkit = phase_toolkit(card, dirs, os.path.join(tmp, "toolkit"))
+        phase_ovmer(card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for name, err in zoo["max_abs_err"].items():

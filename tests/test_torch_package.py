@@ -49,6 +49,18 @@ ABSENT_ON_THE_CARD = ("yaml", "pandas", "transformers", "tokenizers", "safetenso
 TRIED_INSIDE_A_FUNCTION = ("yaml", "PIL", "cv2", "decord")
 
 
+ADAPTERS = ("videollava", "chat_univi", "video_chatgpt", "llama_vid", "mplug_owl", "otter",
+            "videochat", "videochat2", "qwen_audio", "salmonn")
+ADAPTER_MODULES = [f"affectgpt_tpu_torch.ovmer.adapters.{name}" for name in ADAPTERS] + [
+    "affectgpt_tpu_torch.ovmer.adapters._llava_base"]
+
+
+def _adapter(name: str):
+    import importlib
+
+    return importlib.import_module(f"affectgpt_tpu_torch.ovmer.adapters.{name}")
+
+
 def _port_modules():
     return sorted(
         m.name for m in pkgutil.walk_packages(affectgpt_tpu_torch.__path__, "affectgpt_tpu_torch.")
@@ -95,7 +107,8 @@ def test_port_imports_without_jax():
             "affectgpt_tpu_torch.toolkit.gptv",
             "affectgpt_tpu_torch.scripts.encode_fine_grained",
             "affectgpt_tpu_torch.scripts.ingest_transcode",
-            "affectgpt_tpu_torch.scripts.judge_ab"} <= set(modules)
+            "affectgpt_tpu_torch.scripts.judge_ab", "affectgpt_tpu_torch.scripts.quality_run",
+            "affectgpt_tpu_torch.scripts.synth_corpus"} | set(ADAPTER_MODULES) <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises ImportError
@@ -123,8 +136,10 @@ def test_port_imports_without_jax():
                                    ingest.write_mjpeg_avi, ingest.transcode_video,
                                    ingest.transcode_tree, ingest.segment_transcode,
                                    jpeg_encode.encode_frames, teval.build_judge,
-                                   teval.main_zeroshot_scores, ttrain.train_fusion_model],
-                         ids=lambda f: f.__name__)
+                                   teval.main_zeroshot_scores, ttrain.train_fusion_model]
+                         + [_adapter(name).build_model_fn for name in ADAPTERS],
+                         ids=lambda f: f.__name__ if f.__name__ != "build_model_fn"
+                         else f"{f.__module__.rsplit('.', 1)[-1]}.build_model_fn")
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -132,15 +147,27 @@ def test_entry_points_default_to_the_card(entry):
 def test_no_import_of_what_the_card_lacks():
     """No line of the port or of chip_smoke.py imports a package the card
     lacks, not even inside a function (which the import test cannot see),
-    but those TRIED_INSIDE_A_FUNCTION."""
+    but those TRIED_INSIDE_A_FUNCTION; and `transformers` inside a function
+    of the OV-MER adapters only, which wrap its models (and load them only
+    when the caller passes none)."""
     import re
 
     never = [m for m in ABSENT_ON_THE_CARD if m not in TRIED_INSIDE_A_FUNCTION]
     pattern = re.compile(r"^\s*(?:import|from)\s+(" + "|".join(map(re.escape, never)) + r")\b")
+    in_a_function = re.compile(r"^\s+(?:import|from)\s+transformers\b")
+    adapters = REPO / "affectgpt_tpu_torch" / "ovmer" / "adapters"
     sources = sorted((REPO / "affectgpt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    found = [f"{path.relative_to(REPO)}:{i}" for path in sources
-             for i, line in enumerate(path.read_text().splitlines(), 1) if pattern.match(line)]
+    found, allowed = [], []
+    for path in sources:
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            if pattern.match(line):
+                where = f"{path.relative_to(REPO)}:{i}"
+                if path.parent == adapters and in_a_function.match(line):
+                    allowed.append(where)
+                else:
+                    found.append(where)
     assert len(sources) > 60 and not found, found
+    assert len({w.split(":")[0] for w in allowed}) == 6, allowed  # base + 5 own loaders
 
 
 def test_init_cache_without_device_needs_a_card():
@@ -249,16 +276,14 @@ def test_serving_wrappers_on_cpu_count_no_launch():
 
 
 SCRIPT_ARGV = {"encode_fine_grained": ["--mer-factory-output", "x"],
-               "ingest_transcode": ["--src", "x", "--dst", "y"], "judge_ab": ["--json", "j"]}
+               "ingest_transcode": ["--src", "x", "--dst", "y"], "judge_ab": ["--json", "j"],
+               "quality_run": ["--synthetic", "w"]}
 
 
-@pytest.mark.parametrize("name", list(SCRIPT_ARGV))
-def test_script_twins_default_to_the_card(name, monkeypatch):
-    """The command-line twins take `--device`, the card unless told."""
+def _capture_args(monkeypatch) -> dict:
+    """argparse's parse_args made to record what it parsed and exit."""
     import argparse
-    import importlib
 
-    module = importlib.import_module(f"affectgpt_tpu_torch.scripts.{name}")
     seen = {}
     original = argparse.ArgumentParser.parse_args
 
@@ -267,9 +292,41 @@ def test_script_twins_default_to_the_card(name, monkeypatch):
         raise SystemExit(0)
 
     monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    return seen
+
+
+@pytest.mark.parametrize("name", list(SCRIPT_ARGV))
+def test_script_twins_default_to_the_card(name, monkeypatch):
+    """The command-line twins take `--device`, the card unless told."""
+    import importlib
+
+    module = importlib.import_module(f"affectgpt_tpu_torch.scripts.{name}")
+    seen = _capture_args(monkeypatch)
     with pytest.raises(SystemExit):
         module.main(SCRIPT_ARGV[name])
     assert seen["device"] == "cuda"
+
+
+@pytest.mark.parametrize("name", ADAPTERS)
+def test_adapter_clis_default_to_the_card(name, monkeypatch):
+    """`python -m affectgpt_tpu_torch.ovmer.adapters.<name>` (run_cli or the
+    adapter's own parser) runs on the card unless `--device cpu`."""
+    argv = (["--whisper_dir", "w", "--llm_dir", "l"] if name == "salmonn"
+            else ["--model_dir", "m"]) + ["--dataset", "MER2023"]
+    seen = _capture_args(monkeypatch)
+    with pytest.raises(SystemExit):
+        _adapter(name).main(argv)
+    assert seen["device"] == "cuda" and seen["dataset"] == "MER2023"
+
+
+@pytest.mark.parametrize("name", ADAPTERS)
+def test_adapter_without_transformers_raises_import_error(name, monkeypatch):
+    """Loading from a model directory needs `transformers`; where it is
+    absent (as on the card) the ImportError propagates, no fallback."""
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    dirs = ("whisper_dir", "llm_dir") if name == "salmonn" else ("model_dir",)
+    with pytest.raises(ImportError, match="transformers"):
+        _adapter(name).build_model_fn(*dirs, device="cpu")
 
 
 def test_kernel_build_is_keyed_by_source_hash():
