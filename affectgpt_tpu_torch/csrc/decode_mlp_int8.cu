@@ -15,8 +15,9 @@
 // multiplied on CUDA cores: every weight value cost b f32 multiply-adds, and
 // each 8-row batch tile read the weights again, so it was arithmetic-bound
 // from b = 16. Route (a) of the two open ones: mma.sync m16n8k16 in bf16 with
-// the int8 weights converted in registers, as quant_mma.cuh does, here with
-// the weight as the 16-row A operand and the batch rows as the 8-wide N
+// the int8 weights converted in registers (as quant_swapab.cu and
+// quant_wgmma.cuh do for the weight-only matmuls), here with the weight as
+// the 16-row A operand and the batch rows as the 8-wide N
 // (swap-AB: y^T = W^T x^T), so a 16-row batch tile (two n8 tiles) reads each
 // weight byte once, and b up to 16 needs no second pass. The other route, a
 // swap-AB wgmma (int8_matmul_w8a8.cu), needs its A operand in registers all

@@ -7,21 +7,23 @@
 //
 // Replaces the Pallas kernel affectgpt_tpu/ops/quant.py::int4_matmul.
 //
-// Bound: the products at M in the hundreds. A unit of the K loop is 128 packed
-// rows: the low nibbles are one scale group of the first K-half, the high
-// nibbles one of the second, and each is contracted against its own x columns
-// with mma.sync m16n8k16 bf16 into a per-group fragment, then scaled into the
-// accumulator (quant_mma.cuh, mode kW4, the 128 x 64 tile). Both nibbles are
-// unpacked from unsigned bits and sign-extended from bit 3, so no signed shift
-// is involved.
+// Bound: the products at M in the hundreds (bench.py's 7B batch of 256), the
+// weight bytes at the speculative verify's M = 40. The kernel is
+// quant_wgmma.cuh's swap-AB wgmma design in mode kW4: the packed bytes come
+// by TMA, each nibble becomes a register A fragment of wgmma, and each K-half's
+// group sum is a second f32 tile scaled into the accumulator when its group
+// completes.
 
-#include "quant_mma.cuh"
+#include "quant_wgmma.cuh"
 
-// C entry: see launch_bf16_mma in quant_mma.cuh. Returns the first CUDA
-// error of the launches, or 0.
-extern "C" int agk_int4_matmul(const void* x, const void* w, const void* scales, void* y,
-                               void* partial, int m, int n, int k, int units_per_split,
-                               int splits, void* stream) {
-  return agk::qmm::launch_bf16_mma<agk::qmm::kW4>(x, w, scales, y, partial, m, n, k,
-                                                  units_per_split, splits, stream);
+// C entries: see launch and active_clusters in quant_wgmma.cuh. The plan
+// (nb, cb, ck, stages) comes from ops/quant.py::wgmma_plan.
+extern "C" int agk_int4_matmul(const void* x, const void* w, const void* scales, void* y, int m,
+                               int n, int k, int nb, int cb, int ck, int stages, void* stream) {
+  return agk::qwg::launch<agk::qwg::kW4>(x, w, scales, y, m, n, k, nb, cb, ck, stages,
+                                         stream);
+}
+
+extern "C" int agk_int4_matmul_active_clusters(int nb, int cluster, int stages) {
+  return agk::qwg::active_clusters<agk::qwg::kW4>(nb, cluster, stages);
 }

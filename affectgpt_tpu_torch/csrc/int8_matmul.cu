@@ -5,19 +5,22 @@
 //
 // Replaces the Pallas kernel affectgpt_tpu/ops/quant.py::int8_matmul.
 //
-// Bound: the products at M in the hundreds. The TPU kernel streams int8
-// tiles into VMEM and upcasts them there; this one converts each 16-byte
-// load of weights to bf16 in registers on its way to shared memory and runs
-// mma.sync bf16 products with f32 accumulation (quant_mma.cuh, mode kW8, the
-// 128 x 64 tile).
+// Bound: the products at M in the hundreds, the weight bytes at the
+// speculative verify's M = 40. The kernel is quant_wgmma.cuh's swap-AB
+// wgmma design in mode kW8: the int8 bytes as register A fragments of wgmma
+// (exact bf16 pairs), the batch rows of x as its B operand, both by TMA
+// through one ring; the per-channel scale enters in the epilogue only.
 
-#include "quant_mma.cuh"
+#include "quant_wgmma.cuh"
 
-// C entry: see launch_bf16_mma in quant_mma.cuh. Returns the first CUDA
-// error of the launches, or 0.
-extern "C" int agk_int8_matmul(const void* x, const void* w, const void* scales, void* y,
-                               void* partial, int m, int n, int k, int units_per_split,
-                               int splits, void* stream) {
-  return agk::qmm::launch_bf16_mma<agk::qmm::kW8>(x, w, scales, y, partial, m, n, k,
-                                                  units_per_split, splits, stream);
+// C entries: see launch and active_clusters in quant_wgmma.cuh. The plan
+// (nb, cb, ck, stages) comes from ops/quant.py::wgmma_plan.
+extern "C" int agk_int8_matmul(const void* x, const void* w, const void* scales, void* y, int m,
+                               int n, int k, int nb, int cb, int ck, int stages, void* stream) {
+  return agk::qwg::launch<agk::qwg::kW8>(x, w, scales, y, m, n, k, nb, cb, ck, stages,
+                                         stream);
+}
+
+extern "C" int agk_int8_matmul_active_clusters(int nb, int cluster, int stages) {
+  return agk::qwg::active_clusters<agk::qwg::kW8>(nb, cluster, stages);
 }

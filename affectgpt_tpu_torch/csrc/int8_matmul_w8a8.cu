@@ -40,7 +40,7 @@
 //       qblock the s32 accumulators are scaled by sx into f32 accumulators
 //       (a wgmma with scale-d 0 starts the next block). K splits are whole
 //       qblocks, their partial sums reduced in a fixed order by a third
-//       launch (quant_mma.cuh): no atomics, the same bits on every call.
+//       launch (splitk_reduce.cuh): no atomics, the same bits on every call.
 // L2 reads at M = 4512 per decoder layer: each weight byte once per 192 rows
 // (24 row tiles x 233 MB = 5.6 GB) and each xq byte once per 128 columns
 // (8.2 GB); 128-row tiles took 3.06 ms a layer against 2.78 on an H100
@@ -50,8 +50,9 @@
 // Never compile this source with --use_fast_math: the division and rintf
 // must round as IEEE does.
 
+#include "gemv_tile.cuh"
 #include "hopper.cuh"
-#include "quant_mma.cuh"
+#include "splitk_reduce.cuh"
 
 namespace agk {
 namespace w8a8 {
@@ -258,7 +259,7 @@ static cudaError_t launch(const int8_t* xq, const float* sx, const int8_t* w, co
                                                           N, K, qblock, k_per_split, m_pad);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  return qmm::launch_splitk_reduce(partial, scales, y, M, N, splits, stream);
+  return launch_splitk_reduce(partial, scales, y, M, N, splits, stream);
 }
 
 }  // namespace w8a8

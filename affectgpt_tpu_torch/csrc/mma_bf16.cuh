@@ -58,6 +58,24 @@ __device__ __forceinline__ uint32_t s8_halves_to_bf16x2(uint32_t h) {
   return out;
 }
 
+// The nibbles at bits 0-3 and 16-19 of `v` (two's complement) as a bf16 pair
+// of their values: (nibble & 0xF) ^ 0x4308 is the bf16 128 + (nibble ^ 8) =
+// 136 + value, and 136 is subtracted in bf16 (exact: all are small integers).
+__device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t v) {
+  uint32_t biased, out;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n" : "=r"(biased) : "r"(v), "n"(0x000F000F), "n"(0x43084308));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(out)
+      : "r"(biased), "r"(0x3F803F80u), "r"(0xC308C308u));  // x * 1 - 136
+  return out;
+}
+
+// bf16(f32(a) * s) for both halves of an exact bf16 pair: the dequantized
+// weights of int4_matmul_smallm
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float s) {
+  return pack_bf16x2(__uint_as_float(v << 16) * s, __uint_as_float(v & 0xFFFF0000u) * s);
+}
+
 // The transpose of an 8x8 matrix of 16-bit elements held as an mma
 // fragment (lane l: row l / 4, columns 2 (l % 4), 2 (l % 4) + 1): afterwards
 // lane l holds row l / 4 of the transpose, that is the elements (2 (l % 4),

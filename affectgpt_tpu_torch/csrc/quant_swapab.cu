@@ -1,7 +1,7 @@
-// The weight-only quantized matmuls at decode M (1 <= M <= 16) on Hopper
-// (sm_90a), one design for int4 and int8 weights: y [M, N] = x [M, K] (bf16)
-// against an integer weight in the JAX [K, N] layout (N contiguous, no
-// repacked copy). Three modes:
+// The weight-only quantized matmuls at decode M (1 <= M <= 16; above it
+// quant_wgmma.cuh) on Hopper (sm_90a), one design for int4 and int8 weights:
+// y [M, N] = x [M, K] (bf16) against an integer weight in the JAX [K, N]
+// layout (N contiguous, no repacked copy). Three modes:
 //   int4_matmul (replaces the Pallas kernel affectgpt_tpu/ops/quant.py::
 //     int4_matmul): w_p int8 [K/2, N] packed (low nibble = row k, high
 //     nibble = row k + K/2), f32 scales [K/128, N]; each 128-row scale
@@ -17,11 +17,11 @@
 //
 // Bound: the weight bytes (116.5 MB a Qwen2.5-7B layer packed int4, 233 MB
 // int8: 0.035 / 0.070 ms at 3.35 TB/s), each read once for at most 16
-// multiply-adds a value. The previous design (a 16-row tile of
-// quant_mma.cuh, since removed) took the x rows as the 16-row A operand of mma.sync (half or more of the rows
-// zeros at M <= 8), turned each weight byte into bf16 in shared memory, kept
-// one unit of loads in flight between two __syncthreads and reduced its K
-// split in a second launch: latency-bound at a fifth (int4) or under half
+// multiply-adds a value. The previous design (a 16-row mma.sync tile, since
+// removed) took the x rows as the 16-row A operand of mma.sync (half or more
+// of the rows zeros at M <= 8), turned each weight byte into bf16 in shared
+// memory, kept one unit of loads in flight between two __syncthreads and
+// reduced its K split in a second launch: latency-bound at a fifth (int4) or under half
 // (int8) of the bytes bound. This one (after decode_mlp_int8.cu) streams the
 // wide products' weights at 2.2-2.4 TB/s on the H100 (the int4 loads alone
 // take 0.067 ms a layer, the memory system's rate for 128-byte rows of an
@@ -117,24 +117,6 @@ struct Layout {
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
-// The nibbles at bits 0-3 and 16-19 of `v` (two's complement) as a bf16 pair
-// of their values: (nibble & 0xF) ^ 0x4308 is the bf16 128 + (nibble ^ 8) =
-// 136 + value, and 136 is subtracted in bf16 (exact: all are small integers).
-__device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t v) {
-  uint32_t biased, out;
-  asm("lop3.b32 %0, %1, %2, %3, 0x6A;\n" : "=r"(biased) : "r"(v), "n"(0x000F000F), "n"(0x43084308));
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
-      : "=r"(out)
-      : "r"(biased), "r"(0x3F803F80u), "r"(0xC308C308u));  // x * 1 - 136
-  return out;
-}
-
-// bf16(f32(a) * s) for both halves of an exact bf16 pair: the dequantized
-// weights of int4_matmul_smallm
-__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float s) {
-  return pack_bf16x2(__uint_as_float(v << 16) * s, __uint_as_float(v & 0xFFFF0000u) * s);
 }
 
 // The A fragment of K-half H for the k16 step whose two 8-row matrices a

@@ -42,9 +42,12 @@ _SIGNATURES = {
     "agk_decode_attention_bf16": [_P] * 5 + [_I] * 8 + [_P],
     "agk_decode_attn_o_bf16": [_P] * 8 + [_I] * 13 + [_P],
     "agk_prefill_attention_bf16": [_P] * 7 + [_I] * 5 + [_P],
-    "agk_int8_matmul": [_P] * 5 + [_I] * 5 + [_P],
-    "agk_int4_matmul": [_P] * 5 + [_I] * 5 + [_P],
-    "agk_int4_matmul_smallm": [_P] * 5 + [_I] * 5 + [_P],
+    "agk_int8_matmul": [_P] * 4 + [_I] * 7 + [_P],
+    "agk_int4_matmul": [_P] * 4 + [_I] * 7 + [_P],
+    "agk_int4_matmul_smallm": [_P] * 4 + [_I] * 7 + [_P],
+    "agk_int8_matmul_active_clusters": [_I] * 3,
+    "agk_int4_matmul_active_clusters": [_I] * 3,
+    "agk_int4_matmul_smallm_active_clusters": [_I] * 3,
     "agk_quant_swapab": [_P] * 4 + [_I] * 5 + [_P],
     "agk_quant_swapab_active_clusters": [_I] * 3,
     "agk_int8_matmul_w8a8": [_P] * 7 + [_I] * 8 + [_P],

@@ -28,8 +28,12 @@ CUDA tensor it launches the hand-written kernel (csrc/) or raises:
 (the decode M of the main path: 8 and 16): the weights as the A operand of
 mma.sync, their bytes through a TMA ring, K split over a cluster, one
 launch a product, on the plans of `int8_plan` and `int4_plan`. Above M = 16
-they launch the 128 x 64 tile of csrc/quant_mma.cuh (csrc/int8_matmul.cu,
-int4_matmul.cu, int4_matmul_smallm.cu).
+(the speculative verify's 40, bench.py's 7B batch of 256, prefill up to
+PALLAS_DEQUANT_MAX_M) they launch csrc/quant_wgmma.cuh (through
+csrc/int8_matmul.cu, int4_matmul.cu, int4_matmul_smallm.cu): swap-AB on
+wgmma, the weight bytes converted into register A fragments, the batch rows
+of x the B operand, both by TMA through one ring, on the plan of
+`wgmma_plan`.
 
 `models.qwen2._lora_dense` routes by M = rows of x, as the JAX TPU route
 does without its Mosaic gates (block divisibility, the 8-row pad,
@@ -267,21 +271,6 @@ def int4_matmul_xla(x, w_p, scales):
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 
-# the tile of csrc/quant_mma.cuh: (rows, columns) of x / y per block; K
-# advances in units of 64 rows (int8) or 128 packed rows (int4)
-_TILE_M, _TILE_N = 128, 64
-
-
-def _split_k(x, m: int, n: int, k_units: int):
-    """Split the K loop over enough blocks to give the card about two per
-    SM: returns (K units per split, splits). Partial sums of the splits are
-    reduced in a fixed order by a second launch."""
-    tiles = -(-m // _TILE_M) * -(-n // _TILE_N)
-    splits = min(k_units, max(1, -(-2 * _build.sm_count(x.device.index or 0) // tiles)))
-    per = -(-k_units // splits)
-    return per, -(-k_units // per)
-
-
 def _check_operands(name, x, w, scales, w_rows: int, scale_rows: int, k_multiple: int):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
@@ -307,19 +296,6 @@ def _check_operands(name, x, w, scales, w_rows: int, scale_rows: int, k_multiple
         raise ValueError(f"{name} kernel needs M > 0, N % 16 == 0 and K % {k_multiple} == 0 "
                          f"(M={m}, N={n}, K={k})")
     return m, n, k
-
-
-def _launch_bf16_mma(name, entry, x, w, scales, m, n, k_units):
-    per, splits = _split_k(x, m, n, k_units)
-    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    partial = torch.empty((splits, m, n) if splits > 1 else (0,), dtype=torch.float32,
-                          device=x.device)
-    status = getattr(_build.load_library(), entry)(
-        x.data_ptr(), w.data_ptr(), scales.data_ptr(), y.data_ptr(), partial.data_ptr(),
-        m, n, x.shape[1], per, splits, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(status, name)
-    return y
 
 
 # csrc/quant_swapab.cu: a block owns SWAPAB_BN columns of N (eight consumer
@@ -438,6 +414,112 @@ def _swapab(name, x, w, scales, mode: int):
     return y
 
 
+# csrc/quant_wgmma.cuh, above SWAPAB_MAX_M: a block owns WGMMA_BN columns of
+# N (two consumer warpgroups of 64, the wgmma M) and NB batch rows (the wgmma
+# N, one of WGMMA_NB); a stage is WGMMA_ROWS stored weight rows and the x
+# columns they meet (int8: one 64-column box; int4: one of each K-half, and
+# two scale rows in a pair's first stage); the consumers take stages in
+# pairs, one 128-row scale group of each K-half
+WGMMA_BN, WGMMA_ROWS = 128, 64
+WGMMA_NB = (32, 40, 48, 64, 96, 128)
+WGMMA_MAX_STAGES = 8
+SMEM_LIMIT = 232_448  # bytes of shared memory an H100 block can use
+
+
+def wgmma_stage_bytes(mode: int, nb: int) -> int:
+    """One stage of the ring: the weight box, the x boxes of nb rows x 128
+    bytes, int4's two scale rows."""
+    if mode == MODE_INT8:
+        return WGMMA_ROWS * WGMMA_BN + nb * 128
+    return WGMMA_ROWS * WGMMA_BN + 2 * nb * 128 + 2 * WGMMA_BN * 4
+
+
+def wgmma_plan(m: int, n: int, k: int, sm_count: int, mode: int, active_clusters=None) -> dict:
+    """The launch plan of csrc/quant_wgmma.cuh for x [m, k] against an int8
+    weight [k, n] (MODE_INT8) or a packed int4 one [k/2, n] (MODE_INT4,
+    MODE_INT4_DEQUANT), SWAPAB_MAX_M < m <= PALLAS_DEQUANT_MAX_M:
+
+    - `cb` batch blocks of `nb` rows (cb = ceil(m / 128), nb the narrowest
+      width of WGMMA_NB that holds ceil(m / cb) rows; rows past m are zeros);
+    - U = `units` pairs of stages along K (int8: ceil(k / 128), rows past K
+      zeros; int4: k / 256, pair u one scale group of each K-half), split
+      over a cluster of `cluster` blocks, rank r taking `unit_ranges[r]`;
+    - the grid: one cluster for each (column block, batch block), batch
+      blocks fastest, so block b is column block b // (cb c), batch block
+      (b // c) % cb, rank b % c;
+    - the ring: as many stages as fit the shared memory, at most
+      WGMMA_MAX_STAGES;
+    - the weight bytes the launch reads: each byte once a batch block
+      (`weight_reads` = cb), from the L2 after the first.
+
+    The cluster is the swap-AB kernel's rule (`_cluster_plan`): the smallest
+    whose blocks cover SWAPAB_SM_FILL of the SMs, at most 8 and at most U,
+    among the sizes of which the card holds at least one cluster at once
+    (`active_clusters(c, nb, stages)`; the wrapper asks the card, by default
+    one block an SM). Raises on what the kernel does not take."""
+    int8 = mode == MODE_INT8
+    if mode not in (MODE_INT8, MODE_INT4, MODE_INT4_DEQUANT):
+        raise ValueError(f"wgmma kernel: unknown mode {mode}")
+    k_unit = 64 if int8 else 2 * INT4_GROUP
+    if not SWAPAB_MAX_M < m <= PALLAS_DEQUANT_MAX_M or n < 16 or n % 16 or k < k_unit \
+            or k % k_unit:
+        raise ValueError(f"wgmma quantized kernel needs {SWAPAB_MAX_M} < M <= "
+                         f"{PALLAS_DEQUANT_MAX_M}, N % 16 == 0 and K % {k_unit} == 0 "
+                         f"(M={m}, N={n}, K={k})")
+    cb = -(-m // WGMMA_NB[-1])
+    nb = next(w for w in WGMMA_NB if cb * w >= m)
+    stage = wgmma_stage_bytes(mode, nb)
+    stages = min(WGMMA_MAX_STAGES, (SMEM_LIMIT - 1024) // (stage + 16))
+    if active_clusters is None:
+        def active_clusters(c, nb, stages):
+            return sm_count // c
+    col_blocks = -(-n // WGMMA_BN)
+    units = -(-k // 128) if int8 else k // (2 * INT4_GROUP)
+    c = _cluster_plan(col_blocks * cb, units, sm_count,
+                      lambda size: active_clusters(size, nb, stages))
+    return {
+        "nb": nb, "cb": cb, "cluster": c, "col_blocks": col_blocks, "units": units,
+        "unit_ranges": [(r * units // c, (r + 1) * units // c) for r in range(c)],
+        "grid": (col_blocks * cb * c,), "stages": stages, "stage_bytes": stage,
+        "smem_bytes": max(stages * stage, nb * (WGMMA_BN + 4) * 4) + 16 * stages + 1024,
+        "weight_reads": cb, "weight_bytes": cb * col_blocks * WGMMA_BN * units * 128,
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_active_clusters(index: int, mode: int, nb: int, stages: int, cluster: int) -> int:
+    with torch.cuda.device(index):
+        count = getattr(_build.load_library(), _WGMMA_ENTRY[mode] + "_active_clusters")(
+            nb, cluster, stages)
+    if count < 0:
+        _build.check(-count, "wgmma quantized kernel occupancy")
+    return count
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_plan_on(index: int, m: int, n: int, k: int, mode: int) -> dict:
+    return wgmma_plan(m, n, k, _build.sm_count(index), mode,
+                      lambda c, nb, stages: _wgmma_active_clusters(index, mode, nb, stages, c))
+
+
+# the C entry of each mode (csrc/int8_matmul.cu, int4_matmul.cu, int4_matmul_smallm.cu)
+_WGMMA_ENTRY = {MODE_INT8: "agk_int8_matmul", MODE_INT4: "agk_int4_matmul",
+                MODE_INT4_DEQUANT: "agk_int4_matmul_smallm"}
+
+
+def _wgmma(name, x, w, scales, mode: int):
+    m, k = x.shape
+    n = w.shape[1]
+    plan = _wgmma_plan_on(x.device.index or 0, m, n, k, mode)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    status = getattr(_build.load_library(), _WGMMA_ENTRY[mode])(
+        x.data_ptr(), w.data_ptr(), scales.data_ptr(), y.data_ptr(), m, n, k, plan["nb"],
+        plan["cb"], plan["cluster"], plan["stages"], torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, name)
+    return y
+
+
 def _int8_check(name, x, w_q, scales):
     return _check_operands(name, x, w_q, scales, x.shape[-1], 1, 64)
 
@@ -451,7 +533,7 @@ def int8_matmul(x, w_q, scales):
     if m <= SWAPAB_MAX_M:
         y = _swapab("int8_matmul", x, w_q, scales, MODE_INT8)
     else:
-        y = _launch_bf16_mma("int8_matmul", "agk_int8_matmul", x, w_q, scales, m, n, k // 64)
+        y = _wgmma("int8_matmul", x, w_q, scales, MODE_INT8)
     int8_matmul.launches += 1
     return y
 
@@ -471,8 +553,7 @@ def int4_matmul(x, w_p, scales):
     if m <= SWAPAB_MAX_M:
         y = _swapab("int4_matmul", x, w_p, scales, MODE_INT4)
     else:
-        y = _launch_bf16_mma("int4_matmul", "agk_int4_matmul", x, w_p, scales, m, n,
-                             k // (2 * INT4_GROUP))
+        y = _wgmma("int4_matmul", x, w_p, scales, MODE_INT4)
     int4_matmul.launches += 1
     return y
 
@@ -487,8 +568,7 @@ def int4_matmul_smallm(x, w_p, scales):
     if m <= SWAPAB_MAX_M:
         y = _swapab("int4_matmul_smallm", x, w_p, scales, MODE_INT4_DEQUANT)
     else:
-        y = _launch_bf16_mma("int4_matmul_smallm", "agk_int4_matmul_smallm", x, w_p, scales, m,
-                             n, k // (2 * INT4_GROUP))
+        y = _wgmma("int4_matmul_smallm", x, w_p, scales, MODE_INT4_DEQUANT)
     int4_matmul_smallm.launches += 1
     return y
 

@@ -40,13 +40,16 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    prints its variant (wgmma N-width, K splits) and the bytes it reads; so
    must the two int4 wrappers and `int8_matmul`, which print the swap-AB
    kernel's plan at M <= 16 (n8 tiles, cluster size, grid, ring, shared
-   memory) beside each product; `int8_matmul` is checked at every M of 1-16
-   and at 64 and 1000 (the 128 x 64 tile), and also timed at M = 16 on the split layout's attention
-   products and the lm_head (paged_w8's decode M); `int4_matmul` is also
-   timed at M = 256, bench.py's 7B batch, beside cuBLAS bf16 (a measurement
-   only); `int4_matmul` and `int8_matmul` are also checked and timed at
-   M = 40, the speculative verify's rows (8 clips x (4 drafts + 1)), over the
-   7B split layer and the lm_head, beside cuBLAS bf16. The serving kernels:
+   memory) and above it quant_wgmma.cuh's (batch width NB, batch blocks,
+   column tiles sharing x, K split, stages, shared memory, weight bytes
+   read) beside each product; the three weight-only wrappers are checked at
+   M = 17, 40, 64, 100, 256, 257, 1000 and 1024 (quant_wgmma.cuh), and
+   `int8_matmul` at every M of 1-16; `int8_matmul` is also timed at M = 16
+   on the split layout's attention products and the lm_head (paged_w8's
+   decode M); `int4_matmul` and `int8_matmul` are also timed at M = 40, the
+   speculative verify's rows (8 clips x (4 drafts + 1)), 256, bench.py's 7B
+   batch, and 1000, a prefill's rows, over the 7B split layer and the
+   lm_head, beside cuBLAS bf16 (measurements only). The serving kernels:
    paged attention (bf16 and int8 pools of 2048 blocks of 16, 16 rows of
    545-596 tokens plus a 1-token row and a one-page row, pages drawn from a
    shuffled permutation, table widths 38
@@ -1059,12 +1062,15 @@ def layer_shapes(cfg: qwen2.QwenConfig, fused: bool) -> dict:
 
 # kernel: (weight bits, plain version, the M checked, the main path's M, its
 # layer layout is fused, its operation rate)
+# the M above decode that csrc/quant_wgmma.cuh runs: ragged, the speculative
+# verify's, its widths' edges, bench.py's 7B batch, prefill rows
+WGMMA_M = (17, 40, 64, 100, 256, 257, 1000, 1024)
 QUANT_PHASE = {
-    "int4_matmul_smallm": (4, quant.int4_matmul_smallm_reference, (1, 8, 13), 8, False,
+    "int4_matmul_smallm": (4, quant.int4_matmul_smallm_reference, (1, 8, 13) + WGMMA_M, 8, False,
                            BF16_FLOP_PER_S),
-    "int4_matmul": (4, quant.int4_matmul_reference, (16, 40, 64, 1000), 16, False,
+    "int4_matmul": (4, quant.int4_matmul_reference, (16,) + WGMMA_M, 16, False,
                     BF16_FLOP_PER_S),
-    "int8_matmul": (8, quant.int8_matmul_reference, tuple(range(1, 17)) + (40, 64, 1000), 8, True,
+    "int8_matmul": (8, quant.int8_matmul_reference, tuple(range(1, 17)) + WGMMA_M, 8, True,
                     BF16_FLOP_PER_S),
     "int8_matmul_w8a8": (8, quant.int8_matmul_w8a8_reference, (8, 4512), 8, False,
                          S8_OPS_PER_S),
@@ -1078,9 +1084,14 @@ SWAPAB_MODES = {"int4_matmul": quant.MODE_INT4, "int4_matmul_smallm": quant.MODE
 def swapab_variant(name: str, m: int, n: int, k: int) -> dict:
     """What an int4 or int8 weight-only wrapper launches for x [m, k]: at M
     <= 16 the swap-AB kernel with its plan (n8 tiles, cluster size, grid,
-    ring, shared memory), above it quant_mma.cuh's 128 x 64 tile."""
+    ring, shared memory), above it quant_wgmma.cuh with its plan (batch
+    width NB, batch blocks, cluster size splitting K, grid, stages, shared
+    memory, weight bytes read)."""
     if m > quant.SWAPAB_MAX_M:
-        return {"variant": "quant_mma_128x64"}
+        plan = quant._wgmma_plan_on(0, m, n, k, SWAPAB_MODES[name])
+        return {"variant": f"wgmma_rs_m64n{plan['nb']}k16", "batch_blocks": plan["cb"],
+                "cluster": plan["cluster"], "grid": plan["grid"][0], "stages": plan["stages"],
+                "smem": plan["smem_bytes"], "weight_bytes_read": plan["weight_bytes"]}
     plan = quant._swapab_plan_on(0, m, n, k, SWAPAB_MODES[name])
     return {"variant": f"swapab_mma_m16n8k16_nt{plan['nt']}", "cluster": plan["cluster"],
             "grid": plan["grid"][0], "stages": plan["stages"], "smem": plan["smem_bytes"]}
@@ -1102,6 +1113,7 @@ def phase_quant_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
     bound_by, library_ms}: device times summed over one decoder layer's
     products at the main path's M, each product timed alone (CUDA graph,
     enough weight copies per replay to exceed the 50 MB L2)."""
+    t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(13)
     shapes = {**layer_shapes(cfg, False), **layer_shapes(cfg, True),
               "lm_head": (cfg.hidden_size, cfg.vocab_size)}
@@ -1146,21 +1158,22 @@ def phase_quant_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
                          else swapab_variant(name, m, n, k))
                 say("kernels", kernel=name, M=m, K=k, N=n, shapes="/".join(names),
                     max_abs_err=f"{err:.6g}", max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL,
-                    **extra)
-        # the main path's M first; w8a8 also at its prefill M, int4_matmul at
-        # bench.py's 7B batch (M = 256, a measurement only), int8_matmul at
+                    **extra, card=repr(card))
+        # the main path's M first; w8a8 also at its prefill M, int8_matmul at
         # paged_w8's M = 16 on the split layout's attention products; both
-        # weight-only kernels at the speculative verify's M = SPEC_M over the
-        # split layer (phase 7's spec_q4 runs int4_matmul there)
-        extra_m = {"int8_matmul_w8a8": (max(ms_checked),), "int4_matmul": (256, SPEC_M),
-                   "int8_matmul": (16, SPEC_M)}.get(name, ())
+        # weight-only kernels over the split layer at the speculative
+        # verify's M = SPEC_M (phase 7's spec_q4 runs int4_matmul there),
+        # bench.py's 7B batch (M = 256) and a prefill's 1000 rows
+        # (measurements only)
+        extra_m = {"int8_matmul_w8a8": (max(ms_checked),), "int4_matmul": (SPEC_M, 256, 1000),
+                   "int8_matmul": (16, SPEC_M, 256, 1000)}.get(name, ())
         per_layer = []
         for m in (m_path, *extra_m):
             layer = layer_shapes(cfg, fused)
             if name == "int8_matmul" and m == 16:
                 layer = {p: kn for p, kn in layer_shapes(cfg, False).items()
                          if p in ("q_proj", "k_proj", "v_proj", "o_proj")}
-            elif m == SPEC_M:
+            elif m > quant.SWAPAB_MAX_M:
                 layer = layer_shapes(cfg, False)
             sums = dict.fromkeys(("ms", "plain_ms", "bf16_cublas_ms"), 0.0)
             nbytes = flops = 0
@@ -1203,6 +1216,7 @@ def phase_quant_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
         torch.cuda.empty_cache()
     del stored
     torch.cuda.empty_cache()
+    say("kernels", quant_phase_seconds=f"{time.perf_counter() - t0:.3f}", card=repr(card))
     return out
 
 

@@ -1,31 +1,43 @@
-"""Probes of the int8 weight-only decode matmul on one CUDA card: the int8 mode
-of the swap-AB kernel (csrc/quant_swapab.cu) that `int8_matmul` launches at
-M <= 16.
+"""Probes of the weight-only quantized matmuls on one CUDA card: the int8
+mode of the swap-AB kernel (csrc/quant_swapab.cu) that `int8_matmul`
+launches at M <= 16, and the wgmma kernel (csrc/quant_wgmma.cuh) that
+`int8_matmul` and `int4_matmul` launch above it.
 
     python3 scripts/torch_int8_probe.py check    # correctness, per-layer times, cluster sweep
     python3 scripts/torch_int8_probe.py time [DIR ...]     # this tree's package beside each DIR's
-    python3 scripts/torch_int8_probe.py builds [NAME ...]  # edited copies of the kernel
+    python3 scripts/torch_int8_probe.py builds [NAME ...]  # edited copies of the swap-AB kernel
+    python3 scripts/torch_int8_probe.py wgmma [NAME ...]   # edited copies of the wgmma kernel
+    python3 scripts/torch_int8_probe.py sweep    # the wgmma kernel at every K split
 
-`check`: `int8_matmul` against its plain version at every M of 1-16 on the
-tiny test shapes and every Qwen2.5-7B (K, N) of the split and fused layouts
-and the lm_head, and at M = 64 and 1000 (quant_mma.cuh's 128 x 64 tile);
-two calls must give the same bits. Then device ms of each product and of
-the fused layer (q8_fused: qkv, o, gateup, down) and the split layer at M =
-8 and 16, and the lm_head; then q/k/gate/down_proj at every cluster size,
-launched through the C entry. `time`: the three weight-only quantized
-matmuls as the main path runs them at decode M, per product and per layer:
-`int8_matmul` on q8_fused's layer at M = 8 and on paged_w8's q/k/v/o at M =
-16, `int4_matmul_smallm` at M = 8 and `int4_matmul` at M = 16 on the split
-layer, each with the lm_head; each package (this tree's, then each DIR's,
-the root of another checkout such as the parent commit unpacked into a
-directory that .gitignore lists) in a process of its own, in the order A B
-B A, so a drift of the card weighs on both. `builds`: the package copied
-to a temporary directory with a few source lines edited (VARIANTS: the
-loads alone, no conversion, no products), built, and gate/down/q_proj,
-gate_proj cut to 132 column blocks, and the fused layer timed at M = 8 and
-16. Times: calls captured in a CUDA graph over enough weight copies to
-exceed the 50 MB L2, 20 replays, the median. Prints the card's name and
-power limit first.
+`check`: `int8_matmul` against its plain version at every M of 1-16 and at
+M = 17, 40, 64, 100, 256, 257, 1000 and 1024 (quant_wgmma.cuh) on the tiny
+test shapes and every Qwen2.5-7B (K, N) of the split and fused layouts and
+the lm_head; two calls must give the same bits. Then device ms of each
+product and of the fused layer (q8_fused: qkv, o, gateup, down) and the
+split layer at M = 8 and 16, and the lm_head; then q/k/gate/down_proj at
+every cluster size, launched through the C entry. `time`: the weight-only
+quantized matmuls per product and per layer, as the main path runs them at
+decode M: `int8_matmul` on q8_fused's layer at M = 8 and on paged_w8's
+q/k/v/o at M = 16, `int4_matmul_smallm` at M = 8 and `int4_matmul` at M =
+16 on the split layer, each with the lm_head; and above decode M:
+`int8_matmul`, `int4_matmul` and `int4_matmul_smallm` on the split layer
+and the lm_head at M = 40 (the speculative verify), 256 (bench.py's 7B
+batch) and 1000 (prefill rows); each package (this tree's, then each DIR's, the root of another
+checkout such as the parent commit unpacked into a directory that
+.gitignore lists) in a process of its own, in the order A B B A, so a
+drift of the card weighs on both. `builds`: the package copied to a
+temporary directory with a few source lines of the swap-AB kernel edited
+(VARIANTS: the loads alone, no conversion, no products), built, and
+gate/down/q_proj, gate_proj cut to 132 column blocks, and the fused layer
+timed at M = 8 and 16. `wgmma`: the same with quant_wgmma.cuh's switches
+(WGMMA_VARIANTS), the split layer of `int8_matmul` and `int4_matmul` timed
+at M = 40, 256 and 1000, to split the kernel's time into loads,
+conversion and products (a NAME given twice is built and timed twice).
+`sweep`: the wgmma kernel through its C entries at every K split the card
+holds (int4 also at 64-row batch blocks), beside the plan's choice, on
+q/k/gate/down_proj at M = 40, 256 and 1000. Times: calls captured in a
+CUDA graph over enough weight copies to exceed the 50 MB L2, 20 replays,
+the median. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ from torch_int4_probe import GRAPH_MS, LAYER, card
 from torch_wgmma_variants import REPO, run_variant
 
 SAB = "affectgpt_tpu_torch/csrc/quant_swapab.cu"
+QWG = "affectgpt_tpu_torch/csrc/quant_wgmma.cuh"
 QUANT = "affectgpt_tpu_torch/ops/quant.py"
 SPLIT = {"q": (3584, 3584), "k": (3584, 512), "v": (3584, 512), "o": (3584, 3584),
          "gate": (3584, 18944), "up": (3584, 18944), "down": (18944, 3584)}
@@ -57,6 +70,18 @@ VARIANTS = {
     # the fragments built and XORed into the output instead of multiplied
     "no_products": [(SAB, "kProducts = true;", "kProducts = false;")],
 }
+
+# quant_wgmma.cuh's diagnostic switches
+WGMMA_VARIANTS = {
+    "as_is": [],
+    # the consumers take each pair and hand it back untouched: the ring alone
+    "loads_only": [(QWG, "kConsume = true;", "kConsume = false;")],
+    # the raw weight words as A fragments: no conversion to bf16
+    "no_convert": [(QWG, "kConvert = true;", "kConvert = false;")],
+    # the fragments built and XORed into the output instead of multiplied
+    "no_products": [(QWG, "kProducts = true;", "kProducts = false;")],
+}
+WGMMA_M = (17, 40, 64, 100, 256, 257, 1000, 1024)
 
 INT8_MS = GRAPH_MS + r'''
 def weights8(g, k, n):
@@ -93,14 +118,14 @@ def check() -> None:
               LM_HEAD]
     for k, n in shapes:
         w, s = weights8(g, k, n)
-        for m in (*range(1, 17), 64, 1000):
+        for m in (*range(1, 17), *WGMMA_M):
             x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
             got = quant.int8_matmul(x, w, s)
             ref = quant.int8_matmul_reference(x, w, s).float()
             ok = bool(((got.float() - ref).abs() <= 1e-2 + 1.6e-2 * ref.abs()).all())
             same = torch.equal(got, quant.int8_matmul(x, w, s))
             bad += not (ok and same)
-            if m in (1, 16, 1000) or not (ok and same):
+            if m in (1, 16, 40, 256, 1000) or not (ok and same):
                 print("int8_matmul", f"K={k} N={n} M={m}", "max_abs_err",
                       round(float((got.float() - ref).abs().max()), 5), "ok", ok, "same", same,
                       flush=True)
@@ -181,7 +206,11 @@ runs = (("int8_matmul_M8_fused", quant.int8_matmul, 8, 8, {**FUSED, "lm_head": L
         ("int8_matmul_M16_qkvo", quant.int8_matmul, 8, 16,
          {**{p: SPLIT[p] for p in "qkvo"}, "lm_head": LM_HEAD}),
         ("int4_matmul_smallm_M8", quant.int4_matmul_smallm, 4, 8, LAYER),
-        ("int4_matmul_M16", quant.int4_matmul, 4, 16, LAYER))
+        ("int4_matmul_M16", quant.int4_matmul, 4, 16, LAYER),
+        *((f"{fn.__name__}_M{m}", fn, bits, m, LAYER)
+          for fn, bits in ((quant.int8_matmul, 8), (quant.int4_matmul, 4),
+                           (quant.int4_matmul_smallm, 4))
+          for m in (40, 256, 1000)))
 for label, fn, bits, m, shapes in runs:
     per = {}
     for p, (k, n) in shapes.items():
@@ -193,6 +222,77 @@ for label, fn, bits, m, shapes in runs:
     out[label] = {"layer_ms": round(sum(v for p, v in per.items() if p != "lm_head"), 5), **per}
 print(json.dumps(out), flush=True)
 '''
+
+
+WGMMA_BENCH = INT8_MS + f"""
+import json, sys
+from affectgpt_tpu_torch.ops import quant
+SPLIT = {SPLIT!r}
+""" + r'''
+g = torch.Generator(device="cuda").manual_seed(0)
+out = {"variant": sys.argv[2]}
+for fn, bits in ((quant.int8_matmul, 8), (quant.int4_matmul, 4)):
+    for m in (40, 256, 1000):
+        layer = 0.0
+        for p, (k, n) in SPLIT.items():
+            ws, rep = copies_of(*(weights8(g, k, n) if bits == 8 else weights(g, k, n)))
+            x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+            layer += graph_ms([lambda w=w, s=s: fn(x, w, s) for w, s in ws] * rep)
+            del ws
+        out[f"{fn.__name__}_M{m}_layer_ms"] = round(layer, 5)
+print(json.dumps(out), flush=True)
+'''
+
+
+def wgmma_sweep() -> None:
+    """quant_wgmma.cuh through its C entries at every K split the card
+    holds (and int4 also at 64-row batch blocks), beside the plan's choice:
+    int8_matmul and int4_matmul on the 7B q/k/gate/down_proj at M = 40, 256
+    and 1000."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    from affectgpt_tpu_torch.ops import _build, quant
+    ns = {}
+    exec(INT8_MS, ns)
+    graph_ms, weights8, weights, copies_of = (ns[k] for k in ("graph_ms", "weights8", "weights",
+                                                              "copies_of"))
+    lib = _build.load_library()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for name, mode, bits in (("int8_matmul", quant.MODE_INT8, 8),
+                             ("int4_matmul", quant.MODE_INT4, 4)):
+        entry = getattr(lib, quant._WGMMA_ENTRY[mode])
+        for p in ("q", "k", "gate", "down"):
+            k, n = SPLIT[p]
+            ws, rep = copies_of(*(weights8(g, k, n) if bits == 8 else weights(g, k, n)))
+            for m in (40, 256, 1000):
+                x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+                y = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+                plan = quant._wgmma_plan_on(0, m, n, k, mode)
+                times = {}
+                for nb in sorted({plan["nb"], *((64,) if bits == 4 and m > 64 else ())}):
+                    cb = -(-m // nb)
+                    stages = min(quant.WGMMA_MAX_STAGES, (quant.SMEM_LIMIT - 1024)
+                                 // (quant.wgmma_stage_bytes(mode, nb) + 16))
+                    for ck in range(1, min(8, plan["units"]) + 1):
+                        if quant._wgmma_active_clusters(0, mode, nb, stages, ck) < 1:
+                            continue
+
+                        def call(w, s, nb=nb, cb=cb, ck=ck, stages=stages):
+                            status = entry(x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(),
+                                           m, n, k, nb, cb, ck, stages,
+                                           torch.cuda.current_stream().cuda_stream)
+                            assert status == 0, status
+                        times[f"nb{nb}_ck{ck}"] = round(graph_ms(
+                            [lambda w=w, s=s: call(w, s) for w, s in ws] * rep), 5)
+                print(name, p, f"M={m}", "plan", f"nb{plan['nb']}_ck{plan['cluster']}", times,
+                      flush=True)
+            del ws
+
+
+def wgmma_builds(names: list) -> None:
+    tmp = Path(tempfile.mkdtemp())
+    for name in names or WGMMA_VARIANTS:
+        run_variant(name, "wgmma_builds", WGMMA_VARIANTS[name], tmp, bench=WGMMA_BENCH)
 
 
 def time_packages(dirs: list) -> None:
@@ -210,11 +310,15 @@ def time_packages(dirs: list) -> None:
 
 def main() -> None:
     mode = sys.argv[1] if len(sys.argv) > 1 else "check"
-    if mode not in ("check", "time", "builds"):
-        raise SystemExit(f"unknown mode {mode!r}: check, time or builds")
+    if mode not in ("check", "time", "builds", "wgmma", "sweep"):
+        raise SystemExit(f"unknown mode {mode!r}: check, time, builds, wgmma or sweep")
     card()
     if mode == "builds":
         builds(sys.argv[2:])
+    elif mode == "wgmma":
+        wgmma_builds(sys.argv[2:])
+    elif mode == "sweep":
+        wgmma_sweep()
     elif mode == "time":
         time_packages(sys.argv[2:])
     else:

@@ -131,12 +131,16 @@ def _x(m, k, seed=3):
     return np.random.default_rng(seed).normal(size=(m, k)).astype(np.float32)
 
 
-# (kernel, M, K, N): the M each kernel is routed, K = 1024 gives the int4
+# (kernel, M, K, N): the M each kernel is routed (the weight-only kernels
+# also at the speculative verify's M = 40 and bench.py's 7B batch of 256,
+# which the card runs on csrc/quant_wgmma.cuh), K = 1024 gives the int4
 # kernels two groups per nibble half and w8a8 two activation blocks of its
 # default block_k (512)
 PALLAS_CASES = [
     ("int8_matmul", 8, 1024, 256), ("int8_matmul", 16, 1024, 256),
+    ("int8_matmul", 40, 1024, 256), ("int8_matmul", 256, 1024, 256),
     ("int4_matmul", 16, 1024, 256), ("int4_matmul", 32, 1024, 256),
+    ("int4_matmul", 40, 1024, 256), ("int4_matmul", 256, 1024, 256),
     ("int4_matmul_smallm", 1, 1024, 256), ("int4_matmul_smallm", 3, 1024, 256),
     ("int4_matmul_smallm", 8, 1024, 256),
     ("int8_matmul_w8a8", 16, 1024, 256),
