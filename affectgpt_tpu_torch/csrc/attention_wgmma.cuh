@@ -35,6 +35,12 @@ constexpr int kKeys = 64;       // keys of a tile
 constexpr int kBox = 64 * 128;  // bytes of one 64-row x 64-value bf16 box
 constexpr float kLog2e = 1.4426950408889634f;
 
+// element strides of a [b, heads, rows, d] operand's batch, head and row
+// axes (head_dim contiguous)
+struct AttnStrides {
+  long long b, h, n;
+};
+
 // bytes of one 64-row tile of head_dim D (ceil(D / 64) boxes side by side;
 // the columns of the last box past D arrive as zeros)
 template <int D>

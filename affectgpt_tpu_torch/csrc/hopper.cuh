@@ -249,6 +249,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+// an arrival on named barrier `id` without waiting: the barrier completes
+// once `threads` have arrived or synced on it
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // Programmatic dependent launch: a grid launched with
 // cudaLaunchAttributeProgrammaticStreamSerialization may start once every

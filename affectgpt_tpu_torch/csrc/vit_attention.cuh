@@ -3,13 +3,14 @@
 // alone) and vit_sublayer.cu (step (iii) of the whole attention sublayer).
 //
 // out = softmax(q k^T / sqrt(d), keys >= valid_len masked) v per (image,
-// head), head_dim 64, at most 512 valid keys (vit_attention_stream.cuh takes
-// every other shape of vit_attention.cu's C entry). The TPU kernel
+// head), head_dim 64, at most 512 valid keys: row 11's attention step. Every
+// shape of fused_vit_attention goes to vit_attention_flash.cu (one pass, p
+// rounded before it is normalised), which took less time at CLIP's,
+// ImageBind's and HuBERT's shapes (PERF.md section 6;
+// scripts/torch_wgmma_variants.py's vit_resident routes them here). The TPU kernel
 // (affectgpt_tpu/ops/vit_attention_pallas.py::_kernel) holds a whole score
 // row on chip, normalises p, rounds p to bf16 and only then multiplies by
-// v: a streaming (flash) softmax would round the unnormalised p instead and
-// compute another function in bf16. Both designs here keep that rounding
-// point:
+// v. Both designs here keep that rounding point:
 // - one pass (valid_len <= 320 keys, kOnePassTiles = 5 key tiles of 64:
 //   CLIP's 257 tokens, HuBERT's 99): a warpgroup keeps its 64 rows' scores
 //   of every key tile in registers (up to 160 f32 a thread), so each score
@@ -19,7 +20,7 @@
 //   online over the key tiles, the second recomputes the scores tile by
 //   tile, normalises, rounds and multiplies by V (1.5x the products and 2x
 //   the exp2 of one pass).
-// ops/vit_attention.py::vit_attention_plan picks the design.
+// launch_vit_attention picks the design.
 //
 // Block: two consumer warpgroups (256 threads, so ptxas may give each up
 // to 255 registers: CLIP's five key tiles need 214; a 288-thread block with
@@ -69,9 +70,7 @@ constexpr int kAttnD = 64;
 constexpr int kAttnMaxN = 512;
 constexpr int kOnePassTiles = 5;  // one pass up to 320 keys: 160 score registers a thread
 
-struct AttnStrides {
-  long long b, h, n;  // element strides; head_dim is contiguous
-};
+using attn::AttnStrides;
 
 namespace wgattn {
 

@@ -8,15 +8,21 @@ the oracle the kernel is checked against on the card.
 
 The kernel takes what the TPU kernel takes under JAX's route gate: any
 head_dim d with d % 8 == 0 and 32 <= d <= 128 (HEAD_DIMS) and any number of
-tokens. `vit_attention_plan` names its design for a shape: at head_dim 64
-with at most RESIDENT_KEYS valid keys a unit's K and V stay in shared
-memory (one pass up to ONE_PASS_KEYS valid keys, two beyond); every other
-shape streams K and V through a ring of STREAM_STAGES TMA stages in two
-passes ("stream": DINOv2-large's 1370 tokens, SigLIP so400m's head_dim 72).
-It reads q, k and v through strides: `fused_self_attention` hands it the [b,
-t, h, d] layout of the projections as it is (JAX transposes to [b, h, t, d]
-and pads t to a multiple of 8, both TPU layout costs). Keys at or past
-`valid_len` are masked; every query row is computed.
+tokens. Every shape takes the flash design (csrc/vit_attention_flash.cu):
+K and V streamed through two TMA rings in one pass with an online softmax,
+whose p is rounded to bf16 before it is normalised, a deliberate departure
+from the TPU kernel's rounding point (normalise, then round), of the same
+size, where SDPA rounds too. The resident designs (csrc/vit_attention.cuh:
+at head_dim 64 with at most RESIDENT_KEYS valid keys a unit's K and V stay
+in shared memory; p normalised and then rounded, as on the TPU) took more
+time at every shape they hold that was timed (CLIP's 257 tokens,
+ImageBind's 229, HuBERT's 99; PERF.md section 6), so they serve only as row
+11's attention step (ops/vit_sublayer.py). `vit_attention_plan` gives the
+flash design's launch for a shape. It reads q, k and v through strides:
+`fused_self_attention` hands it the [b, t, h, d] layout of the projections
+as it is (JAX transposes to [b, h, t, d] and pads t to a multiple of 8,
+both TPU layout costs). Keys at or past `valid_len` are masked; every query
+row is computed.
 """
 
 from __future__ import annotations
@@ -27,41 +33,36 @@ import torch
 
 from affectgpt_tpu_torch.ops import _build
 
-HEAD_DIM = 64  # the head_dim of the resident designs
+HEAD_DIM = 64  # CLIP's and HuBERT's head_dim, the resident designs' (row 11's attention step)
 HEAD_DIMS = range(32, 129, 8)  # every head_dim the kernel takes
 RESIDENT_KEYS = 512  # the most valid keys whose K and V a unit keeps in shared memory
-TILE = 64  # query rows of a warpgroup, keys of a tile
-ONE_PASS_KEYS = 320  # the one-pass kernel holds up to 5 key tiles of scores in registers
-STREAM_STAGES = 8  # the streaming design's ring of K / V tiles
-SMEM_PER_SM = 233_472  # bytes of shared memory an H100 SM holds (1 KB of it reserved a block)
-_HEAD_BYTES = (4 + 4 * 2 * (RESIDENT_KEYS // TILE)) * 8 + 4 * 4  # barriers and counters
-_TILE_BYTES = TILE * HEAD_DIM * 2
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may use
 _BOX_BYTES = 64 * 128  # a 64-row box of 64 bf16 values
+# the flash design's launch shape (csrc/vit_attention_flash.cu, Cfg):
+# consumer warpgroups of 64 query rows a block, keys of a key tile, and a
+# consumer's and the producer's registers a thread after setmaxnreg; at a
+# head_dim rounded up to 16 in WIDE_HEAD_DIMS (SigLIP's 72), and at any other
+FLASH_WIDE_SHAPE = (3, 64, 160, 32)
+FLASH_SHAPE = (2, 128, 240, 24)
+WIDE_HEAD_DIMS = (80, 96)
+FLASH_HEAD_BYTES = 256  # the barriers
 
 
 def vit_attention_plan(n: int, valid_len: Optional[int] = None, b: int = 1, heads: int = 1,
                        sms: int = 132, head_dim: int = HEAD_DIM) -> dict:
     """The kernel's launch for n tokens (keys >= valid_len masked, default
-    n) at head_dim, as csrc/vit_attention.cu computes it. Raises, naming the
-    limit, beyond 1 <= valid_len <= n and head_dim in HEAD_DIMS.
+    n) at head_dim (csrc/vit_attention_flash.cu). Raises, naming the limit,
+    beyond 1 <= valid_len <= n and head_dim in HEAD_DIMS.
 
-    Resident designs (head_dim 64, at most RESIDENT_KEYS valid keys;
-    csrc/vit_attention.cuh): one pass while the valid keys fit
-    ONE_PASS_KEYS (every score of a row held in registers, exp once per
-    pair), else two passes (max and sum first, then the scores again,
-    normalised, rounded, times V); the key tiles (those with a key <
-    valid_len); the units (image, head), whose K and V a block keeps in
-    shared memory while their 64-row query tiles go to its two warpgroups in
-    turn; the K/V buffers a block keeps ahead (`kv_slots`); blocks an SM
-    (two for the one-pass kernel of up to two key tiles, else one).
-
-    Streaming design (every other shape; csrc/vit_attention_stream.cuh):
-    items of two 64-row query tiles of a unit, one a warpgroup; both read
-    the item's key tiles through a ring of STREAM_STAGES stages, three a
-    key tile (K in pass 1, K and V in pass 2); the products run at the
-    head_dim rounded up to 16 (`padded_head_dim`) over ceil(padded / 64)
-    boxes a tile. Both: the persistent grid and the shared memory a
-    block."""
+    Work tiles of `consumers` x 64 query rows of a unit (image, head;
+    `q_blocks` a unit), one 64-row slice a consumer warpgroup, walked by
+    persistent blocks (one an SM); their key tiles of `key_tile` keys
+    (`key_tiles`, the last one masked where it holds keys >= valid_len) come
+    through a K ring and a V ring of `stages` stages each; the products run
+    at the head_dim rounded up to 16 (`padded_head_dim`) over ceil(padded /
+    64) boxes a tile; `registers` is the warpgroup split's budget a thread,
+    `accumulator_registers` what a consumer thread holds live (S, P, O and
+    Q's fragments), and `smem_bytes` the shared memory a block."""
     valid = n if valid_len is None else valid_len
     if not 1 <= valid <= n:
         raise ValueError(f"fused_vit_attention kernel takes 1 <= valid_len <= n (n={n}, "
@@ -69,27 +70,27 @@ def vit_attention_plan(n: int, valid_len: Optional[int] = None, b: int = 1, head
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"fused_vit_attention kernel takes head_dim % 8 == 0 from "
                          f"{HEAD_DIMS[0]} to {HEAD_DIMS[-1]} (head_dim={head_dim})")
-    tiles = -(-valid // TILE)
-    q_tiles = -(-n // TILE)
+    padded = -(-head_dim // 16) * 16
+    consumers, keys, regs, producer_regs = \
+        FLASH_WIDE_SHAPE if padded in WIDE_HEAD_DIMS else FLASH_SHAPE
+    boxes = -(-padded // 64)
+    q_tile = boxes * _BOX_BYTES  # a warpgroup's 64 query rows
+    kv_tile = boxes * keys * 128
+    room = SMEM_LIMIT - 1024 - FLASH_HEAD_BYTES - consumers * q_tile
+    stages = min(4, room // (2 * kv_tile))
+    rows = 64 * consumers
+    q_blocks = -(-n // rows)
     units = b * heads
-    if head_dim != HEAD_DIM or valid > RESIDENT_KEYS:
-        padded = -(-head_dim // 16) * 16
-        tile_bytes = -(-padded // 64) * _BOX_BYTES
-        items = units * -(-q_tiles // 2)
-        return {"kernel": "stream", "padded_head_dim": padded, "key_tiles": tiles,
-                "score_registers": 32, "q_tiles": q_tiles, "units": units, "items": items,
-                "ring_stages": STREAM_STAGES, "blocks_per_sm": 1, "blocks": min(items, sms),
-                "smem_bytes": 1024 + 256 + (4 + STREAM_STAGES) * tile_bytes}
-    one_pass = tiles * TILE <= ONE_PASS_KEYS
-    per_sm = 2 if one_pass and tiles <= 2 else 1
-    share = SMEM_PER_SM // per_sm - 1024
-    room = (share - 1024 - _HEAD_BYTES - 4 * _TILE_BYTES) // (2 * tiles * _TILE_BYTES)
-    slots = max(1, min(4, room))
-    return {"kernel": "one_pass" if one_pass else "two_pass", "padded_head_dim": HEAD_DIM,
-            "key_tiles": tiles, "score_registers": 32 * tiles if one_pass else 32,
-            "q_tiles": q_tiles, "units": units, "kv_slots": slots, "blocks_per_sm": per_sm,
-            "blocks": min(units, per_sm * sms),
-            "smem_bytes": 1024 + _HEAD_BYTES + (4 + slots * 2 * tiles) * _TILE_BYTES}
+    work = units * q_blocks
+    return {"kernel": "flash", "padded_head_dim": padded, "key_tile": keys,
+            "key_tiles": -(-valid // keys), "masked_tile": valid % keys != 0,
+            "score_registers": keys // 2, "q_block_rows": rows, "q_blocks": q_blocks,
+            "units": units, "work_tiles": work, "consumers": consumers,
+            "threads": 128 * (consumers + 1),
+            "registers": {"consumer": regs, "producer": producer_regs},
+            "accumulator_registers": keys // 2 + keys // 4 + padded // 2 + padded // 4,
+            "stages": stages, "blocks_per_sm": 1, "blocks": min(work, sms),
+            "smem_bytes": 1024 + FLASH_HEAD_BYTES + consumers * q_tile + 2 * stages * kv_tile}
 
 
 def fused_vit_attention_reference(q, k, v, valid_len: int):
@@ -109,7 +110,8 @@ def fused_vit_attention_reference(q, k, v, valid_len: int):
 
 def _attention(q, k, v, valid_len: int, out):
     """Launch the kernel on [b, h, n, d] views (any strides with head_dim
-    contiguous, one set for q, k and v) writing the [b, h, n, d] view `out`."""
+    contiguous, one set for q, k and v) writing the [b, h, n, d] view
+    `out`."""
     b, h, n, d = q.shape
     for t in (q, k, v, out):
         if t.device != q.device:

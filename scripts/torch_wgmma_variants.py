@@ -19,9 +19,17 @@ torch.profiler, and the int8 `decode_mlp` (csrc/decode_mlp_int8.cu) at the
 7B layer's widths for b = 8, 16 and 64, with its two launches' ms, and
 the two wgmma attention kernels (`--only attention`): `prefill_attention`
 (csrc/prefill_attention.cu) at b = 8 and 64, t = 564, 28 q and 4 kv heads
-of 128, prompts of 545-564 tokens left-packed, and `fused_vit_attention`
-(csrc/vit_attention.cuh) at CLIP's 64 x 16 heads x 257 tokens and HuBERT's
-99, each beside SDPA (the unedited variant), and `attn_sublayer`
+of 128, prompts of 545-564 tokens left-packed, `fused_vit_attention` at
+row 13's long shapes in nn.mha's [b, n, h, d] layout (DINOv2's 32 x 1370
+tokens x 16 heads of 64, SigLIP's 32 x 729 x 16 of 72, VideoMAE's 8 x 1568
+x 6 of 64: csrc/vit_attention_flash.cu) and at ImageBind's 16 x 229 x 12
+of 64 with its largest error against the plain version and whether two
+calls give the same bits, and at CLIP's 64 x 16 heads x 257 tokens and
+HuBERT's 99, each beside SDPA (the unedited variant); `vit_resident` routes
+the shapes the resident designs hold (head_dim 64, at most 512 valid keys:
+ImageBind's, CLIP's, HuBERT's; csrc/vit_attention.cuh, row 11's attention
+step) to them, for the routing rule, and the `vit_*` and `diag_vit_*`
+variants edit them on that route; `attn_sublayer`
 (`sublayer_as_is`: csrc/vit_sublayer.cu, whose attention step is that
 attention) at CLIP's and HuBERT's shapes with the device ms of each of its
 launches, its largest error against the plain version, whether two calls
@@ -29,9 +37,12 @@ give the same bits, its launch plan and, on the first visit, its library
 chain (layer_norm, one addmm for q/k/v, SDPA, addmm + residual) by launch
 too; with `--parent DIR` (another checkout, such as the parent commit
 unpacked by `git archive`) `sublayer_as_is` runs from this tree and from
-DIR in the order A B B A; `diag_attention_no_products` drops both
-kernels' wgmma products and `diag_attention_no_exp` their exp2, which
-splits the time into loads, products and softmax; the two int4 decode
+DIR in the order A B B A, and so does `attention_as_is` (the parent's
+long shapes on its own design); `diag_attention_no_products` drops the
+kernels' wgmma products, `diag_attention_no_exp` their exp2 and
+`diag_flash_no_products_no_exp` both in the flash design, which splits the
+time into loads, products and softmax; `flash_*` sweep the flash design's
+key tile, warpgroups and ping-pong; the two int4 decode
 wrappers (`--only int4`, csrc/quant_swapab.cu) per Qwen2.5-7B layer
 and at the lm_head, `int4_matmul_smallm` at M = 8 and `int4_matmul` at M =
 16, with `diag_int4_*` variants without the consumers' work, the nibble conversion
@@ -63,8 +74,20 @@ GEMM = "affectgpt_tpu_torch/csrc/vit_gemm_wgmma.cuh"
 ATTN = "affectgpt_tpu_torch/csrc/attention_wgmma.cuh"
 PREFILL = "affectgpt_tpu_torch/csrc/prefill_attention.cu"
 VIT_ATTN = "affectgpt_tpu_torch/csrc/vit_attention.cuh"
+FLASH = "affectgpt_tpu_torch/csrc/vit_attention_flash.cu"
+ENTRY = "affectgpt_tpu_torch/csrc/vit_attention.cu"
 INT4 = "affectgpt_tpu_torch/csrc/quant_swapab.cu"
 
+# fused_vit_attention's C entry sends head_dim 64 with at most 512 valid keys
+# to the resident designs (as the entry did before the flash design)
+_RESIDENT = [
+    (ENTRY, '#include "attention_wgmma.cuh"', '#include "vit_attention.cuh"'),
+    (ENTRY, "  return (int)launch_vit_attention_flash(",
+     "  if (d == kAttnD && valid_len <= kAttnMaxN)\n"
+     "    return (int)launch_vit_attention(static_cast<const bf*>(q), static_cast<const bf*>(k),\n"
+     "                                     static_cast<const bf*>(v), static_cast<bf*>(out), b,\n"
+     "                                     heads, n, valid_len, in, os, s);\n"
+     "  return (int)launch_vit_attention_flash(")]
 _VIT_SOFTMAX = "for (int h = 0; h < 2; ++h) {  // one chain a key tile"
 _VIT_NO_SOFTMAX = "for (int h = 0; h < 0; ++h) {  // one chain a key tile"
 _VIT_STORE = "if (row >= n) continue;"
@@ -117,14 +140,40 @@ VARIANTS = {
     "decode_as_is": ("decode", []),
     "attention_as_is": ("attention", []),
     "sublayer_as_is": ("sublayer", []),
-    # CLIP's five key tiles through the two-pass design
-    "vit_two_pass": ("attention", [(VIT_ATTN, "return launch<5>(",
-                                    "return launch<0>(")]),
-    # neither kernel's tensor-core products (both attention kernels share them)
-    "diag_attention_no_products": ("attention", _NO_ATTN_PRODUCTS),
+    # the resident designs where they take the shape
+    "vit_resident": ("attention", _RESIDENT),
+    # CLIP's five key tiles through the resident two-pass design
+    "vit_two_pass": ("attention", _RESIDENT + [(VIT_ATTN, "return launch<5>(",
+                                                "return launch<0>(")]),
+    # no kernel's tensor-core products (the prefill kernel's come from
+    # attention_wgmma.cuh; the flash design's fold their operands into a sink)
+    "diag_attention_no_products": ("attention", _NO_ATTN_PRODUCTS + [
+        (FLASH, "constexpr bool kProducts = true;", "constexpr bool kProducts = false;")]),
     # no exp2 in either kernel's softmax (the values go on as they are)
-    "diag_attention_no_exp": ("attention", [(PREFILL, "fast_exp2(", "("),
-                                            (VIT_ATTN, "fast_exp2(", "(")]),
+    "diag_attention_no_exp": ("attention", [
+        (PREFILL, "fast_exp2(", "("),
+        (FLASH, "constexpr bool kExp = true;", "constexpr bool kExp = false;")]),
+    # the flash design (the long shapes) with neither: its loads, barriers and
+    # the softmax's other arithmetic
+    "diag_flash_no_products_no_exp": ("attention", [
+        (FLASH, "constexpr bool kProducts = true;", "constexpr bool kProducts = false;"),
+        (FLASH, "constexpr bool kExp = true;", "constexpr bool kExp = false;")]),
+    # the flash design's sweep at head_dims other than 80 and 96 (DINOv2's,
+    # VideoMAE's 64): key tiles of 64, three consumer warpgroups (192 query
+    # rows a work tile, 160 registers a thread) with key tiles of 64; at 80
+    # and 96 (SigLIP's 72): two warpgroups with key tiles of 128 or 64
+    "flash_keys64": ("attention", [(FLASH, "constexpr int kBN = 128;",
+                                    "constexpr int kBN = 64;")]),
+    "flash_consumers3_keys64": ("attention", [
+        (FLASH, "constexpr int kBN = 128;", "constexpr int kBN = 64;"),
+        (FLASH, "constexpr int kConsumers = 2;", "constexpr int kConsumers = 3;")]),
+    "flash_wide_consumers2_keys128": ("attention", [
+        (FLASH, "constexpr int kWideBN = 64;", "constexpr int kWideBN = 128;"),
+        (FLASH, "constexpr int kWideConsumers = 3;", "constexpr int kWideConsumers = 2;")]),
+    "flash_wide_consumers2": ("attention", [
+        (FLASH, "constexpr int kWideConsumers = 3;", "constexpr int kWideConsumers = 2;")]),
+    "flash_no_pingpong": ("attention", [(FLASH, "constexpr bool kPingPong = true;",
+                                         "constexpr bool kPingPong = false;")]),
     # the prefill's K/V ring two stages deep instead of four
     "prefill_stages2": ("attention", [(PREFILL, "constexpr int kStages = 4;",
                                        "constexpr int kStages = 2;")]),
@@ -133,10 +182,12 @@ VARIANTS = {
         (PREFILL, "if (live) {\n        const uint32_t ka", "if (false) {\n        const uint32_t ka")]),
     # the prefill's masked tiles taken as full: no per-element test
     "diag_prefill_no_mask": ("attention", [(PREFILL, "? kFull : kMasked;", "? kFull : kFull;")]),
-    # the one-pass ViT kernel without its softmax (P is the raw scores), without
-    # its stores, and with neither nor its products: the loads and barriers alone
-    "diag_vit_no_softmax": ("attention", [(VIT_ATTN, _VIT_SOFTMAX, _VIT_NO_SOFTMAX)]),
-    "diag_vit_no_stores": ("attention", [(VIT_ATTN, _VIT_STORE, _VIT_NO_STORE)]),
+    # the resident one-pass ViT kernel without its softmax (P is the raw
+    # scores), without its stores, and with neither nor its products: the
+    # loads and barriers alone
+    "diag_vit_no_softmax": ("attention",
+                            _RESIDENT + [(VIT_ATTN, _VIT_SOFTMAX, _VIT_NO_SOFTMAX)]),
+    "diag_vit_no_stores": ("attention", _RESIDENT + [(VIT_ATTN, _VIT_STORE, _VIT_NO_STORE)]),
     "int4_as_is": ("int4", []),
     # the consumers take each stage and hand it back untouched: the ring alone
     "diag_int4_loads_only": ("int4", [(INT4, "kConsume = true;", "kConsume = false;")]),
@@ -144,7 +195,7 @@ VARIANTS = {
     "diag_int4_no_convert": ("int4", [(INT4, "kConvert = true;", "kConvert = false;")]),
     # the fragments built and XORed into a sink instead of multiplied
     "diag_int4_no_products": ("int4", [(INT4, "kProducts = true;", "kProducts = false;")]),
-    "diag_vit_loads_only": ("attention", [
+    "diag_vit_loads_only": ("attention", _RESIDENT + [
         (VIT_ATTN, _VIT_SOFTMAX, _VIT_NO_SOFTMAX), (VIT_ATTN, _VIT_STORE, _VIT_NO_STORE),
         *_NO_ATTN_PRODUCTS]),
 }
@@ -229,6 +280,7 @@ elif kind == "decode":
         out[f"b{b}_launch_ms"] = kernel_ms(lambda: decode_mlp._launch(args, 0, 1e-6))
 elif kind == "attention":
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    as_is = name in ("attention_as_is", "attention_as_is_tree")  # the library calls beside it
     for b in (8, 64):  # Qwen2.5-7B: 28 q heads, 4 kv heads, d = 128; prompts of 545-564
         t, heads, kv, d = 564, 28, 4, 128
         lengths = torch.randint(545, t + 1, (b,), generator=g, device="cuda")
@@ -239,7 +291,7 @@ elif kind == "attention":
                                                 - prefill_attention_reference(q, k, v, seg)
                                                 .float()).abs().max())
         out[f"prefill_b{b}_ms"] = graph_ms([lambda: prefill_attention(q, k, v, seg)] * 4)
-        if name == "attention_as_is":
+        if as_is:
             vis = torch.ones((t, t), dtype=torch.bool, device="cuda").tril()[None] \
                 & (seg[:, :, None] == seg[:, None, :])
             qh, vis4 = q.transpose(1, 2), vis[:, None]
@@ -247,6 +299,25 @@ elif kind == "attention":
                 [lambda: sdpa(qh, k, v, attn_mask=vis4, enable_gqa=True)] * 2)
             out[f"prefill_b{b}_kernel_ms"] = kernel_ms(lambda: prefill_attention(q, k, v, seg))
         del q, k, v
+    # row 13's long shapes ([b, heads, n, d]; the [b, n, h, d] layout nn.mha
+    # hands the kernel), where the flash design runs (the stream before it)
+    for shape, (b, h, n, d) in (("dinov2", (32, 16, 1370, 64)), ("siglip", (32, 16, 729, 72)),
+                                ("videomae", (8, 6, 1568, 64)), ("imagebind", (16, 12, 229, 64))):
+        qkv = [tuple(rnd(b, n, h, d) for _ in range(3)) for _ in range(2)]
+        got = vit_attention.fused_self_attention(*qkv[0], n)
+        heads_first = [x.transpose(1, 2) for x in qkv[0]]
+        want = vit_attention.fused_vit_attention_reference(*heads_first, n).transpose(1, 2)
+        out[f"long_{shape}_max_abs_err"] = float((got.float() - want.float()).abs().max())
+        out[f"long_{shape}_same_bits"] = torch.equal(
+            got, vit_attention.fused_self_attention(*qkv[0], n))
+        out[f"long_{shape}_ms"] = graph_ms(
+            [lambda t=t: vit_attention.fused_self_attention(*t, n) for t in qkv] * 4)
+        if as_is:
+            out[f"long_{shape}_sdpa_ms"] = graph_ms(
+                [lambda t=t: sdpa(*(x.transpose(1, 2) for x in t)) for t in qkv] * 4)
+            out[f"long_{shape}_sdpa_max_abs_err"] = float(
+                (sdpa(*heads_first).transpose(1, 2).float() - want.float()).abs().max())
+        del qkv, got, want, heads_first
     b, h, d, w = 64, 16, 64, 1024
     for tower, n in (("clip", 257), ("hubert", 99)):  # 64 images or clips, 16 heads of 64
         qkv = [tuple(rnd(b, h, n, d) for _ in range(3)) for _ in range(2)]
@@ -256,7 +327,7 @@ elif kind == "attention":
                                                 *qkv[0], n).float()).abs().max())
         out[f"vit_{tower}_ms"] = graph_ms(
             [lambda t=t: vit_attention.fused_vit_attention(*t, n) for t in qkv] * 4)
-        if name == "attention_as_is":
+        if as_is:
             mask = torch.ones((1, 1, 1, n), dtype=torch.bool, device="cuda")
             out[f"vit_{tower}_sdpa_ms"] = graph_ms([lambda t=t: sdpa(*t, attn_mask=mask)
                                                     for t in qkv] * 4)
@@ -413,10 +484,10 @@ def main() -> None:
     kinds = {None: None, "attention": ("attention", "sublayer")}.get(args.only, (args.only,))
     for name, (kind, edits) in VARIANTS.items():
         if (kinds is None or kind in kinds) and (not args.names or name in args.names):
-            if name == "sublayer_as_is" and args.parent:
+            if name in ("sublayer_as_is", "attention_as_is") and args.parent:
                 for i, src in enumerate((REPO, args.parent.resolve(), args.parent.resolve(), REPO)):
                     run_variant(f"{name}_{'parent' if i in (1, 2) else 'tree'}", kind, edits,
-                                tmp_root, source=src, chain=i == 0)
+                                tmp_root, source=src, chain=i == 0 and kind == "sublayer")
             else:
                 run_variant(name, kind, edits, tmp_root, chain=name == "sublayer_as_is")
 

@@ -9,7 +9,9 @@ prefill kernel also rounds p to bf16 for its PV product, as the TPU flash op
 does; the quantized matmuls round their f32 sums to bf16 once; the int8
 decode MLP rounds xn and silu·up to bf16 on both sides; the encoder kernels
 round h, q/k/v, p, the heads, t and the output to bf16 on both sides, and
-the fused MLP its bf16 out tile after every chunk)."""
+the fused MLP its bf16 out tile after every chunk; the flash design of
+fused_vit_attention rounds p before it normalises it, the plain version
+after, an error of the same size, as SDPA's)."""
 
 import pytest
 import torch
@@ -664,21 +666,25 @@ def test_paged_attention_wrappers_raise_on_what_the_kernel_does_not_take(gen):
 
 
 # the encoder kernels: CLIP's 257 tokens, HuBERT's 99 and a single key tile,
-# each with keys masked past valid_len; MAX_N = 512 (two passes, whole and
-# masked); 320 and 321 valid keys, the last of one pass and the first of two
-# (vit_attention.ONE_PASS_KEYS); a single valid key
+# each with keys masked past valid_len; RESIDENT_KEYS = 512, whole and
+# masked; 320 and 321 valid keys, the last of the resident designs' one pass
+# and the first of their two (row 11's attention step); a single valid key
 VIT_TOKENS = [(257, 250), (99, 90), (40, 33), (512, 512), (512, 449), (330, 320), (321, 321),
               (64, 1), (257, 1)]
-# the streamed design: DINOv2's 1370 tokens, past 512 valid keys, SigLIP's
-# head_dim 72 and the other head dims of JAX's gate, an odd count of query
-# tiles (the last item's second tile wholly past n), K and V resident past n
-# = 512 while the valid keys fit
-VIT_STREAM = [(1370, 1370, 64), (1370, 1000, 64), (513, 513, 64), (729, 729, 72),
-              (100, 77, 72), (200, 200, 32), (129, 129, 40), (330, 321, 96), (65, 65, 128),
-              (700, 300, 64), (64, 1, 72)]
+# the flash design, which takes every shape (one pass, K and V streamed),
+# beyond the shapes above: DINOv2's 1370 tokens, past 512 valid keys,
+# SigLIP's head_dim 72 and the other head dims of JAX's gate (88 and 120
+# rounded up to 96 and 128), VideoMAE's 1568 tubes, an odd count of 64-row
+# query slices (the last work tile's second wholly past n), a last key tile
+# with a single valid key (129, 1281), a valid_len that ends mid-tile with n
+# past it (700, 650), 300 valid keys of 700
+VIT_FLASH = [(1370, 1370, 64), (1370, 1000, 64), (513, 513, 64), (729, 729, 72),
+             (100, 77, 72), (200, 200, 32), (129, 129, 40), (330, 321, 96), (65, 65, 128),
+             (700, 300, 64), (64, 1, 72), (1568, 1568, 64), (129, 129, 64), (1281, 1281, 72),
+             (700, 650, 64), (300, 260, 88), (257, 250, 120), (1030, 1030, 120)]
 
 
-@pytest.mark.parametrize("n,valid,d", [(n, v, 64) for n, v in VIT_TOKENS] + VIT_STREAM)
+@pytest.mark.parametrize("n,valid,d", [(n, v, 64) for n, v in VIT_TOKENS] + VIT_FLASH)
 @pytest.mark.parametrize("layout", ["bhnd", "bnhd"])
 def test_vit_attention_kernel_matches_plain(gen, n, valid, d, layout):
     b, h = 3, 4

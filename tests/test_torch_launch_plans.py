@@ -34,12 +34,13 @@ card: tests/test_torch_cuda_kernels.py).
   the shared memory fits; the plan raises on what the kernel does not take.
 - `vit_attention.vit_attention_plan` (the encoders' attention on wgmma +
   TMA): a kernel for every 1 <= valid_len <= n and every head_dim % 8 from
-  32 to 128, K and V resident at head_dim 64 up to 512 valid keys (one pass
-  up to 320), streamed otherwise; the stream's items cover every query tile
-  once; the shared memory of the blocks an SM holds fits; it raises
-  beyond; and every tower of the registry whose attention reaches the
-  kernel (`nn.mha`'s route: unmasked self-attention of >= 192 tokens) is
-  inside the plan at its registry geometry.
+  32 to 128, K and V streamed in one pass ("flash"), whose work tiles
+  cover every query row once, its key tiles every valid key once with only
+  the last one masked, its shared memory fits a block and its live
+  accumulators the consumer warpgroups' register budget; it raises beyond;
+  and every tower of the registry whose attention reaches the kernel
+  (`nn.mha`'s route: unmasked self-attention of >= 192 tokens) is inside
+  the plan at its registry geometry.
 - `quant.int4_plan` and `quant.int8_plan` (the swap-AB weight-only kernel,
   csrc/quant_swapab.cu): every (16-column strip, K unit) once, clusters of
   at most 8 that split K for the narrow products only, two blocks an SM;
@@ -355,42 +356,105 @@ def test_prefill_plan_raises_on_what_the_kernel_does_not_take(b, t, heads, kv, d
         prefill_attention.prefill_plan(b, t, heads, kv, d, SMS)
 
 
+def _check_flash_plan(plan, n, valid, d, units):
+    """The streaming design's plan: key tiles hold every valid key once and
+    only the last may be masked; the work tiles of q_block_rows rows cover
+    every query row of every unit once; the ring fits a block's shared
+    memory; the consumer warpgroups' live accumulators fit their budget."""
+    tile, rows = plan["key_tile"], plan["q_block_rows"]
+    padded = plan["padded_head_dim"]
+    assert padded % 16 == 0 and 0 <= padded - d < 16
+    # three warpgroups on 64-key tiles at 80 and 96, two on 128-key tiles else
+    wide = padded in vit_attention.WIDE_HEAD_DIMS
+    assert plan["kernel"] == "flash" and (plan["consumers"], tile) == ((3, 64) if wide
+                                                                       else (2, 128))
+    assert (plan["key_tiles"] - 1) * tile < valid <= plan["key_tiles"] * tile
+    assert plan["masked_tile"] == (plan["key_tiles"] * tile > valid)
+    assert rows == 64 * plan["consumers"] and plan["threads"] == 128 * (plan["consumers"] + 1)
+    assert (plan["q_blocks"] - 1) * rows < n <= plan["q_blocks"] * rows
+    assert plan["work_tiles"] == units * plan["q_blocks"]
+    assert plan["blocks"] == min(plan["work_tiles"], SMS) and plan["blocks_per_sm"] == 1
+    boxes = -(-padded // 64)
+    assert 2 <= plan["stages"] <= 4
+    assert plan["smem_bytes"] == 1024 + 256 + plan["consumers"] * boxes * 8192 \
+        + 2 * plan["stages"] * boxes * tile * 128
+    assert plan["smem_bytes"] <= SMEM_LIMIT
+    regs = plan["registers"]
+    assert 128 * (regs["producer"] + plan["consumers"] * regs["consumer"]) <= 65536
+    assert regs["consumer"] % 8 == 0 and regs["producer"] % 8 == 0
+    # S (a f32 a thread for every two keys), P (packed bf16), O and Q's
+    # fragments, with 32 registers left for addresses, the row max and sum,
+    # the loop
+    assert plan["accumulator_registers"] == tile // 2 + tile // 4 + padded // 2 + padded // 4
+    assert plan["accumulator_registers"] + 32 <= regs["consumer"]
+
+
 def test_vit_attention_plan_picks_a_kernel_for_every_n():
+    """At the towers' 64 images x 16 heads, every n up to 1025 and the long
+    counts, at DINOv2's and SigLIP's head_dims: one flash plan each."""
     for n in list(range(1, 2 * vit_attention.RESIDENT_KEYS + 2)) + [1370, 4097]:
         for valid in sorted({1, n // 2 + 1, n}):
             for d in (64, 72) if n % 7 == 0 else (64,):
                 plan = vit_attention.vit_attention_plan(n, valid, b=64, heads=16, sms=SMS,
                                                         head_dim=d)
-                keys = plan["key_tiles"] * vit_attention.TILE
-                assert keys - vit_attention.TILE < valid <= keys
-                resident = d == 64 and valid <= vit_attention.RESIDENT_KEYS
-                assert plan["kernel"] == ("stream" if not resident else "one_pass"
-                                          if keys <= vit_attention.ONE_PASS_KEYS else "two_pass")
-                assert plan["score_registers"] <= 160
-                assert plan["smem_bytes"] <= SMEM_LIMIT
-                per_sm = plan["blocks_per_sm"]
-                assert per_sm * (plan["smem_bytes"] + 1024) <= vit_attention.SMEM_PER_SM
-                if resident:
-                    assert plan["blocks"] == min(1024, per_sm * SMS) and \
-                        1 <= plan["kv_slots"] <= 4
-                else:  # items of two query tiles cover every tile once
-                    assert plan["items"] == 64 * 16 * -(-plan["q_tiles"] // 2)
-                    assert 2 * plan["items"] >= 64 * 16 * plan["q_tiles"]
-                    assert plan["blocks"] == min(plan["items"], SMS)
-    assert vit_attention.vit_attention_plan(257)["kernel"] == "one_pass"  # CLIP
-    assert vit_attention.vit_attention_plan(99)["blocks_per_sm"] == 2  # HuBERT
-    assert vit_attention.vit_attention_plan(512, 320)["kernel"] == "one_pass"
-    assert vit_attention.vit_attention_plan(1370, 300)["kernel"] == "one_pass"
+                _check_flash_plan(plan, n, valid, d, 64 * 16)
+
+
+@pytest.mark.parametrize("d", list(vit_attention.HEAD_DIMS))
+def test_vit_attention_flash_plan_at_every_n_and_valid_len(d):
+    """Every n up to 1025 and the zoo's long counts (DINOv2's 1370,
+    VideoMAE's 1568, 4097), valid_len at 1, n / 2 + 1 and n, at each head_dim
+    JAX's gate takes: the flash design's plan holds."""
+    for n in list(range(1, 1026)) + [1370, 1568, 4097]:
+        for valid in sorted({1, n // 2 + 1, n}):
+            plan = vit_attention.vit_attention_plan(n, valid, b=3, heads=5, sms=SMS, head_dim=d)
+            _check_flash_plan(plan, n, valid, d, 15)
+
+
+@pytest.mark.parametrize("b,heads,n,valid,d", [
+    (32, 16, 1370, 1370, 64), (32, 16, 729, 729, 72), (8, 6, 1568, 1568, 64),
+    (3, 5, 129, 129, 88), (2, 3, 700, 650, 120), (1, 1, 1, 1, 32), (5, 7, 300, 1, 128)])
+def test_vit_attention_flash_work_tiles_cover_every_query_row_once(b, heads, n, valid, d):
+    """The kernel's walk: block c takes work tiles c, c + blocks, ...; tile w
+    is unit w // q_blocks (head u % heads, image u // heads) and its query
+    rows q_block_rows (w % q_blocks) onward, the rows at or past n computed
+    and not stored."""
+    plan = vit_attention.vit_attention_plan(n, valid, b=b, heads=heads, sms=SMS, head_dim=d)
+    assert plan["kernel"] == "flash"
+    rows, q_blocks, blocks = plan["q_block_rows"], plan["q_blocks"], plan["blocks"]
+    stored = np.zeros((b, heads, n), np.int32)
+    for c in range(blocks):
+        for w in range(c, plan["work_tiles"], blocks):
+            u, qb = divmod(w, q_blocks)
+            bi, hi = divmod(u, heads)
+            stored[bi, hi, qb * rows:min(n, (qb + 1) * rows)] += 1
+    assert (stored == 1).all()
+    per_block = [len(range(c, plan["work_tiles"], blocks)) for c in range(blocks)]
+    assert max(per_block) - min(per_block) <= 1  # balanced to one tile
 
 
 @pytest.mark.parametrize("d", list(vit_attention.HEAD_DIMS))
 def test_vit_attention_plan_pads_each_head_dim_to_the_wgmma_k_step(d):
     plan = vit_attention.vit_attention_plan(729, head_dim=d, b=32, heads=16, sms=SMS)
-    assert plan["padded_head_dim"] == (64 if plan["kernel"] != "stream" else -(-d // 16) * 16)
+    assert plan["kernel"] == "flash" and plan["padded_head_dim"] == -(-d // 16) * 16
     assert plan["padded_head_dim"] % 16 == 0 and plan["padded_head_dim"] - d < 16
     boxes = -(-plan["padded_head_dim"] // 64)  # 64-value TMA boxes a tile
-    assert plan["smem_bytes"] == 1024 + 256 + (4 + vit_attention.STREAM_STAGES) * boxes * 8192
+    # the Q tiles of 64 rows, then K and V rings of key tiles: four stages
+    # each at one box and at 80 and 96 (64-key tiles), three at 112 and 128
+    assert plan["stages"] == (4 if boxes == 1 or plan["key_tile"] == 64 else 3)
+    assert plan["smem_bytes"] == 1024 + 256 + plan["consumers"] * boxes * 8192 \
+        + 2 * plan["stages"] * boxes * plan["key_tile"] * 128
     assert plan["smem_bytes"] <= SMEM_LIMIT
+
+
+def test_vit_attention_routing_rule():
+    """Every shape takes the flash design, which took less time than the
+    resident designs at CLIP's 257 tokens, ImageBind's 229 and HuBERT's 99
+    as well as at the long shapes."""
+    route = lambda n, valid=None, d=64: vit_attention.vit_attention_plan(  # noqa: E731
+        n, valid, head_dim=d)["kernel"]
+    assert route(257) == route(229) == route(99) == route(512) == route(1370) == "flash"
+    assert route(729, d=72) == route(64, d=128) == route(1568) == route(1370, 300) == "flash"
 
 
 @pytest.mark.parametrize("n,valid,d", [(0, 0, 64), (100, 0, 64), (100, 101, 64),

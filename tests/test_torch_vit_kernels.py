@@ -75,6 +75,77 @@ def test_fused_vit_attention_plain_matches_pallas(dtype, b, h, n, d, valid):
                                                  valid)), want, dtype)
 
 
+LOG2E = 1.4426950408889634
+
+
+def _flash_emulation(q, k, v, valid_len, key_tile=None):
+    """The arithmetic of the streaming design (csrc/vit_attention_flash.cu)
+    in plain torch, q, k, v [b, h, n, d]: key tiles of `key_tile` (by
+    default the kernel's at this head_dim, from its plan) in order,
+    keys >= valid_len masked; each row's running max m (log2 domain) and sum
+    l in f32; p = exp2(s log2(e) / sqrt(d) - m) rounded to v's dtype before
+    it is normalised, O = O exp2(m_old - m) + p V in f32; O divided by l once
+    at the end and rounded once to q's dtype. The TPU kernel and
+    `fused_vit_attention_reference` normalise p before rounding it."""
+    b, h, n, d = q.shape
+    if key_tile is None:
+        key_tile = vit_attention.vit_attention_plan(n, valid_len, head_dim=d)["key_tile"]
+    c = LOG2E / d ** 0.5
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((b, h, n, 1), -1e30)
+    l = torch.zeros((b, h, n, 1))
+    o = torch.zeros((b, h, n, d))
+    for k0 in range(0, valid_len, key_tile):
+        k1 = min(k0 + key_tile, valid_len)  # the masked keys' p is exactly 0
+        s = qf @ kf[:, :, k0:k1].transpose(-1, -2)
+        mn = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+        alpha = torch.exp2(m - mn)
+        p = torch.exp2(s * c - mn)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.to(v.dtype).float() @ vf[:, :, k0:k1]
+        m = mn
+    return (o / l).to(q.dtype)
+
+
+@pytest.mark.parametrize("b,h,n,d,valid", [
+    (1, 2, 264, 64, 257),  # DINOv2's head_dim: three key tiles, one valid key in the last
+    (1, 2, 200, 72, 185),  # SigLIP's head_dim: key tiles of 64, the last masked mid-way
+    (1, 1, 136, 128, 120),  # the widest head_dim; one key tile
+])
+def test_flash_emulation_against_plain_in_bf16(b, h, n, d, valid):
+    """The streaming design rounds p before it normalises it: in bf16 it is
+    another function than the plain version's (normalise, then round), of
+    the same error size, held to the kernels' tolerance on the card."""
+    a = _arrays(n + d, "bfloat16", q=((b, h, n, d), 1.0, 0.0), k=((b, h, n, d), 1.0, 0.0),
+                v=((b, h, n, d), 1.0, 0.0))
+    q, k, v = a["q"][2], a["k"][2], a["v"][2]
+    got = _flash_emulation(q, k, v, valid)
+    want = vit_attention.fused_vit_attention_reference(q, k, v, valid)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, h, n, d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2, atol=1e-2)
+    # the same function in f32: rounding p is the only difference
+    f32 = [x.float() for x in (q, k, v)]
+    torch.testing.assert_close(_flash_emulation(*f32, valid),
+                               vit_attention.fused_vit_attention_reference(*f32, valid),
+                               **F32_TOL)
+
+
+@pytest.mark.parametrize("b,h,n,d,valid,key_tile", [
+    (2, 2, 48, 72, 45, None),  # the kernel's key tiles at SigLIP's head_dim: 64
+    (1, 2, 136, 64, 129, None),  # two key tiles of 128, one valid key in the last
+    (1, 1, 72, 128, 70, 16),  # five key tiles of 16: the online rescale many times over
+])
+def test_flash_emulation_matches_pallas_in_f32(b, h, n, d, valid, key_tile):
+    """In f32 p's rounding is exact, so the one-pass online softmax and JAX's
+    kernel (whole rows, normalised p) agree up to summation order."""
+    a = _arrays(n + valid, "float32", q=((b, h, n, d), 1.0, 0.0), k=((b, h, n, d), 1.0, 0.0),
+                v=((b, h, n, d), 1.0, 0.0))
+    want = jattn.fused_vit_attention(a["q"][1], a["k"][1], a["v"][1], valid_len=valid,
+                                     interpret=True)
+    got = _flash_emulation(a["q"][2], a["k"][2], a["v"][2], valid, key_tile)
+    _check(got, want, "float32")
+
+
 def _sublayer_arrays(seed, dtype, b, n, w):
     vec, mat = ((w,), 0.1, 0.0), ((w, w), w ** -0.5, 0.0)
     return _arrays(seed, dtype, x=((b, n, w), 1.0, 0.0), lns=((w,), 0.1, 1.0), lnb=vec,
