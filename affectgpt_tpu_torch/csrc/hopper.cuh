@@ -230,6 +230,25 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
+// s8 A fragments (16 weight columns x 32 k, the A operand of mma.m16n8k32
+// and of a wgmma s8 warp slice) from an N-contiguous int8 tile, the JAX [K,
+// N] weight layout. One ldsm_x4_trans of k rows k0 .. k0 + 31 (matrix q: rows
+// 8q .. 8q + 7, the warp's 16 columns read as eight 16-bit pairs) gives lane
+// (g, t) the bytes of columns 2g, 2g + 1 at k 8q + 2t and 8q + 2t + 1; four
+// byte permutes make a0 (fragment row g: column 2g), a1 (row g + 8: column
+// 2g + 1) and a2, a3 (the same 16 k later). k position p of each 16 then
+// holds tile row sigma16(p), so the activations enter permuted: position p
+// of each 16-column group of xq holds column sigma16(p).
+__host__ __device__ constexpr int sigma16(int p) {
+  return ((p >> 2) << 1) + (p & 1) + ((p & 2) << 2);  // 4t + j -> {2t, 2t+1, 2t+8, 2t+9}[j]
+}
+__device__ __forceinline__ void s8_a_from_trans(const uint32_t (&r)[4], uint32_t (&a)[4]) {
+  a[0] = __byte_perm(r[0], r[1], 0x6420);  // column 2g: k 2t, 2t+1, 2t+8, 2t+9
+  a[1] = __byte_perm(r[0], r[1], 0x7531);  // column 2g + 1
+  a[2] = __byte_perm(r[2], r[3], 0x6420);  // the same, k + 16
+  a[3] = __byte_perm(r[2], r[3], 0x7531);
+}
+
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
 // shared memory, completion counted on `bar`
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
@@ -288,7 +307,9 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 // Host: the tensor map of a row-major 2-D tensor (`inner` elements per row,
 // `outer` rows, rows `row_bytes` apart) read in boxes of box_inner x
 // box_outer elements, swizzled: 128-byte (box_inner * element size = 128
-// bytes, the default) or 32-byte (32-byte box rows: the 16-byte chunk c of
+// bytes, the default), 64-byte (64-byte box rows: the 16-byte chunk c of row
+// r lands at chunk c ^ ((r / 2) % 4), tiles 512-byte aligned) or 32-byte
+// (32-byte box rows: the 16-byte chunk c of
 // row r lands at chunk c ^ ((r / 4) % 2), tiles 256-byte aligned). Maps depend only on these values, so they are cached: a wrapper
 // call whose operands sit where an earlier call's did reuses its maps.
 // Returns 0 or a CUresult.

@@ -1,6 +1,8 @@
-// W8A8 matmul for Hopper (sm_90a): int8 weights AND int8 activations, on
-// wgmma with s8 operands fed by TMA (`wgmma.mma_async` and
-// `cp.async.bulk.tensor` from hopper.cuh).
+// W8A8 matmul for Hopper (sm_90a) above decode M (M > 16): int8 weights AND
+// int8 activations, on wgmma with s8 operands fed by TMA (`wgmma.mma_async`
+// and `cp.async.bulk.tensor` from hopper.cuh). At M <= 16 the wrapper
+// launches the w8a8 mode of quant_swapab.cu instead: one launch that
+// quantizes x itself and reduces its K split in a cluster.
 //
 // Replaces the Pallas kernel affectgpt_tpu/ops/quant.py::int8_matmul_w8a8.
 //
@@ -12,8 +14,8 @@
 // accumulator; the sum times scales[n] is rounded to bf16.
 //
 // Bound: the s8 products at prefill M (4512 rows: 2.10 T operations per
-// decoder layer, 1979 TOPS peak); the weight bytes at decode M. Design, two
-// launches (three when the K loop is split):
+// decoder layer, 1979 TOPS peak). Design, two launches (three when the K
+// loop is split):
 //   (A) quantize x once: one warp per (row, qblock), writing xq [M, K] int8
 //       and sx f32, stored [K / qblock, M padded to the row tile] so that a
 //       block's scales of one qblock are contiguous. The bytes of each
@@ -24,19 +26,20 @@
 //       format). So the kernel computes the transposed tile, y^T = w_q^T .
 //       xq^T: the weight is the A operand, taken from registers; xq (K
 //       contiguous) is the B operand, read from shared memory. A block of
-//       three warpgroups owns 128 output columns (n) x BM rows (m, the
-//       wgmma's N: 16 for M <= 16, else 192, whose 96 s32 and 96 f32
-//       accumulators a consumer thread holds); warpgroup 0 issues the TMA
+//       three warpgroups owns 128 output columns (n) x BM = 192 rows (m,
+//       the wgmma's N, whose 96 s32 and 96 f32 accumulators a consumer
+//       thread holds); warpgroup 0 issues the TMA
 //       loads of a 4-stage ring (weight tile 128 k x 128 n and xq tile BM x
 //       128 k per stage, both 128-byte swizzled, and the BM scales sx of the
 //       qblock the stage ends in, a bulk copy), warpgroups 1 and 2 each
 //       multiply 64 of the n. A warp's A fragment of one 32-wide k step is
 //       one ldmatrix.x4.trans of the N-contiguous weight tile read as 16-bit
-//       pairs of n, then four byte permutes. That gives a thread the k values
-//       {2t, 2t+1, 2t+8, 2t+9} (t = lane % 4) where the fragment wants 4t ..
-//       4t+3, and the pair of n (2g, 2g+1) where it wants rows g and g + 8:
-//       the k order is matched by the permuted xq of (A), the row order by the
-//       epilogue, which stores the pair of n side by side. At the end of each
+//       pairs of n, then four byte permutes (hopper.cuh s8_a_from_trans).
+//       That gives a thread the k values {2t, 2t+1, 2t+8, 2t+9} (t = lane %
+//       4) where the fragment wants 4t .. 4t+3, and the pair of n (2g, 2g+1)
+//       where it wants rows g and g + 8: the k order is matched by the
+//       permuted xq of (A) (sigma16), the row order by the epilogue, which
+//       stores the pair of n side by side. At the end of each
 //       qblock the s32 accumulators are scaled by sx into f32 accumulators
 //       (a wgmma with scale-d 0 starts the next block). K splits are whole
 //       qblocks, their partial sums reduced in a fixed order by a third
@@ -64,11 +67,7 @@ constexpr int kBN = 128;       // output columns per block, 64 per consumer
 constexpr int kBK = 128;       // K bytes per stage (one 128-byte swizzle row)
 constexpr int kStages = 4;
 constexpr int kQuantWarps = 4;
-
-// the column of a 16-column group that position p of xq holds
-__host__ __device__ constexpr int sigma16(int p) {
-  return ((p >> 2) << 1) + (p & 1) + ((p & 2) << 2);  // 4t + j -> {2t, 2t+1, 2t+8, 2t+9}[j]
-}
+constexpr int kBM = 192;       // rows per block: the wgmma's N
 
 // One warp per (row, qblock): lane l holds the block's 16-column group l
 // (two 16-byte loads), the block's absmax comes from shuffles, and the lane
@@ -110,7 +109,7 @@ constexpr size_t smem_bytes() {
   return (size_t)kStages * (kBK * kBN + BM * kBK + BM * 4) + 2 * kStages * sizeof(uint64_t) +
          1024;
 }
-static_assert(smem_bytes<192>() <= 232448, "the ring exceeds a block's shared memory");
+static_assert(smem_bytes<kBM>() <= 232448, "the ring exceeds a block's shared memory");
 
 // Grid (ceil(M / BM), ceil(N / 128), splits); split z runs K columns [z *
 // k_per_split, min(K, (z + 1) * k_per_split)), whole qblocks. Row tiles vary
@@ -184,10 +183,7 @@ w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
         const int row = s * 32 + lane;
         uint32_t r[4];
         ldsm_x4_trans(r, wbase + row * 128 + ((chunk ^ (row & 7)) << 4));
-        a[s][0] = __byte_perm(r[0], r[1], 0x6420);  // n = 2g: k 2t, 2t+1, 2t+8, 2t+9
-        a[s][1] = __byte_perm(r[0], r[1], 0x7531);  // n = 2g + 1
-        a[s][2] = __byte_perm(r[2], r[3], 0x6420);  // the same, k + 16
-        a[s][3] = __byte_perm(r[2], r[3], 0x7531);
+        s8_a_from_trans(r, a[s]);
       }
 #pragma unroll
       for (int s = 0; s < kBK / 32; ++s) {
@@ -267,18 +263,18 @@ static cudaError_t launch(const int8_t* xq, const float* sx, const int8_t* w, co
 
 // C entry. Device pointers to contiguous tensors: x [M, K] bf16; w int8
 // [K, N]; scales f32 [1, N]; scratch xq int8 [M, K] and sx f32 [K / qblock,
-// m_pad] (m_pad: M rounded up to bm, zeros past M); y [M, N] bf16; partial
+// m_pad] (m_pad: M rounded up to 192, zeros past M); y [M, N] bf16; partial
 // f32 [splits, M, N] when splits > 1. The
 // wrapper in affectgpt_tpu_torch/ops/quant.py (`w8a8_plan`) checks shapes,
-// dtypes and alignment (N % 16 == 0, K % qblock == 0, qblock % 64 == 0),
-// picks bm (16 or 192) and makes k_per_split a multiple of qblock. Returns
-// the first CUDA error of the launches, or 0.
+// dtypes and alignment (M > 16, N % 16 == 0, K % qblock == 0, qblock % 64 ==
+// 0) and makes k_per_split a multiple of qblock. Returns the first CUDA
+// error of the launches, or 0.
 extern "C" int agk_int8_matmul_w8a8(const void* x, const void* w, const void* scales, void* xq,
                                     void* sx, void* y, void* partial, int m, int n, int k,
-                                    int qblock, int k_per_split, int splits, int bm,
-                                    int m_pad, void* stream) {
+                                    int qblock, int k_per_split, int splits, int m_pad,
+                                    void* stream) {
   using namespace agk::w8a8;
-  if (bm != 16 && bm != 192) return (int)cudaErrorInvalidValue;
+  if (m <= 16 || m_pad % kBM) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* xqp = static_cast<int8_t*>(xq);
   auto* sxp = static_cast<float*>(sx);
@@ -291,8 +287,6 @@ extern "C" int agk_int8_matmul_w8a8(const void* x, const void* w, const void* sc
   const auto* sp = static_cast<const float*>(scales);
   auto* yp = static_cast<__nv_bfloat16*>(y);
   auto* pp = static_cast<float*>(partial);
-  return (int)(bm == 16 ? launch<16>(xqp, sxp, wp, sp, yp, pp, m, n, k, qblock, k_per_split,
-                                     splits, m_pad, st)
-                        : launch<192>(xqp, sxp, wp, sp, yp, pp, m, n, k, qblock, k_per_split,
-                                      splits, m_pad, st));
+  return (int)launch<kBM>(xqp, sxp, wp, sp, yp, pp, m, n, k, qblock, k_per_split, splits, m_pad,
+                         st);
 }

@@ -17,7 +17,10 @@ CUDA tensor it launches the hand-written kernel (csrc/) or raises:
   x.dtype (replaces quant.py:90);
 - `int8_matmul_w8a8`: x quantized per (row, 512-column K block) to int8,
   int8 × int8 → int32 per block, × the row's block scale, summed in f32, ×
-  scales, on wgmma (csrc/int8_matmul_w8a8.cu; replaces quant.py:163);
+  scales (replaces quant.py:163): at M <= 16 one launch of the swap-AB
+  kernel's w8a8 mode (csrc/quant_swapab.cu, plan `w8a8_swapab_plan`), which
+  quantizes x itself and meets its K split in a cluster; above it on wgmma
+  (csrc/int8_matmul_w8a8.cu, plan `w8a8_plan`);
 - `int4_matmul`: each 128-row group's bf16 product with the raw nibbles,
   summed in f32, times that group's scales (replaces quant.py:319);
 - `int4_matmul_smallm`: bf16(nibble · scale) dequantized in f32, then one
@@ -305,12 +308,14 @@ def _check_operands(name, x, w, scales, w_rows: int, scale_rows: int, k_multiple
 SWAPAB_BN, INT4_BKP = 128, 128
 INT8_ROWS, INT8_STAGES = 128, 5
 SWAPAB_MAX_M, SWAPAB_MAX_CLUSTER = 16, 8
+W8A8_SWAPAB_RING = 64 * 1024  # the w8a8 mode's ring: 4 stages of 128 columns, 8 of 64
 # the share of the card's SMs a product's blocks should cover before K is
 # split over a cluster: the smallest cluster reaching it was the fastest size
 # for every 7B int4 product on the H100 (one block an SM, none waiting on a
 # slower cluster peer), and within 5% of the fastest for every int8 one
 SWAPAB_SM_FILL = 0.8
-# the C entry's modes
+# the C entry's modes (agk_quant_swapab; the w8a8 mode, which takes the
+# block width, has its own entry, agk_w8a8_swapab)
 MODE_INT4, MODE_INT4_DEQUANT, MODE_INT8 = 0, 1, 2
 
 
@@ -383,6 +388,59 @@ def int8_plan(m: int, n: int, k: int, sm_count: int, active_clusters=None) -> di
         "smem_bytes": INT8_STAGES * stage + 8 * nt * (SWAPAB_BN + 4) * 4 + 2 * INT8_STAGES * 8
         + 1024,
         "weight_bytes": col_blocks * SWAPAB_BN * units * INT8_ROWS,
+    }
+
+
+def w8a8_swapab_plan(m: int, n: int, k: int, sm_count: int, active_clusters=None) -> dict:
+    """The launch plan of the swap-AB kernel's w8a8 mode for x [m, k] @ w_q
+    [k, n], 1 <= m <= 16: n8 tiles of batch rows `nt`; blocks of `block_n`
+    columns, 128 unless 128-column blocks split over the largest cluster
+    would cover fewer than SWAPAB_SM_FILL of the SMs (then 64: k/v_proj at
+    7B); one cluster of `cluster` blocks for each column block, block r of it
+    taking the qblocks [r U / C, (r + 1) U / C) of U = k / qblock
+    (`unit_ranges`), each in `stages_per_unit` stages of INT8_ROWS rows (rows
+    past K arrive as zeros); the grid; a ring of 64 KB of weights; the
+    dynamic shared memory (the ring, one staged qblock of x, two qblocks of
+    xq in fragment order and their row scales, the partial tile). The
+    cluster is the largest (at most 8, at most U) whose clusters the card
+    holds all at once (`active_clusters(c, block_n)` >= the column blocks;
+    the wrapper asks the card, by default two blocks an SM), else the
+    smallest the card holds; not `_cluster_plan`'s smallest size covering
+    SWAPAB_SM_FILL of the SMs, which left down_proj and q_proj slower: the
+    largest one-wave size was the fastest one-wave size for every 7B
+    product at M = 8 and 16 (`scripts/torch_int8_probe.py sweep`, NVIDIA
+    H100 80GB HBM3 at 700 W). Raises on what the kernel does not take."""
+    qblock = min(W8A8_BLOCK_K, k)
+    if not 1 <= m <= SWAPAB_MAX_M or n < 16 or n % 16 or k < 64 or k % 64 or k % qblock:
+        raise ValueError(f"w8a8 swap-AB kernel needs 1 <= M <= {SWAPAB_MAX_M}, N % 16 == 0, "
+                         f"K % 64 == 0 and K % {qblock} == 0 (M={m}, N={n}, K={k})")
+    if active_clusters is None:
+        def active_clusters(c, block_n):
+            return 2 * sm_count // c
+    nt = 1 if m <= 8 else 2
+    units = k // qblock
+    bn = SWAPAB_BN
+    if -(-n // bn) * min(SWAPAB_MAX_CLUSTER, units) < SWAPAB_SM_FILL * sm_count:
+        bn = SWAPAB_BN // 2
+    col_blocks = -(-n // bn)
+    sizes = [c for c in range(1, min(SWAPAB_MAX_CLUSTER, units) + 1) if active_clusters(c, bn) >= 1]
+    if not sizes:
+        raise ValueError("w8a8 swap-AB kernel: no cluster size fits the card")
+    c = max((c for c in sizes if active_clusters(c, bn) >= col_blocks), default=sizes[0])
+    stages = W8A8_SWAPAB_RING // (INT8_ROWS * bn)
+    stage = INT8_ROWS * bn
+    per_unit = -(-qblock // INT8_ROWS)
+    return {
+        "nt": nt, "block_n": bn, "qblock": qblock, "cluster": c, "grid": (c * col_blocks,),
+        "col_blocks": col_blocks, "units": units, "rows": INT8_ROWS,
+        "unit_ranges": [(r * units // c, (r + 1) * units // c) for r in range(c)],
+        "stages_per_unit": per_unit, "stages": stages, "stage_bytes": stage,
+        # ring, the staged x (two boxes of 8 nt rows x 256 bf16), two qblocks
+        # of xq (16 k32 steps x nt x 256 bytes) and their scales, partial
+        # tile, barriers, alignment slack
+        "smem_bytes": stages * stage + 2 * 8 * nt * 512 + 2 * 16 * nt * 256 + 2 * 8 * nt * 4
+        + 8 * nt * (bn + 4) * 4 + 2 * (stages + 1) * 8 + 1024,
+        "weight_bytes": col_blocks * bn * units * per_unit * INT8_ROWS,
     }
 
 
@@ -573,19 +631,39 @@ def int4_matmul_smallm(x, w_p, scales):
     return y
 
 
-# csrc/int8_matmul_w8a8.cu: a block owns 128 output columns and 16 rows (M
-# <= 16) or 192, and streams K in 128-byte stages through a ring of four
-W8A8_BN, W8A8_BK, W8A8_STAGES = 128, 128, 4
+@functools.lru_cache(maxsize=None)
+def _w8a8_active_clusters(index: int, cluster: int, m: int, block_n: int) -> int:
+    with torch.cuda.device(index):
+        count = _build.load_library().agk_w8a8_swapab_active_clusters(cluster, m, block_n)
+    if count < 0:
+        _build.check(-count, "w8a8 swap-AB occupancy")
+    return count
+
+
+@functools.lru_cache(maxsize=None)
+def _w8a8_swapab_plan_on(index: int, m: int, n: int, k: int) -> dict:
+    return w8a8_swapab_plan(m, n, k, _build.sm_count(index),
+                            lambda c, bn: _w8a8_active_clusters(index, c, m, bn))
+
+
+# csrc/int8_matmul_w8a8.cu, above SWAPAB_MAX_M: a block owns 128 output
+# columns and 192 rows (the wgmma N), and streams K in 128-byte stages
+# through a ring of four
+W8A8_BN, W8A8_BK, W8A8_STAGES, W8A8_BM = 128, 128, 4, 192
 
 
 def w8a8_plan(m: int, n: int, k: int, sm_count: int) -> dict:
-    """The launch plan of the w8a8 kernel for x [m, k] @ w_q [k, n]: the row
-    tile `bm` (wgmma N: 16 or 192), the K split (whole activation blocks
-    `qblock`, enough splits to give each SM about one block, reduced in a
-    fixed order), the grid (row tiles fastest) and the dynamic shared memory
-    in bytes (a stage: weight tile, xq tile, the rows' scales)."""
+    """The launch plan of the wgmma w8a8 kernel for x [m, k] @ w_q [k, n], m
+    > SWAPAB_MAX_M: the row tile `bm` (the wgmma N), the K split (whole
+    activation blocks `qblock`, enough splits to give each SM about one
+    block, reduced in a fixed order), the grid (row tiles fastest) and the
+    dynamic shared memory in bytes (a stage: weight tile, xq tile, the rows'
+    scales). Decode M takes `w8a8_swapab_plan`."""
+    if m <= SWAPAB_MAX_M:
+        raise ValueError(f"the wgmma w8a8 kernel takes M > {SWAPAB_MAX_M} (M={m}); decode M "
+                         "runs the swap-AB kernel's w8a8 mode")
     qblock = min(W8A8_BLOCK_K, k)
-    bm = 16 if m <= 16 else 192
+    bm = W8A8_BM
     m_tiles, n_tiles = -(-m // bm), -(-n // W8A8_BN)
     groups = k // qblock
     per = -(-groups // min(groups, max(1, -(-sm_count // (m_tiles * n_tiles)))))
@@ -599,11 +677,25 @@ def w8a8_plan(m: int, n: int, k: int, sm_count: int) -> dict:
             "l2_bytes": m_tiles * k * n + n_tiles * m * k}
 
 
+def _w8a8_swapab(x, w_q, scales):
+    m, k = x.shape
+    n = w_q.shape[1]
+    plan = _w8a8_swapab_plan_on(x.device.index or 0, m, n, k)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    status = _build.load_library().agk_w8a8_swapab(
+        x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), y.data_ptr(), m, n, k, plan["block_n"],
+        plan["cluster"], torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, "int8_matmul_w8a8")
+    return y
+
+
 def int8_matmul_w8a8(x, w_q, scales):
     """x [M, K] quantized per (row, 512-column block) in the kernel, then
-    int8 × int8 products on wgmma → [M, N] x.dtype. Two launches (quantize
-    x, then the product), plus the fixed-order reduce of the K splits when
-    there are several (`w8a8_plan`)."""
+    int8 × int8 products → [M, N] x.dtype. At M <= 16 one launch of the
+    swap-AB kernel's w8a8 mode (`w8a8_swapab_plan`); above it two launches
+    on wgmma (quantize x, then the product), plus the fixed-order reduce of
+    the K splits when there are several (`w8a8_plan`)."""
     _build.refuse_grad("int8_matmul_w8a8", x, w_q, scales)
     if x.device.type == "cpu":
         return int8_matmul_w8a8_reference(x, w_q, scales)
@@ -611,6 +703,18 @@ def int8_matmul_w8a8(x, w_q, scales):
     qblock = min(W8A8_BLOCK_K, k)
     if k % qblock:
         raise ValueError(f"int8_matmul_w8a8 kernel needs K % {qblock} == 0 (K={k})")
+    if m <= SWAPAB_MAX_M:
+        y = _w8a8_swapab(x, w_q, scales)
+    else:
+        y = _w8a8_wgmma(x, w_q, scales)
+    int8_matmul_w8a8.launches += 1
+    return y
+
+
+def _w8a8_wgmma(x, w_q, scales):
+    m, k = x.shape
+    n = w_q.shape[1]
+    qblock = min(W8A8_BLOCK_K, k)
     plan = w8a8_plan(m, n, k, _build.sm_count(x.device.index or 0))
     splits = plan["splits"]
     m_pad = plan["grid"][0] * plan["bm"]
@@ -623,10 +727,9 @@ def int8_matmul_w8a8(x, w_q, scales):
     status = _build.load_library().agk_int8_matmul_w8a8(
         x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), xq.data_ptr(), sx.data_ptr(),
         y.data_ptr(), partial.data_ptr(), m, n, k, qblock, plan["k_per_split"], splits,
-        plan["bm"], m_pad, torch.cuda.current_stream(x.device).cuda_stream,
+        m_pad, torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "int8_matmul_w8a8")
-    int8_matmul_w8a8.launches += 1
     return y
 
 

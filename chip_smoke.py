@@ -36,8 +36,12 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    the main path's M (the sum of the layer's products, each timed alone),
    with `bf16_cublas_ms`, torch.matmul on the same weights dequantized to
    bf16, as a yardstick of the unquantized product that no path runs; the
-   w8a8 kernel (wgmma) must also give the same bits on a second call, and
-   prints its variant (wgmma N-width, K splits) and the bytes it reads; so
+   w8a8 wrapper is checked at every M of 1-16 (the swap-AB kernel's w8a8
+   mode: one launch that quantizes x itself, printing its plan: n8 tiles,
+   block width, cluster, grid, ring, shared memory), at 17 and at the
+   prefill's 4512 (the wgmma kernel, printing its N-width, K splits and the
+   bytes it reads), must give the same bits on a second call, and is timed
+   at M = 8, 16, 40, 256 and 4512 over the split layer; so
    must the two int4 wrappers and `int8_matmul`, which print the swap-AB
    kernel's plan at M <= 16 (n8 tiles, cluster size, grid, ring, shared
    memory) and above it quant_wgmma.cuh's (batch width NB, batch blocks,
@@ -517,8 +521,8 @@ KERNELS = {
         "source": "affectgpt_tpu_torch/csrc/quant_swapab.cu",
         "replaces": "affectgpt_tpu/ops/quant.py:90",
     },
-    "int8_matmul_w8a8": {
-        "source": "affectgpt_tpu_torch/csrc/int8_matmul_w8a8.cu",
+    "int8_matmul_w8a8": {  # M <= 16; above it csrc/int8_matmul_w8a8.cu
+        "source": "affectgpt_tpu_torch/csrc/quant_swapab.cu",
         "replaces": "affectgpt_tpu/ops/quant.py:163",
     },
     "paged_attention": {  # _kernel, bf16 pools
@@ -1076,8 +1080,8 @@ QUANT_PHASE = {
                     BF16_FLOP_PER_S),
     "int8_matmul": (8, quant.int8_matmul_reference, tuple(range(1, 17)) + WGMMA_M, 8, True,
                     BF16_FLOP_PER_S),
-    "int8_matmul_w8a8": (8, quant.int8_matmul_w8a8_reference, (8, 4512), 8, False,
-                         S8_OPS_PER_S),
+    "int8_matmul_w8a8": (8, quant.int8_matmul_w8a8_reference, tuple(range(1, 17)) + (17, 4512),
+                         8, False, S8_OPS_PER_S),
 }
 
 
@@ -1102,8 +1106,16 @@ def swapab_variant(name: str, m: int, n: int, k: int) -> dict:
 
 
 def w8a8_variant(m: int, n: int, k: int) -> dict:
-    """What the w8a8 wrapper launches for x [m, k] @ w [k, n]: the wgmma
-    N-width (row tile), the K splits and the bytes its product reads."""
+    """What the w8a8 wrapper launches for x [m, k] @ w [k, n]: at M <= 16
+    the swap-AB kernel's w8a8 mode with its plan (n8 tiles, block width,
+    cluster splitting K in whole qblocks, grid, ring, shared memory), above
+    it the wgmma kernel's N-width (row tile), K splits and the bytes its
+    product reads."""
+    if m <= quant.SWAPAB_MAX_M:
+        plan = quant._w8a8_swapab_plan_on(0, m, n, k)
+        return {"variant": f"swapab_w8a8_mma_m16n8k32_s8_nt{plan['nt']}",
+                "block_n": plan["block_n"], "cluster": plan["cluster"], "grid": plan["grid"][0],
+                "stages": plan["stages"], "smem": plan["smem_bytes"]}
     plan = quant.w8a8_plan(m, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
     return {"variant": f"wgmma_m64n{plan['bm']}k32_s8", "splits": plan["splits"],
             "l2_read_bytes": plan["l2_bytes"]}
@@ -1163,13 +1175,16 @@ def phase_quant_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
                 say("kernels", kernel=name, M=m, K=k, N=n, shapes="/".join(names),
                     max_abs_err=f"{err:.6g}", max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL,
                     **extra, card=repr(card))
-        # the main path's M first; w8a8 also at its prefill M, int8_matmul at
-        # paged_w8's M = 16 on the split layout's attention products; both
-        # weight-only kernels over the split layer at the speculative
-        # verify's M = SPEC_M (phase 7's spec_q4 runs int4_matmul there),
-        # bench.py's 7B batch (M = 256) and a prefill's 1000 rows
-        # (measurements only)
-        extra_m = {"int8_matmul_w8a8": (max(ms_checked),), "int4_matmul": (SPEC_M, 256, 1000),
+        # the main path's M first; w8a8 also at M = 16, at the speculative
+        # verify's M = SPEC_M and bench.py's 7B batch (M = 256, both on the
+        # 192-row wgmma tile: measurements only) and at its prefill M,
+        # int8_matmul at paged_w8's M = 16 on the split layout's attention
+        # products; both weight-only kernels over the split layer at the
+        # speculative verify's M = SPEC_M (phase 7's spec_q4 runs
+        # int4_matmul there), bench.py's 7B batch (M = 256) and a prefill's
+        # 1000 rows (measurements only)
+        extra_m = {"int8_matmul_w8a8": (16, SPEC_M, 256, max(ms_checked)),
+                   "int4_matmul": (SPEC_M, 256, 1000),
                    "int8_matmul": (16, SPEC_M, 256, 1000)}.get(name, ())
         per_layer = []
         for m in (m_path, *extra_m):

@@ -1,13 +1,14 @@
-"""Probes of the weight-only quantized matmuls on one CUDA card: the int8
-mode of the swap-AB kernel (csrc/quant_swapab.cu) that `int8_matmul`
-launches at M <= 16, and the wgmma kernel (csrc/quant_wgmma.cuh) that
-`int8_matmul` and `int4_matmul` launch above it.
+"""Probes of the quantized matmuls on one CUDA card: the int8 and w8a8
+modes of the swap-AB kernel (csrc/quant_swapab.cu) that `int8_matmul` and
+`int8_matmul_w8a8` launch at M <= 16, and the wgmma kernel
+(csrc/quant_wgmma.cuh) that `int8_matmul` and `int4_matmul` launch above it.
 
     python3 scripts/torch_int8_probe.py check    # correctness, per-layer times, cluster sweep
-    python3 scripts/torch_int8_probe.py time [DIR ...]     # this tree's package beside each DIR's
+    python3 scripts/torch_int8_probe.py time [--w8a8] [DIR ...]  # this tree's package beside each DIR's
     python3 scripts/torch_int8_probe.py builds [NAME ...]  # edited copies of the swap-AB kernel
     python3 scripts/torch_int8_probe.py wgmma [NAME ...]   # edited copies of the wgmma kernel
-    python3 scripts/torch_int8_probe.py sweep    # the wgmma kernel at every K split
+    python3 scripts/torch_int8_probe.py sweep    # the wgmma kernel at every K split, the w8a8
+                                                 # mode at every cluster and block width
 
 `check`: `int8_matmul` against its plain version at every M of 1-16 and at
 M = 17, 40, 64, 100, 256, 257, 1000 and 1024 (quant_wgmma.cuh) on the tiny
@@ -15,9 +16,11 @@ test shapes and every Qwen2.5-7B (K, N) of the split and fused layouts and
 the lm_head; two calls must give the same bits. Then device ms of each
 product and of the fused layer (q8_fused: qkv, o, gateup, down) and the
 split layer at M = 8 and 16, and the lm_head; then q/k/gate/down_proj at
-every cluster size, launched through the C entry. `time`: the weight-only
-quantized matmuls per product and per layer, as the main path runs them at
-decode M: `int8_matmul` on q8_fused's layer at M = 8 and on paged_w8's
+every cluster size, launched through the C entry. `time`: the quantized
+matmuls per product and per layer, as the main path runs them at decode M:
+`int8_matmul_w8a8` on q8a8's split layer and the lm_head at M = 8 and 16,
+and on the split layer at M = 40, 256 and the prefill's 4512 (with `--w8a8`
+nothing else); `int8_matmul` on q8_fused's layer at M = 8 and on paged_w8's
 q/k/v/o at M = 16, `int4_matmul_smallm` at M = 8 and `int4_matmul` at M =
 16 on the split layer, each with the lm_head; and above decode M:
 `int8_matmul`, `int4_matmul` and `int4_matmul_smallm` on the split layer
@@ -29,13 +32,20 @@ drift of the card weighs on both. `builds`: the package copied to a
 temporary directory with a few source lines of the swap-AB kernel edited
 (VARIANTS: the loads alone, no conversion, no products), built, and
 gate/down/q_proj, gate_proj cut to 132 column blocks, and the fused layer
-timed at M = 8 and 16. `wgmma`: the same with quant_wgmma.cuh's switches
+timed at M = 8 and 16 (`int8_matmul`); the `w8a8_*` variants edit the w8a8
+mode (the loads alone, no quantization of x, no products) and time
+`int8_matmul_w8a8` per product of the split layer and at the lm_head at M =
+8 and 16, with the largest error against the plain version (and
+`w8a8_no_x_loads`: x not staged). `wgmma`: the same with quant_wgmma.cuh's switches
 (WGMMA_VARIANTS), the split layer of `int8_matmul` and `int4_matmul` timed
 at M = 40, 256 and 1000, to split the kernel's time into loads,
 conversion and products (a NAME given twice is built and timed twice).
 `sweep`: the wgmma kernel through its C entries at every K split the card
 holds (int4 also at 64-row batch blocks), beside the plan's choice, on
-q/k/gate/down_proj at M = 40, 256 and 1000. Times: calls captured in a
+q/k/gate/down_proj at M = 40, 256 and 1000; then the swap-AB kernel's w8a8
+mode through its C entry at every cluster size and both block widths (128
+and 64 columns), beside `w8a8_swapab_plan`'s choice, on q/k/gate/down_proj
+at M = 8 and 16. Times: calls captured in a
 CUDA graph over enough weight copies to exceed the 50 MB L2, 20 replays,
 the median. Prints the card's name and power limit first.
 """
@@ -69,6 +79,18 @@ VARIANTS = {
     "no_convert": [(SAB, "kConvert = true;", "kConvert = false;")],
     # the fragments built and XORed into the output instead of multiplied
     "no_products": [(SAB, "kProducts = true;", "kProducts = false;")],
+    # the w8a8 mode (int8_matmul_w8a8 at M <= 16): as built; the ring alone
+    # (no quantization, no products); x not quantized (xq and sx left as
+    # they were); the fragments XORed into the output instead of multiplied
+    "w8a8_as_is": [],
+    "w8a8_loads_only": [(SAB, "kConsume = true;", "kConsume = false;")],
+    "w8a8_no_quantize": [(SAB, "kQuantize = true;", "kQuantize = false;")],
+    "w8a8_no_products": [(SAB, "kProducts = true;", "kProducts = false;")],
+    # x not staged: the producer hands the staging buffer over without its
+    # TMA loads (the consumers quantize what it held)
+    "w8a8_no_x_loads": [(SAB, "mbar_expect_tx(xsfull, x_boxes * 8 * NT * x_cols * 2);",
+                         "mbar_arrive(xsfull);"),
+                        (SAB, "for (int h = 0; h < x_boxes; ++h)", "for (int h = 0; h < 0; ++h)")],
 }
 
 # quant_wgmma.cuh's diagnostic switches
@@ -189,10 +211,35 @@ print(json.dumps(out), flush=True)
 '''
 
 
+W8A8_BUILD_BENCH = INT8_MS + f"""
+import json, sys
+from affectgpt_tpu_torch.ops import quant
+SPLIT, LM_HEAD = {SPLIT!r}, {LM_HEAD!r}
+""" + r'''
+g = torch.Generator(device="cuda").manual_seed(0)
+out = {"variant": sys.argv[2]}
+w, s = weights8(g, 3584, 512)
+x = torch.randn((5, 3584), generator=g, device="cuda").to(torch.bfloat16)
+out["max_abs_err"] = round(float((quant.int8_matmul_w8a8(x, w, s).float()
+                                  - quant.int8_matmul_w8a8_reference(x, w, s).float()).abs().max()), 5)
+for m in (8, 16):
+    per = {}
+    for p, (k, n) in {**SPLIT, "lm_head": LM_HEAD}.items():
+        ws, rep = copies_of(*weights8(g, k, n))
+        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        per[p] = round(graph_ms([lambda w=w, s=s: quant.int8_matmul_w8a8(x, w, s)
+                                 for w, s in ws] * rep), 5)
+        del ws
+    out[f"M{m}"] = {"layer_ms": round(sum(v for p, v in per.items() if p != "lm_head"), 5), **per}
+print(json.dumps(out), flush=True)
+'''
+
+
 def builds(names: list) -> None:
     tmp = Path(tempfile.mkdtemp())
     for name in names or VARIANTS:
-        run_variant(name, "int8_builds", VARIANTS[name], tmp, bench=BUILD_BENCH)
+        bench = W8A8_BUILD_BENCH if name.startswith("w8a8_") else BUILD_BENCH
+        run_variant(name, "int8_builds", VARIANTS[name], tmp, bench=bench)
 
 
 TIME_BENCH = INT8_MS + f"""
@@ -202,7 +249,10 @@ SPLIT, FUSED, LM_HEAD, LAYER = {SPLIT!r}, {FUSED!r}, {LM_HEAD!r}, {LAYER!r}
 """ + r'''
 g = torch.Generator(device="cuda").manual_seed(0)
 out = {"package": sys.argv[1]}
-runs = (("int8_matmul_M8_fused", quant.int8_matmul, 8, 8, {**FUSED, "lm_head": LM_HEAD}),
+w8a8 = tuple((f"int8_matmul_w8a8_M{m}", quant.int8_matmul_w8a8, 8, m,
+              {**SPLIT, "lm_head": LM_HEAD} if m <= 16 else SPLIT) for m in (8, 16, 40, 256, 4512))
+runs = w8a8 if sys.argv[2] == "w8a8" else w8a8 + (
+        ("int8_matmul_M8_fused", quant.int8_matmul, 8, 8, {**FUSED, "lm_head": LM_HEAD}),
         ("int8_matmul_M16_qkvo", quant.int8_matmul, 8, 16,
          {**{p: SPLIT[p] for p in "qkvo"}, "lm_head": LM_HEAD}),
         ("int4_matmul_smallm_M8", quant.int4_matmul_smallm, 4, 8, LAYER),
@@ -289,6 +339,42 @@ def wgmma_sweep() -> None:
             del ws
 
 
+def w8a8_sweep() -> None:
+    """The w8a8 mode (agk_w8a8_swapab) at every cluster size and block
+    width beside the plan's choice: q/k/gate/down_proj at M = 8 and 16."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    from affectgpt_tpu_torch.ops import _build, quant
+    ns = {}
+    exec(INT8_MS, ns)
+    graph_ms, weights8, copies_of = (ns[k] for k in ("graph_ms", "weights8", "copies_of"))
+    lib = _build.load_library()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for p in ("q", "k", "gate", "down"):
+        k, n = SPLIT[p]
+        ws, rep = copies_of(*weights8(g, k, n))
+        for m in (8, 16):
+            x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+            y = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+            plan = quant._w8a8_swapab_plan_on(0, m, n, k)
+            times = {}
+            for bn in (128, 64):
+                for c in range(1, min(8, plan["units"]) + 1):
+                    if quant._w8a8_active_clusters(0, c, m, bn) < 1:
+                        continue
+
+                    def call(w, s, bn=bn, c=c):
+                        status = lib.agk_w8a8_swapab(x.data_ptr(), w.data_ptr(), s.data_ptr(),
+                                                     y.data_ptr(), m, n, k, bn, c,
+                                                     torch.cuda.current_stream().cuda_stream)
+                        assert status == 0, status
+                    times[f"bn{bn}_c{c}"] = round(graph_ms(
+                        [lambda w=w, s=s: call(w, s) for w, s in ws] * rep), 5)
+            print("int8_matmul_w8a8", p, f"M={m}", "plan",
+                  f"bn{plan['block_n']}_c{plan['cluster']}", times, flush=True)
+        del ws
+
+
 def wgmma_builds(names: list) -> None:
     tmp = Path(tempfile.mkdtemp())
     for name in names or WGMMA_VARIANTS:
@@ -296,11 +382,13 @@ def wgmma_builds(names: list) -> None:
 
 
 def time_packages(dirs: list) -> None:
-    """TIME_BENCH for this tree's package and each DIR's, A B B A."""
-    roots = [("this tree", REPO)] + [(d, Path(d).resolve()) for d in dirs]
+    """TIME_BENCH for this tree's package and each DIR's, A B B A (with
+    --w8a8 first: int8_matmul_w8a8 alone)."""
+    only = "w8a8" if dirs[:1] == ["--w8a8"] else "all"
+    roots = [("this tree", REPO)] + [(d, Path(d).resolve()) for d in dirs if d != "--w8a8"]
     for label, root in roots + roots[::-1]:
         env = {**os.environ, "PYTHONPATH": str(root)}
-        proc = subprocess.run([sys.executable, "-c", TIME_BENCH, label], env=env, cwd=root,
+        proc = subprocess.run([sys.executable, "-c", TIME_BENCH, label, only], env=env, cwd=root,
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(json.dumps({"package": label, "error": proc.stderr[-3000:]}), flush=True)
@@ -319,6 +407,7 @@ def main() -> None:
         wgmma_builds(sys.argv[2:])
     elif mode == "sweep":
         wgmma_sweep()
+        w8a8_sweep()
     elif mode == "time":
         time_packages(sys.argv[2:])
     else:

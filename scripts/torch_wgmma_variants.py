@@ -11,8 +11,10 @@ the kernels are built from the copy, and one process checks
 the kernel against its plain version at a small shape and times it at the
 main path's shapes: `mlp_sublayer_fused` (csrc/vit_mlp_fused.cu) at CLIP's
 64 x 257 and HuBERT's 64 x 99 rows (w = 1024, I = 4096, bf16 accumulator),
-`int8_matmul_w8a8` (csrc/int8_matmul_w8a8.cu) summed over one Qwen2.5-7B
-decoder layer's products at M = 4512 and M = 8, `mlp_sublayer`
+`int8_matmul_w8a8` summed over one Qwen2.5-7B decoder layer's products at
+M = 4512 (csrc/int8_matmul_w8a8.cu, whose row tile and products the `w8a8`
+variants edit) and M = 8 (csrc/quant_swapab.cu's w8a8 mode,
+unedited), `mlp_sublayer`
 (csrc/vit_mlp.cu on csrc/vit_gemm_wgmma.cuh) at the same two shapes as the
 fused MLP, with the device ms of each of its three launches from
 torch.profiler, and the int8 `decode_mlp` (csrc/decode_mlp_int8.cu) at the
@@ -117,10 +119,9 @@ VARIANTS = {
                                           "      if (false) wgmma_bf16_ss_tb(acc,")]),
     "w8a8_as_is": ("w8a8", []),
     "w8a8_rows128": ("w8a8", [
-        ("affectgpt_tpu_torch/ops/quant.py", "bm = 16 if m <= 16 else 192",
-         "bm = 16 if m <= 16 else 128"),
-        (W8A8, "if (bm != 16 && bm != 192)", "if (bm != 16 && bm != 128)"),
-        (W8A8, ": launch<192>(", ": launch<128>(")]),
+        ("affectgpt_tpu_torch/ops/quant.py", "W8A8_STAGES, W8A8_BM = 128, 128, 4, 192",
+         "W8A8_STAGES, W8A8_BM = 128, 128, 4, 128"),
+        (W8A8, "constexpr int kBM = 192;", "constexpr int kBM = 128;")]),
     # the A fragments (built from the weights in registers) folded into the
     # accumulator in place of the products
     "diag_w8a8_no_products": ("w8a8", [(W8A8, _W8A8_MMA,

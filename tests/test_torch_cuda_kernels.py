@@ -805,10 +805,12 @@ def test_vit_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         vit_mlp.mlp_sublayer(_rnd(gen, 99, 2, 256).transpose(0, 1), *mlp)
 
 
-# The two wgmma designs (csrc/int8_matmul_w8a8.cu, csrc/vit_mlp_fused.cu) at
-# the main path's shapes: the 7B split layout's (K, N), split and unsplit K,
-# at every M the wgmma N-width choice meets (16 and 128 rows; one row; a
-# ragged last tile; the prefill's 4512), the lm_head at decode M.
+# The w8a8 kernels (the swap-AB kernel's w8a8 mode at M <= 16, the wgmma
+# design of csrc/int8_matmul_w8a8.cu above it) and the fused MLP
+# (csrc/vit_mlp_fused.cu) at the main path's shapes: the 7B split layout's
+# (K, N), split and unsplit K, at decode M (one row; 8; a ragged 13), at M
+# the 192-row tile meets (64, 65, 200) and the prefill's 4512; the lm_head at
+# decode M.
 W8A8_7B = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584)]
 
 
@@ -827,6 +829,42 @@ def test_w8a8_kernel_matches_plain_at_7b_shapes(gen, m, k, n):
     assert torch.equal(got, again)  # split K is reduced in a fixed order
     torch.testing.assert_close(got.float(), quant.int8_matmul_w8a8_reference(
         x, w, scales).float(), **TOL)
+
+
+@pytest.mark.parametrize("m", list(range(1, 17)))
+@pytest.mark.parametrize("k,n", W8A8_7B + [(3584, 4608), (3584, 37888), (3584, 152064),
+                                 (1024, 112), (1024, 272)])
+def test_w8a8_swapab_kernel_matches_plain_at_every_decode_m(gen, m, k, n):
+    """The swap-AB kernel's w8a8 mode at every decode M on every 7B (K, N)
+    (split and fused layouts, the lm_head) and two ragged N (the last
+    64-column block partly inside N): one launch, the plain version's result
+    within tolerance, the same bits from a second call."""
+    w, scales = _quantized(gen, k, n, 8)
+    x = _rnd(gen, m, k)
+    before = quant.int8_matmul_w8a8.launches
+    got = quant.int8_matmul_w8a8(x, w, scales)
+    torch.cuda.synchronize()
+    assert quant.int8_matmul_w8a8.launches == before + 1
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), quant.int8_matmul_w8a8_reference(
+        x, w, scales).float(), **TOL)
+    assert torch.equal(got, quant.int8_matmul_w8a8(x, w, scales))
+
+
+@pytest.mark.parametrize("k,n", [(3584, 512), (18944, 3584)])
+def test_w8a8_swapab_kernel_is_one_device_launch(gen, k, n):
+    """At M = 8 a w8a8 product is one device kernel: no quantize pass, no
+    reduce of its K split (the cluster meets it)."""
+    w, scales = _quantized(gen, k, n, 8)
+    x = _rnd(gen, 8, k)
+    quant.int8_matmul_w8a8(x, w, scales)  # build, plan and tensor map before the trace
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        quant.int8_matmul_w8a8(x, w, scales)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "w8a8_swapab_kernel" in kernels[0], kernels
 
 
 def test_w8a8_wrapper_raises_on_a_k_of_partial_blocks(gen):

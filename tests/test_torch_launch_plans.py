@@ -2,10 +2,19 @@
 the w8a8 kernel, checked on the CPU (the kernels themselves run only on the
 card: tests/test_torch_cuda_kernels.py).
 
-- `quant.w8a8_plan`: every output tile of y [M, N] is covered exactly once,
-  the K splits fall on whole 512-column activation blocks and cover K
-  exactly once, and the ring fits the card's 232,448 bytes of shared memory
-  a block, at the 7B (K, N) layouts and the M the path and the tests use.
+- `quant.w8a8_plan` (the wgmma w8a8 kernel, M > 16): every output tile of
+  y [M, N] is covered exactly once, the K splits fall on whole 512-column
+  activation blocks and cover K exactly once, and the ring fits the card's
+  232,448 bytes of shared memory a block, at the 7B (K, N) layouts and the
+  M the path and the tests use; it refuses decode M.
+- `quant.w8a8_swapab_plan` (the w8a8 mode of csrc/quant_swapab.cu, M <=
+  16): every (16-column strip, qblock) once, K shares of whole qblocks,
+  clusters of at most 8, two blocks an SM, gate/up_proj at 7B in one wave
+  and k/v_proj on more than 28 blocks; an emulation of a block's qblock
+  (the quantizer's stores of xq in fragment order, TMA's 128- and 64-byte
+  swizzles, the transposed ldmatrix and byte permutes, the m16n8k32 s8
+  products and their scaling) gives the plain version's exact sums and its
+  f32 terms bit for bit, with conflict-free shared-memory accesses.
 - The w8a8 kernel's A fragments: the weight tile is N-contiguous, so a warp
   builds its s8 fragments from one transposed ldmatrix (16-bit pairs of n)
   and four byte permutes, and the quantizer stores each 16-column group of
@@ -96,12 +105,42 @@ SMS = 132
 LAYER_7B = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584), (3584, 152064)]
 
 
+SMEM_PER_SM = 233_472  # an H100 SM's shared memory; each resident block also reserves 1 KB
+
+
+def _check_w8a8_swapab_plan(plan, m, k, n):
+    """The swap-AB w8a8 plan: every (16-column strip, qblock) once, each
+    rank's K share whole qblocks in stages that cover them, two blocks an SM."""
+    c, units, bn, qblock = plan["cluster"], plan["units"], plan["block_n"], plan["qblock"]
+    assert plan["nt"] == (1 if m <= 8 else 2) and bn in (64, 128)
+    assert qblock == min(512, k) and units * qblock == k
+    assert 1 <= c <= 8 and c <= units and plan["col_blocks"] == -(-n // bn)
+    assert plan["grid"] == (c * plan["col_blocks"],)
+    cover = np.zeros((n // 16, units), np.int32)
+    for b in range(plan["grid"][0]):  # block b: column block b // c, rank b % c
+        cb, rank = divmod(b, c)
+        u0, u1 = plan["unit_ranges"][rank]
+        assert u0 < u1  # every rank has whole qblocks to stream
+        for s in range(bn // 16 * cb, min(bn // 16 * (cb + 1), n // 16)):
+            cover[s, u0:u1] += 1
+    assert (cover == 1).all()  # each weight byte is read by one block, once
+    per_unit, rows = plan["stages_per_unit"], plan["rows"]
+    assert (per_unit - 1) * rows < qblock <= per_unit * rows <= 16 * 32  # the xq buffer's steps
+    assert plan["weight_bytes"] >= n * k and plan["stages"] * plan["stage_bytes"] == 64 * 1024
+    assert plan["smem_bytes"] <= SMEM_LIMIT and 2 * (plan["smem_bytes"] + 1024) <= SMEM_PER_SM
+
+
 @pytest.mark.parametrize("m", [1, 8, 13, 16, 17, 64, 65, 200, 4512])
 @pytest.mark.parametrize("k,n", LAYER_7B + [(64, 256), (1024, 512), (512, 272)])
 def test_w8a8_plan_covers_every_tile_and_k_once(m, k, n):
+    """Decode M (<= 16) on the swap-AB kernel's w8a8 mode, above it the
+    wgmma kernel's 192-row tiles."""
+    if m <= 16:
+        _check_w8a8_swapab_plan(quant.w8a8_swapab_plan(m, n, k, SMS), m, k, n)
+        return
     plan = quant.w8a8_plan(m, n, k, SMS)
     bm, per, splits = plan["bm"], plan["k_per_split"], plan["splits"]
-    assert bm == (16 if m <= 16 else 192)
+    assert bm == 192
     gy, gx, gz = plan["grid"]  # row tiles vary fastest
     # the tiles are the product of a row and a column partition
     rows, cols = np.zeros(m, np.int32), np.zeros(n, np.int32)
@@ -121,14 +160,16 @@ def test_w8a8_plan_covers_every_tile_and_k_once(m, k, n):
 
 
 def test_w8a8_plan_splits_k_at_decode_and_not_at_prefill():
-    assert quant.w8a8_plan(8, 512, 3584, SMS)["splits"] == 7  # k_proj: 4 column tiles
-    assert quant.w8a8_plan(8, 3584, 18944, SMS)["splits"] > 1
+    # decode: k_proj's 64-column blocks over a cluster of its 7 qblocks,
+    # down_proj's 37 qblocks over a cluster too
+    assert quant.w8a8_swapab_plan(8, 512, 3584, SMS)["cluster"] == 7
+    assert quant.w8a8_swapab_plan(8, 3584, 18944, SMS)["cluster"] > 1
     for k, n in LAYER_7B:  # at prefill only a product of fewer tiles than SMs splits
         plan = quant.w8a8_plan(4512, n, k, SMS)
         assert (plan["splits"] == 1) == (plan["grid"][0] * plan["grid"][1] >= SMS)
 
 
-def _sigma16(p):  # csrc/int8_matmul_w8a8.cu sigma16
+def _sigma16(p):  # csrc/hopper.cuh sigma16
     return ((p >> 2) << 1) + (p & 1) + ((p & 2) << 2)
 
 
@@ -160,6 +201,191 @@ def test_w8a8_fragments_match_the_permuted_activations():
                 p = k0 + j
                 k = 16 * (p // 16) + _sigma16(p % 16)  # the column xq holds at position p
                 assert (a[reg] >> (8 * j)) & 0xFF == w[k, n]
+
+
+# ---------------------------------------------------------------------------
+# The w8a8 mode of the swap-AB kernel (csrc/quant_swapab.cu), M <= 16
+
+
+@pytest.mark.parametrize("m", list(range(1, 17)))
+@pytest.mark.parametrize("k,n", [(3584, 4608), (3584, 37888), (3584, 112), (2560, 256),
+                                 (192, 272)])
+def test_w8a8_swapab_plan_covers_every_strip_and_qblock_once(m, k, n):
+    """The fused 7B layout's qkv and gate/up_proj, a narrow N, five qblocks,
+    one qblock of 192 columns in two stages (the split layout's shapes are
+    test_w8a8_plan_covers_every_tile_and_k_once's)."""
+    _check_w8a8_swapab_plan(quant.w8a8_swapab_plan(m, n, k, SMS), m, k, n)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+def test_w8a8_swapab_plan_fills_the_card_in_one_wave(m):
+    """Two blocks an SM: gate/up_proj's 148 whole-K blocks run in one wave;
+    k/v_proj take 64-column blocks (8 x 7 qblocks: 56 blocks, not 4 x 7);
+    every product of a 7B layer but the lm_head fits the card at once."""
+    gate = quant.w8a8_swapab_plan(m, 18944, 3584, SMS)
+    assert gate["cluster"] == 1 and gate["grid"] == (148,) and 148 <= 2 * SMS
+    kv = quant.w8a8_swapab_plan(m, 512, 3584, SMS)
+    assert kv["block_n"] == 64 and kv["grid"][0] > 28
+    for k, n in LAYER_7B[:-1] + [(3584, 4608), (3584, 37888)]:
+        plan = quant.w8a8_swapab_plan(m, n, k, SMS)
+        assert plan["grid"][0] <= 2 * SMS or n == 37888  # the fused gate/up: 296 blocks
+        assert plan["block_n"] == (64 if n == 512 else 128)
+
+
+@pytest.mark.parametrize("m,n,k", [(0, 512, 3584), (17, 512, 3584), (8, 120, 3584),
+                                   (8, 512, 576), (8, 512, 96), (8, 0, 3584)])
+def test_w8a8_swapab_plan_raises_on_what_the_kernel_does_not_take(m, n, k):
+    with pytest.raises(ValueError):  # M outside 1-16, N % 16, K % qblock, K % 64
+        quant.w8a8_swapab_plan(m, n, k, SMS)
+
+
+def test_w8a8_swapab_plan_reads_the_card_s_cluster_count():
+    plan = quant.w8a8_swapab_plan(8, 512, 3584, SMS, lambda c, bn: 264 // c if c <= 2 else 0)
+    assert plan["cluster"] <= 2
+    with pytest.raises(ValueError):
+        quant.w8a8_swapab_plan(8, 512, 3584, SMS, lambda c, bn: 0)
+
+
+def test_w8a8_wgmma_plan_refuses_decode_m():
+    with pytest.raises(ValueError):
+        quant.w8a8_plan(16, 512, 3584, SMS)
+
+
+def _swizzle64(tile: np.ndarray) -> np.ndarray:
+    """A [rows, 64]-byte tile as TMA writes it with the 64-byte swizzle:
+    16-byte chunk c of row r at chunk c ^ (r / 2 % 4); flat bytes."""
+    out = np.empty_like(tile)
+    for r in range(tile.shape[0]):
+        for c in range(4):
+            p = c ^ ((r // 2) % 4)
+            out[r, 16 * p:16 * p + 16] = tile[r, 16 * c:16 * c + 16]
+    return out.reshape(-1)
+
+
+def _xq_word(s, nt, g, t, h, tiles):  # csrc/quant_swapab.cu xq_word
+    return ((s * tiles + nt) * 32 + ((4 * g + t) ^ s)) * 2 + h
+
+
+def _s8(byte: int) -> int:
+    return byte - 256 if byte >= 128 else byte
+
+
+def _quantize_value(v, s):
+    """csrc/quant_swapab.cu quantize_value in float32: p = v * (1 / s), p +
+    1.5 2^23 rounded (half to even), the IEEE quotient within 3e-5 of a half,
+    clipped to +-127."""
+    f = np.float32
+    r = f(1) / s
+    p = v * r
+    magic = f(12582912.0)
+    t = p + magic
+    q = (t.view(np.int32) - magic.view(np.int32)).astype(np.int64)
+    near = np.abs(p - (t - magic)) > f(0.49997)
+    q[near] = np.rint(v[near] / s).astype(np.int64)
+    return np.clip(q, -127, 127)
+
+
+def test_w8a8_swapab_quantizer_rounds_as_ieee_division():
+    """The kernel's quantizer (a product with the reciprocal, the division
+    only near a half) gives clip(rint(v / s)) of the IEEE quotient: on random
+    rows at their own scale, and on values placed at, and a few ulps either
+    side of, every half-integer quotient of 0.5-126.5 for many scales."""
+    rng = np.random.RandomState(7)
+    f = np.float32
+    for _ in range(200):
+        v = (rng.randn(512) * rng.choice([1e-6, 1e-2, 1.0, 30.0, 3e4])).astype(f)
+        amax = np.abs(v).max()
+        s = np.maximum(amax, f(1e-8)) / f(127)
+        np.testing.assert_array_equal(_quantize_value(v, s), np.clip(np.rint(v / s), -127, 127))
+    halves = np.arange(-126.5, 127, 1.0)
+    for s in (np.abs(rng.randn(300)) * f(0.05) + f(1e-4)).astype(f):
+        v = (halves * s).astype(f)
+        v = np.concatenate([np.nextafter(v, np.inf), np.nextafter(v, -np.inf), v,
+                            np.nextafter(np.nextafter(v, np.inf), np.inf)]).astype(f)
+        want = np.clip(np.rint(v / s), -127, 127)
+        np.testing.assert_array_equal(_quantize_value(v, s), want)
+
+
+@pytest.mark.parametrize("nt", [1, 2])
+@pytest.mark.parametrize("bn", [128, 64])
+def test_w8a8_swapab_qblock_emulation_gives_the_plain_terms(nt, bn):
+    """One 512-column qblock of one block of the w8a8 mode, every consumer
+    warp, emulated instruction by instruction: the quantizer's sx and xq (f32
+    IEEE division, round half to even) stored word by word at xq_word (each
+    store of a row's lanes on its own bank); the four stages of weights as
+    TMA writes them (128- or 64-byte swizzle); each k32 step's transposed
+    ldmatrix and byte permutes (the A fragment), the B fragment from one
+    8-byte load (a warp's loads 256 contiguous bytes), the m16n8k32 s8
+    product in its C layout and the epilogue's (column, batch row) of each
+    accumulator. The sums must be the exact integer products and the
+    qblock's f32 terms, float(sum) * sx, the plain version's bit for bit."""
+    rng = np.random.RandomState(6 + nt)
+    m, qblock = 8 * nt - 3, 512  # the last three batch rows are padding
+    x = torch.tensor(rng.randn(m, qblock) * 2, dtype=torch.float32).to(torch.bfloat16)
+    w = rng.randint(-127, 128, size=(qblock, bn)).astype(np.int8)
+    xf = x.float()
+    sx = xf.abs().amax(dim=1).clamp_min(1e-8) / 127.0
+    xq = np.zeros((8 * nt, qblock), np.int64)
+    xq[:m] = torch.clamp(torch.round(xf / sx[:, None]), -127, 127).to(torch.int64).numpy()
+    words = np.zeros(16 * nt * 64, np.int64)
+    written = np.zeros(words.shape, bool)
+    for row in range(8 * nt):
+        for t in range(4):
+            stores = []
+            for lane in range(qblock // 16):
+                a = _xq_word(lane // 2, row // 8, row % 8, t, lane % 2, nt)
+                words[a] = sum((int(xq[row, 16 * lane + _sigma16(4 * t + j)]) & 0xFF) << (8 * j)
+                               for j in range(4))
+                written[a] = True
+                stores.append(a)
+            assert len({a % 32 for a in stores}) == 32  # conflict-free
+    assert written.all()
+    swizzle = _swizzle128 if bn == 128 else _swizzle64
+    lanes = np.arange(32)
+    y = np.zeros((8 * nt, bn), np.int64)
+    for warp in range(bn // 16):
+        if bn == 128:
+            a_off = lanes * 128 + ((warp ^ (lanes & 7)) << 4)
+        else:
+            a_off = lanes * 64 + ((warp ^ ((lanes >> 1) & 3)) << 4)
+        d = np.zeros((nt, 32, 4), np.int64)
+        for s in range(qblock // 128):
+            tile = swizzle(np.ascontiguousarray(w[128 * s:128 * s + 128]).view(np.uint8))
+            for j in range(4):
+                r = _ldmatrix_x4(tile, j * 32 * bn + a_off, trans=True)
+                step = 4 * s + j
+                for tn in range(nt):
+                    reads = [_xq_word(step, tn, lane // 4, lane % 4, 0, nt) for lane in range(32)]
+                    assert sorted(reads) == list(range(min(reads), min(reads) + 64, 2))
+                    a_mat, b_mat = np.zeros((16, 32), np.int64), np.zeros((32, 8), np.int64)
+                    for lane in range(32):
+                        g, t = lane // 4, lane % 4
+                        rr = [int(v) for v in r[lane]]
+                        a = [_byte_perm(rr[0], rr[1], 0x6420), _byte_perm(rr[0], rr[1], 0x7531),
+                             _byte_perm(rr[2], rr[3], 0x6420), _byte_perm(rr[2], rr[3], 0x7531)]
+                        for reg, (row, k0) in enumerate([(g, 4 * t), (g + 8, 4 * t),
+                                                         (g, 16 + 4 * t), (g + 8, 16 + 4 * t)]):
+                            for jj in range(4):
+                                a_mat[row, k0 + jj] = _s8((a[reg] >> (8 * jj)) & 0xFF)
+                        b0, b1 = int(words[reads[lane]]), int(words[reads[lane] + 1])
+                        for jj in range(4):
+                            b_mat[4 * t + jj, g] = _s8((b0 >> (8 * jj)) & 0xFF)
+                            b_mat[16 + 4 * t + jj, g] = _s8((b1 >> (8 * jj)) & 0xFF)
+                    prod = a_mat @ b_mat
+                    for lane in range(32):
+                        g, t = lane // 4, lane % 4
+                        d[tn, lane] += [prod[g, 2 * t], prod[g, 2 * t + 1], prod[g + 8, 2 * t],
+                                        prod[g + 8, 2 * t + 1]]
+        for tn in range(nt):
+            for lane in range(32):
+                g, t = lane // 4, lane % 4
+                for e in range(4):  # batch row 8 nt + 2 t + e % 2, column n_a + e / 2
+                    y[8 * tn + 2 * t + e % 2, 16 * warp + 2 * g + e // 2] = d[tn, lane, e]
+    np.testing.assert_array_equal(y, xq @ w.astype(np.int64))
+    terms = torch.from_numpy(y[:m].astype(np.float32)) * sx[:, None]
+    plain = (torch.from_numpy(xq[:m].astype(np.float32)) @ torch.from_numpy(w.astype(np.float32))
+             ) * sx[:, None]  # the plain version's term of one block
+    assert torch.equal(terms, plain)
 
 
 @pytest.mark.parametrize("rows,w,inter,k_chunks", [
@@ -515,7 +741,6 @@ def test_every_zoo_tower_fits_the_fused_attention_plan(name):
 # ---------------------------------------------------------------------------
 # The swap-AB kernel's int4 modes (csrc/quant_swapab.cu)
 
-SMEM_PER_SM = 233_472  # an H100 SM's shared memory; each resident block also reserves 1 KB
 INT4_SHAPES = LAYER_7B + [(1024, 256), (512, 272), (256, 128), (2048, 16)]
 
 

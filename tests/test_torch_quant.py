@@ -143,6 +143,7 @@ PALLAS_CASES = [
     ("int4_matmul", 40, 1024, 256), ("int4_matmul", 256, 1024, 256),
     ("int4_matmul_smallm", 1, 1024, 256), ("int4_matmul_smallm", 3, 1024, 256),
     ("int4_matmul_smallm", 8, 1024, 256),
+    ("int8_matmul_w8a8", 1, 1024, 256), ("int8_matmul_w8a8", 8, 1024, 256),
     ("int8_matmul_w8a8", 16, 1024, 256),
 ]
 
@@ -160,6 +161,51 @@ def test_plain_version_matches_pallas_kernel(name, m, k, n):
                                torch.from_numpy(np.array(s)))
     assert got.dtype == torch.float32 and getattr(quant, name).launches == quant_launches
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def _w8a8_swapab_emulation(x, w_q, scales, plan):
+    """csrc/quant_swapab.cu's w8a8 mode in its arithmetic, f32 out: x
+    quantized per (row, qblock) (sx = max(absmax, 1e-8) / 127 by IEEE
+    division, xq = clip(round half to even(x / sx))); each qblock's int8 x
+    int8 sum exact (int64 here, int32 on the card: at most 512 x 127^2),
+    converted to f32 and times the row's sx; each cluster rank adds the
+    terms of its qblocks (`unit_ranges`) in order, from 0; the ranks'
+    partials are summed in rank order, from 0, then times scales (the card
+    may fuse a product and its sum into one FMA: a rounding apart)."""
+    m, k = x.shape
+    qblock = plan["qblock"]
+    xf = x.float().reshape(m, k // qblock, qblock)
+    sx = xf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    xq = torch.clamp(torch.round(xf / sx[..., None]), -127, 127).to(torch.int64)
+    w = w_q.to(torch.int64).reshape(k // qblock, qblock, -1)
+    total = torch.zeros((m, w.shape[-1]), dtype=torch.float32)
+    for u0, u1 in plan["unit_ranges"]:
+        part = torch.zeros_like(total)
+        for b in range(u0, u1):
+            part = part + (xq[:, b] @ w[b]).float() * sx[:, b:b + 1]
+        total = total + part
+    return total * scales.float()
+
+
+@pytest.mark.parametrize("m", [1, 8, 13, 16])
+@pytest.mark.parametrize("k,n,sms", [(1024, 256, 132), (3584, 384, 8)])
+def test_w8a8_swapab_emulation_matches_pallas_kernel(m, k, n, sms):
+    """The decode kernel's arithmetic on its plan's K shares against JAX's
+    Pallas kernel in interpret mode: two qblocks over a cluster of two, and
+    seven qblocks split unevenly (1, 1, 2, 1, 2) over a cluster of five (the
+    plan for an 8-SM card, which holds no three clusters of seven)."""
+    plan = quant.w8a8_swapab_plan(m, n, k, sms)
+    shares = [u1 - u0 for u0, u1 in plan["unit_ranges"]]
+    assert plan["cluster"] > 1 and (k == 1024 or len(set(shares)) > 1)
+    q, s = jquant.quantize_per_channel(jnp.asarray(_weights(k, n, seed=11)))
+    x = _x(m, k, seed=12)
+    want = np.asarray(jquant.int8_matmul_w8a8(jnp.asarray(x), q, s, interpret=True))
+    got = _w8a8_swapab_emulation(torch.from_numpy(x), torch.from_numpy(np.array(q)),
+                                 torch.from_numpy(np.array(s)), plan)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(got.numpy(), quant.int8_matmul_w8a8(
+        torch.from_numpy(x), torch.from_numpy(np.array(q)), torch.from_numpy(np.array(s))).numpy(),
+        **TOL)
 
 
 @pytest.mark.parametrize("bits", [8, 4])
