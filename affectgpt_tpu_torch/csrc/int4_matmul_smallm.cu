@@ -10,7 +10,7 @@
 
 #include "quant_wgmma.cuh"
 
-// C entries: see launch and active_clusters in quant_wgmma.cuh. The plan
+// C entries: see launch, active_clusters and blocks_an_sm in quant_wgmma.cuh. The plan
 // (nb, cb, ck, stages) comes from ops/quant.py::wgmma_plan.
 extern "C" int agk_int4_matmul_smallm(const void* x, const void* w, const void* scales, void* y,
                                       int m, int n, int k, int nb, int cb, int ck, int stages,
@@ -21,4 +21,8 @@ extern "C" int agk_int4_matmul_smallm(const void* x, const void* w, const void* 
 
 extern "C" int agk_int4_matmul_smallm_active_clusters(int nb, int cluster, int stages) {
   return agk::qwg::active_clusters<agk::qwg::kW4Dequant>(nb, cluster, stages);
+}
+
+extern "C" int agk_int4_matmul_smallm_blocks_per_sm(int nb) {
+  return agk::qwg::blocks_an_sm<agk::qwg::kW4Dequant>(nb);
 }

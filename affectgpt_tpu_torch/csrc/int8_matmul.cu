@@ -13,7 +13,7 @@
 
 #include "quant_wgmma.cuh"
 
-// C entries: see launch and active_clusters in quant_wgmma.cuh. The plan
+// C entries: see launch, active_clusters and blocks_an_sm in quant_wgmma.cuh. The plan
 // (nb, cb, ck, stages) comes from ops/quant.py::wgmma_plan.
 extern "C" int agk_int8_matmul(const void* x, const void* w, const void* scales, void* y, int m,
                                int n, int k, int nb, int cb, int ck, int stages, void* stream) {
@@ -23,4 +23,8 @@ extern "C" int agk_int8_matmul(const void* x, const void* w, const void* scales,
 
 extern "C" int agk_int8_matmul_active_clusters(int nb, int cluster, int stages) {
   return agk::qwg::active_clusters<agk::qwg::kW8>(nb, cluster, stages);
+}
+
+extern "C" int agk_int8_matmul_blocks_per_sm(int nb) {
+  return agk::qwg::blocks_an_sm<agk::qwg::kW8>(nb);
 }

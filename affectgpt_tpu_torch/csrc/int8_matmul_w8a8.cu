@@ -1,8 +1,16 @@
 // W8A8 matmul for Hopper (sm_90a) above decode M (M > 16): int8 weights AND
 // int8 activations, on wgmma with s8 operands fed by TMA (`wgmma.mma_async`
-// and `cp.async.bulk.tensor` from hopper.cuh). At M <= 16 the wrapper
-// launches the w8a8 mode of quant_swapab.cu instead: one launch that
-// quantizes x itself and reduces its K split in a cluster.
+// and `cp.async.bulk.tensor` from hopper.cuh). Three designs by M:
+//   - M <= 16: the w8a8 mode of quant_swapab.cu, one launch that quantizes x
+//     itself and reduces its K split in a cluster;
+//   - 16 < M <= the wrapper's cut (ops/quant.py PALLAS_DEQUANT_MAX_M, 1024): x
+//     quantized by (A) below, then the kW8A8 mode of quant_wgmma.cuh
+//     (swap-AB, the batch rows the wgmma N, 16 to 128 of them a block; K
+//     split over a cluster in whole qblocks, met in distributed shared
+//     memory), launched as the programmatic dependent of (A): two launches
+//     a product (agk_int8_matmul_w8a8_wgmma);
+//   - above the cut (the prefill's M = 4512): the 192-row tile below, the
+//     design this file was written for (agk_int8_matmul_w8a8).
 //
 // Replaces the Pallas kernel affectgpt_tpu/ops/quant.py::int8_matmul_w8a8.
 //
@@ -55,6 +63,7 @@
 
 #include "gemv_tile.cuh"
 #include "hopper.cuh"
+#include "quant_wgmma.cuh"
 #include "splitk_reduce.cuh"
 
 namespace agk {
@@ -72,10 +81,13 @@ constexpr int kBM = 192;       // rows per block: the wgmma's N
 // One warp per (row, qblock): lane l holds the block's 16-column group l
 // (two 16-byte loads), the block's absmax comes from shuffles, and the lane
 // writes its group's 16 quantized bytes in the permuted order, one 16-byte
-// store. qblock <= 512, a multiple of 64.
+// store. qblock <= 512, a multiple of 64. A product launched as this grid's
+// programmatic dependent may start at once: it waits for this grid's end
+// before it reads xq or sx.
 __global__ void __launch_bounds__(kQuantWarps * 32)
 quantize_rows_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ xq,
                      float* __restrict__ sx, int M, int K, int qblock, int m_pad) {
+  launch_dependents();
   const int nq = K / qblock, item = blockIdx.x * kQuantWarps + threadIdx.x / 32;
   if (item >= M * nq) return;
   const int row = item / nq, blk = item % nq, lane = threadIdx.x % 32;
@@ -239,9 +251,10 @@ w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
 }
 
 template <int BM>
-static cudaError_t launch(const int8_t* xq, const float* sx, const int8_t* w, const float* scales,
-                          __nv_bfloat16* y, float* partial, int M, int N, int K, int qblock,
-                          int k_per_split, int splits, int m_pad, cudaStream_t stream) {
+static cudaError_t launch_tile(const int8_t* xq, const float* sx, const int8_t* w,
+                               const float* scales, __nv_bfloat16* y, float* partial, int M,
+                               int N, int K, int qblock, int k_per_split, int splits, int m_pad,
+                               cudaStream_t stream) {
   CUtensorMap w_map, x_map;
   if (tensor_map_2d(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, N, kBN, kBK) ||
       tensor_map_2d(&x_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, K, M, K, kBK, BM))
@@ -287,6 +300,36 @@ extern "C" int agk_int8_matmul_w8a8(const void* x, const void* w, const void* sc
   const auto* sp = static_cast<const float*>(scales);
   auto* yp = static_cast<__nv_bfloat16*>(y);
   auto* pp = static_cast<float*>(partial);
-  return (int)launch<kBM>(xqp, sxp, wp, sp, yp, pp, m, n, k, qblock, k_per_split, splits, m_pad,
-                         st);
+  return (int)launch_tile<kBM>(xqp, sxp, wp, sp, yp, pp, m, n, k, qblock, k_per_split, splits,
+                              m_pad, st);
+}
+
+// C entry of 16 < M <= the cut: quantize x into the scratch xq int8 [M, K]
+// and sx f32 [K / qblock, M rounded up to 4], then the product on
+// quant_wgmma.cuh's kW8A8 mode with the plan (nb, cb, ck, stages) of
+// ops/quant.py::wgmma_plan(..., MODE_W8A8). Returns the first CUDA error of
+// the two launches, or 0.
+extern "C" int agk_int8_matmul_w8a8_wgmma(const void* x, const void* w, const void* scales,
+                                          void* xq, void* sx, void* y, int m, int n, int k,
+                                          int nb, int cb, int ck, int stages, void* stream) {
+  using namespace agk::w8a8;
+  const int qblock = k < 512 ? k : 512;
+  if (m <= 16 || k < 64 || k % 64 || k % qblock) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int items = m * (k / qblock);
+  quantize_rows_kernel<<<(items + kQuantWarps - 1) / kQuantWarps, kQuantWarps * 32, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq), static_cast<float*>(sx), m,
+      k, qblock, (m + 3) / 4 * 4);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return agk::qwg::launch<agk::qwg::kW8A8>(xq, w, scales, y, m, n, k, nb, cb, ck, stages, stream,
+                                           sx);
+}
+
+extern "C" int agk_int8_matmul_w8a8_wgmma_active_clusters(int nb, int cluster, int stages) {
+  return agk::qwg::active_clusters<agk::qwg::kW8A8>(nb, cluster, stages);
+}
+
+extern "C" int agk_int8_matmul_w8a8_wgmma_blocks_per_sm(int nb) {
+  return agk::qwg::blocks_an_sm<agk::qwg::kW8A8>(nb);
 }

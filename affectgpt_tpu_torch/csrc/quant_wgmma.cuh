@@ -13,6 +13,12 @@
 //   kW4Dequant (int4_matmul_smallm's function above M = 16, reached by a
 //     direct call only): each weight is bf16(f32(value) * scales[g, n])
 //     before the product.
+//   kW8A8 (int8_matmul_w8a8, replaces quant.py::int8_matmul_w8a8): x
+//     quantized per (row, qblock of min(512, K) columns) by the launch
+//     before (int8_matmul_w8a8.cu quantize_rows_kernel: xq int8 with each
+//     16-column group sigma16-permuted, sx f32 [K / qblock, M]); each
+//     qblock's int8 x int8 products summed exactly in s32, times the row's
+//     sx into the f32 accumulator; the sum times scales[n] in the epilogue.
 // Each output is rounded to bf16 once. At M <= 16 the wrappers launch
 // quant_swapab.cu instead.
 //
@@ -68,6 +74,30 @@
 // wgmma). Sharing the x boxes across the column tiles of a cluster by TMA
 // multicast was tried and made every product slower: the blocks of a
 // cluster wait on each other's consumers to refill a stage.
+// kW8A8 keeps the design and changes the operands: the weight's s8 A
+// fragment of a k32 step is one transposed ldmatrix and four byte permutes
+// (hopper.cuh s8_a_from_trans: no conversion), xq is the K-major s8 B
+// operand (wgmma m64nNBk32 s32.s8.s8; N one of 16, 24, 32, 48, 64, 96, 128,
+// the widths s8 wgmma takes), one 128-byte box of NB rows a pair. Its ring
+// stage is a whole pair (two weight boxes and the xq box): a stage of 64
+// rows would leave the room of the bf16 modes' second x box empty, and
+// whole pairs hold 6 of them at NB = 128 against 4. A qblock's NB row
+// scales sx ride in a slot of their own beside the stage of the qblock's
+// last pair. A qblock (4 pairs) sums into an s32 tile started by scale-d
+// 0; at its last pair the warpgroup waits for its products and adds s32 *
+// sx into the f32 accumulator. The two consumer warpgroups run in lockstep:
+// taking the tensor cores in turn, a pair each, so that one's wait and
+// scaling would overlap the other's products (kPingPong), made a split 7B
+// layer 2-3.5% slower at M = 40, 256 and 1000 (the turns' barriers cost more
+// than the drains they hide). K splits over the cluster in whole qblocks.
+// The launch is the programmatic dependent of the quantize launch: its
+// producer issues the first lap's weight boxes, then waits for xq and sx
+// (griddepcontrol.wait) before their boxes. At NB <= 48 two blocks fit an
+// SM (consumers at 104 registers, the producer at 24, a ring within half
+// the SM's shared memory), so gate/up_proj's 148 blocks at the speculative
+// verify's M = 40 run in one wave. Sharing each weight box between two
+// batch blocks of a cluster by TMA multicast was tried and made a split 7B
+// layer slower at M = 256 and 1000, so every block loads its own.
 // Launch plans (NB, batch blocks, K split, stages, shared memory, grid):
 // ops/quant.py::wgmma_plan, held on the CPU by tests/test_torch_quant_wgmma.py.
 #pragma once
@@ -84,7 +114,7 @@ namespace qwg {
 
 using namespace hopper;
 
-enum Mode : int { kW8 = 0, kW4 = 1, kW4Dequant = 2 };
+enum Mode : int { kW8 = 0, kW4 = 1, kW4Dequant = 2, kW8A8 = 3 };
 
 constexpr int kConsumers = 2;                     // warpgroups of 64 weight columns
 constexpr int kThreads = 128 * (kConsumers + 1);  // and a producer warpgroup
@@ -103,27 +133,48 @@ constexpr int kMaxStages = 16;
 constexpr bool kConvert = true;   // weight bytes to bf16 fragments
 constexpr bool kProducts = true;  // the tensor-core products
 constexpr bool kConsume = true;   // the consumers read their stages at all
+constexpr bool kScale = true;     // kW8A8: each qblock's s32 sums scaled by sx on its own
+constexpr bool kPingPong = false;  // kW8A8: the warpgroups take the tensor cores in turn
 
 // A stage: the weight box, the x boxes (NB rows x 128 bytes each), and int4's
-// two scale rows (loaded in a pair's first stage only).
+// two scale rows (loaded in a pair's first stage only). kW8A8: a whole pair,
+// its two weight boxes and the xq box of its 128 k.
 __host__ __device__ constexpr int stage_bytes(int mode, int nb) {
-  return mode == kW8 ? kWBox + nb * 128 : kWBox + 2 * nb * 128 + kScaleTile;
+  return mode == kW8    ? kWBox + nb * 128
+         : mode == kW8A8 ? 2 * kWBox + nb * 128
+                         : kWBox + 2 * nb * 128 + kScaleTile;
+}
+// kW8A8: a stage's slot for the NB row scales of a qblock (TMA's 128-byte
+// alignment), after the ring
+__host__ __device__ constexpr int sx_slot(int mode, int nb) {
+  return mode == kW8A8 ? (nb * 4 + 127) / 128 * 128 : 0;
+}
+// blocks an SM: two for the narrow w8a8 widths, one otherwise
+__host__ __device__ constexpr int blocks_per_sm(int mode, int nb) {
+  return mode == kW8A8 && nb <= 48 ? 2 : 1;
+}
+// the shared memory a block may take: all of it, or half an SM's 228 KB less
+// the 1 KB each resident block reserves
+constexpr size_t smem_limit(int mode, int nb) {
+  return blocks_per_sm(mode, nb) == 2 ? 233472 / 2 - 1024 : 232448;
 }
 
 // The dynamic shared memory of a launch: the ring (or the partial tile of a K
-// split, where that is larger), the barriers, alignment slack.
+// split, where that is larger), kW8A8's sx slots, the barriers, alignment
+// slack.
 inline size_t smem_bytes(int mode, int nb, int stages) {
   const size_t ring = (size_t)stages * stage_bytes(mode, nb), tile = (size_t)nb * kPitch * 4;
-  return (ring > tile ? ring : tile) + 16 * stages + 1024;
+  return (ring > tile ? ring : tile) + (size_t)stages * (sx_slot(mode, nb) + 16) + 1024;
 }
 
 struct alignas(64) Params {
   CUtensorMap w;        // weight bytes, boxes of 128 columns x 64 rows
   CUtensorMap x;        // x, boxes of 64 k x NB rows
-  CUtensorMap s;        // int4: scales, boxes of 128 columns x 1 row
+  CUtensorMap s;        // int4: scales, boxes of 128 columns x 1 row; kW8A8: sx, NB rows x 1
   const float* scales;  // int8: the per-channel scales
   __nv_bfloat16* y;
   int M, N, K, cb, ck, stages;
+  int qbu;  // kW8A8: pairs a qblock
 };
 
 // An A fragment of the k16 step whose 8-row matrices a thread holds in words
@@ -192,24 +243,33 @@ __device__ __forceinline__ void pair_products(float (&d)[NB / 2], const uint32_t
 // batch blocks fastest; rank kr takes K's pairs [kr U / ck, (kr + 1) U / ck)
 // of U (int8: ceil(K / 128), rows past K arriving as zeros; int4: K / 256,
 // pair u holding packed rows 128 u .. 128 u + 127: group u of the low half,
-// U + u of the high half).
+// U + u of the high half; kW8A8: the pairs of qblocks [kr Q / ck, (kr + 1) Q
+// / ck) of Q = U / qbu).
 template <int MODE, int NB>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, blocks_per_sm(MODE, NB))
 quant_wgmma_kernel(const __grid_constant__ Params p) {
-  constexpr bool kInt4 = MODE != kW8;
+  constexpr bool kInt4 = MODE == kW4 || MODE == kW4Dequant;
+  constexpr bool kTwo = blocks_per_sm(MODE, NB) == 2;
   constexpr int kStage = stage_bytes(MODE, NB);
   constexpr int kXBox = NB * 128;
+  constexpr int kSxSlot = sx_slot(MODE, NB);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int stages = p.stages, ck = p.ck;
   const int ring_bytes = max(stages * kStage, NB * kPitch * 4);  // the tile lies over the ring
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ring_bytes);
+  unsigned char* sx_slots = ring + ring_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sx_slots + stages * kSxSlot);
   uint64_t* empty = full + stages;
   const int kr = ck > 1 ? (int)cluster_rank() : 0;
   const int tile = blockIdx.x / ck, br = tile % p.cb;
   const int n0 = (tile / p.cb) * kBN, row0 = br * NB;
   const int units = kInt4 ? p.K / 256 : (p.K + 127) / 128;
-  const int u0 = kr * units / ck, u1 = (kr + 1) * units / ck;
+  int u0 = kr * units / ck, u1 = (kr + 1) * units / ck;
+  if constexpr (MODE == kW8A8) {
+    const int q = units / p.qbu;
+    u0 = kr * q / ck * p.qbu;
+    u1 = (kr + 1) * q / ck * p.qbu;
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
@@ -220,8 +280,37 @@ quant_wgmma_kernel(const __grid_constant__ Params p) {
   __syncthreads();
 
   if (threadIdx.x >= 128 * kConsumers) {  // producer warpgroup: one thread issues the stages
-    setmaxnreg_dec<40>();
-    if (threadIdx.x == 128 * kConsumers) {
+    setmaxnreg_dec<kTwo ? 24 : 40>();
+    if (MODE == kW8A8 && threadIdx.x == 128 * kConsumers) {
+      // stage i of the share: pair u0 + i, its weight rows and xq's 128 k,
+      // and at a qblock's last pair the qblock's sx. The first lap's weights
+      // do not depend on the quantize launch this grid follows: they go out
+      // before its wait.
+      const int total = u1 - u0, first = min(stages, total);
+      auto load_w = [&](int i, int stage) {
+        const int u = u0 + i;
+        mbar_expect_tx(&full[stage], kStage + ((u + 1) % p.qbu ? 0 : NB * 4));
+        tma_load_2d(ring + stage * kStage, &p.w, &full[stage], n0, 128 * u);
+        tma_load_2d(ring + stage * kStage + kWBox, &p.w, &full[stage], n0, 128 * u + kRows);
+      };
+      auto load_x = [&](int i, int stage) {
+        const int u = u0 + i;
+        tma_load_2d(ring + stage * kStage + 2 * kWBox, &p.x, &full[stage], 128 * u, row0);
+        if ((u + 1) % p.qbu == 0)
+          tma_load_2d(sx_slots + stage * kSxSlot, &p.s, &full[stage], row0, u / p.qbu);
+      };
+      for (int i = 0; i < first; ++i) load_w(i, i);
+      grid_dependency_wait();
+      for (int i = 0; i < first; ++i) load_x(i, i);
+      RingPos pos;
+      for (int i = 0; i < first; ++i) pos.advance(stages);
+      for (int i = first; i < total; ++i) {
+        mbar_wait(&empty[pos.stage], pos.phase ^ 1u);
+        load_w(i, pos.stage);
+        load_x(i, pos.stage);
+        pos.advance(stages);
+      }
+    } else if (MODE != kW8A8 && threadIdx.x == 128 * kConsumers) {
       RingPos pos;
       for (int u = u0; u < u1; ++u) {
 #pragma unroll 1
@@ -248,7 +337,7 @@ quant_wgmma_kernel(const __grid_constant__ Params p) {
     return;
   }
 
-  setmaxnreg_inc<232>();
+  setmaxnreg_inc<kTwo ? 104 : 232>();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   // this warp's 16 columns are 16-byte chunk `warp` of each weight row; its
   // warpgroup rows 16 (warp % 4) + g and + 8 are columns n_a and n_a + 1
@@ -267,7 +356,13 @@ quant_wgmma_kernel(const __grid_constant__ Params p) {
   for (int i = 0; i < NB / 2; ++i) acc[i] = 0.f;
   uint32_t sink = 0;  // kProducts off: the fragments, so that they are computed
   RingPos pos;
-  if constexpr (!kConsume) {
+  if constexpr (!kConsume && MODE == kW8A8) {  // a pair is one stage
+    for (int u = u0; u < u1; ++u) {
+      mbar_wait(&full[pos.stage], pos.phase);
+      if (lane == 0) mbar_arrive(&empty[pos.stage]);
+      pos.advance(stages);
+    }
+  } else if constexpr (!kConsume) {
     for (int u = u0; u < u1; ++u) {
       RingPos next = pos;
       next.advance(stages);
@@ -341,6 +436,90 @@ quant_wgmma_kernel(const __grid_constant__ Params p) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) fence_regs(a[1][i]);
       release(prev);
+    } else if constexpr (MODE == kW8A8) {
+      // A pair (one stage) is 4 k32 steps (step i: weight rows 32 i of the
+      // pair's two boxes), each A fragment one transposed ldmatrix and four
+      // byte permutes, B the pair's xq box at 32 i bytes. A qblock's first
+      // pair starts the s32 tile (scale-d 0); its last waits for its
+      // products and scales them into acc by sx, then hands its stage back.
+      // Between, the wait after a pair retires the pair before, whose stage
+      // and fragment buffer are then free. Pairs alternate between two
+      // fragment buffers. kPingPong (off: slower, see the top of the file):
+      // the warpgroups issue their products in turn, a pair each
+      // (warpgroup 0's pair u, warpgroup 1's pair u, warpgroup 0's pair u +
+      // 1, ...: named barriers 2 and 3, on which each warpgroup waits for
+      // its turn and hands the other its own); warpgroup 0 takes its first
+      // turn unasked and warpgroup 1 hands back no turn after its last pair,
+      // so every arrival is met.
+      const int wg = threadIdx.x / 128;
+      auto turn = [&](int u) {
+        if (kPingPong && (wg == 1 || u > u0)) named_barrier(2 + wg, 128 * kConsumers);
+      };
+      auto hand_over = [&](int u) {
+        if (kPingPong && (wg == 0 || u + 1 < u1)) named_barrier_arrive(3 - wg, 128 * kConsumers);
+      };
+      int acc_i[NB / 2];
+      uint32_t a[2][4][4];
+      RingPos prev;
+      bool held = false;  // prev's stage awaits the end of its products
+      auto release1 = [&](RingPos q) {
+        if (lane == 0) mbar_arrive(&empty[q.stage]);
+      };
+      auto pair = [&](auto buf, int u) {
+        constexpr int b = decltype(buf)::value;
+        mbar_wait(&full[pos.stage], pos.phase);
+        const uint32_t s0 = smem_u32(ring + pos.stage * kStage);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          uint32_t r[4];
+          ldsm_x4_trans(r, s0 + i * 32 * 128 + a_off);
+          s8_a_from_trans(r, a[b][i]);
+        }
+        const bool fresh = kScale ? u % p.qbu == 0 : u == u0;
+        const bool last = kScale ? (u + 1) % p.qbu == 0 : u + 1 == u1;
+        turn(u);
+        wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (kProducts)
+            wgmma_s8_rs(acc_i, a[b][i], desc_sw128(s0 + 2 * kWBox + 32 * i, 16, 1024),
+                        fresh && i == 0 ? 0 : 1);
+          else
+            sink ^= a[b][i][0] ^ a[b][i][1] ^ a[b][i][2] ^ a[b][i][3];
+        }
+        wgmma_commit();
+        hand_over(u);
+        if (last) {
+          wgmma_wait<0>();
+          fence_regs(acc_i);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) fence_regs(a[b][i]);
+          if (held) release1(prev);
+          held = false;
+          const float* sxs = reinterpret_cast<const float*>(sx_slots + pos.stage * kSxSlot);
+#pragma unroll
+          for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float s_m = kScale ? sxs[8 * j + 2 * t + e] : 1.f;
+              acc[4 * j + e] += (float)acc_i[4 * j + e] * s_m;
+              acc[4 * j + 2 + e] += (float)acc_i[4 * j + 2 + e] * s_m;
+            }
+          release1(pos);
+        } else {
+          wgmma_wait<1>();
+#pragma unroll
+          for (int i = 0; i < 4; ++i) fence_regs(a[1 - b][i]);
+          if (held) release1(prev);
+          prev = pos;
+          held = true;
+        }
+        pos.advance(stages);
+      };
+      for (int u = u0; u < u1; u += 2) {
+        pair(Lo{}, u);
+        if (u + 1 < u1) pair(Hi{}, u + 1);
+      }
     } else {
       // int4: the pair's low half, its high half converted while it runs;
       // kW4 scales the low half's group sum in once it has completed, then
@@ -400,7 +579,8 @@ quant_wgmma_kernel(const __grid_constant__ Params p) {
     const int n = n0 + n_a;
     if (n < p.N) {
       float2 s = make_float2(1.f, 1.f);
-      if constexpr (MODE == kW8) s = __ldg(reinterpret_cast<const float2*>(p.scales + n));
+      if constexpr (MODE == kW8 || MODE == kW8A8)
+        s = __ldg(reinterpret_cast<const float2*>(p.scales + n));
 #pragma unroll
       for (int j = 0; j < NB / 8; ++j)
 #pragma unroll
@@ -449,7 +629,8 @@ quant_wgmma_kernel(const __grid_constant__ Params p) {
     const int n = n0 + 4 * q;
     if (n < p.N) {
       float4 s = make_float4(1.f, 1.f, 1.f, 1.f);
-      if constexpr (MODE == kW8) s = __ldg(reinterpret_cast<const float4*>(p.scales + n));
+      if constexpr (MODE == kW8 || MODE == kW8A8)
+        s = __ldg(reinterpret_cast<const float4*>(p.scales + n));
       *reinterpret_cast<uint2*>(p.y + (size_t)(row0 + m) * p.N + n) =
           make_uint2(pack_bf16x2(sum.x * s.x, sum.y * s.y), pack_bf16x2(sum.z * s.z, sum.w * s.w));
     }
@@ -458,8 +639,10 @@ quant_wgmma_kernel(const __grid_constant__ Params p) {
   cluster_wait();
 }
 
-static inline void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1],
-                                  int blocks, int cluster, size_t smem) {
+// The launch of a grid of `blocks` in clusters of `cluster`; `dependent`:
+// as the programmatic dependent of the launch before it on the stream.
+static inline void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[2],
+                                  int blocks, int cluster, size_t smem, bool dependent = false) {
   cfg = {};
   cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(kThreads);
@@ -468,8 +651,9 @@ static inline void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (
   attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1] = programmatic_launch();
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = dependent ? 2 : 1;
 }
 
 template <int MODE, int NB>
@@ -479,8 +663,8 @@ cudaError_t launch_nb(const Params& p, int blocks, cudaStream_t st) {
   cudaError_t err = ensure_smem(quant_wgmma_kernel<MODE, NB>, smem, &granted);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  cluster_config(cfg, attr, blocks, p.ck, smem);
+  cudaLaunchAttribute attr[2];
+  cluster_config(cfg, attr, blocks, p.ck, smem, MODE == kW8A8);
   cfg.stream = st;
   err = cudaLaunchKernelEx(&cfg, quant_wgmma_kernel<MODE, NB>, p);
   if (err != cudaSuccess) return err;
@@ -494,51 +678,68 @@ int active_clusters_nb(int cluster, int stages) {
   cudaError_t err = ensure_smem(quant_wgmma_kernel<MODE, NB>, smem, &granted);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   cluster_config(cfg, attr, cluster * 64, cluster, smem);
   int count = 0;
   err = cudaOccupancyMaxActiveClusters(&count, quant_wgmma_kernel<MODE, NB>, &cfg);
   return err == cudaSuccess ? count : -(int)err;
 }
 
-// The batch-block widths the kernel is built for (wgmma N).
+// The batch-block widths the kernel is built for (wgmma N): bf16 products,
+// and the s8 ones of kW8A8 (s8 wgmma takes N = 8, 16, 24 and multiples of 16).
 #define AGK_QWG_WIDTHS(X) X(32) X(40) X(48) X(64) X(96) X(128)
+#define AGK_QWG_S8_WIDTHS(X) X(16) X(24) X(32) X(48) X(64) X(96) X(128)
 
 // Checks the plan (NB one of the widths, cb blocks of NB rows covering M
-// with none empty, a legal cluster, a K split no finer than K's pairs, a ring
-// of at least two stages within a block's shared memory), makes the tensor
-// maps and launches. Device pointers to contiguous tensors: x [m, k] bf16; w
-// int8 [k, n] (kW8) or [k / 2, n] (packed int4); scales f32 [1, n] or
-// [k / 128, n]; y [m, n] bf16. The plan comes from ops/quant.py::wgmma_plan,
-// which also checks dtypes and alignment. Returns the first CUDA error, or 0.
+// with none empty, a legal cluster, a K split no finer than K's pairs
+// (kW8A8: its qblocks), a ring of at least two stages within a block's
+// shared memory), makes the tensor maps and launches. Device pointers to
+// contiguous tensors: x [m, k] bf16 (kW8A8: xq int8 [m, k], and sx f32 [k /
+// qblock, m rounded up to 4]); w int8 [k, n] (kW8, kW8A8) or [k / 2, n]
+// (packed int4); scales f32 [1, n] or [k / 128, n]; y [m, n] bf16. The plan
+// comes from ops/quant.py::wgmma_plan, which also checks dtypes and
+// alignment. Returns the first CUDA error, or 0.
 template <int MODE>
 int launch(const void* x, const void* w, const void* scales, void* y, int m, int n, int k,
-           int nb, int cb, int ck, int stages, void* stream) {
-  constexpr bool kInt4 = MODE != kW8;
+           int nb, int cb, int ck, int stages, void* stream, const void* sx = nullptr) {
+  constexpr bool kInt4 = MODE == kW4 || MODE == kW4Dequant;
   const int units = kInt4 ? k / 256 : (k + 127) / 128;
+  const int qblock = k < 512 ? k : 512, qbu = (qblock + 127) / 128;
+  const int splittable = MODE == kW8A8 ? k / qblock : units;
   if (m < 1 || n < 16 || n % 16 || k < 1 || k % (kInt4 ? 256 : 64) || nb < 8 || nb > 128 ||
       cb < 1 || (long)cb * nb < m || (long)(cb - 1) * nb >= m || ck < 1 || ck > kMaxCluster ||
-      ck > units || stages < 2 || stages > kMaxStages || smem_bytes(MODE, nb, stages) > 232448)
+      ck > splittable || stages < 2 || stages > kMaxStages ||
+      smem_bytes(MODE, nb, stages) > smem_limit(MODE, nb) ||
+      (MODE == kW8A8 && (k % qblock || sx == nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   p.scales = static_cast<const float*>(scales);
   p.y = static_cast<__nv_bfloat16*>(y);
-  p.M = m, p.N = n, p.K = k, p.cb = cb, p.ck = ck, p.stages = stages;
-  if (tensor_map_2d(&p.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, n, kInt4 ? k / 2 : k, n, kBN,
-                    kRows) ||
-      tensor_map_2d(&p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, k, m, 2ull * k, 64, nb) ||
-      (kInt4 && tensor_map_2d(&p.s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales, n, k / 128, 4ull * n,
-                              kBN, 1, CU_TENSOR_MAP_SWIZZLE_NONE)))
-    return (int)cudaErrorInvalidValue;
+  p.M = m, p.N = n, p.K = k, p.cb = cb, p.ck = ck, p.stages = stages, p.qbu = qbu;
+  int bad = tensor_map_2d(&p.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, n, kInt4 ? k / 2 : k, n, kBN,
+                          kRows);
+  if (MODE == kW8A8) {
+    const uint64_t m_pad = (m + 3) / 4 * 4;
+    bad = bad || tensor_map_2d(&p.x, CU_TENSOR_MAP_DATA_TYPE_UINT8, x, k, m, k, 128, nb) ||
+          tensor_map_2d(&p.s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sx, m, k / qblock, 4 * m_pad, nb,
+                        1, CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else {
+    bad = bad || tensor_map_2d(&p.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, k, m, 2ull * k, 64, nb) ||
+          (kInt4 && tensor_map_2d(&p.s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scales, n, k / 128,
+                                  4ull * n, kBN, 1, CU_TENSOR_MAP_SWIZZLE_NONE));
+  }
+  if (bad) return (int)cudaErrorInvalidValue;
   const int blocks = ((n + kBN - 1) / kBN) * cb * ck;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (nb) {
 #define AGK_QWG_CASE(W) \
   case W:               \
     return (int)launch_nb<MODE, W>(p, blocks, st);
-    AGK_QWG_WIDTHS(AGK_QWG_CASE)
-#undef AGK_QWG_CASE
+  if constexpr (MODE == kW8A8) {
+    switch (nb) { AGK_QWG_S8_WIDTHS(AGK_QWG_CASE) }
+  } else {
+    switch (nb) { AGK_QWG_WIDTHS(AGK_QWG_CASE) }
   }
+#undef AGK_QWG_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -549,14 +750,33 @@ template <int MODE>
 int active_clusters(int nb, int cluster, int stages) {
   if (cluster < 1 || cluster > kMaxCluster || stages < 2 || stages > kMaxStages)
     return -(int)cudaErrorInvalidValue;
-  switch (nb) {
 #define AGK_QWG_CASE(W) \
   case W:               \
     return active_clusters_nb<MODE, W>(cluster, stages);
-    AGK_QWG_WIDTHS(AGK_QWG_CASE)
-#undef AGK_QWG_CASE
+  if constexpr (MODE == kW8A8) {
+    switch (nb) { AGK_QWG_S8_WIDTHS(AGK_QWG_CASE) }
+  } else {
+    switch (nb) { AGK_QWG_WIDTHS(AGK_QWG_CASE) }
   }
+#undef AGK_QWG_CASE
   return -(int)cudaErrorInvalidValue;
+}
+
+// The blocks an SM the kernel of width nb is built for (its launch bounds),
+// or -1 for a width it has no build of. The wrappers' plans size the ring by
+// it.
+template <int MODE>
+int blocks_an_sm(int nb) {
+#define AGK_QWG_CASE(W) \
+  case W:               \
+    return blocks_per_sm(MODE, W);
+  if constexpr (MODE == kW8A8) {
+    switch (nb) { AGK_QWG_S8_WIDTHS(AGK_QWG_CASE) }
+  } else {
+    switch (nb) { AGK_QWG_WIDTHS(AGK_QWG_CASE) }
+  }
+#undef AGK_QWG_CASE
+  return -1;
 }
 
 }  // namespace qwg

@@ -46,13 +46,19 @@ _SIGNATURES = {
     "agk_int4_matmul": [_P] * 4 + [_I] * 7 + [_P],
     "agk_int4_matmul_smallm": [_P] * 4 + [_I] * 7 + [_P],
     "agk_int8_matmul_active_clusters": [_I] * 3,
+    "agk_int8_matmul_blocks_per_sm": [_I],
     "agk_int4_matmul_active_clusters": [_I] * 3,
+    "agk_int4_matmul_blocks_per_sm": [_I],
     "agk_int4_matmul_smallm_active_clusters": [_I] * 3,
+    "agk_int4_matmul_smallm_blocks_per_sm": [_I],
     "agk_quant_swapab": [_P] * 4 + [_I] * 5 + [_P],
     "agk_quant_swapab_active_clusters": [_I] * 3,
     "agk_w8a8_swapab": [_P] * 4 + [_I] * 5 + [_P],
     "agk_w8a8_swapab_active_clusters": [_I] * 3,
     "agk_int8_matmul_w8a8": [_P] * 7 + [_I] * 7 + [_P],
+    "agk_int8_matmul_w8a8_wgmma": [_P] * 6 + [_I] * 7 + [_P],
+    "agk_int8_matmul_w8a8_wgmma_active_clusters": [_I] * 3,
+    "agk_int8_matmul_w8a8_wgmma_blocks_per_sm": [_I],
     "agk_decode_mlp_int8": [_P] * 10 + [_I] * 6 + [_F, _I, _P],
     "agk_paged_attention_bf16": [_P] * 6 + [_I] * 9 + [_P],
     "agk_paged_attention_int8": [_P] * 8 + [_I] * 9 + [_P],

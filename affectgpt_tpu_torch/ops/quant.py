@@ -19,8 +19,11 @@ CUDA tensor it launches the hand-written kernel (csrc/) or raises:
   int8 × int8 → int32 per block, × the row's block scale, summed in f32, ×
   scales (replaces quant.py:163): at M <= 16 one launch of the swap-AB
   kernel's w8a8 mode (csrc/quant_swapab.cu, plan `w8a8_swapab_plan`), which
-  quantizes x itself and meets its K split in a cluster; above it on wgmma
-  (csrc/int8_matmul_w8a8.cu, plan `w8a8_plan`);
+  quantizes x itself and meets its K split in a cluster; up to
+  PALLAS_DEQUANT_MAX_M a quantize launch and the w8a8 mode of
+  csrc/quant_wgmma.cuh (plan `wgmma_plan(..., MODE_W8A8)`); above it (the
+  prefill) the 192-row wgmma tile of csrc/int8_matmul_w8a8.cu (plan
+  `w8a8_plan`);
 - `int4_matmul`: each 128-row group's bf16 product with the raw nibbles,
   summed in f32, times that group's scales (replaces quant.py:319);
 - `int4_matmul_smallm`: bf16(nibble · scale) dequantized in f32, then one
@@ -317,6 +320,9 @@ SWAPAB_SM_FILL = 0.8
 # the C entry's modes (agk_quant_swapab; the w8a8 mode, which takes the
 # block width, has its own entry, agk_w8a8_swapab)
 MODE_INT4, MODE_INT4_DEQUANT, MODE_INT8 = 0, 1, 2
+# csrc/quant_wgmma.cuh's w8a8 mode, a `wgmma_plan` mode only (its C entry is
+# agk_int8_matmul_w8a8_wgmma, which takes no mode number)
+MODE_W8A8 = 4
 
 
 def _cluster_plan(col_blocks: int, units: int, sm_count: int, active_clusters) -> int:
@@ -480,33 +486,52 @@ def _swapab(name, x, w, scales, mode: int):
 # pairs, one 128-row scale group of each K-half
 WGMMA_BN, WGMMA_ROWS = 128, 64
 WGMMA_NB = (32, 40, 48, 64, 96, 128)
+# the w8a8 mode's widths: those of an s8 wgmma (N = 8, 16, 24 or a multiple
+# of 16)
+W8A8_WGMMA_NB = (16, 24, 32, 48, 64, 96, 128)
 WGMMA_MAX_STAGES = 8
-SMEM_LIMIT = 232_448  # bytes of shared memory an H100 block can use
+SMEM_PER_SM = 233_472  # an H100 SM's shared memory; each resident block reserves 1 KB
+SMEM_LIMIT = SMEM_PER_SM - 1024  # bytes of shared memory an H100 block can use
 
 
 def wgmma_stage_bytes(mode: int, nb: int) -> int:
     """One stage of the ring: the weight box, the x boxes of nb rows x 128
-    bytes, int4's two scale rows."""
+    bytes, int4's two scale rows; w8a8: a whole pair, two weight boxes and
+    xq's box."""
+    if mode == MODE_W8A8:
+        return 2 * WGMMA_ROWS * WGMMA_BN + nb * 128
     if mode == MODE_INT8:
         return WGMMA_ROWS * WGMMA_BN + nb * 128
     return WGMMA_ROWS * WGMMA_BN + 2 * nb * 128 + 2 * WGMMA_BN * 4
 
 
-def wgmma_plan(m: int, n: int, k: int, sm_count: int, mode: int, active_clusters=None) -> dict:
+def cpu_blocks_per_sm(mode: int, nb: int) -> int:
+    """csrc/quant_wgmma.cuh's blocks_per_sm, for plans made without a card:
+    two blocks an SM at the w8a8 widths up to 48, one otherwise. On a card
+    the plan asks the built kernel (`_wgmma_blocks_per_sm`); the `cuda`
+    tests hold the two equal at every width."""
+    return 2 if mode == MODE_W8A8 and nb <= 48 else 1
+
+
+def wgmma_plan(m: int, n: int, k: int, sm_count: int, mode: int, active_clusters=None,
+               blocks_per_sm=None) -> dict:
     """The launch plan of csrc/quant_wgmma.cuh for x [m, k] against an int8
-    weight [k, n] (MODE_INT8) or a packed int4 one [k/2, n] (MODE_INT4,
-    MODE_INT4_DEQUANT), SWAPAB_MAX_M < m <= PALLAS_DEQUANT_MAX_M:
+    weight [k, n] (MODE_INT8, MODE_W8A8) or a packed int4 one [k/2, n]
+    (MODE_INT4, MODE_INT4_DEQUANT), SWAPAB_MAX_M < m <= PALLAS_DEQUANT_MAX_M:
 
     - `cb` batch blocks of `nb` rows (cb = ceil(m / 128), nb the narrowest
-      width of WGMMA_NB that holds ceil(m / cb) rows; rows past m are zeros);
+      width of WGMMA_NB (W8A8_WGMMA_NB) that holds ceil(m / cb) rows; rows
+      past m are zeros);
     - U = `units` pairs of stages along K (int8: ceil(k / 128), rows past K
       zeros; int4: k / 256, pair u one scale group of each K-half), split
       over a cluster of `cluster` blocks, rank r taking `unit_ranges[r]`;
     - the grid: one cluster for each (column block, batch block), batch
       blocks fastest, so block b is column block b // (cb c), batch block
       (b // c) % cb, rank b % c;
-    - the ring: as many stages as fit the shared memory, at most
-      WGMMA_MAX_STAGES;
+    - `blocks_per_sm`, the blocks an SM the kernel of width nb is built for
+      (`blocks_per_sm(nb)`: the wrapper asks the built kernel; by default
+      `cpu_blocks_per_sm`), and the ring: as many stages as fit a block's
+      share of the SM's shared memory, at most WGMMA_MAX_STAGES;
     - the weight bytes the launch reads: each byte once a batch block
       (`weight_reads` = cb), from the L2 after the first.
 
@@ -514,34 +539,77 @@ def wgmma_plan(m: int, n: int, k: int, sm_count: int, mode: int, active_clusters
     whose blocks cover SWAPAB_SM_FILL of the SMs, at most 8 and at most U,
     among the sizes of which the card holds at least one cluster at once
     (`active_clusters(c, nb, stages)`; the wrapper asks the card, by default
-    one block an SM). Raises on what the kernel does not take."""
-    int8 = mode == MODE_INT8
-    if mode not in (MODE_INT8, MODE_INT4, MODE_INT4_DEQUANT):
+    `blocks_per_sm` blocks an SM).
+
+    MODE_W8A8 splits K in whole qblocks (`qblock` = min(512, k) columns,
+    `qblock_units` pairs each; at most one rank a qblock), over the largest
+    cluster (at most 8) whose clusters the card holds all at once, else the
+    smallest it holds (`w8a8_swapab_plan`'s rule); where the largest split
+    of the column blocks still covers less than SWAPAB_SM_FILL of the SMs
+    (k/v_proj: 4 column blocks, 7 qblocks) it splits the batch into more,
+    narrower blocks (down to 16 rows, none empty), which read the weights
+    again from the L2. Its ring stage is a whole pair (the
+    two weight boxes and xq's) with a 128-byte-aligned slot for a qblock's
+    row scales. Raises on what the kernel does not take."""
+    int8, w8a8 = mode == MODE_INT8, mode == MODE_W8A8
+    if mode not in (MODE_INT8, MODE_INT4, MODE_INT4_DEQUANT, MODE_W8A8):
         raise ValueError(f"wgmma kernel: unknown mode {mode}")
-    k_unit = 64 if int8 else 2 * INT4_GROUP
+    k_unit = 64 if int8 or w8a8 else 2 * INT4_GROUP
+    qblock = min(W8A8_BLOCK_K, k)
     if not SWAPAB_MAX_M < m <= PALLAS_DEQUANT_MAX_M or n < 16 or n % 16 or k < k_unit \
-            or k % k_unit:
+            or k % k_unit or (w8a8 and k % qblock):
         raise ValueError(f"wgmma quantized kernel needs {SWAPAB_MAX_M} < M <= "
-                         f"{PALLAS_DEQUANT_MAX_M}, N % 16 == 0 and K % {k_unit} == 0 "
-                         f"(M={m}, N={n}, K={k})")
-    cb = -(-m // WGMMA_NB[-1])
-    nb = next(w for w in WGMMA_NB if cb * w >= m)
+                         f"{PALLAS_DEQUANT_MAX_M}, "
+                         f"N % 16 == 0 and K % {k_unit} == 0"
+                         + (f" and K % {qblock} == 0" if w8a8 else "")
+                         + f" (M={m}, N={n}, K={k})")
+    widths = W8A8_WGMMA_NB if w8a8 else WGMMA_NB
+    col_blocks = -(-n // WGMMA_BN)
+    units = -(-k // 128) if int8 or w8a8 else k // (2 * INT4_GROUP)
+    qbu = -(-qblock // 128) if w8a8 else 1
+    splittable = units // qbu  # w8a8: qblocks
+
+    def narrowest(cb):
+        return next((w for w in widths if cb * w >= m), None)
+
+    cb = -(-m // widths[-1])
+    nb = narrowest(cb)
+    while w8a8 and col_blocks * cb * min(SWAPAB_MAX_CLUSTER, splittable) \
+            < SWAPAB_SM_FILL * sm_count:
+        wider = narrowest(cb + 1)
+        if wider is None or cb * wider >= m:  # a batch block would be empty
+            break
+        cb, nb = cb + 1, wider
     stage = wgmma_stage_bytes(mode, nb)
-    stages = min(WGMMA_MAX_STAGES, (SMEM_LIMIT - 1024) // (stage + 16))
+    slot = -(-nb * 4 // 128) * 128 if w8a8 else 0
+    per_sm = (blocks_per_sm or functools.partial(cpu_blocks_per_sm, mode))(nb)
+    limit = SMEM_PER_SM // per_sm - 1024
+    stages = min(WGMMA_MAX_STAGES, (limit - 1024) // (stage + slot + 16))
     if active_clusters is None:
         def active_clusters(c, nb, stages):
-            return sm_count // c
-    col_blocks = -(-n // WGMMA_BN)
-    units = -(-k // 128) if int8 else k // (2 * INT4_GROUP)
-    c = _cluster_plan(col_blocks * cb, units, sm_count,
-                      lambda size: active_clusters(size, nb, stages))
-    return {
+            return per_sm * sm_count // c
+    if w8a8:  # the largest K split whose clusters the card holds all at once
+        sizes = [size for size in range(1, min(SWAPAB_MAX_CLUSTER, splittable) + 1)
+                 if active_clusters(size, nb, stages) >= 1]
+        if not sizes:
+            raise ValueError("wgmma quantized kernel: no cluster size fits the card")
+        c = max((size for size in sizes if active_clusters(size, nb, stages) >= col_blocks * cb),
+                default=sizes[0])
+    else:
+        c = _cluster_plan(col_blocks * cb, splittable, sm_count,
+                          lambda size: active_clusters(size, nb, stages))
+    plan = {
         "nb": nb, "cb": cb, "cluster": c, "col_blocks": col_blocks, "units": units,
-        "unit_ranges": [(r * units // c, (r + 1) * units // c) for r in range(c)],
+        "unit_ranges": [(r * splittable // c * qbu, (r + 1) * splittable // c * qbu)
+                        for r in range(c)],
         "grid": (col_blocks * cb * c,), "stages": stages, "stage_bytes": stage,
-        "smem_bytes": max(stages * stage, nb * (WGMMA_BN + 4) * 4) + 16 * stages + 1024,
+        "smem_bytes": max(stages * stage, nb * (WGMMA_BN + 4) * 4) + stages * (slot + 16) + 1024,
         "weight_reads": cb, "weight_bytes": cb * col_blocks * WGMMA_BN * units * 128,
+        "blocks_per_sm": per_sm,
     }
+    if w8a8:
+        plan.update(qblock=qblock, qblock_units=qbu, sx_slot=slot)
+    return plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -555,14 +623,26 @@ def _wgmma_active_clusters(index: int, mode: int, nb: int, stages: int, cluster:
 
 
 @functools.lru_cache(maxsize=None)
+def _wgmma_blocks_per_sm(mode: int, nb: int) -> int:
+    """The blocks an SM the built kernel of width nb takes (its launch
+    bounds)."""
+    count = getattr(_build.load_library(), _WGMMA_ENTRY[mode] + "_blocks_per_sm")(nb)
+    if count < 1:
+        raise ValueError(f"wgmma quantized kernel: no build of width {nb} in mode {mode}")
+    return count
+
+
+@functools.lru_cache(maxsize=None)
 def _wgmma_plan_on(index: int, m: int, n: int, k: int, mode: int) -> dict:
     return wgmma_plan(m, n, k, _build.sm_count(index), mode,
-                      lambda c, nb, stages: _wgmma_active_clusters(index, mode, nb, stages, c))
+                      lambda c, nb, stages: _wgmma_active_clusters(index, mode, nb, stages, c),
+                      lambda nb: _wgmma_blocks_per_sm(mode, nb))
 
 
 # the C entry of each mode (csrc/int8_matmul.cu, int4_matmul.cu, int4_matmul_smallm.cu)
 _WGMMA_ENTRY = {MODE_INT8: "agk_int8_matmul", MODE_INT4: "agk_int4_matmul",
-                MODE_INT4_DEQUANT: "agk_int4_matmul_smallm"}
+                MODE_INT4_DEQUANT: "agk_int4_matmul_smallm",
+                MODE_W8A8: "agk_int8_matmul_w8a8_wgmma"}
 
 
 def _wgmma(name, x, w, scales, mode: int):
@@ -646,22 +726,23 @@ def _w8a8_swapab_plan_on(index: int, m: int, n: int, k: int) -> dict:
                             lambda c, bn: _w8a8_active_clusters(index, c, m, bn))
 
 
-# csrc/int8_matmul_w8a8.cu, above SWAPAB_MAX_M: a block owns 128 output
+# csrc/int8_matmul_w8a8.cu, above PALLAS_DEQUANT_MAX_M: a block owns 128 output
 # columns and 192 rows (the wgmma N), and streams K in 128-byte stages
 # through a ring of four
 W8A8_BN, W8A8_BK, W8A8_STAGES, W8A8_BM = 128, 128, 4, 192
 
 
 def w8a8_plan(m: int, n: int, k: int, sm_count: int) -> dict:
-    """The launch plan of the wgmma w8a8 kernel for x [m, k] @ w_q [k, n], m
-    > SWAPAB_MAX_M: the row tile `bm` (the wgmma N), the K split (whole
-    activation blocks `qblock`, enough splits to give each SM about one
-    block, reduced in a fixed order), the grid (row tiles fastest) and the
-    dynamic shared memory in bytes (a stage: weight tile, xq tile, the rows'
-    scales). Decode M takes `w8a8_swapab_plan`."""
-    if m <= SWAPAB_MAX_M:
-        raise ValueError(f"the wgmma w8a8 kernel takes M > {SWAPAB_MAX_M} (M={m}); decode M "
-                         "runs the swap-AB kernel's w8a8 mode")
+    """The launch plan of the prefill's w8a8 tile for x [m, k] @ w_q [k, n],
+    m > PALLAS_DEQUANT_MAX_M: the row tile `bm` (the wgmma N), the K split
+    (whole activation blocks `qblock`, enough splits to give each SM about
+    one block, reduced in a fixed order), the grid (row tiles fastest) and
+    the dynamic shared memory in bytes (a stage: weight tile, xq tile, the
+    rows' scales). Smaller M take `wgmma_plan(..., MODE_W8A8)` and decode M
+    `w8a8_swapab_plan`."""
+    if m <= PALLAS_DEQUANT_MAX_M:
+        raise ValueError(f"the w8a8 prefill tile takes M > {PALLAS_DEQUANT_MAX_M} (M={m}); smaller "
+                         "M run the w8a8 modes of the wgmma and swap-AB kernels")
     qblock = min(W8A8_BLOCK_K, k)
     bm = W8A8_BM
     m_tiles, n_tiles = -(-m // bm), -(-n // W8A8_BN)
@@ -693,9 +774,11 @@ def _w8a8_swapab(x, w_q, scales):
 def int8_matmul_w8a8(x, w_q, scales):
     """x [M, K] quantized per (row, 512-column block) in the kernel, then
     int8 × int8 products → [M, N] x.dtype. At M <= 16 one launch of the
-    swap-AB kernel's w8a8 mode (`w8a8_swapab_plan`); above it two launches
-    on wgmma (quantize x, then the product), plus the fixed-order reduce of
-    the K splits when there are several (`w8a8_plan`)."""
+    swap-AB kernel's w8a8 mode (`w8a8_swapab_plan`); up to PALLAS_DEQUANT_MAX_M
+    two launches, quantize x and the product on quant_wgmma.cuh's w8a8 mode
+    (`wgmma_plan(..., MODE_W8A8)`); above it two launches on the prefill's
+    192-row tile, plus the fixed-order reduce of the K splits when there are
+    several (`w8a8_plan`)."""
     _build.refuse_grad("int8_matmul_w8a8", x, w_q, scales)
     if x.device.type == "cpu":
         return int8_matmul_w8a8_reference(x, w_q, scales)
@@ -705,13 +788,33 @@ def int8_matmul_w8a8(x, w_q, scales):
         raise ValueError(f"int8_matmul_w8a8 kernel needs K % {qblock} == 0 (K={k})")
     if m <= SWAPAB_MAX_M:
         y = _w8a8_swapab(x, w_q, scales)
-    else:
+    elif m <= PALLAS_DEQUANT_MAX_M:
         y = _w8a8_wgmma(x, w_q, scales)
+    else:
+        y = _w8a8_prefill(x, w_q, scales)
     int8_matmul_w8a8.launches += 1
     return y
 
 
 def _w8a8_wgmma(x, w_q, scales):
+    m, k = x.shape
+    n = w_q.shape[1]
+    plan = _wgmma_plan_on(x.device.index or 0, m, n, k, MODE_W8A8)
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    # the row scales, one row per qblock, rows of M rounded up to 4 (TMA's
+    # 16-byte row pitch); the product's map reads M of them
+    sx = torch.empty((k // plan["qblock"], -(-m // 4) * 4), dtype=torch.float32, device=x.device)
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    status = _build.load_library().agk_int8_matmul_w8a8_wgmma(
+        x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+        y.data_ptr(), m, n, k, plan["nb"], plan["cb"], plan["cluster"], plan["stages"],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, "int8_matmul_w8a8")
+    return y
+
+
+def _w8a8_prefill(x, w_q, scales):
     m, k = x.shape
     n = w_q.shape[1]
     qblock = min(W8A8_BLOCK_K, k)

@@ -38,10 +38,13 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    bf16, as a yardstick of the unquantized product that no path runs; the
    w8a8 wrapper is checked at every M of 1-16 (the swap-AB kernel's w8a8
    mode: one launch that quantizes x itself, printing its plan: n8 tiles,
-   block width, cluster, grid, ring, shared memory), at 17 and at the
-   prefill's 4512 (the wgmma kernel, printing its N-width, K splits and the
-   bytes it reads), must give the same bits on a second call, and is timed
-   at M = 8, 16, 40, 256 and 4512 over the split layer; so
+   block width, cluster, grid, ring, shared memory), at M = 17, 40, 64,
+   100, 256, 257, 1000 and 1024 (a quantize launch and the w8a8 mode of
+   quant_wgmma.cuh, printing its plan: NB, batch blocks, K split, cluster,
+   stages, shared memory, grid) and at the prefill's 4512 (the 192-row
+   tile, printing its N-width, K splits and the bytes it reads), must give
+   the same bits on a second call, and is timed at M = 8, 16, 40, 256, 1000
+   and 4512 over the split layer and the lm_head; so
    must the two int4 wrappers and `int8_matmul`, which print the swap-AB
    kernel's plan at M <= 16 (n8 tiles, cluster size, grid, ring, shared
    memory) and above it quant_wgmma.cuh's (batch width NB, batch blocks,
@@ -144,12 +147,16 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    text and the peak memory.
 7. Serving variants, on the phase-4 model; each sub-run a counted run
    (exact launches, every other kernel 0 times) and one timed run.
-   spec_bf16, spec_q4, spec_kv8: Chat(speculative_draft_len=4), greedy, 8
-   clips, 32 tokens, on the bf16 tree, the q4 tree and the bf16 tree with
-   the int8 KV cache; the decode kernels take t = 1 only, so the bf16 setups
-   launch none, and spec_q4 launches int4_matmul 197 x its verify
-   iterations (7 products x 28 layers + the lm_head at M = 40) and
-   int4_matmul_smallm once (the prefill's last-token lm_head); prints the
+   spec_bf16, spec_q4, spec_kv8, spec_q8a8: Chat(speculative_draft_len=4),
+   greedy, 8 clips, 32 tokens, on the bf16 tree, the q4 tree, the bf16 tree
+   with the int8 KV cache and the int8 tree under MATMUL_MODE="w8a8"; the
+   decode kernels take t = 1 only, so the bf16 setups launch none, spec_q4
+   launches int4_matmul 197 x its verify iterations (7 products x 28
+   layers + the lm_head at M = 40) and int4_matmul_smallm once (the
+   prefill's last-token lm_head), and spec_q8a8 int8_matmul_w8a8 197 x
+   (its verify iterations + 1) (each verify at M = 40, the w8a8 mode of
+   quant_wgmma.cuh; the prefill's products on the 192-row tile and its
+   last-token lm_head at M = 8); prints the
    verify iterations, tokens per iteration, decode ms beside plain greedy's,
    and how many rows equal the same tree's greedy answer (not gated). The
    f32 exactness gate: the speculative call at 2 layers of the 7B width in
@@ -157,7 +164,16 @@ Needs one CUDA card (it raises without one) and nvcc. Phases, one line each:
    may part where greedy's top-two logit gap is below 1e-4 of the logits'
    scale (printed); on a rig whose greedy stream is a 2-cycle (projections
    zeroed, a two-column lm_head) the drafts are accepted, and tokens,
-   num_valid and more than one token per iteration are gated.
+   num_valid and more than one token per iteration are gated. The same
+   gate holds spec_q8a8 at 2 layers of the int8 tree in bf16 under w8a8
+   (the rig's lm_head quantized too): the verify's products (M = 40) and
+   greedy's (M = 8) run different kernels, whose f32 sums may round one
+   bf16 ulp apart, so a row may part only where greedy's top-two gap is at
+   most SPEC_Q8A8_MAX_GAP_ULPS bf16 ulps of its top logit; on the random
+   weights the verify's logits must also agree with greedy's where both
+   come from the same tokens (relative L2 at most SPEC_Q8A8_LOGIT_RTOL),
+   and a control whose verify products are off by SPEC_Q8A8_PLANTED must
+   fail that gate.
    au_agent: AUAgent on the merged 7B LLM (T 0.7, top-p 0.9, repetition
    penalty 1.1, 256 tokens) over 8 OpenFace rows from a seed, one neutral;
    rows 1-2 launched 28 x 256 times, the neutral row's fixed string, one
@@ -521,9 +537,12 @@ KERNELS = {
         "source": "affectgpt_tpu_torch/csrc/quant_swapab.cu",
         "replaces": "affectgpt_tpu/ops/quant.py:90",
     },
-    "int8_matmul_w8a8": {  # M <= 16; above it csrc/int8_matmul_w8a8.cu
+    "int8_matmul_w8a8": {  # the source of its decode M; "modes": all three
         "source": "affectgpt_tpu_torch/csrc/quant_swapab.cu",
         "replaces": "affectgpt_tpu/ops/quant.py:163",
+        "modes": {"M <= 16": "affectgpt_tpu_torch/csrc/quant_swapab.cu",
+                  "16 < M <= 1024": "affectgpt_tpu_torch/csrc/quant_wgmma.cuh",
+                  "M > 1024": "affectgpt_tpu_torch/csrc/int8_matmul_w8a8.cu"},
     },
     "paged_attention": {  # _kernel, bf16 pools
         "source": "affectgpt_tpu_torch/csrc/paged_attention.cu",
@@ -1080,8 +1099,8 @@ QUANT_PHASE = {
                     BF16_FLOP_PER_S),
     "int8_matmul": (8, quant.int8_matmul_reference, tuple(range(1, 17)) + WGMMA_M, 8, True,
                     BF16_FLOP_PER_S),
-    "int8_matmul_w8a8": (8, quant.int8_matmul_w8a8_reference, tuple(range(1, 17)) + (17, 4512),
-                         8, False, S8_OPS_PER_S),
+    "int8_matmul_w8a8": (8, quant.int8_matmul_w8a8_reference,
+                         tuple(range(1, 17)) + WGMMA_M + (4512,), 8, False, S8_OPS_PER_S),
 }
 
 
@@ -1108,14 +1127,21 @@ def swapab_variant(name: str, m: int, n: int, k: int) -> dict:
 def w8a8_variant(m: int, n: int, k: int) -> dict:
     """What the w8a8 wrapper launches for x [m, k] @ w [k, n]: at M <= 16
     the swap-AB kernel's w8a8 mode with its plan (n8 tiles, block width,
-    cluster splitting K in whole qblocks, grid, ring, shared memory), above
-    it the wgmma kernel's N-width (row tile), K splits and the bytes its
-    product reads."""
+    cluster splitting K in whole qblocks, grid, ring, shared memory); up to
+    quant.PALLAS_DEQUANT_MAX_M quant_wgmma.cuh's w8a8 mode with its plan (NB,
+    batch blocks, cluster splitting K in whole qblocks, blocks an SM,
+    stages, shared memory, grid); above it the prefill tile's N-width (row
+    tile), K splits and the bytes its product reads."""
     if m <= quant.SWAPAB_MAX_M:
         plan = quant._w8a8_swapab_plan_on(0, m, n, k)
         return {"variant": f"swapab_w8a8_mma_m16n8k32_s8_nt{plan['nt']}",
                 "block_n": plan["block_n"], "cluster": plan["cluster"], "grid": plan["grid"][0],
                 "stages": plan["stages"], "smem": plan["smem_bytes"]}
+    if m <= quant.PALLAS_DEQUANT_MAX_M:
+        plan = quant._wgmma_plan_on(0, m, n, k, quant.MODE_W8A8)
+        return {"variant": f"wgmma_rs_m64n{plan['nb']}k32_s8", "batch_blocks": plan["cb"],
+                "cluster": plan["cluster"], "blocks_per_sm": plan["blocks_per_sm"],
+                "grid": plan["grid"][0], "stages": plan["stages"], "smem": plan["smem_bytes"]}
     plan = quant.w8a8_plan(m, n, k, torch.cuda.get_device_properties(0).multi_processor_count)
     return {"variant": f"wgmma_m64n{plan['bm']}k32_s8", "splits": plan["splits"],
             "l2_read_bytes": plan["l2_bytes"]}
@@ -1176,14 +1202,15 @@ def phase_quant_kernels(card: str, cfg: qwen2.QwenConfig) -> dict:
                     max_abs_err=f"{err:.6g}", max_rel_err=f"{rel:.6g}", rtol=RTOL, atol=ATOL,
                     **extra, card=repr(card))
         # the main path's M first; w8a8 also at M = 16, at the speculative
-        # verify's M = SPEC_M and bench.py's 7B batch (M = 256, both on the
-        # 192-row wgmma tile: measurements only) and at its prefill M,
+        # verify's M = SPEC_M (phase 7's spec_q8a8 runs it there), bench.py's
+        # 7B batch (M = 256) and a prefill's 1000 rows (quant_wgmma.cuh's
+        # w8a8 mode) and at its prefill M (the 192-row tile),
         # int8_matmul at paged_w8's M = 16 on the split layout's attention
         # products; both weight-only kernels over the split layer at the
         # speculative verify's M = SPEC_M (phase 7's spec_q4 runs
         # int4_matmul there), bench.py's 7B batch (M = 256) and a prefill's
         # 1000 rows (measurements only)
-        extra_m = {"int8_matmul_w8a8": (16, SPEC_M, 256, max(ms_checked)),
+        extra_m = {"int8_matmul_w8a8": (16, SPEC_M, 256, 1000, max(ms_checked)),
                    "int4_matmul": (SPEC_M, 256, 1000),
                    "int8_matmul": (16, SPEC_M, 256, 1000)}.get(name, ())
         per_layer = []
@@ -2318,8 +2345,9 @@ def phase_realtime(card: str, model: tuple) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 7: serving variants on the phase-4 model
 
-# setup: (the serving tree of phase 4, the KV cache dtype)
-SPEC = {"spec_bf16": ("bf16", None), "spec_q4": ("int4", None), "spec_kv8": ("bf16", "int8")}
+# setup: (the serving tree of phase 4, the KV cache dtype, quant.MATMUL_MODE)
+SPEC = {"spec_bf16": ("bf16", None, "w8"), "spec_q4": ("int4", None, "w8"),
+        "spec_kv8": ("bf16", "int8", "w8"), "spec_q8a8": ("int8", None, "w8a8")}
 AU_ROWS = 8
 NEUTRAL_ROW = 3  # every AU at or below 0.5: answered without generating
 AU_NEW_TOKENS = 256  # the reference AU agent's max_new_tokens
@@ -2335,9 +2363,14 @@ def spec_launches(setup: str, layers: int, iters: int) -> dict:
     the bf16 setups launch nothing. spec_q4: each verify runs the split
     layout's seven products in every layer and the lm_head at M = SPEC_M
     (int4_matmul); the prefill's products (M = 8 t_pad > 1024) take the
-    dequantize route and its last-token lm_head (M = 8) int4_matmul_smallm."""
+    dequantize route and its last-token lm_head (M = 8) int4_matmul_smallm.
+    spec_q8a8: under w8a8 every product is int8_matmul_w8a8, whatever its M:
+    each verify's and the prefill's (its products and its last-token
+    lm_head)."""
     if setup == "spec_q4":
         return {"int4_matmul": (7 * layers + 1) * iters, "int4_matmul_smallm": 1}
+    if setup == "spec_q8a8":
+        return {"int8_matmul_w8a8": (7 * layers + 1) * (iters + 1)}
     return {}
 
 
@@ -2420,7 +2453,14 @@ def spec_setup(card: str, setup: str, model: tuple) -> None:
     ties may part a t = 1 step from a t = DRAFT_LEN + 1 verify), then one
     timed answer of each."""
     cfg, frozen, trainable, tok, feats, trees = model
-    tree, kv = SPEC[setup]
+    tree, kv, mode = SPEC[setup]
+    with switched([(quant, "MATMUL_MODE", mode)]):
+        spec_answers(card, setup, model, tree, kv)
+
+
+def spec_answers(card: str, setup: str, model: tuple, tree: str, kv) -> None:
+    """spec_setup's runs on phase 4's `tree` with the KV cache dtype `kv`."""
+    cfg, frozen, trainable, tok, feats, trees = model
     llm = {**frozen, "llm": trees[tree]}
     spec = Chat(llm, trainable, cfg, tok, max_len=MAX_LEN, kv_cache_dtype=kv,
                 speculative_draft_len=DRAFT_LEN)
@@ -2435,7 +2475,8 @@ def spec_setup(card: str, setup: str, model: tuple) -> None:
             patched(qwen2, "forward", recording_forward(logits)):
         texts, launches = counted_call(lambda: answer(spec))
     iters, mean_valid = stats[0]
-    say("serving", setup=setup, tree=tree, kv_cache=kv or "bf16", draft_len=DRAFT_LEN,
+    say("serving", setup=setup, tree=tree, kv_cache=kv or "bf16",
+        matmul_mode=quant.MATMUL_MODE, draft_len=DRAFT_LEN,
         verify_iterations=iters, launches=json.dumps({k: v for k, v in launches.items() if v}))
     check_launches(setup, launches, spec_launches(setup, cfg.llm.num_layers, iters))
     check_finite(setup, logits, iters + 1)
@@ -2467,12 +2508,13 @@ def tree_to(tree, dtype=None, device=None):
 PERIODIC = (42, 43)  # the rigged lm_head's two columns
 
 
-def periodic_rig(llm: dict, cfg: qwen2.QwenConfig) -> dict:
+def periodic_rig(llm: dict, cfg: qwen2.QwenConfig, quantized: bool = False) -> dict:
     """llm with every projection zeroed, so that each position's final
     hidden state is its own token's final-normed embedding h(x), and an
     lm_head that is zero except columns 42 and 43 = +-(u43 - u42), u the unit
     h(x): 42 is followed by 43 and 43 by 42, whatever came before. The
-    stream is the 2-cycle, which the lookup drafts from its own history."""
+    stream is the 2-cycle, which the lookup drafts from its own history.
+    `quantized`: the lm_head as int8 leaves (quant.quantize_per_channel)."""
     layers = [{**lyr, **{n: {k: torch.zeros_like(v) for k, v in lyr[n].items()}
                          for n in qwen2._LORA_TARGETS}} for lyr in llm["layers"]]
     dev = llm["embed_tokens"]["table"].device
@@ -2481,10 +2523,100 @@ def periodic_rig(llm: dict, cfg: qwen2.QwenConfig) -> dict:
     u = u / u.norm(dim=-1, keepdim=True)
     w = torch.zeros((cfg.hidden_size, cfg.vocab_size), device=dev)
     w[:, PERIODIC[0]], w[:, PERIODIC[1]] = u[1] - u[0], u[0] - u[1]
-    return {**llm, "layers": layers, "lm_head": {"w": w}}
+    head = dict(zip(("w_q", "scales"), quant.quantize_per_channel(w))) if quantized else {"w": w}
+    return {**llm, "layers": layers, "lm_head": head}
 
 
-def spec_exactness(card: str, model: tuple) -> None:
+# spec_exactness's q8a8 gate: the verify's logits against greedy's at the
+# positions both computed from the same tokens, a relative L2 error of at most
+# SPEC_Q8A8_LOGIT_RTOL; a row may part only where greedy's top-two gap is at
+# most SPEC_Q8A8_MAX_GAP_ULPS bf16 ulps of its top logit; and a control whose
+# verify products are off by SPEC_Q8A8_PLANTED (relative, the sign
+# alternating by column) that the gate must refuse. Set from the H100's
+# readings of the sound run: the t = 5 verify and the t = 1 steps round bf16
+# differently on their way to the logits, 0.0094 apart (relative L2), and the
+# rows part only at exact ties (0 ulps).
+SPEC_Q8A8_LOGIT_RTOL = 1.5e-2
+SPEC_Q8A8_MAX_GAP_ULPS = 1
+SPEC_Q8A8_PLANTED = 2e-2
+
+
+def verify_recorder(record: list):
+    """A wrapper of qwen2.forward that appends each speculative verify's
+    (logits [b, t, vocab] in f32, positions [b, t], input embeddings) to
+    `record`: the calls whose cache_index is a tensor (one column a row)."""
+    def make(forward):
+        def wrapped(*args, **kwargs):
+            out, cache = forward(*args, **kwargs)
+            if torch.is_tensor(kwargs.get("cache_index")):
+                record.append((out.float(), kwargs["positions"], args[2]))
+            return out, cache
+        return wrapped
+    return make
+
+
+def planted_error(rel: float):
+    """A wrapper of quant.int8_matmul_w8a8 whose products at 16 < M <= the
+    cut (the verify's, quant_wgmma.cuh's w8a8 mode) come out times 1 + rel
+    on even columns and 1 - rel on odd ones. The wrapper keeps its own
+    launch count (the wrapped function counts its launches on whatever
+    quant.int8_matmul_w8a8 names), so a control's launches stay out of
+    the original's count."""
+    def make(fn):
+        def wrapped(x, w_q, scales):
+            y = fn(x, w_q, scales)
+            if quant.SWAPAB_MAX_M < x.shape[0] <= quant.PALLAS_DEQUANT_MAX_M:
+                sign = 1 - 2 * (torch.arange(y.shape[-1], device=y.device) % 2)
+                y = (y.float() * (1 + rel * sign)).to(y.dtype)
+            return y
+        wrapped.launches = 0
+        return wrapped
+    return make
+
+
+def on_path_logit_error(verify: list, greedy_logits: list, greedy_embeds: torch.Tensor,
+                        lengths: torch.Tensor, num_valid: torch.Tensor) -> tuple:
+    """(relative L2 error, positions compared) of the verify's logits
+    against greedy's where both come from the same tokens: the verify's row
+    r, column j predicts generated token n + j + 1 (n its first position
+    less the prompt's length) from tokens n .. n + j, which must be
+    greedy's (greedy_embeds [b, new, h]); greedy_logits[s] [b, vocab]
+    predicts token s, compared up to the row's num_valid."""
+    num = den = 0.0
+    count = 0
+    for logits, pos, embeds in verify:
+        first = (pos[:, 0] - lengths).tolist()
+        for r, n in enumerate(first):
+            for j in range(logits.shape[1]):
+                s = n + j + 1
+                if s > int(num_valid[r]) or s >= len(greedy_logits) or not torch.equal(
+                        embeds[r, :j + 1], greedy_embeds[r, n:n + j + 1]):
+                    break
+                want = greedy_logits[s][r]
+                num += float((logits[r, j] - want).square().sum())
+                den += float(want.square().sum())
+                count += 1
+    return (num / max(den, 1e-30)) ** 0.5, count
+
+
+def parted_rows(spec: torch.Tensor, greedy: torch.Tensor, logits: list) -> dict:
+    """Row -> where its tokens first part from greedy's: the step, greedy's
+    top-two logit gap there, as a share of the logits' largest magnitude and
+    in bf16 ulps of the top logit."""
+    parted = {}
+    for row in range(spec.shape[0]):
+        diff = (spec[row] != greedy[row]).nonzero()
+        if len(diff):
+            step = int(diff[0])
+            top2 = logits[step][row].topk(2).values
+            gap, scale = float(top2[0] - top2[1]), float(logits[step][row].abs().max())
+            ulp = 2.0 ** (np.floor(np.log2(max(abs(float(top2[0])), 1e-30))) - 7)
+            parted[row] = {"step": step, "gap": gap, "gap_over_scale": gap / scale,
+                           "gap_ulps": gap / ulp}
+    return parted
+
+
+def spec_exactness(card: str, model: tuple, setup: str = "f32") -> None:
     """The speculative call at 2 layers of the 7B width in f32 (TF32 is off,
     the decode kernels take bf16, so every product is a plain f32 one) must
     emit, row for row, the tokens of generate(do_sample=False). On the
@@ -2492,56 +2624,115 @@ def spec_exactness(card: str, model: tuple) -> None:
     may part only where greedy's top-two logit gap at that step is below
     1e-4 of the logits' largest magnitude, a tie that f32 summation order
     may flip. On periodic_rig the drafts are accepted (tokens per iteration
-    > 1): there the tokens and num_valid must equal greedy's in every row."""
-    cfg, frozen, trainable, tok, feats, _ = model
-    llm = frozen["llm"]
-    llm32 = tree_to({**llm, "layers": llm["layers"][:2]}, torch.float32)
+    > 1): there the tokens and num_valid must equal greedy's in every row.
+    setup "q8a8": the same gate on the first 2 layers of phase 4's int8 tree
+    in bf16 under MATMUL_MODE="w8a8" (every product int8_matmul_w8a8: the
+    verify's at M = 40 on quant_wgmma.cuh's w8a8 mode, greedy's at M = 8 on
+    the swap-AB kernel's; the rig's lm_head quantized too, the rig's other
+    products zeroed). There the two kernels' f32 sums may round a bf16
+    output one ulp apart, so a row may part only where greedy's top-two gap
+    is at most SPEC_Q8A8_MAX_GAP_ULPS bf16 ulps of the top logit; on the
+    random weights the verify's logits must also agree with greedy's,
+    where both come from the same tokens, within SPEC_Q8A8_LOGIT_RTOL
+    (relative L2), and the same run with the verify's products off by
+    SPEC_Q8A8_PLANTED must fail that gate."""
+    cfg, frozen, trainable, tok, feats, trees = model
+    q8a8 = setup != "f32"
+    if not q8a8:
+        llm = frozen["llm"]
+        llm2 = tree_to({**llm, "layers": llm["layers"][:2]}, torch.float32)
+        feats2, mode = tree_to(feats, torch.float32), "w8"
+    else:
+        llm2 = {**trees["int8"], "layers": trees["int8"]["layers"][:2]}
+        feats2, mode = feats, "w8a8"
     cfg2 = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_layers=2))
-    chat = Chat({**frozen, "llm": llm32}, trainable, cfg2, tok, max_len=MAX_LEN)
+    chat = Chat({**frozen, "llm": llm2}, trainable, cfg2, tok, max_len=MAX_LEN)
     ids, lengths, offsets = chat.build_prompt_batch(MODE, SUBTITLES, QUESTION)
     ids = torch.as_tensor(ids, dtype=torch.long, device="cuda")
     embeds = affectgpt.build_inputs_embeds(
-        chat.frozen, trainable, cfg2, ids, tree_to(feats, torch.float32),
+        chat.frozen, trainable, cfg2, ids, feats2,
         {m: torch.as_tensor(v, dtype=torch.long, device="cuda") for m, v in offsets.items()})
     lengths = torch.as_tensor(lengths, device="cuda")
     gcfg = gen.GenerateConfig(max_new_tokens=NEW_TOKENS, do_sample=False,
                               eos_token_id=tok.eos_token_id, stop_token_ids=chat._stop_ids)
-    for rig, params in (("random", llm32), ("periodic", periodic_rig(llm32, cfg2.llm))):
-        logits = []
-        with switched([(qwen2, "DECODE_QKV", "xla"), (qwen2, "DECODE_MLP", "xla")]):
-            spec, spec_nv, iters = gen.generate_speculative(
+    rigged = periodic_rig(llm2, cfg2.llm, quantized=q8a8)
+
+    def speculative(params, verify, extra=()):
+        with switched([(qwen2, "DECODE_QKV", "xla"), (qwen2, "DECODE_MLP", "xla"),
+                       (quant, "MATMUL_MODE", mode)]), contextlib.ExitStack() as stack:
+            if verify is not None:
+                stack.enter_context(patched(qwen2, "forward", verify_recorder(verify)))
+            for module, name, make in extra:
+                stack.enter_context(patched(module, name, make))
+            return gen.generate_speculative(
                 params, cfg2.llm, gcfg, embeds, lengths, ids, max_len=MAX_LEN + DRAFT_LEN,
                 draft_len=DRAFT_LEN, return_stats=True)
+
+    def too_wide(p):  # a parting the gate does not allow
+        return p["gap_ulps"] > SPEC_Q8A8_MAX_GAP_ULPS if q8a8 else p["gap_over_scale"] >= 1e-4
+
+    for rig, params in (("random", llm2), ("periodic", rigged)):
+        logits, verify = [], [] if q8a8 and rig == "random" else None
+        spec, spec_nv, iters = speculative(params, verify)
+        with switched([(qwen2, "DECODE_QKV", "xla"), (qwen2, "DECODE_MLP", "xla"),
+                       (quant, "MATMUL_MODE", mode)]):
             with patched(qwen2, "forward", recording_forward(logits)):
                 greedy, greedy_nv = gen.generate(params, cfg2.llm, gcfg, embeds, lengths, None,
                                                  max_len=MAX_LEN)
-        parted = {}
-        for row in range(BATCH):
-            diff = (spec[row] != greedy[row]).nonzero()
-            if len(diff):
-                step = int(diff[0])
-                top2 = logits[step][row].topk(2).values
-                gap, scale = float(top2[0] - top2[1]), float(logits[step][row].abs().max())
-                parted[row] = {"step": step, "gap": gap, "gap_over_scale": gap / scale}
+        parted = parted_rows(spec, greedy, logits)
         per_iter = float(spec_nv.float().mean()) / max(iters, 1)
         nv_equal = bool(torch.equal(spec_nv, greedy_nv))
-        say("serving", setup=f"spec_exactness_f32_{rig}", layers=2, verify_iterations=iters,
+        agreement = {}
+        if verify is not None:
+            greedy_embeds = qwen2.embed_tokens(params, greedy).to(embeds.dtype)
+            err, count = on_path_logit_error(verify, logits, greedy_embeds, lengths, greedy_nv)
+            agreement = {"logit_rel_l2": f"{err:.6g}", "positions_compared": count,
+                         "logit_rtol": SPEC_Q8A8_LOGIT_RTOL}
+        say("serving", setup=f"spec_exactness_{setup}_{rig}", layers=2, verify_iterations=iters,
             tokens_per_iteration=f"{per_iter:.4f}", rows_equal=BATCH - len(parted),
-            parted=json.dumps(parted), num_valid_equal=nv_equal, card=repr(card))
+            parted=json.dumps(parted),
+            max_gap=f"{SPEC_Q8A8_MAX_GAP_ULPS} bf16 ulps of the top logit" if q8a8
+            else "1e-4 of the logits' scale",
+            num_valid_equal=nv_equal, **agreement, card=repr(card))
         if rig == "random":
             for row, p in parted.items():
-                if p["gap_over_scale"] >= 1e-4:
+                if too_wide(p):
                     raise AssertionError(
-                        f"spec_exactness_f32: row {row} parts from greedy at step {p['step']} "
-                        f"with a top-two gap of {p['gap_over_scale']:.3g} of the logits' scale")
+                        f"spec_exactness_{setup}: row {row} parts from greedy at step "
+                        f"{p['step']} with a top-two gap of {p['gap_over_scale']:.3g} of the "
+                        f"logits' scale, {p['gap_ulps']:.3g} bf16 ulps of the top logit")
+            if verify is not None:
+                if not count or err > SPEC_Q8A8_LOGIT_RTOL:
+                    raise AssertionError(
+                        f"spec_exactness_{setup}: the verify's logits part from greedy's by "
+                        f"{err:.3g} (relative L2 over {count} positions; at most "
+                        f"{SPEC_Q8A8_LOGIT_RTOL})")
+                # the control: the same run with the verify's products off by
+                # SPEC_Q8A8_PLANTED must fail the gate
+                planted = []
+                spec_c, _, _ = speculative(params, planted, [
+                    (quant, "int8_matmul_w8a8", planted_error(SPEC_Q8A8_PLANTED))])
+                err_c, count_c = on_path_logit_error(planted, logits, greedy_embeds, lengths,
+                                                     greedy_nv)
+                parted_c = parted_rows(spec_c, greedy, logits)
+                refused = err_c > SPEC_Q8A8_LOGIT_RTOL or any(map(too_wide, parted_c.values()))
+                say("serving", setup=f"spec_exactness_{setup}_planted", planted=SPEC_Q8A8_PLANTED,
+                    logit_rel_l2=f"{err_c:.6g}", positions_compared=count_c,
+                    rows_equal=BATCH - len(parted_c), parted=json.dumps(parted_c),
+                    refused=refused, card=repr(card))
+                if not refused:
+                    raise AssertionError(
+                        f"spec_exactness_{setup}: the gate passes a verify whose products are "
+                        f"off by {SPEC_Q8A8_PLANTED} (relative L2 {err_c:.3g})")
+                del planted, verify
         elif parted or not nv_equal or per_iter <= 1.0 \
                 or set(spec.unique().tolist()) != set(PERIODIC):
             raise AssertionError(
-                f"spec_exactness_f32_periodic: rows parted {sorted(parted)}, num_valid "
+                f"spec_exactness_{setup}_periodic: rows parted {sorted(parted)}, num_valid "
                 f"{spec_nv.tolist()} vs greedy {greedy_nv.tolist()}, {per_iter:.3f} tokens per "
                 f"iteration, tokens {sorted(set(spec.unique().tolist()))}")
         del params, logits
-    del llm32, chat, embeds
+    del llm2, rigged, chat, embeds
     torch.cuda.empty_cache()
 
 
@@ -2693,13 +2884,14 @@ def rt_w8a8_run(card: str, model: tuple) -> None:
 
 
 def phase_serving_variants(card: str, model: tuple) -> None:
-    """Phase 7 on the phase-4 model: spec_bf16, spec_q4, spec_kv8 and the f32
-    exactness gate, au_agent, qformer, clip_text, rt_w8a8, each gating its
-    own launch counts."""
+    """Phase 7 on the phase-4 model: spec_bf16, spec_q4, spec_kv8, spec_q8a8
+    and the exactness gates (f32, and q8a8's), au_agent, qformer, clip_text,
+    rt_w8a8, each gating its own launch counts."""
     t0 = time.perf_counter()
     for setup in SPEC:
         spec_setup(card, setup, model)
     spec_exactness(card, model)
+    spec_exactness(card, model, "q8a8")
     au_agent_run(card, model)
     qformer_run(card, model)
     clip_text_run(card)

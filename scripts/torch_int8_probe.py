@@ -1,7 +1,8 @@
 """Probes of the quantized matmuls on one CUDA card: the int8 and w8a8
 modes of the swap-AB kernel (csrc/quant_swapab.cu) that `int8_matmul` and
 `int8_matmul_w8a8` launch at M <= 16, and the wgmma kernel
-(csrc/quant_wgmma.cuh) that `int8_matmul` and `int4_matmul` launch above it.
+(csrc/quant_wgmma.cuh) that `int8_matmul`, `int4_matmul` and (its w8a8
+mode, up to quant.PALLAS_DEQUANT_MAX_M) `int8_matmul_w8a8` launch above it.
 
     python3 scripts/torch_int8_probe.py check    # correctness, per-layer times, cluster sweep
     python3 scripts/torch_int8_probe.py time [--w8a8] [DIR ...]  # this tree's package beside each DIR's
@@ -18,9 +19,9 @@ product and of the fused layer (q8_fused: qkv, o, gateup, down) and the
 split layer at M = 8 and 16, and the lm_head; then q/k/gate/down_proj at
 every cluster size, launched through the C entry. `time`: the quantized
 matmuls per product and per layer, as the main path runs them at decode M:
-`int8_matmul_w8a8` on q8a8's split layer and the lm_head at M = 8 and 16,
-and on the split layer at M = 40, 256 and the prefill's 4512 (with `--w8a8`
-nothing else); `int8_matmul` on q8_fused's layer at M = 8 and on paged_w8's
+`int8_matmul_w8a8` on q8a8's split layer and the lm_head at M = 8, 16, 40
+(the speculative verify) and 256 (bench.py's 7B batch), and on the split
+layer at M = 1000 and the prefill's 4512 (with `--w8a8` nothing else); `int8_matmul` on q8_fused's layer at M = 8 and on paged_w8's
 q/k/v/o at M = 16, `int4_matmul_smallm` at M = 8 and `int4_matmul` at M =
 16 on the split layer, each with the lm_head; and above decode M:
 `int8_matmul`, `int4_matmul` and `int4_matmul_smallm` on the split layer
@@ -36,7 +37,11 @@ timed at M = 8 and 16 (`int8_matmul`); the `w8a8_*` variants edit the w8a8
 mode (the loads alone, no quantization of x, no products) and time
 `int8_matmul_w8a8` per product of the split layer and at the lm_head at M =
 8 and 16, with the largest error against the plain version (and
-`w8a8_no_x_loads`: x not staged). `wgmma`: the same with quant_wgmma.cuh's switches
+`w8a8_no_x_loads`: x not staged); the `w8a8_wgmma_*` variants edit the
+w8a8 mode of quant_wgmma.cuh (the loads alone, no products, no qblock
+scaling: each qblock's s32 sums not waited for and scaled on their own, one
+s32 tile over the share; the consumer warpgroups taking turns) and time `int8_matmul_w8a8` per split layer at M =
+40, 256 and 1000. `wgmma`: the same with quant_wgmma.cuh's switches
 (WGMMA_VARIANTS), the split layer of `int8_matmul` and `int4_matmul` timed
 at M = 40, 256 and 1000, to split the kernel's time into loads,
 conversion and products (a NAME given twice is built and timed twice).
@@ -91,6 +96,15 @@ VARIANTS = {
     "w8a8_no_x_loads": [(SAB, "mbar_expect_tx(xsfull, x_boxes * 8 * NT * x_cols * 2);",
                          "mbar_arrive(xsfull);"),
                         (SAB, "for (int h = 0; h < x_boxes; ++h)", "for (int h = 0; h < 0; ++h)")],
+    # the w8a8 mode of quant_wgmma.cuh (int8_matmul_w8a8 above M = 16): as
+    # built; the ring alone; the fragments XORed into the output instead of
+    # multiplied; no qblock scaling (one s32 tile over the share); the two
+    # consumer warpgroups taking the tensor cores in turn, a pair each
+    "w8a8_wgmma_as_is": [],
+    "w8a8_wgmma_loads_only": [(QWG, "kConsume = true;", "kConsume = false;")],
+    "w8a8_wgmma_no_products": [(QWG, "kProducts = true;", "kProducts = false;")],
+    "w8a8_wgmma_no_scaling": [(QWG, "kScale = true;", "kScale = false;")],
+    "w8a8_wgmma_ping_pong": [(QWG, "kPingPong = false;", "kPingPong = true;")],
 }
 
 # quant_wgmma.cuh's diagnostic switches
@@ -235,10 +249,35 @@ print(json.dumps(out), flush=True)
 '''
 
 
+W8A8_WGMMA_BENCH = INT8_MS + f"""
+import json, sys
+from affectgpt_tpu_torch.ops import quant
+SPLIT = {SPLIT!r}
+""" + r'''
+g = torch.Generator(device="cuda").manual_seed(0)
+out = {"variant": sys.argv[2]}
+w, s = weights8(g, 3584, 512)
+x = torch.randn((40, 3584), generator=g, device="cuda").to(torch.bfloat16)
+out["max_abs_err"] = round(float((quant.int8_matmul_w8a8(x, w, s).float()
+                                  - quant.int8_matmul_w8a8_reference(x, w, s).float()).abs().max()), 5)
+for m in (40, 256, 1000):
+    per = {}
+    for p, (k, n) in SPLIT.items():
+        ws, rep = copies_of(*weights8(g, k, n))
+        x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+        per[p] = round(graph_ms([lambda w=w, s=s: quant.int8_matmul_w8a8(x, w, s)
+                                 for w, s in ws] * rep), 5)
+        del ws
+    out[f"M{m}"] = {"layer_ms": round(sum(per.values()), 5), **per}
+print(json.dumps(out), flush=True)
+'''
+
+
 def builds(names: list) -> None:
     tmp = Path(tempfile.mkdtemp())
     for name in names or VARIANTS:
-        bench = W8A8_BUILD_BENCH if name.startswith("w8a8_") else BUILD_BENCH
+        bench = (W8A8_WGMMA_BENCH if name.startswith("w8a8_wgmma_") else
+                 W8A8_BUILD_BENCH if name.startswith("w8a8_") else BUILD_BENCH)
         run_variant(name, "int8_builds", VARIANTS[name], tmp, bench=bench)
 
 
@@ -250,7 +289,8 @@ SPLIT, FUSED, LM_HEAD, LAYER = {SPLIT!r}, {FUSED!r}, {LM_HEAD!r}, {LAYER!r}
 g = torch.Generator(device="cuda").manual_seed(0)
 out = {"package": sys.argv[1]}
 w8a8 = tuple((f"int8_matmul_w8a8_M{m}", quant.int8_matmul_w8a8, 8, m,
-              {**SPLIT, "lm_head": LM_HEAD} if m <= 16 else SPLIT) for m in (8, 16, 40, 256, 4512))
+              {**SPLIT, "lm_head": LM_HEAD} if m <= 256 else SPLIT)
+             for m in (8, 16, 40, 256, 1000, 4512))
 runs = w8a8 if sys.argv[2] == "w8a8" else w8a8 + (
         ("int8_matmul_M8_fused", quant.int8_matmul, 8, 8, {**FUSED, "lm_head": LM_HEAD}),
         ("int8_matmul_M16_qkvo", quant.int8_matmul, 8, 16,

@@ -805,20 +805,22 @@ def test_vit_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         vit_mlp.mlp_sublayer(_rnd(gen, 99, 2, 256).transpose(0, 1), *mlp)
 
 
-# The w8a8 kernels (the swap-AB kernel's w8a8 mode at M <= 16, the wgmma
-# design of csrc/int8_matmul_w8a8.cu above it) and the fused MLP
+# The w8a8 kernels (the swap-AB kernel's w8a8 mode at M <= 16, the w8a8
+# mode of csrc/quant_wgmma.cuh up to quant.PALLAS_DEQUANT_MAX_M, the 192-row
+# tile of csrc/int8_matmul_w8a8.cu above it) and the fused MLP
 # (csrc/vit_mlp_fused.cu) at the main path's shapes: the 7B split layout's
-# (K, N), split and unsplit K, at decode M (one row; 8; a ragged 13), at M
-# the 192-row tile meets (64, 65, 200) and the prefill's 4512; the lm_head at
-# decode M.
+# (K, N), split and unsplit K, at decode M (one row; 8; a ragged 13), at the
+# wgmma mode's M (ragged 17, 65 and 200, the speculative verify's 40, 64,
+# bench.py's 256, a prefill's 1000, the cut's 1024) and the prefill's 4512;
+# the lm_head up to the cut.
 W8A8_7B = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584)]
 
 
-@pytest.mark.parametrize("m", [1, 8, 13, 64, 65, 200, 4512])
+@pytest.mark.parametrize("m", [1, 8, 13, 17, 40, 64, 65, 200, 256, 1000, 1024, 4512])
 @pytest.mark.parametrize("k,n", W8A8_7B + [(3584, 152064)])
 def test_w8a8_kernel_matches_plain_at_7b_shapes(gen, m, k, n):
-    if n == 152064 and m > 13:
-        pytest.skip("the lm_head runs the kernel at decode M only")
+    if n == 152064 and m > quant.PALLAS_DEQUANT_MAX_M:
+        pytest.skip("the prefill's lm_head takes the last token alone (M = 8)")
     w, scales = _quantized(gen, k, n, 8)
     x = _rnd(gen, m, k)
     before = quant.int8_matmul_w8a8.launches
@@ -865,6 +867,36 @@ def test_w8a8_swapab_kernel_is_one_device_launch(gen, k, n):
     kernels = [e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(kernels) == 1 and "w8a8_swapab_kernel" in kernels[0], kernels
+
+
+@pytest.mark.parametrize("m", [17, 40, 256])
+def test_w8a8_wgmma_mode_is_a_quantize_and_a_product(gen, m):
+    """Above decode M a w8a8 product is two device kernels, the quantize
+    pass and quant_wgmma.cuh's w8a8 mode: no reduce of its K split (k_proj
+    splits its 7 qblocks over a cluster)."""
+    w, scales = _quantized(gen, 3584, 512, 8)
+    x = _rnd(gen, m, 3584)
+    assert quant.wgmma_plan(m, 512, 3584, 132, quant.MODE_W8A8)["cluster"] > 1
+    quant.int8_matmul_w8a8(x, w, scales)  # build, plan and tensor maps before the trace
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        quant.int8_matmul_w8a8(x, w, scales)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 2 and "quantize_rows_kernel" in kernels[0], kernels
+    assert "quant_wgmma_kernel<3" in kernels[1], kernels
+
+
+@pytest.mark.parametrize("mode", [quant.MODE_INT8, quant.MODE_INT4, quant.MODE_INT4_DEQUANT,
+                                  quant.MODE_W8A8])
+def test_wgmma_blocks_an_sm_of_the_build_equal_the_cpu_model(gen, mode):
+    """The plans made without a card (the CPU tests) size the ring by
+    quant.cpu_blocks_per_sm; on the card they ask the built kernel. The two
+    agree at every width of every mode."""
+    widths = quant.W8A8_WGMMA_NB if mode == quant.MODE_W8A8 else quant.WGMMA_NB
+    assert [quant._wgmma_blocks_per_sm(mode, nb) for nb in widths] == \
+        [quant.cpu_blocks_per_sm(mode, nb) for nb in widths]
 
 
 def test_w8a8_wrapper_raises_on_a_k_of_partial_blocks(gen):

@@ -133,10 +133,25 @@ def _check_w8a8_swapab_plan(plan, m, k, n):
 @pytest.mark.parametrize("m", [1, 8, 13, 16, 17, 64, 65, 200, 4512])
 @pytest.mark.parametrize("k,n", LAYER_7B + [(64, 256), (1024, 512), (512, 272)])
 def test_w8a8_plan_covers_every_tile_and_k_once(m, k, n):
-    """Decode M (<= 16) on the swap-AB kernel's w8a8 mode, above it the
-    wgmma kernel's 192-row tiles."""
+    """Decode M (<= 16) on the swap-AB kernel's w8a8 mode, up to the cut the
+    w8a8 mode of the wgmma weight-only kernel (every (16-column strip, batch
+    row, K pair) once, K shares of whole qblocks; its full checks are
+    tests/test_torch_quant_wgmma.py's), above it the prefill's 192-row
+    tiles."""
     if m <= 16:
         _check_w8a8_swapab_plan(quant.w8a8_swapab_plan(m, n, k, SMS), m, k, n)
+        return
+    if m <= quant.PALLAS_DEQUANT_MAX_M:
+        plan = quant.wgmma_plan(m, n, k, SMS, quant.MODE_W8A8)
+        nb, cb, qbu = plan["nb"], plan["cb"], plan["qblock_units"]
+        assert (cb - 1) * nb < m <= cb * nb and plan["qblock"] == min(512, k)
+        cover = np.zeros((n // 16, cb * nb, plan["units"]), np.int32)
+        c = plan["cluster"]
+        for b in range(plan["grid"][0]):  # column block b // (cb c), batch block (b // c) % cb
+            col, br, (u0, u1) = b // (cb * c), (b // c) % cb, plan["unit_ranges"][b % c]
+            assert u0 % qbu == 0 and u1 % qbu == 0
+            cover[8 * col:min(8 * col + 8, n // 16), br * nb:br * nb + nb, u0:u1] += 1
+        assert (cover == 1).all() and plan["units"] * 128 >= k
         return
     plan = quant.w8a8_plan(m, n, k, SMS)
     bm, per, splits = plan["bm"], plan["k_per_split"], plan["splits"]

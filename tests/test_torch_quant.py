@@ -187,14 +187,30 @@ def _w8a8_swapab_emulation(x, w_q, scales, plan):
     return total * scales.float()
 
 
-@pytest.mark.parametrize("m", [1, 8, 13, 16])
+def _w8a8_shares(m, k, n, sms):
+    """The K shares of a w8a8 launch's cluster ranks: the decode kernel's
+    plan at M <= 16, above it the wgmma mode's (its pair ranges in qblock
+    units: each batch block's rows are its own, as the quantization and the
+    sums are per row)."""
+    if m <= quant.SWAPAB_MAX_M:
+        return quant.w8a8_swapab_plan(m, n, k, sms)
+    plan = quant.wgmma_plan(m, n, k, sms, quant.MODE_W8A8)
+    qbu = plan["qblock_units"]
+    assert plan["cb"] * plan["nb"] >= m
+    return {"qblock": plan["qblock"], "cluster": plan["cluster"],
+            "unit_ranges": [(u0 // qbu, u1 // qbu) for u0, u1 in plan["unit_ranges"]]}
+
+
+@pytest.mark.parametrize("m", [1, 8, 13, 16, 40, 64])
 @pytest.mark.parametrize("k,n,sms", [(1024, 256, 132), (3584, 384, 8)])
 def test_w8a8_swapab_emulation_matches_pallas_kernel(m, k, n, sms):
-    """The decode kernel's arithmetic on its plan's K shares against JAX's
-    Pallas kernel in interpret mode: two qblocks over a cluster of two, and
-    seven qblocks split unevenly (1, 1, 2, 1, 2) over a cluster of five (the
-    plan for an 8-SM card, which holds no three clusters of seven)."""
-    plan = quant.w8a8_swapab_plan(m, n, k, sms)
+    """The w8a8 kernels' arithmetic on their plans' K shares against JAX's
+    Pallas kernel in interpret mode and the plain version: two qblocks over
+    a cluster of two, and seven qblocks split unevenly over a cluster (the
+    plans for an 8-SM card: the decode kernel's (1, 1, 2, 1, 2) over five,
+    which holds no three clusters of seven; the wgmma mode's (1, 1, 2, 1, 2)
+    at M = 40 and (3, 4) at M = 64)."""
+    plan = _w8a8_shares(m, k, n, sms)
     shares = [u1 - u0 for u0, u1 in plan["unit_ranges"]]
     assert plan["cluster"] > 1 and (k == 1024 or len(set(shares)) > 1)
     q, s = jquant.quantize_per_channel(jnp.asarray(_weights(k, n, seed=11)))

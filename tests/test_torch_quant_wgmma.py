@@ -29,8 +29,9 @@ import pytest
 import torch
 
 from affectgpt_tpu_torch.ops import quant
-from tests.test_torch_launch_plans import (SMEM_LIMIT, _bf16_round, _bf16_value, _ldmatrix_x4,
-                                           _nibble_pair, _s8_halves, _swizzle128)
+from tests.test_torch_launch_plans import (SMEM_LIMIT, SMEM_PER_SM, _bf16_round, _bf16_value,
+                                           _byte_perm, _ldmatrix_x4, _nibble_pair, _s8,
+                                           _s8_halves, _sigma16, _swizzle128)
 
 SMS = 132
 MODES = {"int8_matmul": quant.MODE_INT8, "int4_matmul": quant.MODE_INT4,
@@ -307,3 +308,215 @@ def test_wgmma_launch_emulation_splits_k_over_a_cluster():
     assert quant.wgmma_plan(40, 272, 1024, SMS, quant.MODE_INT4)["cluster"] > 1
     assert quant.wgmma_plan(40, 272, 1024, SMS, quant.MODE_INT8)["cluster"] > 1
     assert quant.wgmma_plan(1000, 144, 256, SMS, quant.MODE_INT8)["cb"] == 8
+
+
+# ---------------------------------------------------------------------------
+# The w8a8 mode (int8_matmul_w8a8 at 16 < M <= PALLAS_DEQUANT_MAX_M)
+
+# the 7B split layer and the lm_head; two qblocks with a last column block
+# partly inside N; one qblock of 192 columns in two pairs, the second partly
+# past K
+W8A8_SHAPES = LAYER_7B + [(1024, 272), (192, 128)]
+W8A8_MS = [17, 40, 64, 100, 256, 257, 1000, 1024]
+
+
+def _check_w8a8_wgmma_plan(plan: dict, m: int, k: int, n: int) -> None:
+    """Every (16-column strip, batch block, K pair) once, batch blocks of an
+    s8 wgmma width covering M with none empty, each rank's K share whole
+    qblocks, the ring within a block's shared memory (half an SM's where two
+    blocks fit one)."""
+    nb, cb, c, units = plan["nb"], plan["cb"], plan["cluster"], plan["units"]
+    qblock, qbu = plan["qblock"], plan["qblock_units"]
+    assert qblock == min(512, k) and qbu == -(-qblock // 128) and units == -(-k // 128)
+    assert units == qbu * (k // qblock)
+    assert nb in quant.W8A8_WGMMA_NB and (cb - 1) * nb < m <= cb * nb and cb >= -(-m // 128)
+    assert plan["col_blocks"] == -(-n // 128) and 1 <= c <= min(8, k // qblock)
+    assert plan["grid"] == (plan["col_blocks"] * cb * c,)
+    ranges = plan["unit_ranges"]
+    assert ranges[0][0] == 0 and ranges[-1][1] == units
+    assert all(lo < hi and lo % qbu == 0 and hi % qbu == 0 for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    cover = np.zeros((n // 16, cb, units), np.int32)
+    for col, br, (u0, u1), _ in _blocks(plan):
+        cover[8 * col:min(8 * col + 8, n // 16), br, u0:u1] += 1
+    assert (cover == 1).all()
+    assert plan["blocks_per_sm"] == quant.cpu_blocks_per_sm(quant.MODE_W8A8, nb)
+    two = plan["blocks_per_sm"] == 2
+    stage, slot = quant.wgmma_stage_bytes(quant.MODE_W8A8, nb), plan["sx_slot"]
+    assert plan["stage_bytes"] == stage and slot % 128 == 0 and nb * 4 <= slot < nb * 4 + 128
+    assert 4 <= plan["stages"] <= quant.WGMMA_MAX_STAGES
+    assert plan["smem_bytes"] == max(plan["stages"] * stage, nb * 132 * 4) \
+        + plan["stages"] * (slot + 16) + 1024
+    if two:
+        assert 2 * (plan["smem_bytes"] + 1024) <= SMEM_PER_SM
+    assert plan["smem_bytes"] <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("m", W8A8_MS)
+@pytest.mark.parametrize("k,n", W8A8_SHAPES)
+def test_w8a8_wgmma_plan_covers_every_strip_batch_block_and_qblock_once(k, n, m):
+    _check_w8a8_wgmma_plan(quant.wgmma_plan(m, n, k, SMS, quant.MODE_W8A8), m, k, n)
+
+
+@pytest.mark.parametrize("m", [40, 256])
+def test_w8a8_wgmma_plan_fits_gate_up_and_kv(m):
+    """k/v_proj (4 column blocks, 7 qblocks: at most 28 blocks by the K
+    split alone) take narrower batch blocks, more than 28 blocks in all. At
+    M = 40 (NB = 48, two blocks an SM) gate/up_proj's 148 blocks run in one
+    wave. At M = 256 they are 296 blocks of 128 batch rows, one an SM: three
+    waves, the last of 32 (a K split in whole qblocks cannot even out 7
+    qblocks over the tail)."""
+    gate = quant.wgmma_plan(m, 18944, 3584, SMS, quant.MODE_W8A8)
+    kv = quant.wgmma_plan(m, 512, 3584, SMS, quant.MODE_W8A8)
+    assert kv["grid"][0] > 28 and kv["cluster"] == 7 and kv["cb"] > -(-m // 128)
+    assert gate["cluster"] == 1
+    if m == 40:
+        assert gate["nb"] == 48 and gate["blocks_per_sm"] == 2 and gate["grid"][0] <= 2 * SMS
+    else:
+        assert gate["nb"] == 128 and gate["blocks_per_sm"] == 1 and gate["grid"] == (296,)
+
+
+@pytest.mark.parametrize("m,n,k", [(16, 512, 3584), (1025, 512, 3584), (40, 120, 3584),
+                                   (40, 512, 576), (40, 512, 96), (40, 0, 3584)])
+def test_w8a8_wgmma_plan_raises_on_what_the_kernel_does_not_take(m, n, k):
+    with pytest.raises(ValueError):  # M outside (16, cut], N % 16, K % qblock, K % 64
+        quant.wgmma_plan(m, n, k, SMS, quant.MODE_W8A8)
+
+
+@pytest.mark.parametrize("m", [17, 40, 1024])
+def test_w8a8_prefill_tile_takes_only_m_above_the_cut(m):
+    with pytest.raises(ValueError):
+        quant.w8a8_plan(m, 512, 3584, SMS)
+    assert quant.w8a8_plan(quant.PALLAS_DEQUANT_MAX_M + 1, 512, 3584, SMS)["bm"] == 192
+
+
+def test_w8a8_wgmma_plan_reads_the_card_s_cluster_count():
+    asked = set()
+
+    def two(c, nb, stages):
+        asked.add((nb, stages))
+        return 264 // c if c <= 2 else 0
+
+    plan = quant.wgmma_plan(40, 512, 3584, SMS, quant.MODE_W8A8, two)
+    assert plan["cluster"] == 2 and asked == {(plan["nb"], plan["stages"])}
+    with pytest.raises(ValueError):
+        quant.wgmma_plan(40, 512, 3584, SMS, quant.MODE_W8A8, lambda c, nb, stages: 0)
+    plan = quant.wgmma_plan(1000, 512, 3584, SMS, quant.MODE_W8A8,
+                            lambda c, nb, stages: 132 // c if c <= 4 else 0)
+    assert plan["cluster"] == 4 and plan["grid"] == (4 * 8 * 4,)
+
+
+def test_wgmma_plan_sizes_the_ring_by_the_kernel_s_blocks_an_sm():
+    """The ring takes a block's share of the SM's shared memory at the
+    blocks an SM the built kernel reports (the wrapper asks the C entry;
+    by default cpu_blocks_per_sm)."""
+    asked = []
+
+    def per_sm(count):
+        def blocks(nb):
+            asked.append(nb)
+            return count
+        return blocks
+
+    two = quant.wgmma_plan(40, 18944, 3584, SMS, quant.MODE_W8A8, blocks_per_sm=per_sm(2))
+    one = quant.wgmma_plan(40, 18944, 3584, SMS, quant.MODE_W8A8, blocks_per_sm=per_sm(1))
+    assert asked == [48, 48] and two == quant.wgmma_plan(40, 18944, 3584, SMS, quant.MODE_W8A8)
+    assert two["blocks_per_sm"] == 2 and one["blocks_per_sm"] == 1
+    assert 2 * (two["smem_bytes"] + 1024) <= SMEM_PER_SM < 2 * (one["smem_bytes"] + 1024)
+    assert one["stages"] > two["stages"] and one["smem_bytes"] <= SMEM_LIMIT
+    assert quant.wgmma_plan(256, 512, 3584, SMS, quant.MODE_INT8, blocks_per_sm=per_sm(1)) \
+        == quant.wgmma_plan(256, 512, 3584, SMS, quant.MODE_INT8)
+
+
+def _wgmma_b_s8(box: np.ndarray, nb: int, i: int) -> np.ndarray:
+    """The K-major s8 B operand [32 k x nb rows] of k32 step i, as
+    desc_sw128(box + 32 i, 16, 1024) addresses the 128-byte swizzled box:
+    row n's 8-row group 1024 bytes apart, its row 128 bytes, the step 32
+    bytes in, the 16-byte chunk XORed with n % 8."""
+    out = np.zeros((32, nb), np.int64)
+    for n in range(nb):
+        for kk in range(32):
+            logical = 32 * i + kk
+            at = (n // 8) * 1024 + (n % 8) * 128 + (((logical // 16) ^ (n % 8)) << 4) \
+                + logical % 16
+            out[kk, n] = _s8(int(box[at]))
+    return out
+
+
+@pytest.mark.parametrize("nb", [48, 128])
+def test_w8a8_wgmma_qblock_emulation_gives_the_plain_terms(nb):
+    """One 512-column qblock (four pairs, each a ring stage of two 64-row
+    weight boxes and an xq box) of one block with nb batch rows (nb - 5 of
+    x, zeros past them as TMA fills), both consumer warpgroups, each k32
+    step, emulated instruction by instruction: the quantizer's xq (each
+    16-column group stored sigma16-permuted) in the pair's swizzled box, the
+    weight boxes as TMA writes them side by side, each A
+    fragment from one transposed ldmatrix and four byte permutes, the B
+    operand as the descriptor addresses it, the m64nNBk32 s8 products in the
+    accumulator layout, the epilogue's (batch row, column) of each
+    accumulator and the sx slot's row of each. The sums must be the exact
+    integer products, and their terms float(sum) * sx the plain version's
+    bit for bit."""
+    rng = np.random.RandomState(nb)
+    rows, qblock = nb - 5, 512
+    x = torch.tensor(rng.randn(rows, qblock) * 2, dtype=torch.float32).to(torch.bfloat16)
+    w = rng.randint(-127, 128, size=(qblock, 128)).astype(np.int8)
+    xf = x.float()
+    sx = xf.abs().amax(dim=1).clamp_min(1e-8) / 127.0
+    xq = np.zeros((nb, qblock), np.int64)
+    xq[:rows] = torch.clamp(torch.round(xf / sx[:, None]), -127, 127).to(torch.int64).numpy()
+    perm = np.array([16 * (c // 16) + _sigma16(c % 16) for c in range(qblock)])
+    stored = xq[:, perm].astype(np.int8).view(np.uint8)  # position p holds column perm[p]
+    slot = np.zeros(nb, np.float32)
+    slot[:rows] = sx.numpy()  # the qblock's row scales, zeros past M
+    w_bytes = w.view(np.uint8)
+    lanes = np.arange(32)
+    y = np.zeros((nb, 128), np.int64)
+    b_of = {}
+    for wg in range(2):
+        d = np.zeros((64, nb), np.int64)  # [warpgroup row][batch row]
+        col_of_row = np.zeros(64, np.int64)
+        for u in range(qblock // 128):
+            w_smem = np.concatenate([_swizzle128(np.ascontiguousarray(
+                w_bytes[128 * u + 64 * s:128 * u + 64 * s + 64])) for s in range(2)])
+            box = _swizzle128(np.ascontiguousarray(stored[:, 128 * u:128 * u + 128]))
+            for i in range(4):  # the pair's k32 steps: its weight rows 32 i .. 32 i + 31
+                a_mat = np.zeros((64, 32), np.int64)
+                for wq in range(4):
+                    warp = 4 * wg + wq
+                    a_off = lanes * 128 + ((warp ^ (lanes & 7)) << 4)
+                    r = _ldmatrix_x4(w_smem, i * 32 * 128 + a_off, trans=True)
+                    for lane in range(32):
+                        g, t = lane // 4, lane % 4
+                        rr = [int(v) for v in r[lane]]
+                        a = [_byte_perm(rr[0], rr[1], 0x6420), _byte_perm(rr[0], rr[1], 0x7531),
+                             _byte_perm(rr[2], rr[3], 0x6420), _byte_perm(rr[2], rr[3], 0x7531)]
+                        for reg, (row, k0) in enumerate([(g, 4 * t), (g + 8, 4 * t),
+                                                         (g, 16 + 4 * t), (g + 8, 16 + 4 * t)]):
+                            for jj in range(4):
+                                a_mat[16 * wq + row, k0 + jj] = _s8((a[reg] >> (8 * jj)) & 0xFF)
+                    # warpgroup row 16 wq + g is column 16 warp + 2 g, row + 8 the next
+                    col_of_row[16 * wq:16 * wq + 16] = 16 * warp + np.array(
+                        [2 * (i8 % 8) + i8 // 8 for i8 in range(16)])
+                k_pos = 128 * u + 32 * i + np.arange(32)  # stored positions of the step
+                np.testing.assert_array_equal(a_mat, w[perm[k_pos]][:, col_of_row].T)
+                if (u, i) not in b_of:
+                    b_of[u, i] = _wgmma_b_s8(box, nb, i)
+                    np.testing.assert_array_equal(b_of[u, i], xq[:, perm[k_pos]].T)
+                d += a_mat @ b_of[u, i]
+        assert np.abs(d).max() < 2 ** 31  # exact in the s32 tile
+        for wq in range(4):  # acc[4j + 2h + e]: column n_a + h, batch row 8j + 2t + e
+            warp = 4 * wg + wq
+            for lane in range(32):
+                g, t = lane // 4, lane % 4
+                for j in range(nb // 8):
+                    for h in range(2):
+                        for e in range(2):
+                            y[8 * j + 2 * t + e, 16 * warp + 2 * g + h] = \
+                                d[16 * wq + g + 8 * h, 8 * j + 2 * t + e]
+        assert sorted(col_of_row) == list(range(64 * wg, 64 * wg + 64))
+    np.testing.assert_array_equal(y, xq @ w.astype(np.int64))
+    terms = torch.from_numpy(y.astype(np.float32)) * torch.from_numpy(slot)[:, None]
+    plain = (torch.from_numpy(xq[:rows].astype(np.float32)) @ torch.from_numpy(
+        w.astype(np.float32))) * sx[:, None]  # the plain version's term of one block
+    assert torch.equal(terms[:rows], plain) and not terms[rows:].any()

@@ -24,6 +24,7 @@ from affectgpt_tpu.models import qwen2 as jq
 from affectgpt_tpu_torch.inference import generate as tgen
 from affectgpt_tpu_torch.models import convert
 from affectgpt_tpu_torch.models import qwen2 as tq
+from affectgpt_tpu_torch.ops import quant
 
 EOS = 257
 
@@ -52,6 +53,12 @@ def _run_all(jparams, tparams, jcfg, tcfg, ids, lengths, max_new, draft_len, sto
         jparams, jcfg, jgen.GenerateConfig(**gk), jembeds, jnp.asarray(lengths),
         jnp.asarray(ids), max_len=max_len, draft_len=draft_len, return_stats=True,
         cache_dtype=jnp.int8 if cache_dtype is torch.int8 else None)
+    return ([np.asarray(x) for x in want],
+            *_run_port(tparams, tcfg, ids, lengths, gk, draft_len, max_len, cache_dtype))
+
+
+def _run_port(tparams, tcfg, ids, lengths, gk, draft_len, max_len, cache_dtype=None):
+    """(port speculative, port greedy) of _run_all."""
     tids = torch.from_numpy(ids).long()
     tembeds = tq.embed_tokens(tparams, tids)
     got = tgen.generate_speculative(
@@ -60,8 +67,7 @@ def _run_all(jparams, tparams, jcfg, tcfg, ids, lengths, max_new, draft_len, sto
     greedy = tgen.generate(tparams, tcfg, tgen.GenerateConfig(**gk), tembeds,
                            torch.from_numpy(lengths), None, max_len=max_len,
                            cache_dtype=cache_dtype)
-    return ([np.asarray(x) for x in want], [got[0].numpy(), got[1].numpy(), got[2]],
-            [x.numpy() for x in greedy])
+    return [got[0].numpy(), got[1].numpy(), got[2]], [x.numpy() for x in greedy]
 
 
 def _assert_exact(want, got, greedy):
@@ -172,7 +178,11 @@ def test_int8_kv_cache(draft_len):
 
 # the geometry of tests/test_torch_quant_serving.py, where every projection
 # has int4 leaves; b = 2 keeps the verify's M = b·(d + 1) below 16, where the
-# port's routed kernels compute JAX's XLA functions on the CPU
+# port's routed kernels compute JAX's XLA functions on the CPU. int8_w8a8:
+# the int8 tree under quant.MATMUL_MODE = "w8a8", where the port runs
+# int8_matmul_w8a8 for every M (chip_smoke.py's spec_q8a8) and JAX on a CPU
+# its w8 XLA route (the departure noted in the port's ops/quant.py): its
+# speculative tokens are held to the port's own greedy ones alone
 QLLM = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
             num_heads=4, num_kv_heads=2, head_dim=64, rope_theta=10_000.0,
             lora_r=2, lora_alpha=4.0)
@@ -180,6 +190,7 @@ TREES = {
     "int4": lambda p, c, q: q.quantize_params(p, bits=4),
     "int8": lambda p, c, q: q.quantize_params(p, bits=8),
     "fused_int8": lambda p, c, q: q.quantize_params(q.fuse_qkv_gateup(p, c), bits=8),
+    "int8_w8a8": lambda p, c, q: q.quantize_params(p, bits=8),
 }
 
 
@@ -192,10 +203,23 @@ def _quant_base():
 
 @pytest.mark.parametrize("tree", list(TREES))
 @pytest.mark.parametrize("draft_len", [3, 4])
-def test_quantized_trees(tree, draft_len):
+def test_quantized_trees(tree, draft_len, monkeypatch):
     jcfg, tcfg, params, tparams = _quant_base()
-    jtree, ttree = TREES[tree](params, jcfg, jq), TREES[tree](tparams, tcfg, tq)
+    ttree = TREES[tree](tparams, tcfg, tq)
     ids = _ids(8, (2, 6), 256)
+    if tree == "int8_w8a8":
+        monkeypatch.setattr(quant, "MATMUL_MODE", "w8a8")
+        rows, inner = [], quant.int8_matmul_w8a8
+        monkeypatch.setattr(quant, "int8_matmul_w8a8",
+                            lambda x, w, s: rows.append(x.shape[0]) or inner(x, w, s))
+        gk = dict(max_new_tokens=6, do_sample=False, eos_token_id=EOS, stop_token_ids=())
+        got, greedy = _run_port(ttree, tcfg, np.array(ids, np.int32), np.array([6, 4], np.int32),
+                                gk, draft_len, 24)
+        np.testing.assert_array_equal(got[0], greedy[0])
+        np.testing.assert_array_equal(got[1], greedy[1])
+        assert 2 * (draft_len + 1) in rows and 2 in rows  # the verify's rows, greedy's step
+        return
+    jtree = TREES[tree](params, jcfg, jq)
     _assert_exact(*_run_all(jtree, ttree, jcfg, tcfg, ids, [6, 4], max_new=6,
                             draft_len=draft_len, max_len=24))
 
